@@ -1,0 +1,81 @@
+"""Carry weights across from the reference package without JAX.
+
+The reference writes ``params.npz`` + ``manifest.json``
+(``repro/checkpoint/checkpoint.py``): one array per leaf, keyed by its tree
+path (``embed/tok``, ``final_ln``, ``period/0/attn/wq``, …), period leaves
+stacked on a leading ``n_periods`` axis, and bfloat16 leaves stored as a
+``uint16`` view with the dtype named in the manifest.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+
+import numpy as np
+import torch
+
+from repro_torch.models import model as M
+from repro_torch.models.common import ParamSpec
+
+
+def load_params_npz(ckpt_dir: str) -> dict:
+    """Flat ``{path: array}`` of the checkpoint's params. bfloat16 leaves
+    come back as bfloat16 CPU tensors, the rest as numpy arrays."""
+    with open(os.path.join(ckpt_dir, "manifest.json")) as f:
+        dtypes = json.load(f)["arrays"]
+    out = {}
+    with np.load(os.path.join(ckpt_dir, "params.npz")) as data:
+        for key in data.files:
+            a = data[key]
+            if dtypes[f"params/{key}"] == "bfloat16":
+                a = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+            out[key] = a
+    return out
+
+
+def _paths(tree, prefix: str = ""):
+    """(path, spec) for every leaf of a spec tree, reference path naming."""
+    if isinstance(tree, ParamSpec):
+        yield prefix, tree
+        return
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        yield from _paths(v, f"{prefix}/{k}" if prefix else str(k))
+
+
+def _insert(tree: dict, path: str, value) -> None:
+    *head, last = path.split("/")
+    node = tree
+    for part in head:
+        node = node.setdefault(part, {})
+    node[last] = value
+
+
+def _tuples(tree):
+    """Dicts keyed "0".."n-1" (tuple nodes of the reference) → tuples."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {k: _tuples(v) for k, v in tree.items()}
+    if out and all(k.isdigit() for k in out):
+        return tuple(out[str(i)] for i in range(len(out)))
+    return out
+
+
+def params_from_numpy(flat: dict, cfg: M.ModelConfig, device, dtype=None) -> dict:
+    """Build this package's params from a flat reference-keyed dict.
+    Shapes are checked against the config; ``dtype`` (optional) casts every
+    leaf; the ``n_periods`` axis is unstacked into per-layer tensors."""
+    tree: dict = {}
+    for path, spec in _paths(M.param_specs(cfg)):
+        if path not in flat:
+            raise KeyError(f"checkpoint has no leaf {path!r}")
+        t = flat[path]
+        if not isinstance(t, torch.Tensor):
+            t = torch.from_numpy(np.array(t))
+        if tuple(t.shape) != spec.shape:
+            raise ValueError(f"{path}: shape {tuple(t.shape)} != {spec.shape}")
+        _insert(tree, path, t.to(device=device, dtype=dtype or t.dtype))
+    tree = _tuples(tree)
+    tree.setdefault("prefix", ())
+    return M.unstack_periods(tree, cfg.n_periods)

@@ -1,0 +1,22 @@
+"""Config registry (port of ``repro/configs/base.py::get_config``).
+
+Each ``configs/<arch>.py`` exports ``CONFIG`` (full, literature-exact) and
+``reduced()`` (a small same-family variant for CPU tests). Only the
+architectures this package can run are listed.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.model import ModelConfig
+
+ARCH_IDS = ["smollm_360m"]
+
+
+def get_config(arch: str, reduced: bool = False) -> ModelConfig:
+    if arch not in ARCH_IDS:
+        raise NotImplementedError(
+            f"{arch} is not ported yet; ported: {ARCH_IDS} (see ROADMAP.md)")
+    mod = importlib.import_module(f"repro_torch.configs.{arch}")
+    return mod.reduced() if reduced else mod.CONFIG

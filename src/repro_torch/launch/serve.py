@@ -1,0 +1,125 @@
+"""Batched serving runner (port of ``repro/launch/serve.py``): prefill a
+batch of prompts, re-home the cache into a fixed-capacity decode cache, and
+decode token by token.
+
+Runs on CUDA unless ``device="cpu"`` is passed; with no card it raises.
+Prompts come from ``np.random.default_rng(seed)`` as in the reference, so
+both packages serve the same prompts.
+
+Usage::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_360m --full
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import get_config
+from repro_torch.device import resolve_device
+from repro_torch.launch.steps import make_decode_step, make_prefill_step
+from repro_torch.models import model as M
+
+
+def _pick(logits: torch.Tensor, greedy: bool, rng) -> torch.Tensor:
+    """Next-token choice over the last axis: argmax, or (``greedy=False``)
+    softmax sampling on the host."""
+    if greedy:
+        return torch.argmax(logits, dim=-1)
+    lg = logits.double().cpu().numpy()
+    lg -= lg.max(axis=-1, keepdims=True)
+    p = np.exp(lg)
+    p /= p.sum(axis=-1, keepdims=True)
+    flat = p.reshape(-1, p.shape[-1])
+    toks = np.array([rng.choice(flat.shape[-1], p=row) for row in flat])
+    return torch.as_tensor(toks.reshape(lg.shape[:-1]), device=logits.device)
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def serve(arch: str, *, reduced: bool = True, batch: int = 4,
+          prompt_len: int = 32, gen: int = 16, cache_len: int = 128,
+          seed: int = 0, greedy: bool = True, log=print, device=None,
+          params: dict | None = None) -> dict:
+    """``params`` (optional) replaces the seeded random init, e.g. weights
+    carried over with :mod:`repro_torch.checkpoint.convert`."""
+    dev = resolve_device(device)
+    cfg = get_config(arch, reduced=reduced)
+    rng = np.random.default_rng(seed)
+    if params is None:
+        params = M.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    prefill = make_prefill_step(cfg)
+    decode = make_decode_step(cfg)
+
+    tokens = torch.as_tensor(
+        rng.integers(0, cfg.vocab, (batch, prompt_len)).astype(np.int64),
+        device=dev)
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    small_cache, logits = prefill(params, {"tokens": tokens})
+    # Re-home the prefill cache into the fixed-capacity decode cache: prompt
+    # position p lives at slot p (ring layouts agree as long as
+    # window <= prompt_len, which the configs guarantee).
+    cache = M.init_cache(cfg, batch, cache_len, dev)
+    for big_tree, small_tree in zip(_leaf_dicts(cache), _leaf_dicts(small_cache)):
+        for name, big in big_tree.items():
+            small = small_tree[name]
+            big[:, :small.shape[1]] = small.to(big.dtype)
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+
+    tokens_out = []
+    t0 = time.perf_counter()
+    cur = prompt_len
+    for _ in range(gen):
+        tok = _pick(logits[:, :cfg.vocab], greedy, rng)
+        tokens_out.append(tok)
+        logits, cache = decode(params, cache, {"token": tok, "cur_len": cur})
+        cur += 1
+    _sync(dev)
+    t_decode = time.perf_counter() - t0
+    out = torch.stack(tokens_out, dim=1).cpu().numpy().astype(np.int32)
+    log(f"prefill {batch}x{prompt_len} in {t_prefill:.2f}s; "
+        f"decode {gen} tokens in {t_decode:.2f}s "
+        f"({batch * gen / max(t_decode, 1e-9):.1f} tok/s)")
+    return {"tokens": out, "t_prefill": t_prefill, "t_decode": t_decode}
+
+
+def _leaf_dicts(cache: dict):
+    """The per-layer {"k", "v"} dicts of a cache, in a fixed order."""
+    yield from cache["prefix"]
+    for per in cache["period"]:
+        yield from per
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--full", action="store_true",
+                    help="full-width config instead of the reduced one")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--cache-len", type=int, default=128)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default cuda; 'cpu' for the plain path)")
+    ap.add_argument("--sample", action="store_true",
+                    help="softmax-sample instead of greedy argmax")
+    args = ap.parse_args()
+    serve(args.arch, reduced=not args.full, batch=args.batch,
+          prompt_len=args.prompt_len, gen=args.gen, cache_len=args.cache_len,
+          seed=args.seed, greedy=not args.sample, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

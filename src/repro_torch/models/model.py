@@ -1,0 +1,208 @@
+"""Unified causal LM (port of ``repro/models/model.py``): ``prefix`` layers
+then ``period`` layers repeated ``n_periods`` times, as eager loops.
+
+Parameters are nested dicts keyed like the reference tree (``embed/tok``,
+``final_ln``, ``period/<j>/attn/wq``, …). Where the reference stacks a
+period's parameters on a leading ``n_periods`` axis and scans, this package
+keeps one dict per layer: ``params["period"][j][i]`` is period position
+``j`` of repetition ``i``. Caches follow the same layout.
+
+Entry points: :func:`prefill` (build KV caches, return last-token logits)
+and :func:`decode_step` (one token in, logits out, cache updated in place).
+Only the ``tokens`` frontend is ported.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.models.blocks import (LayerCfg, attn_cache_from_prefill,
+                                       block_decode, block_specs, block_train,
+                                       cache_specs)
+from repro_torch.models.common import (ParamSpec, norm_spec, rms_norm,
+                                       stack_specs, tree_initialize,
+                                       tree_map_specs, tree_spec_leaves)
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_FRONTENDS = ("the embeds and codebooks frontends are not ported yet "
+              "(ROADMAP.md, 'Rest of the zoo')")
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    d_model: int
+    vocab: int
+    prefix: tuple[LayerCfg, ...]
+    period: tuple[LayerCfg, ...]
+    n_periods: int
+    frontend: str = "tokens"          # tokens | embeds | codebooks
+    n_codebooks: int = 4
+    tie_embeddings: bool = True
+    embed_scale: bool = False         # gemma: h *= sqrt(d)
+    param_dtype: str = "bfloat16"
+    remat: str = "nothing"            # nothing | dots | none
+    q_chunk: int = 512
+    kv_chunk: int = 512
+    loss_chunk: int = 32768
+    rules_name: str = "tp"            # tp | fsdp  (sharding profile)
+    long_context_ok: bool = False     # eligible for long_500k
+    notes: str = ""
+
+    @property
+    def n_layers(self) -> int:
+        return len(self.prefix) + self.n_periods * len(self.period)
+
+    @property
+    def dtype(self):
+        return DTYPES[self.param_dtype]
+
+    @property
+    def head_width(self) -> int:
+        return (self.vocab * self.n_codebooks
+                if self.frontend == "codebooks" else self.vocab)
+
+
+# ---------------------------------------------------------------------------
+# Params
+# ---------------------------------------------------------------------------
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """Spec tree of the reference, period specs stacked on ``n_periods``."""
+    if cfg.frontend != "tokens":
+        raise NotImplementedError(_FRONTENDS)
+    dt = cfg.dtype
+    specs: dict = {"embed": {"tok": ParamSpec((cfg.vocab, cfg.d_model),
+                                              ("vocab", "embed"), dt)}}
+    specs["prefix"] = tuple(block_specs(cfg.d_model, l, dt) for l in cfg.prefix)
+    specs["period"] = tuple(stack_specs(block_specs(cfg.d_model, l, dt),
+                                        cfg.n_periods) for l in cfg.period)
+    specs["final_ln"] = norm_spec(cfg.d_model)
+    if not cfg.tie_embeddings:
+        specs["head"] = ParamSpec((cfg.d_model, cfg.head_width),
+                                  ("embed", "vocab"), dt)
+    return specs
+
+
+def _unstack(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _unstack(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def unstack_periods(params: dict, n_periods: int) -> dict:
+    """Stacked period leaves (leading ``n_periods`` axis) → one dict per
+    layer: ``params["period"][j][i]``."""
+    return params | {"period": tuple(
+        [_unstack(stacked, i) for i in range(n_periods)]
+        for stacked in params["period"])}
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator, device,
+                dtype_override=None) -> dict:
+    stacked = tree_initialize(param_specs(cfg), generator, device,
+                              dtype_override)
+    return unstack_periods(stacked, cfg.n_periods)
+
+
+def _head_matrix(params, _cfg: ModelConfig):
+    if "head" in params:
+        return params["head"]
+    return params["embed"]["tok"].T
+
+
+def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    if cfg.frontend != "tokens":
+        raise NotImplementedError(_FRONTENDS)
+    h = params["embed"]["tok"][tokens]
+    if cfg.embed_scale:
+        h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype)
+    return h
+
+
+def _layers(params, cfg: ModelConfig, caches=None):
+    """(lcfg, layer params, layer cache | None) in execution order."""
+    for lcfg, p, c in zip(cfg.prefix, params["prefix"],
+                          caches["prefix"] if caches else [None] * len(cfg.prefix)):
+        yield lcfg, p, c
+    for i in range(cfg.n_periods):
+        for j, lcfg in enumerate(cfg.period):
+            yield (lcfg, params["period"][j][i],
+                   caches["period"][j][i] if caches else None)
+
+
+def _backbone(params, cfg: ModelConfig, h, want_cache: bool = False):
+    """Returns (h, aux, caches|None); caches laid out like the params."""
+    aux = 0.0
+    flat = []
+    for lcfg, p, _ in _layers(params, cfg):
+        h, a, c = block_train(p, h, lcfg, want_cache=want_cache,
+                              q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+        aux = aux + a
+        flat.append(c)
+    h = rms_norm(h, params["final_ln"])
+    caches = _regroup(cfg, flat) if want_cache else None
+    return h, aux, caches
+
+
+def _regroup(cfg: ModelConfig, flat: list) -> dict:
+    """Per-layer list in execution order → {"prefix", "period"[j][i]}."""
+    n_pre, width = len(cfg.prefix), len(cfg.period)
+    period = tuple([flat[n_pre + i * width + j] for i in range(cfg.n_periods)]
+                   for j in range(width))
+    return {"prefix": tuple(flat[:n_pre]), "period": period}
+
+
+def prefill(params, cfg: ModelConfig, batch):
+    """batch: {"tokens": (B, T)}. Returns (cache, last_logits (B, vocab))
+    with float32 logits."""
+    h, _, caches = _backbone(params, cfg, _embed(params, cfg, batch["tokens"]),
+                             want_cache=True)
+    caches = {
+        "prefix": tuple(attn_cache_from_prefill(c, l)
+                        for l, c in zip(cfg.prefix, caches["prefix"])),
+        "period": tuple([attn_cache_from_prefill(c, l) for c in per]
+                        for l, per in zip(cfg.period, caches["period"])),
+    }
+    logits = torch.matmul(h[:, -1], _head_matrix(params, cfg)).float()
+    return caches, logits
+
+
+def decode_step(params, cfg: ModelConfig, cache, batch):
+    """batch: {"token": (B,), "cur_len": int}. Returns (logits, cache); the
+    cache tensors are updated in place."""
+    cur = int(batch["cur_len"])
+    h = _embed(params, cfg, batch["token"])
+    for lcfg, p, c in _layers(params, cfg, cache):
+        h, _ = block_decode(p, h, c, cur, lcfg)
+    h = rms_norm(h, params["final_ln"])
+    logits = torch.matmul(h, _head_matrix(params, cfg)).float()
+    return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# Caches and counts
+# ---------------------------------------------------------------------------
+
+def cache_spec_tree(cfg: ModelConfig, batch: int, cache_len: int):
+    dt = cfg.dtype
+    pfx = tuple(cache_specs(l, batch, cache_len, dt) for l in cfg.prefix)
+    per = tuple(stack_specs(cache_specs(l, batch, cache_len, dt), cfg.n_periods)
+                for l in cfg.period)
+    return {"prefix": pfx, "period": per}
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device,
+               dtype=None) -> dict:
+    """Zero caches laid out like the params (``cache["period"][j][i]``)."""
+    zeros = tree_map_specs(
+        lambda s: torch.zeros(s.shape, dtype=dtype or s.dtype, device=device),
+        cache_spec_tree(cfg, batch, cache_len))
+    return unstack_periods(zeros, cfg.n_periods)
+
+
+def param_count(cfg: ModelConfig) -> int:
+    return sum(math.prod(s.shape) for s in tree_spec_leaves(param_specs(cfg)))

@@ -1,0 +1,104 @@
+"""The port's flash_attention module and model attention against the JAX
+reference, on the CPU.
+
+The same numpy inputs go through the reference's Pallas kernel (interpret
+mode, as ``tests/test_kernels.py`` runs it) and through the port's plain
+version; the model-level ``gqa_attention`` / ``decode_attention`` are held
+against their reference counterparts. Tolerances: 2e-4 float32, 2e-2
+bfloat16.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.kernel import flash_attention as jax_flash
+from repro.models import attention as JA
+from repro_torch.kernels.flash_attention import kernel
+from repro_torch.kernels.flash_attention.ops import attention
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.models import attention as TA
+
+DTYPES = {"float32": (jnp.float32, torch.float32, 2e-4),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+
+
+def _inputs(seed, shapes, dtype):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    jd, td, _ = DTYPES[dtype]
+    return ([jnp.asarray(a).astype(jd) for a in arrs],
+            [torch.from_numpy(a).to(td) for a in arrs])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bh,g,tq,tk,d,window,softcap", [
+    (2, 3, 24, 40, 16, 0, 0.0),     # G = 3, q_offset = 16, Tq < Tkv
+    (1, 3, 32, 32, 16, 8, 0.0),     # sliding window
+    (2, 1, 16, 24, 32, 0, 30.0),    # softcap, q_offset = 8
+    (1, 2, 40, 40, 16, 12, 20.0),   # window + softcap
+])
+def test_plain_version_matches_reference_kernel(bh, g, tq, tk, d, window, softcap,
+                                                dtype):
+    (jq, jk, jv), (tq_, tk_, tv) = _inputs(
+        bh * 100 + tq + tk, [(bh, g, tq, d), (bh, tk, d), (bh, tk, d)], dtype)
+    q_off = tk - tq
+    ref = jax_flash(jq, jk, jv, window=window, softcap=softcap, q_offset=q_off,
+                    bq=8, bk=8, interpret=True)
+    out = flash_attention_ref(tq_, tk_, tv, window=window, softcap=softcap,
+                              q_offset=q_off)
+    assert out.dtype == tq_.dtype
+    tol = DTYPES[dtype][2]
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("window,softcap,q_offset,tq,tk", [
+    (0, 0.0, 0, 20, 20), (6, 0.0, 0, 20, 20), (0, 25.0, 9, 11, 20)])
+def test_gqa_attention_matches_reference(window, softcap, q_offset, tq, tk):
+    """Model layer, ragged lengths against chunk 8: the CPU path is the
+    chunked twin; the (B, T, H, D) wrapper folds to the same result."""
+    B, Hkv, G, D = 2, 2, 3, 16
+    (jq, jk, jv), (q, k, v) = _inputs(
+        5, [(B, tq, Hkv * G, D), (B, tk, Hkv, D), (B, tk, Hkv, D)], "float32")
+    jcfg = JA.AttnCfg(n_heads=Hkv * G, n_kv_heads=Hkv, head_dim=D, window=window,
+                      softcap=softcap)
+    tcfg = TA.AttnCfg(n_heads=Hkv * G, n_kv_heads=Hkv, head_dim=D, window=window,
+                      softcap=softcap)
+    # The reference's gqa_attention takes Tq == Tkv; continuation goes
+    # through chunked_attention with a q_offset.
+    jk_rep, jv_rep = jnp.repeat(jk, G, axis=2), jnp.repeat(jv, G, axis=2)
+    ref = JA.chunked_attention(jq, jk_rep, jv_rep, window=window, softcap=softcap,
+                               q_offset=q_offset, q_chunk=8, kv_chunk=8)
+    chunked = TA.chunked_attention(q, k.repeat_interleave(G, 2),
+                                   v.repeat_interleave(G, 2), window=window,
+                                   softcap=softcap, q_offset=q_offset,
+                                   q_chunk=8, kv_chunk=8)
+    np.testing.assert_allclose(chunked.numpy(), np.asarray(ref), rtol=2e-4, atol=2e-4)
+    wrapped = attention(q, k, v, window=window, softcap=softcap, q_offset=q_offset)
+    np.testing.assert_allclose(wrapped.numpy(), np.asarray(ref), rtol=2e-4, atol=2e-4)
+    if tq == tk:
+        jg = JA.gqa_attention(jq, jk, jv, jcfg, q_chunk=8, kv_chunk=8)
+        tg = TA.gqa_attention(q, k, v, tcfg, q_chunk=8, kv_chunk=8)
+        np.testing.assert_allclose(tg.numpy(), np.asarray(jg), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("softcap,valid", [(0.0, 7), (30.0, 12)])
+def test_decode_attention_matches_reference(softcap, valid):
+    B, S, Hkv, G, D = 2, 12, 2, 3, 16
+    (jq, jk, jv), (q, k, v) = _inputs(
+        11, [(B, Hkv * G, D), (B, S, Hkv, D), (B, S, Hkv, D)], "float32")
+    kw = dict(n_heads=Hkv * G, n_kv_heads=Hkv, head_dim=D, softcap=softcap)
+    ref = JA.decode_attention(jq, jk, jv, jnp.int32(valid), JA.AttnCfg(**kw))
+    out = TA.decode_attention(q, k, v, valid, TA.AttnCfg(**kw))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-4, atol=2e-4)
+
+
+def test_non_cpu_tensor_goes_to_the_kernel_never_the_plain_version():
+    q = torch.empty((1, 8, 3, 16), device="meta")
+    k = torch.empty((1, 8, 1, 16), device="meta")
+    before = kernel.flash_attention.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        attention(q, k, k)
+    assert kernel.flash_attention.launches == before

@@ -1,0 +1,133 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+Imports neither JAX nor the reference package, so it collects on a host
+with only PyTorch. Every test needs a CUDA device; the ``cuda`` fixture
+decides that at run time and skips with a reason where there is none.
+Run on the card with ``python -m pytest tests/test_torch_gpu.py -m gpu``.
+
+Tolerances: 2e-2 in bfloat16 (the kernels round P and outputs to bf16 at
+other places than the plain versions' float32 einsums), 2e-4 in float32
+(both sum float32 products, in different orders).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.tile_matmul import kernel as tm_kernel
+from repro_torch.kernels.tile_matmul.ref import tile_matmul_ref
+
+pytestmark = pytest.mark.gpu
+
+TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+ACTS = ["none", "tanh", "relu", "silu", "gelu"]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _randn(shape, dtype, device, seed, scale=1.0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return (torch.randn(shape, generator=g) * scale).to(device=device, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(8, 960, 320), (3, 40, 20), (16, 2560, 960),
+                                   (300, 960, 320), (17, 72, 136), (257, 40, 20)])
+def test_tile_matmul_matches_plain(cuda, m, k, n, dtype):
+    x = _randn((m, k), dtype, cuda, m + k)
+    w = _randn((k, n), dtype, cuda, n, 0.05)
+    b = _randn((n,), dtype, cuda, 7)
+    for act in ACTS:
+        for bias in (None, b):
+            out = tm_kernel.tile_matmul(x, w, bias, activation=act)
+            ref = tile_matmul_ref(x, w, bias, activation=act)
+            torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype],
+                                       atol=TOL[dtype])
+
+
+def test_tile_matmul_bf16_in_float32_out(cuda):
+    x = _randn((64, 96), torch.bfloat16, cuda, 1)
+    w = _randn((96, 48), torch.bfloat16, cuda, 2)
+    out = tm_kernel.tile_matmul(x, w, out_dtype=torch.float32)
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, x.float() @ w.float(), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tile_matmul_is_deterministic_and_batch_invariant(cuda, dtype):
+    x = _randn((300, 960), dtype, cuda, 3)
+    w = _randn((960, 320), dtype, cuda, 4, 0.05)
+    full = tm_kernel.tile_matmul(x, w)
+    assert torch.equal(full, tm_kernel.tile_matmul(x, w))
+    assert torch.equal(full[:64], tm_kernel.tile_matmul(x[:64].contiguous(), w))
+
+
+def test_tile_matmul_counts_launches_and_rejects_bad_input(cuda):
+    x = _randn((8, 16), torch.float32, cuda, 5)
+    before = tm_kernel.tile_matmul.launches
+    tm_kernel.tile_matmul(x, _randn((16, 8), torch.float32, cuda, 6))
+    assert tm_kernel.tile_matmul.launches == before + 1
+    with pytest.raises(ValueError):
+        tm_kernel.tile_matmul(x, _randn((16, 8), torch.bfloat16, cuda, 6))
+    with pytest.raises(ValueError):
+        tm_kernel.tile_matmul(x.t(), _randn((8, 8), torch.float32, cuda, 6))
+    assert tm_kernel.tile_matmul.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,g,tq,tk,d,window,softcap,causal", [
+    (10, 3, 512, 512, 64, 0, 0.0, True),     # smollm prefill, 2 sequences
+    (4, 3, 77, 133, 64, 0, 0.0, True),       # ragged, q_offset = 56
+    (4, 3, 200, 200, 64, 48, 0.0, True),     # sliding window
+    (4, 2, 96, 96, 128, 0, 30.0, True),      # softcap, D = 128
+    (2, 1, 65, 65, 32, 0, 0.0, False),       # not causal
+    (3, 4, 40, 40, 16, 16, 20.0, True),      # window + softcap, D = 16
+])
+def test_flash_attention_matches_plain(cuda, bh, g, tq, tk, d, window, softcap,
+                                       causal, dtype):
+    q = _randn((bh, g, tq, d), dtype, cuda, 1)
+    k = _randn((bh, tk, d), dtype, cuda, 2)
+    v = _randn((bh, tk, d), dtype, cuda, 3)
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=tk - tq)
+    out = fa_kernel.flash_attention(q, k, v, **kw)
+    ref = flash_attention_ref(q, k, v, **kw)
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+def test_gqa_attention_on_cuda_matches_cpu_chunked_twin(cuda):
+    from repro_torch.models.attention import AttnCfg, gqa_attention
+    cfg = AttnCfg(n_heads=15, n_kv_heads=5, head_dim=64, window=0)
+    q = _randn((2, 100, 15, 64), torch.float32, "cpu", 1)
+    k = _randn((2, 100, 5, 64), torch.float32, "cpu", 2)
+    v = _randn((2, 100, 5, 64), torch.float32, "cpu", 3)
+    before = fa_kernel.flash_attention.launches
+    out = gqa_attention(q.to(cuda), k.to(cuda), v.to(cuda), cfg)
+    assert fa_kernel.flash_attention.launches == before + 1
+    ref = gqa_attention(q, k, v, cfg, q_chunk=32, kv_chunk=32)
+    torch.testing.assert_close(out.cpu(), ref, rtol=2e-4, atol=2e-4)
+
+
+def test_reduced_serve_on_cuda_matches_cpu(cuda):
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as M
+    cfg = get_config("smollm_360m", reduced=True)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    moved = {"embed": {"tok": params["embed"]["tok"].to(cuda)},
+             "final_ln": params["final_ln"].to(cuda), "prefix": (),
+             "period": tuple([{blk: {n: t.to(cuda) for n, t in d.items()}
+                               for blk, d in layer.items()} for layer in per]
+                             for per in params["period"])}
+    quiet = dict(seed=0, log=lambda _: None)
+    on_cpu = serve("smollm_360m", device="cpu", params=params, **quiet)
+    on_gpu = serve("smollm_360m", device=cuda, params=moved, **quiet)
+    np.testing.assert_array_equal(on_gpu["tokens"], on_cpu["tokens"])

@@ -1,0 +1,77 @@
+"""Boundaries of the PyTorch port: it imports neither JAX nor the reference
+package, it never falls back to the CPU, and its configs are the
+reference's field for field."""
+
+import ast
+import dataclasses
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro.configs.base import get_config as jax_get_config
+from repro_torch.configs.base import get_config
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+PORT = SRC / "repro_torch"
+
+
+def test_importing_the_port_loads_no_jax_and_no_reference():
+    code = (
+        "import pkgutil, sys, importlib, repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+        "print(len(list(pkgutil.walk_packages(repro_torch.__path__))), bad)\n"
+        "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"},
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_no_source_file_of_the_port_imports_jax_or_the_reference():
+    offenders = []
+    files = sorted(PORT.rglob("*.py"))
+    assert len(files) > 15
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            offenders += [(path.name, n) for n in names
+                          if n.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not offenders
+
+
+def test_entry_points_raise_without_cuda_instead_of_falling_back(monkeypatch):
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.serve import serve
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve("smollm_360m", log=lambda _: None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda:0")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+def test_smollm_config_matches_reference_field_for_field(reduced):
+    assert dataclasses.asdict(get_config("smollm_360m", reduced)) == \
+        dataclasses.asdict(jax_get_config("smollm_360m", reduced))
+
+
+def test_unported_architectures_raise():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_config("mamba2_2_7b")
+
+
+def test_tf32_is_off_after_import():
+    import repro_torch  # noqa: F401
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
