@@ -2,10 +2,14 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/csrc``, holds
-each against its plain PyTorch version at the serving path's shapes, times
-them, serves full-width smollm_360m (batch 8 x 512-token prompts, 32 greedy
-tokens) through the port's ``serve`` entry point, and checks full-depth
-float32 logits of the kernel path against the plain path on the CPU.
+each against its plain PyTorch version at the serving paths' shapes, times
+them, and drives the port's two serving paths through its ``serve`` entry
+point (batch 8 x 512-token prompts, 32 greedy tokens each): full-width
+smollm_360m (tile_matmul + flash_attention) and full-width, full-depth
+mamba2_2_7b (tile_matmul + ssd_scan). For each it profiles one prefill and
+one decode step and checks float32 logits of the kernel path against the
+plain path on the CPU (smollm at full depth, mamba2 at full width and
+8 layers).
 
 Usage (from the repository root, on a host with a CUDA device)::
 
@@ -18,6 +22,7 @@ and exits non-zero. Imports neither JAX nor the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -38,13 +43,18 @@ PEAK_BYTES = 3.35e12
 
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}
 ACTS = ("none", "tanh", "relu", "silu", "gelu")
-# (K, N) of the block projections of smollm_360m: q/o, k/v, gate/up, down.
-PROJ = ((960, 960), (960, 320), (960, 2560), (2560, 960))
-# One layer's seven projections: (K, N, activation).
-LAYER = ((960, 960, "none"), (960, 320, "none"), (960, 320, "none"),
-         (960, 960, "none"), (960, 2560, "silu"), (960, 2560, "none"),
-         (2560, 960, "none"))
+# One layer's block projections, (K, N, activation): smollm_360m's seven
+# (q, k, v, o, gate, up, down) and mamba2_2_7b's six (z, x, B, C, dt, out).
+LAYER = {"smollm_360m": ((960, 960, "none"), (960, 320, "none"), (960, 320, "none"),
+                         (960, 960, "none"), (960, 2560, "silu"), (960, 2560, "none"),
+                         (2560, 960, "none")),
+         "mamba2_2_7b": ((2560, 5120, "none"), (2560, 5120, "none"), (2560, 128, "none"),
+                         (2560, 128, "none"), (2560, 80, "none"), (5120, 2560, "none"))}
 BATCH, PROMPT, GEN, CACHE = 8, 512, 32, 1024
+# ssd_scan: (Bt, T, H, P, G, N) of one mamba2_2_7b layer's prefill scan.
+SSD_PATH = (BATCH, PROMPT, 80, 64, 1, 128)
+SSD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-3}
+MAMBA_PARITY_LAYERS = 8
 
 
 def _randn(shape, dtype, seed, scale=1.0):
@@ -81,13 +91,15 @@ def _to(tree, device):
 
 
 def check_tile_matmul(tm_kernel, tile_matmul_ref) -> dict:
-    """Kernel vs plain version at every projection shape, activation and
-    dtype of the serving path, with and without bias."""
+    """Kernel vs plain version at every projection shape of both serving
+    paths (prefill and decode M), every activation and dtype, with and
+    without bias."""
+    shapes = sorted({(k, n) for layer in LAYER.values() for k, n, _ in layer})
     err = {}
     for dtype in (torch.bfloat16, torch.float32):
         worst = 0.0
         for m in (BATCH * PROMPT, BATCH):
-            for k, n in PROJ:
+            for k, n in shapes:
                 x = _randn((m, k), dtype, m + k)
                 w = _randn((k, n), dtype, n, k ** -0.5)
                 b = _randn((n,), dtype, 7)
@@ -130,17 +142,17 @@ def check_flash(fa_kernel, flash_attention_ref) -> dict:
     return err
 
 
-def _time_layer(m: int, copies: int, tm_kernel, tile_matmul_ref) -> dict:
-    """One layer's seven bf16 projections at M = ``m``, cycling through
+def _time_layer(layer, m: int, copies: int, tm_kernel, tile_matmul_ref) -> dict:
+    """One layer's bf16 projections ``layer`` at M = ``m``, cycling through
     ``copies`` sets of weights."""
     dt = torch.bfloat16
-    xs = {k: _randn((m, k), dt, k) for k in (960, 2560)}
-    ws = [[_randn((k, n), dt, 10 * c + i, k ** -0.5) for i, (k, n, _) in enumerate(LAYER)]
+    xs = {k: _randn((m, k), dt, k) for k in {k for k, _, _ in layer}}
+    ws = [[_randn((k, n), dt, 10 * c + i, k ** -0.5) for i, (k, n, _) in enumerate(layer)]
           for c in range(copies)]
 
     def run(fn):
         for wl in ws:
-            for (k, _, act), w in zip(LAYER, wl):
+            for (k, _, act), w in zip(layer, wl):
                 fn(xs[k], w, act)
 
     def lib(x, w, act):
@@ -150,19 +162,24 @@ def _time_layer(m: int, copies: int, tm_kernel, tile_matmul_ref) -> dict:
     kern = _time_ms(lambda: run(lambda x, w, a: tm_kernel.tile_matmul(x, w, activation=a)))
     plain = _time_ms(lambda: run(lambda x, w, a: tile_matmul_ref(x, w, activation=a)))
     library = _time_ms(lambda: run(lib))
-    flops = sum(2 * m * k * n for k, n, _ in LAYER)
-    nbytes = sum((m * k + k * n + m * n) * 2 for k, n, _ in LAYER)
+    flops = sum(2 * m * k * n for k, n, _ in layer)
+    nbytes = sum((m * k + k * n + m * n) * 2 for k, n, _ in layer)
     bound_ms, bound_by = _bound(flops, nbytes, dt)
     return dict(M=m, ms=kern / copies, plain_ms=plain / copies, library_ms=library / copies,
                 flop=flops, bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def time_tile_matmul(tm_kernel, tile_matmul_ref) -> dict:
-    """Prefill (M = 4096) and decode (M = 8). Decode cycles through enough
-    weight copies to overflow the 50 MB L2, as a decode step finds each
-    layer's weights cold."""
-    return {"prefill": _time_layer(BATCH * PROMPT, 1, tm_kernel, tile_matmul_ref),
-            "decode": _time_layer(BATCH, 4, tm_kernel, tile_matmul_ref)}
+    """One layer of each model in prefill (M = 4096) and decode (M = 8).
+    Decode cycles through enough weight copies to overflow the 50 MB L2, as
+    a decode step finds each layer's weights cold."""
+    out = {}
+    for arch, layer, copies in (("", LAYER["smollm_360m"], 4),
+                                ("mamba2_", LAYER["mamba2_2_7b"], 2)):
+        out[arch + "prefill"] = _time_layer(layer, BATCH * PROMPT, 1, tm_kernel,
+                                            tile_matmul_ref)
+        out[arch + "decode"] = _time_layer(layer, BATCH, copies, tm_kernel, tile_matmul_ref)
+    return out
 
 
 def time_flash(fa_kernel, flash_attention_ref) -> dict:
@@ -185,21 +202,116 @@ def time_flash(fa_kernel, flash_attention_ref) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
-def profile_steps(M, cfg, params) -> dict:
+def _ssd_inputs(bt, t, h, p, g, n, dtype, seed):
+    x = _randn((bt, t, h, p), dtype, seed, 0.5)
+    dt = F.softplus(_randn((bt, t, h), torch.float32, seed + 1))
+    a = -torch.exp(_randn((h,), torch.float32, seed + 2, 0.3))
+    b = _randn((bt, t, g, n), dtype, seed + 3, 0.5)
+    c = _randn((bt, t, g, n), dtype, seed + 4, 0.5)
+    d = 1.0 + _randn((h,), torch.float32, seed + 5, 0.1)
+    return x, dt, a, b, c, d
+
+
+SSD_CASES = (  # (name, Bt, T, H, P, G, N)
+    ("path", *SSD_PATH),
+    ("ragged", 2, 200, 80, 64, 1, 128),
+    ("groups", 2, 256, 80, 64, 8, 128),
+)
+
+
+def check_ssd(ssd_kernel, ssd_plain) -> dict:
+    """Kernel vs the per-timestep plain version: y and the final state, at
+    the path's shape, a ragged T and G > 1, in bf16 and f32."""
+    err = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        worst = {"y": 0.0, "state": 0.0}
+        for name, *shape in SSD_CASES:
+            args = _ssd_inputs(*shape, dtype, seed=sum(shape))
+            y, s = ssd_kernel.ssd_scan(*args)
+            yr, sr = ssd_plain(*args)
+            tol = SSD_TOL[dtype]
+            torch.testing.assert_close(y.float(), yr.float(), rtol=tol, atol=tol,
+                                       msg=lambda m, c=name: f"ssd y {c}: {m}")
+            torch.testing.assert_close(s, sr, rtol=1e-3, atol=1e-3,
+                                       msg=lambda m, c=name: f"ssd state {c}: {m}")
+            worst["y"] = max(worst["y"], (y.float() - yr.float()).abs().max().item())
+            worst["state"] = max(worst["state"], (s - sr).abs().max().item())
+        err[str(dtype)] = worst
+    torch.cuda.synchronize()
+    return err
+
+
+def time_ssd(ssd_kernel, ssd_plain) -> dict:
+    """One mamba2_2_7b layer's prefill scan, bf16. Operations are the
+    function's own work, whatever the algorithm's chunk: the recurrence's
+    state update and readout, 2 N P each a (batch, head, step); bytes read
+    each input and write each output once. Bound under the bf16 tensor-core
+    peak (the least time the card could take) and under the float32 FFMA
+    peak this kernel computes at. No single PyTorch call computes an SSD
+    scan: no library time."""
+    bt, t, h, p, g, n = SSD_PATH
+    dt = torch.bfloat16
+    args = _ssd_inputs(bt, t, h, p, g, n, dt, seed=5)
+    kern = _time_ms(lambda: ssd_kernel.ssd_scan(*args))
+    plain = _time_ms(lambda: ssd_plain(*args), iters=5)
+    flops = 4 * bt * h * t * n * p
+    nbytes = (2 * bt * t * h * p * 2 + bt * h * n * p * 4 + bt * t * h * 4
+              + 2 * bt * t * g * n * 2 + 2 * h * 4)
+    bound_ms, bound_by = _bound(flops, nbytes, dt)
+    bound_f32_ms, bound_f32_by = _bound(flops, nbytes, torch.float32)
+    return dict(ms=kern, plain_ms=plain, library_ms=None, flop=flops, bytes=nbytes,
+                bound_ms=bound_ms, bound_by=bound_by, bound_f32_ms=bound_f32_ms,
+                bound_f32_by=bound_f32_by)
+
+
+def _zero(counters: dict) -> None:
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def _read(counters: dict) -> dict:
+    return {k: fn.launches for k, fn in counters.items()}
+
+
+def serve_path(serve, M, cfg, params, counters: dict) -> dict:
+    """Serve full-width ``cfg`` through ``serve``: a short warm-up serve
+    first, so the timed run holds no first-call set-up, then the timed run
+    with every launch count set to 0 just before it and read just after."""
+    kw = dict(reduced=False, batch=BATCH, prompt_len=PROMPT, cache_len=CACHE, seed=0,
+              device="cuda", params=params)
+    serve(cfg.name, gen=2, log=lambda _: None, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    _zero(counters)
+    res = serve(cfg.name, gen=GEN, **kw)
+    launches = _read(counters)
+    peak = torch.cuda.max_memory_allocated()
+    toks = res["tokens"]
+    assert toks.shape == (BATCH, GEN), toks.shape
+    assert ((toks >= 0) & (toks < cfg.vocab)).all()
+    out = dict(arch=cfg.name, batch=BATCH, prompt_len=PROMPT, gen=GEN, cache_len=CACHE,
+               prefill_s=res["t_prefill"], decode_s=res["t_decode"],
+               decode_tok_s=BATCH * GEN / res["t_decode"], peak_mem_bytes=peak,
+               launches=launches, params=M.param_count(cfg))
+    print(f"serve {cfg.name}: prefill {BATCH}x{PROMPT} {res['t_prefill']:.4f} s, decode "
+          f"{out['decode_tok_s']:.1f} tok/s, peak memory {peak / 2**30:.3f} GiB, "
+          f"launches {launches}")
+    return out
+
+
+def profile_steps(M, cfg, params, rehome, counters: dict) -> dict:
     """One prefill (8 x 512) and one decode step of the served model: host
     wall time without tracing (median of 3), device kernel time from a
     torch.profiler trace of one more run, their ratio as the device's busy
-    share, and the kernels that take the most device time."""
+    share, the kernels that take the most device time, and the launches of
+    the traced run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     tokens = torch.as_tensor(np.random.default_rng(2).integers(0, cfg.vocab, (BATCH, PROMPT)),
                              device="cuda")
     small, logits = M.prefill(params, cfg, {"tokens": tokens})
-    cache = M.init_cache(cfg, BATCH, CACHE, "cuda")
-    for big, sm in zip(cache["period"][0], small["period"][0]):
-        for name in ("k", "v"):
-            big[name][:, :PROMPT] = sm[name]
+    cache = rehome(M.init_cache(cfg, BATCH, CACHE, "cuda"), small)
+    del small
     step = {"token": torch.argmax(logits, dim=-1), "cur_len": PROMPT}
     fns = {"prefill": lambda: M.prefill(params, cfg, {"tokens": tokens}),
            "decode": lambda: M.decode_step(params, cfg, cache, step)}
@@ -212,9 +324,11 @@ def profile_steps(M, cfg, params) -> dict:
             fn()
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
+        _zero(counters)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
+        launches = _read(counters)
         kern = []
         for e in prof.key_averages():
             if e.device_type == DeviceType.CUDA:
@@ -225,37 +339,42 @@ def profile_steps(M, cfg, params) -> dict:
         wall_ms = sorted(walls)[1] * 1e3
         device_ms = sum(r[1] for r in kern)
         out[name] = dict(wall_ms=wall_ms, device_ms=device_ms,
-                         busy_share=device_ms / wall_ms,
+                         busy_share=device_ms / wall_ms, launches=launches,
                          top_kernels=[dict(name=k[:90], ms=t, calls=c) for k, t, c in kern[:10]])
     return out
 
 
-def parity_f32(M, get_config) -> float:
-    """Full-width, full-depth float32 logits: kernel path on the card vs the
-    plain path on the CPU, prefill of 2 x 128 tokens then 4 decode steps."""
-    cfg = get_config("smollm_360m")
+def parity_f32(M, cfg, rehome, prompt_len: int) -> float:
+    """Full-width float32 logits of ``cfg``: kernel path on the card vs the
+    plain path on the CPU, prefill of 2 x ``prompt_len`` tokens then 4
+    decode steps."""
     params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(1), "cuda",
                            dtype_override=torch.float32)
     plain = _to(params, "cpu")
-    tokens = np.random.default_rng(1).integers(0, cfg.vocab, (2, 128))
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab, (2, prompt_len))
     worst = 0.0
     runs = {}
     for dev, p in (("cuda", params), ("cpu", plain)):
         caches, logits = M.prefill(p, cfg, {"tokens": torch.as_tensor(tokens, device=dev)})
-        cache = M.init_cache(cfg, 2, 136, dev, dtype=torch.float32)
-        for big, small in zip(cache["period"][0], caches["period"][0]):
-            for name in ("k", "v"):
-                big[name][:, :128] = small[name]
+        cache = rehome(M.init_cache(cfg, 2, prompt_len + 8, dev, dtype=torch.float32), caches)
         runs[dev] = (p, cache, [logits.cpu()])
     for step in range(4):
         tok = torch.argmax(runs["cpu"][2][-1], dim=-1)
         for dev, (p, cache, outs) in runs.items():
-            logits, _ = M.decode_step(p, cfg, cache, {"token": tok.to(dev), "cur_len": 128 + step})
+            logits, _ = M.decode_step(p, cfg, cache,
+                                      {"token": tok.to(dev), "cur_len": prompt_len + step})
             outs.append(logits.cpu())
     for got, want in zip(runs["cuda"][2], runs["cpu"][2]):
         torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
         worst = max(worst, (got - want).abs().max().item())
     return worst
+
+
+def _print_profile(arch: str, prof: dict) -> None:
+    for phase, p in prof.items():
+        print(f"profile {arch} {phase}: wall {p['wall_ms']:.3f} ms, device kernels "
+              f"{p['device_ms']:.3f} ms, busy share {p['busy_share']:.3f}, "
+              f"launches {p['launches']}")
 
 
 def main() -> int:
@@ -267,10 +386,16 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.ssd_scan.ops import ssd_plain
     from repro_torch.kernels.tile_matmul import kernel as tm_kernel
     from repro_torch.kernels.tile_matmul.ref import tile_matmul_ref
-    from repro_torch.launch.serve import serve
+    from repro_torch.launch.serve import rehome, serve
     from repro_torch.models import model as M
+
+    counters = {"tile_matmul": tm_kernel.tile_matmul,
+                "flash_attention": fa_kernel.flash_attention,
+                "ssd_scan": ssd_kernel.ssd_scan}
 
     # 1. Device.
     name = torch.cuda.get_device_name(0)
@@ -288,76 +413,80 @@ def main() -> int:
     print(f"build: {detail['build_s']:.1f} s")
     detail["ptxas"] = {k: _build.build_log(k) for k in _build.KERNELS}
 
-    # 3. Each kernel against its plain version at the path's shapes.
+    # 3. Each kernel against its plain version at the paths' shapes.
     detail["tile_matmul_err"] = check_tile_matmul(tm_kernel, tile_matmul_ref)
     detail["flash_attention_err"] = check_flash(fa_kernel, flash_attention_ref)
+    detail["ssd_scan_err"] = check_ssd(ssd_kernel, ssd_plain)
     print(f"checks: tile_matmul max |err| {detail['tile_matmul_err']}, "
-          f"flash_attention max |err| {detail['flash_attention_err']}")
+          f"flash_attention max |err| {detail['flash_attention_err']}, "
+          f"ssd_scan max |err| {detail['ssd_scan_err']}")
 
     # 4. Times: kernel, plain version, one PyTorch call as yardstick.
     detail["tile_matmul_time"] = time_tile_matmul(tm_kernel, tile_matmul_ref)
     detail["flash_attention_time"] = time_flash(fa_kernel, flash_attention_ref)
-    print(f"times (ms): tile_matmul {detail['tile_matmul_time']}")
-    print(f"times (ms): flash_attention {detail['flash_attention_time']}")
+    detail["ssd_scan_time"] = time_ssd(ssd_kernel, ssd_plain)
+    for k in ("tile_matmul", "flash_attention", "ssd_scan"):
+        print(f"times (ms): {k} {detail[k + '_time']}")
 
-    # 5. The main path: serve full-width smollm_360m from seeded random
-    # weights. A short warm-up serve first, so the timed run holds no
-    # first-call set-up.
+    # 5. Path 1: serve full-width smollm_360m from seeded random weights.
     cfg = get_config("smollm_360m")
     params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
-    serve("smollm_360m", reduced=False, batch=BATCH, prompt_len=PROMPT, gen=2,
-          cache_len=CACHE, seed=0, device="cuda", params=params, log=lambda _: None)
-    torch.cuda.reset_peak_memory_stats()
-    tm_kernel.tile_matmul.launches = 0
-    fa_kernel.flash_attention.launches = 0
-    res = serve("smollm_360m", reduced=False, batch=BATCH, prompt_len=PROMPT, gen=GEN,
-                cache_len=CACHE, seed=0, device="cuda", params=params)
-    launches = {"tile_matmul": tm_kernel.tile_matmul.launches,
-                "flash_attention": fa_kernel.flash_attention.launches}
-    peak = torch.cuda.max_memory_allocated()
-    toks = res["tokens"]
-    assert toks.shape == (BATCH, GEN), toks.shape
-    assert ((toks >= 0) & (toks < cfg.vocab)).all()
-    assert launches["flash_attention"] == cfg.n_layers, launches
-    assert launches["tile_matmul"] == 7 * cfg.n_layers * (1 + GEN), launches
-    detail["serve"] = dict(batch=BATCH, prompt_len=PROMPT, gen=GEN, cache_len=CACHE,
-                           prefill_s=res["t_prefill"], decode_s=res["t_decode"],
-                           decode_tok_s=BATCH * GEN / res["t_decode"],
-                           peak_mem_bytes=peak, launches=launches,
-                           params=M.param_count(cfg))
-    print(f"serve: prefill {BATCH}x{PROMPT} {res['t_prefill']:.4f} s, decode "
-          f"{detail['serve']['decode_tok_s']:.1f} tok/s, peak memory "
-          f"{peak / 2**30:.3f} GiB, launches {launches} "
-          f"(flash {launches['flash_attention']} per prefill, tile_matmul "
-          f"{launches['tile_matmul'] // (1 + GEN)} per forward pass)")
-    detail["profile"] = profile_steps(M, cfg, params)
+    sm = detail["serve"] = serve_path(serve, M, cfg, params, counters)
+    assert sm["launches"] == {"tile_matmul": 7 * cfg.n_layers * (1 + GEN),
+                              "flash_attention": cfg.n_layers, "ssd_scan": 0}, sm["launches"]
+    detail["profile"] = profile_steps(M, cfg, params, rehome, counters)
+    _print_profile(cfg.name, detail["profile"])
     del params
-    for phase, p in detail["profile"].items():
-        print(f"profile {phase}: wall {p['wall_ms']:.3f} ms, device kernels "
-              f"{p['device_ms']:.3f} ms, busy share {p['busy_share']:.3f}")
+    detail["parity_f32_max_err"] = parity_f32(M, cfg, rehome, 128)
+    print(f"parity f32 smollm_360m full depth: max |logit err| "
+          f"{detail['parity_f32_max_err']:.3e}")
+    torch.cuda.empty_cache()
 
-    # 6. Full-depth float32 parity, kernel path vs plain path.
-    detail["parity_f32_max_err"] = parity_f32(M, get_config)
-    print(f"parity f32 full depth: max |logit err| {detail['parity_f32_max_err']:.3e}")
+    # 6. Path 2: serve full-width, full-depth mamba2_2_7b: six tile_matmul
+    # projections a layer each forward pass, one ssd_scan a layer in prefill.
+    mcfg = get_config("mamba2_2_7b")
+    params = M.init_params(mcfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    ms = detail["serve_mamba2"] = serve_path(serve, M, mcfg, params, counters)
+    assert ms["launches"] == {"tile_matmul": 6 * mcfg.n_layers * (1 + GEN),
+                              "flash_attention": 0, "ssd_scan": mcfg.n_layers}, ms["launches"]
+    prof = detail["profile_mamba2"] = profile_steps(M, mcfg, params, rehome, counters)
+    _print_profile(mcfg.name, prof)
+    assert prof["prefill"]["launches"]["ssd_scan"] == mcfg.n_layers, prof
+    assert prof["decode"]["launches"]["ssd_scan"] == 0, prof
+    del params
+    torch.cuda.empty_cache()
+    pcfg = dataclasses.replace(mcfg, n_periods=MAMBA_PARITY_LAYERS)
+    detail["parity_f32_mamba2_max_err"] = parity_f32(M, pcfg, rehome, 200)
+    print(f"parity f32 mamba2_2_7b full width, {MAMBA_PARITY_LAYERS} layers: max |logit err| "
+          f"{detail['parity_f32_mamba2_max_err']:.3e}")
 
-    # 7. Results.
+    # 7. Results. tile_matmul runs on both paths: its launches are the sum.
     tmt, fat = detail["tile_matmul_time"]["prefill"], detail["flash_attention_time"]
+    sst = detail["ssd_scan_time"]
     kernels = [
         dict(name="tile_matmul", route="cuda", source="src/repro_torch/csrc/tile_matmul.cu",
              replaces="src/repro/kernels/tile_matmul/kernel.py:58",
-             launches=launches["tile_matmul"],
+             launches=sm["launches"]["tile_matmul"] + ms["launches"]["tile_matmul"],
              max_abs_err=detail["tile_matmul_err"][str(torch.bfloat16)],
              ms=tmt["ms"], plain_ms=tmt["plain_ms"], bound_ms=tmt["bound_ms"],
              bound_by=tmt["bound_by"], library_ms=tmt["library_ms"],
-             timed="one layer's 7 prefill projections, M=4096, bf16"),
+             timed="one smollm layer's 7 prefill projections, M=4096, bf16; mamba2's "
+                   "6 in chip_smoke.json"),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:88",
-             launches=launches["flash_attention"],
+             launches=sm["launches"]["flash_attention"],
              max_abs_err=detail["flash_attention_err"][str(torch.bfloat16)],
              ms=fat["ms"], plain_ms=fat["plain_ms"], bound_ms=fat["bound_ms"],
              bound_by=fat["bound_by"], library_ms=fat["library_ms"],
              timed="one layer's prefill attention, q (40, 3, 512, 64), causal, bf16"),
+        dict(name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
+             replaces="src/repro/kernels/ssd_scan/kernel.py:70",
+             launches=ms["launches"]["ssd_scan"],
+             max_abs_err=detail["ssd_scan_err"][str(torch.bfloat16)]["y"],
+             ms=sst["ms"], plain_ms=sst["plain_ms"], bound_ms=sst["bound_ms"],
+             bound_by=sst["bound_by"], library_ms=None,
+             timed="one mamba2 layer's prefill scan, x (8, 512, 80, 64), N 128, bf16"),
     ]
     OUT.parent.mkdir(exist_ok=True)
     OUT.write_text(json.dumps(detail, indent=1, default=str))

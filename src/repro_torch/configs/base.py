@@ -11,7 +11,7 @@ import importlib
 
 from repro_torch.models.model import ModelConfig
 
-ARCH_IDS = ["smollm_360m"]
+ARCH_IDS = ["smollm_360m", "mamba2_2_7b"]
 
 
 def get_config(arch: str, reduced: bool = False) -> ModelConfig:

@@ -9,6 +9,7 @@ both packages serve the same prompts.
 Usage::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_360m --full
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_2_7b --full
 """
 
 from __future__ import annotations
@@ -66,14 +67,7 @@ def serve(arch: str, *, reduced: bool = True, batch: int = 4,
     _sync(dev)
     t0 = time.perf_counter()
     small_cache, logits = prefill(params, {"tokens": tokens})
-    # Re-home the prefill cache into the fixed-capacity decode cache: prompt
-    # position p lives at slot p (ring layouts agree as long as
-    # window <= prompt_len, which the configs guarantee).
-    cache = M.init_cache(cfg, batch, cache_len, dev)
-    for big_tree, small_tree in zip(_leaf_dicts(cache), _leaf_dicts(small_cache)):
-        for name, big in big_tree.items():
-            small = small_tree[name]
-            big[:, :small.shape[1]] = small.to(big.dtype)
+    cache = rehome(M.init_cache(cfg, batch, cache_len, dev), small_cache)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 
@@ -94,11 +88,29 @@ def serve(arch: str, *, reduced: bool = True, batch: int = 4,
     return {"tokens": out, "t_prefill": t_prefill, "t_decode": t_decode}
 
 
-def _leaf_dicts(cache: dict):
-    """The per-layer {"k", "v"} dicts of a cache, in a fixed order."""
-    yield from cache["prefix"]
-    for per in cache["period"]:
-        yield from per
+def rehome(big, small):
+    """Copy a prefill cache into the fixed-capacity decode cache ``big``, in
+    place, leaf by leaf as the reference's ``rehome``: a leaf whose shape
+    agrees (an SSM state, a conv buffer) is copied whole, otherwise it fills
+    the start of the single axis that differs (the cache sequence axis:
+    prompt position p lives at slot p; ring layouts agree as long as
+    window <= prompt_len, which the configs guarantee). Returns ``big``."""
+    if isinstance(big, torch.Tensor):
+        dst = big
+        if big.shape != small.shape:
+            diff = [i for i, (a, b) in enumerate(zip(big.shape, small.shape)) if a != b]
+            assert len(diff) == 1 and big.dim() == small.dim(), (big.shape, small.shape)
+            dst = big.narrow(diff[0], 0, small.shape[diff[0]])
+        dst.copy_(small)
+    elif isinstance(big, dict):
+        assert big.keys() == small.keys(), (big.keys(), small.keys())
+        for k in big:
+            rehome(big[k], small[k])
+    else:
+        assert len(big) == len(small), (len(big), len(small))
+        for b, s in zip(big, small):
+            rehome(b, s)
+    return big
 
 
 def main() -> None:

@@ -1,10 +1,11 @@
-"""Transformer blocks (port of ``repro/models/blocks.py``, the attention +
-dense-FFN half): param specs, cache specs, and the train/prefill and decode
-paths with KV-cache handling.
+"""Transformer/SSM blocks (port of ``repro/models/blocks.py``, the attention,
+Mamba-2 and dense-FFN branches): param specs, cache specs, and the
+train/prefill and decode paths with KV/SSM cache handling.
 
-Every projection runs through ``tile_matmul`` and prefill attention through
-``flash_attention`` (on CUDA tensors). The MLA, Mamba and MoE branches are
-not ported yet and raise ``NotImplementedError``.
+Every projection runs through ``tile_matmul``, prefill attention through
+``flash_attention`` and the prefill SSD scan through ``ssd_scan`` (on CUDA
+tensors). The MLA and MoE branches are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -13,14 +14,17 @@ from dataclasses import dataclass
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.tile_matmul.ops import matmul
 from repro_torch.models.attention import AttnCfg, decode_attention, gqa_attention
 from repro_torch.models.common import ParamSpec, apply_rope, norm_spec, rms_norm
+from repro_torch.models.mamba2 import (MambaCfg, _causal_conv, mamba_specs,
+                                       ssd_chunked, ssd_decode_step)
 from repro_torch.models.mlp import DenseFfnCfg, dense_ffn, dense_ffn_specs
 
 _MLA = "MLA attention is not ported yet (ROADMAP.md, 'Rest of the zoo')"
-_MAMBA = "Mamba-2 blocks are not ported yet (ROADMAP.md, 'Mamba-2 serving')"
 _MOE = "MoE FFN is not ported yet (ROADMAP.md, 'Rest of the zoo')"
 
 
@@ -28,7 +32,7 @@ _MOE = "MoE FFN is not ported yet (ROADMAP.md, 'Rest of the zoo')"
 class LayerCfg:
     mixer: str                       # "attn" | "mamba"
     attn: AttnCfg | None = None
-    mamba: Any = None                # MambaCfg once Mamba-2 is ported
+    mamba: MambaCfg | None = None
     ffn_kind: str = "none"           # "dense" | "moe" | "none"
     dense: DenseFfnCfg | None = None
     moe: Any = None                  # MoECfg once MoE is ported
@@ -67,11 +71,13 @@ def _attn_specs(d: int, a: AttnCfg, dtype) -> dict:
 
 
 def block_specs(d: int, lcfg: LayerCfg, dtype) -> dict:
-    if lcfg.mixer != "attn":
-        raise NotImplementedError(_MAMBA)
-    s: dict = {"attn": _attn_specs(d, lcfg.attn, dtype)}
-    if lcfg.post_norm:
-        s["attn"]["post_ln"] = norm_spec(d)
+    s: dict = {}
+    if lcfg.mixer == "attn":
+        s["attn"] = _attn_specs(d, lcfg.attn, dtype)
+        if lcfg.post_norm:
+            s["attn"]["post_ln"] = norm_spec(d)
+    else:
+        s["mamba"] = {"ln": norm_spec(d)} | mamba_specs(d, lcfg.mamba, dtype)
     if lcfg.ffn_kind == "moe":
         raise NotImplementedError(_MOE)
     if lcfg.ffn_kind == "dense":
@@ -82,15 +88,28 @@ def block_specs(d: int, lcfg: LayerCfg, dtype) -> dict:
 
 
 def cache_specs(lcfg: LayerCfg, batch: int, cache_len: int, dtype) -> dict:
-    if lcfg.mixer != "attn":
-        raise NotImplementedError(_MAMBA)
-    a = lcfg.attn
-    if a.is_mla:
-        raise NotImplementedError(_MLA)
-    S = min(cache_len, a.window) if a.window > 0 else cache_len
-    kv = ParamSpec((batch, S, a.n_kv_heads, a.head_dim),
-                   ("batch", "kv_seq", "kv_heads", None), dtype, init="zeros")
-    return {"k": kv, "v": kv}
+    if lcfg.mixer == "attn":
+        a = lcfg.attn
+        if a.is_mla:
+            raise NotImplementedError(_MLA)
+        S = min(cache_len, a.window) if a.window > 0 else cache_len
+        kv = ParamSpec((batch, S, a.n_kv_heads, a.head_dim),
+                       ("batch", "kv_seq", "kv_heads", None), dtype, init="zeros")
+        return {"k": kv, "v": kv}
+    m = lcfg.mamba
+    gn = m.n_groups * m.d_state
+    K = m.d_conv - 1
+    return {
+        "state": ParamSpec((batch, m.n_heads, m.head_dim, m.d_state),
+                           ("batch", "heads", None, None), torch.float32,
+                           init="zeros"),
+        "cx": ParamSpec((batch, K, m.d_inner), ("batch", None, "mlp"), dtype,
+                        init="zeros"),
+        "cB": ParamSpec((batch, K, gn), ("batch", None, None), dtype,
+                        init="zeros"),
+        "cC": ParamSpec((batch, K, gn), ("batch", None, None), dtype,
+                        init="zeros"),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -183,6 +202,88 @@ def attn_decode(p, x, cache, cur_len: int, lcfg: LayerCfg):
 
 
 # ---------------------------------------------------------------------------
+# Mamba paths
+# ---------------------------------------------------------------------------
+
+def _mamba_proj(h, p):
+    return (matmul(h, p["w_z"]), matmul(h, p["w_x"]), matmul(h, p["w_B"]),
+            matmul(h, p["w_C"]), matmul(h, p["w_dt"]))
+
+
+def _ssd(x4, dt, A, B5, C5, D, chunk: int):
+    """The SSD scan: ``ssd_chunked`` on the CPU, the ``ssd_scan`` kernel on
+    the card. The kernel's final state is (B, H, N, P) and the cache's
+    (B, H, P, N), as ``ssd_chunked`` returns it, so it is transposed here."""
+    if x4.device.type == "cpu":
+        return ssd_chunked(x4, dt, A, B5, C5, D, chunk)
+    y, state = ssd_ops.ssd(x4, dt, A, B5, C5, D)
+    return y, state.transpose(-1, -2)
+
+
+def mamba_train(p, x, lcfg: LayerCfg, want_cache: bool = False):
+    m = lcfg.mamba
+    B, T, _ = x.shape
+    h = rms_norm(x, p["ln"])
+    z, xin, B_, C_, dt_raw = _mamba_proj(h, p)
+    xin_pre, B_pre, C_pre = xin, B_, C_
+    xin = F.silu(_causal_conv(xin, p["conv_x"]))
+    B_ = F.silu(_causal_conv(B_, p["conv_B"]))
+    C_ = F.silu(_causal_conv(C_, p["conv_C"]))
+    dt = F.softplus(dt_raw.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    x4 = xin.reshape(B, T, m.n_heads, m.head_dim)
+    B5 = B_.reshape(B, T, m.n_groups, m.d_state)
+    C5 = C_.reshape(B, T, m.n_groups, m.d_state)
+    y, state = _ssd(x4, dt, A, B5, C5, p["D"], m.chunk)
+    y = y.reshape(B, T, m.d_inner)
+    y = rms_norm(y * F.silu(z), p["norm_gate"])
+    out = matmul(y, p["w_out"])
+    cache = None
+    if want_cache:
+        # Copies, not views: a view of the last K steps would keep the whole
+        # (B, T, d_inner) projection of every layer alive with the cache.
+        K = m.d_conv - 1
+        cache = {"state": state,
+                 "cx": xin_pre[:, T - K:].clone(), "cB": B_pre[:, T - K:].clone(),
+                 "cC": C_pre[:, T - K:].clone()}
+    return x + out, cache
+
+
+def _conv_step(buf, new, kernel):
+    """buf: (B, K-1, C) past pre-conv inputs; new: (B, C). Returns conv
+    output (B, C) and updated buf."""
+    window = torch.cat([buf, new[:, None]], dim=1)            # (B, K, C)
+    out = torch.einsum("bkc,kc->bc", window, kernel)
+    return out, window[:, 1:]
+
+
+def mamba_decode(p, x, cache, lcfg: LayerCfg):
+    """x: (B, d). The cache dict's entries are replaced in place: the decode
+    loop owns the cache, as the reference donates it."""
+    m = lcfg.mamba
+    B, _ = x.shape
+    h = rms_norm(x, p["ln"])
+    z, xin, B_, C_, dt_raw = _mamba_proj(h, p)
+    cx_out, ncx = _conv_step(cache["cx"], xin, p["conv_x"])
+    cB_out, ncB = _conv_step(cache["cB"], B_, p["conv_B"])
+    cC_out, ncC = _conv_step(cache["cC"], C_, p["conv_C"])
+    xin = F.silu(cx_out)
+    B_ = F.silu(cB_out)
+    C_ = F.silu(cC_out)
+    dt = F.softplus(dt_raw.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    y, state = ssd_decode_step(
+        cache["state"], xin.reshape(B, m.n_heads, m.head_dim), dt, A,
+        B_.reshape(B, m.n_groups, m.d_state),
+        C_.reshape(B, m.n_groups, m.d_state), p["D"])
+    y = y.reshape(B, m.d_inner)
+    y = rms_norm(y * F.silu(z), p["norm_gate"])
+    out = matmul(y, p["w_out"])
+    cache.update(state=state, cx=ncx, cB=ncB, cC=ncC)
+    return x + out, cache
+
+
+# ---------------------------------------------------------------------------
 # FFN + full block
 # ---------------------------------------------------------------------------
 
@@ -207,29 +308,31 @@ def ffn_apply(p, x, lcfg: LayerCfg):
 def block_train(p, x, lcfg: LayerCfg, pos0: int = 0, want_cache: bool = False,
                 q_chunk: int = 512, kv_chunk: int = 512):
     """Full block for train/prefill. Returns (x, aux, cache|None)."""
-    if lcfg.mixer != "attn":
-        raise NotImplementedError(_MAMBA)
-    if lcfg.parallel and lcfg.ffn_kind != "none":
+    if lcfg.parallel and lcfg.mixer == "attn" and lcfg.ffn_kind != "none":
         # Command-R parallel residual: shared input norm, summed branches.
         h = rms_norm(x, p["attn"]["ln"])
         a_out, cache = attn_core(p["attn"], h, lcfg, pos0, want_cache,
                                  q_chunk, kv_chunk)
         f_out, aux = ffn_core(p["ffn"], h, lcfg)
         return x + a_out + f_out, aux, cache
-    x, cache = attn_train(p["attn"], x, lcfg, pos0, want_cache, q_chunk,
-                          kv_chunk)
+    if lcfg.mixer == "attn":
+        x, cache = attn_train(p["attn"], x, lcfg, pos0, want_cache, q_chunk,
+                              kv_chunk)
+    else:
+        x, cache = mamba_train(p["mamba"], x, lcfg, want_cache)
     x, aux = ffn_apply(p.get("ffn"), x, lcfg)
     return x, aux, cache
 
 
 def block_decode(p, x, cache, cur_len: int, lcfg: LayerCfg):
-    if lcfg.mixer != "attn":
-        raise NotImplementedError(_MAMBA)
-    if lcfg.parallel and lcfg.ffn_kind != "none":
+    if lcfg.parallel and lcfg.mixer == "attn" and lcfg.ffn_kind != "none":
         h = rms_norm(x, p["attn"]["ln"])
         a_out, cache = _attn_decode_core(p["attn"], h, cache, cur_len, lcfg)
         f_out, _ = ffn_core(p["ffn"], h[:, None], lcfg)
         return x + a_out + f_out[:, 0], cache
-    x, cache = attn_decode(p["attn"], x, cache, cur_len, lcfg)
+    if lcfg.mixer == "attn":
+        x, cache = attn_decode(p["attn"], x, cache, cur_len, lcfg)
+    else:
+        x, cache = mamba_decode(p["mamba"], x, cache, lcfg)
     x2, _ = ffn_apply(p.get("ffn"), x[:, None], lcfg)
     return x2[:, 0], cache

@@ -7,7 +7,7 @@ period's parameters on a leading ``n_periods`` axis and scans, this package
 keeps one dict per layer: ``params["period"][j][i]`` is period position
 ``j`` of repetition ``i``. Caches follow the same layout.
 
-Entry points: :func:`prefill` (build KV caches, return last-token logits)
+Entry points: :func:`prefill` (build KV/SSM caches, return last-token logits)
 and :func:`decode_step` (one token in, logits out, cache updated in place).
 Only the ``tokens`` frontend is ported.
 """
@@ -161,10 +161,13 @@ def prefill(params, cfg: ModelConfig, batch):
     with float32 logits."""
     h, _, caches = _backbone(params, cfg, _embed(params, cfg, batch["tokens"]),
                              want_cache=True)
+
+    def ring(c, lcfg: LayerCfg):
+        return attn_cache_from_prefill(c, lcfg) if lcfg.mixer == "attn" else c
+
     caches = {
-        "prefix": tuple(attn_cache_from_prefill(c, l)
-                        for l, c in zip(cfg.prefix, caches["prefix"])),
-        "period": tuple([attn_cache_from_prefill(c, l) for c in per]
+        "prefix": tuple(ring(c, l) for l, c in zip(cfg.prefix, caches["prefix"])),
+        "period": tuple([ring(c, l) for c in per]
                         for l, per in zip(cfg.period, caches["period"])),
     }
     logits = torch.matmul(h[:, -1], _head_matrix(params, cfg)).float()

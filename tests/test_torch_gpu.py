@@ -7,7 +7,10 @@ Run on the card with ``python -m pytest tests/test_torch_gpu.py -m gpu``.
 
 Tolerances: 2e-2 in bfloat16 (the kernels round P and outputs to bf16 at
 other places than the plain versions' float32 einsums), 2e-4 in float32
-(both sum float32 products, in different orders).
+(both sum float32 products, in different orders). ssd_scan is held at the
+reference's SSD bar, 1e-3, for its float32 outputs and float32 state: its
+plain version is a different algorithm (per-timestep recurrence against
+chunks), which changes the order of many more sums.
 """
 
 import numpy as np
@@ -16,6 +19,8 @@ import torch
 
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+from repro_torch.kernels.ssd_scan.ops import ssd_plain
 from repro_torch.kernels.tile_matmul import kernel as tm_kernel
 from repro_torch.kernels.tile_matmul.ref import tile_matmul_ref
 
@@ -37,9 +42,18 @@ def _randn(shape, dtype, device, seed, scale=1.0):
     return (torch.randn(shape, generator=g) * scale).to(device=device, dtype=dtype)
 
 
+def _to(tree, device):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return type(tree)(_to(v, device) for v in tree)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,k,n", [(8, 960, 320), (3, 40, 20), (16, 2560, 960),
-                                   (300, 960, 320), (17, 72, 136), (257, 40, 20)])
+                                   (300, 960, 320), (17, 72, 136), (257, 40, 20),
+                                   (8, 5120, 2560), (4096, 2560, 80)])
 def test_tile_matmul_matches_plain(cuda, m, k, n, dtype):
     x = _randn((m, k), dtype, cuda, m + k)
     w = _randn((k, n), dtype, cuda, n, 0.05)
@@ -122,12 +136,96 @@ def test_reduced_serve_on_cuda_matches_cpu(cuda):
     from repro_torch.models import model as M
     cfg = get_config("smollm_360m", reduced=True)
     params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    moved = {"embed": {"tok": params["embed"]["tok"].to(cuda)},
-             "final_ln": params["final_ln"].to(cuda), "prefix": (),
-             "period": tuple([{blk: {n: t.to(cuda) for n, t in d.items()}
-                               for blk, d in layer.items()} for layer in per]
-                             for per in params["period"])}
     quiet = dict(seed=0, log=lambda _: None)
     on_cpu = serve("smollm_360m", device="cpu", params=params, **quiet)
-    on_gpu = serve("smollm_360m", device=cuda, params=moved, **quiet)
+    on_gpu = serve("smollm_360m", device=cuda, params=_to(params, cuda), **quiet)
+    np.testing.assert_array_equal(on_gpu["tokens"], on_cpu["tokens"])
+
+
+def _ssd_inputs(bt, t, h, p, g, n, dtype, device, seed):
+    """x, B, C in ``dtype``; dt (post-softplus), A (< 0) and D in float32."""
+    x = _randn((bt, t, h, p), dtype, device, seed, 0.5)
+    dt = torch.nn.functional.softplus(_randn((bt, t, h), torch.float32, device, seed + 1))
+    A = -torch.exp(_randn((h,), torch.float32, device, seed + 2, 0.3))
+    B = _randn((bt, t, g, n), dtype, device, seed + 3, 0.5)
+    C = _randn((bt, t, g, n), dtype, device, seed + 4, 0.5)
+    D = 1.0 + _randn((h,), torch.float32, device, seed + 5, 0.1)
+    return x, dt, A, B, C, D
+
+
+SSD_CASES = [  # (bt, t, h, p, g, n)
+    (2, 512, 8, 64, 1, 128),     # the serving head shape, fewer heads
+    (1, 200, 4, 64, 1, 128),     # ragged last chunk
+    (2, 77, 6, 32, 3, 64),       # ragged, G = 3
+    (1, 64, 4, 16, 4, 16),       # reduced widths, G = H
+    (1, 1, 2, 8, 1, 8),          # a single step
+    (1, 130, 2, 128, 2, 128),    # P = 128
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bt,t,h,p,g,n", SSD_CASES)
+def test_ssd_scan_matches_plain(cuda, bt, t, h, p, g, n, dtype):
+    args = _ssd_inputs(bt, t, h, p, g, n, dtype, cuda, seed=t + h + g)
+    before = ssd_kernel.ssd_scan.launches
+    y, s = ssd_kernel.ssd_scan(*args)
+    assert ssd_kernel.ssd_scan.launches == before + 1
+    yr, sr = ssd_plain(*args)
+    assert y.dtype == dtype and y.shape == (bt, t, h, p)
+    assert s.dtype == torch.float32 and s.shape == (bt, h, n, p)
+    ytol = 1e-3 if dtype == torch.float32 else TOL[dtype]
+    torch.testing.assert_close(y.float(), yr.float(), rtol=ytol, atol=ytol)
+    torch.testing.assert_close(s, sr, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_is_deterministic(cuda, dtype):
+    args = _ssd_inputs(2, 300, 8, 64, 2, 128, dtype, cuda, seed=9)
+    y1, s1 = ssd_kernel.ssd_scan(*args)
+    y2, s2 = ssd_kernel.ssd_scan(*args)
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
+
+
+def test_ssd_scan_rejects_bad_input(cuda):
+    x, dt, A, B, C, D = _ssd_inputs(1, 16, 4, 8, 2, 8, torch.float32, cuda, seed=1)
+    before = ssd_kernel.ssd_scan.launches
+    with pytest.raises(ValueError):
+        ssd_kernel.ssd_scan(x, dt, A, B.bfloat16(), C, D)
+    with pytest.raises(ValueError):
+        ssd_kernel.ssd_scan(x, dt.bfloat16(), A, B, C, D)
+    with pytest.raises(ValueError):
+        ssd_kernel.ssd_scan(x, dt, A, B[:, :, :1].expand(1, 16, 3, 8), C, D)
+    assert ssd_kernel.ssd_scan.launches == before
+
+
+def test_mamba_train_on_cuda_matches_cpu_chunked_twin(cuda):
+    """The kernel path's cache state comes back in the cache layout
+    (B, H, P, N), P != N here."""
+    from repro_torch.models import blocks as TB
+    from repro_torch.models.mamba2 import MambaCfg
+    from repro_torch.models.common import tree_initialize
+    m = MambaCfg(d_inner=256, d_state=64, d_conv=4, head_dim=32, n_groups=2, chunk=32)
+    lcfg = TB.LayerCfg(mixer="mamba", mamba=m)
+    p = tree_initialize(TB.block_specs(96, lcfg, torch.float32),
+                        torch.Generator().manual_seed(0), "cpu")["mamba"]
+    x = _randn((2, 100, 96), torch.float32, "cpu", 1)
+    before = ssd_kernel.ssd_scan.launches
+    out, cache = TB.mamba_train(_to(p, cuda), x.to(cuda), lcfg, want_cache=True)
+    assert ssd_kernel.ssd_scan.launches == before + 1
+    ref, ref_cache = TB.mamba_train(p, x, lcfg, want_cache=True)
+    torch.testing.assert_close(out.cpu(), ref, rtol=1e-3, atol=1e-3)
+    assert cache["state"].shape == ref_cache["state"].shape == (2, 8, 32, 64)
+    for name in ref_cache:
+        torch.testing.assert_close(cache[name].cpu(), ref_cache[name], rtol=1e-3, atol=1e-3)
+
+
+def test_reduced_mamba_serve_on_cuda_matches_cpu(cuda):
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as M
+    cfg = get_config("mamba2_2_7b", reduced=True)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    quiet = dict(arch="mamba2_2_7b", seed=0, prompt_len=40, log=lambda _: None)
+    on_cpu = serve(device="cpu", params=params, **quiet)
+    on_gpu = serve(device=cuda, params=_to(params, cuda), **quiet)
     np.testing.assert_array_equal(on_gpu["tokens"], on_cpu["tokens"])

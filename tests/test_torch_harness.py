@@ -66,9 +66,15 @@ def test_smollm_config_matches_reference_field_for_field(reduced):
         dataclasses.asdict(jax_get_config("smollm_360m", reduced))
 
 
+@pytest.mark.parametrize("reduced", [False, True])
+def test_mamba2_config_matches_reference_field_for_field(reduced):
+    assert dataclasses.asdict(get_config("mamba2_2_7b", reduced)) == \
+        dataclasses.asdict(jax_get_config("mamba2_2_7b", reduced))
+
+
 def test_unported_architectures_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("mamba2_2_7b")
+        get_config("qwen2_moe_a2_7b")
 
 
 def test_tf32_is_off_after_import():

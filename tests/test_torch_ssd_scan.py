@@ -1,0 +1,129 @@
+"""The port's ssd_scan module against the JAX reference, on the CPU.
+
+The same numpy inputs go through the reference (its per-timestep oracle, and
+its Pallas kernel in interpret mode through ``repro.kernels.ssd_scan.ops.ssd``,
+as ``tests/test_kernels.py`` runs it) and through the port, whose wrapper
+runs the plain PyTorch version on a CPU tensor. The reference kernel needs
+T to be a multiple of its chunk; the port's wrapper takes any T, so a ragged
+case gives the reference a chunk that divides T.
+
+Tolerances: the reference's SSD bar, 1e-3, for float32 results (outputs,
+and the float32 final state also for bfloat16 inputs); 2e-2, the
+reference's bfloat16 bar, for outputs rounded to bfloat16 (one bf16 ulp at
+magnitude 2 is 1.6e-2, and the two sides round float32 sums that differ in
+their last bits). The two oracles run the same recurrence: 1e-5.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ssd_scan.ops import ssd as jax_ssd
+from repro.kernels.ssd_scan.ref import ssd_scan_ref as jax_ssd_scan_ref
+from repro.models.mamba2 import ssd_chunked as jax_ssd_chunked
+from repro_torch.kernels.ssd_scan import kernel
+from repro_torch.kernels.ssd_scan.ops import ssd
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+from repro_torch.models.mamba2 import ssd_chunked
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _inputs(bt, t, h, p, g, n, seed):
+    """Inputs of test_kernels.py's SSD sweep, made with numpy."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((bt, t, h, p)) * 0.5).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((bt, t, h)))).astype(np.float32)
+    A = (-np.exp(rng.standard_normal(h) * 0.3)).astype(np.float32)
+    B = (rng.standard_normal((bt, t, g, n)) * 0.5).astype(np.float32)
+    C = (rng.standard_normal((bt, t, g, n)) * 0.5).astype(np.float32)
+    D = (1.0 + 0.1 * rng.standard_normal(h)).astype(np.float32)
+    return x, dt, A, B, C, D
+
+
+def _np(a):
+    return np.asarray(a.float() if isinstance(a, torch.Tensor) else a, np.float32)
+
+
+@pytest.mark.parametrize("bh,t,p,n", [(4, 32, 8, 8), (6, 17, 16, 4), (2, 1, 8, 16)])
+def test_ref_matches_reference_oracle(bh, t, p, n):
+    rng = np.random.default_rng(bh * 100 + t)
+    x = rng.standard_normal((bh, t, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((bh, t)))).astype(np.float32)
+    a = -np.exp(rng.standard_normal(bh) * 0.3).astype(np.float32)
+    b = (rng.standard_normal((bh, t, n)) * 0.5).astype(np.float32)
+    c = (rng.standard_normal((bh, t, n)) * 0.5).astype(np.float32)
+    d = rng.standard_normal(bh).astype(np.float32)
+    args = (x, dt, a, b, c, d)
+    yr, sr = jax_ssd_scan_ref(*map(jnp.asarray, args))
+    y, s = ssd_scan_ref(*map(torch.from_numpy, args))
+    assert y.dtype == torch.float32 and s.shape == (bh, n, p)
+    np.testing.assert_allclose(_np(y), _np(yr), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(_np(s), _np(sr), rtol=1e-5, atol=1e-5)
+
+
+SWEEP = [  # (bt, t, h, p, g, n, reference chunk, dtype)
+    (1, 32, 2, 8, 1, 8, 16, "float32"),
+    (2, 64, 4, 16, 2, 16, 32, "float32"),
+    (2, 128, 4, 8, 2, 8, 16, "float32"),
+    (2, 40, 4, 16, 2, 16, 40, "float32"),      # ragged against Q = 16 / 64
+    (1, 100, 2, 8, 1, 16, 50, "float32"),      # ragged, two chunks of 50
+    (2, 64, 4, 16, 2, 16, 32, "bfloat16"),
+    (1, 40, 4, 8, 4, 8, 20, "bfloat16"),       # G = H, ragged
+]
+
+
+def _both_ssd(x, dt, A, B, C, D, dtype, chunk):
+    jd, td = DTYPES[dtype]
+    jx, jB, jC = (jnp.asarray(a).astype(jd) for a in (x, B, C))
+    ref = jax_ssd(jx, jnp.asarray(dt), jnp.asarray(A), jB, jC, jnp.asarray(D), chunk=chunk)
+    tx, tB, tC = (torch.from_numpy(a).to(td) for a in (x, B, C))
+    out = ssd(tx, torch.from_numpy(dt), torch.from_numpy(A), tB, tC, torch.from_numpy(D))
+    return out, ref
+
+
+@pytest.mark.parametrize("bt,t,h,p,g,n,chunk,dtype", SWEEP)
+def test_ssd_matches_reference_kernel(bt, t, h, p, g, n, chunk, dtype):
+    """bfloat16 cases run twice: in bfloat16 (outputs rounded on both
+    sides, 2e-2), and on the same bf16-valued inputs in float32 at 1e-3."""
+    x, dt, A, B, C, D = _inputs(bt, t, h, p, g, n, seed=t * 7 + h + g)
+    (y, s), (yr, sr) = _both_ssd(x, dt, A, B, C, D, dtype, chunk)
+    assert y.dtype == DTYPES[dtype][1] and y.shape == (bt, t, h, p)
+    assert s.dtype == torch.float32 and s.shape == (bt, h, n, p)
+    ytol = 1e-3 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(_np(y), _np(yr), rtol=ytol, atol=ytol)
+    np.testing.assert_allclose(_np(s), _np(sr), rtol=1e-3, atol=1e-3)
+    if dtype == "bfloat16":
+        x, B, C = (np.asarray(torch.from_numpy(a).bfloat16().float()) for a in (x, B, C))
+        (y, s), (yr, sr) = _both_ssd(x, dt, A, B, C, D, "float32", chunk)
+        np.testing.assert_allclose(_np(y), _np(yr), rtol=1e-3, atol=1e-3)
+        np.testing.assert_allclose(_np(s), _np(sr), rtol=1e-3, atol=1e-3)
+
+
+def test_wrapper_state_is_the_transpose_of_ssd_chunked_state():
+    """The kernel's (and the wrapper's) final state is (Bt, H, N, P), the
+    model cache's (Bt, H, P, N): P != N here, so a missing transpose shows."""
+    x, dt, A, B, C, D = (torch.from_numpy(a) for a in _inputs(2, 24, 4, 8, 2, 16, seed=3))
+    _, s = ssd(x, dt, A, B, C, D)
+    _, s_chunked = ssd_chunked(x, dt, A, B, C, D, chunk=16)
+    assert s.shape == (2, 4, 16, 8) and s_chunked.shape == (2, 4, 8, 16)
+    np.testing.assert_allclose(_np(s.transpose(-1, -2)), _np(s_chunked), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_ssd_matches_reference_ssd_chunked_on_ragged_t():
+    x, dt, A, B, C, D = _inputs(2, 45, 4, 8, 2, 8, seed=11)
+    yr, _ = jax_ssd_chunked(*map(jnp.asarray, (x, dt, A, B, C, D)), chunk=16)
+    y, _ = ssd(*map(torch.from_numpy, (x, dt, A, B, C, D)))
+    np.testing.assert_allclose(_np(y), _np(yr), rtol=1e-3, atol=1e-3)
+
+
+def test_non_cpu_tensor_reaches_the_kernel_and_raises():
+    x, dt, A, B, C, D = (torch.from_numpy(a).to("meta")
+                         for a in _inputs(1, 16, 2, 8, 1, 8, seed=1))
+    before = kernel.ssd_scan.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd(x, dt, A, B, C, D)
+    assert kernel.ssd_scan.launches == before
