@@ -6,10 +6,12 @@ each against its plain PyTorch version at the serving paths' shapes, times
 them, and drives the port's two serving paths through its ``serve`` entry
 point (batch 8 x 512-token prompts, 32 greedy tokens each): full-width
 smollm_360m (tile_matmul + flash_attention) and full-width, full-depth
-mamba2_2_7b (tile_matmul + ssd_scan). For each it profiles one prefill and
-one decode step and checks float32 logits of the kernel path against the
-plain path on the CPU (smollm at full depth, mamba2 at full width and
-8 layers).
+mamba2_2_7b (tile_matmul + ssd_scan). tile_matmul's per-path counters show
+that every bf16 projection took its wgmma kernel (prefill) or its
+streaming kernel (decode), and its ptxas and SASS are checked for wgmma,
+TMA and spills. For each model it profiles one prefill and one decode step
+and checks float32 logits of the kernel path against the plain path on the
+CPU (smollm at full depth, mamba2 at full width and 8 layers).
 
 Usage (from the repository root, on a host with a CUDA device)::
 
@@ -24,6 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -90,29 +93,71 @@ def _to(tree, device):
     return type(tree)(_to(v, device) for v in tree)
 
 
+# Shapes beyond the serving paths', so that every tile_matmul path is held
+# against the plain version: a ragged M (400) for the wgmma path, the GPU
+# tests' unaligned (M, K, N) = (257, 40, 20), which bf16 takes through mma,
+# and (3, 40, 20): mma in bf16 (40-byte weight rows), skinny in float32.
+TM_EXTRA = ((400, 2560, 5120), (400, 960, 320), (257, 40, 20), (3, 40, 20))
+
+
 def check_tile_matmul(tm_kernel, tile_matmul_ref) -> dict:
     """Kernel vs plain version at every projection shape of both serving
-    paths (prefill and decode M), every activation and dtype, with and
-    without bias."""
+    paths (prefill and decode M) and at ``TM_EXTRA``, every activation and
+    dtype, with and without bias. Worst error per dtype and per path; every
+    path must have run."""
     shapes = sorted({(k, n) for layer in LAYER.values() for k, n, _ in layer})
-    err = {}
+    cases = [(m, k, n) for m in (BATCH * PROMPT, BATCH) for k, n in shapes] + list(TM_EXTRA)
+    paths = tm_kernel.tile_matmul.paths
+    err: dict = {"by_path": {}}
     for dtype in (torch.bfloat16, torch.float32):
         worst = 0.0
-        for m in (BATCH * PROMPT, BATCH):
-            for k, n in shapes:
-                x = _randn((m, k), dtype, m + k)
-                w = _randn((k, n), dtype, n, k ** -0.5)
-                b = _randn((n,), dtype, 7)
-                for act in ACTS:
-                    for bias in (None, b):
-                        out = tm_kernel.tile_matmul(x, w, bias, activation=act)
-                        ref = tile_matmul_ref(x, w, bias, activation=act)
-                        torch.testing.assert_close(out.float(), ref.float(),
-                                                   rtol=TOL[dtype], atol=TOL[dtype])
-                        worst = max(worst, (out.float() - ref.float()).abs().max().item())
+        for m, k, n in cases:
+            x = _randn((m, k), dtype, m + k)
+            w = _randn((k, n), dtype, n, k ** -0.5)
+            b = _randn((n,), dtype, 7)
+            for act in ACTS:
+                for bias in (None, b):
+                    before = dict(paths)
+                    out = tm_kernel.tile_matmul(x, w, bias, activation=act)
+                    (path,) = [p for p in paths if paths[p] != before[p]]
+                    ref = tile_matmul_ref(x, w, bias, activation=act)
+                    torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype],
+                                               atol=TOL[dtype],
+                                               msg=lambda e, c=(m, k, n, path): f"{c}: {e}")
+                    e = (out.float() - ref.float()).abs().max().item()
+                    worst = max(worst, e)
+                    key = f"{path} {dtype}"
+                    err["by_path"][key] = max(err["by_path"].get(key, 0.0), e)
         err[str(dtype)] = worst
     torch.cuda.synchronize()
+    ran = {k.split()[0] for k in err["by_path"]}
+    assert ran == set(paths), f"paths checked: {sorted(ran)}"
     return err
+
+
+def kernel_build_report(tm_so: Path, ptxas: str) -> dict:
+    """What ptxas said of each tile_matmul kernel (registers, shared memory,
+    spills) and how many wgmma (HGMMA) and TMA (UTMALDG) instructions the
+    library's SASS holds. Fails on a spill in the wgmma or skinny kernels
+    or on a wgmma kernel without HGMMA and TMA."""
+    kernels, name = {}, None
+    for line in ptxas.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and "spill stores" in line:
+            kernels[name] = {"spill": line.split(",", 1)[1].strip()}
+        elif name and "Used" in line and name in kernels:
+            kernels[name]["used"] = line.split(":", 1)[1].strip()
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(tm_so)], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    ops = {op: sass.count(op) for op in ("HGMMA", "UTMALDG", "LDL", "STL")}
+    no_spill = "0 bytes spill stores, 0 bytes spill loads"
+    for kname, k in kernels.items():
+        if "wgmma" in kname or "skinny" in kname:
+            assert k["spill"].startswith(no_spill), (kname, k)
+    assert ops["HGMMA"] > 0 and ops["UTMALDG"] > 0, ops
+    return {"kernels": kernels, "sass_ops": ops}
 
 
 FLASH_CASES = (  # (name, BH, G, Tq, Tkv, window, softcap)
@@ -144,7 +189,8 @@ def check_flash(fa_kernel, flash_attention_ref) -> dict:
 
 def _time_layer(layer, m: int, copies: int, tm_kernel, tile_matmul_ref) -> dict:
     """One layer's bf16 projections ``layer`` at M = ``m``, cycling through
-    ``copies`` sets of weights."""
+    ``copies`` sets of weights. Kernel and ``torch.matmul`` in turns
+    (kernel, library, kernel, library); times are the mean of the turns."""
     dt = torch.bfloat16
     xs = {k: _randn((m, k), dt, k) for k in {k for k, _, _ in layer}}
     ws = [[_randn((k, n), dt, 10 * c + i, k ** -0.5) for i, (k, n, _) in enumerate(layer)]
@@ -159,13 +205,18 @@ def _time_layer(layer, m: int, copies: int, tm_kernel, tile_matmul_ref) -> dict:
         y = torch.matmul(x, w)
         return F.silu(y) if act == "silu" else y
 
-    kern = _time_ms(lambda: run(lambda x, w, a: tm_kernel.tile_matmul(x, w, activation=a)))
+    def kern():
+        run(lambda x, w, a: tm_kernel.tile_matmul(x, w, activation=a))
+
+    turns = [_time_ms(f) / copies for f in (kern, lambda: run(lib)) * 2]
+    kern_ms, lib_ms = (turns[0] + turns[2]) / 2, (turns[1] + turns[3]) / 2
     plain = _time_ms(lambda: run(lambda x, w, a: tile_matmul_ref(x, w, activation=a)))
-    library = _time_ms(lambda: run(lib))
     flops = sum(2 * m * k * n for k, n, _ in layer)
     nbytes = sum((m * k + k * n + m * n) * 2 for k, n, _ in layer)
     bound_ms, bound_by = _bound(flops, nbytes, dt)
-    return dict(M=m, ms=kern / copies, plain_ms=plain / copies, library_ms=library / copies,
+    return dict(M=m, ms=kern_ms, plain_ms=plain / copies, library_ms=lib_ms,
+                turns_ms=turns, vs_library=kern_ms / lib_ms,
+                tflop_s=flops / kern_ms / 1e9, gb_s=nbytes / kern_ms / 1e6,
                 flop=flops, bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by)
 
 
@@ -267,6 +318,8 @@ def time_ssd(ssd_kernel, ssd_plain) -> dict:
 def _zero(counters: dict) -> None:
     for fn in counters.values():
         fn.launches = 0
+        for path in getattr(fn, "paths", ()):
+            fn.paths[path] = 0
 
 
 def _read(counters: dict) -> dict:
@@ -284,6 +337,7 @@ def serve_path(serve, M, cfg, params, counters: dict) -> dict:
     _zero(counters)
     res = serve(cfg.name, gen=GEN, **kw)
     launches = _read(counters)
+    paths = dict(counters["tile_matmul"].paths)
     peak = torch.cuda.max_memory_allocated()
     toks = res["tokens"]
     assert toks.shape == (BATCH, GEN), toks.shape
@@ -291,10 +345,13 @@ def serve_path(serve, M, cfg, params, counters: dict) -> dict:
     out = dict(arch=cfg.name, batch=BATCH, prompt_len=PROMPT, gen=GEN, cache_len=CACHE,
                prefill_s=res["t_prefill"], decode_s=res["t_decode"],
                decode_tok_s=BATCH * GEN / res["t_decode"], peak_mem_bytes=peak,
-               launches=launches, params=M.param_count(cfg))
+               launches=launches, tile_matmul_paths=paths, params=M.param_count(cfg))
     print(f"serve {cfg.name}: prefill {BATCH}x{PROMPT} {res['t_prefill']:.4f} s, decode "
           f"{out['decode_tok_s']:.1f} tok/s, peak memory {peak / 2**30:.3f} GiB, "
-          f"launches {launches}")
+          f"launches {launches}, tile_matmul paths {paths}")
+    # Every bf16 projection takes wgmma in prefill and skinny in decode.
+    per_pass = launches["tile_matmul"] // (1 + GEN)
+    assert paths == {"wgmma": per_pass, "mma": 0, "skinny": per_pass * GEN, "ffma": 0}, paths
     return out
 
 
@@ -329,6 +386,7 @@ def profile_steps(M, cfg, params, rehome, counters: dict) -> dict:
             fn()
             torch.cuda.synchronize()
         launches = _read(counters)
+        paths = dict(counters["tile_matmul"].paths)
         kern = []
         for e in prof.key_averages():
             if e.device_type == DeviceType.CUDA:
@@ -340,6 +398,7 @@ def profile_steps(M, cfg, params, rehome, counters: dict) -> dict:
         device_ms = sum(r[1] for r in kern)
         out[name] = dict(wall_ms=wall_ms, device_ms=device_ms,
                          busy_share=device_ms / wall_ms, launches=launches,
+                         tile_matmul_paths=paths,
                          top_kernels=[dict(name=k[:90], ms=t, calls=c) for k, t, c in kern[:10]])
     return out
 
@@ -412,6 +471,9 @@ def main() -> int:
     detail["build_s"] = time.perf_counter() - t0
     print(f"build: {detail['build_s']:.1f} s")
     detail["ptxas"] = {k: _build.build_log(k) for k in _build.KERNELS}
+    detail["tile_matmul_build"] = kernel_build_report(_build._target("tile_matmul"),
+                                                      detail["ptxas"]["tile_matmul"])
+    print(f"tile_matmul build: {detail['tile_matmul_build']}")
 
     # 3. Each kernel against its plain version at the paths' shapes.
     detail["tile_matmul_err"] = check_tile_matmul(tm_kernel, tile_matmul_ref)
@@ -467,6 +529,8 @@ def main() -> int:
         dict(name="tile_matmul", route="cuda", source="src/repro_torch/csrc/tile_matmul.cu",
              replaces="src/repro/kernels/tile_matmul/kernel.py:58",
              launches=sm["launches"]["tile_matmul"] + ms["launches"]["tile_matmul"],
+             launches_by_path={p: sm["tile_matmul_paths"][p] + ms["tile_matmul_paths"][p]
+                               for p in sm["tile_matmul_paths"]},
              max_abs_err=detail["tile_matmul_err"][str(torch.bfloat16)],
              ms=tmt["ms"], plain_ms=tmt["plain_ms"], bound_ms=tmt["bound_ms"],
              bound_by=tmt["bound_by"], library_ms=tmt["library_ms"],

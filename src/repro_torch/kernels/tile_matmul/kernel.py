@@ -5,15 +5,41 @@ and a fused ``+ b`` / activation / cast epilogue, in CUDA C++
 Replaces the Pallas TPU kernel ``repro/kernels/tile_matmul/kernel.py``
 :: ``tile_matmul`` (body ``_kernel``). The TPU kernel walks a sequential
 ``(M/bm, N/bn, K/bk)`` grid and carries the accumulator in VMEM across K
-steps; here each block owns one output tile and loops over K itself, so
-blocks are independent and the sum over K has one fixed order (no split-K,
-no atomics: deterministic and batch-invariant). Ragged M/N/K edges are
-masked in the kernel, so no shape is refused for divisibility.
+steps; here each block owns its outputs and walks its K range in one fixed
+order (no atomics: deterministic), with tiles, BK and the K order set by
+(N, K) only (batch-invariant within a path). No shape is refused for
+divisibility.
+
+``choose_path`` picks one of four kernels, and the C entry point takes it
+as an int (it returns an error for a path the shape cannot take; it never
+switches):
+
+- ``wgmma``: bf16 at M > 16 (prefill), bound by operations. A TMA +
+  ``wgmma`` pipeline: a producer warp keeps a four-stage ring of 128 x BN
+  x 64 tiles in flight, two consumer warpgroups multiply out of it, ``w``
+  is read in its (K, N) layout through the ``wgmma`` transpose bit, and
+  TMA zero-fills the edges. TMA needs 16-byte row strides and pointers,
+  so K and N multiples of 8 and x, w 16-byte aligned: every serving
+  projection.
+- ``mma``: the bf16 shapes TMA cannot address (the GPU tests'
+  ``(257, 40, 20)``), ``mma.sync`` from one masked shared tile.
+- ``skinny``: M <= 16 (decode), bound by bytes. 16-byte weight loads, a
+  warp up to 512 contiguous bytes of a row, the next batch of rows in
+  flight while the current one is multiplied, x staged in shared memory;
+  K split over a cluster of up to 8 blocks whose partials are summed in
+  rank order through distributed shared memory; one wave of blocks. bf16
+  and float32 alike; needs 16-byte weight rows and pointers.
+- ``ffma``: float32 at M > 16, true float32 FFMA for the 2e-4 parity
+  runs (never TF32).
+
+``tile_matmul.launches`` counts launches; ``tile_matmul.paths`` counts
+them per path.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -21,15 +47,29 @@ from repro_torch.kernels import _build
 
 ACT_CODES = {"none": 0, "tanh": 1, "relu": 2, "silu": 3, "gelu": 4}
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+PATH_CODES = {"wgmma": 0, "mma": 1, "skinny": 2, "ffma": 3}
+SKINNY_MAX_M = 16
 
 
+def choose_path(m: int, n: int, k: int, dtype: torch.dtype, aligned: bool) -> str:
+    """The kernel for an ``(m, k) @ (k, n)`` product of ``dtype``;
+    ``aligned``: x and w start on 16-byte boundaries. Mirrors
+    ``path_fits`` in ``csrc/tile_matmul.cu``."""
+    row_bytes = n * (2 if dtype == torch.bfloat16 else 4)
+    if m <= SKINNY_MAX_M and row_bytes % 16 == 0 and aligned:
+        return "skinny"
+    if dtype == torch.float32:
+        return "ffma"
+    if k > 0 and k % 8 == 0 and n % 8 == 0 and aligned:
+        return "wgmma"
+    return "mma"
+
+
+@functools.cache
 def _lib():
-    lib = _build.load("tile_matmul")
-    fn = lib.tile_matmul_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    fn = _build.load("tile_matmul").tile_matmul_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     return fn
 
 
@@ -53,18 +93,24 @@ def tile_matmul(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
     out_dtype = out_dtype or x.dtype
     if out_dtype not in DTYPE_CODES:
         raise ValueError(f"out_dtype {out_dtype} not supported")
-    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    out = x.new_empty((M, N), dtype=out_dtype)
     if M == 0 or N == 0:
         return out
-    err = _lib()(x.data_ptr(), w.data_ptr(),
-                 None if b is None else b.data_ptr(), out.data_ptr(),
+    xp, wp = x.data_ptr(), w.data_ptr()
+    path = choose_path(M, N, K, x.dtype, xp % 16 == 0 and wp % 16 == 0)
+    err = _lib()(xp, wp, None if b is None else b.data_ptr(), out.data_ptr(),
                  M, N, K, DTYPE_CODES[x.dtype], DTYPE_CODES[out_dtype],
-                 ACT_CODES[activation],
-                 torch.cuda.current_stream(x.device).cuda_stream)
+                 ACT_CODES[activation], PATH_CODES[path],
+                 # the current stream's handle, without building a Stream
+                 # object: a decode step makes hundreds of these calls
+                 torch._C._cuda_getCurrentRawStream(x.get_device()))
     if err:
-        raise RuntimeError(f"tile_matmul launch failed: CUDA error {err}")
+        raise RuntimeError(f"tile_matmul launch failed ({path} path): "
+                           f"CUDA error {err}")
     tile_matmul.launches += 1
+    tile_matmul.paths[path] += 1
     return out
 
 
 tile_matmul.launches = 0
+tile_matmul.paths = dict.fromkeys(PATH_CODES, 0)

@@ -83,6 +83,84 @@ def test_tile_matmul_is_deterministic_and_batch_invariant(cuda, dtype):
     assert torch.equal(full[:64], tm_kernel.tile_matmul(x[:64].contiguous(), w))
 
 
+WGMMA_CASES = [  # (m, k, n) of the TMA + wgmma path: bf16, K and N multiples of 8
+    (17, 96, 80),       # N below one tile, K not a multiple of BK = 64, M tail 17
+    (300, 72, 128),     # N one clipped tile, K = 72, M tail 300
+    (4097, 2560, 80),   # M = 4096 + 1, mamba2's dt projection
+    (300, 960, 320),    # smollm's k/v projection, N over two 128 tiles
+    (129, 128, 2560),   # the 256-wide tiles, M one row past a tile
+    (64, 2560, 5120),   # mamba2's z/x projection, fewer rows than a tile
+]
+
+
+@pytest.mark.parametrize("m,k,n", WGMMA_CASES)
+def test_tile_matmul_wgmma_path_matches_plain(cuda, m, k, n):
+    x = _randn((m, k), torch.bfloat16, cuda, m + k)
+    w = _randn((k, n), torch.bfloat16, cuda, n, k ** -0.5)
+    b = _randn((n,), torch.bfloat16, cuda, 7)
+    before = tm_kernel.tile_matmul.paths["wgmma"]
+    for act in ACTS:
+        for bias in (None, b):
+            out = tm_kernel.tile_matmul(x, w, bias, activation=act)
+            ref = tile_matmul_ref(x, w, bias, activation=act)
+            assert out.dtype == torch.bfloat16 and out.shape == (m, n)
+            torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+    assert tm_kernel.tile_matmul.paths["wgmma"] == before + 2 * len(ACTS)
+
+
+@pytest.mark.parametrize("m,k,n", [(300, 96, 80), (4097, 2560, 128)])
+def test_tile_matmul_wgmma_bf16_in_float32_out(cuda, m, k, n):
+    x = _randn((m, k), torch.bfloat16, cuda, 1)
+    w = _randn((k, n), torch.bfloat16, cuda, 2, k ** -0.5)
+    b = _randn((n,), torch.bfloat16, cuda, 3)
+    before = tm_kernel.tile_matmul.paths["wgmma"]
+    out = tm_kernel.tile_matmul(x, w, b, activation="gelu", out_dtype=torch.float32)
+    assert tm_kernel.tile_matmul.paths["wgmma"] == before + 1
+    assert out.dtype == torch.float32
+    ref = tile_matmul_ref(x, w, b, activation="gelu", out_dtype=torch.float32)
+    torch.testing.assert_close(out, ref, rtol=2e-4, atol=2e-4)
+
+
+def test_tile_matmul_wgmma_is_batch_invariant_at_prefill_size(cuda):
+    """M = 4096 (a prefill of 8 x 512) against its first 300 rows, at
+    mamba2's widest projection: bit-identical, and deterministic."""
+    x = _randn((4096, 2560), torch.bfloat16, cuda, 3)
+    w = _randn((2560, 5120), torch.bfloat16, cuda, 4, 0.02)
+    before = tm_kernel.tile_matmul.paths["wgmma"]
+    full = tm_kernel.tile_matmul(x, w)
+    assert torch.equal(full, tm_kernel.tile_matmul(x, w))
+    assert torch.equal(full[:300], tm_kernel.tile_matmul(x[:300].contiguous(), w))
+    assert tm_kernel.tile_matmul.paths["wgmma"] == before + 3
+
+
+@pytest.mark.parametrize("m,k,n,dtype,path", [
+    (4096, 960, 320, torch.bfloat16, "wgmma"), (257, 40, 20, torch.bfloat16, "mma"),
+    (8, 2560, 80, torch.bfloat16, "skinny"), (8, 960, 320, torch.float32, "skinny"),
+    (300, 960, 320, torch.float32, "ffma")])
+def test_tile_matmul_counts_launches_per_path(cuda, m, k, n, dtype, path):
+    x = _randn((m, k), dtype, cuda, 1)
+    w = _randn((k, n), dtype, cuda, 2, 0.05)
+    before, total = dict(tm_kernel.tile_matmul.paths), tm_kernel.tile_matmul.launches
+    tm_kernel.tile_matmul(x, w)
+    after = tm_kernel.tile_matmul.paths
+    assert {p: after[p] - before[p] for p in after} == {
+        p: int(p == path) for p in tm_kernel.PATH_CODES}
+    assert tm_kernel.tile_matmul.launches == total + 1
+
+
+def test_tile_matmul_c_entry_refuses_a_path_the_shape_cannot_take(cuda):
+    """The C side checks the wrapper's choice and never switches paths."""
+    x = _randn((257, 40), torch.bfloat16, cuda, 1)
+    w = _randn((40, 20), torch.bfloat16, cuda, 2)
+    out = torch.empty((257, 20), dtype=torch.bfloat16, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    codes = tm_kernel.PATH_CODES
+    for path in ("wgmma", "skinny", "ffma"):
+        err = tm_kernel._lib()(x.data_ptr(), w.data_ptr(), None, out.data_ptr(), 257, 20, 40,
+                               1, 1, 0, codes[path], stream)
+        assert err == 1, path  # cudaErrorInvalidValue
+
+
 def test_tile_matmul_counts_launches_and_rejects_bad_input(cuda):
     x = _randn((8, 16), torch.float32, cuda, 5)
     before = tm_kernel.tile_matmul.launches

@@ -75,6 +75,44 @@ def test_non_cpu_tensor_goes_to_the_kernel_never_the_plain_version():
     assert kernel.tile_matmul.launches == before
 
 
+# (M, K, N, dtype, 16-byte aligned) -> path. Every projection of both
+# serving paths (smollm_360m, mamba2_2_7b) at prefill (M 4096) and decode
+# (M 8), then the shapes TMA or the 16-byte weight loads cannot address.
+_SERVING = sorted({(960, 960), (960, 320), (960, 2560), (2560, 960),
+                   (2560, 5120), (2560, 128), (2560, 80), (5120, 2560)})
+PATH_CASES = (
+    [(4096, k, n, torch.bfloat16, True, "wgmma") for k, n in _SERVING]
+    + [(8, k, n, torch.bfloat16, True, "skinny") for k, n in _SERVING]
+    + [(4096, k, n, torch.float32, True, "ffma") for k, n in _SERVING]
+    + [(8, k, n, torch.float32, True, "skinny") for k, n in _SERVING]
+    + [(257, 40, 20, torch.bfloat16, True, "mma"),    # N % 8 != 0
+       (300, 36, 128, torch.bfloat16, True, "mma"),   # K % 8 != 0
+       (300, 960, 320, torch.bfloat16, False, "mma"),  # unaligned pointer
+       (3, 40, 20, torch.bfloat16, True, "mma"),      # 40-byte weight rows
+       (3, 40, 20, torch.float32, True, "skinny"),    # 80-byte weight rows
+       (8, 40, 18, torch.float32, True, "ffma"),      # 72-byte weight rows
+       (8, 960, 320, torch.bfloat16, False, "mma"),
+       (16, 96, 80, torch.bfloat16, True, "skinny"),
+       (17, 96, 80, torch.bfloat16, True, "wgmma"),
+       (4097, 72, 136, torch.bfloat16, True, "wgmma"),
+       (64, 0, 8, torch.bfloat16, True, "mma")])      # K = 0: no TMA box
+
+
+@pytest.mark.parametrize("m,k,n,dtype,aligned,path", PATH_CASES)
+def test_path_choice(m, k, n, dtype, aligned, path):
+    assert kernel.choose_path(m, n, k, dtype, aligned) == path
+    assert set(kernel.tile_matmul.paths) == set(kernel.PATH_CODES) == {
+        "wgmma", "mma", "skinny", "ffma"}
+
+
+def test_path_choice_ignores_m_above_the_decode_bound():
+    """Tile shape and K order depend on (N, K) only: every M > 16 of a
+    shape takes one path, so a row's result does not depend on its batch."""
+    for k, n in _SERVING:
+        assert {kernel.choose_path(m, n, k, torch.bfloat16, True)
+                for m in (17, 300, 4096, 4097, 65536)} == {"wgmma"}
+
+
 @pytest.mark.parametrize("kind", ["swiglu", "gelu"])
 def test_dense_ffn_matches_reference(kind):
     rng = np.random.default_rng(3)
