@@ -6,12 +6,14 @@ each against its plain PyTorch version at the serving paths' shapes, times
 them, and drives the port's two serving paths through its ``serve`` entry
 point (batch 8 x 512-token prompts, 32 greedy tokens each): full-width
 smollm_360m (tile_matmul + flash_attention) and full-width, full-depth
-mamba2_2_7b (tile_matmul + ssd_scan). tile_matmul's per-path counters show
-that every bf16 projection took its wgmma kernel (prefill) or its
-streaming kernel (decode), and its ptxas and SASS are checked for wgmma,
-TMA and spills. For each model it profiles one prefill and one decode step
-and checks float32 logits of the kernel path against the plain path on the
-CPU (smollm at full depth, mamba2 at full width and 8 layers).
+mamba2_2_7b (tile_matmul + ssd_scan). Per-path counters show that every
+bf16 projection took tile_matmul's wgmma kernel (prefill) or its streaming
+kernel (decode), and every bf16 prefill attention and scan the mma path of
+flash_attention and ssd_scan; ptxas and SASS are checked for spills, wgmma,
+TMA and the mma paths' tensor-core instructions. For each model it
+profiles one prefill and one decode step and checks float32 logits of the
+kernel path against the plain path on the CPU (smollm at full depth,
+mamba2 at full width and 8 layers).
 
 Usage (from the repository root, on a host with a CUDA device)::
 
@@ -80,6 +82,19 @@ def _time_ms(fn, iters=20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _graph_ms(fn, iters=20) -> float:
+    """Device time of one call without the host's cost a call: ``iters``
+    calls captured in a CUDA graph, the graph replayed and timed by CUDA
+    events."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    return _time_ms(graph.replay, iters=5) / iters
+
+
 def _bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
@@ -135,11 +150,8 @@ def check_tile_matmul(tm_kernel, tile_matmul_ref) -> dict:
     return err
 
 
-def kernel_build_report(tm_so: Path, ptxas: str) -> dict:
-    """What ptxas said of each tile_matmul kernel (registers, shared memory,
-    spills) and how many wgmma (HGMMA) and TMA (UTMALDG) instructions the
-    library's SASS holds. Fails on a spill in the wgmma or skinny kernels
-    or on a wgmma kernel without HGMMA and TMA."""
+def _ptxas_kernels(ptxas: str) -> dict:
+    """Registers, shared memory and spills of each kernel, from ptxas -v."""
     kernels, name = {}, None
     for line in ptxas.splitlines():
         if "Compiling entry function" in line:
@@ -148,16 +160,44 @@ def kernel_build_report(tm_so: Path, ptxas: str) -> dict:
             kernels[name] = {"spill": line.split(",", 1)[1].strip()}
         elif name and "Used" in line and name in kernels:
             kernels[name]["used"] = line.split(":", 1)[1].strip()
+    return kernels
+
+
+def _sass_ops(so: Path, ops) -> dict:
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([cuobjdump, "-sass", str(tm_so)], capture_output=True, text=True,
+    sass = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True, text=True,
                           check=True, timeout=120).stdout
-    ops = {op: sass.count(op) for op in ("HGMMA", "UTMALDG", "LDL", "STL")}
+    return {op: sass.count(op) for op in ops}
+
+
+# Kernels that must not spill, by a substring of their mangled names, and the
+# SASS each library must hold: tile_matmul's wgmma (HGMMA) and TMA (UTMALDG),
+# the mma paths' tensor-core products (HMMA) and ldmatrix (LDSM) loads.
+NO_SPILL = {"tile_matmul": ("wgmma", "skinny"), "flash_attention": ("flash_fwd_mma",),
+            "ssd_scan": ("ssd_fwd_mma",)}
+SASS_OPS = {"tile_matmul": ("HGMMA", "UTMALDG", "LDL", "STL"),
+            "flash_attention": ("HMMA", "LDSM", "LDGSTS", "LDL", "STL"),
+            "ssd_scan": ("HMMA", "LDSM", "LDGSTS", "LDL", "STL")}
+
+
+def kernel_build_report(build, ptxas: dict) -> dict:
+    """What ptxas said of each kernel of each library (registers, shared
+    memory, spills) and the counts of ``SASS_OPS`` in each library. Fails on
+    a spill in a kernel of ``NO_SPILL``, on tile_matmul without HGMMA and
+    TMA, and on flash_attention or ssd_scan without HMMA and LDSM."""
+    report = {}
     no_spill = "0 bytes spill stores, 0 bytes spill loads"
-    for kname, k in kernels.items():
-        if "wgmma" in kname or "skinny" in kname:
-            assert k["spill"].startswith(no_spill), (kname, k)
-    assert ops["HGMMA"] > 0 and ops["UTMALDG"] > 0, ops
-    return {"kernels": kernels, "sass_ops": ops}
+    for lib, keys in NO_SPILL.items():
+        kernels = _ptxas_kernels(ptxas[lib])
+        ops = _sass_ops(build._target(lib), SASS_OPS[lib])
+        checked = [k for k in kernels if any(key in k for key in keys)]
+        assert checked, (lib, sorted(kernels))
+        for kname in checked:
+            assert kernels[kname]["spill"].startswith(no_spill), (kname, kernels[kname])
+        need = ("HGMMA", "UTMALDG") if lib == "tile_matmul" else ("HMMA", "LDSM")
+        assert all(ops[op] > 0 for op in need), (lib, ops)
+        report[lib] = {"kernels": kernels, "sass_ops": ops}
+    return report
 
 
 FLASH_CASES = (  # (name, BH, G, Tq, Tkv, window, softcap)
@@ -168,8 +208,21 @@ FLASH_CASES = (  # (name, BH, G, Tq, Tkv, window, softcap)
 )
 
 
+# The path each dtype must take at the checks' shapes.
+DTYPE_PATH = {torch.bfloat16: "mma", torch.float32: "ffma"}
+
+
+def _took(fn, path: str, before: dict) -> None:
+    after = fn.paths
+    assert {p: after[p] - before[p] for p in after} == {p: int(p == path) for p in after}, \
+        (path, before, dict(after))
+
+
 def check_flash(fa_kernel, flash_attention_ref) -> dict:
+    """Kernel vs plain version at the serving shape and its window, softcap
+    and q_offset variants: the mma path in bf16, the ffma path in float32."""
     err = {}
+    fn = fa_kernel.flash_attention
     for dtype in (torch.bfloat16, torch.float32):
         worst = 0.0
         for name, bh, g, tq, tkv, window, softcap in FLASH_CASES:
@@ -177,12 +230,15 @@ def check_flash(fa_kernel, flash_attention_ref) -> dict:
             k = _randn((bh, tkv, 64), dtype, 2)
             v = _randn((bh, tkv, 64), dtype, 3)
             kw = dict(causal=True, window=window, softcap=softcap, q_offset=tkv - tq)
-            out = fa_kernel.flash_attention(q, k, v, **kw)
+            before = dict(fn.paths)
+            out = fn(q, k, v, **kw)
+            _took(fn, DTYPE_PATH[dtype], before)
             ref = flash_attention_ref(q, k, v, **kw)
             torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype],
                                        atol=TOL[dtype], msg=lambda m, c=name: f"{c}: {m}")
             worst = max(worst, (out.float() - ref.float()).abs().max().item())
         err[str(dtype)] = worst
+        err[DTYPE_PATH[dtype]] = worst
     torch.cuda.synchronize()
     return err
 
@@ -234,22 +290,31 @@ def time_tile_matmul(tm_kernel, tile_matmul_ref) -> dict:
 
 
 def time_flash(fa_kernel, flash_attention_ref) -> dict:
-    """Prefill attention of one layer, bf16: q (40, 3, 512, 64), causal."""
+    """Prefill attention of one layer, bf16: q (40, 3, 512, 64), causal,
+    through the mma path (``ms``) and, once, the ffma path (``ffma_ms``),
+    beside SDPA (``library_ms``); kernel and SDPA also by CUDA-graph replay
+    (``device_ms``, ``library_device_ms``)."""
     dt, bh, g, t, d = torch.bfloat16, BATCH * 5, 3, PROMPT, 64
     q = _randn((bh, g, t, d), dt, 1)
     k = _randn((bh, t, d), dt, 2)
     v = _randn((bh, t, d), dt, 3)
     kern = _time_ms(lambda: fa_kernel.flash_attention(q, k, v, causal=True))
+    ffma = _time_ms(lambda: fa_kernel.flash_attention(q, k, v, causal=True, path="ffma"))
     plain = _time_ms(lambda: flash_attention_ref(q, k, v, causal=True))
     qs = q.reshape(BATCH, 15, t, d)
     ks = k.reshape(BATCH, 5, t, d).repeat_interleave(g, dim=1)
     vs = v.reshape(BATCH, 5, t, d).repeat_interleave(g, dim=1)
     library = _time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True))
+    device = _graph_ms(lambda: fa_kernel.flash_attention(q, k, v, causal=True))
+    library_device = _graph_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                                      is_causal=True))
     pairs = bh * g * t * (t + 1) // 2          # unmasked (query, key) pairs
     flops = 4 * d * pairs
     nbytes = (q.numel() * 2 + k.numel() + v.numel()) * 2
     bound_ms, bound_by = _bound(flops, nbytes, dt)
-    return dict(ms=kern, plain_ms=plain, library_ms=library, flop=flops, bytes=nbytes,
+    return dict(ms=kern, ffma_ms=ffma, plain_ms=plain, library_ms=library,
+                vs_library=kern / library, device_ms=device,
+                library_device_ms=library_device, flop=flops, bytes=nbytes,
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
@@ -272,13 +337,17 @@ SSD_CASES = (  # (name, Bt, T, H, P, G, N)
 
 def check_ssd(ssd_kernel, ssd_plain) -> dict:
     """Kernel vs the per-timestep plain version: y and the final state, at
-    the path's shape, a ragged T and G > 1, in bf16 and f32."""
+    the path's shape, a ragged T and G > 1: the mma path in bf16, the ffma
+    path in float32."""
     err = {}
+    fn = ssd_kernel.ssd_scan
     for dtype in (torch.bfloat16, torch.float32):
         worst = {"y": 0.0, "state": 0.0}
         for name, *shape in SSD_CASES:
             args = _ssd_inputs(*shape, dtype, seed=sum(shape))
-            y, s = ssd_kernel.ssd_scan(*args)
+            before = dict(fn.paths)
+            y, s = fn(*args)
+            _took(fn, DTYPE_PATH[dtype], before)
             yr, sr = ssd_plain(*args)
             tol = SSD_TOL[dtype]
             torch.testing.assert_close(y.float(), yr.float(), rtol=tol, atol=tol,
@@ -287,7 +356,7 @@ def check_ssd(ssd_kernel, ssd_plain) -> dict:
                                        msg=lambda m, c=name: f"ssd state {c}: {m}")
             worst["y"] = max(worst["y"], (y.float() - yr.float()).abs().max().item())
             worst["state"] = max(worst["state"], (s - sr).abs().max().item())
-        err[str(dtype)] = worst
+        err[str(dtype)] = err[DTYPE_PATH[dtype]] = worst
     torch.cuda.synchronize()
     return err
 
@@ -298,19 +367,24 @@ def time_ssd(ssd_kernel, ssd_plain) -> dict:
     state update and readout, 2 N P each a (batch, head, step); bytes read
     each input and write each output once. Bound under the bf16 tensor-core
     peak (the least time the card could take) and under the float32 FFMA
-    peak this kernel computes at. No single PyTorch call computes an SSD
-    scan: no library time."""
+    peak the ffma path computes at. ``ms`` is the mma path, ``ffma_ms`` the
+    ffma path on the same bf16 inputs, ``device_ms`` the mma path by
+    CUDA-graph replay. No single PyTorch call computes an SSD scan: no
+    library time."""
     bt, t, h, p, g, n = SSD_PATH
     dt = torch.bfloat16
     args = _ssd_inputs(bt, t, h, p, g, n, dt, seed=5)
     kern = _time_ms(lambda: ssd_kernel.ssd_scan(*args))
+    ffma = _time_ms(lambda: ssd_kernel.ssd_scan(*args, path="ffma"), iters=5)
+    device = _graph_ms(lambda: ssd_kernel.ssd_scan(*args))
     plain = _time_ms(lambda: ssd_plain(*args), iters=5)
     flops = 4 * bt * h * t * n * p
     nbytes = (2 * bt * t * h * p * 2 + bt * h * n * p * 4 + bt * t * h * 4
               + 2 * bt * t * g * n * 2 + 2 * h * 4)
     bound_ms, bound_by = _bound(flops, nbytes, dt)
     bound_f32_ms, bound_f32_by = _bound(flops, nbytes, torch.float32)
-    return dict(ms=kern, plain_ms=plain, library_ms=None, flop=flops, bytes=nbytes,
+    return dict(ms=kern, ffma_ms=ffma, device_ms=device, plain_ms=plain, library_ms=None,
+                flop=flops, bytes=nbytes,
                 bound_ms=bound_ms, bound_by=bound_by, bound_f32_ms=bound_f32_ms,
                 bound_f32_by=bound_f32_by)
 
@@ -337,7 +411,8 @@ def serve_path(serve, M, cfg, params, counters: dict) -> dict:
     _zero(counters)
     res = serve(cfg.name, gen=GEN, **kw)
     launches = _read(counters)
-    paths = dict(counters["tile_matmul"].paths)
+    by_path = {k: dict(fn.paths) for k, fn in counters.items()}
+    paths = by_path["tile_matmul"]
     peak = torch.cuda.max_memory_allocated()
     toks = res["tokens"]
     assert toks.shape == (BATCH, GEN), toks.shape
@@ -345,13 +420,17 @@ def serve_path(serve, M, cfg, params, counters: dict) -> dict:
     out = dict(arch=cfg.name, batch=BATCH, prompt_len=PROMPT, gen=GEN, cache_len=CACHE,
                prefill_s=res["t_prefill"], decode_s=res["t_decode"],
                decode_tok_s=BATCH * GEN / res["t_decode"], peak_mem_bytes=peak,
-               launches=launches, tile_matmul_paths=paths, params=M.param_count(cfg))
+               launches=launches, tile_matmul_paths=paths, launches_by_path=by_path,
+               params=M.param_count(cfg))
     print(f"serve {cfg.name}: prefill {BATCH}x{PROMPT} {res['t_prefill']:.4f} s, decode "
           f"{out['decode_tok_s']:.1f} tok/s, peak memory {peak / 2**30:.3f} GiB, "
-          f"launches {launches}, tile_matmul paths {paths}")
-    # Every bf16 projection takes wgmma in prefill and skinny in decode.
+          f"launches {launches}, by path {by_path}")
+    # Every bf16 projection takes wgmma in prefill and skinny in decode;
+    # every bf16 prefill attention and scan takes mma.
     per_pass = launches["tile_matmul"] // (1 + GEN)
     assert paths == {"wgmma": per_pass, "mma": 0, "skinny": per_pass * GEN, "ffma": 0}, paths
+    for k in ("flash_attention", "ssd_scan"):
+        assert by_path[k] == {"mma": launches[k], "ffma": 0}, (k, by_path[k])
     return out
 
 
@@ -471,9 +550,9 @@ def main() -> int:
     detail["build_s"] = time.perf_counter() - t0
     print(f"build: {detail['build_s']:.1f} s")
     detail["ptxas"] = {k: _build.build_log(k) for k in _build.KERNELS}
-    detail["tile_matmul_build"] = kernel_build_report(_build._target("tile_matmul"),
-                                                      detail["ptxas"]["tile_matmul"])
-    print(f"tile_matmul build: {detail['tile_matmul_build']}")
+    detail["kernel_build"] = kernel_build_report(_build, detail["ptxas"])
+    for k, rep in detail["kernel_build"].items():
+        print(f"{k} build: {rep}")
 
     # 3. Each kernel against its plain version at the paths' shapes.
     detail["tile_matmul_err"] = check_tile_matmul(tm_kernel, tile_matmul_ref)
@@ -540,17 +619,23 @@ def main() -> int:
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:88",
              launches=sm["launches"]["flash_attention"],
+             launches_by_path=sm["launches_by_path"]["flash_attention"],
              max_abs_err=detail["flash_attention_err"][str(torch.bfloat16)],
              ms=fat["ms"], plain_ms=fat["plain_ms"], bound_ms=fat["bound_ms"],
-             bound_by=fat["bound_by"], library_ms=fat["library_ms"],
-             timed="one layer's prefill attention, q (40, 3, 512, 64), causal, bf16"),
+             bound_by=fat["bound_by"], library_ms=fat["library_ms"], ffma_ms=fat["ffma_ms"],
+             device_ms=fat["device_ms"], library_device_ms=fat["library_device_ms"],
+             timed="one layer's prefill attention, q (40, 3, 512, 64), causal, bf16, "
+                   "mma path"),
         dict(name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan/kernel.py:70",
              launches=ms["launches"]["ssd_scan"],
+             launches_by_path=ms["launches_by_path"]["ssd_scan"],
              max_abs_err=detail["ssd_scan_err"][str(torch.bfloat16)]["y"],
              ms=sst["ms"], plain_ms=sst["plain_ms"], bound_ms=sst["bound_ms"],
-             bound_by=sst["bound_by"], library_ms=None,
-             timed="one mamba2 layer's prefill scan, x (8, 512, 80, 64), N 128, bf16"),
+             bound_by=sst["bound_by"], library_ms=None, ffma_ms=sst["ffma_ms"],
+             device_ms=sst["device_ms"],
+             timed="one mamba2 layer's prefill scan, x (8, 512, 80, 64), N 128, bf16, "
+                   "mma path"),
     ]
     OUT.parent.mkdir(exist_ok=True)
     OUT.write_text(json.dumps(detail, indent=1, default=str))

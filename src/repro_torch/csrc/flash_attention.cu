@@ -15,19 +15,47 @@
 // (GQA's point: K/V traffic divided by G), and G need not be a power of two
 // (smollm_360m has G = 3).
 //
-// What bounds it on an H100, and what the design does about it: causal
-// prefill attention at smollm's shapes is about 4 GFLOP against 21 MB a
-// layer, so by the card's tensor-core rate it would be bound by bytes. This
-// first version computes in float32 FFMA (both S = QK^T and PV), so in
-// practice it is bound by FFMA issue and shared-memory reads: each thread
-// keeps a 4-row x 8-key score tile and a 4-row x D/8 output tile in
-// registers, reads Q and K rows from padded (conflict-free) shared memory,
-// and tiles outside the causal/window band are never loaded. mma.sync or
-// wgmma for the two products is the next step.
+// Two paths. The wrapper (kernels/flash_attention/kernel.py::choose_path)
+// picks one from (dtype, D, alignment) and passes it in; a path the inputs
+// cannot take returns cudaErrorInvalidValue, never another path.
+//  * mma (bf16, 16-byte aligned q/k/v/o: every serving prefill). What bounds
+//    it: causal prefill at smollm's shapes is about 4 GFLOP against 21 MB a
+//    layer, so by the card's rates it is bound by bytes (about 6 us). On an
+//    H100 it takes about 38 us of device time (probe_attention_scan.py):
+//    a block's fixed cost (Q gather, first tile, output) is about 15 us of
+//    it and each product 5-7 us, while the softmax and the K/V reloads from
+//    L2 each move it by under 7%, and 128-row blocks or 128-key tiles were
+//    slower. So it is bound by how fast ldmatrix feeds mma.sync (about 105
+//    TFLOP/s of the attention's work); wgmma from shared memory, or two
+//    16-row tiles a warp so each K/V fragment serves twice, is the next step.
+//    Both products run on bf16 tensor cores (mma.sync.m16n8k16, float32
+//    accumulate). A block of 4 warps owns 64 folded rows, 16 a warp; Q is
+//    gathered once with cp.async (each folded row is a contiguous run of D
+//    values) and kept in registers as A fragments (ldmatrix). K/V tiles of
+//    64 keys stream through a two-stage cp.async ring in padded shared
+//    memory (row stride D + 8, so ldmatrix is free of bank conflicts): the
+//    next tile loads while this one is multiplied. K enters S = QK^T through
+//    ldmatrix, V enters PV through ldmatrix.trans. The online softmax runs on
+//    the S accumulators in registers (a row lives in a quad of lanes: two
+//    shfl_xor for its max and sum), and P, rounded to bf16, is the A
+//    fragment of PV as it stands: the m16n8 accumulator layout is the
+//    m16n8k16 A layout, so P never goes through shared memory. Masks are
+//    computed only on tiles that cross the causal diagonal, the window edge
+//    or the Tkv tail; tiles outside the band are never loaded. Row tiles are
+//    launched longest first (the causal band grows with the row), and the
+//    output goes out through shared memory as 16-byte stores.
+//  * ffma (float32, and bf16 the mma path cannot take). True float32 FFMA
+//    (never TF32) for the float32 parity runs: each thread keeps a 4-row x
+//    8-key score tile and a 4-row x D/8 output tile in registers, reads Q
+//    and K rows from padded (conflict-free) shared memory, and tiles outside
+//    the causal/window band are never loaded. This was the first version of
+//    the kernel; chip_smoke.py also times it in bf16 beside the mma path.
 //
 // Masking reproduces the reference constants: masked scores are -1e30 (not
 // -inf) and l is clamped at 1e-30. Ragged Tq and Tkv tails are masked. P is
-// rounded to the input type before PV, as the reference casts p to v.dtype.
+// rounded to the input type before PV, as the reference casts p to v.dtype,
+// and l sums the unrounded p, as the reference does. Deterministic: one
+// block owns an output row, no atomics.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -35,10 +63,12 @@
 
 namespace {
 
-constexpr int ROWS = 64;     // (query position, head) rows a block owns
 constexpr int BK = 64;       // keys a KV tile holds
-constexpr int THREADS = 128; // 16 row groups of 4 rows x 8 lanes
+constexpr int ROWS = 64;     // ffma: (query position, head) rows a block owns
+constexpr int THREADS = 128; // ffma: 16 row groups of 4 rows x 8 lanes
 constexpr float NEG_INF = -1e30f;
+
+enum Path { PATH_MMA = 0, PATH_FFMA = 1 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -49,6 +79,9 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(v);
 }
 
+// ---------------------------------------------------------------------------
+// ffma: float32 FFMA (and bf16 inputs the mma path cannot take).
+// ---------------------------------------------------------------------------
 template <int D>
 constexpr int smem_floats() {
   return ROWS * (D + 1) + BK * (D + 1) + BK * D + ROWS * (BK + 1);
@@ -56,7 +89,7 @@ constexpr int smem_floats() {
 
 template <class T, int D>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+flash_fwd_ffma(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
           T* __restrict__ o, int G, int Tq, int Tkv, int causal, int window,
           float softcap, int q_offset, float scale) {
   constexpr int DJ = D / 8;  // output columns a thread owns
@@ -188,50 +221,332 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   }
 }
 
+// ---------------------------------------------------------------------------
+// mma: bf16 tensor cores, cp.async double buffering, P kept in registers.
+// ---------------------------------------------------------------------------
+constexpr int PAD = 8;  // bf16 elements past each shared row: 16 bytes
+constexpr int MMA_WARPS = 4;               // 16 folded rows each
+constexpr int MMA_BK = 64;                 // keys a K/V tile holds
+constexpr int MMA_ROWS = 16 * MMA_WARPS;   // rows a block owns
+constexpr int MMA_THREADS = 32 * MMA_WARPS;
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared; zero-filled when !in (src is not read).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(in ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c += a b: mma.sync.m16n8k16, row.col, bf16 in, float32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats as a bf16 pair, the first in the low half (the lower column).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int D>
+constexpr int mma_smem_bytes() {
+  return (MMA_ROWS + 4 * MMA_BK) * (D + PAD) * 2;  // Q, and two stages of K and V
+}
+
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS)
+flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+              const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int G,
+              int Tq, int Tkv, int causal, int window, float softcap, int q_offset,
+              float scale) {
+  constexpr int LD = D + PAD;   // shared row stride (elements)
+  constexpr int KC = D / 16;    // k-steps of S = QK^T
+  constexpr int DT = D / 8;     // 8-wide column tiles of the output
+  constexpr int CPR = D / 8;    // 16-byte pieces of a row
+  constexpr int NT = MMA_BK / 8;  // 8-key tiles of S
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [MMA_ROWS][LD]
+  __nv_bfloat16* Ks = Qs + MMA_ROWS * LD;                          // [2][MMA_BK][LD]
+  __nv_bfloat16* Vs = Ks + 2 * MMA_BK * LD;                        // [2][MMA_BK][LD]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int bh = blockIdx.y;
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * MMA_ROWS;  // longest rows first
+  const int R = G * Tq;
+  const __nv_bfloat16* qb = q + (size_t)bh * R * D;
+  const __nv_bfloat16* kb = k + (size_t)bh * Tkv * D;
+  const __nv_bfloat16* vb = v + (size_t)bh * Tkv * D;
+  __nv_bfloat16* ob = o + (size_t)bh * R * D;
+
+  // Q: folded row rr is row rr / G of head rr % G, a contiguous run of D.
+  // (The copy loops stay rolled: unrolled, they cost registers and spill at D = 16.)
+#pragma unroll 1
+  for (int i = tid; i < MMA_ROWS * CPR; i += MMA_THREADS) {
+    const int r = i / CPR, c = (i % CPR) * 8, rr = r0 + r;
+    const bool in = rr < R;
+    const __nv_bfloat16* src = in ? qb + ((size_t)(rr % G) * Tq + rr / G) * D + c : qb;
+    cp_async16(smem_u32(Qs + r * LD + c), src, in);
+  }
+
+  // Query positions this tile covers, and the band of keys they can see.
+  const int qmin = q_offset + r0 / G;
+  const int qmax = q_offset + (min(R, r0 + MMA_ROWS) - 1) / G;
+  const int kv_end = causal ? min(Tkv, qmax + 1) : Tkv;
+  const int kv_begin = window > 0 ? max(0, qmin - window + 1) / MMA_BK * MMA_BK : 0;
+
+  auto load_kv = [&](int kv0, int stage) {
+    __nv_bfloat16* ks = Ks + stage * MMA_BK * LD;
+    __nv_bfloat16* vs = Vs + stage * MMA_BK * LD;
+#pragma unroll 1
+    for (int i = tid; i < MMA_BK * CPR; i += MMA_THREADS) {
+      const int r = i / CPR, c = (i % CPR) * 8, kp = kv0 + r;
+      const bool in = kp < Tkv;
+      const size_t off = in ? (size_t)kp * D + c : 0;
+      cp_async16(smem_u32(ks + r * LD + c), kb + off, in);
+      cp_async16(smem_u32(vs + r * LD + c), vb + off, in);
+    }
+  };
+  if (kv_begin < kv_end) load_kv(kv_begin, 0);
+  cp_async_commit();
+
+  // This thread's two rows: g and g + 8 of the warp's 16.
+  const int wrow = warp * 16;
+  int qpos[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int rr = r0 + wrow + g + 8 * h;
+    qpos[h] = q_offset + (rr < R ? rr / G : 0);
+  }
+  uint32_t qf[KC][4];
+  float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f};
+  float acc[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  int stage = 0;
+  for (int kv0 = kv_begin; kv0 < kv_end; kv0 += MMA_BK, stage ^= 1) {
+    if (kv0 + MMA_BK < kv_end) load_kv(kv0 + MMA_BK, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile (and Q) landed; the next stays in flight
+    __syncthreads();
+    if (kv0 == kv_begin) {
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc)
+        ldsm_x4(qf[kc], smem_u32(Qs + (wrow + (lane & 15)) * LD + kc * 16 + ((lane >> 4) << 3)));
+    }
+    const __nv_bfloat16* ks = Ks + stage * MMA_BK * LD;
+    const __nv_bfloat16* vs = Vs + stage * MMA_BK * LD;
+
+    // S = Q K^T: 16 rows x MMA_BK keys a warp, NT 8-key tiles.
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc)
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t b[4];
+        const int key = np * 16 + ((lane >> 4) << 3) + (lane & 7);
+        ldsm_x4(b, smem_u32(ks + key * LD + kc * 16 + (((lane >> 3) & 1) << 3)));
+        mma_bf16(s[2 * np], qf[kc], b[0], b[1]);
+        mma_bf16(s[2 * np + 1], qf[kc], b[2], b[3]);
+      }
+
+    // Online softmax in the log2 domain; masks only where the tile needs them.
+    const bool masked = kv0 + MMA_BK > Tkv || (causal && kv0 + MMA_BK - 1 > qmin) ||
+                        (window > 0 && kv0 <= qmax - window);
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        float x = s[j][e] * scale;
+        if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
+        x *= LOG2E;
+        if (masked) {
+          const int kp = kv0 + j * 8 + 2 * t4 + (e & 1);
+          bool ok = kp < Tkv;
+          if (causal) ok = ok && kp <= qpos[h];
+          if (window > 0) ok = ok && kp > qpos[h] - window;
+          if (!ok) x = NEG_INF;
+        }
+        s[j][e] = x;
+        mx[h] = fmaxf(mx[h], x);
+      }
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m_r[h], mx[h]);
+      corr[h] = exp2f(m_r[h] - m_new);
+      m_r[h] = m_new;
+    }
+    // P = exp(s - m), rounded to bf16 as the A fragments of PV: keys
+    // 16 kc .. 16 kc + 15 are tiles 2 kc and 2 kc + 1.
+    uint32_t pa[NT / 2][4];
+    float ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float p0 = exp2f(s[j][0] - m_r[0]), p1 = exp2f(s[j][1] - m_r[0]);
+      const float p2 = exp2f(s[j][2] - m_r[1]), p3 = exp2f(s[j][3] - m_r[1]);
+      ps[0] += p0 + p1;
+      ps[1] += p2 + p3;
+      pa[j >> 1][(j & 1) * 2] = pack_bf16(p0, p1);
+      pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      ps[h] += __shfl_xor_sync(0xffffffffu, ps[h], 1);
+      ps[h] += __shfl_xor_sync(0xffffffffu, ps[h], 2);
+      l_r[h] = l_r[h] * corr[h] + ps[h];
+    }
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      acc[j][0] *= corr[0];
+      acc[j][1] *= corr[0];
+      acc[j][2] *= corr[1];
+      acc[j][3] *= corr[1];
+    }
+
+    // acc += P V: V enters as the col operand through ldmatrix.trans.
+#pragma unroll
+    for (int kc = 0; kc < NT / 2; ++kc)
+#pragma unroll
+      for (int dp = 0; dp < DT / 2; ++dp) {
+        uint32_t b[4];
+        const int key = kc * 16 + (((lane >> 3) & 1) << 3) + (lane & 7);
+        ldsm_x4_trans(b, smem_u32(vs + key * LD + dp * 16 + ((lane >> 4) << 3)));
+        mma_bf16(acc[2 * dp], pa[kc], b[0], b[1]);
+        mma_bf16(acc[2 * dp + 1], pa[kc], b[2], b[3]);
+      }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // Q has landed even where the band held no tile
+
+  // O = acc / l through the warp's own 16 rows of Qs, then 16-byte stores.
+  __nv_bfloat16* os = Qs + wrow * LD;
+  const float inv0 = 1.f / fmaxf(l_r[0], 1e-30f), inv1 = 1.f / fmaxf(l_r[1], 1e-30f);
+#pragma unroll
+  for (int j = 0; j < DT; ++j) {
+    const int c = j * 8 + 2 * t4;
+    *reinterpret_cast<uint32_t*>(os + g * LD + c) = pack_bf16(acc[j][0] * inv0, acc[j][1] * inv0);
+    *reinterpret_cast<uint32_t*>(os + (g + 8) * LD + c) =
+        pack_bf16(acc[j][2] * inv1, acc[j][3] * inv1);
+  }
+  __syncwarp();
+  for (int i = lane; i < 16 * CPR; i += 32) {
+    const int r = i / CPR, c = (i % CPR) * 8, rr = r0 + wrow + r;
+    if (rr < R)
+      *reinterpret_cast<uint4*>(ob + ((size_t)(rr % G) * Tq + rr / G) * D + c) =
+          *reinterpret_cast<const uint4*>(os + r * LD + c);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launch.
+// ---------------------------------------------------------------------------
+bool path_fits(int path, int dtype, int D, bool aligned) {
+  const bool d_ok = D == 16 || D == 32 || D == 64 || D == 128;
+  switch (path) {
+    case PATH_MMA: return d_ok && dtype == 1 && aligned;
+    case PATH_FFMA: return d_ok && (dtype == 0 || dtype == 1);
+    default: return false;
+  }
+}
+
 template <class T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int BH, int G,
-                   int Tq, int Tkv, int causal, int window, float softcap, int q_offset,
-                   float scale, cudaStream_t stream) {
+cudaError_t launch(int path, const void* q, const void* k, const void* v, void* o, int BH,
+                   int G, int Tq, int Tkv, int causal, int window, float softcap,
+                   int q_offset, float scale, cudaStream_t stream) {
+  if constexpr (sizeof(T) == 2) {
+    if (path == PATH_MMA) {
+      dim3 grid((G * Tq + MMA_ROWS - 1) / MMA_ROWS, BH);
+      constexpr int bytes = mma_smem_bytes<D>();
+      cudaError_t err = cudaFuncSetAttribute(
+          flash_fwd_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      if (err != cudaSuccess) return err;
+      flash_fwd_mma<D><<<grid, MMA_THREADS, bytes, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+          static_cast<T*>(o), G, Tq, Tkv, causal, window, softcap, q_offset, scale);
+      return cudaGetLastError();
+    }
+  }
   constexpr size_t bytes = smem_floats<D>() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
   dim3 grid((G * Tq + ROWS - 1) / ROWS, BH);
-  flash_fwd<T, D><<<grid, THREADS, bytes, stream>>>(
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_ffma<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  flash_fwd_ffma<T, D><<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), G, Tq, Tkv, causal, window, softcap, q_offset, scale);
   return cudaGetLastError();
 }
 
 template <class T>
-cudaError_t dispatch(int D, const void* q, const void* k, const void* v, void* o, int BH,
-                     int G, int Tq, int Tkv, int causal, int window, float softcap,
+cudaError_t dispatch(int path, int D, const void* q, const void* k, const void* v, void* o,
+                     int BH, int G, int Tq, int Tkv, int causal, int window, float softcap,
                      int q_offset, float scale, cudaStream_t s) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s);
-    case 32: return launch<T, 32>(q, k, v, o, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s);
-    case 64: return launch<T, 64>(q, k, v, o, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s);
-    case 128: return launch<T, 128>(q, k, v, o, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s);
+    case 16: return launch<T, 16>(path, q, k, v, o, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s);
+    case 32: return launch<T, 32>(path, q, k, v, o, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s);
+    case 64: return launch<T, 64>(path, q, k, v, o, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s);
+    case 128: return launch<T, 128>(path, q, k, v, o, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16. D in {16, 32, 64, 128}.
-// Returns the CUDA error of the launch; 0 means launched.
+// dtype codes: 0 = float32, 1 = bfloat16. D in {16, 32, 64, 128}. path: 0 =
+// mma (bf16, q/k/v/o 16-byte aligned), 1 = ffma. Returns the CUDA error of
+// the launch (cudaErrorInvalidValue for a path the inputs cannot take); 0
+// means launched.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       int BH, int G, int Tq, int Tkv, int D, int dtype,
                                       int causal, int window, float softcap, int q_offset,
-                                      float scale, void* stream) {
+                                      float scale, int path, void* stream) {
+  const bool aligned = ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) &
+                        15) == 0;
+  if (!path_fits(path, dtype, D, aligned)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0) {
-    err = dispatch<float>(D, q, k, v, o, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s);
-  } else if (dtype == 1) {
-    err = dispatch<__nv_bfloat16>(D, q, k, v, o, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
+  cudaError_t err = dtype == 0
+      ? dispatch<float>(path, D, q, k, v, o, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s)
+      : dispatch<__nv_bfloat16>(path, D, q, k, v, o, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s);
   return static_cast<int>(err);
 }

@@ -8,35 +8,66 @@ per (batch, head), the float32 state kept in shared memory throughout. The
 kernel takes the model's ``(Bt, T, H, P)`` layout and grouped B/C directly
 (head ``h`` reads group ``h // (H / G)``), so neither the reference
 wrapper's transposes nor its ``jnp.repeat`` of B/C are materialised, and it
-masks a ragged last chunk itself, so any T is taken. The source's header
-says what bounds it on the card.
+masks a ragged last chunk itself, so any T is taken.
+
+``choose_path`` picks one of two kernels, and the C entry point takes it
+as an int (it returns an error for a path the inputs cannot take; it never
+switches):
+
+- ``mma``: bf16 with N 64 or 128, P a multiple of 32 and 16-byte aligned
+  x, y, B, C (every serving prefill scan). The chunk's products on bf16
+  tensor cores (``mma.sync.m16n8k16``), the float32 operands M, S and
+  B∘w as bf16 hi + lo pairs, the next chunk loading by ``cp.async``; a
+  block a (batch, head, 32 columns of P).
+- ``ffma``: float32, for the 1e-3 parity runs, and bf16 shapes the ``mma``
+  path cannot take. True float32 FFMA, a block a (batch, head).
+
+``ssd_scan.launches`` counts launches; ``ssd_scan.paths`` counts them per
+path. The source's header says what bounds each on the card.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import _build
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+PATH_CODES = {"mma": 0, "ffma": 1}
+MMA_STATE_DIMS = (64, 128)
+MMA_P_SLICE = 32
 
 
+def choose_path(dtype: torch.dtype, n: int, p: int, aligned: bool) -> str:
+    """The kernel for a scan with state dim ``n`` and head dim ``p`` in
+    ``dtype``; ``aligned``: x, y, B and C start on 16-byte boundaries.
+    Mirrors ``path_fits`` in ``csrc/ssd_scan.cu``."""
+    if dtype not in DTYPE_CODES:
+        raise ValueError(f"ssd_scan takes float32 or bfloat16, not {dtype}")
+    if (dtype == torch.bfloat16 and n in MMA_STATE_DIMS and p % MMA_P_SLICE == 0
+            and aligned):
+        return "mma"
+    return "ffma"
+
+
+@functools.cache
 def _lib():
     fn = _build.load("ssd_scan").ssd_scan_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     return fn
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-             c: torch.Tensor, d: torch.Tensor):
+             c: torch.Tensor, d: torch.Tensor, *, path: str | None = None):
     """x: (Bt, T, H, P); dt: (Bt, T, H) float32; a, d: (H,) float32;
     b, c: (Bt, T, G, N) in x's dtype. Returns (y (Bt, T, H, P) in x's dtype,
-    final_state (Bt, H, N, P) float32), on CUDA. Raises on anything the
-    kernel does not take."""
+    final_state (Bt, H, N, P) float32), on CUDA. ``path`` overrides
+    ``choose_path`` (the C side refuses a path the inputs cannot take).
+    Raises on anything the kernel does not take."""
     if not all(t.is_cuda for t in (x, dt, a, b, c, d)):
         raise ValueError("ssd_scan kernel needs CUDA tensors")
     if x.dim() != 4 or b.dim() != 4 or c.shape != b.shape:
@@ -60,13 +91,19 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor
     state = torch.empty((Bt, H, N, P), dtype=torch.float32, device=x.device)
     if x.numel() == 0:
         return y, state.zero_()
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, y, b, c))
+    path = path or choose_path(x.dtype, N, P, aligned)
     err = _lib()(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
                  d.data_ptr(), y.data_ptr(), state.data_ptr(), Bt, T, H, G, N, P,
-                 DTYPE_CODES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+                 DTYPE_CODES[x.dtype], PATH_CODES[path],
+                 # the current stream's handle, without building a Stream object
+                 torch._C._cuda_getCurrentRawStream(x.get_device()))
     if err:
-        raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")
+        raise RuntimeError(f"ssd_scan launch failed ({path} path): CUDA error {err}")
     ssd_scan.launches += 1
+    ssd_scan.paths[path] += 1
     return y, state
 
 
 ssd_scan.launches = 0
+ssd_scan.paths = dict.fromkeys(PATH_CODES, 0)

@@ -102,3 +102,23 @@ def test_non_cpu_tensor_goes_to_the_kernel_never_the_plain_version():
     with pytest.raises(ValueError, match="CUDA"):
         attention(q, k, k)
     assert kernel.flash_attention.launches == before
+
+
+@pytest.mark.parametrize("dtype,d,aligned,path", [
+    (torch.bfloat16, 64, True, "mma"),       # every serving prefill
+    (torch.bfloat16, 128, True, "mma"),
+    (torch.bfloat16, 16, True, "mma"),
+    (torch.bfloat16, 64, False, "ffma"),     # cp.async needs 16-byte rows
+    (torch.float32, 64, True, "ffma"),       # float32 parity runs
+    (torch.float32, 128, False, "ffma"),
+])
+def test_path_choice(dtype, d, aligned, path):
+    assert kernel.choose_path(dtype, d, aligned) == path
+    assert set(kernel.flash_attention.paths) == set(kernel.PATH_CODES) == {"mma", "ffma"}
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 48), (torch.bfloat16, 256),
+                                     (torch.float32, 8), (torch.float16, 64)])
+def test_path_choice_refuses_what_no_kernel_takes(dtype, d):
+    with pytest.raises(ValueError):
+        kernel.choose_path(dtype, d, True)

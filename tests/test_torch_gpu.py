@@ -195,6 +195,74 @@ def test_flash_attention_matches_plain(cuda, bh, g, tq, tk, d, window, softcap,
                                atol=TOL[dtype])
 
 
+FLASH_MMA_CASES = [  # (bh, g, tq, tk, d, window, softcap): bf16 through mma
+    (6, 1, 130, 130, 64, 0, 0.0),      # G = 1, ragged Tq = Tkv
+    (4, 3, 77, 133, 64, 0, 0.0),       # G = 3, q_offset = 56, both ragged
+    (2, 8, 50, 70, 128, 0, 0.0),       # G = 8, D = 128, q_offset = 20
+    (4, 3, 300, 300, 64, 100, 0.0),    # window crossing tile edges
+    (3, 8, 90, 190, 128, 0, 30.0),     # softcap, q_offset = 100
+    (2, 3, 200, 264, 64, 70, 25.0),    # window + softcap + q_offset
+]
+
+
+@pytest.mark.parametrize("bh,g,tq,tk,d,window,softcap", FLASH_MMA_CASES)
+def test_flash_attention_mma_path_matches_plain(cuda, bh, g, tq, tk, d, window, softcap):
+    q = _randn((bh, g, tq, d), torch.bfloat16, cuda, 1)
+    k = _randn((bh, tk, d), torch.bfloat16, cuda, 2)
+    v = _randn((bh, tk, d), torch.bfloat16, cuda, 3)
+    kw = dict(causal=True, window=window, softcap=softcap, q_offset=tk - tq)
+    before = dict(fa_kernel.flash_attention.paths)
+    out = fa_kernel.flash_attention(q, k, v, **kw)
+    assert fa_kernel.flash_attention.paths["mma"] == before["mma"] + 1
+    assert fa_kernel.flash_attention.paths["ffma"] == before["ffma"]
+    ref = flash_attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("dtype,path", [(torch.bfloat16, "mma"), (torch.float32, "ffma")])
+def test_flash_attention_is_deterministic_and_counts_its_path(cuda, dtype, path):
+    q = _randn((4, 3, 200, 64), dtype, cuda, 1)
+    k = _randn((4, 200, 64), dtype, cuda, 2)
+    v = _randn((4, 200, 64), dtype, cuda, 3)
+    paths, total = dict(fa_kernel.flash_attention.paths), fa_kernel.flash_attention.launches
+    first = fa_kernel.flash_attention(q, k, v, window=90)
+    assert torch.equal(first, fa_kernel.flash_attention(q, k, v, window=90))
+    after = fa_kernel.flash_attention.paths
+    assert {p: after[p] - paths[p] for p in after} == {
+        p: 2 * int(p == path) for p in fa_kernel.PATH_CODES}
+    assert fa_kernel.flash_attention.launches == total + 2
+
+
+def test_flash_attention_bf16_ffma_path_matches_mma(cuda):
+    """The first (FFMA) kernel still takes bf16 when asked, as chip_smoke.py
+    times it; both agree with the plain version."""
+    q = _randn((4, 3, 128, 64), torch.bfloat16, cuda, 4)
+    k = _randn((4, 128, 64), torch.bfloat16, cuda, 5)
+    v = _randn((4, 128, 64), torch.bfloat16, cuda, 6)
+    ref = flash_attention_ref(q, k, v)
+    for path in ("mma", "ffma"):
+        out = fa_kernel.flash_attention(q, k, v, path=path)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+
+
+def test_flash_attention_c_entry_refuses_a_path_the_inputs_cannot_take(cuda):
+    q = _randn((1, 1, 16, 64), torch.float32, cuda, 1)
+    k = _randn((1, 16, 64), torch.float32, cuda, 2)
+    out = torch.empty_like(q)
+    stream = torch._C._cuda_getCurrentRawStream(q.get_device())
+    lib, codes = fa_kernel._lib(), fa_kernel.PATH_CODES
+    # float32 through mma; bf16 through mma from an unaligned pointer; D = 48
+    assert lib(q.data_ptr(), k.data_ptr(), k.data_ptr(), out.data_ptr(), 1, 1, 16, 16, 64,
+               0, 1, 0, 0.0, 0, 0.125, codes["mma"], stream) == 1
+    qb = _randn((1, 1, 17, 64), torch.bfloat16, cuda, 1)
+    kb = _randn((1, 16, 64), torch.bfloat16, cuda, 2)
+    assert lib(qb.data_ptr() + 2, kb.data_ptr(), kb.data_ptr(), qb.data_ptr() + 2, 1, 1, 16,
+               16, 64, 1, 1, 0, 0.0, 0, 0.125, codes["mma"], stream) == 1
+    for path in ("mma", "ffma"):
+        assert lib(qb.data_ptr(), kb.data_ptr(), kb.data_ptr(), qb.data_ptr(), 1, 1, 16, 16,
+                   48, 1, 1, 0, 0.0, 0, 0.125, codes[path], stream) == 1
+
+
 def test_gqa_attention_on_cuda_matches_cpu_chunked_twin(cuda):
     from repro_torch.models.attention import AttnCfg, gqa_attention
     cfg = AttnCfg(n_heads=15, n_kv_heads=5, head_dim=64, window=0)
@@ -262,6 +330,61 @@ def test_ssd_scan_is_deterministic(cuda, dtype):
     y1, s1 = ssd_kernel.ssd_scan(*args)
     y2, s2 = ssd_kernel.ssd_scan(*args)
     assert torch.equal(y1, y2) and torch.equal(s1, s2)
+
+
+SSD_MMA_CASES = [  # (bt, t, h, p, g, n): bf16 through mma
+    (2, 333, 8, 64, 2, 128),     # ragged T, G = 2
+    (1, 77, 6, 64, 3, 128),      # ragged, G = 3, under two chunks
+    (1, 64, 4, 96, 4, 64),       # one chunk, G = H, N 64, three slices of P
+]
+
+
+@pytest.mark.parametrize("bt,t,h,p,g,n", SSD_MMA_CASES)
+def test_ssd_scan_mma_path_matches_plain(cuda, bt, t, h, p, g, n):
+    args = _ssd_inputs(bt, t, h, p, g, n, torch.bfloat16, cuda, seed=t + g)
+    before = dict(ssd_kernel.ssd_scan.paths)
+    y, s = ssd_kernel.ssd_scan(*args)
+    assert ssd_kernel.ssd_scan.paths["mma"] == before["mma"] + 1
+    assert ssd_kernel.ssd_scan.paths["ffma"] == before["ffma"]
+    yr, sr = ssd_plain(*args)
+    torch.testing.assert_close(y.float(), yr.float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(s, sr, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype,path", [(torch.bfloat16, "mma"), (torch.float32, "ffma")])
+def test_ssd_scan_counts_launches_per_path(cuda, dtype, path):
+    args = _ssd_inputs(1, 100, 4, 64, 1, 128, dtype, cuda, seed=2)
+    before, total = dict(ssd_kernel.ssd_scan.paths), ssd_kernel.ssd_scan.launches
+    ssd_kernel.ssd_scan(*args)
+    after = ssd_kernel.ssd_scan.paths
+    assert {p: after[p] - before[p] for p in after} == {
+        p: int(p == path) for p in ssd_kernel.PATH_CODES}
+    assert ssd_kernel.ssd_scan.launches == total + 1
+
+
+def test_ssd_scan_bf16_ffma_path_matches_plain(cuda):
+    """The first (FFMA) kernel still takes bf16 when asked, as chip_smoke.py
+    times it."""
+    args = _ssd_inputs(1, 150, 4, 64, 2, 128, torch.bfloat16, cuda, seed=3)
+    yr, sr = ssd_plain(*args)
+    for path in ("mma", "ffma"):
+        y, s = ssd_kernel.ssd_scan(*args, path=path)
+        torch.testing.assert_close(y.float(), yr.float(), rtol=2e-2, atol=2e-2)
+        torch.testing.assert_close(s, sr, rtol=1e-3, atol=1e-3)
+
+
+def test_ssd_scan_c_entry_refuses_a_path_the_inputs_cannot_take(cuda):
+    x, dt, A, B, C, D = _ssd_inputs(1, 16, 4, 16, 2, 16, torch.bfloat16, cuda, seed=1)
+    y = torch.empty_like(x)
+    state = torch.empty((1, 4, 16, 16), dtype=torch.float32, device=cuda)
+    stream = torch._C._cuda_getCurrentRawStream(x.get_device())
+    ptrs = [t.data_ptr() for t in (x, dt, A, B, C, D, y, state)]
+    lib, codes = ssd_kernel._lib(), ssd_kernel.PATH_CODES
+    # N = 16 and P = 16 are not mma shapes; float32 is not an mma type
+    assert lib(*ptrs, 1, 16, 4, 2, 16, 16, 1, codes["mma"], stream) == 1
+    assert lib(*ptrs, 1, 16, 4, 2, 16, 16, 0, codes["mma"], stream) == 1
+    # ffma's shared memory: N = 512, P = 128 would take 560 KB
+    assert lib(*ptrs, 1, 16, 4, 2, 512, 128, 1, codes["ffma"], stream) == 1
 
 
 def test_ssd_scan_rejects_bad_input(cuda):

@@ -127,3 +127,94 @@ def test_non_cpu_tensor_reaches_the_kernel_and_raises():
     with pytest.raises(ValueError, match="CUDA"):
         ssd(x, dt, A, B, C, D)
     assert kernel.ssd_scan.launches == before
+
+
+@pytest.mark.parametrize("dtype,n,p,aligned,path", [
+    (torch.bfloat16, 128, 64, True, "mma"),     # every mamba2_2_7b prefill scan
+    (torch.bfloat16, 64, 32, True, "mma"),
+    (torch.bfloat16, 128, 96, True, "mma"),     # three 32-column slices of P
+    (torch.bfloat16, 128, 64, False, "ffma"),   # cp.async needs 16-byte rows
+    (torch.bfloat16, 16, 64, True, "ffma"),     # N not 64 or 128
+    (torch.bfloat16, 128, 48, True, "ffma"),    # P not a multiple of 32
+    (torch.float32, 128, 64, True, "ffma"),     # float32 parity runs
+])
+def test_path_choice(dtype, n, p, aligned, path):
+    assert kernel.choose_path(dtype, n, p, aligned) == path
+    assert set(kernel.ssd_scan.paths) == set(kernel.PATH_CODES) == {"mma", "ffma"}
+
+
+def test_path_choice_refuses_other_dtypes():
+    with pytest.raises(ValueError):
+        kernel.choose_path(torch.float16, 128, 64, True)
+
+
+def _split(v, pair):
+    """v rounded to bf16 once, or as the hi + lo pair hi = bf16(v),
+    lo = bf16(v - hi) whose two products the mma path sums."""
+    hi = v.bfloat16().float()
+    return hi + (v - hi).bfloat16().float() if pair else hi
+
+
+def _ssd_rounded(x, dt, A, B, C, D, pair, Q=64):
+    """Plain-torch emulation of the mma path's arithmetic: chunks of Q = 64
+    (a ragged tail padded with dt = 0), float32 sums, x/B/C exact in bf16,
+    and the float32 operands M = (C B^T) o L o dt, S and B o w entering the
+    products through ``_split``."""
+    Bt, T, H, P = x.shape
+    N, rep = B.shape[3], H // B.shape[2]
+    xf = x.float()
+    Bf, Cf = (t.float().repeat_interleave(rep, 2) for t in (B, C))
+    tril = torch.tril(torch.ones(Q, Q, dtype=torch.bool))[None, :, :, None]
+    y = torch.zeros(Bt, T, H, P)
+    S = torch.zeros(Bt, H, N, P)
+    for t0 in range(0, T, Q):
+        n = min(Q, T - t0)
+
+        def chunk(a):
+            out = a.new_zeros((Bt, Q) + a.shape[2:])
+            out[:, :n] = a[:, t0:t0 + n]
+            return out
+        xc, bc, cc, dc = chunk(xf), chunk(Bf), chunk(Cf), chunk(dt)
+        cum = torch.cumsum(dc * A, 1)                                    # (Bt, Q, H)
+        L = torch.where(tril, torch.exp(cum[:, :, None] - cum[:, None]), 0.0)
+        M = _split(torch.einsum("bihn,bjhn->bijh", cc, bc) * L * dc[:, None], pair)
+        yc = (torch.einsum("bijh,bjhp->bihp", M, xc)
+              + torch.exp(cum)[..., None] * torch.einsum("bihn,bhnp->bihp", cc, _split(S, pair))
+              + D[:, None] * xc)
+        w = torch.exp(cum[:, -1:] - cum) * dc
+        S = (torch.exp(cum[:, -1])[..., None, None] * S
+             + torch.einsum("bjhn,bjhp->bhnp", _split(bc * w[..., None], pair), xc))
+        y[:, t0:t0 + n] = yc[:, :n]
+    return y.to(x.dtype), S
+
+
+_ROUNDING_SHAPE = (1, 200, 4, 64, 2, 128)   # ragged against Q = 64, G = 2, N 128
+
+
+def _rounded_and_reference(pair):
+    """(y, state) of the emulation and of the reference's Pallas kernel in
+    interpret mode (chunk 40 divides T = 200), on the same bf16 x/B/C."""
+    x, dt, A, B, C, D = _inputs(*_ROUNDING_SHAPE, seed=3)
+    jx, jB, jC = (jnp.asarray(a).astype(jnp.bfloat16) for a in (x, B, C))
+    yr, sr = jax_ssd(jx, jnp.asarray(dt), jnp.asarray(A), jB, jC, jnp.asarray(D), chunk=40)
+    tx, tB, tC = (torch.from_numpy(a).bfloat16() for a in (x, B, C))
+    y, s = _ssd_rounded(tx, torch.from_numpy(dt), torch.from_numpy(A), tB, tC,
+                        torch.from_numpy(D), pair)
+    return (_np(y), _np(s)), (_np(yr), _np(sr))
+
+
+def test_mma_rounding_scheme_holds_the_reference_bars():
+    """The hi + lo pairs keep the kernel's arithmetic within the SSD state
+    bar (1e-3) and the bf16 output bar (2e-2) of the reference."""
+    (y, s), (yr, sr) = _rounded_and_reference(pair=True)
+    assert np.abs(sr).max() > 0.5   # a state of the size the bar is meant for
+    np.testing.assert_allclose(s, sr, rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(y, yr, rtol=2e-2, atol=2e-2)
+
+
+def test_one_bf16_rounding_of_the_float32_operands_misses_the_state_bar():
+    """Why the mma path pays for the second product: rounding M, S and
+    B o w to bf16 once misses the state bar at the same inputs."""
+    (_, s), (_, sr) = _rounded_and_reference(pair=False)
+    with pytest.raises(AssertionError):
+        np.testing.assert_allclose(s, sr, rtol=1e-3, atol=1e-3)
