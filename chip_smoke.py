@@ -2,11 +2,15 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/csrc``, holds
-each against its plain PyTorch version at the serving paths' shapes, times
-them, and drives the port's two serving paths through its ``serve`` entry
-point (batch 8 x 512-token prompts, 32 greedy tokens each): full-width
-smollm_360m (tile_matmul + flash_attention) and full-width, full-depth
-mamba2_2_7b (tile_matmul + ssd_scan). Per-path counters show that every
+each against its plain PyTorch version at the serving and training paths'
+shapes, times them, and drives the port's two serving paths through its
+``serve`` entry point (batch 8 x 512-token prompts, 32 greedy tokens each):
+full-width smollm_360m (tile_matmul + flash_attention) and full-width,
+full-depth mamba2_2_7b (tile_matmul + ssd_scan); then its training path
+through ``train``: five AdamW steps of full-width, full-depth smollm_360m on
+8 x 512 tokens, every projection's forward and both gradient products
+through tile_matmul, every attention through flash_attention and its
+backward kernel, and one float32 train step held against the CPU's. Per-path counters show that every
 bf16 projection took tile_matmul's wgmma kernel (prefill) or its streaming
 kernel (decode), and every bf16 prefill attention and scan the mma path of
 flash_attention and ssd_scan; ptxas and SASS are checked for spills, wgmma,
@@ -14,6 +18,11 @@ TMA and the mma paths' tensor-core instructions. For each model it
 profiles one prefill and one decode step and checks float32 logits of the
 kernel path against the plain path on the CPU (smollm at full depth,
 mamba2 at full width and 8 layers).
+
+The gradient products (``dx = dz @ w^T``, ``dw = x^T @ dz`` through
+tile_matmul's transposed layouts) and flash_attention's backward are
+checked against their plain versions (and for repeat launches giving the
+same bits) and timed beside ``torch.matmul`` and SDPA's backward.
 
 Usage (from the repository root, on a host with a CUDA device)::
 
@@ -174,28 +183,31 @@ def _sass_ops(so: Path, ops) -> dict:
 # SASS each library must hold: tile_matmul's wgmma (HGMMA) and TMA (UTMALDG),
 # the mma paths' tensor-core products (HMMA) and ldmatrix (LDSM) loads.
 NO_SPILL = {"tile_matmul": ("wgmma", "skinny"), "flash_attention": ("flash_fwd_mma",),
-            "ssd_scan": ("ssd_fwd_mma",)}
+            "ssd_scan": ("ssd_fwd_mma",), "flash_attention_bwd": ("_mmaI",)}
 SASS_OPS = {"tile_matmul": ("HGMMA", "UTMALDG", "LDL", "STL"),
             "flash_attention": ("HMMA", "LDSM", "LDGSTS", "LDL", "STL"),
-            "ssd_scan": ("HMMA", "LDSM", "LDGSTS", "LDL", "STL")}
+            "ssd_scan": ("HMMA", "LDSM", "LDGSTS", "LDL", "STL"),
+            "flash_attention_bwd": ("HMMA", "LDSM", "LDGSTS", "LDL", "STL")}
+SASS_NEED = {"tile_matmul": ("HGMMA", "UTMALDG"), "flash_attention": ("HMMA", "LDSM"),
+             "ssd_scan": ("HMMA", "LDSM"), "flash_attention_bwd": ("HMMA", "LDSM")}
 
 
 def kernel_build_report(build, ptxas: dict) -> dict:
     """What ptxas said of each kernel of each library (registers, shared
     memory, spills) and the counts of ``SASS_OPS`` in each library. Fails on
-    a spill in a kernel of ``NO_SPILL``, on tile_matmul without HGMMA and
-    TMA, and on flash_attention or ssd_scan without HMMA and LDSM."""
+    a spill in a kernel of ``NO_SPILL``, and on a library without the
+    instructions of ``SASS_NEED`` (tile_matmul's wgmma and TMA, the mma
+    paths' HMMA and LDSM)."""
     report = {}
     no_spill = "0 bytes spill stores, 0 bytes spill loads"
     for lib, keys in NO_SPILL.items():
         kernels = _ptxas_kernels(ptxas[lib])
         ops = _sass_ops(build._target(lib), SASS_OPS[lib])
         checked = [k for k in kernels if any(key in k for key in keys)]
-        assert checked, (lib, sorted(kernels))
+        assert kernels and (checked or not keys), (lib, sorted(kernels))
         for kname in checked:
             assert kernels[kname]["spill"].startswith(no_spill), (kname, kernels[kname])
-        need = ("HGMMA", "UTMALDG") if lib == "tile_matmul" else ("HMMA", "LDSM")
-        assert all(ops[op] > 0 for op in need), (lib, ops)
+        assert all(ops[op] > 0 for op in SASS_NEED[lib]), (lib, ops)
         report[lib] = {"kernels": kernels, "sass_ops": ops}
     return report
 
@@ -239,6 +251,78 @@ def check_flash(fa_kernel, flash_attention_ref) -> dict:
             worst = max(worst, (out.float() - ref.float()).abs().max().item())
         err[str(dtype)] = worst
         err[DTYPE_PATH[dtype]] = worst
+    torch.cuda.synchronize()
+    return err
+
+
+def _grad_operands(m: int, k: int, n: int, dtype, seed: int):
+    """x (m, k), w (k, n) and an output gradient dz (m, n) scaled so that
+    dx and dw are of order 1."""
+    return (_randn((m, k), dtype, seed), _randn((k, n), dtype, seed + 1, k ** -0.5),
+            _randn((m, n), dtype, seed + 2, m ** -0.5))
+
+
+def check_tile_matmul_grad(tm_kernel, tile_matmul_ref) -> dict:
+    """The gradient products of smollm_360m's seven projections at M = 4096:
+    dx = dz @ w^T (w read in place, ``trans_w``) and dw = x^T @ dz (x read
+    in place, ``trans_x``) against the plain version, bf16 through wgmma
+    and float32 through ffma; two launches of dw give the same bits."""
+    fn = tm_kernel.tile_matmul
+    err: dict = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        worst = {"dx": 0.0, "dw": 0.0}
+        for i, (k, n, _) in enumerate(LAYER["smollm_360m"]):
+            x, w, dz = _grad_operands(BATCH * PROMPT, k, n, dtype, 10 * i)
+            for name, a, b, kw in (("dx", dz, w, dict(trans_w=True)),
+                                   ("dw", x, dz, dict(trans_x=True))):
+                before, layouts = dict(fn.paths), dict(fn.layouts)
+                out = fn(a, b, **kw)
+                _took(fn, {torch.bfloat16: "wgmma", torch.float32: "ffma"}[dtype], before)
+                layout = tm_kernel.layout_of(kw.get("trans_x", False), kw.get("trans_w", False))
+                assert fn.layouts[layout] == layouts[layout] + 1, (layout, fn.layouts)
+                ref = tile_matmul_ref(a, b, **kw)
+                torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype],
+                                           atol=TOL[dtype],
+                                           msg=lambda e, c=(name, k, n): f"{c}: {e}")
+                worst[name] = max(worst[name], (out.float() - ref.float()).abs().max().item())
+                if name == "dw":
+                    assert torch.equal(out, fn(a, b, **kw)), ("dw not deterministic", k, n)
+        err[str(dtype)] = worst
+    torch.cuda.synchronize()
+    return err
+
+
+def check_flash_bwd(fa_kernel, flash_attention_ref, flash_attention_bwd_ref) -> dict:
+    """The backward kernels against the explicit formula at ``check_flash``'s
+    cases (the forward's lse against the plain version's first): the mma
+    path in bf16, the ffma path in float32; two launches give the same bits."""
+    err = {}
+    bwd = fa_kernel.flash_attention_bwd
+    for dtype in (torch.bfloat16, torch.float32):
+        worst = {"lse": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0}
+        for name, bh, g, tq, tkv, window, softcap in FLASH_CASES:
+            q = _randn((bh, g, tq, 64), dtype, 1)
+            k = _randn((bh, tkv, 64), dtype, 2)
+            v = _randn((bh, tkv, 64), dtype, 3)
+            do = _randn((bh, g, tq, 64), dtype, 4)
+            kw = dict(causal=True, window=window, softcap=softcap, q_offset=tkv - tq)
+            o, lse = fa_kernel.flash_attention(q, k, v, return_lse=True, **kw)
+            _, lse_ref = flash_attention_ref(q, k, v, return_lse=True, **kw)
+            torch.testing.assert_close(lse, lse_ref, rtol=TOL[dtype], atol=TOL[dtype],
+                                       msg=lambda m, c=name: f"lse {c}: {m}")
+            worst["lse"] = max(worst["lse"], (lse - lse_ref).abs().max().item())
+            before = dict(bwd.paths)
+            grads = bwd(q, k, v, o, do, lse, **kw)
+            _took(bwd, DTYPE_PATH[dtype], before)
+            refs = flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)
+            for gname, got, want in zip(("dq", "dk", "dv"), grads, refs):
+                torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
+                                           atol=TOL[dtype],
+                                           msg=lambda m, c=(name, gname): f"{c}: {m}")
+                worst[gname] = max(worst[gname], (got.float() - want.float()).abs().max().item())
+            again = bwd(q, k, v, o, do, lse, **kw)
+            assert all(torch.equal(a, b) for a, b in zip(grads, again)), ("bwd", name)
+        err[str(dtype)] = worst
     torch.cuda.synchronize()
     return err
 
@@ -318,6 +402,76 @@ def time_flash(fa_kernel, flash_attention_ref) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+def time_tile_matmul_grad(tm_kernel, tile_matmul_ref) -> dict:
+    """The gradient products of one smollm_360m layer's seven projections
+    at M = 4096, bf16: dx = dz @ w^T and dw = x^T @ dz, by CUDA events
+    (``ms``, kernel and ``torch.matmul`` on the same transposed views in
+    turns) and by CUDA-graph replay (``device_ms``), each product apart and
+    both together."""
+    dt, m = torch.bfloat16, BATCH * PROMPT
+    ops = [_grad_operands(m, k, n, dt, 10 * i)
+           for i, (k, n, _) in enumerate(LAYER["smollm_360m"])]
+    runs = {
+        "dx": (lambda f: [f(dz, w, True, False) for _, w, dz in ops]),
+        "dw": (lambda f: [f(x, dz, False, True) for x, _, dz in ops]),
+    }
+    kern = lambda a, b, tw, tx: tm_kernel.tile_matmul(a, b, trans_w=tw, trans_x=tx)  # noqa: E731
+    lib = lambda a, b, tw, tx: torch.matmul(a.t() if tx else a, b.t() if tw else b)  # noqa: E731
+    plain = lambda a, b, tw, tx: tile_matmul_ref(a, b, trans_w=tw, trans_x=tx)  # noqa: E731
+    out = {}
+    for name, run in runs.items():
+        turns = [_time_ms(lambda f=f: run(f)) for f in (kern, lib) * 2]
+        flops = sum(2 * m * k * n for k, n, _ in LAYER["smollm_360m"])
+        nbytes = sum((m * k + k * n + m * n) * 2 for k, n, _ in LAYER["smollm_360m"])
+        bound_ms, bound_by = _bound(flops, nbytes, dt)
+        kern_ms, lib_ms = (turns[0] + turns[2]) / 2, (turns[1] + turns[3]) / 2
+        out[name] = dict(ms=kern_ms, library_ms=lib_ms, turns_ms=turns,
+                         vs_library=kern_ms / lib_ms,
+                         device_ms=_graph_ms(lambda: run(kern), iters=5),
+                         plain_ms=_time_ms(lambda: run(plain), iters=5),
+                         flop=flops, bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by,
+                         tflop_s=flops / kern_ms / 1e9)
+    both = {k: out["dx"][k] + out["dw"][k]
+            for k in ("ms", "library_ms", "device_ms", "plain_ms", "flop", "bytes")}
+    both["bound_ms"], both["bound_by"] = _bound(both["flop"], both["bytes"], dt)
+    out["both"] = both
+    return out
+
+
+def time_flash_bwd(fa_kernel, flash_attention_bwd_ref) -> dict:
+    """One layer's attention backward at the training shape, q (40, 3, 512,
+    64) causal, bf16: the mma path by CUDA events (``ms``) and graph replay
+    (``device_ms``), the ffma path on the same inputs once (``ffma_ms``),
+    the explicit plain formula, and SDPA's backward with
+    K/V repeated to the 15 query heads (``library_ms``: autograd.grad of
+    one SDPA output, the forward kept). Work: the five products of the
+    function, 2 D operations each a visible (query, key) pair."""
+    dt, bh, g, t, d = torch.bfloat16, BATCH * 5, 3, PROMPT, 64
+    q = _randn((bh, g, t, d), dt, 1)
+    k = _randn((bh, t, d), dt, 2)
+    v = _randn((bh, t, d), dt, 3)
+    do = _randn((bh, g, t, d), dt, 4)
+    o, lse = fa_kernel.flash_attention(q, k, v, causal=True, return_lse=True)
+    kern = _time_ms(lambda: fa_kernel.flash_attention_bwd(q, k, v, o, do, lse))
+    ffma = _time_ms(lambda: fa_kernel.flash_attention_bwd(q, k, v, o, do, lse, path="ffma"),
+                    iters=5)
+    device = _graph_ms(lambda: fa_kernel.flash_attention_bwd(q, k, v, o, do, lse), iters=5)
+    plain = _time_ms(lambda: flash_attention_bwd_ref(q, k, v, o, do, lse), iters=3)
+    qs = q.reshape(BATCH, 15, t, d).detach().requires_grad_()
+    ks = k.reshape(BATCH, 5, t, d).repeat_interleave(g, dim=1).detach().requires_grad_()
+    vs = v.reshape(BATCH, 5, t, d).repeat_interleave(g, dim=1).detach().requires_grad_()
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    dos = do.reshape(BATCH, 15, t, d)
+    library = _time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), dos, retain_graph=True))
+    pairs = bh * g * t * (t + 1) // 2
+    flops = 10 * d * pairs
+    nbytes = (4 * q.numel() + 4 * k.numel()) * 2 + lse.numel() * 4
+    bound_ms, bound_by = _bound(flops, nbytes, dt)
+    return dict(ms=kern, ffma_ms=ffma, device_ms=device, plain_ms=plain,
+                library_ms=library, vs_library=kern / library, flop=flops, bytes=nbytes,
+                bound_ms=bound_ms, bound_by=bound_by, tflop_s=flops / kern / 1e9)
+
+
 def _ssd_inputs(bt, t, h, p, g, n, dtype, seed):
     x = _randn((bt, t, h, p), dtype, seed, 0.5)
     dt = F.softplus(_randn((bt, t, h), torch.float32, seed + 1))
@@ -392,8 +546,9 @@ def time_ssd(ssd_kernel, ssd_plain) -> dict:
 def _zero(counters: dict) -> None:
     for fn in counters.values():
         fn.launches = 0
-        for path in getattr(fn, "paths", ()):
-            fn.paths[path] = 0
+        for per in (getattr(fn, "paths", {}), getattr(fn, "layouts", {})):
+            for key in per:
+                per[key] = 0
 
 
 def _read(counters: dict) -> dict:
@@ -411,7 +566,7 @@ def serve_path(serve, M, cfg, params, counters: dict) -> dict:
     _zero(counters)
     res = serve(cfg.name, gen=GEN, **kw)
     launches = _read(counters)
-    by_path = {k: dict(fn.paths) for k, fn in counters.items()}
+    by_path = {k: dict(fn.paths) for k, fn in counters.items() if hasattr(fn, "paths")}
     paths = by_path["tile_matmul"]
     peak = torch.cuda.max_memory_allocated()
     toks = res["tokens"]
@@ -508,6 +663,143 @@ def parity_f32(M, cfg, rehome, prompt_len: int) -> float:
     return worst
 
 
+TRAIN_STEPS = 5
+
+
+def train_path(train, cfg, counters: dict) -> tuple[dict, dict]:
+    """Train full-width, full-depth ``cfg`` for ``TRAIN_STEPS`` steps of
+    8 x 512 cyclic tokens through ``train`` (seed 0, bf16, float32 AdamW
+    moments, remat "nothing"), every launch count set to 0 just before and
+    read just after. A step's time is the host clock between two of its log
+    lines (each step ends by reading its loss to the host); the median of
+    steps 2-5 gives tokens/s."""
+    stamps = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(counters)
+    t0 = time.perf_counter()
+    res = train(cfg.name, reduced=False, steps=TRAIN_STEPS, batch=BATCH, seq=PROMPT,
+                data_mode="cyclic", ckpt_every=0, resume=False, seed=0, device="cuda",
+                ckpt_dir=str(ROOT / "build" / "chip_smoke_train"),
+                log=lambda line: (stamps.append(time.perf_counter()), print(line)))
+    launches = _read(counters)
+    by_path = {k: dict(fn.paths) for k, fn in counters.items() if hasattr(fn, "paths")}
+    layouts = dict(counters["tile_matmul"].layouts)
+    peak = torch.cuda.max_memory_allocated()
+    losses = res["losses"]
+    assert len(losses) == TRAIN_STEPS and all(np.isfinite(losses)), losses
+    steps_s = np.diff([t0] + stamps)
+    median = float(np.median(steps_s[1:]))
+    out = dict(arch=cfg.name, batch=BATCH, seq=PROMPT, steps=TRAIN_STEPS, losses=losses,
+               step_s=steps_s.tolist(), median_step_s=median,
+               tokens_per_s=BATCH * PROMPT / median, peak_mem_bytes=peak,
+               launches=launches, launches_by_path=by_path, tile_matmul_layouts=layouts,
+               watchdog=res["watchdog"])
+    print(f"train {cfg.name}: losses {losses}, median step {median:.4f} s "
+          f"({out['tokens_per_s']:.0f} tokens/s), peak memory {peak / 2**30:.3f} GiB, "
+          f"launches {launches}, by path {by_path}, tile_matmul layouts {layouts}")
+    # Each step: every projection forward, again where remat recomputes it,
+    # once more for the SiLU gate's z (float32, no activation) and its two
+    # gradient products; every attention forward twice and its backward once.
+    n = cfg.n_layers * TRAIN_STEPS
+    want = {"tile_matmul": 7 * n * 4 + n, "flash_attention": 2 * n,
+            "flash_attention_bwd": n, "ssd_scan": 0}
+    assert launches == want, (launches, want)
+    assert layouts == {"x@w": 7 * n * 2 + n, "x@w^T": 7 * n, "x^T@w": 7 * n}, layouts
+    assert by_path["tile_matmul"] == {"wgmma": want["tile_matmul"], "mma": 0, "skinny": 0,
+                                      "ffma": 0}, by_path
+    assert by_path["flash_attention"] == {"mma": want["flash_attention"], "ffma": 0}, by_path
+    assert by_path["flash_attention_bwd"] == {"mma": n, "ffma": 0}, by_path
+    return out, res
+
+
+def profile_train_step(steps_mod, cfg, res, counters: dict) -> dict:
+    """One more train step from ``train``'s final state: host wall time
+    without tracing (median of 3), device kernel time from a torch.profiler
+    trace of a fourth, their ratio as the busy share, the top kernels, and
+    the host's top operations by their own time (traced, so inflated)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.optim.optimizer import OptConfig
+
+    opt = OptConfig(peak_lr=1e-3, warmup_steps=5, decay_steps=TRAIN_STEPS, weight_decay=0.0)
+    step = steps_mod.make_train_step(cfg, opt)
+    batch = TokenPipeline(PipelineConfig(vocab=cfg.vocab, batch=BATCH, seq=PROMPT,
+                                         mode="cyclic")).batch_at(TRAIN_STEPS)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    params, opt_state = res["params"], res["opt_state"]
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, opt_state, batch)
+        walls.append(time.perf_counter() - t0)
+    _zero(counters)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(params, opt_state, batch)
+        torch.cuda.synchronize()
+    kern = []
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            kern.append((e.key, (us if us is not None else e.self_cuda_time_total) / 1e3,
+                         e.count))
+    kern.sort(key=lambda r: -r[1])
+    host = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)[:10]
+    wall_ms = sorted(walls)[1] * 1e3
+    device_ms = sum(r[1] for r in kern)
+    return dict(wall_ms=wall_ms, device_ms=device_ms, busy_share=device_ms / wall_ms,
+                launches=_read(counters),
+                top_kernels=[dict(name=k[:90], ms=t, calls=c) for k, t, c in kern[:12]],
+                top_host=[dict(name=e.key[:60], self_ms=e.self_cpu_time_total / 1e3,
+                               calls=e.count) for e in host])
+
+
+def parity_train_f32(M, steps_mod, cfg) -> dict:
+    """One float32 train step of full-width ``cfg`` cut to 4 layers, batch
+    2 x 128: the kernel path on the card against the plain path on the CPU,
+    from the same seeded weights and batch. Loss and grad norm at 1e-3 (the
+    logits' bar). The gradients, read back from the first moment (after one
+    step from zero, m = 0.1 x the clipped gradient), within 1e-3 of each
+    tensor's largest entry. The updated weights within half the learning
+    rate: Adam's first step moves a weight by lr g / (|g| + 1e-8), which
+    turns the two devices' float32 rounding of a gradient entry near 1e-8
+    into a visible part of lr; the gradient check above is the close one."""
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.optim.optimizer import OptConfig, init_opt_state, tree_leaves
+
+    pcfg = dataclasses.replace(cfg, n_periods=4, param_dtype="float32")
+    opt = OptConfig(peak_lr=1e-3, warmup_steps=5, decay_steps=TRAIN_STEPS, weight_decay=0.0)
+    params = M.init_params(pcfg, torch.Generator(device="cuda").manual_seed(3), "cuda")
+    batch = TokenPipeline(PipelineConfig(vocab=cfg.vocab, batch=2, seq=128,
+                                         mode="cyclic")).batch_at(0)
+    step = steps_mod.make_train_step(pcfg, opt)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        p = _to(params, dev)
+        runs[dev] = step(p, init_opt_state(p, opt), {k: torch.as_tensor(v, device=dev)
+                                                     for k, v in batch.items()})
+    (pg, sg, mg), (pc, sc, mc) = runs["cuda"], runs["cpu"]
+    lr = mc["lr"]
+    assert abs(mg["loss"] - mc["loss"]) <= 1e-3, (mg, mc)
+    assert abs(mg["grad_norm"] - mc["grad_norm"]) <= 1e-3 * max(1.0, mc["grad_norm"]), (mg, mc)
+    grad_err = 0.0
+    for a, b in zip(tree_leaves(sg["m"]), tree_leaves(sc["m"])):
+        err = (a.cpu() - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+        grad_err = max(grad_err, err)
+    param_err = max((a.cpu() - b).abs().max().item()
+                    for a, b in zip(tree_leaves(pg), tree_leaves(pc)))
+    out = dict(loss_gpu=mg["loss"], loss_cpu=mc["loss"], grad_norm_gpu=mg["grad_norm"],
+               grad_norm_cpu=mc["grad_norm"], lr=lr, max_grad_err_rel=grad_err,
+               max_param_err=param_err, max_param_err_in_lr=param_err / lr)
+    assert grad_err <= 1e-3, out
+    assert param_err <= 0.5 * lr, out
+    return out
+
+
 def _print_profile(arch: str, prof: dict) -> None:
     for phase, p in prof.items():
         print(f"profile {arch} {phase}: wall {p['wall_ms']:.3f} ms, device kernels "
@@ -523,16 +815,20 @@ def main() -> int:
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                         flash_attention_ref)
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     from repro_torch.kernels.ssd_scan.ops import ssd_plain
     from repro_torch.kernels.tile_matmul import kernel as tm_kernel
     from repro_torch.kernels.tile_matmul.ref import tile_matmul_ref
+    from repro_torch.launch import steps as steps_mod
     from repro_torch.launch.serve import rehome, serve
+    from repro_torch.launch.train import train
     from repro_torch.models import model as M
 
     counters = {"tile_matmul": tm_kernel.tile_matmul,
                 "flash_attention": fa_kernel.flash_attention,
+                "flash_attention_bwd": fa_kernel.flash_attention_bwd,
                 "ssd_scan": ssd_kernel.ssd_scan}
 
     # 1. Device.
@@ -558,15 +854,23 @@ def main() -> int:
     detail["tile_matmul_err"] = check_tile_matmul(tm_kernel, tile_matmul_ref)
     detail["flash_attention_err"] = check_flash(fa_kernel, flash_attention_ref)
     detail["ssd_scan_err"] = check_ssd(ssd_kernel, ssd_plain)
+    detail["tile_matmul_grad_err"] = check_tile_matmul_grad(tm_kernel, tile_matmul_ref)
+    detail["flash_attention_bwd_err"] = check_flash_bwd(fa_kernel, flash_attention_ref,
+                                                        flash_attention_bwd_ref)
     print(f"checks: tile_matmul max |err| {detail['tile_matmul_err']}, "
           f"flash_attention max |err| {detail['flash_attention_err']}, "
-          f"ssd_scan max |err| {detail['ssd_scan_err']}")
+          f"ssd_scan max |err| {detail['ssd_scan_err']}, "
+          f"tile_matmul dx/dw max |err| {detail['tile_matmul_grad_err']}, "
+          f"flash_attention_bwd max |err| {detail['flash_attention_bwd_err']}")
 
     # 4. Times: kernel, plain version, one PyTorch call as yardstick.
     detail["tile_matmul_time"] = time_tile_matmul(tm_kernel, tile_matmul_ref)
     detail["flash_attention_time"] = time_flash(fa_kernel, flash_attention_ref)
     detail["ssd_scan_time"] = time_ssd(ssd_kernel, ssd_plain)
-    for k in ("tile_matmul", "flash_attention", "ssd_scan"):
+    detail["tile_matmul_grad_time"] = time_tile_matmul_grad(tm_kernel, tile_matmul_ref)
+    detail["flash_attention_bwd_time"] = time_flash_bwd(fa_kernel, flash_attention_bwd_ref)
+    for k in ("tile_matmul", "flash_attention", "ssd_scan", "tile_matmul_grad",
+              "flash_attention_bwd"):
         print(f"times (ms): {k} {detail[k + '_time']}")
 
     # 5. Path 1: serve full-width smollm_360m from seeded random weights.
@@ -574,7 +878,8 @@ def main() -> int:
     params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     sm = detail["serve"] = serve_path(serve, M, cfg, params, counters)
     assert sm["launches"] == {"tile_matmul": 7 * cfg.n_layers * (1 + GEN),
-                              "flash_attention": cfg.n_layers, "ssd_scan": 0}, sm["launches"]
+                              "flash_attention": cfg.n_layers, "flash_attention_bwd": 0,
+                              "ssd_scan": 0}, sm["launches"]
     detail["profile"] = profile_steps(M, cfg, params, rehome, counters)
     _print_profile(cfg.name, detail["profile"])
     del params
@@ -589,7 +894,8 @@ def main() -> int:
     params = M.init_params(mcfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     ms = detail["serve_mamba2"] = serve_path(serve, M, mcfg, params, counters)
     assert ms["launches"] == {"tile_matmul": 6 * mcfg.n_layers * (1 + GEN),
-                              "flash_attention": 0, "ssd_scan": mcfg.n_layers}, ms["launches"]
+                              "flash_attention": 0, "flash_attention_bwd": 0,
+                              "ssd_scan": mcfg.n_layers}, ms["launches"]
     prof = detail["profile_mamba2"] = profile_steps(M, mcfg, params, rehome, counters)
     _print_profile(mcfg.name, prof)
     assert prof["prefill"]["launches"]["ssd_scan"] == mcfg.n_layers, prof
@@ -600,26 +906,51 @@ def main() -> int:
     detail["parity_f32_mamba2_max_err"] = parity_f32(M, pcfg, rehome, 200)
     print(f"parity f32 mamba2_2_7b full width, {MAMBA_PARITY_LAYERS} layers: max |logit err| "
           f"{detail['parity_f32_mamba2_max_err']:.3e}")
+    torch.cuda.empty_cache()
 
-    # 7. Results. tile_matmul runs on both paths: its launches are the sum.
+    # 7. Path 3: train full-width, full-depth smollm_360m through ``train``.
+    tr, res = train_path(train, cfg, counters)
+    detail["train"] = tr
+    prof = detail["profile_train"] = profile_train_step(steps_mod, cfg, res, counters)
+    print(f"profile {cfg.name} train step: wall {prof['wall_ms']:.3f} ms, device kernels "
+          f"{prof['device_ms']:.3f} ms, busy share {prof['busy_share']:.3f}, "
+          f"launches {prof['launches']}, top {prof['top_kernels'][:5]}")
+    del res
+    torch.cuda.empty_cache()
+    detail["parity_train_f32"] = parity_train_f32(M, steps_mod, cfg)
+    print(f"parity f32 train step smollm_360m full width, 4 layers: "
+          f"{detail['parity_train_f32']}")
+
+    # 8. Results. A kernel that runs on several paths: its launches are the sum.
     tmt, fat = detail["tile_matmul_time"]["prefill"], detail["flash_attention_time"]
-    sst = detail["ssd_scan_time"]
+    sst, gt = detail["ssd_scan_time"], detail["tile_matmul_grad_time"]
+    fbt = detail["flash_attention_bwd_time"]
+    runs = (sm, ms, tr)
     kernels = [
         dict(name="tile_matmul", route="cuda", source="src/repro_torch/csrc/tile_matmul.cu",
              replaces="src/repro/kernels/tile_matmul/kernel.py:58",
-             launches=sm["launches"]["tile_matmul"] + ms["launches"]["tile_matmul"],
-             launches_by_path={p: sm["tile_matmul_paths"][p] + ms["tile_matmul_paths"][p]
+             launches=sum(r["launches"]["tile_matmul"] for r in runs),
+             launches_by_path={p: sum(r["launches_by_path"]["tile_matmul"][p] for r in runs)
                                for p in sm["tile_matmul_paths"]},
+             launches_by_layout_in_training=tr["tile_matmul_layouts"],
              max_abs_err=detail["tile_matmul_err"][str(torch.bfloat16)],
              ms=tmt["ms"], plain_ms=tmt["plain_ms"], bound_ms=tmt["bound_ms"],
              bound_by=tmt["bound_by"], library_ms=tmt["library_ms"],
              timed="one smollm layer's 7 prefill projections, M=4096, bf16; mamba2's "
-                   "6 in chip_smoke.json"),
+                   "6 in chip_smoke.json",
+             grad={k: gt["both"][k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                               "bound_by", "library_ms")}
+             | {"max_abs_err": detail["tile_matmul_grad_err"][str(torch.bfloat16)],
+                "timed": "dx = dz @ w^T (w read in place, K-major wgmma B) and "
+                         "dw = x^T @ dz (x read in place, MN-major wgmma A) of one "
+                         "smollm layer's 7 projections, M=4096, bf16"}),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:88",
-             launches=sm["launches"]["flash_attention"],
-             launches_by_path=sm["launches_by_path"]["flash_attention"],
+             launches=sm["launches"]["flash_attention"] + tr["launches"]["flash_attention"],
+             launches_by_path={p: sm["launches_by_path"]["flash_attention"][p]
+                               + tr["launches_by_path"]["flash_attention"][p]
+                               for p in sm["launches_by_path"]["flash_attention"]},
              max_abs_err=detail["flash_attention_err"][str(torch.bfloat16)],
              ms=fat["ms"], plain_ms=fat["plain_ms"], bound_ms=fat["bound_ms"],
              bound_by=fat["bound_by"], library_ms=fat["library_ms"], ffma_ms=fat["ffma_ms"],
@@ -636,6 +967,20 @@ def main() -> int:
              device_ms=sst["device_ms"],
              timed="one mamba2 layer's prefill scan, x (8, 512, 80, 64), N 128, bf16, "
                    "mma path"),
+        dict(name="flash_attention_bwd", route="cuda",
+             source="src/repro_torch/csrc/flash_attention_bwd.cu",
+             replaces="src/repro/kernels/flash_attention/kernel.py:88",
+             replaces_part="the gradient of flash_attention (the Pallas kernel has none; "
+                           "the reference differentiates plain jnp attention)",
+             launches=tr["launches"]["flash_attention_bwd"],
+             launches_by_path=tr["launches_by_path"]["flash_attention_bwd"],
+             max_abs_err=max(detail["flash_attention_bwd_err"][str(torch.bfloat16)][g]
+                             for g in ("dq", "dk", "dv")),
+             ms=fbt["ms"], plain_ms=fbt["plain_ms"], bound_ms=fbt["bound_ms"],
+             bound_by=fbt["bound_by"], library_ms=fbt["library_ms"],
+             device_ms=fbt["device_ms"], ffma_ms=fbt["ffma_ms"],
+             timed="one layer's attention backward, q (40, 3, 512, 64), causal, bf16, "
+                   "mma path; library: SDPA backward, K/V repeated"),
     ]
     OUT.parent.mkdir(exist_ok=True)
     OUT.write_text(json.dumps(detail, indent=1, default=str))

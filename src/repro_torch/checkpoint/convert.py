@@ -1,4 +1,5 @@
-"""Carry weights across from the reference package without JAX.
+"""Carry weights and optimizer state across from the reference package
+without JAX.
 
 The reference writes ``params.npz`` + ``manifest.json``
 (``repro/checkpoint/checkpoint.py``): one array per leaf, keyed by its tree
@@ -62,20 +63,60 @@ def _tuples(tree):
     return out
 
 
+def _tree(cfg: M.ModelConfig, leaf) -> dict:
+    """The port's tree for ``cfg``'s parameters, ``leaf(path, spec)`` at each
+    leaf, the ``n_periods`` axis unstacked into per-layer entries."""
+    tree: dict = {}
+    for path, spec in _paths(M.param_specs(cfg)):
+        _insert(tree, path, leaf(path, spec))
+    tree = _tuples(tree)
+    tree.setdefault("prefix", ())
+    return M.unstack_periods(tree, cfg.n_periods)
+
+
+def _tensor(flat: dict, key: str, device, dtype=None) -> torch.Tensor:
+    if key not in flat:
+        raise KeyError(f"checkpoint has no leaf {key!r}")
+    t = flat[key]
+    if not isinstance(t, torch.Tensor):
+        t = torch.from_numpy(np.array(t))
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
 def params_from_numpy(flat: dict, cfg: M.ModelConfig, device, dtype=None) -> dict:
     """Build this package's params from a flat reference-keyed dict.
     Shapes are checked against the config; ``dtype`` (optional) casts every
     leaf; the ``n_periods`` axis is unstacked into per-layer tensors."""
-    tree: dict = {}
-    for path, spec in _paths(M.param_specs(cfg)):
-        if path not in flat:
-            raise KeyError(f"checkpoint has no leaf {path!r}")
-        t = flat[path]
-        if not isinstance(t, torch.Tensor):
-            t = torch.from_numpy(np.array(t))
+
+    def leaf(path, spec):
+        t = _tensor(flat, path, device, dtype)
         if tuple(t.shape) != spec.shape:
             raise ValueError(f"{path}: shape {tuple(t.shape)} != {spec.shape}")
-        _insert(tree, path, t.to(device=device, dtype=dtype or t.dtype))
-    tree = _tuples(tree)
-    tree.setdefault("prefix", ())
-    return M.unstack_periods(tree, cfg.n_periods)
+        return t
+
+    return _tree(cfg, leaf)
+
+
+def opt_state_from_numpy(flat: dict, cfg: M.ModelConfig, device) -> dict:
+    """This package's AdamW state (``repro_torch.optim.optimizer``) from the
+    reference's flat keys (``m/<path>``, ``v/<path>``, ``step``; an int8
+    moment as ``<path>/q`` and ``<path>/s``), as ``opt.npz`` holds them.
+    Moment dtypes are kept; shapes are checked against the config."""
+
+    def moment(name):
+        def leaf(path, spec):
+            key = f"{name}/{path}"
+            if f"{key}/q" in flat:
+                m = {"q": _tensor(flat, f"{key}/q", device),
+                     "s": _tensor(flat, f"{key}/s", device)}
+                shape = tuple(m["q"].shape)
+            else:
+                m = _tensor(flat, key, device)
+                shape = tuple(m.shape)
+            if shape != spec.shape:
+                raise ValueError(f"{key}: shape {shape} != {spec.shape}")
+            return m
+        return _tree(cfg, leaf)
+
+    step = _tensor(flat, "step", device, torch.int32).reshape(())
+    return {"m": moment("m"), "v": moment("v"), "step": step}

@@ -51,6 +51,10 @@
 //    the causal/window band are never loaded. This was the first version of
 //    the kernel; chip_smoke.py also times it in bf16 beside the mma path.
 //
+// Both paths also write each row's log-sum-exp, lse = m + log(l) (float32,
+// (BH, G, Tq), natural log), when given a pointer for it: training keeps it
+// for the backward kernels (csrc/flash_attention_bwd.cu), serving passes null.
+//
 // Masking reproduces the reference constants: masked scores are -1e30 (not
 // -inf) and l is clamped at 1e-30. Ragged Tq and Tkv tails are masked. P is
 // rounded to the input type before PV, as the reference casts p to v.dtype,
@@ -90,8 +94,8 @@ constexpr int smem_floats() {
 template <class T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_ffma(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          T* __restrict__ o, int G, int Tq, int Tkv, int causal, int window,
-          float softcap, int q_offset, float scale) {
+          T* __restrict__ o, float* __restrict__ lse, int G, int Tq, int Tkv, int causal,
+          int window, float softcap, int q_offset, float scale) {
   constexpr int DJ = D / 8;  // output columns a thread owns
   extern __shared__ float smem[];
   float* Qs = smem;                   // [ROWS][D + 1]
@@ -215,6 +219,7 @@ flash_fwd_ffma(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     const int rr = r0 + ty * 4 + i;
     if (rr >= R) continue;
     const float l = fmaxf(l_i[i], 1e-30f);
+    if (lse != nullptr && tx == 0) lse[(size_t)bh * R + (rr % G) * Tq + rr / G] = m_i[i] + logf(l);
     T* orow = ob + ((size_t)(rr % G) * Tq + rr / G) * D;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) orow[tx + 8 * j] = from_f<T>(acc[i][j] / l);
@@ -283,9 +288,9 @@ constexpr int mma_smem_bytes() {
 template <int D>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int G,
-              int Tq, int Tkv, int causal, int window, float softcap, int q_offset,
-              float scale) {
+              const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+              float* __restrict__ lse, int G, int Tq, int Tkv, int causal, int window,
+              float softcap, int q_offset, float scale) {
   constexpr int LD = D + PAD;   // shared row stride (elements)
   constexpr int KC = D / 16;    // k-steps of S = QK^T
   constexpr int DT = D / 8;     // 8-wide column tiles of the output
@@ -461,6 +466,15 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   // O = acc / l through the warp's own 16 rows of Qs, then 16-byte stores.
   __nv_bfloat16* os = Qs + wrow * LD;
   const float inv0 = 1.f / fmaxf(l_r[0], 1e-30f), inv1 = 1.f / fmaxf(l_r[1], 1e-30f);
+  if (lse != nullptr && t4 == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int rr = r0 + wrow + g + 8 * h;
+      if (rr < R)  // back from the log2 domain: ln 2 (m + log2 l)
+        lse[(size_t)bh * R + (rr % G) * Tq + rr / G] =
+            0.6931471805599453f * (m_r[h] + log2f(fmaxf(l_r[h], 1e-30f)));
+    }
+  }
 #pragma unroll
   for (int j = 0; j < DT; ++j) {
     const int c = j * 8 + 2 * t4;
@@ -490,9 +504,9 @@ bool path_fits(int path, int dtype, int D, bool aligned) {
 }
 
 template <class T, int D>
-cudaError_t launch(int path, const void* q, const void* k, const void* v, void* o, int BH,
-                   int G, int Tq, int Tkv, int causal, int window, float softcap,
-                   int q_offset, float scale, cudaStream_t stream) {
+cudaError_t launch(int path, const void* q, const void* k, const void* v, void* o,
+                   float* lse, int BH, int G, int Tq, int Tkv, int causal, int window,
+                   float softcap, int q_offset, float scale, cudaStream_t stream) {
   if constexpr (sizeof(T) == 2) {
     if (path == PATH_MMA) {
       dim3 grid((G * Tq + MMA_ROWS - 1) / MMA_ROWS, BH);
@@ -502,7 +516,7 @@ cudaError_t launch(int path, const void* q, const void* k, const void* v, void* 
       if (err != cudaSuccess) return err;
       flash_fwd_mma<D><<<grid, MMA_THREADS, bytes, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-          static_cast<T*>(o), G, Tq, Tkv, causal, window, softcap, q_offset, scale);
+          static_cast<T*>(o), lse, G, Tq, Tkv, causal, window, softcap, q_offset, scale);
       return cudaGetLastError();
     }
   }
@@ -513,19 +527,19 @@ cudaError_t launch(int path, const void* q, const void* k, const void* v, void* 
   if (err != cudaSuccess) return err;
   flash_fwd_ffma<T, D><<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), G, Tq, Tkv, causal, window, softcap, q_offset, scale);
+      static_cast<T*>(o), lse, G, Tq, Tkv, causal, window, softcap, q_offset, scale);
   return cudaGetLastError();
 }
 
 template <class T>
 cudaError_t dispatch(int path, int D, const void* q, const void* k, const void* v, void* o,
-                     int BH, int G, int Tq, int Tkv, int causal, int window, float softcap,
-                     int q_offset, float scale, cudaStream_t s) {
+                     float* lse, int BH, int G, int Tq, int Tkv, int causal, int window,
+                     float softcap, int q_offset, float scale, cudaStream_t s) {
   switch (D) {
-    case 16: return launch<T, 16>(path, q, k, v, o, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s);
-    case 32: return launch<T, 32>(path, q, k, v, o, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s);
-    case 64: return launch<T, 64>(path, q, k, v, o, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s);
-    case 128: return launch<T, 128>(path, q, k, v, o, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s);
+    case 16: return launch<T, 16>(path, q, k, v, o, lse, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s);
+    case 32: return launch<T, 32>(path, q, k, v, o, lse, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s);
+    case 64: return launch<T, 64>(path, q, k, v, o, lse, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s);
+    case 128: return launch<T, 128>(path, q, k, v, o, lse, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -533,20 +547,21 @@ cudaError_t dispatch(int path, int D, const void* q, const void* k, const void* 
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16. D in {16, 32, 64, 128}. path: 0 =
-// mma (bf16, q/k/v/o 16-byte aligned), 1 = ffma. Returns the CUDA error of
-// the launch (cudaErrorInvalidValue for a path the inputs cannot take); 0
-// means launched.
+// mma (bf16, q/k/v/o 16-byte aligned), 1 = ffma. lse: float32 (BH, G, Tq)
+// or null. Returns the CUDA error of the launch (cudaErrorInvalidValue for a
+// path the inputs cannot take); 0 means launched.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
-                                      int BH, int G, int Tq, int Tkv, int D, int dtype,
-                                      int causal, int window, float softcap, int q_offset,
-                                      float scale, int path, void* stream) {
+                                      void* lse, int BH, int G, int Tq, int Tkv, int D,
+                                      int dtype, int causal, int window, float softcap,
+                                      int q_offset, float scale, int path, void* stream) {
   const bool aligned = ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) &
                         15) == 0;
   if (!path_fits(path, dtype, D, aligned)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   cudaError_t err = dtype == 0
-      ? dispatch<float>(path, D, q, k, v, o, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s)
-      : dispatch<__nv_bfloat16>(path, D, q, k, v, o, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s);
+      ? dispatch<float>(path, D, q, k, v, o, l, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s)
+      : dispatch<__nv_bfloat16>(path, D, q, k, v, o, l, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s);
   return static_cast<int>(err);
 }

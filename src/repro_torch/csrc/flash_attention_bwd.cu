@@ -1,0 +1,800 @@
+// Hopper flash_attention backward: dq, dk, dv of the causal GQA attention
+// that csrc/flash_attention.cu computes forward, from (q, k, v, o, dO, lse).
+//
+// Replaces the gradient of the Pallas TPU kernel
+// src/repro/kernels/flash_attention/kernel.py :: flash_attention. That kernel
+// has no backward: the reference trains through plain jnp attention and
+// lets XLA differentiate it. Here the gradient is two kernels that recompute
+// the probabilities from Q, K and the forward's row log-sum-exp instead of
+// keeping the (rows x keys) matrix, as FlashAttention-2's backward does:
+//
+//   s = q.k * scale, softcapped c tanh(s / c), masked to -1e30
+//   P = exp(s - lse)            dP = dO V^T        Dv = rowsum(dO o O)
+//   dS = P (dP - Dv) (1 - (s / c)^2 under a softcap) * scale
+//   dQ = dS K     dK = dS^T Q     dV = P^T dO
+//
+// Layout as the forward: q, o, dO, dq (BH, G, Tq, D); k, v, dk, dv
+// (BH, Tkv, D); lse (BH, G, Tq) float32. The G query heads of a KV head are
+// folded into rows (row = t * G + g), so summing dK and dV over a tile's
+// rows sums them over the G heads with no extra pass.
+//
+// Deterministic, no atomics: every output has one owner. Two kernels, in
+// order on one stream:
+//  * dq: a block per (BH, 64 folded rows) walks the key tiles of its
+//    causal/window band and accumulates dQ; it also forms Dv for its rows
+//    and writes it to a float32 scratch for the second kernel.
+//  * dkv: a block per (BH, 64 keys) walks the row tiles that can see its
+//    keys and accumulates dK and dV.
+// Both recompute S and dP (two 64 x 64 x D products a tile pair), so the
+// pair does seven products where the function needs five.
+//
+// What bounds it: at smollm_360m's training shape, q (40, 3, 512, 64)
+// causal, the function is about 10 GFLOP against 42 MB, bound by bytes
+// (about 13 us) on the card. Two paths, picked as the forward's (the
+// wrapper's choose_path; the C side refuses a path the inputs cannot take):
+//  * mma (bf16, every tensor 16-byte aligned): the five products on bf16
+//    tensor cores with the forward mma path's fragments. 4 warps own 16 rows
+//    (dq) or 16 keys (dkv) each; the block's own Q, dO, O (dq) or K, V (dkv)
+//    are gathered once by cp.async, the streamed tiles (K, V or Q, dO, with
+//    lse and Dv) in a two-stage cp.async ring. dkv computes S^T = K Q^T and
+//    dP^T = V dO^T, so P^T and dS^T come out of the accumulators already in
+//    the A layout of dV += P^T dO and dK += dS^T Q (the m16n8 accumulator
+//    layout is the m16n8k16 A layout); dq computes dS the same way for
+//    dQ += dS K. The second operand of those three goes through
+//    ldmatrix.trans. P and dS are rounded to bf16 for their products.
+//  * ffma (float32, and bf16 the mma path cannot take): float32 FFMA, the
+//    first version. Each thread holds a 4 x 4 block of the 64 x 64 score
+//    tile and a 4-row (or 4-key) x D/16 block of its accumulator; operands
+//    sit in padded shared memory (row stride D + 1) so that the reads are
+//    free of bank conflicts.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int TILE = 64;      // folded rows of a dq block, keys of a dkv block
+constexpr int THREADS = 256;  // 16 x 16: a 4 x 4 block of the score tile each
+constexpr float NEG_INF = -1e30f;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <class T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+struct Attn {
+  int G, Tq, Tkv, causal, window;
+  float softcap;
+  int q_offset;
+  float scale;
+};
+
+// Folded row rr of a (G, Tq, D) head block: row rr / G of head rr % G.
+__device__ __forceinline__ size_t row_off(int rr, int G, int Tq) {
+  return (size_t)(rr % G) * Tq + rr / G;
+}
+
+// 64 folded rows from r0 of src (G, Tq, D) into dst[64][D + 1] as float;
+// rows past R read as zeros.
+template <class T, int D>
+__device__ __forceinline__ void load_rows(float* dst, const T* src, int r0, int R, int G,
+                                          int Tq) {
+  for (int i = threadIdx.x; i < TILE * D; i += THREADS) {
+    const int r = i / D, d = i % D, rr = r0 + r;
+    dst[r * (D + 1) + d] = rr < R ? to_f(src[row_off(rr, G, Tq) * D + d]) : 0.f;
+  }
+}
+
+// 64 keys from kv0 of src (Tkv, D) into dst[64][D + 1]; keys past Tkv read
+// as zeros.
+template <class T, int D>
+__device__ __forceinline__ void load_keys(float* dst, const T* src, int kv0, int Tkv) {
+  for (int i = threadIdx.x; i < TILE * D; i += THREADS) {
+    const int c = i / D, d = i % D, kp = kv0 + c;
+    dst[c * (D + 1) + d] = kp < Tkv ? to_f(src[(size_t)kp * D + d]) : 0.f;
+  }
+}
+
+// s[i][j] = Q[rq + i] . K[kk + 16 j] and dp[i][j] = dO[rq + i] . V[kk + 16 j]
+// over the tile's shared rows (stride D + 1).
+template <int D>
+__device__ __forceinline__ void score_tile(const float* Qs, const float* dOs, const float* Ks,
+                                           const float* Vs, int rq, int kk, float (&s)[4][4],
+                                           float (&dp)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    float qa[4], da[4], kb[4], vb[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      qa[i] = Qs[(rq + i) * (D + 1) + d];
+      da[i] = dOs[(rq + i) * (D + 1) + d];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      kb[j] = Ks[(kk + 16 * j) * (D + 1) + d];
+      vb[j] = Vs[(kk + 16 * j) * (D + 1) + d];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
+        dp[i][j] = fmaf(da[i], vb[j], dp[i][j]);
+      }
+  }
+}
+
+// P and dS (scaled to the raw q.k product) of one score: row rr at query
+// position qpos with log-sum-exp lse and Dv dv, key kp. Both paths.
+__device__ __forceinline__ void prob_grad(Attn a, float s, float dp, int rr, int R,
+                                          int qpos, int kp, float lse, float dv, float& p,
+                                          float& ds) {
+  float x = s * a.scale;
+  if (a.softcap > 0.f) x = tanhf(x / a.softcap) * a.softcap;
+  bool ok = rr < R && kp < a.Tkv;
+  if (a.causal) ok = ok && kp <= qpos;
+  if (a.window > 0) ok = ok && kp > qpos - a.window;
+  p = expf((ok ? x : NEG_INF) - lse);
+  ds = ok ? p * (dp - dv) : 0.f;
+  if (a.softcap > 0.f) {
+    const float t = x / a.softcap;
+    ds *= 1.f - t * t;
+  }
+  ds *= a.scale;
+}
+
+// ---------------------------------------------------------------------------
+// ffma: float32 FFMA (and bf16 inputs the mma path cannot take).
+// ---------------------------------------------------------------------------
+template <int D>
+constexpr int dq_smem_floats() {
+  return 4 * TILE * (D + 1) + TILE * (TILE + 1) + 2 * TILE;
+}
+
+template <class T, int D>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+             const T* __restrict__ o, const T* __restrict__ dout,
+             const float* __restrict__ lse, T* __restrict__ dq, float* __restrict__ dvec,
+             Attn a) {
+  constexpr int DC = D / 16;  // dQ columns a thread owns
+  extern __shared__ float smem[];
+  float* Qs = smem;                   // [TILE][D + 1]
+  float* dOs = Qs + TILE * (D + 1);   // [TILE][D + 1]
+  float* Ks = dOs + TILE * (D + 1);   // [TILE][D + 1]; first O, for Dv
+  float* Vs = Ks + TILE * (D + 1);    // [TILE][D + 1]
+  float* dSs = Vs + TILE * (D + 1);   // [TILE][TILE + 1]
+  float* lse_s = dSs + TILE * (TILE + 1);
+  float* dv_s = lse_s + TILE;
+
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int bh = blockIdx.y, r0 = (gridDim.x - 1 - blockIdx.x) * TILE;  // longest first
+  const int G = a.G, Tq = a.Tq, R = G * Tq;
+  const size_t qoff = (size_t)bh * R * D, koff = (size_t)bh * a.Tkv * D;
+
+  load_rows<T, D>(Qs, q + qoff, r0, R, G, Tq);
+  load_rows<T, D>(dOs, dout + qoff, r0, R, G, Tq);
+  load_rows<T, D>(Ks, o + qoff, r0, R, G, Tq);
+  if (tid < TILE) {
+    const int rr = r0 + tid;
+    lse_s[tid] = rr < R ? lse[(size_t)bh * R + row_off(rr, G, Tq)] : 0.f;
+  }
+  __syncthreads();
+  {  // Dv = rowsum(dO o O): four lanes a row, then two shuffles
+    const int r = tid >> 2, part = tid & 3;
+    float acc = 0.f;
+    for (int d = part; d < D; d += 4) acc = fmaf(dOs[r * (D + 1) + d], Ks[r * (D + 1) + d], acc);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    if (part == 0) {
+      dv_s[r] = acc;
+      if (r0 + r < R) dvec[(size_t)bh * R + row_off(r0 + r, G, Tq)] = acc;
+    }
+  }
+
+  // The keys these rows can see, as in the forward.
+  const int qmin = a.q_offset + r0 / G;
+  const int qmax = a.q_offset + (min(R, r0 + TILE) - 1) / G;
+  const int kv_end = a.causal ? min(a.Tkv, qmax + 1) : a.Tkv;
+  const int kv_begin = a.window > 0 ? max(0, qmin - a.window + 1) / TILE * TILE : 0;
+
+  int qpos[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) qpos[i] = a.q_offset + (r0 + ty * 4 + i) / G;
+  float acc[4][DC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+
+  for (int kv0 = kv_begin; kv0 < kv_end; kv0 += TILE) {
+    __syncthreads();  // the previous tile's Ks/Vs/dSs (and O) are consumed
+    load_keys<T, D>(Ks, k + koff, kv0, a.Tkv);
+    load_keys<T, D>(Vs, v + koff, kv0, a.Tkv);
+    __syncthreads();
+    float s[4][4], dp[4][4];
+    score_tile<D>(Qs, dOs, Ks, Vs, ty * 4, tx, s, dp);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty * 4 + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float p, ds;
+        prob_grad(a, s[i][j], dp[i][j], r0 + r, R, qpos[i], kv0 + tx + 16 * j, lse_s[r],
+                  dv_s[r], p, ds);
+        dSs[r * (TILE + 1) + tx + 16 * j] = ds;
+      }
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int c = 0; c < TILE; ++c) {
+      float dsv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dsv[i] = dSs[(ty * 4 + i) * (TILE + 1) + c];
+#pragma unroll
+      for (int j = 0; j < DC; ++j) {
+        const float kv = Ks[c * (D + 1) + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(dsv[i], kv, acc[i][j]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int rr = r0 + ty * 4 + i;
+    if (rr >= R) continue;
+    T* row = dq + qoff + row_off(rr, G, Tq) * D;
+#pragma unroll
+    for (int j = 0; j < DC; ++j) row[tx + 16 * j] = from_f<T>(acc[i][j]);
+  }
+}
+
+template <int D>
+constexpr int dkv_smem_floats() {
+  return 4 * TILE * (D + 1) + 2 * TILE * (TILE + 1) + 2 * TILE;
+}
+
+template <class T, int D>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+              const T* __restrict__ dout, const float* __restrict__ lse,
+              const float* __restrict__ dvec, T* __restrict__ dk, T* __restrict__ dv, Attn a) {
+  constexpr int DC = D / 16;  // dK / dV columns a thread owns
+  extern __shared__ float smem[];
+  float* Ks = smem;                   // [TILE][D + 1]: this block's keys
+  float* Vs = Ks + TILE * (D + 1);
+  float* Qs = Vs + TILE * (D + 1);    // [TILE][D + 1]: the current row tile
+  float* dOs = Qs + TILE * (D + 1);
+  float* Ps = dOs + TILE * (D + 1);   // [TILE rows][TILE + 1]
+  float* dSs = Ps + TILE * (TILE + 1);
+  float* lse_s = dSs + TILE * (TILE + 1);
+  float* dv_s = lse_s + TILE;
+
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int bh = blockIdx.y, kv0 = blockIdx.x * TILE;
+  const int G = a.G, Tq = a.Tq, R = G * Tq;
+  const size_t qoff = (size_t)bh * R * D, koff = (size_t)bh * a.Tkv * D;
+
+  load_keys<T, D>(Ks, k + koff, kv0, a.Tkv);
+  load_keys<T, D>(Vs, v + koff, kv0, a.Tkv);
+
+  // The folded rows that can see a key of [kv0, kv1): query position at
+  // least kv0 (causal) and below kv1 - 1 + window (sliding window).
+  const int kv1 = min(a.Tkv, kv0 + TILE);
+  const int rr_lo = a.causal ? max(0, (kv0 - a.q_offset) * G) : 0;
+  const int rr_hi = a.window > 0 ? min(R, max(0, kv1 - 1 + a.window - a.q_offset) * G) : R;
+
+  float acc_k[4][DC], acc_v[4][DC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
+
+  for (int r0 = rr_lo / TILE * TILE; r0 < rr_hi; r0 += TILE) {
+    __syncthreads();  // the previous row tile is consumed
+    load_rows<T, D>(Qs, q + qoff, r0, R, G, Tq);
+    load_rows<T, D>(dOs, dout + qoff, r0, R, G, Tq);
+    if (tid < TILE) {
+      const int rr = r0 + tid;
+      const size_t off = (size_t)bh * R + row_off(rr < R ? rr : 0, G, Tq);
+      lse_s[tid] = rr < R ? lse[off] : 0.f;
+      dv_s[tid] = rr < R ? dvec[off] : 0.f;
+    }
+    __syncthreads();
+    float s[4][4], dp[4][4];
+    score_tile<D>(Qs, dOs, Ks, Vs, ty * 4, tx, s, dp);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty * 4 + i, rr = r0 + r;
+      const int qpos = a.q_offset + rr / G;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float p, ds;
+        prob_grad(a, s[i][j], dp[i][j], rr, R, qpos, kv0 + tx + 16 * j, lse_s[r], dv_s[r],
+                  p, ds);
+        Ps[r * (TILE + 1) + tx + 16 * j] = p;
+        dSs[r * (TILE + 1) + tx + 16 * j] = ds;
+      }
+    }
+    __syncthreads();
+    // dV[key] += P[row, key] dO[row]; dK[key] += dS[row, key] Q[row]; this
+    // thread's keys are ty * 4 + i, its columns tx + 16 j.
+#pragma unroll 4
+    for (int r = 0; r < TILE; ++r) {
+      float pv[4], dsv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pv[i] = Ps[r * (TILE + 1) + ty * 4 + i];
+        dsv[i] = dSs[r * (TILE + 1) + ty * 4 + i];
+      }
+#pragma unroll
+      for (int j = 0; j < DC; ++j) {
+        const float dov = dOs[r * (D + 1) + tx + 16 * j];
+        const float qv = Qs[r * (D + 1) + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc_v[i][j] = fmaf(pv[i], dov, acc_v[i][j]);
+          acc_k[i][j] = fmaf(dsv[i], qv, acc_k[i][j]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int kp = kv0 + ty * 4 + i;
+    if (kp >= a.Tkv) continue;
+#pragma unroll
+    for (int j = 0; j < DC; ++j) {
+      dk[koff + (size_t)kp * D + tx + 16 * j] = from_f<T>(acc_k[i][j]);
+      dv[koff + (size_t)kp * D + tx + 16 * j] = from_f<T>(acc_v[i][j]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// mma: bf16 on tensor cores (mma.sync.m16n8k16, float32 accumulate), the
+// fragments and copies of the forward's mma path.
+// ---------------------------------------------------------------------------
+constexpr int PAD = 8;                        // bf16 past each shared row: 16 bytes
+constexpr int MMA_WARPS = 4;                  // 16 rows (dq) or keys (dkv) each
+constexpr int MMA_TILE = 16 * MMA_WARPS;      // rows or keys a block owns, and a tile
+constexpr int MMA_THREADS = 32 * MMA_WARPS;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 bytes from global to shared; zero-filled when !in (src is not read).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(in ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING));
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+// c += a b: mma.sync.m16n8k16, row.col, bf16 in, float32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// Two floats as a bf16 pair, the first in the low half (the lower column).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 64 folded rows from r0 of a (G, Tq, D) head block into dst[64][D + PAD]
+// by cp.async, zeros past R. (Rolled: unrolled copy loops cost registers.)
+template <int D>
+__device__ __forceinline__ void gather_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                            int r0, int R, int G, int Tq) {
+  constexpr int LD = D + PAD, CPR = D / 8;
+#pragma unroll 1
+  for (int i = threadIdx.x; i < MMA_TILE * CPR; i += MMA_THREADS) {
+    const int r = i / CPR, c = (i % CPR) * 8, rr = r0 + r;
+    const bool in = rr < R;
+    cp_async16(smem_u32(dst + r * LD + c), in ? src + row_off(rr, G, Tq) * D + c : src, in);
+  }
+}
+
+// 64 keys from kv0 of a (Tkv, D) block into dst[64][D + PAD], zeros past Tkv.
+template <int D>
+__device__ __forceinline__ void gather_keys(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                            int kv0, int Tkv) {
+  constexpr int LD = D + PAD, CPR = D / 8;
+#pragma unroll 1
+  for (int i = threadIdx.x; i < MMA_TILE * CPR; i += MMA_THREADS) {
+    const int r = i / CPR, c = (i % CPR) * 8, kp = kv0 + r;
+    const bool in = kp < Tkv;
+    cp_async16(smem_u32(dst + r * LD + c), in ? src + (size_t)kp * D + c : src, in);
+  }
+}
+
+// acc (16 x 64) = A B^T over D: A the warp's 16 shared rows at `a`, B the
+// 64 shared rows at `b` (both [row][D + PAD]). Eight 8-column tiles.
+template <int D>
+__device__ __forceinline__ void rows_by_rows(float (&acc)[8][4], const __nv_bfloat16* a,
+                                             const __nv_bfloat16* b) {
+  constexpr int LD = D + PAD;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc) {
+    uint32_t af[4];
+    ldsm_x4(af, smem_u32(a + (lane & 15) * LD + kc * 16 + ((lane >> 4) << 3)));
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t bf[4];
+      const int n = np * 16 + ((lane >> 4) << 3) + (lane & 7);
+      ldsm_x4(bf, smem_u32(b + n * LD + kc * 16 + (((lane >> 3) & 1) << 3)));
+      mma_bf16(acc[2 * np], af, bf[0], bf[1]);
+      mma_bf16(acc[2 * np + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// acc (16 x D) += F B: F (16 x 64) as bf16 A fragments, B the 64 shared rows
+// at `b` read through ldmatrix.trans (k = row, n = column of D).
+template <int D>
+__device__ __forceinline__ void frags_by_rows(float (&acc)[D / 8][4], const uint32_t (&f)[4][4],
+                                              const __nv_bfloat16* b) {
+  constexpr int LD = D + PAD;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      uint32_t bf[4];
+      const int r = kc * 16 + (((lane >> 3) & 1) << 3) + (lane & 7);
+      ldsm_x4_trans(bf, smem_u32(b + r * LD + dp * 16 + ((lane >> 4) << 3)));
+      mma_bf16(acc[2 * dp], f[kc], bf[0], bf[1]);
+      mma_bf16(acc[2 * dp + 1], f[kc], bf[2], bf[3]);
+    }
+}
+
+// A 16 x 64 accumulator tile as bf16 A fragments: the m16n8 accumulator
+// layout is the m16n8k16 A layout, so no value leaves its thread.
+__device__ __forceinline__ void to_frags(uint32_t (&f)[4][4], const float (&acc)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    f[j >> 1][(j & 1) * 2] = pack_bf16(acc[j][0], acc[j][1]);
+    f[j >> 1][(j & 1) * 2 + 1] = pack_bf16(acc[j][2], acc[j][3]);
+  }
+}
+
+template <int D>
+constexpr int dq_mma_smem_bytes() {
+  return 7 * MMA_TILE * (D + PAD) * 2;  // Q, dO, O, two stages of K and V
+}
+
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS)
+flash_bwd_dq_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
+                 const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                 __nv_bfloat16* __restrict__ dq, float* __restrict__ dvec, Attn a) {
+  constexpr int LD = D + PAD, DT = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64][LD]
+  __nv_bfloat16* dOs = Qs + MMA_TILE * LD;                          // [64][LD]
+  __nv_bfloat16* Os = dOs + MMA_TILE * LD;                          // [64][LD]
+  __nv_bfloat16* Ks = Os + MMA_TILE * LD;                           // [2][64][LD]
+  __nv_bfloat16* Vs = Ks + 2 * MMA_TILE * LD;                       // [2][64][LD]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t4 = lane & 3;
+  const int bh = blockIdx.y, r0 = (gridDim.x - 1 - blockIdx.x) * MMA_TILE;  // longest first
+  const int G = a.G, Tq = a.Tq, R = G * Tq;
+  const size_t qoff = (size_t)bh * R * D, koff = (size_t)bh * a.Tkv * D;
+
+  gather_rows<D>(Qs, q + qoff, r0, R, G, Tq);
+  gather_rows<D>(dOs, dout + qoff, r0, R, G, Tq);
+  gather_rows<D>(Os, o + qoff, r0, R, G, Tq);
+  const int qmin = a.q_offset + r0 / G;
+  const int qmax = a.q_offset + (min(R, r0 + MMA_TILE) - 1) / G;
+  const int kv_end = a.causal ? min(a.Tkv, qmax + 1) : a.Tkv;
+  const int kv_begin = a.window > 0 ? max(0, qmin - a.window + 1) / MMA_TILE * MMA_TILE : 0;
+  auto load_kv = [&](int kv0, int st) {
+    gather_keys<D>(Ks + st * MMA_TILE * LD, k + koff, kv0, a.Tkv);
+    gather_keys<D>(Vs + st * MMA_TILE * LD, v + koff, kv0, a.Tkv);
+  };
+  if (kv_begin < kv_end) load_kv(kv_begin, 0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // This thread's rows: g and g + 8 of the warp's 16. Dv over a quad's lanes.
+  const int wrow = warp * 16;
+  int qpos[2];
+  float lse_r[2], dv_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = wrow + g + 8 * h, rr = r0 + r;
+    qpos[h] = a.q_offset + (rr < R ? rr / G : 0);
+    lse_r[h] = rr < R ? lse[(size_t)bh * R + row_off(rr, G, Tq)] : 0.f;
+    float acc = 0.f;
+    for (int c = 2 * t4; c < D; c += 8) {
+      const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(dOs + r * LD + c);
+      const __nv_bfloat162 y = *reinterpret_cast<const __nv_bfloat162*>(Os + r * LD + c);
+      acc = fmaf(__low2float(x), __low2float(y), acc);
+      acc = fmaf(__high2float(x), __high2float(y), acc);
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    dv_r[h] = acc;
+    if (t4 == 0 && rr < R) dvec[(size_t)bh * R + row_off(rr, G, Tq)] = acc;
+  }
+
+  float acc[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  int st = 0;
+  for (int kv0 = kv_begin; kv0 < kv_end; kv0 += MMA_TILE, st ^= 1) {
+    if (kv0 + MMA_TILE < kv_end) load_kv(kv0 + MMA_TILE, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile landed; the next stays in flight
+    __syncthreads();
+    const __nv_bfloat16* ks = Ks + st * MMA_TILE * LD;
+    float s[8][4], dp[8][4];
+    rows_by_rows<D>(s, Qs + wrow * LD, ks);
+    rows_by_rows<D>(dp, dOs + wrow * LD, Vs + st * MMA_TILE * LD);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        float p;
+        prob_grad(a, s[j][e], dp[j][e], r0 + wrow + g + 8 * h, R, qpos[h],
+                  kv0 + j * 8 + 2 * t4 + (e & 1), lse_r[h], dv_r[h], p, s[j][e]);
+      }
+    uint32_t dsf[4][4];
+    to_frags(dsf, s);
+    frags_by_rows<D>(acc, dsf, ks);  // dQ += dS K
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int rr = r0 + wrow + g + 8 * h;
+    if (rr >= R) continue;
+    __nv_bfloat16* row = dq + qoff + row_off(rr, G, Tq) * D;
+#pragma unroll
+    for (int j = 0; j < DT; ++j)
+      *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * t4) =
+          pack_bf16(acc[j][2 * h], acc[j][2 * h + 1]);
+  }
+}
+
+template <int D>
+constexpr int dkv_mma_smem_bytes() {
+  return 6 * MMA_TILE * (D + PAD) * 2 + 4 * MMA_TILE * 4;  // K, V, 2 x (Q, dO), lse, Dv
+}
+
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS)
+flash_bwd_dkv_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+                  const float* __restrict__ lse, const float* __restrict__ dvec,
+                  __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, Attn a) {
+  constexpr int LD = D + PAD, DT = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64][LD]
+  __nv_bfloat16* Vs = Ks + MMA_TILE * LD;                           // [64][LD]
+  __nv_bfloat16* Qs = Vs + MMA_TILE * LD;                           // [2][64][LD]
+  __nv_bfloat16* dOs = Qs + 2 * MMA_TILE * LD;                      // [2][64][LD]
+  float* lse_s = reinterpret_cast<float*>(dOs + 2 * MMA_TILE * LD);  // [2][64]
+  float* dv_s = lse_s + 2 * MMA_TILE;                                // [2][64]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t4 = lane & 3;
+  const int bh = blockIdx.y, kv0 = blockIdx.x * MMA_TILE;
+  const int G = a.G, Tq = a.Tq, R = G * Tq;
+  const size_t qoff = (size_t)bh * R * D, koff = (size_t)bh * a.Tkv * D;
+
+  gather_keys<D>(Ks, k + koff, kv0, a.Tkv);
+  gather_keys<D>(Vs, v + koff, kv0, a.Tkv);
+  // The folded rows that can see a key of [kv0, kv1), as the ffma kernel.
+  const int kv1 = min(a.Tkv, kv0 + MMA_TILE);
+  const int rr_lo = a.causal ? max(0, (kv0 - a.q_offset) * G) : 0;
+  const int rr_hi = a.window > 0 ? min(R, max(0, kv1 - 1 + a.window - a.q_offset) * G) : R;
+  auto load_rows = [&](int r0, int st) {
+    gather_rows<D>(Qs + st * MMA_TILE * LD, q + qoff, r0, R, G, Tq);
+    gather_rows<D>(dOs + st * MMA_TILE * LD, dout + qoff, r0, R, G, Tq);
+    if (tid < MMA_TILE) {  // plain loads: visible after the next barrier
+      const int rr = r0 + tid;
+      const size_t off = (size_t)bh * R + row_off(rr < R ? rr : 0, G, Tq);
+      lse_s[st * MMA_TILE + tid] = rr < R ? lse[off] : 0.f;
+      dv_s[st * MMA_TILE + tid] = rr < R ? dvec[off] : 0.f;
+    }
+  };
+  const int r_first = rr_lo / MMA_TILE * MMA_TILE;
+  if (r_first < rr_hi) load_rows(r_first, 0);
+  cp_async_commit();
+
+  // This thread's keys: g and g + 8 of the warp's 16.
+  const int wkey = warp * 16;
+  int kpos[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) kpos[h] = kv0 + wkey + g + 8 * h;
+  float acc_k[DT][4], acc_v[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[j][e] = acc_v[j][e] = 0.f;
+
+  int st = 0;
+  for (int r0 = r_first; r0 < rr_hi; r0 += MMA_TILE, st ^= 1) {
+    if (r0 + MMA_TILE < rr_hi) load_rows(r0 + MMA_TILE, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile (and K, V) landed; the next stays in flight
+    __syncthreads();
+    const __nv_bfloat16* qs = Qs + st * MMA_TILE * LD;
+    const __nv_bfloat16* dos = dOs + st * MMA_TILE * LD;
+    // S^T and dP^T: this warp's 16 keys by the tile's 64 rows.
+    float s[8][4], dp[8][4];
+    rows_by_rows<D>(s, Ks + wkey * LD, qs);
+    rows_by_rows<D>(dp, Vs + wkey * LD, dos);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = j * 8 + 2 * t4 + (e & 1), rr = r0 + col;
+        prob_grad(a, s[j][e], dp[j][e], rr, R, a.q_offset + rr / G, kpos[e >> 1],
+                  lse_s[st * MMA_TILE + col], dv_s[st * MMA_TILE + col], s[j][e], dp[j][e]);
+      }
+    uint32_t f[4][4];
+    to_frags(f, s);
+    frags_by_rows<D>(acc_v, f, dos);  // dV += P^T dO
+    to_frags(f, dp);
+    frags_by_rows<D>(acc_k, f, qs);   // dK += dS^T Q
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (kpos[h] >= a.Tkv) continue;
+    const size_t off = koff + (size_t)kpos[h] * D;
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      *reinterpret_cast<uint32_t*>(dk + off + 8 * j + 2 * t4) =
+          pack_bf16(acc_k[j][2 * h], acc_k[j][2 * h + 1]);
+      *reinterpret_cast<uint32_t*>(dv + off + 8 * j + 2 * t4) =
+          pack_bf16(acc_v[j][2 * h], acc_v[j][2 * h + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launch.
+// ---------------------------------------------------------------------------
+enum Path { PATH_MMA = 0, PATH_FFMA = 1 };
+
+bool path_fits(int path, int dtype, int D, bool aligned) {
+  const bool d_ok = D == 16 || D == 32 || D == 64 || D == 128;
+  switch (path) {
+    case PATH_MMA: return d_ok && dtype == 1 && aligned;
+    case PATH_FFMA: return d_ok && (dtype == 0 || dtype == 1);
+    default: return false;
+  }
+}
+
+template <class T, int D>
+cudaError_t launch(int path, const void* q, const void* k, const void* v, const void* o,
+                   const void* dout, const float* lse, void* dq, void* dk, void* dv,
+                   float* dvec, int BH, const Attn& a, cudaStream_t stream) {
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* ot = static_cast<const T*>(o);
+  const T* dot = static_cast<const T*>(dout);
+  const dim3 dq_grid((a.G * a.Tq + TILE - 1) / TILE, BH), dkv_grid((a.Tkv + TILE - 1) / TILE, BH);
+  if constexpr (sizeof(T) == 2) {
+    if (path == PATH_MMA) {
+      constexpr int dq_bytes = dq_mma_smem_bytes<D>(), dkv_bytes = dkv_mma_smem_bytes<D>();
+      static const cudaError_t attr_dq = cudaFuncSetAttribute(
+          flash_bwd_dq_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
+      static const cudaError_t attr_dkv = cudaFuncSetAttribute(
+          flash_bwd_dkv_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_bytes);
+      if (attr_dq != cudaSuccess) return attr_dq;
+      if (attr_dkv != cudaSuccess) return attr_dkv;
+      flash_bwd_dq_mma<D><<<dq_grid, MMA_THREADS, dq_bytes, stream>>>(
+          qt, kt, vt, ot, dot, lse, static_cast<T*>(dq), dvec, a);
+      cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+      flash_bwd_dkv_mma<D><<<dkv_grid, MMA_THREADS, dkv_bytes, stream>>>(
+          qt, kt, vt, dot, lse, dvec, static_cast<T*>(dk), static_cast<T*>(dv), a);
+      return cudaGetLastError();
+    }
+  }
+  constexpr int dq_bytes = dq_smem_floats<D>() * sizeof(float);
+  constexpr int dkv_bytes = dkv_smem_floats<D>() * sizeof(float);
+  static const cudaError_t attr_dq = cudaFuncSetAttribute(
+      flash_bwd_dq<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
+  static const cudaError_t attr_dkv = cudaFuncSetAttribute(
+      flash_bwd_dkv<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_bytes);
+  if (attr_dq != cudaSuccess) return attr_dq;
+  if (attr_dkv != cudaSuccess) return attr_dkv;
+  flash_bwd_dq<T, D><<<dq_grid, THREADS, dq_bytes, stream>>>(
+      qt, kt, vt, ot, dot, lse, static_cast<T*>(dq), dvec, a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkv<T, D><<<dkv_grid, THREADS, dkv_bytes, stream>>>(
+      qt, kt, vt, dot, lse, dvec, static_cast<T*>(dk), static_cast<T*>(dv), a);
+  return cudaGetLastError();
+}
+
+template <class T>
+cudaError_t dispatch(int path, int D, const void* q, const void* k, const void* v,
+                     const void* o, const void* dout, const float* lse, void* dq, void* dk,
+                     void* dv, float* dvec, int BH, const Attn& a, cudaStream_t s) {
+  switch (D) {
+    case 16: return launch<T, 16>(path, q, k, v, o, dout, lse, dq, dk, dv, dvec, BH, a, s);
+    case 32: return launch<T, 32>(path, q, k, v, o, dout, lse, dq, dk, dv, dvec, BH, a, s);
+    case 64: return launch<T, 64>(path, q, k, v, o, dout, lse, dq, dk, dv, dvec, BH, a, s);
+    case 128: return launch<T, 128>(path, q, k, v, o, dout, lse, dq, dk, dv, dvec, BH, a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// dtype codes: 0 = float32, 1 = bfloat16 (q, k, v, o, dO and the gradients
+// share it); lse and dvec float32, dvec (BH, G, Tq) scratch for Dv. D in
+// {16, 32, 64, 128}. path: 0 = mma (bf16, every tensor 16-byte aligned),
+// 1 = ffma. Launches the dQ kernel, then the dK/dV kernel, on `stream`;
+// returns the CUDA error of the launches (cudaErrorInvalidValue for a path
+// the inputs cannot take), 0 when both launched.
+extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
+                                          const void* o, const void* dout, const void* lse,
+                                          void* dq, void* dk, void* dv, void* dvec, int BH,
+                                          int G, int Tq, int Tkv, int D, int dtype,
+                                          int causal, int window, float softcap,
+                                          int q_offset, float scale, int path, void* stream) {
+  const uintptr_t any = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
+                        reinterpret_cast<uintptr_t>(dout) | reinterpret_cast<uintptr_t>(dq) |
+                        reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv);
+  if (dtype < 0 || dtype > 1 || BH < 1 || G < 1 || Tq < 1 || Tkv < 1 ||
+      !path_fits(path, dtype, D, (any & 15) == 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Attn a{G, Tq, Tkv, causal, window, softcap, q_offset, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  float* dvp = static_cast<float*>(dvec);
+  const cudaError_t err =
+      dtype == 0
+          ? dispatch<float>(path, D, q, k, v, o, dout, l, dq, dk, dv, dvp, BH, a, s)
+          : dispatch<__nv_bfloat16>(path, D, q, k, v, o, dout, l, dq, dk, dv, dvp, BH, a, s);
+  return static_cast<int>(err);
+}

@@ -24,6 +24,15 @@
 //    256, from N. TMA needs 16-byte row strides and base pointers: K and N
 //    multiples of 8, x and w 16-byte aligned. Every serving projection meets
 //    that; the rest take mma.
+//    Training's gradient products read their operands where they lie,
+//    through two more layouts (enum Layout), never through a transposed
+//    copy: dx = dz (M, N) @ w^T reads w (K, N) as a K-major B (transpose
+//    bit off, one TMA box of BN rows x 64 k), and dw = x^T @ dz reads x
+//    (M, K) as an MN-major A (the A transpose bit, which wgmma allows for
+//    16-bit types from shared memory; two TMA boxes of 64 k-rows x 64 m).
+//    Each block still owns its outputs and walks K in one order: no split-K,
+//    no atomics, so dw is deterministic (its long K = tokens is walked by one
+//    block a tile).
 //  * mma (bf16 shapes TMA cannot address: K or N not a multiple of 8, or an
 //    unaligned pointer). mma.sync.m16n8k16 from one 128 x 128 x 32 shared
 //    tile, every load and store masked. Slow, and kept only for those shapes.
@@ -38,7 +47,11 @@
 //    Slab width and split are set from N so the grid is one wave of one
 //    block an SM: even N = 80 gives 80 blocks.
 //  * ffma (float32, M > 16). True float32 FFMA (never TF32) for the float32
-//    parity runs: 64 x 64 x 16 tiles, 4 x 4 outputs a thread.
+//    parity runs: 64 x 64 x 16 tiles, 4 x 4 outputs a thread. It takes the
+//    three layouts too, with the tile loads mapped so neighbouring threads
+//    read neighbouring addresses in each.
+// mma and skinny take only the plain layout: no gradient product reaches
+// them (training's M is the token count, and its K and N multiples of 8).
 
 #include <cooperative_groups.h>
 #include <cuda.h>
@@ -55,6 +68,10 @@ namespace {
 
 enum Act { ACT_NONE = 0, ACT_TANH = 1, ACT_RELU = 2, ACT_SILU = 3, ACT_GELU = 4 };
 enum Path { PATH_WGMMA = 0, PATH_MMA = 1, PATH_SKINNY = 2, PATH_FFMA = 3 };
+// Where the operands of out (M, N) = x' (M, K) @ w' (K, N) lie: x' = x
+// stored (M, K) or x^T with x stored (K, M); w' = w stored (K, N) or w^T
+// with w stored (N, K). At most one operand is transposed.
+enum Layout { PLAIN = 0, W_T = 1, X_T = 2 };
 
 __device__ __forceinline__ float act_apply(float v, int act) {
   switch (act) {
@@ -168,14 +185,15 @@ __device__ __forceinline__ void fence_acc(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// D(64 x BN, f32) += A(64 x 16, K-major) * B(16 x BN, N-major: trans-b = 1).
-template <int BN> struct Wgmma;
+// D(64 x BN, f32) += A(64 x 16) * B(16 x BN). TA = 1: A MN-major (else
+// K-major); TB = 1: B N-major (else K-major).
+template <int BN, int TA, int TB> struct Wgmma;
 
 // The accumulator operands of one wgmma, 16 at a time.
 #define TM_ACC4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 #define TM_ACC16(i) TM_ACC4(i), TM_ACC4(i + 4), TM_ACC4(i + 8), TM_ACC4(i + 12)
 
-template <> struct Wgmma<128> {
+template <int TA, int TB> struct Wgmma<128, TA, TB> {
   static __device__ __forceinline__ void mma(float (&d)[64], uint64_t da, uint64_t db) {
     asm volatile(
         "{\n.reg .pred p;\n"
@@ -187,13 +205,13 @@ template <> struct Wgmma<128> {
         "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
         "%60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+        "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
         : TM_ACC16(0), TM_ACC16(16), TM_ACC16(32), TM_ACC16(48)
-        : "l"(da), "l"(db), "r"(1));
+        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
   }
 };
 
-template <> struct Wgmma<256> {
+template <int TA, int TB> struct Wgmma<256, TA, TB> {
   static __device__ __forceinline__ void mma(float (&d)[128], uint64_t da, uint64_t db) {
     asm volatile(
         "{\n.reg .pred p;\n"
@@ -210,10 +228,10 @@ template <> struct Wgmma<256> {
         "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
         "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
         "%120, %121, %122, %123, %124, %125, %126, %127"
-        "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+        "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
         : TM_ACC16(0), TM_ACC16(16), TM_ACC16(32), TM_ACC16(48),
           TM_ACC16(64), TM_ACC16(80), TM_ACC16(96), TM_ACC16(112)
-        : "l"(da), "l"(db), "r"(1));
+        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
   }
 };
 
@@ -226,16 +244,19 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float v0, float v1) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
 }
 
-template <int BN, class TOut>
+template <int BN, int LAYOUT, class TOut>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 tile_matmul_wgmma(const __grid_constant__ CUtensorMap tmap_x,
                   const __grid_constant__ CUtensorMap tmap_w,
                   const __nv_bfloat16* __restrict__ b, TOut* __restrict__ out, int M, int N,
                   int K, int act) {
   using T = WgTile<BN>;
+  constexpr int TA = LAYOUT == X_T, TB = LAYOUT != W_T;
   extern __shared__ __align__(1024) unsigned char dyn_smem[];
-  // Stage s: A (128 x 64, K-major) at ring + s * STAGE, then B as BN / 64
-  // boxes of (64 k-rows x 64 n), each k-row 128 bytes.
+  // Stage s: A at ring + s * STAGE, then B. A, K-major: 128 m-rows of 64 k
+  // (128 bytes each); MN-major (X_T): two boxes of (64 k-rows x 64 m), one
+  // a warpgroup. B, N-major: BN / 64 boxes of (64 k-rows x 64 n); K-major
+  // (W_T): one box of BN n-rows x 64 k. Each box is 128-byte swizzled.
   const uint32_t ring = (smem_u32(dyn_smem) + 1023) & ~1023u;
   const uint32_t full = ring + WG_STAGES * T::STAGE, empty = full + WG_STAGES * 8;
   const int m0 = blockIdx.y * WG_BM, n0 = blockIdx.x * BN;
@@ -258,10 +279,19 @@ tile_matmul_wgmma(const __grid_constant__ CUtensorMap tmap_x,
         if (kt >= WG_STAGES) mbar_wait(empty + 8 * s, ((kt / WG_STAGES) & 1) ^ 1);
         const uint32_t sa = ring + s * T::STAGE, sb = sa + T::A_BYTES, bar = full + 8 * s;
         mbar_expect_tx(bar, T::STAGE);
-        tma_load(sa, &tmap_x, bar, kt * WG_BK, m0);
+        if constexpr (TA) {
+          tma_load(sa, &tmap_x, bar, m0, kt * WG_BK);
+          tma_load(sa + WG_BK * 128, &tmap_x, bar, m0 + 64, kt * WG_BK);
+        } else {
+          tma_load(sa, &tmap_x, bar, kt * WG_BK, m0);
+        }
+        if constexpr (TB) {
 #pragma unroll
-        for (int j = 0; j < BN / 64; ++j)
-          tma_load(sb + j * (WG_BK * 128), &tmap_w, bar, n0 + 64 * j, kt * WG_BK);
+          for (int j = 0; j < BN / 64; ++j)
+            tma_load(sb + j * (WG_BK * 128), &tmap_w, bar, n0 + 64 * j, kt * WG_BK);
+        } else {
+          tma_load(sb, &tmap_w, bar, kt * WG_BK, n0);
+        }
       }
     }
     return;
@@ -282,11 +312,15 @@ tile_matmul_wgmma(const __grid_constant__ CUtensorMap tmap_x,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < WG_BK / 16; ++kk) {
-      // A: 16 k = 32 bytes along the swizzled row; 8-row groups 1024 bytes apart.
-      // B: 16 k-rows = 2048 bytes; 8-row groups 1024 apart (stride), 64-column
-      //    boxes WG_BK * 128 bytes apart (leading).
-      Wgmma<BN>::mma(acc, sw128_desc(sa + 32 * kk, 16, 1024),
-                     sw128_desc(sb + 2048 * kk, WG_BK * 128, 1024));
+      // K-major operand: 16 k = 32 bytes along the swizzled row; 8-row groups
+      //   1024 bytes apart.
+      // MN-major operand: 16 k-rows = 2048 bytes; 8-row groups 1024 apart
+      //   (stride), 64-column boxes WG_BK * 128 bytes apart (leading).
+      const uint64_t da = TA ? sw128_desc(sa + 2048 * kk, WG_BK * 128, 1024)
+                             : sw128_desc(sa + 32 * kk, 16, 1024);
+      const uint64_t db = TB ? sw128_desc(sb + 2048 * kk, WG_BK * 128, 1024)
+                             : sw128_desc(sb + 32 * kk, 16, 1024);
+      Wgmma<BN, TA, TB>::mma(acc, da, db);
     }
     wgmma_commit();
     wgmma_wait<1>();  // the previous stage's products are done: release it
@@ -433,7 +467,7 @@ template <class TIn, class TOut>
 __global__ void __launch_bounds__(FF_THREADS)
 tile_matmul_ffma(const TIn* __restrict__ x, const TIn* __restrict__ w,
                  const TIn* __restrict__ b, TOut* __restrict__ out, int M, int N, int K,
-                 int act) {
+                 int act, int layout) {
   __shared__ float As[FF_BK][FF_BM + 4];  // k-major: row reads broadcast
   __shared__ float Bs[FF_BK][FF_BN + 4];
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
@@ -441,17 +475,25 @@ tile_matmul_ffma(const TIn* __restrict__ x, const TIn* __restrict__ w,
   float acc[4][4] = {};
 
   for (int k0 = 0; k0 < K; k0 += FF_BK) {
+    // Each tile load walks the operand's contiguous axis across neighbouring
+    // threads: k for x (M, K) and w^T (N, K), m for x^T, n for w (K, N).
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int m = (tid >> 4) + 16 * i, k = tid & 15;
+      const bool xt = layout == X_T;
+      const int m = xt ? tid & 63 : (tid >> 4) + 16 * i;
+      const int k = xt ? (tid >> 6) + 4 * i : tid & 15;
       const int gm = m0 + m, gk = k0 + k;
-      As[k][m] = (gm < M && gk < K) ? to_f(x[(size_t)gm * K + gk]) : 0.f;
+      As[k][m] = (gm < M && gk < K)
+                     ? to_f(x[xt ? (size_t)gk * M + gm : (size_t)gm * K + gk]) : 0.f;
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int k = (tid >> 6) + 4 * i, n = tid & 63;
+      const bool wt = layout == W_T;
+      const int k = wt ? tid & 15 : (tid >> 6) + 4 * i;
+      const int n = wt ? (tid >> 4) + 16 * i : tid & 63;
       const int gk = k0 + k, gn = n0 + n;
-      Bs[k][n] = (gk < K && gn < N) ? to_f(w[(size_t)gk * N + gn]) : 0.f;
+      Bs[k][n] = (gk < K && gn < N)
+                     ? to_f(w[wt ? (size_t)gn * K + gk : (size_t)gk * N + gn]) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -678,13 +720,16 @@ int sm_count() {
   return n;
 }
 
-template <int BN, class TOut>
+template <int BN, int LAYOUT, class TOut>
 cudaError_t launch_wgmma(const void* x, const void* w, const void* b, void* out, int M, int N,
                          int K, int act, cudaStream_t stream) {
   CUtensorMap tx, tw;
-  if (!encode_bf16(&tx, x, M, K, WG_BM) || !encode_bf16(&tw, w, K, N, WG_BK))
-    return cudaErrorInvalidValue;
-  auto kernel = tile_matmul_wgmma<BN, TOut>;
+  const bool ok_x = LAYOUT == X_T ? encode_bf16(&tx, x, K, M, WG_BK)
+                                  : encode_bf16(&tx, x, M, K, WG_BM);
+  const bool ok_w = LAYOUT == W_T ? encode_bf16(&tw, w, N, K, BN)
+                                  : encode_bf16(&tw, w, K, N, WG_BK);
+  if (!ok_x || !ok_w) return cudaErrorInvalidValue;
+  auto kernel = tile_matmul_wgmma<BN, LAYOUT, TOut>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WgTile<BN>::SMEM);
   if (attr != cudaSuccess) return attr;
@@ -729,16 +774,27 @@ cudaError_t launch_skinny(const void* x, const void* w, const void* b, void* out
                             lg, split);
 }
 
+template <int LAYOUT, class TOut>
+cudaError_t launch_wgmma_bn(const void* x, const void* w, const void* b, void* out, int M,
+                            int N, int K, int act, cudaStream_t stream) {
+  return N >= 512 ? launch_wgmma<256, LAYOUT, TOut>(x, w, b, out, M, N, K, act, stream)
+                  : launch_wgmma<128, LAYOUT, TOut>(x, w, b, out, M, N, K, act, stream);
+}
+
 template <class TIn, class TOut>
-cudaError_t launch(int path, const void* x, const void* w, const void* b, void* out, int M,
-                   int N, int K, int act, cudaStream_t stream) {
+cudaError_t launch(int path, int layout, const void* x, const void* w, const void* b,
+                   void* out, int M, int N, int K, int act, cudaStream_t stream) {
   if (path == PATH_SKINNY)
     return M <= 8 ? launch_skinny<TIn, TOut, 8>(x, w, b, out, M, N, K, act, stream)
                   : launch_skinny<TIn, TOut, 16>(x, w, b, out, M, N, K, act, stream);
   if constexpr (std::is_same<TIn, __nv_bfloat16>::value) {
-    if (path == PATH_WGMMA)
-      return N >= 512 ? launch_wgmma<256, TOut>(x, w, b, out, M, N, K, act, stream)
-                       : launch_wgmma<128, TOut>(x, w, b, out, M, N, K, act, stream);
+    if (path == PATH_WGMMA) {
+      switch (layout) {
+        case W_T: return launch_wgmma_bn<W_T, TOut>(x, w, b, out, M, N, K, act, stream);
+        case X_T: return launch_wgmma_bn<X_T, TOut>(x, w, b, out, M, N, K, act, stream);
+        default: return launch_wgmma_bn<PLAIN, TOut>(x, w, b, out, M, N, K, act, stream);
+      }
+    }
     const int vec_x = (K % 8 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
     dim3 grid((N + MMA_BN - 1) / MMA_BN, (M + MMA_BM - 1) / MMA_BM);
     tile_matmul_mma<TOut><<<grid, MMA_THREADS, 0, stream>>>(
@@ -748,20 +804,27 @@ cudaError_t launch(int path, const void* x, const void* w, const void* b, void* 
     dim3 grid((N + FF_BN - 1) / FF_BN, (M + FF_BM - 1) / FF_BM);
     tile_matmul_ffma<TIn, TOut><<<grid, FF_THREADS, 0, stream>>>(
         static_cast<const TIn*>(x), static_cast<const TIn*>(w), static_cast<const TIn*>(b),
-        static_cast<TOut*>(out), M, N, K, act);
+        static_cast<TOut*>(out), M, N, K, act, layout);
   }
   return cudaGetLastError();
 }
 
-// Whether `path` can take this shape; the wrapper's choose_path mirrors it.
-bool path_fits(int path, int M, int N, int K, int dtype, const void* x, const void* w) {
+// Whether `path` can take this shape and layout; the wrapper's choose_path
+// mirrors it. TMA needs 16-byte row strides: the stored rows of x and w are
+// K long (w^T's too), except x^T's, which are M long (then K counts rows).
+bool path_fits(int path, int layout, int M, int N, int K, int dtype, const void* x,
+               const void* w) {
   const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(w) % 16 == 0;
   const int elem = dtype == 1 ? 2 : 4;
+  if (layout < PLAIN || layout > X_T) return false;
   switch (path) {
-    case PATH_WGMMA: return dtype == 1 && K > 0 && K % 8 == 0 && N % 8 == 0 && aligned;
-    case PATH_MMA: return dtype == 1;
-    case PATH_SKINNY: return M <= SK_MAXM && (N * elem) % 16 == 0 && aligned;
+    case PATH_WGMMA:
+      return dtype == 1 && K > 0 && N % 8 == 0 && aligned &&
+             (layout == X_T ? M % 8 == 0 : K % 8 == 0);
+    case PATH_MMA: return dtype == 1 && layout == PLAIN;
+    case PATH_SKINNY:
+      return M <= SK_MAXM && (N * elem) % 16 == 0 && aligned && layout == PLAIN;
     case PATH_FFMA: return dtype == 0;
     default: return false;
   }
@@ -770,24 +833,26 @@ bool path_fits(int path, int M, int N, int K, int dtype, const void* x, const vo
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16 (x, w and b share one type); path
-// codes as enum Path. Returns cudaGetLastError() after the launch (0 means
-// launched), or cudaErrorInvalidValue for a path the shape cannot take.
+// codes as enum Path, layout codes as enum Layout; (M, N, K) are the
+// product's: out (M, N), reduction K, whatever the layout. Returns
+// cudaGetLastError() after the launch (0 means launched), or
+// cudaErrorInvalidValue for a path the shape or layout cannot take.
 extern "C" int tile_matmul_launch(const void* x, const void* w, const void* b, void* out,
                                   int M, int N, int K, int dtype, int out_dtype, int act,
-                                  int path, void* stream) {
+                                  int path, int layout, void* stream) {
   if (dtype < 0 || dtype > 1 || out_dtype < 0 || out_dtype > 1 || M < 1 || N < 1 || K < 0 ||
-      !path_fits(path, M, N, K, dtype, x, w))
+      !path_fits(path, layout, M, N, K, dtype, x, w))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (dtype == 1 && out_dtype == 1) {
-    e = launch<__nv_bfloat16, __nv_bfloat16>(path, x, w, b, out, M, N, K, act, s);
+    e = launch<__nv_bfloat16, __nv_bfloat16>(path, layout, x, w, b, out, M, N, K, act, s);
   } else if (dtype == 1) {
-    e = launch<__nv_bfloat16, float>(path, x, w, b, out, M, N, K, act, s);
+    e = launch<__nv_bfloat16, float>(path, layout, x, w, b, out, M, N, K, act, s);
   } else if (out_dtype == 0) {
-    e = launch<float, float>(path, x, w, b, out, M, N, K, act, s);
+    e = launch<float, float>(path, layout, x, w, b, out, M, N, K, act, s);
   } else {
-    e = launch<float, __nv_bfloat16>(path, x, w, b, out, M, N, K, act, s);
+    e = launch<float, __nv_bfloat16>(path, layout, x, w, b, out, M, N, K, act, s);
   }
   return static_cast<int>(e);
 }

@@ -20,6 +20,13 @@ switches):
 
 ``flash_attention.launches`` counts launches; ``flash_attention.paths``
 counts them per path. The source's header says what bounds each on the card.
+
+:func:`flash_attention` also returns each row's log-sum-exp when asked
+(``return_lse``), which :func:`flash_attention_bwd` takes with the output to
+launch the backward (``csrc/flash_attention_bwd.cu``: a dQ kernel, then a
+dK/dV kernel, no atomics), with the forward's two paths: ``mma`` (bf16 on
+tensor cores) and ``ffma`` (float32). ``flash_attention_bwd.launches`` and
+``.paths`` count its calls.
 """
 
 from __future__ import annotations
@@ -46,29 +53,35 @@ def choose_path(dtype: torch.dtype, d: int, aligned: bool) -> str:
     return "mma" if dtype == torch.bfloat16 and aligned else "ffma"
 
 
+_MASK = (ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_float)
+
+
 @functools.cache
 def _lib():
     fn = _build.load("flash_attention").flash_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                      ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + list(_MASK)
+                   + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0, softcap: float = 0.0,
-                    q_offset: int = 0, path: str | None = None) -> torch.Tensor:
-    """q: (BH, G, Tq, D); k, v: (BH, Tkv, D) → (BH, G, Tq, D), on CUDA.
-    ``path`` overrides ``choose_path`` (the C side refuses a path the
-    inputs cannot take). Raises on anything the kernel does not take."""
+@functools.cache
+def _lib_bwd():
+    fn = _build.load("flash_attention_bwd").flash_attention_bwd_launch
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + list(_MASK)
+                   + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(q, k, v) -> None:
+    """Raises on inputs no kernel takes: CUDA, shapes, dtype, contiguity."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("flash_attention kernel needs CUDA tensors")
     if q.dim() != 4 or k.dim() != 3 or v.shape != k.shape:
         raise ValueError(f"bad shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
-    BH, G, Tq, D = q.shape
-    Tkv = k.shape[1]
+    BH, D = q.shape[0], q.shape[3]
     if k.shape[0] != BH or k.shape[2] != D or D not in HEAD_DIMS:
         raise ValueError(f"need k (BH, Tkv, D) with D in {HEAD_DIMS}; "
                          f"got q {tuple(q.shape)}, k {tuple(k.shape)}")
@@ -77,14 +90,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "float32, bfloat16")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention kernel needs contiguous q, k, v")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0, softcap: float = 0.0,
+                    q_offset: int = 0, path: str | None = None,
+                    return_lse: bool = False):
+    """q: (BH, G, Tq, D); k, v: (BH, Tkv, D) → (BH, G, Tq, D), on CUDA;
+    with ``return_lse`` also each row's float32 log-sum-exp (BH, G, Tq).
+    ``path`` overrides ``choose_path`` (the C side refuses a path the
+    inputs cannot take). Raises on anything the kernel does not take."""
+    _check(q, k, v)
+    BH, G, Tq, D = q.shape
+    Tkv = k.shape[1]
     out = torch.empty_like(q)
+    lse = (torch.empty((BH, G, Tq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     path = path or choose_path(q.dtype, D, all(p % 16 == 0 for p in ptrs))
-    err = _lib()(*ptrs, BH, G, Tq, Tkv, D, DTYPE_CODES[q.dtype], int(causal),
-                 int(window), float(softcap), int(q_offset), 1.0 / D ** 0.5,
-                 PATH_CODES[path],
+    err = _lib()(*ptrs, None if lse is None else lse.data_ptr(), BH, G, Tq, Tkv, D,
+                 DTYPE_CODES[q.dtype], int(causal), int(window), float(softcap),
+                 int(q_offset), 1.0 / D ** 0.5, PATH_CODES[path],
                  # the current stream's handle, without building a Stream object
                  torch._C._cuda_getCurrentRawStream(q.get_device()))
     if err:
@@ -92,8 +120,50 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"CUDA error {err}")
     flash_attention.launches += 1
     flash_attention.paths[path] += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
 flash_attention.paths = dict.fromkeys(PATH_CODES, 0)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor, *,
+                        causal: bool = True, window: int = 0, softcap: float = 0.0,
+                        q_offset: int = 0, path: str | None = None):
+    """Gradients (dq, dk, dv) of :func:`flash_attention` at (q, k, v), whose
+    output was ``o`` and row log-sum-exp ``lse``, for the output gradient
+    ``do``; same shapes and layout as q, k, v. On CUDA; raises on anything
+    the kernels do not take. ``path`` as :func:`flash_attention`'s, picked
+    by the same rule: ``mma`` for aligned bf16, else ``ffma``."""
+    _check(q, k, v)
+    BH, G, Tq, D = q.shape
+    Tkv = k.shape[1]
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != (BH, G, Tq):
+        raise ValueError(f"need o and do of q's shape {tuple(q.shape)} and lse "
+                         f"({BH}, {G}, {Tq}); got {tuple(o.shape)}, "
+                         f"{tuple(do.shape)}, {tuple(lse.shape)}")
+    if o.dtype != q.dtype or do.dtype != q.dtype or lse.dtype != torch.float32:
+        raise ValueError(f"need o, do in {q.dtype} and lse in float32")
+    if not (o.is_contiguous() and do.is_contiguous() and lse.is_contiguous()):
+        raise ValueError("flash_attention_bwd needs contiguous o, do, lse")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    dvec = torch.empty((BH, G, Tq), dtype=torch.float32, device=q.device)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dvec.data_ptr())
+    path = path or choose_path(q.dtype, D, all(p % 16 == 0 for p in ptrs))
+    err = _lib_bwd()(*ptrs, BH, G, Tq, Tkv, D, DTYPE_CODES[q.dtype], int(causal),
+                     int(window), float(softcap), int(q_offset), 1.0 / D ** 0.5,
+                     PATH_CODES[path], torch._C._cuda_getCurrentRawStream(q.get_device()))
+    if err:
+        raise RuntimeError(f"flash_attention_bwd launch failed ({path} path): "
+                           f"CUDA error {err}")
+    flash_attention_bwd.launches += 1
+    flash_attention_bwd.paths[path] += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+flash_attention_bwd.paths = dict.fromkeys(PATH_CODES, 0)

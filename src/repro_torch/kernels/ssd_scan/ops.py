@@ -5,6 +5,9 @@ A CPU tensor takes the plain PyTorch version; any other tensor goes to the
 CUDA kernel, which launches or raises. The kernel reads grouped B/C by index
 and masks a ragged last chunk, so nothing is repeated or padded here, and
 its chunk length is its own: the wrapper takes no ``chunk``.
+
+The kernel has no backward yet: on the card, a gradient through the scan
+raises rather than silently stopping at it (Mamba-2 training, ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -36,5 +39,9 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     Returns (y (Bt, T, H, P), final_state (Bt, H, N, P))."""
     if x.device.type == "cpu":
         return ssd_plain(x, dt, A, B, C, D)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A, B, C, D)):
+        raise NotImplementedError(
+            "ssd_scan has no backward kernel yet: Mamba-2 training on the card "
+            "is the next slice (ROADMAP.md)")
     return kernel.ssd_scan(x.contiguous(), dt.float().contiguous(), A.float().contiguous(),
                            B.contiguous(), C.contiguous(), D.float().contiguous())

@@ -32,8 +32,14 @@ switches):
 - ``ffma``: float32 at M > 16, true float32 FFMA for the 2e-4 parity
   runs (never TF32).
 
+Training's gradient products read an operand transposed where it lies
+(``trans_x`` / ``trans_w``, at most one): ``dx = dz @ w^T`` reads w as
+wgmma's K-major B, ``dw = x^T @ dz`` reads x as its MN-major A, and the
+``ffma`` kernel takes both. ``mma`` and ``skinny`` take only the plain
+layout; no training shape reaches them.
+
 ``tile_matmul.launches`` counts launches; ``tile_matmul.paths`` counts
-them per path.
+them per path and ``tile_matmul.layouts`` per layout.
 """
 
 from __future__ import annotations
@@ -48,45 +54,67 @@ from repro_torch.kernels import _build
 ACT_CODES = {"none": 0, "tanh": 1, "relu": 2, "silu": 3, "gelu": 4}
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 PATH_CODES = {"wgmma": 0, "mma": 1, "skinny": 2, "ffma": 3}
+# x @ w, x @ w^T (w stored (N, K)), x^T @ w (x stored (K, M)): enum Layout.
+LAYOUT_CODES = {"x@w": 0, "x@w^T": 1, "x^T@w": 2}
 SKINNY_MAX_M = 16
 
 
-def choose_path(m: int, n: int, k: int, dtype: torch.dtype, aligned: bool) -> str:
-    """The kernel for an ``(m, k) @ (k, n)`` product of ``dtype``;
-    ``aligned``: x and w start on 16-byte boundaries. Mirrors
-    ``path_fits`` in ``csrc/tile_matmul.cu``."""
+def layout_of(trans_x: bool, trans_w: bool) -> str:
+    if trans_x and trans_w:
+        raise ValueError("tile_matmul transposes at most one operand")
+    return "x^T@w" if trans_x else "x@w^T" if trans_w else "x@w"
+
+
+def choose_path(m: int, n: int, k: int, dtype: torch.dtype, aligned: bool,
+                layout: str = "x@w") -> str:
+    """The kernel for an ``(m, k) @ (k, n)`` product of ``dtype`` with its
+    operands as ``layout`` says; ``aligned``: x and w start on 16-byte
+    boundaries. Mirrors ``path_fits`` in ``csrc/tile_matmul.cu``."""
     row_bytes = n * (2 if dtype == torch.bfloat16 else 4)
-    if m <= SKINNY_MAX_M and row_bytes % 16 == 0 and aligned:
+    plain = layout == "x@w"
+    if m <= SKINNY_MAX_M and row_bytes % 16 == 0 and aligned and plain:
         return "skinny"
     if dtype == torch.float32:
         return "ffma"
-    if k > 0 and k % 8 == 0 and n % 8 == 0 and aligned:
+    # TMA's 16-byte row strides: the stored rows are K long, x^T's M long.
+    row = m if layout == "x^T@w" else k
+    if k > 0 and row % 8 == 0 and n % 8 == 0 and aligned:
         return "wgmma"
+    if not plain:
+        raise ValueError(f"bf16 {layout} of (M, N, K) = ({m}, {n}, {k}) needs the "
+                         "wgmma path: N and the stored row length (M for x^T, "
+                         "else K) multiples of 8, 16-byte aligned operands")
     return "mma"
 
 
 @functools.cache
 def _lib():
     fn = _build.load("tile_matmul").tile_matmul_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def tile_matmul(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
-                *, activation: str = "none", out_dtype=None) -> torch.Tensor:
-    """Launch the CUDA kernel on CUDA tensors; raises on anything else."""
+                *, activation: str = "none", out_dtype=None, trans_x: bool = False,
+                trans_w: bool = False) -> torch.Tensor:
+    """``act(x' @ w' + b)`` with ``x' = x.T`` if ``trans_x`` (x stored
+    (K, M)) and ``w' = w.T`` if ``trans_w`` (w stored (N, K)). Launches
+    the CUDA kernel on CUDA tensors; raises on anything else."""
     if not (x.is_cuda and w.is_cuda and (b is None or b.is_cuda)):
         raise ValueError("tile_matmul kernel needs CUDA tensors")
-    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
+    layout = layout_of(trans_x, trans_w)
+    if x.dim() != 2 or w.dim() != 2:
         raise ValueError(f"bad shapes {tuple(x.shape)} @ {tuple(w.shape)}")
+    M, K = x.shape[::-1] if trans_x else x.shape
+    Kw, N = w.shape[::-1] if trans_w else w.shape
+    if K != Kw:
+        raise ValueError(f"bad shapes {tuple(x.shape)} @ {tuple(w.shape)} ({layout})")
     if x.dtype not in DTYPE_CODES or w.dtype != x.dtype:
         raise ValueError(f"dtypes {x.dtype}, {w.dtype}: need both float32 "
                          "or both bfloat16")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("tile_matmul kernel needs contiguous x and w")
-    M, K = x.shape
-    N = w.shape[1]
     if b is not None and (b.shape != (N,) or b.dtype != x.dtype
                           or not b.is_contiguous()):
         raise ValueError(f"bias must be contiguous ({N},) {x.dtype}")
@@ -97,20 +125,22 @@ def tile_matmul(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
     if M == 0 or N == 0:
         return out
     xp, wp = x.data_ptr(), w.data_ptr()
-    path = choose_path(M, N, K, x.dtype, xp % 16 == 0 and wp % 16 == 0)
+    path = choose_path(M, N, K, x.dtype, xp % 16 == 0 and wp % 16 == 0, layout)
     err = _lib()(xp, wp, None if b is None else b.data_ptr(), out.data_ptr(),
                  M, N, K, DTYPE_CODES[x.dtype], DTYPE_CODES[out_dtype],
-                 ACT_CODES[activation], PATH_CODES[path],
+                 ACT_CODES[activation], PATH_CODES[path], LAYOUT_CODES[layout],
                  # the current stream's handle, without building a Stream
                  # object: a decode step makes hundreds of these calls
                  torch._C._cuda_getCurrentRawStream(x.get_device()))
     if err:
-        raise RuntimeError(f"tile_matmul launch failed ({path} path): "
+        raise RuntimeError(f"tile_matmul launch failed ({path} path, {layout}): "
                            f"CUDA error {err}")
     tile_matmul.launches += 1
     tile_matmul.paths[path] += 1
+    tile_matmul.layouts[layout] += 1
     return out
 
 
 tile_matmul.launches = 0
 tile_matmul.paths = dict.fromkeys(PATH_CODES, 0)
+tile_matmul.layouts = dict.fromkeys(LAYOUT_CODES, 0)

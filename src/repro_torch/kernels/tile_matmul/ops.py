@@ -1,9 +1,16 @@
 """Public wrapper for tile_matmul (port of
-``repro/kernels/tile_matmul/ops.py::matmul``).
+``repro/kernels/tile_matmul/ops.py::matmul``), differentiable.
 
 A CPU tensor takes the plain PyTorch version; any other tensor goes to the
 CUDA kernel, which launches or raises. There is no fallback: the kernel
 masks ragged edges itself, so no shape needs the plain version on the card.
+
+Where a gradient is wanted the product runs inside :class:`_Matmul`, whose
+backward is made of launches too: ``dz`` (``dy``, or ``dy * act'(z)`` with
+``z`` recomputed by one launch in float32), then ``dx = dz @ w^T`` and
+``dw = x^T @ dz`` with the transposed operand read where it lies, and
+``db = dz.sum(0)``. The reference differentiates its plain ``jnp`` product
+with XLA; its Pallas kernel has no backward.
 """
 
 from __future__ import annotations
@@ -11,7 +18,37 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.tile_matmul import kernel
-from repro_torch.kernels.tile_matmul.ref import tile_matmul_ref
+from repro_torch.kernels.tile_matmul.ref import ACT_GRADS, tile_matmul_ref
+
+
+def _product(x, w, b=None, **kw) -> torch.Tensor:
+    """One product on ``x``'s device: the plain version for a CPU tensor,
+    a kernel launch for any other."""
+    if x.device.type == "cpu":
+        return tile_matmul_ref(x, w, b, **kw)
+    return kernel.tile_matmul(x, w, b, **kw)
+
+
+class _Matmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b, activation, out_dtype):
+        ctx.save_for_backward(x, w, b)
+        ctx.activation = activation
+        return _product(x, w, b, activation=activation, out_dtype=out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, b = ctx.saved_tensors
+        dz32 = dy.float()
+        if ctx.activation != "none":
+            z = _product(x, w, b, out_dtype=torch.float32)
+            dz32 = dz32 * ACT_GRADS[ctx.activation](z)
+        dz = dz32.to(x.dtype).contiguous()
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        dx = _product(dz, w, trans_w=True) if need_x else None
+        dw = _product(x, dz, trans_x=True) if need_w else None
+        db = dz32.sum(0).to(b.dtype) if need_b else None
+        return dx, dw, db, None, None
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
@@ -20,10 +57,12 @@ def matmul(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
     Leading axes of ``x`` are folded into M."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    if x.device.type == "cpu":
-        out = tile_matmul_ref(x2, w, b, activation=activation,
-                              out_dtype=out_dtype)
+    if x.device.type != "cpu":
+        x2, w = x2.contiguous(), w.contiguous()
+    grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x2, w, b))
+    if grad:
+        out = _Matmul.apply(x2, w, b, activation, out_dtype)
     else:
-        out = kernel.tile_matmul(x2.contiguous(), w.contiguous(), b,
-                                 activation=activation, out_dtype=out_dtype)
+        out = _product(x2, w, b, activation=activation, out_dtype=out_dtype)
     return out.reshape(*lead, w.shape[1])

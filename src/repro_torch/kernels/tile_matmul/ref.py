@@ -1,8 +1,14 @@
 """Plain PyTorch version of tile_matmul (transcription of
 ``repro/kernels/tile_matmul/ref.py``): float32 product, bias, activation,
-cast. ``gelu`` is the tanh approximation, as ``jax.nn.gelu`` defaults to."""
+cast. ``gelu`` is the tanh approximation, as ``jax.nn.gelu`` defaults to.
+
+``trans_x`` / ``trans_w`` read an operand transposed, as the kernel's
+gradient layouts do; ``ACT_GRADS`` holds each activation's derivative for
+the backward of :func:`repro_torch.kernels.tile_matmul.ops.matmul`."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -15,10 +21,33 @@ ACTS = {
     "gelu": lambda x: F.gelu(x, approximate="tanh"),
 }
 
+_GELU_C = math.sqrt(2.0 / math.pi)
+
+
+def _gelu_grad(z):
+    t = torch.tanh(_GELU_C * (z + 0.044715 * z ** 3))
+    return 0.5 * (1 + t) + 0.5 * z * (1 - t * t) * _GELU_C * (1 + 3 * 0.044715 * z * z)
+
+
+def _silu_grad(z):
+    s = torch.sigmoid(z)
+    return s * (1 + z * (1 - s))
+
+
+# d act(z) / dz, elementwise, in float32 (relu's is taken as 0 at 0).
+ACT_GRADS = {
+    "tanh": lambda z: 1 - torch.tanh(z) ** 2,
+    "relu": lambda z: (z > 0).to(z.dtype),
+    "silu": _silu_grad,
+    "gelu": _gelu_grad,
+}
+
 
 def tile_matmul_ref(x, w, b=None, *, activation: str = "none",
-                    out_dtype=None):
-    out = torch.matmul(x.float(), w.float())
+                    out_dtype=None, trans_x: bool = False, trans_w: bool = False):
+    xs = x.T if trans_x else x
+    ws = w.T if trans_w else w
+    out = torch.matmul(xs.float(), ws.float())
     if b is not None:
         out = out + b.float()
     out = ACTS[activation](out)

@@ -1,10 +1,36 @@
-"""Step functions (port of ``repro/launch/steps.py``: the prefill and
+"""Step functions (port of ``repro/launch/steps.py``: the train, prefill and
 decode steps). PyTorch runs eagerly, so a step is a closure over the config
 with no compilation or sharding tree."""
 
 from __future__ import annotations
 
+import torch
+
 from repro_torch.models import model as M
+from repro_torch.optim.optimizer import (OptConfig, adamw_update, tree_leaves,
+                                         tree_map)
+
+
+def make_train_step(cfg: M.ModelConfig, opt_cfg: OptConfig):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: the loss and its gradients by ``torch.autograd.grad`` over
+    the parameter leaves, then the out-of-place AdamW update. The inputs are
+    left as they were, so the watchdog may re-issue the step. Metrics are
+    Python floats: reading them waits for the device, so the step returns
+    when its work is done."""
+
+    def train_step(params, opt_state, batch):
+        with torch.enable_grad():
+            leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
+            loss, metrics = M.train_loss(leaves, cfg, batch)
+            grads = torch.autograd.grad(loss, tree_leaves(leaves))
+        it = iter(grads)
+        grads = tree_map(lambda _: next(it), params)
+        params, opt_state, om = adamw_update(params, grads, opt_state, opt_cfg)
+        out = {"loss": loss, **metrics, **om}
+        return params, opt_state, {k: float(v.detach()) for k, v in out.items()}
+
+    return train_step
 
 
 def make_prefill_step(cfg: M.ModelConfig):

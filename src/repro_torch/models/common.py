@@ -11,6 +11,7 @@ nothing.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import Any
 
@@ -76,12 +77,38 @@ def norm_spec(dim: int, dtype=torch.float32) -> ParamSpec:
     return ParamSpec((dim,), (None,), dtype, init="ones")
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
-    """Forward of the reference ``_rms_norm_impl``: float32 math, result in
-    ``x.dtype``."""
+def _rms_norm_impl(x, scale, eps):
     x32 = x.float()
     r = torch.rsqrt(x32.square().mean(dim=-1, keepdim=True) + eps)
-    return (x32 * r * scale.float()).to(x.dtype)
+    return (x32 * r * scale.float()).to(x.dtype), r
+
+
+class _RmsNorm(torch.autograd.Function):
+    """The reference's ``custom_vjp`` (``_rms_norm_bwd``): float32 math, the
+    activation gradient returned in ``x.dtype`` and the scale's in float32."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        y, r = _rms_norm_impl(x, scale, eps)
+        ctx.save_for_backward(x, scale, r)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, r = ctx.saved_tensors
+        x32, g32 = x.float(), g.float()
+        gs = g32 * scale.float()
+        dot = (gs * x32).sum(dim=-1, keepdim=True)
+        dx = (gs - x32 * (r * r) * dot / x.shape[-1]) * r
+        dscale = (g32 * x32 * r).sum(dim=tuple(range(x.dim() - 1)))
+        return dx.to(x.dtype), dscale.to(scale.dtype), None
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
+    """The reference ``rms_norm``: float32 math, result in ``x.dtype``."""
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return _RmsNorm.apply(x, scale, eps)
+    return _rms_norm_impl(x, scale, eps)[0]
 
 
 def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
@@ -89,11 +116,18 @@ def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, half, dtype=np.float32) / half))
 
 
+@functools.cache
+def _rope_freqs(d: int, theta: float, device: torch.device) -> torch.Tensor:
+    """:func:`rope_frequencies` on ``device``, copied there once: a host
+    copy a call would wait for the device in every layer."""
+    return torch.from_numpy(rope_frequencies(d, theta)).to(device)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4):
     """x: (..., T, H, D) with positions (..., T). Rotates pairs (i, i+D/2);
     angles in float32."""
     d = x.shape[-1]
-    freqs = torch.from_numpy(rope_frequencies(d, theta)).to(x.device)
+    freqs = _rope_freqs(d, theta, x.device)
     angles = positions[..., :, None].float() * freqs         # (..., T, D/2)
     cos = torch.cos(angles)[..., :, None, :]                 # (..., T, 1, D/2)
     sin = torch.sin(angles)[..., :, None, :]

@@ -7,9 +7,11 @@ period's parameters on a leading ``n_periods`` axis and scans, this package
 keeps one dict per layer: ``params["period"][j][i]`` is period position
 ``j`` of repetition ``i``. Caches follow the same layout.
 
-Entry points: :func:`prefill` (build KV/SSM caches, return last-token logits)
-and :func:`decode_step` (one token in, logits out, cache updated in place).
-Only the ``tokens`` frontend is ported.
+Entry points: :func:`train_loss` (mean next-token NLL through the chunked
+cross-entropy, each layer checkpointed as ``remat`` says), :func:`prefill`
+(build KV/SSM caches, return last-token logits) and :func:`decode_step` (one
+token in, logits out, cache updated in place). Only the ``tokens`` frontend
+is ported.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import math
 from dataclasses import dataclass
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.blocks import (LayerCfg, attn_cache_from_prefill,
                                        block_decode, block_specs, block_train,
@@ -25,6 +28,7 @@ from repro_torch.models.blocks import (LayerCfg, attn_cache_from_prefill,
 from repro_torch.models.common import (ParamSpec, norm_spec, rms_norm,
                                        stack_specs, tree_initialize,
                                        tree_map_specs, tree_spec_leaves)
+from repro_torch.models.losses import chunked_softmax_xent
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 _FRONTENDS = ("the embeds and codebooks frontends are not ported yet "
@@ -134,15 +138,41 @@ def _layers(params, cfg: ModelConfig, caches=None):
                    caches["period"][j][i] if caches else None)
 
 
+def _remat(fn, cfg: ModelConfig):
+    """The reference's ``_remat`` a layer at a time: ``"nothing"`` keeps only
+    the layer's input and recomputes the rest in the backward pass,
+    ``"none"`` keeps every activation."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' (keep the products, recompute the rest) is not ported "
+            "yet (ROADMAP.md, 'Training through autograd')")
+
+    def layer(*args):
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return layer
+
+
 def _backbone(params, cfg: ModelConfig, h, want_cache: bool = False):
-    """Returns (h, aux, caches|None); caches laid out like the params."""
-    aux = 0.0
+    """Returns (h, aux, caches|None); caches laid out like the params. Without
+    caches (training) each layer runs under ``_remat``."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     flat = []
+
+    def layer(p, h, lcfg):
+        h, a, _ = block_train(p, h, lcfg, q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+        return h, a
+
+    run = _remat(layer, cfg) if not want_cache and torch.is_grad_enabled() else layer
     for lcfg, p, _ in _layers(params, cfg):
-        h, a, c = block_train(p, h, lcfg, want_cache=want_cache,
-                              q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+        if want_cache:
+            h, a, c = block_train(p, h, lcfg, want_cache=True,
+                                  q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+            flat.append(c)
+        else:
+            h, a = run(p, h, lcfg)
         aux = aux + a
-        flat.append(c)
     h = rms_norm(h, params["final_ln"])
     caches = _regroup(cfg, flat) if want_cache else None
     return h, aux, caches
@@ -154,6 +184,20 @@ def _regroup(cfg: ModelConfig, flat: list) -> dict:
     period = tuple([flat[n_pre + i * width + j] for i in range(cfg.n_periods)]
                    for j in range(width))
     return {"prefix": tuple(flat[:n_pre]), "period": period}
+
+
+def train_loss(params, cfg: ModelConfig, batch):
+    """batch: {"tokens": (B, T), "labels": (B, T)[, "loss_mask": (B, T)]}.
+    Returns (loss, {"nll", "aux"}) as float32 scalars."""
+    h, aux, _ = _backbone(params, cfg, _embed(params, cfg, batch["tokens"]))
+    B, T, d = h.shape
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        mask = mask.reshape(B * T).float()
+    nll, _ = chunked_softmax_xent(h.reshape(B * T, d), _head_matrix(params, cfg),
+                                  batch["labels"].reshape(B * T),
+                                  chunk=cfg.loss_chunk, mask=mask)
+    return nll + aux, {"nll": nll, "aux": aux}
 
 
 def prefill(params, cfg: ModelConfig, batch):

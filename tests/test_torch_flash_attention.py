@@ -122,3 +122,98 @@ def test_path_choice(dtype, d, aligned, path):
 def test_path_choice_refuses_what_no_kernel_takes(dtype, d):
     with pytest.raises(ValueError):
         kernel.choose_path(dtype, d, True)
+
+
+# ---------------------------------------------------------------------------
+# Gradients (training): the port's autograd Function (plain forward with the
+# row log-sum-exp, explicit backward formula, on CPU tensors) against
+# jax.grad of the reference's plain attention in the same folded layout.
+# ---------------------------------------------------------------------------
+
+import jax  # noqa: E402
+
+from repro.kernels.flash_attention.ref import flash_attention_ref as jax_flash_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref  # noqa: E402
+
+GRAD_CASES = [  # (B, Tq, Tkv, Hq, Hkv, D, window, softcap)
+    (2, 24, 24, 3, 1, 16, 0, 0.0),      # causal, G = 3
+    (1, 30, 30, 4, 2, 16, 7, 0.0),      # sliding window, G = 2
+    (2, 20, 20, 2, 2, 32, 0, 25.0),     # softcap, G = 1
+    (1, 13, 29, 6, 2, 16, 0, 0.0),      # q_offset = 16, ragged Tq / Tkv
+    (2, 17, 40, 3, 1, 16, 9, 20.0),     # window + softcap + q_offset
+]
+
+
+def _jax_bthd_attention(q, k, v, **kw):
+    """The reference's ops.attention layout around its plain version."""
+    B, Tq, Hq, D = q.shape
+    Tkv, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qf = q.transpose(0, 2, 1, 3).reshape(B * Hkv, G, Tq, D)
+    kf = k.transpose(0, 2, 1, 3).reshape(B * Hkv, Tkv, D)
+    vf = v.transpose(0, 2, 1, 3).reshape(B * Hkv, Tkv, D)
+    out = jax_flash_ref(qf, kf, vf, **kw)
+    return out.reshape(B, Hq, Tq, D).transpose(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,tq,tk,hq,hkv,d,window,softcap", GRAD_CASES)
+def test_attention_gradients_match_reference(b, tq, tk, hq, hkv, d, window, softcap, dtype):
+    """dq, dk, dv of ``sum(g * attention(q, k, v))``: float32 at 2e-4; bf16
+    at 2e-2 of each gradient's largest entry (the two sides round P and the
+    products at different places)."""
+    kw = dict(causal=True, window=window, softcap=softcap, q_offset=tk - tq)
+    (jq, jk, jv, jg), (tq_, tk_, tv, tg) = _inputs(
+        b * 1000 + tq * 10 + tk, [(b, tq, hq, d), (b, tk, hkv, d), (b, tk, hkv, d),
+                                  (b, tq, hq, d)], dtype)
+    want = jax.grad(lambda q, k, v: (_jax_bthd_attention(q, k, v, **kw).astype(jnp.float32)
+                                     * jg.astype(jnp.float32)).sum(),
+                    argnums=(0, 1, 2))(jq, jk, jv)
+    args = [t.requires_grad_() for t in (tq_, tk_, tv)]
+    got = torch.autograd.grad(attention(*args, **kw), args, tg)
+    tol = DTYPES[dtype][2]
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == args[0].dtype and g.shape == args["qkv".index(name)].shape
+        w = np.asarray(w, np.float32)
+        scale = np.abs(w).max() if dtype == "bfloat16" else 1.0
+        np.testing.assert_allclose(g.float().numpy(), w, rtol=tol, atol=tol * scale,
+                                   err_msg=f"d{name}")
+
+
+def test_plain_forward_log_sum_exp_matches_reference_scores():
+    """The row log-sum-exp the forward keeps for the backward: logsumexp of
+    the reference's masked, softcapped scores."""
+    (jq, jk, _), (tq_, tk_, tv) = _inputs(3, [(2, 3, 12, 16), (2, 20, 16), (2, 20, 16)],
+                                          "float32")
+    kw = dict(causal=True, window=6, softcap=15.0, q_offset=8)
+    out, lse = flash_attention_ref(tq_, tk_, tv, return_lse=True, **kw)
+    s = jnp.einsum("bgqd,bkd->bgqk", jq, jk) / 4.0
+    s = jnp.tanh(s / 15.0) * 15.0
+    qp, kp = 8 + jnp.arange(12)[:, None], jnp.arange(20)[None, :]
+    s = jnp.where((kp <= qp) & (kp > qp - 6), s, -1e30)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jax.nn.logsumexp(s, axis=-1)),
+                               rtol=2e-6, atol=2e-6)
+    assert torch.equal(out, flash_attention_ref(tq_, tk_, tv, **kw))
+
+
+def test_backward_formula_matches_autograd_of_the_plain_forward():
+    """The explicit formula (``Dv = rowsum(dO o O)``) against torch.autograd
+    through the plain forward, G = 4 folded as the kernels fold it."""
+    (_, _, _, _), (q, k, v, do) = _inputs(
+        11, [(2, 4, 9, 16), (2, 15, 16), (2, 15, 16), (2, 4, 9, 16)], "float32")
+    kw = dict(causal=True, window=5, softcap=10.0, q_offset=6)
+    args = [t.clone().requires_grad_() for t in (q, k, v)]
+    out, lse = flash_attention_ref(*args, return_lse=True, **kw)
+    want = torch.autograd.grad(out, args, do)
+    got = flash_attention_bwd_ref(q, k, v, out.detach(), do, lse.detach(), **kw)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-6)
+
+
+def test_attention_gradient_of_a_non_cpu_tensor_goes_to_the_kernel():
+    q = torch.empty((1, 8, 3, 16), device="meta", requires_grad=True)
+    k = torch.empty((1, 8, 1, 16), device="meta", requires_grad=True)
+    before = kernel.flash_attention.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        attention(q, k, k)
+    assert kernel.flash_attention.launches == before

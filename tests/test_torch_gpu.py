@@ -18,7 +18,8 @@ import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                     flash_attention_ref)
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.kernels.ssd_scan.ops import ssd_plain
 from repro_torch.kernels.tile_matmul import kernel as tm_kernel
@@ -157,7 +158,7 @@ def test_tile_matmul_c_entry_refuses_a_path_the_shape_cannot_take(cuda):
     codes = tm_kernel.PATH_CODES
     for path in ("wgmma", "skinny", "ffma"):
         err = tm_kernel._lib()(x.data_ptr(), w.data_ptr(), None, out.data_ptr(), 257, 20, 40,
-                               1, 1, 0, codes[path], stream)
+                               1, 1, 0, codes[path], 0, stream)
         assert err == 1, path  # cudaErrorInvalidValue
 
 
@@ -252,15 +253,15 @@ def test_flash_attention_c_entry_refuses_a_path_the_inputs_cannot_take(cuda):
     stream = torch._C._cuda_getCurrentRawStream(q.get_device())
     lib, codes = fa_kernel._lib(), fa_kernel.PATH_CODES
     # float32 through mma; bf16 through mma from an unaligned pointer; D = 48
-    assert lib(q.data_ptr(), k.data_ptr(), k.data_ptr(), out.data_ptr(), 1, 1, 16, 16, 64,
-               0, 1, 0, 0.0, 0, 0.125, codes["mma"], stream) == 1
+    assert lib(q.data_ptr(), k.data_ptr(), k.data_ptr(), out.data_ptr(), None, 1, 1, 16, 16,
+               64, 0, 1, 0, 0.0, 0, 0.125, codes["mma"], stream) == 1
     qb = _randn((1, 1, 17, 64), torch.bfloat16, cuda, 1)
     kb = _randn((1, 16, 64), torch.bfloat16, cuda, 2)
-    assert lib(qb.data_ptr() + 2, kb.data_ptr(), kb.data_ptr(), qb.data_ptr() + 2, 1, 1, 16,
-               16, 64, 1, 1, 0, 0.0, 0, 0.125, codes["mma"], stream) == 1
+    assert lib(qb.data_ptr() + 2, kb.data_ptr(), kb.data_ptr(), qb.data_ptr() + 2, None, 1,
+               1, 16, 16, 64, 1, 1, 0, 0.0, 0, 0.125, codes["mma"], stream) == 1
     for path in ("mma", "ffma"):
-        assert lib(qb.data_ptr(), kb.data_ptr(), kb.data_ptr(), qb.data_ptr(), 1, 1, 16, 16,
-                   48, 1, 1, 0, 0.0, 0, 0.125, codes[path], stream) == 1
+        assert lib(qb.data_ptr(), kb.data_ptr(), kb.data_ptr(), qb.data_ptr(), None, 1, 1,
+                   16, 16, 48, 1, 1, 0, 0.0, 0, 0.125, codes[path], stream) == 1
 
 
 def test_gqa_attention_on_cuda_matches_cpu_chunked_twin(cuda):
@@ -430,3 +431,236 @@ def test_reduced_mamba_serve_on_cuda_matches_cpu(cuda):
     on_cpu = serve(device="cpu", params=params, **quiet)
     on_gpu = serve(device=cuda, params=_to(params, cuda), **quiet)
     np.testing.assert_array_equal(on_gpu["tokens"], on_cpu["tokens"])
+
+
+# ---------------------------------------------------------------------------
+# Training: the gradient layouts of tile_matmul, flash_attention's lse and
+# backward kernel, and a reduced train step on the card against the CPU.
+# ---------------------------------------------------------------------------
+
+GRAD_SHAPES = [  # (tokens M, in K, out N) of a projection x (M, K) @ w (K, N)
+    (4096, 960, 320),    # smollm's k/v projection at 8 x 512 tokens
+    (300, 960, 2560),    # gate/up; dw reduces over 300 tokens, a ragged box
+    (296, 72, 136),      # K and N below and across one 64-wide box
+    (64, 2560, 80),      # fewer tokens than a tile
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", GRAD_SHAPES)
+def test_tile_matmul_gradient_layouts_match_plain(cuda, m, k, n, dtype):
+    """dx = dz @ w^T (``trans_w``) and dw = x^T @ dz (``trans_x``), each
+    operand read where it lies; bf16 through wgmma, float32 through ffma,
+    each launch counted under its layout; dw repeats bit for bit."""
+    fn = tm_kernel.tile_matmul
+    path = "wgmma" if dtype == torch.bfloat16 else "ffma"
+    x = _randn((m, k), dtype, cuda, m + k)
+    w = _randn((k, n), dtype, cuda, n, k ** -0.5)
+    dz = _randn((m, n), dtype, cuda, 3, m ** -0.5)
+    for a, b, kw, layout in ((dz, w, dict(trans_w=True), "x@w^T"),
+                             (x, dz, dict(trans_x=True), "x^T@w")):
+        paths, layouts = dict(fn.paths), dict(fn.layouts)
+        out = fn(a, b, **kw)
+        assert fn.paths[path] == paths[path] + 1
+        assert fn.layouts[layout] == layouts[layout] + 1
+        ref = tile_matmul_ref(a, b, **kw)
+        assert out.shape == ref.shape and out.dtype == dtype
+        torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype], atol=TOL[dtype])
+        assert torch.equal(out, fn(a, b, **kw))
+
+
+def test_tile_matmul_c_entry_refuses_a_layout_the_path_cannot_take(cuda):
+    """Transposed operands only through wgmma and ffma; the C side refuses
+    them on mma and skinny, and an unknown layout anywhere."""
+    x = _randn((8, 64), torch.bfloat16, cuda, 1)
+    w = _randn((64, 64), torch.bfloat16, cuda, 2)
+    out = torch.empty((8, 64), dtype=torch.bfloat16, device=cuda)
+    stream = torch._C._cuda_getCurrentRawStream(x.get_device())
+    codes, layouts = tm_kernel.PATH_CODES, tm_kernel.LAYOUT_CODES
+    for path in ("mma", "skinny"):
+        for layout in ("x@w^T", "x^T@w"):
+            assert tm_kernel._lib()(x.data_ptr(), w.data_ptr(), None, out.data_ptr(), 8, 64,
+                                    64, 1, 1, 0, codes[path], layouts[layout], stream) == 1
+    assert tm_kernel._lib()(x.data_ptr(), w.data_ptr(), None, out.data_ptr(), 8, 64, 64, 1,
+                            1, 0, codes["wgmma"], 3, stream) == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_backward_on_card_matches_cpu(cuda, dtype):
+    """ops.matmul under autograd: on the card every product of the backward
+    is a launch (the activation's z, dx, dw), on the CPU the plain version."""
+    from repro_torch.kernels.tile_matmul.ops import matmul
+    x0 = _randn((2, 150, 96), dtype, "cpu", 1)
+    w0 = _randn((96, 80), dtype, "cpu", 2, 0.1)
+    b0 = _randn((80,), dtype, "cpu", 3)
+    g = _randn((2, 150, 80), torch.float32, "cpu", 4)
+    for act in ACTS:
+        grads = {}
+        for dev in ("cpu", cuda):
+            args = [t.to(dev).requires_grad_() for t in (x0, w0, b0)]
+            before = tm_kernel.tile_matmul.launches
+            y = matmul(*args, activation=act, out_dtype=torch.float32)
+            grads[str(dev)] = torch.autograd.grad(y, args, g.to(dev))
+            if dev != "cpu":
+                assert tm_kernel.tile_matmul.launches == before + 3 + (act != "none")
+        for a, b in zip(grads["cpu"], grads[str(cuda)]):
+            scale = a.float().abs().max().item() if dtype == torch.bfloat16 else 1.0
+            torch.testing.assert_close(b.cpu().float(), a.float(), rtol=TOL[dtype],
+                                       atol=TOL[dtype] * scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,g,tq,tk,d,window,softcap", FLASH_MMA_CASES)
+def test_flash_attention_backward_matches_plain(cuda, bh, g, tq, tk, d, window, softcap,
+                                                dtype):
+    """The forward's lse against the plain version's, then dq, dk, dv of the
+    backward kernels against the explicit formula, from the kernel's own o
+    and lse; repeat launches give the same bits."""
+    q = _randn((bh, g, tq, d), dtype, cuda, 1)
+    k = _randn((bh, tk, d), dtype, cuda, 2)
+    v = _randn((bh, tk, d), dtype, cuda, 3)
+    do = _randn((bh, g, tq, d), dtype, cuda, 4)
+    kw = dict(causal=True, window=window, softcap=softcap, q_offset=tk - tq)
+    o, lse = fa_kernel.flash_attention(q, k, v, return_lse=True, **kw)
+    _, lse_ref = flash_attention_ref(q, k, v, return_lse=True, **kw)
+    torch.testing.assert_close(lse, lse_ref, rtol=TOL[dtype], atol=TOL[dtype])
+    before = fa_kernel.flash_attention_bwd.launches
+    grads = fa_kernel.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    assert fa_kernel.flash_attention_bwd.launches == before + 1
+    for got, want in zip(grads, flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)):
+        assert got.dtype == dtype and got.shape == want.shape
+        torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
+                                   atol=TOL[dtype])
+    again = fa_kernel.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.parametrize("dtype,path", [(torch.bfloat16, "mma"), (torch.float32, "ffma")])
+def test_flash_attention_backward_counts_its_path(cuda, dtype, path):
+    q = _randn((4, 3, 200, 64), dtype, cuda, 1)
+    k = _randn((4, 200, 64), dtype, cuda, 2)
+    do = _randn((4, 3, 200, 64), dtype, cuda, 3)
+    o, lse = fa_kernel.flash_attention(q, k, k, return_lse=True)
+    before = dict(fa_kernel.flash_attention_bwd.paths)
+    fa_kernel.flash_attention_bwd(q, k, k, o, do, lse)
+    after = fa_kernel.flash_attention_bwd.paths
+    assert {p: after[p] - before[p] for p in after} == {
+        p: int(p == path) for p in fa_kernel.PATH_CODES}
+
+
+def test_flash_attention_backward_bf16_ffma_path_matches_mma(cuda):
+    """The first (FFMA) backward still takes bf16 when asked, as
+    chip_smoke.py times it; both agree with the plain formula."""
+    q = _randn((4, 3, 130, 64), torch.bfloat16, cuda, 4)
+    k = _randn((4, 150, 64), torch.bfloat16, cuda, 5)
+    v = _randn((4, 150, 64), torch.bfloat16, cuda, 6)
+    do = _randn((4, 3, 130, 64), torch.bfloat16, cuda, 7)
+    kw = dict(window=60, q_offset=20)
+    o, lse = fa_kernel.flash_attention(q, k, v, return_lse=True, **kw)
+    refs = flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)
+    for path in ("mma", "ffma"):
+        for got, want in zip(fa_kernel.flash_attention_bwd(q, k, v, o, do, lse, path=path,
+                                                           **kw), refs):
+            torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+def test_flash_attention_backward_c_entry_refuses_a_path_the_inputs_cannot_take(cuda):
+    q = _randn((1, 1, 16, 64), torch.float32, cuda, 1)
+    k = _randn((1, 16, 64), torch.float32, cuda, 2)
+    o, lse = fa_kernel.flash_attention(q, k, k, return_lse=True)
+    g = [torch.empty_like(t) for t in (q, k, k)]
+    dvec = torch.empty_like(lse)
+    stream = torch._C._cuda_getCurrentRawStream(q.get_device())
+    # float32 through mma; D = 48 through either
+    args = [q.data_ptr(), k.data_ptr(), k.data_ptr(), o.data_ptr(), o.data_ptr(),
+            lse.data_ptr()] + [t.data_ptr() for t in g] + [dvec.data_ptr()]
+    lib = fa_kernel._lib_bwd()
+    assert lib(*args, 1, 1, 16, 16, 64, 0, 1, 0, 0.0, 0, 0.125, 0, stream) == 1
+    for path in (0, 1):
+        assert lib(*args, 1, 1, 16, 16, 48, 0, 1, 0, 0.0, 0, 0.125, path, stream) == 1
+
+
+def test_flash_attention_backward_not_causal(cuda):
+    q = _randn((2, 1, 65, 32), torch.float32, cuda, 1)
+    k = _randn((2, 65, 32), torch.float32, cuda, 2)
+    v = _randn((2, 65, 32), torch.float32, cuda, 3)
+    do = _randn((2, 1, 65, 32), torch.float32, cuda, 4)
+    o, lse = fa_kernel.flash_attention(q, k, v, causal=False, return_lse=True)
+    for got, want in zip(fa_kernel.flash_attention_bwd(q, k, v, o, do, lse, causal=False),
+                         flash_attention_bwd_ref(q, k, v, o, do, lse, causal=False)):
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+def test_flash_attention_backward_rejects_bad_input(cuda):
+    q = _randn((1, 1, 16, 64), torch.float32, cuda, 1)
+    k = _randn((1, 16, 64), torch.float32, cuda, 2)
+    o, lse = fa_kernel.flash_attention(q, k, k, return_lse=True)
+    before = fa_kernel.flash_attention_bwd.launches
+    with pytest.raises(ValueError):
+        fa_kernel.flash_attention_bwd(q, k, k, o, o, lse[..., :8])
+    with pytest.raises(ValueError):
+        fa_kernel.flash_attention_bwd(q, k, k, o, o.bfloat16(), lse)
+    assert fa_kernel.flash_attention_bwd.launches == before
+
+
+def test_attention_backward_on_card_matches_cpu(cuda):
+    """ops.attention under autograd, float32: forward and backward kernels on
+    the card against the plain forward and formula on the CPU."""
+    from repro_torch.kernels.flash_attention.ops import attention
+    q0 = _randn((2, 90, 15, 64), torch.float32, "cpu", 1)
+    k0 = _randn((2, 90, 5, 64), torch.float32, "cpu", 2)
+    v0 = _randn((2, 90, 5, 64), torch.float32, "cpu", 3)
+    g = _randn((2, 90, 15, 64), torch.float32, "cpu", 4)
+    grads = {}
+    for dev in ("cpu", cuda):
+        args = [t.to(dev).requires_grad_() for t in (q0, k0, v0)]
+        before = fa_kernel.flash_attention_bwd.launches
+        out = attention(*args, window=40)
+        grads[str(dev)] = torch.autograd.grad(out, args, g.to(dev))
+        if dev != "cpu":
+            assert fa_kernel.flash_attention_bwd.launches == before + 1
+    for a, b in zip(grads["cpu"], grads[str(cuda)]):
+        torch.testing.assert_close(b.cpu(), a, rtol=2e-4, atol=2e-4)
+
+
+def test_reduced_train_step_on_card_matches_cpu(cuda):
+    """One float32 train step of reduced smollm_360m (ffma products, ffma
+    attention and its backward) against the plain path on the CPU: loss,
+    grad norm and every updated weight. 1e-4 as the model-level bar; the
+    weights, moved by about the learning rate, within 1e-2 of it."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim.optimizer import OptConfig, init_opt_state, tree_leaves
+    cfg = get_config("smollm_360m", reduced=True)
+    opt = OptConfig(peak_lr=1e-3, warmup_steps=2, decay_steps=6, weight_decay=0.1)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    batch = TokenPipeline(PipelineConfig(vocab=cfg.vocab, batch=4, seq=64,
+                                         mode="cyclic")).batch_at(0)
+    step = make_train_step(cfg, opt)
+    out = {}
+    for dev in ("cpu", cuda):
+        p = _to(params, dev)
+        before = (tm_kernel.tile_matmul.launches, fa_kernel.flash_attention_bwd.launches)
+        out[str(dev)] = step(p, init_opt_state(p, opt),
+                             {k: torch.as_tensor(v, device=dev) for k, v in batch.items()})
+        if dev != "cpu":
+            n = cfg.n_layers
+            assert tm_kernel.tile_matmul.launches == before[0] + 7 * n * 4 + n
+            assert fa_kernel.flash_attention_bwd.launches == before[1] + n
+    (pc, _, mc), (pg, _, mg) = out["cpu"], out[str(cuda)]
+    for key in ("loss", "grad_norm"):
+        assert abs(mg[key] - mc[key]) <= 1e-4 * max(1.0, abs(mc[key])), (key, mg, mc)
+    for a, b in zip(tree_leaves(pc), tree_leaves(pg)):
+        torch.testing.assert_close(b.cpu(), a, rtol=1e-4, atol=1e-2 * mc["lr"])
+
+
+def test_train_runs_on_the_card_by_default(cuda, tmp_path):
+    from repro_torch.launch.train import train
+    before = fa_kernel.flash_attention_bwd.launches
+    res = train("smollm_360m", steps=2, batch=2, seq=32, ckpt_dir=str(tmp_path),
+                ckpt_every=0, log=lambda _: None)
+    assert res["params"]["embed"]["tok"].is_cuda
+    assert fa_kernel.flash_attention_bwd.launches == before + 2 * 2
+    assert all(np.isfinite(res["losses"]))

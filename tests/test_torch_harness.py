@@ -81,3 +81,21 @@ def test_tf32_is_off_after_import():
     import repro_torch  # noqa: F401
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_train_raises_without_cuda_instead_of_falling_back(monkeypatch, tmp_path):
+    from repro_torch.launch.train import train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train("smollm_360m", ckpt_dir=str(tmp_path), log=lambda _: None)
+    assert not any(tmp_path.iterdir())   # raised before it wrote a journal
+
+
+def test_the_import_scans_cover_the_training_modules():
+    """The two scans above walk every module of the port, the training
+    slice's among them."""
+    names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    assert {"optim/optimizer.py", "data/pipeline.py", "core/gss.py",
+            "distributed/watchdog.py", "checkpoint/checkpoint.py",
+            "checkpoint/journal.py", "checkpoint/convert.py", "launch/train.py",
+            "models/losses.py"} <= names

@@ -134,3 +134,28 @@ def test_bfloat16_checkpoint_leaves_load_as_bfloat16(tmp_path):
     assert wq.dtype == torch.bfloat16
     np.testing.assert_array_equal(
         _np(wq), np.asarray(jparams["period"][0]["attn"]["wq"][1], np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rms_norm_gradient_matches_reference_custom_vjp(dtype):
+    """The reference's custom backward: float32 math, dx in x's dtype and
+    dscale in float32. float32 at 1e-5; bf16 at 2e-2 (dx is rounded to bf16
+    on both sides; dscale sums 3 x 7 float32 products)."""
+    rng = np.random.default_rng(4)
+    x = (rng.standard_normal((3, 7, 32)) * 2).astype(np.float32)
+    scale = (1 + 0.1 * rng.standard_normal(32)).astype(np.float32)
+    g = rng.standard_normal((3, 7, 32)).astype(np.float32)
+    jd, td = {"float32": (jnp.float32, torch.float32),
+              "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    jx, jg = jnp.asarray(x).astype(jd), jnp.asarray(g).astype(jd)
+    _, vjp = jax.vjp(jcommon.rms_norm, jx, jnp.asarray(scale))
+    want_dx, want_ds = vjp(jg)
+    tx = torch.from_numpy(x).to(td).requires_grad_()
+    ts = torch.from_numpy(scale).requires_grad_()
+    dx, ds = torch.autograd.grad(tcommon.rms_norm(tx, ts), (tx, ts),
+                                 torch.from_numpy(g).to(td))
+    assert dx.dtype == td and ds.dtype == torch.float32
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(_np(dx), _np(jnp.asarray(want_dx, jnp.float32)), rtol=tol,
+                               atol=tol)
+    np.testing.assert_allclose(_np(ds), np.asarray(want_ds), rtol=tol, atol=tol)

@@ -7,6 +7,7 @@ a CPU tensor runs the plain PyTorch version. Tolerances are the
 reference's own: 2e-4 in float32, 2e-2 in bfloat16.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -131,3 +132,103 @@ def test_dense_ffn_matches_reference(kind):
     out = dense_ffn(torch.from_numpy(x), {k: torch.from_numpy(v) for k, v in p.items()},
                     DenseFfnCfg(d_ff=f, kind=kind))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-4, atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# Gradients (training): the port's autograd Function against jax.grad of the
+# reference's plain product (its Pallas kernel has no backward).
+# ---------------------------------------------------------------------------
+
+from repro.kernels.tile_matmul.ref import tile_matmul_ref as jax_tile_matmul_ref  # noqa: E402
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act", ["none", "tanh", "relu", "silu", "gelu"])
+@pytest.mark.parametrize("m,k,n,bias", [(24, 40, 20, True), (64, 128, 72, False),
+                                        (3, 16, 8, True)])
+def test_matmul_gradients_match_reference(m, k, n, bias, act, dtype):
+    """dx, dw and db of ``sum(g * act(x @ w + b))`` against jax.grad, with the
+    forward in ``dtype`` and float32 accumulation in both. float32 at 2e-4;
+    bf16 at 2e-2 of each gradient's largest entry (dw sums M products and
+    reaches about 8 here): the port rounds dz to bf16 before its two
+    products, as the kernels take bf16 operands, where JAX multiplies the
+    float32 cotangent."""
+    rng = np.random.default_rng(m * 100 + k + n)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w = (rng.standard_normal((k, n)) * k ** -0.5).astype(np.float32)
+    b = rng.standard_normal(n).astype(np.float32) if bias else None
+    g = rng.standard_normal((m, n)).astype(np.float32)
+    jd, td, tol = DTYPES[dtype]
+
+    def jloss(xx, ww, bb):
+        y = jax_tile_matmul_ref(xx, ww, bb, activation=act, out_dtype=jnp.float32)
+        return (y * jnp.asarray(g)).sum()
+
+    jargs = [jnp.asarray(a).astype(jd) for a in (x, w)] + [
+        jnp.asarray(b).astype(jd) if bias else None]
+    want = jax.grad(jloss, argnums=(0, 1, 2) if bias else (0, 1))(*jargs)
+    targs = [torch.from_numpy(a).to(td).requires_grad_() for a in (x, w)] + [
+        torch.from_numpy(b).to(td).requires_grad_() if bias else None]
+    y = matmul(*targs, activation=act, out_dtype=torch.float32)
+    got = torch.autograd.grad(y, [t for t in targs if t is not None], torch.from_numpy(g))
+    for gt, wt in zip(got, want):
+        assert gt.dtype == td
+        wt = np.asarray(wt, np.float32)
+        scale = np.abs(wt).max() if dtype == "bfloat16" else 1.0
+        np.testing.assert_allclose(gt.float().numpy(), wt, rtol=tol, atol=tol * scale)
+
+
+@pytest.mark.parametrize("trans_x,trans_w", [(False, False), (False, True), (True, False)])
+def test_plain_version_layouts_match_the_reference_kernel(trans_x, trans_w):
+    """``trans_x`` / ``trans_w`` read the stored operand transposed: the
+    same product as the reference kernel (interpret mode) on the
+    transposed arrays."""
+    rng = np.random.default_rng(7)
+    m, k, n = 48, 40, 24
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w = (rng.standard_normal((k, n)) * 0.2).astype(np.float32)
+    ref = jax_matmul(jnp.asarray(x), jnp.asarray(w), activation="silu", bm=16, bn=8, bk=8)
+    xs = np.ascontiguousarray(x.T) if trans_x else x
+    ws = np.ascontiguousarray(w.T) if trans_w else w
+    out = tile_matmul_ref(torch.from_numpy(xs), torch.from_numpy(ws), activation="silu",
+                          trans_x=trans_x, trans_w=trans_w)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("m,k,n,dtype,layout,path", [
+    (960, 4096, 320, torch.bfloat16, "x^T@w", "wgmma"),    # smollm dw of wk
+    (960, 300, 320, torch.bfloat16, "x^T@w", "wgmma"),     # K counts x^T's rows
+    (4096, 2560, 960, torch.bfloat16, "x@w^T", "wgmma"),   # smollm dx of w_gate
+    (8, 960, 320, torch.bfloat16, "x@w^T", "wgmma"),       # small M: never skinny
+    (8, 960, 320, torch.float32, "x^T@w", "ffma"),
+    (300, 40, 20, torch.float32, "x@w^T", "ffma"),
+])
+def test_path_choice_with_layouts(m, k, n, dtype, layout, path):
+    assert kernel.choose_path(m, n, k, dtype, True, layout) == path
+
+
+@pytest.mark.parametrize("m,k,n,aligned,layout", [
+    (300, 40, 20, True, "x@w^T"),      # N % 8 != 0
+    (300, 36, 128, True, "x@w^T"),     # w^T's rows are K = 36 long
+    (300, 40, 128, True, "x^T@w"),     # x^T's rows are M = 300 long
+    (4096, 960, 320, False, "x@w^T"),  # unaligned
+])
+def test_path_choice_refuses_a_transposed_operand_wgmma_cannot_take(m, k, n, aligned,
+                                                                    layout):
+    """mma and skinny take only the plain layout: a bf16 gradient product
+    wgmma cannot address raises instead of falling back."""
+    with pytest.raises(ValueError, match="wgmma"):
+        kernel.choose_path(m, n, k, torch.bfloat16, aligned, layout)
+    with pytest.raises(ValueError, match="at most one"):
+        kernel.layout_of(True, True)
+
+
+def test_gradient_of_a_non_cpu_tensor_goes_to_the_kernel():
+    """The backward's products go to the kernel wrapper for a non-CPU
+    tensor (which raises for a meta tensor), never to the plain version."""
+    x = torch.empty((4, 8), device="meta", requires_grad=True)
+    w = torch.empty((8, 4), device="meta", requires_grad=True)
+    before = kernel.tile_matmul.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        matmul(x, w)
+    assert kernel.tile_matmul.launches == before
