@@ -10,7 +10,9 @@ full-depth mamba2_2_7b (tile_matmul + ssd_scan); then its training path
 through ``train``: five AdamW steps of full-width, full-depth smollm_360m on
 8 x 512 tokens, every projection's forward and both gradient products
 through tile_matmul, every attention through flash_attention and its
-backward kernel, and one float32 train step held against the CPU's. Per-path counters show that every
+backward kernel, and one float32 train step held against the CPU's; then
+the same for full-width, full-depth mamba2_2_7b, every scan through
+ssd_scan and its gradient through ssd_scan_bwd. Per-path counters show that every
 bf16 projection took tile_matmul's wgmma kernel (prefill) or its streaming
 kernel (decode), and every bf16 prefill attention and scan the mma path of
 flash_attention and ssd_scan; ptxas and SASS are checked for spills, wgmma,
@@ -20,9 +22,11 @@ kernel path against the plain path on the CPU (smollm at full depth,
 mamba2 at full width and 8 layers).
 
 The gradient products (``dx = dz @ w^T``, ``dw = x^T @ dz`` through
-tile_matmul's transposed layouts) and flash_attention's backward are
-checked against their plain versions (and for repeat launches giving the
-same bits) and timed beside ``torch.matmul`` and SDPA's backward.
+tile_matmul's transposed layouts, at both models' projection shapes),
+flash_attention's backward and ssd_scan's backward are checked against
+their plain versions (and for repeat launches giving the same bits) and
+timed beside ``torch.matmul`` and SDPA's backward (no single PyTorch call
+computes the scan's gradient).
 
 Usage (from the repository root, on a host with a CUDA device)::
 
@@ -183,13 +187,16 @@ def _sass_ops(so: Path, ops) -> dict:
 # SASS each library must hold: tile_matmul's wgmma (HGMMA) and TMA (UTMALDG),
 # the mma paths' tensor-core products (HMMA) and ldmatrix (LDSM) loads.
 NO_SPILL = {"tile_matmul": ("wgmma", "skinny"), "flash_attention": ("flash_fwd_mma",),
-            "ssd_scan": ("ssd_fwd_mma",), "flash_attention_bwd": ("_mmaI",)}
+            "ssd_scan": ("ssd_fwd_mma",), "flash_attention_bwd": ("_mmaI",),
+            "ssd_scan_bwd": ("ssd_bwd_kernelI13__nv_bfloat16Lb1",)}
 SASS_OPS = {"tile_matmul": ("HGMMA", "UTMALDG", "LDL", "STL"),
             "flash_attention": ("HMMA", "LDSM", "LDGSTS", "LDL", "STL"),
             "ssd_scan": ("HMMA", "LDSM", "LDGSTS", "LDL", "STL"),
-            "flash_attention_bwd": ("HMMA", "LDSM", "LDGSTS", "LDL", "STL")}
+            "flash_attention_bwd": ("HMMA", "LDSM", "LDGSTS", "LDL", "STL"),
+            "ssd_scan_bwd": ("HMMA", "LDL", "STL")}
 SASS_NEED = {"tile_matmul": ("HGMMA", "UTMALDG"), "flash_attention": ("HMMA", "LDSM"),
-             "ssd_scan": ("HMMA", "LDSM"), "flash_attention_bwd": ("HMMA", "LDSM")}
+             "ssd_scan": ("HMMA", "LDSM"), "flash_attention_bwd": ("HMMA", "LDSM"),
+             "ssd_scan_bwd": ("HMMA",)}
 
 
 def kernel_build_report(build, ptxas: dict) -> dict:
@@ -197,7 +204,7 @@ def kernel_build_report(build, ptxas: dict) -> dict:
     memory, spills) and the counts of ``SASS_OPS`` in each library. Fails on
     a spill in a kernel of ``NO_SPILL``, and on a library without the
     instructions of ``SASS_NEED`` (tile_matmul's wgmma and TMA, the mma
-    paths' HMMA and LDSM)."""
+    paths' HMMA and LDSM; the scan backward's HMMA)."""
     report = {}
     no_spill = "0 bytes spill stores, 0 bytes spill loads"
     for lib, keys in NO_SPILL.items():
@@ -263,15 +270,18 @@ def _grad_operands(m: int, k: int, n: int, dtype, seed: int):
 
 
 def check_tile_matmul_grad(tm_kernel, tile_matmul_ref) -> dict:
-    """The gradient products of smollm_360m's seven projections at M = 4096:
-    dx = dz @ w^T (w read in place, ``trans_w``) and dw = x^T @ dz (x read
-    in place, ``trans_x``) against the plain version, bf16 through wgmma
-    and float32 through ffma; two launches of dw give the same bits."""
+    """The gradient products of smollm_360m's seven and mamba2_2_7b's six
+    projections at M = 4096 (mamba2's give K = 80 for the dt projection's
+    dx and N = 80 and 128 for dw: TMA boxes the tiles overhang): dx = dz @
+    w^T (w read in place, ``trans_w``) and dw = x^T @ dz (x read in place,
+    ``trans_x``) against the plain version, bf16 through wgmma and float32
+    through ffma; two launches of dw give the same bits."""
     fn = tm_kernel.tile_matmul
     err: dict = {}
+    shapes = [kn for layer in LAYER.values() for kn in layer]
     for dtype in (torch.bfloat16, torch.float32):
         worst = {"dx": 0.0, "dw": 0.0}
-        for i, (k, n, _) in enumerate(LAYER["smollm_360m"]):
+        for i, (k, n, _) in enumerate(shapes):
             x, w, dz = _grad_operands(BATCH * PROMPT, k, n, dtype, 10 * i)
             for name, a, b, kw in (("dx", dz, w, dict(trans_w=True)),
                                    ("dw", x, dz, dict(trans_x=True))):
@@ -402,15 +412,14 @@ def time_flash(fa_kernel, flash_attention_ref) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
-def time_tile_matmul_grad(tm_kernel, tile_matmul_ref) -> dict:
-    """The gradient products of one smollm_360m layer's seven projections
-    at M = 4096, bf16: dx = dz @ w^T and dw = x^T @ dz, by CUDA events
-    (``ms``, kernel and ``torch.matmul`` on the same transposed views in
-    turns) and by CUDA-graph replay (``device_ms``), each product apart and
-    both together."""
-    dt, m = torch.bfloat16, BATCH * PROMPT
-    ops = [_grad_operands(m, k, n, dt, 10 * i)
-           for i, (k, n, _) in enumerate(LAYER["smollm_360m"])]
+def time_tile_matmul_grad(tm_kernel, tile_matmul_ref, arch: str = "smollm_360m") -> dict:
+    """The gradient products of one ``arch`` layer's projections at M =
+    4096, bf16: dx = dz @ w^T and dw = x^T @ dz, by CUDA events (``ms``,
+    kernel and ``torch.matmul`` on the same transposed views in turns) and
+    by CUDA-graph replay (``device_ms``), each product apart and both
+    together."""
+    dt, m, layer = torch.bfloat16, BATCH * PROMPT, LAYER[arch]
+    ops = [_grad_operands(m, k, n, dt, 10 * i) for i, (k, n, _) in enumerate(layer)]
     runs = {
         "dx": (lambda f: [f(dz, w, True, False) for _, w, dz in ops]),
         "dw": (lambda f: [f(x, dz, False, True) for x, _, dz in ops]),
@@ -421,8 +430,8 @@ def time_tile_matmul_grad(tm_kernel, tile_matmul_ref) -> dict:
     out = {}
     for name, run in runs.items():
         turns = [_time_ms(lambda f=f: run(f)) for f in (kern, lib) * 2]
-        flops = sum(2 * m * k * n for k, n, _ in LAYER["smollm_360m"])
-        nbytes = sum((m * k + k * n + m * n) * 2 for k, n, _ in LAYER["smollm_360m"])
+        flops = sum(2 * m * k * n for k, n, _ in layer)
+        nbytes = sum((m * k + k * n + m * n) * 2 for k, n, _ in layer)
         bound_ms, bound_by = _bound(flops, nbytes, dt)
         kern_ms, lib_ms = (turns[0] + turns[2]) / 2, (turns[1] + turns[3]) / 2
         out[name] = dict(ms=kern_ms, library_ms=lib_ms, turns_ms=turns,
@@ -541,6 +550,83 @@ def time_ssd(ssd_kernel, ssd_plain) -> dict:
                 flop=flops, bytes=nbytes,
                 bound_ms=bound_ms, bound_by=bound_by, bound_f32_ms=bound_f32_ms,
                 bound_f32_by=bound_f32_by)
+
+
+def _ssd_cotangents(bt, t, h, p, g, n, dtype, seed):
+    """dy in ``dtype`` and a non-zero float32 final-state gradient."""
+    return _randn((bt, t, h, p), dtype, seed + 6, 0.5), _randn((bt, h, n, p), torch.float32,
+                                                                seed + 7, 0.5)
+
+
+SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dD")
+
+
+def check_ssd_bwd(ssd_kernel, ssd_plain_bwd) -> dict:
+    """The scan's backward against the plain adjoint at ``SSD_CASES``, with
+    a non-zero final-state gradient: the mma path in bf16, the ffma path in
+    float32, each reading the chunk states the forward wrote, as training
+    does. Each gradient within ``SSD_TOL`` of
+    its largest entry (bf16 2e-2, float32 1e-3); two launches give the same
+    bits. Worst error per gradient relative to that largest entry (``rel``)
+    and absolute (``abs``)."""
+    err = {}
+    fn = ssd_kernel.ssd_scan_bwd
+    for dtype in (torch.bfloat16, torch.float32):
+        worst = {"rel": dict.fromkeys(SSD_GRADS, 0.0), "abs": dict.fromkeys(SSD_GRADS, 0.0)}
+        for name, *shape in SSD_CASES:
+            seed = sum(shape)
+            args = _ssd_inputs(*shape, dtype, seed=seed)
+            dy, ds = _ssd_cotangents(*shape, dtype, seed)
+            states = torch.empty(ssd_kernel.chunk_states_shape(args[0], args[3]),
+                                 dtype=torch.float32, device="cuda")
+            ssd_kernel.ssd_scan(*args, chunk_states=states)
+            refs = ssd_plain_bwd(*args, dy, ds)
+            before = dict(fn.paths)
+            grads = fn(*args, dy, ds, states)
+            _took(fn, DTYPE_PATH[dtype], before)
+            for gname, got, want in zip(SSD_GRADS, grads, refs):
+                e = (got.float() - want.float()).abs().max().item()
+                rel = e / want.float().abs().max().item()
+                assert rel <= SSD_TOL[dtype], (name, gname, dtype, rel)
+                worst["rel"][gname] = max(worst["rel"][gname], rel)
+                worst["abs"][gname] = max(worst["abs"][gname], e)
+            again = fn(*args, dy, ds, states)
+            assert all(torch.equal(a, b) for a, b in zip(grads, again)), ("ssd bwd", name)
+            del refs, states
+        err[str(dtype)] = err[DTYPE_PATH[dtype]] = worst
+    torch.cuda.synchronize()
+    return err
+
+
+def time_ssd_bwd(ssd_kernel, ssd_plain_bwd) -> dict:
+    """One mamba2_2_7b layer's scan backward at the training shape, bf16,
+    with a final-state gradient, reading the chunk states the forward wrote:
+    the mma path by CUDA events (``ms``) and by CUDA-graph replay
+    (``device_ms``), the ffma path on the same inputs (``ffma_ms``), and the
+    plain adjoint. Work: the recurrence's adjoint, 6 N P
+    multiply-adds a (batch, head, step); bytes: each input read and each
+    output written once. No single PyTorch call computes the scan's
+    gradient: no library time."""
+    bt, t, h, p, g, n = SSD_PATH
+    dt = torch.bfloat16
+    args = _ssd_inputs(bt, t, h, p, g, n, dt, seed=5)
+    dy, ds = _ssd_cotangents(bt, t, h, p, g, n, dt, 5)
+    fn = ssd_kernel.ssd_scan_bwd
+    states = torch.empty(ssd_kernel.chunk_states_shape(args[0], args[3]), dtype=torch.float32,
+                         device="cuda")
+    ssd_kernel.ssd_scan(*args, chunk_states=states)
+    kern = _time_ms(lambda: fn(*args, dy, ds, states))
+    ffma = _time_ms(lambda: fn(*args, dy, ds, states, path="ffma"), iters=5)
+    device = _graph_ms(lambda: fn(*args, dy, ds, states), iters=5)
+    del states
+    plain = _time_ms(lambda: ssd_plain_bwd(*args, dy, ds), iters=2)
+    flops = 12 * bt * h * t * n * p
+    nbytes = (3 * bt * t * h * p * 2 + bt * h * n * p * 4 + 2 * bt * t * h * 4
+              + 4 * bt * t * g * n * 2 + 4 * h * 4)
+    bound_ms, bound_by = _bound(flops, nbytes, dt)
+    return dict(ms=kern, ffma_ms=ffma, device_ms=device,
+                plain_ms=plain, library_ms=None, flop=flops, bytes=nbytes,
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 def _zero(counters: dict) -> None:
@@ -666,6 +752,31 @@ def parity_f32(M, cfg, rehome, prompt_len: int) -> float:
 TRAIN_STEPS = 5
 
 
+def _train_want(cfg) -> tuple[dict, dict, dict]:
+    """The launches ``TRAIN_STEPS`` steps of ``cfg`` make: by kernel, by
+    kernel and path (every bf16 product on wgmma, every attention and scan
+    and their backward on mma), and tile_matmul's by layout."""
+    n = cfg.n_layers * TRAIN_STEPS
+    if cfg.name == "smollm_360m":
+        # Each step: every projection forward, again where remat recomputes
+        # it, once more for the SiLU gate's z (float32, no activation) and
+        # its two gradient products; every attention forward twice and its
+        # backward once.
+        launches = {"tile_matmul": 7 * n * 4 + n, "flash_attention": 2 * n,
+                    "flash_attention_bwd": n, "ssd_scan": 0, "ssd_scan_bwd": 0}
+        layouts = {"x@w": 7 * n * 2 + n, "x@w^T": 7 * n, "x^T@w": 7 * n}
+    else:
+        # Mamba-2: six projections (no activation) forward, recomputed, and
+        # their two gradient products; the scan forward twice, its backward
+        # once.
+        launches = {"tile_matmul": 6 * n * 4, "flash_attention": 0,
+                    "flash_attention_bwd": 0, "ssd_scan": 2 * n, "ssd_scan_bwd": n}
+        layouts = {"x@w": 6 * n * 2, "x@w^T": 6 * n, "x^T@w": 6 * n}
+    by_path = {k: ({"wgmma": v, "mma": 0, "skinny": 0, "ffma": 0} if k == "tile_matmul"
+                   else {"mma": v, "ffma": 0}) for k, v in launches.items()}
+    return launches, by_path, layouts
+
+
 def train_path(train, cfg, counters: dict) -> tuple[dict, dict]:
     """Train full-width, full-depth ``cfg`` for ``TRAIN_STEPS`` steps of
     8 x 512 cyclic tokens through ``train`` (seed 0, bf16, float32 AdamW
@@ -698,18 +809,10 @@ def train_path(train, cfg, counters: dict) -> tuple[dict, dict]:
     print(f"train {cfg.name}: losses {losses}, median step {median:.4f} s "
           f"({out['tokens_per_s']:.0f} tokens/s), peak memory {peak / 2**30:.3f} GiB, "
           f"launches {launches}, by path {by_path}, tile_matmul layouts {layouts}")
-    # Each step: every projection forward, again where remat recomputes it,
-    # once more for the SiLU gate's z (float32, no activation) and its two
-    # gradient products; every attention forward twice and its backward once.
-    n = cfg.n_layers * TRAIN_STEPS
-    want = {"tile_matmul": 7 * n * 4 + n, "flash_attention": 2 * n,
-            "flash_attention_bwd": n, "ssd_scan": 0}
+    want, want_paths, want_layouts = _train_want(cfg)
     assert launches == want, (launches, want)
-    assert layouts == {"x@w": 7 * n * 2 + n, "x@w^T": 7 * n, "x^T@w": 7 * n}, layouts
-    assert by_path["tile_matmul"] == {"wgmma": want["tile_matmul"], "mma": 0, "skinny": 0,
-                                      "ffma": 0}, by_path
-    assert by_path["flash_attention"] == {"mma": want["flash_attention"], "ffma": 0}, by_path
-    assert by_path["flash_attention_bwd"] == {"mma": n, "ffma": 0}, by_path
+    assert layouts == want_layouts, (layouts, want_layouts)
+    assert by_path == want_paths, (by_path, want_paths)
     return out, res
 
 
@@ -818,7 +921,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
                                                          flash_attention_ref)
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
-    from repro_torch.kernels.ssd_scan.ops import ssd_plain
+    from repro_torch.kernels.ssd_scan.ops import ssd_plain, ssd_plain_bwd
     from repro_torch.kernels.tile_matmul import kernel as tm_kernel
     from repro_torch.kernels.tile_matmul.ref import tile_matmul_ref
     from repro_torch.launch import steps as steps_mod
@@ -829,7 +932,8 @@ def main() -> int:
     counters = {"tile_matmul": tm_kernel.tile_matmul,
                 "flash_attention": fa_kernel.flash_attention,
                 "flash_attention_bwd": fa_kernel.flash_attention_bwd,
-                "ssd_scan": ssd_kernel.ssd_scan}
+                "ssd_scan": ssd_kernel.ssd_scan,
+                "ssd_scan_bwd": ssd_kernel.ssd_scan_bwd}
 
     # 1. Device.
     name = torch.cuda.get_device_name(0)
@@ -857,11 +961,13 @@ def main() -> int:
     detail["tile_matmul_grad_err"] = check_tile_matmul_grad(tm_kernel, tile_matmul_ref)
     detail["flash_attention_bwd_err"] = check_flash_bwd(fa_kernel, flash_attention_ref,
                                                         flash_attention_bwd_ref)
+    detail["ssd_scan_bwd_err"] = check_ssd_bwd(ssd_kernel, ssd_plain_bwd)
     print(f"checks: tile_matmul max |err| {detail['tile_matmul_err']}, "
           f"flash_attention max |err| {detail['flash_attention_err']}, "
           f"ssd_scan max |err| {detail['ssd_scan_err']}, "
           f"tile_matmul dx/dw max |err| {detail['tile_matmul_grad_err']}, "
-          f"flash_attention_bwd max |err| {detail['flash_attention_bwd_err']}")
+          f"flash_attention_bwd max |err| {detail['flash_attention_bwd_err']}, "
+          f"ssd_scan_bwd max |err| / max |grad| {detail['ssd_scan_bwd_err']}")
 
     # 4. Times: kernel, plain version, one PyTorch call as yardstick.
     detail["tile_matmul_time"] = time_tile_matmul(tm_kernel, tile_matmul_ref)
@@ -869,8 +975,11 @@ def main() -> int:
     detail["ssd_scan_time"] = time_ssd(ssd_kernel, ssd_plain)
     detail["tile_matmul_grad_time"] = time_tile_matmul_grad(tm_kernel, tile_matmul_ref)
     detail["flash_attention_bwd_time"] = time_flash_bwd(fa_kernel, flash_attention_bwd_ref)
+    detail["tile_matmul_grad_mamba2_time"] = time_tile_matmul_grad(tm_kernel, tile_matmul_ref,
+                                                                   "mamba2_2_7b")
+    detail["ssd_scan_bwd_time"] = time_ssd_bwd(ssd_kernel, ssd_plain_bwd)
     for k in ("tile_matmul", "flash_attention", "ssd_scan", "tile_matmul_grad",
-              "flash_attention_bwd"):
+              "flash_attention_bwd", "tile_matmul_grad_mamba2", "ssd_scan_bwd"):
         print(f"times (ms): {k} {detail[k + '_time']}")
 
     # 5. Path 1: serve full-width smollm_360m from seeded random weights.
@@ -879,7 +988,7 @@ def main() -> int:
     sm = detail["serve"] = serve_path(serve, M, cfg, params, counters)
     assert sm["launches"] == {"tile_matmul": 7 * cfg.n_layers * (1 + GEN),
                               "flash_attention": cfg.n_layers, "flash_attention_bwd": 0,
-                              "ssd_scan": 0}, sm["launches"]
+                              "ssd_scan": 0, "ssd_scan_bwd": 0}, sm["launches"]
     detail["profile"] = profile_steps(M, cfg, params, rehome, counters)
     _print_profile(cfg.name, detail["profile"])
     del params
@@ -895,7 +1004,7 @@ def main() -> int:
     ms = detail["serve_mamba2"] = serve_path(serve, M, mcfg, params, counters)
     assert ms["launches"] == {"tile_matmul": 6 * mcfg.n_layers * (1 + GEN),
                               "flash_attention": 0, "flash_attention_bwd": 0,
-                              "ssd_scan": mcfg.n_layers}, ms["launches"]
+                              "ssd_scan": mcfg.n_layers, "ssd_scan_bwd": 0}, ms["launches"]
     prof = detail["profile_mamba2"] = profile_steps(M, mcfg, params, rehome, counters)
     _print_profile(mcfg.name, prof)
     assert prof["prefill"]["launches"]["ssd_scan"] == mcfg.n_layers, prof
@@ -909,30 +1018,46 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 7. Path 3: train full-width, full-depth smollm_360m through ``train``.
-    tr, res = train_path(train, cfg, counters)
-    detail["train"] = tr
-    prof = detail["profile_train"] = profile_train_step(steps_mod, cfg, res, counters)
-    print(f"profile {cfg.name} train step: wall {prof['wall_ms']:.3f} ms, device kernels "
-          f"{prof['device_ms']:.3f} ms, busy share {prof['busy_share']:.3f}, "
-          f"launches {prof['launches']}, top {prof['top_kernels'][:5]}")
-    del res
-    torch.cuda.empty_cache()
-    detail["parity_train_f32"] = parity_train_f32(M, steps_mod, cfg)
-    print(f"parity f32 train step smollm_360m full width, 4 layers: "
-          f"{detail['parity_train_f32']}")
+    # 8. Path 4: the same for full-width, full-depth mamba2_2_7b.
+    trains = {}
+    for key, tcfg in (("", cfg), ("_mamba2", mcfg)):
+        tr, res = train_path(train, tcfg, counters)
+        detail["train" + key] = tr
+        prof = detail["profile_train" + key] = profile_train_step(steps_mod, tcfg, res,
+                                                                  counters)
+        print(f"profile {tcfg.name} train step: wall {prof['wall_ms']:.3f} ms, device "
+              f"kernels {prof['device_ms']:.3f} ms, busy share {prof['busy_share']:.3f}, "
+              f"launches {prof['launches']}, top {prof['top_kernels'][:5]}")
+        assert prof["launches"] == {k: v // TRAIN_STEPS
+                                    for k, v in _train_want(tcfg)[0].items()}, prof["launches"]
+        trains[tcfg.name] = tr
+        del res
+        torch.cuda.empty_cache()
+        detail["parity_train_f32" + key] = parity_train_f32(M, steps_mod, tcfg)
+        print(f"parity f32 train step {tcfg.name} full width, 4 layers: "
+              f"{detail['parity_train_f32' + key]}")
+        torch.cuda.empty_cache()
+    tr, mt = trains[cfg.name], trains[mcfg.name]
 
-    # 8. Results. A kernel that runs on several paths: its launches are the sum.
+    # 9. Results. A kernel that runs on several paths: its launches are the sum.
     tmt, fat = detail["tile_matmul_time"]["prefill"], detail["flash_attention_time"]
     sst, gt = detail["ssd_scan_time"], detail["tile_matmul_grad_time"]
-    fbt = detail["flash_attention_bwd_time"]
-    runs = (sm, ms, tr)
+    fbt, sbt = detail["flash_attention_bwd_time"], detail["ssd_scan_bwd_time"]
+    runs = (sm, ms, tr, mt)
+
+    def summed(name: str) -> dict:
+        """Launches of ``name`` over the four paths, in all and by path."""
+        by = {p: sum(r["launches_by_path"][name][p] for r in runs)
+              for p in sm["launches_by_path"][name]}
+        return dict(launches=sum(r["launches"][name] for r in runs), launches_by_path=by)
+
     kernels = [
         dict(name="tile_matmul", route="cuda", source="src/repro_torch/csrc/tile_matmul.cu",
              replaces="src/repro/kernels/tile_matmul/kernel.py:58",
-             launches=sum(r["launches"]["tile_matmul"] for r in runs),
-             launches_by_path={p: sum(r["launches_by_path"]["tile_matmul"][p] for r in runs)
-                               for p in sm["tile_matmul_paths"]},
-             launches_by_layout_in_training=tr["tile_matmul_layouts"],
+             **summed("tile_matmul"),
+             launches_by_layout_in_training={
+                 k: tr["tile_matmul_layouts"][k] + mt["tile_matmul_layouts"][k]
+                 for k in tr["tile_matmul_layouts"]},
              max_abs_err=detail["tile_matmul_err"][str(torch.bfloat16)],
              ms=tmt["ms"], plain_ms=tmt["plain_ms"], bound_ms=tmt["bound_ms"],
              bound_by=tmt["bound_by"], library_ms=tmt["library_ms"],
@@ -947,10 +1072,7 @@ def main() -> int:
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:88",
-             launches=sm["launches"]["flash_attention"] + tr["launches"]["flash_attention"],
-             launches_by_path={p: sm["launches_by_path"]["flash_attention"][p]
-                               + tr["launches_by_path"]["flash_attention"][p]
-                               for p in sm["launches_by_path"]["flash_attention"]},
+             **summed("flash_attention"),
              max_abs_err=detail["flash_attention_err"][str(torch.bfloat16)],
              ms=fat["ms"], plain_ms=fat["plain_ms"], bound_ms=fat["bound_ms"],
              bound_by=fat["bound_by"], library_ms=fat["library_ms"], ffma_ms=fat["ffma_ms"],
@@ -959,8 +1081,7 @@ def main() -> int:
                    "mma path"),
         dict(name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan/kernel.py:70",
-             launches=ms["launches"]["ssd_scan"],
-             launches_by_path=ms["launches_by_path"]["ssd_scan"],
+             **summed("ssd_scan"),
              max_abs_err=detail["ssd_scan_err"][str(torch.bfloat16)]["y"],
              ms=sst["ms"], plain_ms=sst["plain_ms"], bound_ms=sst["bound_ms"],
              bound_by=sst["bound_by"], library_ms=None, ffma_ms=sst["ffma_ms"],
@@ -972,8 +1093,7 @@ def main() -> int:
              replaces="src/repro/kernels/flash_attention/kernel.py:88",
              replaces_part="the gradient of flash_attention (the Pallas kernel has none; "
                            "the reference differentiates plain jnp attention)",
-             launches=tr["launches"]["flash_attention_bwd"],
-             launches_by_path=tr["launches_by_path"]["flash_attention_bwd"],
+             **summed("flash_attention_bwd"),
              max_abs_err=max(detail["flash_attention_bwd_err"][str(torch.bfloat16)][g]
                              for g in ("dq", "dk", "dv")),
              ms=fbt["ms"], plain_ms=fbt["plain_ms"], bound_ms=fbt["bound_ms"],
@@ -981,6 +1101,19 @@ def main() -> int:
              device_ms=fbt["device_ms"], ffma_ms=fbt["ffma_ms"],
              timed="one layer's attention backward, q (40, 3, 512, 64), causal, bf16, "
                    "mma path; library: SDPA backward, K/V repeated"),
+        dict(name="ssd_scan_bwd", route="cuda", source="src/repro_torch/csrc/ssd_scan_bwd.cu",
+             replaces="src/repro/kernels/ssd_scan/kernel.py:70",
+             replaces_part="the gradient of ssd_scan, which the Pallas kernel lacks; the "
+                           "reference differentiates plain ssd_chunked "
+                           "(src/repro/models/mamba2.py:80)",
+             **summed("ssd_scan_bwd"),
+             max_abs_err=max(detail["ssd_scan_bwd_err"][str(torch.bfloat16)]["abs"].values()),
+             max_rel_err=max(detail["ssd_scan_bwd_err"][str(torch.bfloat16)]["rel"].values()),
+             ms=sbt["ms"], plain_ms=sbt["plain_ms"], bound_ms=sbt["bound_ms"],
+             bound_by=sbt["bound_by"], library_ms=None, ffma_ms=sbt["ffma_ms"],
+             device_ms=sbt["device_ms"],
+             timed="one mamba2 layer's scan backward, x (8, 512, 80, 64), N 128, bf16, "
+                   "with a final-state gradient, mma path"),
     ]
     OUT.parent.mkdir(exist_ok=True)
     OUT.write_text(json.dumps(detail, indent=1, default=str))

@@ -185,7 +185,7 @@ def measure(name: str) -> dict:
     from repro_torch.kernels.ssd_scan import kernel as K
     from repro_torch.kernels.ssd_scan.ops import ssd_plain
     fn = lib.ssd_scan_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
     def inputs(bt, t, h, p, g, n, seed):
         return (_randn((bt, t, h, p), torch.bfloat16, seed, 0.5),
@@ -199,7 +199,7 @@ def measure(name: str) -> dict:
         Bt, T, H, P = x.shape
         y = torch.empty_like(x)
         s = torch.empty((Bt, H, b.shape[3], P), dtype=torch.float32, device="cuda")
-        err = fn(*(t.data_ptr() for t in (x, dt, a, b, c, d, y, s)), Bt, T, H, b.shape[2],
+        err = fn(*(t.data_ptr() for t in (x, dt, a, b, c, d, y, s)), None, Bt, T, H, b.shape[2],
                  b.shape[3], P, 1, K.PATH_CODES["mma"],
                      torch._C._cuda_getCurrentRawStream(0))
         assert err == 0, err

@@ -24,6 +24,11 @@
 // no input), which leaves the state as it is, and their outputs are not
 // stored, as ssd_chunked pads its ragged tail.
 //
+// Chunk states, when asked (a non-null chunk_states, (Bt, H, nc + 1, N, P)
+// float32 with nc = ceil(T / 64)): the state entering each chunk, then the
+// final state, as csrc/ssd_scan_bwd.cu reads them. The gradient's
+// autograd.Function asks for them, so the backward does not rebuild them.
+//
 // What bounds it on an H100: at the serving shape (Bt 8, T 512, H 80, P 64,
 // N 128, bf16) one layer moves about 108 MB (x and y 42 MB each, the float32
 // state 21 MB). The function's own work is the recurrence's state update and
@@ -106,7 +111,8 @@ template <class T>
 __global__ void __launch_bounds__(THREADS)
 ssd_fwd_ffma(const T* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ A,
         const T* __restrict__ B, const T* __restrict__ C, const float* __restrict__ D,
-        T* __restrict__ y, float* __restrict__ state, int T_len, int H, int G, int N, int P) {
+        T* __restrict__ y, float* __restrict__ state, float* __restrict__ chunk_states,
+        int T_len, int H, int G, int N, int P) {
   extern __shared__ float smem[];
   const int LN = N + 1, LQ = Q + 1;
   float* Xs = smem;              // [Q][P]
@@ -128,10 +134,14 @@ ssd_fwd_ffma(const T* __restrict__ x, const float* __restrict__ dt, const float*
   const T* Bb = B + (size_t)b * T_len * bstep + (size_t)g * N;
   const T* Cb = C + (size_t)b * T_len * bstep + (size_t)g * N;
   const float* dtb = dt + (size_t)b * T_len * H + h;
+  const int nc = (T_len + Q - 1) / Q;
+  float* csb = chunk_states ? chunk_states + (size_t)bh * (nc + 1) * N * P : nullptr;
 
   for (int i = tid; i < N * P; i += THREADS) Ss[i] = 0.f;
 
   for (int t0 = 0; t0 < T_len; t0 += Q) {
+    if (csb)  // the state entering this chunk (step 5 writes Ss after a barrier)
+      for (int i = tid; i < N * P; i += THREADS) csb[(size_t)(t0 / Q) * N * P + i] = Ss[i];
     // 1. The chunk's X, B, C, dt as float32; steps past T are zero.
     for (int i = tid; i < Q * P; i += THREADS) {
       const int r = i / P, col = i - r * P, t = t0 + r;
@@ -273,7 +283,10 @@ ssd_fwd_ffma(const T* __restrict__ x, const float* __restrict__ dt, const float*
   }
 
   float* sb = state + (size_t)bh * N * P;
-  for (int i = tid; i < N * P; i += THREADS) sb[i] = Ss[i];
+  for (int i = tid; i < N * P; i += THREADS) {
+    sb[i] = Ss[i];
+    if (csb) csb[(size_t)nc * N * P + i] = Ss[i];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -355,8 +368,8 @@ __global__ void __launch_bounds__(MMA_THREADS, 256 / MMA_THREADS)
 ssd_fwd_mma(const __nv_bfloat16* __restrict__ x, const float* __restrict__ dt,
             const float* __restrict__ A, const __nv_bfloat16* __restrict__ B,
             const __nv_bfloat16* __restrict__ C, const float* __restrict__ D,
-            __nv_bfloat16* __restrict__ y, float* __restrict__ state, int T_len, int H,
-            int G, int P) {
+            __nv_bfloat16* __restrict__ y, float* __restrict__ state,
+            float* __restrict__ chunk_states, int T_len, int H, int G, int P) {
   constexpr int BLD = N + PAD;  // row stride of the B and C tiles
   constexpr int KN = N / 16;    // k-steps over the state dimension
   constexpr int MT = N / 64;    // 16-row tiles of S a warp owns
@@ -420,6 +433,22 @@ ssd_fwd_mma(const __nv_bfloat16* __restrict__ x, const float* __restrict__ dt,
   for (int i = tid; i < 2 * N * XLD / 2; i += MMA_THREADS)
     reinterpret_cast<uint32_t*>(Shi)[i] = 0u;  // Shi and Slo are adjacent
 
+  // S from registers to a (N, P) float32 state at dst (this block's columns).
+  auto store_state = [&](float* dst) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = n0w + mt * 16 + g, c = pc + j * 8 + 2 * t4;
+        *reinterpret_cast<float2*>(dst + (size_t)n * P + c) =
+            make_float2(sr[mt][j][0], sr[mt][j][1]);
+        *reinterpret_cast<float2*>(dst + (size_t)(n + 8) * P + c) =
+            make_float2(sr[mt][j][2], sr[mt][j][3]);
+      }
+  };
+  const int nc = (T_len + Q - 1) / Q;
+  float* csb = chunk_states ? chunk_states + (size_t)bh * (nc + 1) * N * P + p0 : nullptr;
+
   load(0, 0);
   cp_async_commit();
 
@@ -427,6 +456,7 @@ ssd_fwd_mma(const __nv_bfloat16* __restrict__ x, const float* __restrict__ dt,
   const int ia = i0 + g, ib = ia + 8;    // this thread's two of them
   int st = 0;
   for (int t0 = 0; t0 < T_len; t0 += Q, st ^= 1) {
+    if (csb) store_state(csb + (size_t)(t0 / Q) * N * P);  // the state entering the chunk
     if (t0 + Q < T_len) load(t0 + Q, st ^ 1);
     cp_async_commit();
     cp_async_wait<1>();  // this chunk landed; the next stays in flight
@@ -612,16 +642,8 @@ ssd_fwd_mma(const __nv_bfloat16* __restrict__ x, const float* __restrict__ dt,
   cp_async_wait<0>();
 
   // The final state, (Bt, H, N, P) float32, from registers.
-  float* sb = state + (size_t)bh * N * P + p0;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0w + mt * 16 + g, c = pc + j * 8 + 2 * t4;
-      *reinterpret_cast<float2*>(sb + (size_t)n * P + c) = make_float2(sr[mt][j][0], sr[mt][j][1]);
-      *reinterpret_cast<float2*>(sb + (size_t)(n + 8) * P + c) =
-          make_float2(sr[mt][j][2], sr[mt][j][3]);
-    }
+  store_state(state + (size_t)bh * N * P + p0);
+  if (csb) store_state(csb + (size_t)nc * N * P);
 }
 
 // ---------------------------------------------------------------------------
@@ -638,8 +660,9 @@ bool path_fits(int path, int dtype, int N, int P, bool aligned) {
 
 template <int N>
 cudaError_t launch_mma(const void* x, const float* dt, const float* A, const void* B,
-                       const void* C, const float* D, void* y, float* state, int Bt,
-                       int T_len, int H, int G, int P, cudaStream_t stream) {
+                       const void* C, const float* D, void* y, float* state,
+                       float* chunk_states, int Bt, int T_len, int H, int G, int P,
+                       cudaStream_t stream) {
   constexpr int bytes = mma_smem_bytes<N>();
   cudaError_t err = cudaFuncSetAttribute(
       ssd_fwd_mma<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -647,35 +670,39 @@ cudaError_t launch_mma(const void* x, const float* dt, const float* A, const voi
   using bf16 = __nv_bfloat16;
   ssd_fwd_mma<N><<<dim3(Bt * H, P / PB), MMA_THREADS, bytes, stream>>>(
       static_cast<const bf16*>(x), dt, A, static_cast<const bf16*>(B),
-      static_cast<const bf16*>(C), D, static_cast<bf16*>(y), state, T_len, H, G, P);
+      static_cast<const bf16*>(C), D, static_cast<bf16*>(y), state, chunk_states, T_len, H, G,
+      P);
   return cudaGetLastError();
 }
 
 template <class T>
 cudaError_t launch_ffma(const void* x, const float* dt, const float* A, const void* B,
-                        const void* C, const float* D, void* y, float* state, int Bt,
-                        int T_len, int H, int G, int N, int P, cudaStream_t stream) {
+                        const void* C, const float* D, void* y, float* state,
+                        float* chunk_states, int Bt, int T_len, int H, int G, int N, int P,
+                        cudaStream_t stream) {
   const size_t bytes = ffma_smem_bytes(N, P);
   cudaError_t err = cudaFuncSetAttribute(
       ssd_fwd_ffma<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   ssd_fwd_ffma<T><<<Bt * H, THREADS, bytes, stream>>>(
       static_cast<const T*>(x), dt, A, static_cast<const T*>(B), static_cast<const T*>(C),
-      D, static_cast<T*>(y), state, T_len, H, G, N, P);
+      D, static_cast<T*>(y), state, chunk_states, T_len, H, G, N, P);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype codes (x, B, C, y): 0 = float32, 1 = bfloat16. dt, A, D and the
-// state are float32. H must be a multiple of G. path: 0 = mma (bf16, N 64 or
-// 128, P a multiple of 32, x/y/B/C 16-byte aligned), 1 = ffma (the block's
-// shared memory, 130 KB at N = 128, P = 64, at most 227 KB). Returns the CUDA
-// error of the launch (cudaErrorInvalidValue for a path the inputs cannot
-// take); 0 means launched.
+// states are float32; chunk_states may be null. H must be a multiple of G.
+// path: 0 = mma (bf16, N 64 or 128, P a multiple of 32, x/y/B/C 16-byte
+// aligned), 1 = ffma (the block's shared memory, 130 KB at N = 128, P = 64,
+// at most 227 KB). Returns the CUDA error of the launch
+// (cudaErrorInvalidValue for a path the inputs cannot take); 0 means
+// launched.
 extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A, const void* B,
-                               const void* C, const void* D, void* y, void* state, int Bt,
-                               int T_len, int H, int G, int N, int P, int dtype, int path,
+                               const void* C, const void* D, void* y, void* state,
+                               void* chunk_states, int Bt, int T_len, int H, int G, int N,
+                               int P, int dtype, int path,
                                void* stream) {
   if (G <= 0 || H % G != 0 || N <= 0 || P <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const bool aligned = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y) |
@@ -687,14 +714,16 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A, con
   const float* Af = static_cast<const float*>(A);
   const float* Df = static_cast<const float*>(D);
   float* sf = static_cast<float*>(state);
+  float* cs = static_cast<float*>(chunk_states);
   cudaError_t err;
   if (path == PATH_MMA) {
-    err = N == 64 ? launch_mma<64>(x, dtf, Af, B, C, Df, y, sf, Bt, T_len, H, G, P, s)
-                  : launch_mma<128>(x, dtf, Af, B, C, Df, y, sf, Bt, T_len, H, G, P, s);
+    err = N == 64 ? launch_mma<64>(x, dtf, Af, B, C, Df, y, sf, cs, Bt, T_len, H, G, P, s)
+                  : launch_mma<128>(x, dtf, Af, B, C, Df, y, sf, cs, Bt, T_len, H, G, P, s);
   } else if (dtype == 0) {
-    err = launch_ffma<float>(x, dtf, Af, B, C, Df, y, sf, Bt, T_len, H, G, N, P, s);
+    err = launch_ffma<float>(x, dtf, Af, B, C, Df, y, sf, cs, Bt, T_len, H, G, N, P, s);
   } else {
-    err = launch_ffma<__nv_bfloat16>(x, dtf, Af, B, C, Df, y, sf, Bt, T_len, H, G, N, P, s);
+    err = launch_ffma<__nv_bfloat16>(x, dtf, Af, B, C, Df, y, sf, cs, Bt, T_len, H, G, N, P,
+                                     s);
   }
   return static_cast<int>(err);
 }

@@ -20,7 +20,8 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD = PKG.parents[1] / "build" / "repro_torch"
-KERNELS = ("tile_matmul", "flash_attention", "flash_attention_bwd", "ssd_scan")
+KERNELS = ("tile_matmul", "flash_attention", "flash_attention_bwd", "ssd_scan",
+           "ssd_scan_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
 

@@ -24,6 +24,14 @@ switches):
 
 ``ssd_scan.launches`` counts launches; ``ssd_scan.paths`` counts them per
 path. The source's header says what bounds each on the card.
+
+:func:`ssd_scan_bwd` launches the scan's gradient (``csrc/ssd_scan_bwd.cu``:
+the chunks walked backward in time by one block a (batch, head), from the
+chunk entry states the forward wrote (``chunk_states``), then a second
+kernel that sums B's and C's gradients over the heads of a group in a fixed
+order; no atomics), with the forward's two paths picked by the forward's
+rule. ``ssd_scan_bwd.launches`` and
+``.paths`` count its calls.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 PATH_CODES = {"mma": 0, "ffma": 1}
 MMA_STATE_DIMS = (64, 128)
 MMA_P_SLICE = 32
+CHUNK = 64   # steps in a chunk, both kernels
 
 
 def choose_path(dtype: torch.dtype, n: int, p: int, aligned: bool) -> str:
@@ -56,25 +65,29 @@ def choose_path(dtype: torch.dtype, n: int, p: int, aligned: bool) -> str:
 @functools.cache
 def _lib():
     fn = _build.load("ssd_scan").ssd_scan_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-             c: torch.Tensor, d: torch.Tensor, *, path: str | None = None):
-    """x: (Bt, T, H, P); dt: (Bt, T, H) float32; a, d: (H,) float32;
-    b, c: (Bt, T, G, N) in x's dtype. Returns (y (Bt, T, H, P) in x's dtype,
-    final_state (Bt, H, N, P) float32), on CUDA. ``path`` overrides
-    ``choose_path`` (the C side refuses a path the inputs cannot take).
-    Raises on anything the kernel does not take."""
+@functools.cache
+def _lib_bwd():
+    fn = _build.load("ssd_scan_bwd").ssd_scan_bwd_launch
+    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(x, dt, a, b, c, d) -> None:
+    """Raises on inputs neither kernel takes: CUDA, shapes, dtypes,
+    contiguity."""
     if not all(t.is_cuda for t in (x, dt, a, b, c, d)):
         raise ValueError("ssd_scan kernel needs CUDA tensors")
     if x.dim() != 4 or b.dim() != 4 or c.shape != b.shape:
         raise ValueError(f"bad shapes x {tuple(x.shape)}, b {tuple(b.shape)}, "
                          f"c {tuple(c.shape)}")
     Bt, T, H, P = x.shape
-    G, N = b.shape[2], b.shape[3]
+    G = b.shape[2]
     if (b.shape[:2] != (Bt, T) or dt.shape != (Bt, T, H) or a.shape != (H,)
             or d.shape != (H,) or H % G):
         raise ValueError(f"need dt (Bt, T, H), a, d (H,), b, c (Bt, T, G, N) with "
@@ -87,14 +100,49 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor
         raise ValueError("dt, a and d must be float32")
     if not all(t.is_contiguous() for t in (x, dt, a, b, c, d)):
         raise ValueError("ssd_scan kernel needs contiguous inputs")
+
+
+def chunk_states_shape(x: torch.Tensor, b: torch.Tensor) -> tuple[int, ...]:
+    """(Bt, H, ceil(T / 64) + 1, N, P): the state entering each chunk, then
+    the final state."""
+    Bt, T, H, P = x.shape
+    return (Bt, H, -(-T // CHUNK) + 1, b.shape[3], P)
+
+
+def _check_states(states, x, b) -> None:
+    if (not states.is_cuda or states.dtype != torch.float32
+            or states.shape != chunk_states_shape(x, b) or not states.is_contiguous()):
+        raise ValueError(f"chunk states must be contiguous CUDA float32 "
+                         f"{chunk_states_shape(x, b)}")
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+             c: torch.Tensor, d: torch.Tensor, *, path: str | None = None,
+             chunk_states: torch.Tensor | None = None):
+    """x: (Bt, T, H, P); dt: (Bt, T, H) float32; a, d: (H,) float32;
+    b, c: (Bt, T, G, N) in x's dtype. Returns (y (Bt, T, H, P) in x's dtype,
+    final_state (Bt, H, N, P) float32), on CUDA. ``path`` overrides
+    ``choose_path`` (the C side refuses a path the inputs cannot take).
+    ``chunk_states`` (float32, :func:`chunk_states_shape`), when given, gets
+    the state entering each chunk and the final state, as
+    :func:`ssd_scan_bwd` reads them. Raises on anything the kernel does not
+    take."""
+    _check(x, dt, a, b, c, d)
+    if chunk_states is not None:
+        _check_states(chunk_states, x, b)
+    Bt, T, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
     y = torch.empty_like(x)
     state = torch.empty((Bt, H, N, P), dtype=torch.float32, device=x.device)
     if x.numel() == 0:
+        if chunk_states is not None:
+            chunk_states.zero_()
         return y, state.zero_()
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, y, b, c))
     path = path or choose_path(x.dtype, N, P, aligned)
     err = _lib()(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-                 d.data_ptr(), y.data_ptr(), state.data_ptr(), Bt, T, H, G, N, P,
+                 d.data_ptr(), y.data_ptr(), state.data_ptr(),
+                 None if chunk_states is None else chunk_states.data_ptr(), Bt, T, H, G, N, P,
                  DTYPE_CODES[x.dtype], PATH_CODES[path],
                  # the current stream's handle, without building a Stream object
                  torch._C._cuda_getCurrentRawStream(x.get_device()))
@@ -107,3 +155,52 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor
 
 ssd_scan.launches = 0
 ssd_scan.paths = dict.fromkeys(PATH_CODES, 0)
+
+
+def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                 c: torch.Tensor, d: torch.Tensor, dy: torch.Tensor,
+                 dstate: torch.Tensor | None, states: torch.Tensor, *,
+                 path: str | None = None):
+    """Gradients (dx, ddt, da, db, dc, dd) of :func:`ssd_scan` at its inputs
+    for the output gradient ``dy`` (x's shape and dtype) and the final-state
+    gradient ``dstate`` ((Bt, H, N, P) float32, or None for zero), in the
+    inputs' shapes and dtypes, on CUDA. ``states``: the chunk states the
+    forward wrote (``ssd_scan(..., chunk_states=states)``), which the kernel
+    reads. ``path`` as :func:`ssd_scan`'s, by the same rule. Raises on
+    anything the kernels do not take."""
+    _check(x, dt, a, b, c, d)
+    Bt, T, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    if not all(t.is_cuda for t in (dy, dstate) if t is not None):
+        raise ValueError("ssd_scan_bwd needs CUDA tensors")
+    if dy.shape != x.shape or dy.dtype != x.dtype or not dy.is_contiguous():
+        raise ValueError(f"need a contiguous dy of x's shape {tuple(x.shape)} and "
+                         f"dtype {x.dtype}; got {tuple(dy.shape)} {dy.dtype}")
+    if dstate is not None and (dstate.shape != (Bt, H, N, P) or dstate.dtype != torch.float32
+                               or not dstate.is_contiguous()):
+        raise ValueError(f"need a contiguous float32 dstate ({Bt}, {H}, {N}, {P}); got "
+                         f"{tuple(dstate.shape)} {dstate.dtype}")
+    _check_states(states, x, b)
+    dx, db, dc = torch.empty_like(x), torch.empty_like(b), torch.empty_like(c)
+    ddt = torch.empty_like(dt)
+    if x.numel() == 0 or b.numel() == 0:
+        zeros = torch.zeros_like(a)
+        return dx.zero_(), ddt.zero_(), zeros, db.zero_(), dc.zero_(), zeros.clone()
+    f32 = dict(dtype=torch.float32, device=x.device)
+    da_part, dd_part = torch.empty((Bt, H), **f32), torch.empty((Bt, H), **f32)
+    dbp, dcp = torch.empty((Bt, T, H, N), **f32), torch.empty((Bt, T, H, N), **f32)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, dy, dx, b, c))
+    path = path or choose_path(x.dtype, N, P, aligned)
+    ptrs = (x, dt, a, b, c, d, dy, dstate, dx, ddt, da_part, dd_part, dbp, dcp, states, db, dc)
+    err = _lib_bwd()(*(None if t is None else t.data_ptr() for t in ptrs),
+                     Bt, T, H, G, N, P, DTYPE_CODES[x.dtype], PATH_CODES[path],
+                     torch._C._cuda_getCurrentRawStream(x.get_device()))
+    if err:
+        raise RuntimeError(f"ssd_scan_bwd launch failed ({path} path): CUDA error {err}")
+    ssd_scan_bwd.launches += 1
+    ssd_scan_bwd.paths[path] += 1
+    return dx, ddt, da_part.sum(0), db, dc, dd_part.sum(0)
+
+
+ssd_scan_bwd.launches = 0
+ssd_scan_bwd.paths = dict.fromkeys(PATH_CODES, 0)

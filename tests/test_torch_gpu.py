@@ -10,7 +10,9 @@ other places than the plain versions' float32 einsums), 2e-4 in float32
 (both sum float32 products, in different orders). ssd_scan is held at the
 reference's SSD bar, 1e-3, for its float32 outputs and float32 state: its
 plain version is a different algorithm (per-timestep recurrence against
-chunks), which changes the order of many more sums.
+chunks), which changes the order of many more sums. Its backward is held
+against the plain adjoint relative to each gradient's largest entry: 1e-3
+in float32, 2e-2 in bfloat16.
 """
 
 import numpy as np
@@ -21,7 +23,7 @@ from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
                                                      flash_attention_ref)
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
-from repro_torch.kernels.ssd_scan.ops import ssd_plain
+from repro_torch.kernels.ssd_scan.ops import ssd_plain, ssd_plain_bwd
 from repro_torch.kernels.tile_matmul import kernel as tm_kernel
 from repro_torch.kernels.tile_matmul.ref import tile_matmul_ref
 
@@ -379,7 +381,7 @@ def test_ssd_scan_c_entry_refuses_a_path_the_inputs_cannot_take(cuda):
     y = torch.empty_like(x)
     state = torch.empty((1, 4, 16, 16), dtype=torch.float32, device=cuda)
     stream = torch._C._cuda_getCurrentRawStream(x.get_device())
-    ptrs = [t.data_ptr() for t in (x, dt, A, B, C, D, y, state)]
+    ptrs = [t.data_ptr() for t in (x, dt, A, B, C, D, y, state)] + [None]  # no chunk states
     lib, codes = ssd_kernel._lib(), ssd_kernel.PATH_CODES
     # N = 16 and P = 16 are not mma shapes; float32 is not an mma type
     assert lib(*ptrs, 1, 16, 4, 2, 16, 16, 1, codes["mma"], stream) == 1
@@ -664,3 +666,183 @@ def test_train_runs_on_the_card_by_default(cuda, tmp_path):
     assert res["params"]["embed"]["tok"].is_cuda
     assert fa_kernel.flash_attention_bwd.launches == before + 2 * 2
     assert all(np.isfinite(res["losses"]))
+
+
+# --- the scan's gradient -----------------------------------------------------
+
+def _ssd_bwd_inputs(bt, t, h, p, g, n, dtype, device, seed):
+    """The scan's inputs, dy in ``dtype`` and a float32 final-state gradient."""
+    return (_ssd_inputs(bt, t, h, p, g, n, dtype, device, seed),
+            _randn((bt, t, h, p), dtype, device, seed + 6, 0.5),
+            _randn((bt, h, n, p), torch.float32, device, seed + 7, 0.5))
+
+
+def _states(args):
+    """The chunk states, written by a forward launch, that the backward reads."""
+    states = torch.empty(ssd_kernel.chunk_states_shape(args[0], args[3]),
+                         device=args[0].device)
+    ssd_kernel.ssd_scan(*args, chunk_states=states)
+    return states
+
+
+def _assert_grads_close(got, want, rtol):
+    for name, a, b in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, (name, a.shape, a.dtype)
+        # floored for a gradient that is exactly zero: dA at T = 1 (no
+        # earlier state to decay), where the kernel's cancelling sums leave
+        # float32 rounding of order 1e-8
+        scale = max(b.float().abs().max().item(), 1e-4)
+        torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=rtol * scale,
+                                   msg=lambda m, c=name: f"{c}: {m}")
+
+
+SSD_BWD_CASES = [  # (bt, t, h, p, g, n)
+    (2, 200, 8, 64, 2, 128),     # ragged last chunk, G = 2
+    (1, 77, 6, 32, 3, 64),       # under two chunks, G = 3, N 64
+    (2, 512, 8, 64, 1, 128),     # the training head shape, fewer heads
+    (1, 64, 4, 16, 4, 16),       # reduced widths, G = H (ffma in bf16 too)
+    (1, 1, 2, 8, 1, 8),          # a single step
+]
+
+
+@pytest.mark.parametrize("with_dstate", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bt,t,h,p,g,n", SSD_BWD_CASES)
+def test_ssd_scan_bwd_matches_plain(cuda, bt, t, h, p, g, n, dtype, with_dstate):
+    args, dy, ds = _ssd_bwd_inputs(bt, t, h, p, g, n, dtype, cuda, seed=t + h + g)
+    ds = ds if with_dstate else None
+    states = _states(args)
+    before = ssd_kernel.ssd_scan_bwd.launches
+    got = ssd_kernel.ssd_scan_bwd(*args, dy, ds, states)
+    assert ssd_kernel.ssd_scan_bwd.launches == before + 1
+    _assert_grads_close(got, ssd_plain_bwd(*args, dy, ds),
+                        1e-3 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_bwd_is_deterministic(cuda, dtype):
+    """No atomics: two launches give the same bits, B's and C's gradients
+    summed over 8 heads of a group included."""
+    args, dy, ds = _ssd_bwd_inputs(2, 300, 16, 64, 2, 128, dtype, cuda, seed=9)
+    states = _states(args)
+    first = ssd_kernel.ssd_scan_bwd(*args, dy, ds, states)
+    again = ssd_kernel.ssd_scan_bwd(*args, dy, ds, states)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("dtype,path", [(torch.bfloat16, "mma"), (torch.float32, "ffma")])
+def test_ssd_scan_bwd_counts_launches_per_path(cuda, dtype, path):
+    args, dy, ds = _ssd_bwd_inputs(1, 100, 4, 64, 1, 128, dtype, cuda, seed=2)
+    states = _states(args)
+    fn = ssd_kernel.ssd_scan_bwd
+    before, total = dict(fn.paths), fn.launches
+    fn(*args, dy, ds, states)
+    assert {p: fn.paths[p] - before[p] for p in fn.paths} == {
+        p: int(p == path) for p in ssd_kernel.PATH_CODES}
+    assert fn.launches == total + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_writes_the_chunk_states_the_backward_reads(cuda, dtype):
+    """The forward's chunk states: zero first, the final state last, the
+    state after two chunks as the plain scan's; the backward reading them
+    is within the bar, by both paths in bf16."""
+    args, dy, ds = _ssd_bwd_inputs(1, 150, 4, 64, 2, 128, dtype, cuda, seed=3)
+    states = torch.empty(ssd_kernel.chunk_states_shape(args[0], args[3]), device=cuda)
+    assert states.shape == (1, 4, 4, 128, 64)
+    _, final = ssd_kernel.ssd_scan(*args, chunk_states=states)
+    assert not states[:, :, 0].any() and torch.equal(states[:, :, -1], final)
+    _, after_two_chunks = ssd_plain(*[a[:, :128] if a.dim() > 1 else a for a in args])
+    torch.testing.assert_close(states[:, :, 2], after_two_chunks, rtol=1e-3, atol=1e-3)
+    want = ssd_plain_bwd(*args, dy, ds)
+    for path in ("mma", "ffma") if dtype == torch.bfloat16 else ("ffma",):
+        got = ssd_kernel.ssd_scan_bwd(*args, dy, ds, states, path=path)
+        _assert_grads_close(got, want, 2e-2 if dtype == torch.bfloat16 else 1e-3)
+
+
+def test_ssd_scan_bwd_c_entry_refuses_a_path_the_inputs_cannot_take(cuda):
+    (x, dt, A, B, C, D), dy, ds = _ssd_bwd_inputs(1, 16, 4, 16, 2, 16, torch.bfloat16,
+                                                  cuda, seed=1)
+    f32 = dict(dtype=torch.float32, device=cuda)
+    outs = (torch.empty_like(x), torch.empty_like(dt), torch.empty((1, 4), **f32),
+            torch.empty((1, 4), **f32), torch.empty((1, 16, 4, 16), **f32),
+            torch.empty((1, 16, 4, 16), **f32), torch.empty((1, 4, 2, 16, 16), **f32),
+            torch.empty_like(B), torch.empty_like(C))
+    ptrs = [t.data_ptr() for t in (x, dt, A, B, C, D, dy, ds)] + [t.data_ptr() for t in outs]
+    stream = torch._C._cuda_getCurrentRawStream(x.get_device())
+    lib, codes = ssd_kernel._lib_bwd(), ssd_kernel.PATH_CODES
+    # N = 16 and P = 16 are not mma shapes; float32 is not an mma type
+    assert lib(*ptrs, 1, 16, 4, 2, 16, 16, 1, codes["mma"], stream) == 1
+    assert lib(*ptrs, 1, 16, 4, 2, 16, 16, 0, codes["mma"], stream) == 1
+    # shared memory: N = 128 with P = 128 fits neither path
+    assert lib(*ptrs, 1, 16, 4, 2, 128, 128, 1, codes["mma"], stream) == 1
+    assert lib(*ptrs, 1, 16, 4, 2, 128, 128, 1, codes["ffma"], stream) == 1
+    # the chunk states are read, never made here: a null pointer is refused
+    no_states = ptrs[:14] + [None] + ptrs[15:]
+    assert lib(*no_states, 1, 16, 4, 2, 16, 16, 1, codes["ffma"], stream) == 1
+
+
+def test_ssd_scan_bwd_rejects_bad_input(cuda):
+    args, dy, ds = _ssd_bwd_inputs(1, 16, 4, 8, 2, 8, torch.float32, cuda, seed=1)
+    states = _states(args)
+    fn = ssd_kernel.ssd_scan_bwd
+    before = fn.launches
+    with pytest.raises(ValueError):
+        fn(*args, dy.bfloat16(), ds, states)
+    with pytest.raises(ValueError):
+        fn(*args, dy, ds[..., :4], states)
+    with pytest.raises(ValueError):
+        fn(*args, dy.cpu(), ds, states)
+    with pytest.raises(ValueError):
+        fn(*args, dy, ds, torch.empty((1, 4, 1, 8, 8), device=cuda))
+    assert fn.launches == before
+
+
+def test_ssd_backward_on_card_matches_cpu(cuda):
+    """ops.ssd under autograd, float32: both kernels on the card against
+    the plain recurrence and its adjoint on the CPU, a state gradient too."""
+    from repro_torch.kernels.ssd_scan.ops import ssd
+    args, dy, ds = _ssd_bwd_inputs(2, 90, 4, 32, 2, 64, torch.float32, "cpu", seed=4)
+    grads = {}
+    for dev in ("cpu", cuda):
+        leaves = [t.to(dev).requires_grad_() for t in args]
+        before = ssd_kernel.ssd_scan_bwd.launches
+        y, s = ssd(*leaves)
+        grads[str(dev)] = torch.autograd.grad((y, s), leaves, (dy.to(dev), ds.to(dev)))
+        if dev != "cpu":
+            assert ssd_kernel.ssd_scan_bwd.launches == before + 1
+    _assert_grads_close([g.cpu() for g in grads[str(cuda)]], grads["cpu"], 1e-3)
+
+
+def test_reduced_mamba2_train_step_on_card_matches_cpu(cuda):
+    """One float32 train step of reduced mamba2_2_7b (ffma products, the
+    ffma scan and its backward) against the plain path on the CPU
+    (``ssd_chunked`` under autograd): loss, grad norm and every updated
+    weight, at the smollm step's bars. Per layer: 24 products (6 forward,
+    6 recomputed, 6 dx, 6 dw), 2 scans and 1 scan backward."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim.optimizer import OptConfig, init_opt_state, tree_leaves
+    cfg = get_config("mamba2_2_7b", reduced=True)
+    opt = OptConfig(peak_lr=1e-3, warmup_steps=2, decay_steps=6, weight_decay=0.1)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    batch = TokenPipeline(PipelineConfig(vocab=cfg.vocab, batch=4, seq=100,
+                                         mode="cyclic")).batch_at(0)
+    step = make_train_step(cfg, opt)
+    counters = (tm_kernel.tile_matmul, ssd_kernel.ssd_scan, ssd_kernel.ssd_scan_bwd)
+    out = {}
+    for dev in ("cpu", cuda):
+        p = _to(params, dev)
+        before = [fn.launches for fn in counters]
+        out[str(dev)] = step(p, init_opt_state(p, opt),
+                             {k: torch.as_tensor(v, device=dev) for k, v in batch.items()})
+        if dev != "cpu":
+            n = cfg.n_layers
+            assert [fn.launches - b for fn, b in zip(counters, before)] == [24 * n, 2 * n, n]
+    (pc, _, mc), (pg, _, mg) = out["cpu"], out[str(cuda)]
+    for key in ("loss", "grad_norm"):
+        assert abs(mg[key] - mc[key]) <= 1e-4 * max(1.0, abs(mc[key])), (key, mg, mc)
+    for a, b in zip(tree_leaves(pc), tree_leaves(pg)):
+        torch.testing.assert_close(b.cpu(), a, rtol=1e-4, atol=1e-2 * mc["lr"])

@@ -209,13 +209,39 @@ def test_remat_dots_is_not_ported_yet():
         M.train_loss(leaves, cfg, {k: torch.as_tensor(v) for k, v in _batch(0).items()})
 
 
-def test_scan_gradient_on_the_card_raises_instead_of_stopping():
-    """ssd_scan has no backward kernel yet: a gradient through it on a
-    non-CPU tensor raises, where it would otherwise stop there silently."""
+def test_scan_gradient_on_the_card_raises_instead_of_stopping(monkeypatch):
+    """A gradient through the scan on a non-CPU tensor goes to the kernels,
+    never to the plain version: with no kernel that takes meta tensors it
+    raises, and with both launches recorded the forward reaches
+    ``ssd_scan`` (writing the chunk states) and the backward
+    ``ssd_scan_bwd`` (reading them), whose gradients come back to every
+    input."""
+    from repro_torch.kernels.ssd_scan import kernel
     from repro_torch.kernels.ssd_scan.ops import ssd
-    x = torch.empty((1, 8, 2, 16), device="meta", requires_grad=True)
-    dt = torch.empty((1, 8, 2), device="meta")
-    a, d = torch.empty((2,), device="meta"), torch.empty((2,), device="meta")
-    b = torch.empty((1, 8, 1, 16), device="meta")
-    with pytest.raises(NotImplementedError, match="backward"):
-        ssd(x, dt, a, b, b, d)
+
+    def inputs():
+        shapes = ((1, 8, 2, 16), (1, 8, 2), (2,), (1, 8, 1, 16), (1, 8, 1, 16), (2,))
+        return [torch.empty(s, device="meta", requires_grad=True) for s in shapes]
+
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd(*inputs())
+    calls = []
+
+    def launch(x, dt, a, b, c, d, chunk_states):
+        calls.append(("ssd_scan", tuple(chunk_states.shape)))
+        return torch.empty_like(x), x.new_empty((1, 2, 16, 16))
+
+    def launch_bwd(x, dt, a, b, c, d, dy, dstate, states):
+        calls.append(("ssd_scan_bwd", tuple(dy.shape), tuple(dstate.shape),
+                      tuple(states.shape)))
+        return tuple(torch.empty_like(t) for t in (x, dt, a, b, c, d))
+
+    monkeypatch.setattr(kernel, "ssd_scan", launch)
+    monkeypatch.setattr(kernel, "ssd_scan_bwd", launch_bwd)
+    leaves = inputs()
+    y, state = ssd(*leaves)
+    grads = torch.autograd.grad((y.sum(), state.sum()), leaves)
+    # one chunk of 64 steps: its entry state and the final state
+    assert calls == [("ssd_scan", (1, 2, 2, 16, 16)),
+                     ("ssd_scan_bwd", (1, 8, 2, 16), (1, 2, 16, 16), (1, 2, 2, 16, 16))]
+    assert [g.shape for g in grads] == [t.shape for t in leaves]
