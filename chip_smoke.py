@@ -108,6 +108,40 @@ def _graph_ms(fn, iters=20) -> float:
     return _time_ms(graph.replay, iters=5) / iters
 
 
+def _device_kernels(prof) -> list[tuple[str, float, int]]:
+    """(name, device ms, launches) of each kernel in a torch.profiler trace,
+    the longest first."""
+    from torch.autograd import DeviceType
+
+    kern = []
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            kern.append((e.key, (us if us is not None else e.self_cuda_time_total) / 1e3,
+                         e.count))
+    return sorted(kern, key=lambda r: -r[1])
+
+
+def _traced_ms(fn, names: tuple[str, ...], iters=10) -> dict:
+    """Device time a launch of each kernel whose name holds one of
+    ``names``, from a torch.profiler trace of ``iters`` calls after a
+    warm-up call. Fails unless each ran once a call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for name in names:
+        hits = [(t, c) for k, t, c in _device_kernels(prof) if name in k]
+        assert len(hits) == 1 and hits[0][1] == iters, (name, hits)
+        out[name] = hits[0][0] / iters
+    return out
+
+
 def _bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
@@ -184,27 +218,29 @@ def _sass_ops(so: Path, ops) -> dict:
 
 
 # Kernels that must not spill, by a substring of their mangled names, and the
-# SASS each library must hold: tile_matmul's wgmma (HGMMA) and TMA (UTMALDG),
-# the mma paths' tensor-core products (HMMA) and ldmatrix (LDSM) loads.
+# SASS each library must hold: wgmma (HGMMA) in tile_matmul (with TMA,
+# UTMALDG) and in the attention backward at D = 64, the mma paths'
+# tensor-core products (HMMA) and ldmatrix (LDSM) loads.
 NO_SPILL = {"tile_matmul": ("wgmma", "skinny"), "flash_attention": ("flash_fwd_mma",),
-            "ssd_scan": ("ssd_fwd_mma",), "flash_attention_bwd": ("_mmaI",),
-            "ssd_scan_bwd": ("ssd_bwd_kernelI13__nv_bfloat16Lb1",)}
+            "ssd_scan": ("ssd_fwd_mma",),
+            "flash_attention_bwd": ("_mmaI", "_wgmma"),
+            "ssd_scan_bwd": ("ssd_bwd_mma",)}
 SASS_OPS = {"tile_matmul": ("HGMMA", "UTMALDG", "LDL", "STL"),
             "flash_attention": ("HMMA", "LDSM", "LDGSTS", "LDL", "STL"),
             "ssd_scan": ("HMMA", "LDSM", "LDGSTS", "LDL", "STL"),
-            "flash_attention_bwd": ("HMMA", "LDSM", "LDGSTS", "LDL", "STL"),
-            "ssd_scan_bwd": ("HMMA", "LDL", "STL")}
+            "flash_attention_bwd": ("HGMMA", "HMMA", "LDSM", "LDGSTS", "LDL", "STL"),
+            "ssd_scan_bwd": ("HMMA", "LDSM", "LDGSTS", "LDL", "STL")}
 SASS_NEED = {"tile_matmul": ("HGMMA", "UTMALDG"), "flash_attention": ("HMMA", "LDSM"),
-             "ssd_scan": ("HMMA", "LDSM"), "flash_attention_bwd": ("HMMA", "LDSM"),
-             "ssd_scan_bwd": ("HMMA",)}
+             "ssd_scan": ("HMMA", "LDSM"), "flash_attention_bwd": ("HGMMA", "HMMA", "LDSM"),
+             "ssd_scan_bwd": ("HMMA", "LDSM", "LDGSTS")}
 
 
 def kernel_build_report(build, ptxas: dict) -> dict:
     """What ptxas said of each kernel of each library (registers, shared
     memory, spills) and the counts of ``SASS_OPS`` in each library. Fails on
     a spill in a kernel of ``NO_SPILL``, and on a library without the
-    instructions of ``SASS_NEED`` (tile_matmul's wgmma and TMA, the mma
-    paths' HMMA and LDSM; the scan backward's HMMA)."""
+    instructions of ``SASS_NEED`` (the wgmma of tile_matmul and of the
+    attention backward, tile_matmul's TMA, the mma paths' HMMA and LDSM)."""
     report = {}
     no_spill = "0 bytes spill stores, 0 bytes spill loads"
     for lib, keys in NO_SPILL.items():
@@ -451,10 +487,13 @@ def time_flash_bwd(fa_kernel, flash_attention_bwd_ref) -> dict:
     """One layer's attention backward at the training shape, q (40, 3, 512,
     64) causal, bf16: the mma path by CUDA events (``ms``) and graph replay
     (``device_ms``), the ffma path on the same inputs once (``ffma_ms``),
-    the explicit plain formula, and SDPA's backward with
-    K/V repeated to the 15 query heads (``library_ms``: autograd.grad of
-    one SDPA output, the forward kept). Work: the five products of the
-    function, 2 D operations each a visible (query, key) pair."""
+    the explicit plain formula, and SDPA's backward with K/V repeated to the
+    15 query heads: its aten op (``_scaled_dot_product_flash_attention_
+    backward``, from the forward's own outputs) by CUDA events
+    (``library_ms``) and by graph replay (``library_device_ms``); each of the
+    two kernels' device time a launch from a profiler trace (``dq_ms``,
+    ``dkv_ms``). Work: the five products of the function, 2 D operations
+    each a visible (query, key) pair."""
     dt, bh, g, t, d = torch.bfloat16, BATCH * 5, 3, PROMPT, 64
     q = _randn((bh, g, t, d), dt, 1)
     k = _randn((bh, t, d), dt, 2)
@@ -465,19 +504,30 @@ def time_flash_bwd(fa_kernel, flash_attention_bwd_ref) -> dict:
     ffma = _time_ms(lambda: fa_kernel.flash_attention_bwd(q, k, v, o, do, lse, path="ffma"),
                     iters=5)
     device = _graph_ms(lambda: fa_kernel.flash_attention_bwd(q, k, v, o, do, lse), iters=5)
+    traced = _traced_ms(lambda: fa_kernel.flash_attention_bwd(q, k, v, o, do, lse),
+                        ("flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma"))
     plain = _time_ms(lambda: flash_attention_bwd_ref(q, k, v, o, do, lse), iters=3)
-    qs = q.reshape(BATCH, 15, t, d).detach().requires_grad_()
-    ks = k.reshape(BATCH, 5, t, d).repeat_interleave(g, dim=1).detach().requires_grad_()
-    vs = v.reshape(BATCH, 5, t, d).repeat_interleave(g, dim=1).detach().requires_grad_()
-    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    qs = q.reshape(BATCH, 15, t, d)
+    ks = k.reshape(BATCH, 5, t, d).repeat_interleave(g, dim=1)
+    vs = v.reshape(BATCH, 5, t, d).repeat_interleave(g, dim=1)
     dos = do.reshape(BATCH, 15, t, d)
-    library = _time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), dos, retain_graph=True))
+    aten = torch.ops.aten
+    fwd = aten._scaled_dot_product_flash_attention(qs, ks, vs, 0.0, True, False)
+    out_f, lse_f, cq, ck, mq, mk, seed, offset = fwd[:8]
+
+    def sdpa_bwd():
+        return aten._scaled_dot_product_flash_attention_backward(
+            dos, qs, ks, vs, out_f, lse_f, cq, ck, mq, mk, 0.0, True, seed, offset)
+
+    library = _time_ms(sdpa_bwd)
+    library_device = _graph_ms(sdpa_bwd, iters=5)
     pairs = bh * g * t * (t + 1) // 2
     flops = 10 * d * pairs
     nbytes = (4 * q.numel() + 4 * k.numel()) * 2 + lse.numel() * 4
     bound_ms, bound_by = _bound(flops, nbytes, dt)
-    return dict(ms=kern, ffma_ms=ffma, device_ms=device, plain_ms=plain,
-                library_ms=library, vs_library=kern / library, flop=flops, bytes=nbytes,
+    return dict(ms=kern, ffma_ms=ffma, device_ms=device, dq_ms=traced["flash_bwd_dq_wgmma"],
+                dkv_ms=traced["flash_bwd_dkv_wgmma"], plain_ms=plain, library_ms=library, library_device_ms=library_device, vs_library=kern / library,
+                device_vs_library=device / library_device, flop=flops, bytes=nbytes,
                 bound_ms=bound_ms, bound_by=bound_by, tflop_s=flops / kern / 1e9)
 
 
@@ -602,11 +652,15 @@ def time_ssd_bwd(ssd_kernel, ssd_plain_bwd) -> dict:
     """One mamba2_2_7b layer's scan backward at the training shape, bf16,
     with a final-state gradient, reading the chunk states the forward wrote:
     the mma path by CUDA events (``ms``) and by CUDA-graph replay
-    (``device_ms``), the ffma path on the same inputs (``ffma_ms``), and the
-    plain adjoint. Work: the recurrence's adjoint, 6 N P
-    multiply-adds a (batch, head, step); bytes: each input read and each
-    output written once. No single PyTorch call computes the scan's
-    gradient: no library time."""
+    (``device_ms``), each of its two kernels' device time a launch from a
+    profiler trace (the walk over the chunks, ``walk_ms``, and the head sum
+    of B's and C's gradients, ``head_sum_ms``), the ffma path on the same
+    inputs (``ffma_ms``), and the plain adjoint.
+    Work: the recurrence's adjoint, 6 N P multiply-adds a (batch, head,
+    step); bytes: each input read and each output written once (the chunk
+    states the kernel also reads, ``states_bytes``, are not the function's
+    inputs). No single PyTorch call computes the scan's gradient: no
+    library time."""
     bt, t, h, p, g, n = SSD_PATH
     dt = torch.bfloat16
     args = _ssd_inputs(bt, t, h, p, g, n, dt, seed=5)
@@ -618,15 +672,17 @@ def time_ssd_bwd(ssd_kernel, ssd_plain_bwd) -> dict:
     kern = _time_ms(lambda: fn(*args, dy, ds, states))
     ffma = _time_ms(lambda: fn(*args, dy, ds, states, path="ffma"), iters=5)
     device = _graph_ms(lambda: fn(*args, dy, ds, states), iters=5)
+    traced = _traced_ms(lambda: fn(*args, dy, ds, states), ("ssd_bwd_mma", "ssd_bwd_reduce"))
+    states_bytes = states.numel() * 4
     del states
     plain = _time_ms(lambda: ssd_plain_bwd(*args, dy, ds), iters=2)
     flops = 12 * bt * h * t * n * p
     nbytes = (3 * bt * t * h * p * 2 + bt * h * n * p * 4 + 2 * bt * t * h * 4
               + 4 * bt * t * g * n * 2 + 4 * h * 4)
     bound_ms, bound_by = _bound(flops, nbytes, dt)
-    return dict(ms=kern, ffma_ms=ffma, device_ms=device,
-                plain_ms=plain, library_ms=None, flop=flops, bytes=nbytes,
-                bound_ms=bound_ms, bound_by=bound_by)
+    return dict(ms=kern, ffma_ms=ffma, device_ms=device, walk_ms=traced["ssd_bwd_mma"],
+                head_sum_ms=traced["ssd_bwd_reduce"], plain_ms=plain, library_ms=None, flop=flops,
+                bytes=nbytes, states_bytes=states_bytes, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def _zero(counters: dict) -> None:
@@ -681,7 +737,6 @@ def profile_steps(M, cfg, params, rehome, counters: dict) -> dict:
     torch.profiler trace of one more run, their ratio as the device's busy
     share, the kernels that take the most device time, and the launches of
     the traced run."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     tokens = torch.as_tensor(np.random.default_rng(2).integers(0, cfg.vocab, (BATCH, PROMPT)),
@@ -707,13 +762,7 @@ def profile_steps(M, cfg, params, rehome, counters: dict) -> dict:
             torch.cuda.synchronize()
         launches = _read(counters)
         paths = dict(counters["tile_matmul"].paths)
-        kern = []
-        for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA:
-                us = getattr(e, "self_device_time_total", None)
-                kern.append((e.key, (us if us is not None else e.self_cuda_time_total) / 1e3,
-                             e.count))
-        kern.sort(key=lambda r: -r[1])
+        kern = _device_kernels(prof)
         wall_ms = sorted(walls)[1] * 1e3
         device_ms = sum(r[1] for r in kern)
         out[name] = dict(wall_ms=wall_ms, device_ms=device_ms,
@@ -843,13 +892,7 @@ def profile_train_step(steps_mod, cfg, res, counters: dict) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         step(params, opt_state, batch)
         torch.cuda.synchronize()
-    kern = []
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            us = getattr(e, "self_device_time_total", None)
-            kern.append((e.key, (us if us is not None else e.self_cuda_time_total) / 1e3,
-                         e.count))
-    kern.sort(key=lambda r: -r[1])
+    kern = _device_kernels(prof)
     host = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU),
                   key=lambda e: -e.self_cpu_time_total)[:10]
     wall_ms = sorted(walls)[1] * 1e3
@@ -1098,9 +1141,11 @@ def main() -> int:
                              for g in ("dq", "dk", "dv")),
              ms=fbt["ms"], plain_ms=fbt["plain_ms"], bound_ms=fbt["bound_ms"],
              bound_by=fbt["bound_by"], library_ms=fbt["library_ms"],
-             device_ms=fbt["device_ms"], ffma_ms=fbt["ffma_ms"],
+             device_ms=fbt["device_ms"], library_device_ms=fbt["library_device_ms"],
+             dq_ms=fbt["dq_ms"], dkv_ms=fbt["dkv_ms"], ffma_ms=fbt["ffma_ms"],
              timed="one layer's attention backward, q (40, 3, 512, 64), causal, bf16, "
-                   "mma path; library: SDPA backward, K/V repeated"),
+                   "mma path (wgmma at D = 64); library: SDPA's flash backward op, K/V "
+                   "repeated"),
         dict(name="ssd_scan_bwd", route="cuda", source="src/repro_torch/csrc/ssd_scan_bwd.cu",
              replaces="src/repro/kernels/ssd_scan/kernel.py:70",
              replaces_part="the gradient of ssd_scan, which the Pallas kernel lacks; the "
@@ -1111,7 +1156,8 @@ def main() -> int:
              max_rel_err=max(detail["ssd_scan_bwd_err"][str(torch.bfloat16)]["rel"].values()),
              ms=sbt["ms"], plain_ms=sbt["plain_ms"], bound_ms=sbt["bound_ms"],
              bound_by=sbt["bound_by"], library_ms=None, ffma_ms=sbt["ffma_ms"],
-             device_ms=sbt["device_ms"],
+             device_ms=sbt["device_ms"], walk_ms=sbt["walk_ms"],
+             head_sum_ms=sbt["head_sum_ms"],
              timed="one mamba2 layer's scan backward, x (8, 512, 80, 64), N 128, bf16, "
                    "with a final-state gradient, mma path"),
     ]

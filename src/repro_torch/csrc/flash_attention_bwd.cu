@@ -26,22 +26,52 @@
 //  * dkv: a block per (BH, 64 keys) walks the row tiles that can see its
 //    keys and accumulates dK and dV.
 // Both recompute S and dP (two 64 x 64 x D products a tile pair), so the
-// pair does seven products where the function needs five.
+// pair does seven products where the function needs five. Blocks are
+// launched heaviest first: the dq grid's row tiles from the last, the dkv
+// grid's key tiles from the first (the longest causal bands).
 //
 // What bounds it: at smollm_360m's training shape, q (40, 3, 512, 64)
 // causal, the function is about 10 GFLOP against 42 MB, bound by bytes
-// (about 13 us) on the card. Two paths, picked as the forward's (the
-// wrapper's choose_path; the C side refuses a path the inputs cannot take):
-//  * mma (bf16, every tensor 16-byte aligned): the five products on bf16
-//    tensor cores with the forward mma path's fragments. 4 warps own 16 rows
-//    (dq) or 16 keys (dkv) each; the block's own Q, dO, O (dq) or K, V (dkv)
-//    are gathered once by cp.async, the streamed tiles (K, V or Q, dO, with
-//    lse and Dv) in a two-stage cp.async ring. dkv computes S^T = K Q^T and
-//    dP^T = V dO^T, so P^T and dS^T come out of the accumulators already in
-//    the A layout of dV += P^T dO and dK += dS^T Q (the m16n8 accumulator
-//    layout is the m16n8k16 A layout); dq computes dS the same way for
-//    dQ += dS K. The second operand of those three goes through
-//    ldmatrix.trans. P and dS are rounded to bf16 for their products.
+// (about 13 us) on the card. Paths, picked as the forward's (the wrapper's
+// choose_path; the C side refuses a path the inputs cannot take):
+//  * mma at D = 64 (bf16, every tensor 16-byte aligned; every attention
+//    layer of the zoo that trains): the five products on wgmma.m64n64k16, a
+//    warpgroup a 64 x 64 tile pair. Q, dO, K and V sit in 128-byte-swizzled
+//    shared tiles filled by cp.async (a 64-wide bf16 row is one swizzle
+//    row; the folded rows of a tile are not one TMA box when 64 is not a
+//    multiple of G). S, dP (dq) and S^T, dP^T (dkv) are products of two
+//    shared operands; P^T, dS^T and dS stay in registers as the A operand
+//    of dV += P^T dO, dK += dS^T Q and dQ += dS K, whose B (dO, Q, K) is read
+//    MN-major from the same tiles. The dkv block has three warpgroups that
+//    walk every third row tile of the band and sum their dK, dV in
+//    warpgroup order through shared memory: it shortens the longest walk
+//    (the causal key tile 0 sees all 24 row tiles) threefold and holds 12
+//    warps an SM. Dropping the scale from dS until the accumulators are
+//    stored, and exp2 on lse log2(e), keep the elementwise work to a few
+//    instructions a score. What bounds it is latency, not the tensor cores
+//    (the dK/dV kernel runs at about 120 TFLOP/s): each tile pair is a chain
+//    of two wgmma groups, each waited on, with the scores' exponentials
+//    between them. probe_gradients.py (numbers in PERF.md) takes the dK/dV
+//    kernel apart: leaving out the score products saves nothing, leaving
+//    out the scores' elementwise work or the register-operand products each
+//    saves about half; two or four warpgroups, or a third cp.async stage,
+//    are slower. Also tried and slower: deferring each tile's second wait
+//    into the next tile, P^T and dS^T through shared memory as a shared A
+//    operand, splitting the first wait so that P's work overlaps dP's
+//    product. Also tried and dropped: the dK/dV kernel storing dS^T for a
+//    dQ kernel that only reads it (five products instead of seven); it was
+//    faster alone and moved no train step, at a scratch of about Tkv / D
+//    times q's size.
+//  * mma at D = 16, 32, 128 (bf16): the same walk on mma.sync.m16n8k16 with
+//    the forward mma path's fragments. 4 warps own 16 rows (dq) or 16 keys
+//    (dkv) each; the block's own Q, dO, O (dq) or K, V (dkv) are gathered
+//    once by cp.async, the streamed tiles (K, V or Q, dO, with lse and Dv)
+//    in a two-stage cp.async ring. dkv computes S^T = K Q^T and dP^T = V
+//    dO^T, so P^T and dS^T come out of the accumulators already in the A
+//    layout of dV += P^T dO and dK += dS^T Q (the m16n8 accumulator layout
+//    is the m16n8k16 A layout); dq computes dS the same way for dQ += dS K.
+//    The second operand of those three goes through ldmatrix.trans. P and
+//    dS are rounded to bf16 for their products.
 //  * ffma (float32, and bf16 the mma path cannot take): float32 FFMA, the
 //    first version. Each thread holds a 4 x 4 block of the 64 x 64 score
 //    tile and a 4-row (or 4-key) x D/16 block of its accumulator; operands
@@ -374,10 +404,14 @@ constexpr int MMA_THREADS = 32 * MMA_WARPS;
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-// 16 bytes from global to shared; zero-filled when !in (src is not read).
+// 16 (or 4) bytes from global to shared; zero-filled when !in (src is not read).
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool in) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                "r"(in ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(in ? 4 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int PENDING>
@@ -696,6 +730,442 @@ flash_bwd_dkv_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
 }
 
 // ---------------------------------------------------------------------------
+// mma at D = 64 (every attention layer of the zoo that trains): the five
+// products on wgmma.m64n64k16, a warpgroup a 64 x 64 tile, operands in
+// 128-byte-swizzled shared tiles (a 64-wide bf16 row is one 128-byte
+// swizzle row), filled by cp.async with the swizzle applied by hand: the
+// folded rows of a tile are not one TMA box when 64 is not a multiple of G.
+// ---------------------------------------------------------------------------
+constexpr int SW_TILE = 64 * 128;   // bytes of one swizzled 64 x 64 bf16 tile
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | static_cast<uint64_t>(1) << 62;
+}
+// K-major operand (k along the 128-byte row): k step kk of 16 is 32 bytes
+// along the row, 8-row groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
+  return sw128_desc(tile + 32 * kk, 16, 1024);
+}
+// MN-major operand (k down the rows, n along them): k step kk is 16 rows.
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+  return sw128_desc(tile + 2048 * kk, SW_TILE, 1024);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Pins an accumulator in place across the asynchronous wgmma window.
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// Keeps register A fragments live until the wgmma that reads them is waited on.
+__device__ __forceinline__ void fence_frags(uint32_t (&f)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(f[i >> 2][i & 3])::"memory");
+}
+// cp.async writes through the generic proxy, wgmma reads through the async one.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// A barrier of the 128 threads of one warpgroup (ids 1 and up; 0 is __syncthreads).
+__device__ __forceinline__ void wg_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+#define FA_ACC4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define FA_ACC32                                                                        \
+  FA_ACC4(0), FA_ACC4(4), FA_ACC4(8), FA_ACC4(12), FA_ACC4(16), FA_ACC4(20), FA_ACC4(24), \
+      FA_ACC4(28)
+#define FA_REGS32                                                                        \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+
+// d (64 x 64) = (acc ? d : 0) + A B over 16 k; A and B shared, K-major
+// (or MN-major: TA, TB = 1).
+template <int TA = 0, int TB = 0>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" FA_REGS32
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : FA_ACC32
+      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
+// d += A B over 16 k; A (64 x 16) in registers (the m16n8k16 A fragment of
+// each warp's 16 rows), B shared and MN-major.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" FA_REGS32
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : FA_ACC32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+#undef FA_REGS32
+#undef FA_ACC32
+#undef FA_ACC4
+
+// A warpgroup's 64 x 64 accumulator as bf16 A fragments of its 4 k steps:
+// accumulator d[4j + 2h + e] is row 16 warp + g + 8h, column 8j + 2 t4 + e,
+// which is the A layout of k step j / 2.
+__device__ __forceinline__ void acc_frags(uint32_t (&f)[4][4], const float (&d)[32]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    f[j >> 1][(j & 1) * 2] = pack_bf16(d[4 * j], d[4 * j + 1]);
+    f[j >> 1][(j & 1) * 2 + 1] = pack_bf16(d[4 * j + 2], d[4 * j + 3]);
+  }
+}
+
+// Chunk c (8 bf16) of row r of a swizzled tile.
+__device__ __forceinline__ uint32_t sw_chunk(uint32_t tile, int r, int c) {
+  return tile + r * 128 + ((c ^ (r & 7)) << 4);
+}
+// 64 folded rows from r0 of a (G, Tq, 64) head block into a swizzled tile,
+// zeros past R, by `n` threads of which this is thread t.
+__device__ __forceinline__ void gather_rows_sw(uint32_t tile, const __nv_bfloat16* src, int r0,
+                                               int R, int G, int Tq, int t, int n) {
+#pragma unroll 1
+  for (int i = t; i < 64 * 8; i += n) {
+    const int r = i >> 3, c = i & 7, rr = r0 + r;
+    const bool in = rr < R;
+    cp_async16(sw_chunk(tile, r, c), in ? src + row_off(rr, G, Tq) * 64 + c * 8 : src, in);
+  }
+}
+// 64 keys from kv0 of a (Tkv, 64) block into a swizzled tile, zeros past Tkv.
+__device__ __forceinline__ void gather_keys_sw(uint32_t tile, const __nv_bfloat16* src, int kv0,
+                                               int Tkv, int t, int n) {
+#pragma unroll 1
+  for (int i = t; i < 64 * 8; i += n) {
+    const int r = i >> 3, c = i & 7, kp = kv0 + r;
+    const bool in = kp < Tkv;
+    cp_async16(sw_chunk(tile, r, c), in ? src + (size_t)kp * 64 + c * 8 : src, in);
+  }
+}
+
+// Whether every (row, key) of the 64 x 64 tile pair at folded row r0 and
+// key kv0 is visible, so that no score of it needs a mask.
+__device__ __forceinline__ bool tile_visible(const Attn& a, int r0, int kv0) {
+  const int R = a.G * a.Tq;
+  bool all = r0 + 64 <= R && kv0 + 64 <= a.Tkv;
+  if (a.causal) all = all && a.q_offset + r0 / a.G >= kv0 + 63;
+  if (a.window > 0) all = all && a.q_offset + (r0 + 63) / a.G - kv0 < a.window;
+  return all;
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// P and dS / scale of one score, as prob_grad but lean, for the wgmma
+// kernels' fragments: sl2 = scale log2(e), lse2 = lse log2(e); the scale of
+// dS is applied to the dQ and dK accumulators once, after the walk. The mask
+// is tested only when `masked`.
+__device__ __forceinline__ void prob_grad2(const Attn& a, float sl2, bool masked, float s,
+                                           float dp, int rr, int kp, float lse2, float dv,
+                                           float& p, float& ds) {
+  if (a.softcap > 0.f) {
+    const float t = tanhf(s * a.scale / a.softcap);
+    p = ex2(t * a.softcap * LOG2E - lse2);
+    ds = p * (dp - dv) * (1.f - t * t);
+  } else {
+    p = ex2(fmaf(s, sl2, -lse2));
+    ds = p * (dp - dv);
+  }
+  if (masked) {
+    const int qpos = a.q_offset + rr / a.G;
+    bool ok = rr < a.G * a.Tq && kp < a.Tkv;
+    if (a.causal) ok = ok && kp <= qpos;
+    if (a.window > 0) ok = ok && kp > qpos - a.window;
+    if (!ok) p = ds = 0.f;
+  }
+}
+
+constexpr int DQ_STAGES = 2;  // K/V buffers of the dQ kernel (three measured slower)
+constexpr int DQ_WG_SMEM = (2 + 2 * DQ_STAGES) * SW_TILE + 1024;  // Q, dO, the K/V ring; alignment
+
+// dQ of 64 folded rows: one warpgroup walks the key tiles of its band.
+__global__ void __launch_bounds__(128)
+flash_bwd_dq_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
+                   const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                   __nv_bfloat16* __restrict__ dq, float* __restrict__ dvec, Attn a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  // K and V of stage st at sK + 2 st SW_TILE, sK + (2 st + 1) SW_TILE.
+  const uint32_t sQ = base, sdO = base + SW_TILE, sK = base + 2 * SW_TILE;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t4 = lane & 3;
+  const int bh = blockIdx.x, r0 = (gridDim.y - 1 - blockIdx.y) * 64;  // longest first
+  const int G = a.G, Tq = a.Tq, R = G * Tq;
+  const size_t qoff = (size_t)bh * R * 64, koff = (size_t)bh * a.Tkv * 64;
+
+  gather_rows_sw(sQ, q + qoff, r0, R, G, Tq, tid, 128);
+  gather_rows_sw(sdO, dout + qoff, r0, R, G, Tq, tid, 128);
+  const int qmin = a.q_offset + r0 / G;
+  const int qmax = a.q_offset + (min(R, r0 + 64) - 1) / G;
+  const int kv_end = a.causal ? min(a.Tkv, qmax + 1) : a.Tkv;
+  const int kv_begin = a.window > 0 ? max(0, qmin - a.window + 1) / 64 * 64 : 0;
+  auto load_kv = [&](int kv0, int st) {
+    gather_keys_sw(sK + 2 * st * SW_TILE, k + koff, kv0, a.Tkv, tid, 128);
+    gather_keys_sw(sK + (2 * st + 1) * SW_TILE, v + koff, kv0, a.Tkv, tid, 128);
+  };
+#pragma unroll
+  for (int st = 0; st < DQ_STAGES - 1; ++st) {
+    if (kv_begin + 64 * st < kv_end) load_kv(kv_begin + 64 * st, st);
+    cp_async_commit();
+  }
+
+  // This thread's rows: 16 warp + g + 8h. Dv = rowsum(dO o O) over a quad.
+  float lse2[2], dv_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int rr = r0 + 16 * warp + g + 8 * h;
+    lse2[h] = rr < R ? lse[(size_t)bh * R + row_off(rr, G, Tq)] * LOG2E : 0.f;
+    float acc = 0.f;
+    if (rr < R) {
+      const size_t off = qoff + row_off(rr, G, Tq) * 64;
+#pragma unroll
+      for (int c = 2 * t4; c < 64; c += 8) {
+        const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(dout + off + c);
+        const __nv_bfloat162 y = *reinterpret_cast<const __nv_bfloat162*>(o + off + c);
+        acc = fmaf(__low2float(x), __low2float(y), acc);
+        acc = fmaf(__high2float(x), __high2float(y), acc);
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    dv_r[h] = acc;
+    if (t4 == 0 && rr < R) dvec[(size_t)bh * R + row_off(rr, G, Tq)] = acc;
+  }
+
+  const float sl2 = a.scale * LOG2E;
+  float acc[32], s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = s[i] = dp[i] = 0.f;
+  for (int kv0 = kv_begin, it = 0; kv0 < kv_end; kv0 += 64, ++it) {
+    const int st = it % DQ_STAGES, ahead = kv0 + 64 * (DQ_STAGES - 1);
+    if (ahead < kv_end) load_kv(ahead, (it + DQ_STAGES - 1) % DQ_STAGES);
+    cp_async_commit();
+    cp_async_wait<DQ_STAGES - 1>();  // this tile (and Q, dO) landed; the next stay in flight
+    fence_proxy_async();
+    __syncthreads();
+    const uint32_t ks = sK + 2 * st * SW_TILE, vs = ks + SW_TILE;
+    // S = Q K^T and dP = dO V^T.
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss(s, desc_k(sQ, kk), desc_k(ks, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss(dp, desc_k(sdO, kk), desc_k(vs, kk), kk);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_acc(s);
+    fence_acc(dp);
+    const bool masked = !tile_visible(a, r0, kv0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1, i = 4 * j + e;
+        float p;
+        prob_grad2(a, sl2, masked, s[i], dp[i], r0 + 16 * warp + g + 8 * h,
+                   kv0 + 8 * j + 2 * t4 + (e & 1), lse2[h], dv_r[h], p, s[i]);
+      }
+    // dQ += dS K: K read MN-major (k = key).
+    uint32_t f[4][4];
+    acc_frags(f, s);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) wgmma_rs(acc, f[kc], desc_mn(ks, kc));
+    wgmma_commit();
+    wgmma_wait0();
+    fence_acc(acc);
+    fence_frags(f);
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int rr = r0 + 16 * warp + g + 8 * h;
+    if (rr >= R) continue;
+    __nv_bfloat16* row = dq + qoff + row_off(rr, G, Tq) * 64;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * t4) =
+          pack_bf16(acc[4 * j + 2 * h] * a.scale, acc[4 * j + 2 * h + 1] * a.scale);
+  }
+}
+
+// dK/dV blocks: DKV_WGS warpgroups walk every DKV_WGS-th row tile of a key
+// tile's band (kernel.py's bwd_walks mirrors this band arithmetic), each
+// with DKV_STAGES buffers of (Q, dO). Shared memory: K, V; the buffers; lse
+// and Dv of each buffer; alignment. The fixed-order sum of the walks goes
+// through the buffers of warpgroups 1 and up.
+constexpr int DKV_WGS = 3, DKV_STAGES = 2;
+constexpr int DKV_TILES = 2 + 2 * DKV_STAGES * DKV_WGS;  // K, V, the buffers
+constexpr int DKV_WG_SMEM = DKV_TILES * SW_TILE + DKV_WGS * DKV_STAGES * 2 * 64 * 4 + 1024;
+
+// dK, dV of 64 keys: the warpgroups walk alternate row tiles of the keys'
+// band, then sum their accumulators in warpgroup order.
+__global__ void __launch_bounds__(128 * DKV_WGS, 1)
+flash_bwd_dkv_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ dvec,
+                    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, Attn a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t sK = base, sV = base + SW_TILE;
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
+  const int lane = tid & 31, warp = t >> 5, g = lane >> 2, t4 = lane & 3;
+  // Warpgroup wg, stage st: Q at stage(st), dO one tile on.
+  auto stage = [&](int st) { return base + (2 + 2 * (DKV_STAGES * wg + st)) * SW_TILE; };
+  // lse and Dv of each stage's rows: [DKV_STAGES][2][64]
+  float* ld_s = reinterpret_cast<float*>(gbase + DKV_TILES * SW_TILE) + wg * DKV_STAGES * 128;
+
+  const int bh = blockIdx.x, kv0 = blockIdx.y * 64;  // causal: heaviest key tiles first
+  const int G = a.G, Tq = a.Tq, R = G * Tq;
+  const size_t qoff = (size_t)bh * R * 64, koff = (size_t)bh * a.Tkv * 64;
+
+  gather_keys_sw(sK, k + koff, kv0, a.Tkv, tid, 128 * DKV_WGS);
+  gather_keys_sw(sV, v + koff, kv0, a.Tkv, tid, 128 * DKV_WGS);
+  cp_async_commit();
+  // The folded rows that can see a key of [kv0, kv1), as the other kernels.
+  const int kv1 = min(a.Tkv, kv0 + 64);
+  const int rr_lo = a.causal ? max(0, (kv0 - a.q_offset) * G) : 0;
+  const int rr_hi = a.window > 0 ? min(R, max(0, kv1 - 1 + a.window - a.q_offset) * G) : R;
+  const int r_first = rr_lo / 64 * 64;
+  const int ntile = rr_hi > r_first ? (rr_hi - r_first + 63) / 64 : 0;
+  auto load_rows = [&](int i, int st) {
+    const int r0 = r_first + 64 * i;
+    gather_rows_sw(stage(st), q + qoff, r0, R, G, Tq, t, 128);
+    gather_rows_sw(stage(st) + SW_TILE, dout + qoff, r0, R, G, Tq, t, 128);
+    if (t < 64) {
+      const int rr = r0 + t;
+      const size_t off = (size_t)bh * R + row_off(rr < R ? rr : 0, G, Tq);
+      cp_async4(smem_u32(ld_s + st * 128 + t), lse + off, rr < R);
+      cp_async4(smem_u32(ld_s + st * 128 + 64 + t), dvec + off, rr < R);
+    }
+  };
+#pragma unroll
+  for (int st = 0; st < DKV_STAGES - 1; ++st) {
+    if (wg + DKV_WGS * st < ntile) load_rows(wg + DKV_WGS * st, st);
+    cp_async_commit();
+  }
+  cp_async_wait<DKV_STAGES - 1>();  // K and V landed
+  fence_proxy_async();
+  __syncthreads();
+
+  const float sl2 = a.scale * LOG2E;
+  float acc_k[32], acc_v[32], s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc_k[i] = acc_v[i] = s[i] = dp[i] = 0.f;
+  for (int i = wg, it = 0; i < ntile; i += DKV_WGS, ++it) {
+    const int r0 = r_first + 64 * i, st = it % DKV_STAGES, ahead = i + DKV_WGS * (DKV_STAGES - 1);
+    if (ahead < ntile) load_rows(ahead, (it + DKV_STAGES - 1) % DKV_STAGES);
+    cp_async_commit();
+    cp_async_wait<DKV_STAGES - 1>();  // this stage landed; the next stay in flight
+    fence_proxy_async();
+    wg_sync(1 + wg);
+    const uint32_t qs = stage(st), dos = qs + SW_TILE;
+    // S^T = K Q^T and dP^T = V dO^T: this warpgroup's 64 keys by 64 rows.
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss(s, desc_k(sK, kk), desc_k(qs, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss(dp, desc_k(sV, kk), desc_k(dos, kk), kk);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_acc(s);
+    fence_acc(dp);
+    const bool masked = !tile_visible(a, r0, kv0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * t4 + e;
+        // one row's lse (times log2(e)) and Dv, for both of this thread's keys
+        const float lse2 = ld_s[st * 128 + col] * LOG2E, dvr = ld_s[st * 128 + 64 + col];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i2 = 4 * j + 2 * h + e;
+          prob_grad2(a, sl2, masked, s[i2], dp[i2], r0 + col, kv0 + 16 * warp + g + 8 * h,
+                     lse2, dvr, s[i2], dp[i2]);
+        }
+      }
+    // dV += P^T dO and dK += dS^T Q, dO and Q read MN-major (k = row).
+    uint32_t fp[4][4], fs[4][4];
+    acc_frags(fp, s);
+    acc_frags(fs, dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) wgmma_rs(acc_v, fp[kc], desc_mn(dos, kc));
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) wgmma_rs(acc_k, fs[kc], desc_mn(qs, kc));
+    wgmma_commit();
+    wgmma_wait0();
+    fence_acc(acc_v);
+    fence_acc(acc_k);
+    fence_frags(fp);
+    fence_frags(fs);
+    wg_sync(1 + wg);  // the warpgroup is done with this stage before it is refilled
+  }
+  cp_async_wait<0>();
+
+  // Fixed-order sum of the walks: warpgroup w > 0 leaves its accumulators
+  // in its own stages (thread by thread: every warpgroup holds the same
+  // fragment layout), warpgroup 0 adds them in order w = 1, 2, ...
+  static_assert(DKV_STAGES >= 2, "the sum goes through a warpgroup's stages: 32 KB");
+  auto red = [&](int w) {
+    return reinterpret_cast<float*>(gbase + (2 + 2 * DKV_STAGES * w) * SW_TILE);
+  };
+  __syncthreads();
+  if (wg > 0) {
+    float* r = red(wg);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      r[i * 128 + t] = acc_k[i];
+      r[(32 + i) * 128 + t] = acc_v[i];
+    }
+  }
+  __syncthreads();
+  if (wg > 0) return;
+#pragma unroll 1
+  for (int w = 1; w < DKV_WGS; ++w) {
+    const float* r = red(w);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      acc_k[i] += r[i * 128 + t];
+      acc_v[i] += r[(32 + i) * 128 + t];
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int kp = kv0 + 16 * warp + g + 8 * h;
+    if (kp >= a.Tkv) continue;
+    const size_t off = koff + (size_t)kp * 64;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int i0 = 4 * j + 2 * h;
+      *reinterpret_cast<uint32_t*>(dk + off + 8 * j + 2 * t4) =
+          pack_bf16(acc_k[i0] * a.scale, acc_k[i0 + 1] * a.scale);
+      *reinterpret_cast<uint32_t*>(dv + off + 8 * j + 2 * t4) =
+          pack_bf16(acc_v[i0], acc_v[i0 + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launch.
 // ---------------------------------------------------------------------------
 enum Path { PATH_MMA = 0, PATH_FFMA = 1 };
@@ -719,7 +1189,24 @@ cudaError_t launch(int path, const void* q, const void* k, const void* v, const 
   const T* ot = static_cast<const T*>(o);
   const T* dot = static_cast<const T*>(dout);
   const dim3 dq_grid((a.G * a.Tq + TILE - 1) / TILE, BH), dkv_grid((a.Tkv + TILE - 1) / TILE, BH);
-  if constexpr (sizeof(T) == 2) {
+  if constexpr (sizeof(T) == 2 && D == 64) {
+    if (path == PATH_MMA) {
+      static const cudaError_t attr_dq = cudaFuncSetAttribute(
+          flash_bwd_dq_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, DQ_WG_SMEM);
+      static const cudaError_t attr_dkv = cudaFuncSetAttribute(
+          flash_bwd_dkv_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, DKV_WG_SMEM);
+      if (attr_dq != cudaSuccess) return attr_dq;
+      if (attr_dkv != cudaSuccess) return attr_dkv;
+      // grid y: row tiles longest first (dQ), key tiles heaviest first (dK/dV)
+      flash_bwd_dq_wgmma<<<dim3(BH, dq_grid.x), 128, DQ_WG_SMEM, stream>>>(
+          qt, kt, vt, ot, dot, lse, static_cast<T*>(dq), dvec, a);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+      flash_bwd_dkv_wgmma<<<dim3(BH, dkv_grid.x), 128 * DKV_WGS, DKV_WG_SMEM, stream>>>(
+          qt, kt, vt, dot, lse, dvec, static_cast<T*>(dk), static_cast<T*>(dv), a);
+      return cudaGetLastError();
+    }
+  } else if constexpr (sizeof(T) == 2) {
     if (path == PATH_MMA) {
       constexpr int dq_bytes = dq_mma_smem_bytes<D>(), dkv_bytes = dkv_mma_smem_bytes<D>();
       static const cudaError_t attr_dq = cudaFuncSetAttribute(

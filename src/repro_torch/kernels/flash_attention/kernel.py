@@ -74,6 +74,54 @@ def _lib_bwd():
     return fn
 
 
+BWD_TILE = 64        # folded rows or keys of a tile in the backward kernels
+DKV_WARPGROUPS = 3   # DKV_WGS in csrc/flash_attention_bwd.cu
+
+
+def bwd_walks(G: int, Tq: int, Tkv: int, *, causal: bool = True, window: int = 0,
+              q_offset: int = 0):
+    """The tiles the backward kernels walk, as ``csrc/flash_attention_bwd.cu``
+    computes them (all of its kernels share the band arithmetic). Folded row
+    ``rr = t * G + g`` sits at query position ``q_offset + rr // G``.
+
+    Returns ``(dq, dkv)``: ``dq[r0]``, the first key of each key tile the dQ
+    kernel's block of rows ``r0 .. r0 + 63`` walks; ``dkv[kv0][w]``, the
+    first row of each row tile that warpgroup ``w`` of the dK/dV block of
+    keys ``kv0 .. kv0 + 63`` walks (every ``DKV_WARPGROUPS``-th tile of the
+    band, from tile ``w``)."""
+    R, T = G * Tq, BWD_TILE
+    dq = {}
+    for r0 in range(0, R, T):
+        qmin, qmax = q_offset + r0 // G, q_offset + (min(R, r0 + T) - 1) // G
+        kv_end = min(Tkv, qmax + 1) if causal else Tkv
+        kv_begin = max(0, qmin - window + 1) // T * T if window > 0 else 0
+        dq[r0] = list(range(kv_begin, kv_end, T))
+    dkv = {}
+    for kv0 in range(0, Tkv, T):
+        kv1 = min(Tkv, kv0 + T)
+        rr_lo = max(0, (kv0 - q_offset) * G) if causal else 0
+        rr_hi = min(R, max(0, kv1 - 1 + window - q_offset) * G) if window > 0 else R
+        r_first = rr_lo // T * T
+        ntile = (rr_hi - r_first + T - 1) // T if rr_hi > r_first else 0
+        dkv[kv0] = [[r_first + T * i for i in range(w, ntile, DKV_WARPGROUPS)]
+                    for w in range(DKV_WARPGROUPS)]
+    return dq, dkv
+
+
+def bwd_tile_visible(G: int, Tq: int, Tkv: int, r0: int, kv0: int, *, causal: bool = True,
+                     window: int = 0, q_offset: int = 0) -> bool:
+    """Whether every (row, key) pair of the tile pair at folded row ``r0`` and
+    key ``kv0`` is visible, so that the kernels skip its mask
+    (``tile_visible`` in ``csrc/flash_attention_bwd.cu``)."""
+    T = BWD_TILE
+    ok = r0 + T <= G * Tq and kv0 + T <= Tkv
+    if causal:
+        ok = ok and q_offset + r0 // G >= kv0 + T - 1
+    if window > 0:
+        ok = ok and q_offset + (r0 + T - 1) // G - kv0 < window
+    return ok
+
+
 def _check(q, k, v) -> None:
     """Raises on inputs no kernel takes: CUDA, shapes, dtype, contiguity."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda):

@@ -29,8 +29,8 @@ path. The source's header says what bounds each on the card.
 the chunks walked backward in time by one block a (batch, head), from the
 chunk entry states the forward wrote (``chunk_states``), then a second
 kernel that sums B's and C's gradients over the heads of a group in a fixed
-order; no atomics), with the forward's two paths picked by the forward's
-rule. ``ssd_scan_bwd.launches`` and
+order; no atomics), with two paths: ``mma`` (bf16, N 64 or 128, P 32 or
+64; :func:`choose_bwd_path`) and ``ffma``. ``ssd_scan_bwd.launches`` and
 ``.paths`` count its calls.
 """
 
@@ -47,6 +47,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 PATH_CODES = {"mma": 0, "ffma": 1}
 MMA_STATE_DIMS = (64, 128)
 MMA_P_SLICE = 32
+MMA_BWD_HEAD_DIMS = (32, 64)   # P the backward's mma kernel is built for
 CHUNK = 64   # steps in a chunk, both kernels
 
 
@@ -57,6 +58,20 @@ def choose_path(dtype: torch.dtype, n: int, p: int, aligned: bool) -> str:
     if dtype not in DTYPE_CODES:
         raise ValueError(f"ssd_scan takes float32 or bfloat16, not {dtype}")
     if (dtype == torch.bfloat16 and n in MMA_STATE_DIMS and p % MMA_P_SLICE == 0
+            and aligned):
+        return "mma"
+    return "ffma"
+
+
+def choose_bwd_path(dtype: torch.dtype, n: int, p: int, aligned: bool) -> str:
+    """The backward kernel for state dim ``n`` and head dim ``p`` in
+    ``dtype``; ``aligned``: x, dy, dx, B and C start on 16-byte boundaries.
+    The forward's rule with P in ``MMA_BWD_HEAD_DIMS`` (the mma kernel keeps
+    G's rows of P in registers). Mirrors ``path_fits`` in
+    ``csrc/ssd_scan_bwd.cu``."""
+    if dtype not in DTYPE_CODES:
+        raise ValueError(f"ssd_scan_bwd takes float32 or bfloat16, not {dtype}")
+    if (dtype == torch.bfloat16 and n in MMA_STATE_DIMS and p in MMA_BWD_HEAD_DIMS
             and aligned):
         return "mma"
     return "ffma"
@@ -166,8 +181,8 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Te
     gradient ``dstate`` ((Bt, H, N, P) float32, or None for zero), in the
     inputs' shapes and dtypes, on CUDA. ``states``: the chunk states the
     forward wrote (``ssd_scan(..., chunk_states=states)``), which the kernel
-    reads. ``path`` as :func:`ssd_scan`'s, by the same rule. Raises on
-    anything the kernels do not take."""
+    reads. ``path`` overrides :func:`choose_bwd_path`. Raises on anything
+    the kernels do not take."""
     _check(x, dt, a, b, c, d)
     Bt, T, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
@@ -190,7 +205,7 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Te
     da_part, dd_part = torch.empty((Bt, H), **f32), torch.empty((Bt, H), **f32)
     dbp, dcp = torch.empty((Bt, T, H, N), **f32), torch.empty((Bt, T, H, N), **f32)
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, dy, dx, b, c))
-    path = path or choose_path(x.dtype, N, P, aligned)
+    path = path or choose_bwd_path(x.dtype, N, P, aligned)
     ptrs = (x, dt, a, b, c, d, dy, dstate, dx, ddt, da_part, dd_part, dbp, dcp, states, db, dc)
     err = _lib_bwd()(*(None if t is None else t.data_ptr() for t in ptrs),
                      Bt, T, H, G, N, P, DTYPE_CODES[x.dtype], PATH_CODES[path],

@@ -10,8 +10,8 @@ Where a gradient is wanted the scan runs inside :class:`_SSD`: its forward
 also writes the state entering each chunk, and its backward is the
 ``ssd_scan_bwd`` launch that reads them (the plain adjoint for CPU
 tensors). At mamba2_2_7b's training shape, writing them cost the forward
-0.029 ms where rebuilding them cost the backward 0.43 ms
-(``probe_ssd_states.py`` on an NVIDIA H100 80GB HBM3 at 700 W). The
+0.029 ms where rebuilding them cost the first backward 0.43 ms (an
+NVIDIA H100 80GB HBM3 at 700 W; PERF.md). The
 reference differentiates its plain ``ssd_chunked`` with XLA; its Pallas
 kernel has no backward.
 """

@@ -217,3 +217,57 @@ def test_attention_gradient_of_a_non_cpu_tensor_goes_to_the_kernel():
     with pytest.raises(ValueError, match="CUDA"):
         attention(q, k, k)
     assert kernel.flash_attention.launches == before
+
+
+WALK_CASES = [  # (G, Tq, Tkv, causal, window, q_offset)
+    (3, 512, 512, True, 0, 0),       # smollm_360m's training shape
+    (3, 512, 512, True, 128, 0),     # sliding window
+    (3, 256, 512, True, 0, 256),     # q_offset
+    (1, 130, 130, True, 0, 0),       # ragged tiles, G = 1
+    (3, 77, 133, True, 0, 56),       # ragged, q_offset
+    (3, 300, 300, True, 100, 0),     # a window crossing tile edges
+    (3, 200, 264, True, 70, 64),     # window + q_offset
+    (8, 50, 70, True, 0, 20),        # G = 8
+    (1, 65, 65, False, 0, 0),        # not causal
+    (2, 1, 1, True, 0, 0),           # one step
+    (5, 100, 100, True, 0, 0),       # G = 5 folds rows across tile edges
+    (3, 130, 200, True, 10, 70),     # a window narrower than a tile
+    (3, 64, 640, True, 0, 576),      # one row tile sees every key tile
+    (1, 200, 77, False, 0, 0),       # not causal, fewer keys than rows
+    (4, 96, 200, True, 33, 104),     # window + q_offset, G = 4
+]
+
+
+@pytest.mark.parametrize("g,tq,tk,causal,window,q_offset", WALK_CASES)
+def test_backward_walks_cover_each_visible_pair_once(g, tq, tk, causal, window, q_offset):
+    """The backward kernels' band arithmetic (``kernel.bwd_walks``, mirrored
+    by ``csrc/flash_attention_bwd.cu``): the dQ blocks' key tiles and the
+    dK/dV warpgroups' row tiles each hold every visible (folded row, key)
+    pair exactly once, and a tile pair the kernels leave unmasked
+    (``bwd_tile_visible``) holds only visible pairs."""
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    R, T = g * tq, kernel.BWD_TILE
+    qpos = q_offset + torch.arange(R) // g
+    kp = torch.arange(tk)
+    vis = torch.ones(R, tk, dtype=torch.bool)
+    if causal:
+        vis &= kp[None] <= qpos[:, None]
+    if window > 0:
+        vis &= kp[None] > qpos[:, None] - window
+    dq, dkv = kernel.bwd_walks(g, tq, tk, **kw)
+    by_dq = torch.zeros(R, tk, dtype=torch.int32)
+    for r0, kv0s in dq.items():
+        for kv0 in kv0s:
+            by_dq[r0:r0 + T, kv0:kv0 + T] += 1
+    by_dkv = torch.zeros(R, tk, dtype=torch.int32)
+    for kv0, walks in dkv.items():
+        assert len(walks) == kernel.DKV_WARPGROUPS
+        for r0s in walks:
+            for r0 in r0s:
+                by_dkv[r0:r0 + T, kv0:kv0 + T] += 1
+    for by in (by_dq, by_dkv):
+        assert (by[vis] == 1).all() and (by <= 1).all()
+    for r0 in range(0, R, T):
+        for kv0 in range(0, tk, T):
+            if kernel.bwd_tile_visible(g, tq, tk, r0, kv0, **kw):
+                assert vis[r0:r0 + T, kv0:kv0 + T].all()

@@ -537,6 +537,35 @@ def test_flash_attention_backward_matches_plain(cuda, bh, g, tq, tk, d, window, 
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
 
 
+FLASH_BWD_EDGE_CASES = [  # (bh, g, tq, tk, causal, window, softcap): bf16, D = 64 (wgmma)
+    (2, 1, 65, 65, False, 0, 0.0),     # not causal, one row past a tile
+    (3, 2, 1, 1, True, 0, 0.0),        # a single step
+    (2, 3, 130, 200, True, 10, 0.0),   # a window narrower than a tile, q_offset = 70
+    (2, 3, 64, 640, True, 0, 0.0),     # q_offset = 576: one row tile sees all key tiles
+    (1, 5, 100, 100, True, 0, 15.0),   # G = 5 folds rows across tile edges, softcap
+]
+
+
+@pytest.mark.parametrize("bh,g,tq,tk,causal,window,softcap", FLASH_BWD_EDGE_CASES)
+def test_flash_attention_backward_wgmma_edges(cuda, bh, g, tq, tk, causal, window, softcap):
+    """Shapes the D = 64 kernels' tiling makes special (partial tiles, the
+    band split over the dK/dV warpgroups, tiles left unmasked) against the
+    explicit formula at the bf16 bar; repeat launches give the same bits."""
+    q = _randn((bh, g, tq, 64), torch.bfloat16, cuda, 1)
+    k = _randn((bh, tk, 64), torch.bfloat16, cuda, 2)
+    v = _randn((bh, tk, 64), torch.bfloat16, cuda, 3)
+    do = _randn((bh, g, tq, 64), torch.bfloat16, cuda, 4)
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=tk - tq)
+    o, lse = fa_kernel.flash_attention(q, k, v, return_lse=True, **kw)
+    before = dict(fa_kernel.flash_attention_bwd.paths)
+    grads = fa_kernel.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    assert fa_kernel.flash_attention_bwd.paths["mma"] == before["mma"] + 1
+    for got, want in zip(grads, flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)):
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+    again = fa_kernel.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
 @pytest.mark.parametrize("dtype,path", [(torch.bfloat16, "mma"), (torch.float32, "ffma")])
 def test_flash_attention_backward_counts_its_path(cuda, dtype, path):
     q = _randn((4, 3, 200, 64), dtype, cuda, 1)
@@ -685,8 +714,8 @@ def _states(args):
     return states
 
 
-def _assert_grads_close(got, want, rtol):
-    for name, a, b in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), got, want):
+def _assert_grads_close(got, want, rtol, names=("dx", "ddt", "dA", "dB", "dC", "dD")):
+    for name, a, b in zip(names, got, want):
         assert a.shape == b.shape and a.dtype == b.dtype, (name, a.shape, a.dtype)
         # floored for a gradient that is exactly zero: dA at T = 1 (no
         # earlier state to decay), where the kernel's cancelling sums leave
@@ -698,10 +727,12 @@ def _assert_grads_close(got, want, rtol):
 
 SSD_BWD_CASES = [  # (bt, t, h, p, g, n)
     (2, 200, 8, 64, 2, 128),     # ragged last chunk, G = 2
-    (1, 77, 6, 32, 3, 64),       # under two chunks, G = 3, N 64
+    (1, 77, 6, 32, 3, 64),       # under two chunks, G = 3, N 64, P 32
     (2, 512, 8, 64, 1, 128),     # the training head shape, fewer heads
     (1, 64, 4, 16, 4, 16),       # reduced widths, G = H (ffma in bf16 too)
     (1, 1, 2, 8, 1, 8),          # a single step
+    (1, 150, 12, 64, 4, 64),     # G = 4: three heads a group, N 64, ragged
+    (2, 130, 4, 32, 1, 128),     # N 128 with P 32, ragged
 ]
 
 
@@ -717,6 +748,27 @@ def test_ssd_scan_bwd_matches_plain(cuda, bt, t, h, p, g, n, dtype, with_dstate)
     assert ssd_kernel.ssd_scan_bwd.launches == before + 1
     _assert_grads_close(got, ssd_plain_bwd(*args, dy, ds),
                         1e-3 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("with_dstate", [False, True])
+def test_ssd_scan_bwd_mma_single_step(cuda, with_dstate):
+    """T = 1 through the mma kernel. Every gradient but dA at the bf16 bar.
+    dA is exactly zero here: its one step's cum_bar is c . C_bar - dt (b .
+    Bt) + <G, S>, terms of the size of dt_bar that cancel. The kernel forms
+    them from hi + lo bf16 pairs (2^-16 of each operand left over) and the
+    forward's chunk state, so dA is held to 2^-12 of dt_bar's largest entry
+    instead of a floor of 1e-4."""
+    args, dy, ds = _ssd_bwd_inputs(2, 1, 4, 32, 1, 64, torch.bfloat16, cuda, seed=5)
+    ds = ds if with_dstate else None
+    before = dict(ssd_kernel.ssd_scan_bwd.paths)
+    got = ssd_kernel.ssd_scan_bwd(*args, dy, ds, _states(args))
+    assert ssd_kernel.ssd_scan_bwd.paths["mma"] == before["mma"] + 1
+    want = ssd_plain_bwd(*args, dy, ds)
+    assert not want[2].any()
+    keep = [i for i in range(6) if i != 2]
+    _assert_grads_close([got[i] for i in keep], [want[i] for i in keep], 2e-2,
+                        names=[("dx", "ddt", "dA", "dB", "dC", "dD")[i] for i in keep])
+    assert got[2].abs().max() <= 2.0 ** -12 * want[1].abs().max(), (got[2], want[1])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -150,9 +150,23 @@ def test_path_choice(dtype, n, p, aligned, path):
     assert set(kernel.ssd_scan.paths) == set(kernel.PATH_CODES) == {"mma", "ffma"}
 
 
+@pytest.mark.parametrize("dtype,n,p,aligned,path", [
+    (torch.bfloat16, 128, 64, True, "mma"),     # every mamba2_2_7b layer's backward
+    (torch.bfloat16, 64, 32, True, "mma"),
+    (torch.bfloat16, 128, 96, True, "ffma"),    # G's rows of P no longer fit registers
+    (torch.bfloat16, 128, 64, False, "ffma"),   # cp.async needs 16-byte rows
+    (torch.bfloat16, 16, 64, True, "ffma"),     # N not 64 or 128
+    (torch.float32, 128, 64, True, "ffma"),     # float32 parity runs
+])
+def test_backward_path_choice(dtype, n, p, aligned, path):
+    assert kernel.choose_bwd_path(dtype, n, p, aligned) == path
+    assert set(kernel.ssd_scan_bwd.paths) == {"mma", "ffma"}
+
+
 def test_path_choice_refuses_other_dtypes():
-    with pytest.raises(ValueError):
-        kernel.choose_path(torch.float16, 128, 64, True)
+    for choose in (kernel.choose_path, kernel.choose_bwd_path):
+        with pytest.raises(ValueError):
+            choose(torch.float16, 128, 64, True)
 
 
 def _split(v, pair):
@@ -324,7 +338,13 @@ def _bwd_chunked(x, dt, A, B, C, D, dy, dstate, split, Q=64):
     chunk entry states as the forward writes them, then chunks of Q walked
     backward with the gradient G of the exit state, cum_bar from the row dots
     c . C_bar - dt (b . Bt) and <G, S> at the exit, and its reverse cumsum.
-    Every float32 operand of a product goes through ``split``."""
+    Every float32 operand of a product goes through ``split``, once, as the
+    mma kernel splits it into its hi and lo tiles or fragments: (C B^T o L)^T,
+    (Y_bar X^T o L)^T, Y_bar X^T o L o dt_j, G and S (each a tile read by two
+    products), and Y_bar o ein for G's update, whose other operand C stays
+    exact; the exit factors eout and ein scale the accumulators, not the
+    operands. B's and C's gradients leave per head in float32 and are summed
+    over a group's heads in head order, then rounded once."""
     Bt, T, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
     rep = H // G
@@ -370,19 +390,22 @@ def _bwd_chunked(x, dt, A, B, C, D, dy, dstate, split, Q=64):
         dcp[:, sl] = torch.einsum("bijh,bjhn->bihn", split(DL * dc[:, None]), bc) \
             + ein[..., None] * torch.einsum("bihp,bhnp->bihn", yc, split(S[c]))
         Gr = torch.exp(cum[:, -1])[..., None, None] * Gr + torch.einsum(
-            "bihn,bihp->bhnp", split(cc * ein[..., None]), yc)
+            "bihn,bihp->bhnp", cc, split(yc * ein[..., None]))
         bb = (bc * dbp[:, sl]).sum(-1)
         cbar = (cc * dcp[:, sl]).sum(-1) - dc * bb
         cbar[:, -1] += gs
         dA = torch.flip(torch.cumsum(torch.flip(cbar, [1]), 1), [1])
         ddt[:, sl] = bb + A * dA
         da += (dc * dA).sum((0, 1))
-    dB = (dt[..., None] * dbp[:, :T]).reshape(Bt, T, G, rep, N).sum(3)
-    dC = dcp[:, :T].reshape(Bt, T, G, rep, N).sum(3)
+    dB, dC = torch.zeros(Bt, T, G, N), torch.zeros(Bt, T, G, N)
+    for r in range(rep):    # head order within each group
+        dB += (dt[..., None] * dbp[:, :T]).reshape(Bt, T, G, rep, N)[:, :, :, r]
+        dC += dcp[:, :T].reshape(Bt, T, G, rep, N)[:, :, :, r]
     return (dx[:, :T].to(x.dtype), ddt[:, :T], da, dB.to(B.dtype), dC.to(C.dtype), dd)
 
 
-_BWD_ROUNDING_SHAPES = [(2, 200, 4, 64, 1, 32), (1, 130, 6, 32, 2, 16)]
+_BWD_ROUNDING_SHAPES = [(2, 200, 4, 64, 1, 32), (1, 130, 6, 32, 2, 16),
+                        (1, 150, 12, 32, 4, 64)]   # G = 4: three heads a group
 
 
 def _bwd_cases(shape, dtype):
