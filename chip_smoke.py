@@ -12,7 +12,12 @@ through ``train``: five AdamW steps of full-width, full-depth smollm_360m on
 through tile_matmul, every attention through flash_attention and its
 backward kernel, and one float32 train step held against the CPU's; then
 the same for full-width, full-depth mamba2_2_7b, every scan through
-ssd_scan and its gradient through ssd_scan_bwd. Per-path counters show that every
+ssd_scan and its gradient through ssd_scan_bwd; then full-width, full-depth
+smollm_360m trained by the paper's ACAN runtime (``ACANStepRunner``: Manager
+and Handler threads over the tuple space, one task a microbatch gradient,
+4 x 2 x 512 tokens a step) without and with injected handler crashes, whose
+losses and weights must agree bit for bit, one of its steps profiled, and
+the float32 runner held against the CPU's. Per-path counters show that every
 bf16 projection took tile_matmul's wgmma kernel (prefill) or its streaming
 kernel (decode), and every bf16 prefill attention and scan the mma path of
 flash_attention and ssd_scan; ptxas and SASS are checked for spills, wgmma,
@@ -602,7 +607,7 @@ def time_ssd(ssd_kernel, ssd_plain) -> dict:
                 bound_f32_by=bound_f32_by)
 
 
-def _ssd_cotangents(bt, t, h, p, g, n, dtype, seed):
+def _ssd_cotangents(bt, t, h, p, _g, n, dtype, seed):
     """dy in ``dtype`` and a non-zero float32 final-state gradient."""
     return _randn((bt, t, h, p), dtype, seed + 6, 0.5), _randn((bt, h, n, p), torch.float32,
                                                                 seed + 7, 0.5)
@@ -946,6 +951,164 @@ def parity_train_f32(M, steps_mod, cfg) -> dict:
     return out
 
 
+# The ACAN path: full-width, full-depth smollm_360m trained by the paper's
+# runtime, each microbatch gradient one task of a Manager/Handler plane over
+# the tuple space (4 x 2 x 512 = 4096 tokens a step, train_path's 8 x 512).
+ACAN = dict(n_handlers=4, n_micro=4, micro_batch=2, seq=PROMPT, steps=6, lr=0.05,
+            data_mode="cyclic", ts_backend="checked+local")
+ACAN_KERNELS = ("tile_matmul", "flash_attention", "flash_attention_bwd")
+
+
+def _acan_runner(step_runner, cfg, params, **kw):
+    """A runner whose space starts from ``params`` (its setup then puts none)."""
+    runner = step_runner.ACANStepRunner(cfg, step_runner.ACANTrainConfig(**(ACAN | kw)))
+    runner.ts.put(("params", 0), params)
+    return runner
+
+
+def _acan_run(runner, counters: dict) -> tuple:
+    """``runner.run()`` with every launch count set to 0 just before and read
+    just after; also each step's host seconds (``step_seconds``), and the
+    seconds of the pouch rounds that ended at their deadline with a task
+    unfinished."""
+    from repro_torch.core.space import ANY
+    from repro_torch.ts_exec.step_runner import step_seconds
+
+    torch.cuda.synchronize()
+    _zero(counters)
+    t0 = time.time()
+    res = runner.run()
+    launches = _read(counters)
+    by_path = {k: dict(fn.paths) for k, fn in counters.items() if hasattr(fn, "paths")}
+    steps_s = step_seconds(runner, t0)
+    rounds = [runner.ts.try_read(k)[1] for k in runner.ts.keys(("thist", ANY, ANY))]
+    waited = sum(r["elapsed"] for r in rounds if r["done_frac"] < 1.0)
+    return res, launches, by_path, steps_s, waited
+
+
+def acan_path(step_runner, M, cfg, counters: dict) -> dict:
+    """Train full-width, full-depth ``cfg`` (bf16) through the ACAN runner
+    twice from the same seeded weights: without crashes, then with a
+    handler crash probability of 0.25. Both commit every version once, give
+    the same losses and final weights bit for bit, break no tuple-space
+    protocol rule and leak nothing; the crash-free run re-issues nothing.
+    Each kernel's launches are a whole multiple (the same for all three) of
+    one microbatch gradient's, measured first on this thread, and at least
+    n_micro x steps of them, all on the tensor-core paths. A step's time is
+    the host clock between two committed versions; the median of steps 2-6
+    gives tokens/s."""
+    from repro_torch.core.space import find_checked
+    from repro_torch.optim.optimizer import tree_leaves
+
+    steps, n_micro = ACAN["steps"], ACAN["n_micro"]
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    clean = _acan_runner(step_runner, cfg, params, handler_crash_prob=0.0)
+    _zero(counters)
+    clean.warm_up()
+    torch.cuda.synchronize()
+    per_grad = _read(counters)
+    want = {k: v // TRAIN_STEPS for k, v in _train_want(cfg)[0].items()}
+    assert per_grad == want, (per_grad, want)
+    torch.cuda.reset_peak_memory_stats()
+    res, launches, by_path, steps_s, waited_clean = _acan_run(clean, counters)
+    peak = torch.cuda.max_memory_allocated()
+    crashed = _acan_runner(step_runner, cfg, params, handler_crash_prob=0.25)
+    res_c, launches_c, by_path_c, steps_c, waited = _acan_run(crashed, counters)
+    final = [tree_leaves(r.ts.try_read(("params", steps))[1]) for r in (clean, crashed)]
+    median = float(np.median(steps_s[1:]))
+    tokens = n_micro * ACAN["micro_batch"] * ACAN["seq"]
+    out = dict(arch=cfg.name, **ACAN, losses=res.losses, losses_crash=res_c.losses,
+               reissues=res.reissues, crashes=res.crashes, reissues_crash=res_c.reissues,
+               crashes_crash=res_c.crashes, param_versions=[res.param_versions,
+                                                            res_c.param_versions],
+               ts_violations=[res.ts_violations, res_c.ts_violations],
+               ts_leaks=[res.ts_leaks, res_c.ts_leaks], step_s=steps_s,
+               median_step_s=median, tokens_per_s=tokens / median, step_s_crash=steps_c,
+               timeout_wait_s=waited, timeout_wait_s_clean=waited_clean,
+               peak_mem_bytes=peak, launches_per_grad=per_grad, launches=launches,
+               launches_by_path=by_path, launches_crash=launches_c,
+               launches_by_path_crash=by_path_c)
+    print(f"acan {cfg.name}: losses {res.losses}, crash run losses {res_c.losses}; "
+          f"crash-free run {res.crashes} crashes, {res.reissues} re-issues; crash run "
+          f"{res_c.crashes} crashes, {res_c.reissues} re-issues, {waited:.3f} s of "
+          f"rounds ended at their deadline; median step (2-{steps}) {median:.4f} s "
+          f"({out['tokens_per_s']:.0f} tokens/s), steps {steps_s}; peak memory "
+          f"{peak / 2**30:.3f} GiB; launches a gradient {per_grad}, crash-free run "
+          f"{launches}, by path {by_path}; crash run {launches_c}")
+    out["violation_samples"] = [find_checked(r.ts.backend).protocol_report()["violation_samples"]
+                                for r in (clean, crashed)]
+    for r in (res, res_c):
+        assert r.param_versions == steps, out
+        assert r.ts_violations == 0 and r.ts_leaks == {}, out
+        assert len(r.losses) == steps and all(np.isfinite(r.losses)), out
+    assert res.reissues == 0 and res.crashes == 0, out
+    assert res_c.crashes + res_c.reissues >= 1, out
+    assert res_c.losses == res.losses, out
+    assert all(torch.equal(a, b) for a, b in zip(*final)), "crash run's weights differ"
+    for run, paths in ((launches, by_path), (launches_c, by_path_c)):
+        grads = {k: run[k] // per_grad[k] for k in ACAN_KERNELS}
+        assert all(run[k] % per_grad[k] == 0 for k in ACAN_KERNELS), (run, per_grad)
+        assert len(set(grads.values())) == 1 and grads["tile_matmul"] >= n_micro * steps, grads
+        assert run["ssd_scan"] == run["ssd_scan_bwd"] == 0, run
+        assert paths["tile_matmul"]["ffma"] == paths["tile_matmul"]["skinny"] == 0, paths
+        assert paths["flash_attention"]["ffma"] == paths["flash_attention_bwd"]["ffma"] == 0
+    return out
+
+
+def profile_acan_step(step_runner, M, cfg, counters: dict, median_step_s: float) -> dict:
+    """One ACAN step (a runner of one step, warmed first) traced by
+    torch.profiler: its device kernel time over the untraced median step
+    as the busy share, and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    runner = _acan_runner(step_runner, cfg, params, steps=1)
+    runner.warm_up()
+    torch.cuda.synchronize()
+    _zero(counters)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        res = runner.run()
+        torch.cuda.synchronize()
+    assert res.param_versions == 1, res
+    kern = _device_kernels(prof)
+    device_ms = sum(r[1] for r in kern)
+    return dict(device_ms=device_ms, wall_ms=median_step_s * 1e3,
+                busy_share=device_ms / (median_step_s * 1e3), launches=_read(counters),
+                top_kernels=[dict(name=k[:90], ms=t, calls=c) for k, t, c in kern[:10]])
+
+
+def parity_acan_f32(step_runner, M, cfg) -> dict:
+    """The ACAN runner in float32 on full-width ``cfg`` cut to 4 layers
+    (2 handlers, 2 microbatches of 2 x 128 tokens, 3 steps) on the card
+    and on the CPU from the same seeded weights: losses within 1e-3, the
+    bar of parity_train_f32, and the final weights within 1e-3 of the
+    largest distance a weight moved on the CPU (the relative bar of
+    parity_train_f32's gradients): a wrong mean or update on the card
+    misses a weight by about as much as the update itself."""
+    from repro_torch.optim.optimizer import tree_leaves
+
+    pcfg = dataclasses.replace(cfg, n_periods=4, param_dtype="float32")
+    params = M.init_params(pcfg, torch.Generator(device="cuda").manual_seed(3), "cuda")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        runner = step_runner.ACANStepRunner(pcfg, step_runner.ACANTrainConfig(
+            n_handlers=2, n_micro=2, micro_batch=2, seq=128, steps=3, lr=0.05,
+            ts_backend="checked+local"), device=dev)
+        runner.ts.put(("params", 0), _to(params, dev))
+        res = runner.run()
+        assert res.param_versions == 3 and res.ts_violations == 0, res
+        runs[dev] = (res.losses, tree_leaves(runner.ts.try_read(("params", 3))[1]))
+    (lg, pg), (lc, pc) = runs["cuda"], runs["cpu"]
+    err = max(abs(a - b) for a, b in zip(lg, lc))
+    param_err = max((a.cpu() - b).abs().max().item() for a, b in zip(pg, pc))
+    moved = max((b - a.cpu()).abs().max().item() for a, b in zip(tree_leaves(params), pc))
+    out = dict(losses_gpu=lg, losses_cpu=lc, max_loss_err=err, max_param_err=param_err,
+               max_moved_cpu=moved, max_param_err_in_moved=param_err / moved)
+    assert err <= 1e-3, out
+    assert param_err <= 1e-3 * moved, out
+    return out
+
+
 def _print_profile(arch: str, prof: dict) -> None:
     for phase, p in prof.items():
         print(f"profile {arch} {phase}: wall {p['wall_ms']:.3f} ms, device kernels "
@@ -971,6 +1134,7 @@ def main() -> int:
     from repro_torch.launch.serve import rehome, serve
     from repro_torch.launch.train import train
     from repro_torch.models import model as M
+    from repro_torch.ts_exec import step_runner
 
     counters = {"tile_matmul": tm_kernel.tile_matmul,
                 "flash_attention": fa_kernel.flash_attention,
@@ -1082,14 +1246,32 @@ def main() -> int:
         torch.cuda.empty_cache()
     tr, mt = trains[cfg.name], trains[mcfg.name]
 
-    # 9. Results. A kernel that runs on several paths: its launches are the sum.
+    # 9. Path 5: train full-width, full-depth smollm_360m through the ACAN
+    # runner (Manager and Handler threads over the tuple space), with and
+    # without handler crashes; one step profiled; float32 against the CPU.
+    ac = detail["acan"] = acan_path(step_runner, M, cfg, counters)
+    torch.cuda.empty_cache()
+    prof = detail["profile_acan"] = profile_acan_step(step_runner, M, cfg, counters,
+                                                      ac["median_step_s"])
+    print(f"profile {cfg.name} acan step: device kernels {prof['device_ms']:.3f} ms, "
+          f"busy share {prof['busy_share']:.3f} of the {prof['wall_ms']:.3f} ms median "
+          f"step, launches {prof['launches']}, top {prof['top_kernels'][:5]}")
+    assert all(prof["launches"][k] % ac["launches_per_grad"][k] == 0
+               and prof["launches"][k] >= ACAN["n_micro"] * ac["launches_per_grad"][k]
+               for k in ACAN_KERNELS), prof["launches"]
+    torch.cuda.empty_cache()
+    detail["parity_acan_f32"] = parity_acan_f32(step_runner, M, cfg)
+    print(f"parity f32 acan {cfg.name} full width, 4 layers: {detail['parity_acan_f32']}")
+
+    # 10. Results. A kernel that runs on several paths: its launches are the sum.
     tmt, fat = detail["tile_matmul_time"]["prefill"], detail["flash_attention_time"]
     sst, gt = detail["ssd_scan_time"], detail["tile_matmul_grad_time"]
     fbt, sbt = detail["flash_attention_bwd_time"], detail["ssd_scan_bwd_time"]
-    runs = (sm, ms, tr, mt)
+    runs = (sm, ms, tr, mt, ac)
 
     def summed(name: str) -> dict:
-        """Launches of ``name`` over the four paths, in all and by path."""
+        """Launches of ``name`` over the five paths (the ACAN path's
+        crash-free run), in all and by path."""
         by = {p: sum(r["launches_by_path"][name][p] for r in runs)
               for p in sm["launches_by_path"][name]}
         return dict(launches=sum(r["launches"][name] for r in runs), launches_by_path=by)

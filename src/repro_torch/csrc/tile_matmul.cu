@@ -695,11 +695,21 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
+// cuTensorMapEncodeTiled fails on a thread with no current context, and the
+// runtime makes the device's primary context current only at a thread's first
+// runtime call: a thread whose first CUDA work is this launch (an ACAN handler
+// thread, say) has none yet. cudaFree(nullptr) binds it, once a thread.
+void bind_context() {
+  thread_local const cudaError_t bound = cudaFree(nullptr);
+  (void)bound;
+}
+
 // A row-major bf16 (rows, cols) tensor read in boxes of (box_rows, 64 columns =
 // 128 bytes) with the 128-byte swizzle; boxes past the edge fill with zeros.
 bool encode_bf16(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
+  bind_context();
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
   const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};

@@ -36,7 +36,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _count
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 PATH_CODES = {"mma": 0, "ffma": 1}
@@ -166,8 +166,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if err:
         raise RuntimeError(f"flash_attention launch failed ({path} path): "
                            f"CUDA error {err}")
-    flash_attention.launches += 1
-    flash_attention.paths[path] += 1
+    _count.launch(flash_attention, paths=path)
     return (out, lse) if return_lse else out
 
 
@@ -208,8 +207,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err:
         raise RuntimeError(f"flash_attention_bwd launch failed ({path} path): "
                            f"CUDA error {err}")
-    flash_attention_bwd.launches += 1
-    flash_attention_bwd.paths[path] += 1
+    _count.launch(flash_attention_bwd, paths=path)
     return dq, dk, dv
 
 

@@ -41,7 +41,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _count
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 PATH_CODES = {"mma": 0, "ffma": 1}
@@ -163,8 +163,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor
                  torch._C._cuda_getCurrentRawStream(x.get_device()))
     if err:
         raise RuntimeError(f"ssd_scan launch failed ({path} path): CUDA error {err}")
-    ssd_scan.launches += 1
-    ssd_scan.paths[path] += 1
+    _count.launch(ssd_scan, paths=path)
     return y, state
 
 
@@ -212,8 +211,7 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Te
                      torch._C._cuda_getCurrentRawStream(x.get_device()))
     if err:
         raise RuntimeError(f"ssd_scan_bwd launch failed ({path} path): CUDA error {err}")
-    ssd_scan_bwd.launches += 1
-    ssd_scan_bwd.paths[path] += 1
+    _count.launch(ssd_scan_bwd, paths=path)
     return dx, ddt, da_part.sum(0), db, dc, dd_part.sum(0)
 
 

@@ -49,7 +49,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _count
 
 ACT_CODES = {"none": 0, "tanh": 1, "relu": 2, "silu": 3, "gelu": 4}
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -135,9 +135,7 @@ def tile_matmul(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
     if err:
         raise RuntimeError(f"tile_matmul launch failed ({path} path, {layout}): "
                            f"CUDA error {err}")
-    tile_matmul.launches += 1
-    tile_matmul.paths[path] += 1
-    tile_matmul.layouts[layout] += 1
+    _count.launch(tile_matmul, paths=path, layouts=layout)
     return out
 
 

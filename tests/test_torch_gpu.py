@@ -898,3 +898,124 @@ def test_reduced_mamba2_train_step_on_card_matches_cpu(cuda):
         assert abs(mg[key] - mc[key]) <= 1e-4 * max(1.0, abs(mc[key])), (key, mg, mc)
     for a, b in zip(tree_leaves(pc), tree_leaves(pg)):
         torch.testing.assert_close(b.cpu(), a, rtol=1e-4, atol=1e-2 * mc["lr"])
+
+
+# --- the ACAN runtime: kernels launched from handler threads -----------------
+
+def _in_threads(n: int, fn) -> list:
+    """``fn(i)`` on ``n`` threads released together; their results in order.
+    A thread's exception is raised here."""
+    import threading
+    start, out, errors = threading.Barrier(n), [None] * n, []
+
+    def run(i):
+        try:
+            start.wait(timeout=60)
+            out[i] = fn(i)
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 - raised on the caller's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    if errors:
+        raise errors[0]
+    return out
+
+
+@pytest.mark.parametrize("layout", ["x@w", "x@w^T", "x^T@w"])
+def test_wgmma_launches_from_a_thread_that_made_no_cuda_call_yet(cuda, layout):
+    """TMA descriptors need a current context, which a thread has only after
+    its first CUDA runtime call: a thread whose first CUDA work is this
+    launch (its output's memory comes from the allocator's cache) once
+    failed with CUDA error 1."""
+    x = _randn((256, 256), torch.bfloat16, cuda, 1)
+    w = _randn((256, 256), torch.bfloat16, cuda, 2)
+    kw = {"x@w": {}, "x@w^T": {"trans_w": True}, "x^T@w": {"trans_x": True}}[layout]
+    want = tm_kernel.tile_matmul(x, w, **kw)
+    tm_kernel.tile_matmul(x, w, **kw)   # leaves a freed block of the output's size
+    torch.cuda.synchronize()
+    got = _in_threads(1, lambda _i: tm_kernel.tile_matmul(x, w, **kw))[0]
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_from_four_threads_give_the_bits_of_one(cuda, dtype):
+    """Four threads launch tile_matmul (both gradient layouts too) and
+    flash_attention at once, on inputs of their own: each output equals the
+    same launch made from one thread."""
+    def inputs(i):
+        return (_randn((1024, 960), dtype, cuda, 10 + i), _randn((960, 320), dtype, cuda, 20 + i),
+                _randn((5, 3, 512, 64), dtype, cuda, 30 + i),
+                _randn((5, 512, 64), dtype, cuda, 40 + i), _randn((5, 512, 64), dtype, cuda, 50 + i))
+
+    def launches(i, args):
+        x, w, q, k, v = args
+        z = tm_kernel.tile_matmul(x, w)
+        return (z, tm_kernel.tile_matmul(z, w, trans_w=True),
+                tm_kernel.tile_matmul(x, z, trans_x=True), fa_kernel.flash_attention(q, k, v))
+
+    args = [inputs(i) for i in range(4)]
+    alone = [launches(i, a) for i, a in enumerate(args)]
+    torch.cuda.synchronize()
+    for _ in range(3):
+        together = _in_threads(4, lambda i: launches(i, args[i]))
+        for one, many in zip(alone, together):
+            assert all(torch.equal(a, b) for a, b in zip(one, many))
+
+
+def test_launch_counters_are_exact_after_a_threaded_run(cuda):
+    x = _randn((32, 64), torch.bfloat16, cuda, 1)
+    w = _randn((64, 64), torch.bfloat16, cuda, 2)
+    q = _randn((1, 1, 64, 16), torch.bfloat16, cuda, 3)
+    kv = _randn((1, 64, 16), torch.bfloat16, cuda, 4)
+    tm, fa = tm_kernel.tile_matmul, fa_kernel.flash_attention
+    before = (tm.launches, dict(tm.paths), dict(tm.layouts), fa.launches, dict(fa.paths))
+
+    def work(_i):
+        for _ in range(250):
+            tm(x, w)
+            tm(x, w, trans_w=True)
+            fa(q, kv, kv)
+
+    _in_threads(8, work)
+    assert tm.launches - before[0] == 8 * 250 * 2
+    assert tm.paths["wgmma"] - before[1]["wgmma"] == 8 * 250 * 2
+    assert tm.layouts["x@w"] - before[2]["x@w"] == 8 * 250
+    assert tm.layouts["x@w^T"] - before[2]["x@w^T"] == 8 * 250
+    assert fa.launches - before[3] == 8 * 250
+    assert fa.paths["mma"] - before[4]["mma"] == 8 * 250
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_acan_runner_on_the_card_gives_the_same_bits_with_and_without_crashes(cuda, dtype):
+    """Reduced smollm_360m trained by the ACAN runner on the card (three
+    handler threads, each gradient through the kernels): a run with
+    injected crashes gives the crash-free run's losses and params bit for
+    bit, and the crash-free run re-issues nothing."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.optim.optimizer import tree_leaves
+    from repro_torch.ts_exec.step_runner import ACANStepRunner, ACANTrainConfig
+    cfg = dataclasses.replace(get_config("smollm_360m", reduced=True), param_dtype=dtype)
+    runs = []
+    for crash in (0.0, 0.25):
+        before = fa_kernel.flash_attention_bwd.launches
+        runner = ACANStepRunner(cfg, ACANTrainConfig(
+            n_handlers=3, n_micro=3, micro_batch=2, seq=64, steps=3, timeout=5.0,
+            handler_crash_prob=crash, ts_backend="checked+local"))
+        res = runner.run()
+        assert res.param_versions == 3 and res.ts_violations == 0 and res.ts_leaks == {}
+        assert fa_kernel.flash_attention_bwd.launches - before >= 3 * 3 * cfg.n_layers
+        final = runner.ts.try_read(("params", 3))[1]
+        assert final["embed"]["tok"].is_cuda
+        runs.append((res, [t.cpu() for t in tree_leaves(final)]))
+    (clean, p0), (crashed, p1) = runs
+    assert clean.reissues == 0 and crashed.crashes >= 1
+    assert all(np.isfinite(clean.losses)) and crashed.losses == clean.losses
+    assert all(torch.equal(a, b) for a, b in zip(p0, p1))

@@ -91,11 +91,73 @@ def test_train_raises_without_cuda_instead_of_falling_back(monkeypatch, tmp_path
     assert not any(tmp_path.iterdir())   # raised before it wrote a journal
 
 
+def test_acan_runner_raises_without_cuda_unless_given_the_cpu(monkeypatch):
+    from repro_torch.configs.base import get_config
+    from repro_torch.ts_exec.step_runner import ACANStepRunner, ACANTrainConfig
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("smollm_360m", reduced=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ACANStepRunner(cfg, ACANTrainConfig(steps=1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ACANStepRunner(cfg, ACANTrainConfig(steps=1), device="cuda")
+    runner = ACANStepRunner(cfg, ACANTrainConfig(steps=1), device="cpu")
+    assert runner.device == torch.device("cpu")
+
+
 def test_the_import_scans_cover_the_training_modules():
     """The two scans above walk every module of the port, the training
-    slice's among them."""
+    slice's and the ACAN runtime's among them."""
     names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
     assert {"optim/optimizer.py", "data/pipeline.py", "core/gss.py",
             "distributed/watchdog.py", "checkpoint/checkpoint.py",
             "checkpoint/journal.py", "checkpoint/convert.py", "launch/train.py",
             "models/losses.py"} <= names
+    assert {"core/tasks.py", "core/ledger.py", "core/conflict.py", "core/costmodel.py",
+            "core/executor.py", "core/manager.py", "core/handler.py", "core/program.py",
+            "core/space/__init__.py", "core/space/api.py", "core/space/local.py",
+            "core/space/schema.py", "core/space/scoped.py", "core/space/checked.py",
+            "core/space/instrumented.py", "core/space/sharded.py", "core/space/raced.py",
+            "core/space/crashpoint.py", "core/space/facade.py", "programs/__init__.py",
+            "programs/torch_sgd.py", "ts_exec/step_runner.py",
+            "kernels/_count.py"} <= names
+
+
+class _SlowInt(int):
+    """An int whose ``+`` runs Python code, so that a thread switch can land
+    between the read and the write of ``x += 1`` (with plain ints CPython
+    rarely switches there, which hides a lost update)."""
+
+    def __add__(self, other):
+        return _SlowInt(int(self) + other)
+
+
+def test_launch_counts_lose_nothing_under_thread_contention():
+    """The wrappers' counters are raised from several handler threads at
+    once: 16 threads (more than this host's cores) counting through
+    ``_count.launch`` with a short switch interval lose no update. Unlocked,
+    the same counting keeps about a quarter of them."""
+    import threading
+    import types
+
+    from repro_torch.kernels import _count
+    zero = _SlowInt(0)
+    fn = types.SimpleNamespace(launches=zero, paths={"a": zero, "b": zero}, layouts={"x": zero})
+    n_threads, n = 16, 2000
+
+    def work(i):
+        for _ in range(n):
+            _count.launch(fn, paths="ab"[i % 2], layouts="x")
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(i,)) for i in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert fn.launches == n_threads * n == fn.layouts["x"]
+    assert fn.paths == {"a": n_threads * n // 2, "b": n_threads * n // 2}
