@@ -17,7 +17,15 @@ smollm_360m trained by the paper's ACAN runtime (``ACANStepRunner``: Manager
 and Handler threads over the tuple space, one task a microbatch gradient,
 4 x 2 x 512 tokens a step) without and with injected handler crashes, whose
 losses and weights must agree bit for bit, one of its steps profiled, and
-the float32 runner held against the CPU's. Per-path counters show that every
+the float32 runner held against the CPU's; then the paper's own system
+(§6): the MLP's forward and backward op bodies on the card against the
+CPU's (their tile products float32 tile_matmul launches of 16 masked rows,
+each task's bits the same alone and in its batch), the three experiments at
+the paper's width through ``repro_torch.configs.paper_mlp`` (exp 3 under
+Manager and Handler crashes equal to its crash-free run bit for bit), the
+float32 MLP against the CPU's, and the MLP beside full-width smollm_360m as
+two tenants of one ACANCloud under crashes, each keeping its trajectory.
+Per-path counters show that every
 bf16 projection took tile_matmul's wgmma kernel (prefill) or its streaming
 kernel (decode), and every bf16 prefill attention and scan the mma path of
 flash_attention and ssd_scan; ptxas and SASS are checked for spills, wgmma,
@@ -37,8 +45,9 @@ Usage (from the repository root, on a host with a CUDA device)::
 
     python3 chip_smoke.py
 
-Prints the device and its power limit, a ``{"kernels": [...]}`` line, and
-as the last line ``{"ok": true, "device": {...}}``. Any failed phase raises
+Prints the device and its power limit, one ``{"phase": ...}`` JSON line for
+each of the MLP phases, a ``{"kernels": [...]}`` line, and as the last line
+``{"ok": true, "device": {...}}``. Any failed phase raises
 and exits non-zero. Imports neither JAX nor the JAX package.
 """
 
@@ -1109,6 +1118,292 @@ def parity_acan_f32(step_runner, M, cfg) -> dict:
     return out
 
 
+# The paper's §6 MLP on the card: N = 256 -> 256 -> 1, its forward and
+# backward tile products through tile_matmul in float32, each launch
+# SKINNY_MAX_M rows (the skinny path; ffma where N = 1); then the three
+# experiments, the float32 card-against-CPU parity, and a two-tenant cloud
+# with full-width smollm_360m beside the MLP.
+MLP_TOL = 2e-4
+MLP_CASES = (("paper", ((256, 256), (256, 1)), 256.0),   # 16 x 16 tiles
+             ("ragged", ((40, 24), (24, 1)), 12.0))       # (2|3) x (1|2) tiles
+MLP_BATCH = 16                                            # CloudConfig.handler_batch
+MLP_PRODUCTS = {"forward": "fwd", "backward": "bwd"}
+
+
+def _mlp_spaces(layers) -> dict:
+    """A tuple space on the card and one on the CPU holding, for data_id 0,
+    every tuple the forward and backward op bodies read: seeded numpy,
+    float32."""
+    from repro_torch.core.space import TupleSpace
+
+    rng = np.random.default_rng(0)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    tuples = {("x", 0): f(layers[0].n_in)}
+    for l, spec in enumerate(layers):
+        tuples |= {("w", l): f(spec.n_out, spec.n_in) / np.float32(spec.n_in ** 0.5),
+                   ("dy", l, 0): f(spec.n_out)}
+        if l + 1 < len(layers):
+            tuples[("act", l, 0)] = np.tanh(f(spec.n_out))
+    spaces = {}
+    for dev in ("cuda", "cpu"):
+        spaces[dev] = TupleSpace()
+        for k, v in tuples.items():
+            spaces[dev].put(k, torch.tensor(v, device=dev))
+    return spaces
+
+
+def _mlp_time(tm_kernel, tile_matmul_ref, k: int, n: int) -> dict:
+    """One launch of the MLP's shape (16 masked rows of K, times (K, N)):
+    kernel, plain version and torch.matmul by CUDA events, both also by
+    graph replay; the bound of the dense product the launch computes."""
+    m = tm_kernel.SKINNY_MAX_M
+    rows = _randn((m, k), torch.float32, 30 + k)
+    w = _randn((k, n), torch.float32, 31 + n, k ** -0.5)
+    fn = tm_kernel.tile_matmul
+    flops, nbytes = 2 * m * k * n, (m * k + k * n + m * n) * 4
+    bound_ms, bound_by = _bound(flops, nbytes, torch.float32)
+    return dict(shape=(m, k, n), path=tm_kernel.choose_path(m, n, k, torch.float32, True),
+                ms=_time_ms(lambda: fn(rows, w), iters=200),
+                device_ms=_graph_ms(lambda: fn(rows, w), iters=200),
+                plain_ms=_time_ms(lambda: tile_matmul_ref(rows, w), iters=200),
+                library_ms=_time_ms(lambda: torch.matmul(rows, w), iters=200),
+                library_device_ms=_graph_ms(lambda: torch.matmul(rows, w), iters=200),
+                flops=flops, bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def check_mlp_ops(tm_kernel, tile_matmul_ref) -> dict:
+    """The MLP's forward and backward op bodies on the card against the
+    plain bodies on the CPU (float32, 2e-4), on the paper's width (16 x 16
+    tiles, handler batches of 16) and on a ragged layer pair (four tile
+    shapes in one batch); every task run alone gives the bits it gave
+    inside its batch. Then one launch of each of the paper's product
+    shapes timed beside torch.matmul."""
+    from repro_torch.core.executor import ExecContext
+    from repro_torch.core.program import GLOBAL_OPS
+    from repro_torch.programs import mlp
+
+    fn = tm_kernel.tile_matmul
+    before = dict(fn.paths)
+    err, tasks_run = {}, {}
+    for name, dims, cap in MLP_CASES:
+        layers = [mlp.LayerSpec(*d) for d in dims]
+        ctx = {dev: ExecContext(ts, {"lr": 0.002}) for dev, ts in _mlp_spaces(layers).items()}
+        for op, stage in MLP_PRODUCTS.items():
+            body = GLOBAL_OPS.resolve(op).batch_fn
+            for l in range(len(layers)):
+                tasks = [p for t in mlp.prototype_tasks(layers, 0, 0)[f"{stage}_{l}"]
+                         for p in GLOBAL_OPS.partition(t, cap)]
+                tasks_run[f"{name} {stage}_{l}"] = len(tasks)
+                e = 0.0
+                for c in range(0, len(tasks), MLP_BATCH):
+                    batch = tasks[c:c + MLP_BATCH]
+                    got = dict(body(ctx["cuda"], batch))
+                    want = dict(body(ctx["cpu"], batch))
+                    assert got.keys() == want.keys()
+                    for k, v in got.items():
+                        assert v.is_cuda and v.dtype == torch.float32, k
+                        e = max(e, (v.cpu() - want[k]).abs().max().item())
+                    for t in batch:
+                        for k, v in body(ctx["cuda"], [t]):
+                            assert torch.equal(v, got[k]), ("alone != in its batch", k)
+                err[f"{name} {stage}_{l}"] = e
+    launched = {p: fn.paths[p] - before[p] for p in fn.paths}
+    times = {f"{k}x{n}": _mlp_time(tm_kernel, tile_matmul_ref, k, n)
+             for k, n in ((256, 256), (256, 1), (1, 256))}
+    out = dict(max_abs_err=err, tasks=tasks_run, launches_by_path=launched, times=times)
+    assert max(err.values()) <= MLP_TOL, err
+    assert launched["skinny"] > 0 and launched["ffma"] > 0, launched
+    assert launched["wgmma"] == launched["mma"] == 0, launched
+    return out
+
+
+def _cloud_run(cloud, counters: dict) -> tuple:
+    """``cloud.run()`` with every launch count set to 0 just before and read
+    just after: (result, wall s, launches, launches by path)."""
+    torch.cuda.synchronize()
+    _zero(counters)
+    t0 = time.perf_counter()
+    res = cloud.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (res, wall, _read(counters),
+            {k: dict(fn.paths) for k, fn in counters.items() if hasattr(fn, "paths")})
+
+
+def _final_weights(cloud) -> list:
+    return [cloud.ts.try_read((name, l))[1] for l in range(2) for name in ("w", "b")]
+
+
+def _mlp_summary(res, wall: float, launches: dict, by_path: dict, epochs: int) -> dict:
+    losses = [loss for _, loss in res.loss_history]
+    n = len(losses) // epochs
+    return dict(rounds=len(losses), mse_epoch_means=[float(np.mean(losses[i * n:(i + 1) * n]))
+                                                     for i in range(epochs)],
+                manager_revivals=res.manager_revivals, handler_revivals=res.handler_revivals,
+                speed_changes=res.speed_changes, ledger_ok=res.ledger_ok, pouches=res.pouches,
+                ts_violations=res.ts_violations, ts_leaks=res.ts_leaks, wall_s=wall,
+                launches=launches, launches_by_path=by_path, losses=losses)
+
+
+def paper_path(counters: dict) -> dict:
+    """The paper's three experiments at its width (N = 256, task cap 256,
+    pouch 100, 4 handler threads) through ``repro_torch.configs.paper_mlp``
+    on a ``checked+local`` space, on the card: exp 1 on 20 samples (the
+    paper's 100 cut to keep the script's time) for 2 epochs, exp 2 and exp 3
+    on their own 20, and exp 3's config without faults. Exp 1's second
+    epoch beats its first; exp 3 survives Manager and Handler crashes with
+    the crash-free run's losses and weights bit for bit; no run breaks a
+    protocol rule, leaks or breaks its ledger; every MLP product launched
+    tile_matmul (skinny or ffma) and nothing else ran."""
+    from repro_torch.configs import paper_mlp
+    from repro_torch.core import ACANCloud, FaultPlan
+
+    cfgs = {"exp1": paper_mlp.feasibility_config(epochs=2, n_samples=20, device="cuda"),
+            "exp2": paper_mlp.adaptability_config(device="cuda"),
+            "exp3": paper_mlp.robustness_config(device="cuda"),
+            "exp3_no_faults": paper_mlp.robustness_config(device="cuda")}
+    cfgs["exp3_no_faults"].fault_plan = FaultPlan(interval=1e9)
+    out, weights = {}, {}
+    for name, cfg in cfgs.items():
+        cfg.ts_backend = "checked+local"
+        cloud = ACANCloud(cfg)
+        res, wall, launches, by_path = _cloud_run(cloud, counters)
+        rec = out[name] = _mlp_summary(res, wall, launches, by_path, cfg.epochs)
+        weights[name] = _final_weights(cloud)
+        if name == "exp2":
+            t, p = (np.array([h[i] for h in res.timeout_history]) for i in (1, 2))
+            rec["corr_timeout_power"] = float(np.corrcoef(t[p > 0], p[p > 0])[0, 1])
+        assert rec["rounds"] == cfg.epochs * cfg.n_samples, rec
+        assert rec["ledger_ok"] and rec["ts_violations"] == 0 and rec["ts_leaks"] == {}, rec
+        assert all(w.is_cuda and w.dtype == torch.float32 for w in weights[name]), name
+        assert launches["tile_matmul"] > 0 and all(
+            launches[k] == 0 for k in launches if k != "tile_matmul"), launches
+        tm = by_path["tile_matmul"]
+        assert tm["skinny"] > 0 and tm["ffma"] > 0 and tm["wgmma"] == tm["mma"] == 0, tm
+    e1, e3, e3c = out["exp1"], out["exp3"], out["exp3_no_faults"]
+    assert e1["mse_epoch_means"][1] < e1["mse_epoch_means"][0], e1["mse_epoch_means"]
+    assert e1["manager_revivals"] == 0, e1
+    assert e3["manager_revivals"] > 0 and e3["handler_revivals"] > 0, e3
+    assert e3c["manager_revivals"] == e3c["handler_revivals"] == 0, e3c
+    assert e3["losses"] == e3c["losses"], "exp 3's losses differ from its crash-free run's"
+    assert all(torch.equal(a, b) for a, b in zip(weights["exp3"], weights["exp3_no_faults"]))
+    out["launches"] = {k: sum(out[e]["launches"][k] for e in cfgs) for k in counters}
+    out["launches_by_path"] = {k: {p: sum(out[e]["launches_by_path"][k][p] for e in cfgs)
+                                   for p in counters[k].paths} for k in counters}
+    return out
+
+
+def parity_mlp_f32() -> dict:
+    """Exp 1 at the paper's width for 10 rounds (one epoch of 10 samples)
+    on the card and on the CPU: loss history and final weights within 1e-4
+    relative (the weights relative to each tensor's largest entry)."""
+    from repro_torch.configs import paper_mlp
+    from repro_torch.core import ACANCloud
+
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        cloud = ACANCloud(paper_mlp.feasibility_config(epochs=1, n_samples=10, device=dev))
+        res = cloud.run()
+        runs[dev] = ([loss for _, loss in res.loss_history],
+                     [w.cpu() for w in _final_weights(cloud)])
+    (lg, wg), (lc, wc) = runs["cuda"], runs["cpu"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+    w_err = max((a - b).abs().max().item() / b.abs().max().item() for a, b in zip(wg, wc))
+    out = dict(rounds=len(lg), losses_gpu=lg, losses_cpu=lc, max_loss_rel_err=loss_err,
+               max_weight_err_rel=w_err)
+    assert len(lg) == len(lc) == 10, out
+    assert loss_err <= 1e-4 and w_err <= 1e-4, out
+    return out
+
+
+def cloud_tenants(counters: dict) -> dict:
+    """One ACANCloud running the paper's MLP (1 epoch of 8 samples) beside
+    full-width, full-depth smollm_360m trained by ``TorchSGDProgram`` (3
+    steps of 4 microbatch gradients of 2 x 512 tokens), on 4 shared handler
+    threads (at most one gradient a handler batch), under Manager and
+    Handler crashes at p = 0.5 every 3 gradients' time (measured first).
+    The kernels are built and warmed before ``run()``. The MLP keeps its
+    single-tenant trajectory and the smollm tenant a crash-free run's
+    losses, bit for bit; no protocol violation and no leak."""
+    from repro_torch.configs import paper_mlp
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import ACANCloud, FaultPlan, MLPProgram
+    from repro_torch.core.space import TupleSpace
+    from repro_torch.programs.torch_sgd import TorchSGDProgram
+
+    scfg = get_config("smollm_360m")
+    sgd = dict(steps=3, n_micro=4, micro_batch=2, seq=PROMPT, lr=0.05, seed=0, device="cuda")
+    base = paper_mlp.feasibility_config(epochs=1, n_samples=8, device="cuda")
+    base.initial_timeout = 5.0
+    base.ts_backend = "checked+local"
+    base.tenant_caps = {"torch_sgd": 1}
+
+    # Warm: one microbatch gradient from the tenant's own initial params.
+    probe = TorchSGDProgram(scfg, **sgd)
+    ts = TupleSpace()
+    probe.setup(ts)
+    params = ts.try_read(("params", 0))[1]
+    grad_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        probe.grad(params, probe.batch(0, 0))
+        torch.cuda.synchronize()
+        grad_s.append(time.perf_counter() - t0)
+    del probe, ts, params
+    interval = max(3 * max(grad_s[1:]), 0.5)
+
+    def mlp_prog():
+        return MLPProgram(base.layers, epochs=base.epochs, n_samples=base.n_samples,
+                          seed=base.seed, device="cuda")
+
+    runs = {}
+    for name, plan, progs in (
+            ("mlp_alone", FaultPlan(interval=1e9), lambda: [mlp_prog()]),
+            ("smollm_alone", FaultPlan(interval=1e9), lambda: [TorchSGDProgram(scfg, **sgd)]),
+            ("both_with_crashes", FaultPlan(interval=interval, p_handler_crash=0.5,
+                                            p_manager_crash=0.5, seed=4),
+             lambda: [mlp_prog(), TorchSGDProgram(scfg, **sgd)])):
+        cfg = dataclasses.replace(base, fault_plan=plan)
+        programs = progs()
+        if len(programs) == 1:
+            cfg.tenant_caps = None
+            cloud = ACANCloud(cfg, program=programs[0])
+        else:
+            cloud = ACANCloud(cfg, programs=programs)
+        torch.cuda.reset_peak_memory_stats()
+        res, wall, launches, by_path = _cloud_run(cloud, counters)
+        per = res.per_program if len(programs) > 1 else {programs[0].name: res}
+        runs[name] = dict(
+            losses={ns: [loss for _, loss in r.loss_history] for ns, r in per.items()},
+            manager_revivals={ns: r.manager_revivals for ns, r in per.items()},
+            handler_revivals=res.handler_revivals, speed_changes=res.speed_changes,
+            ledger_ok=res.ledger_ok, ts_violations=res.ts_violations, ts_leaks=res.ts_leaks,
+            wall_s=wall, peak_mem_bytes=torch.cuda.max_memory_allocated(),
+            launches=launches, launches_by_path=by_path)
+        del cloud, programs, res, per
+        torch.cuda.empty_cache()
+    both = runs["both_with_crashes"]
+    out = dict(grad_s=grad_s, fault_interval_s=interval, **runs,
+               launches=both["launches"], launches_by_path=both["launches_by_path"])
+    for r in runs.values():
+        assert r["ledger_ok"] and r["ts_violations"] == 0 and r["ts_leaks"] == {}, r
+    assert both["losses"]["mlp"] == runs["mlp_alone"]["losses"]["mlp"], out
+    assert both["losses"]["torch_sgd"] == runs["smollm_alone"]["losses"]["torch_sgd"], out
+    assert len(both["losses"]["mlp"]) == 8 and len(both["losses"]["torch_sgd"]) == 3, out
+    assert all(np.isfinite(both["losses"]["torch_sgd"])), out
+    assert sum(both["manager_revivals"].values()) + both["handler_revivals"] > 0, out
+    tm = both["launches_by_path"]["tile_matmul"]
+    assert tm["skinny"] > 0 and tm["ffma"] > 0 and tm["wgmma"] > 0, tm
+    assert both["launches"]["flash_attention"] > 0 and both["launches"]["flash_attention_bwd"] > 0
+    return out
+
+
+def _record(phase: str, out: dict) -> None:
+    """One phase's record: a JSON object on a line of its own."""
+    print(json.dumps({"phase": phase} | out, default=str))
+
+
 def _print_profile(arch: str, prof: dict) -> None:
     for phase, p in prof.items():
         print(f"profile {arch} {phase}: wall {p['wall_ms']:.3f} ms, device kernels "
@@ -1169,6 +1464,8 @@ def main() -> int:
     detail["flash_attention_bwd_err"] = check_flash_bwd(fa_kernel, flash_attention_ref,
                                                         flash_attention_bwd_ref)
     detail["ssd_scan_bwd_err"] = check_ssd_bwd(ssd_kernel, ssd_plain_bwd)
+    detail["mlp_ops"] = check_mlp_ops(tm_kernel, tile_matmul_ref)
+    _record("check_mlp_ops", detail["mlp_ops"])
     print(f"checks: tile_matmul max |err| {detail['tile_matmul_err']}, "
           f"flash_attention max |err| {detail['flash_attention_err']}, "
           f"ssd_scan max |err| {detail['ssd_scan_err']}, "
@@ -1262,16 +1559,30 @@ def main() -> int:
     torch.cuda.empty_cache()
     detail["parity_acan_f32"] = parity_acan_f32(step_runner, M, cfg)
     print(f"parity f32 acan {cfg.name} full width, 4 layers: {detail['parity_acan_f32']}")
+    torch.cuda.empty_cache()
 
-    # 10. Results. A kernel that runs on several paths: its launches are the sum.
+    # 10. Path 6: the paper's three experiments at its width, the MLP's tile
+    # products through tile_matmul (float32 skinny / ffma); the float32 MLP
+    # against the CPU's; the MLP and full-width smollm_360m as two tenants of
+    # one cloud under Manager and Handler crashes.
+    pp = detail["paper"] = paper_path(counters)
+    _record("paper_path", pp)
+    detail["parity_mlp_f32"] = parity_mlp_f32()
+    _record("parity_mlp_f32", detail["parity_mlp_f32"])
+    ct = detail["cloud_tenants"] = cloud_tenants(counters)
+    _record("cloud_tenants", ct)
+
+    # 11. Results. A kernel that runs on several paths: its launches are the sum.
     tmt, fat = detail["tile_matmul_time"]["prefill"], detail["flash_attention_time"]
     sst, gt = detail["ssd_scan_time"], detail["tile_matmul_grad_time"]
     fbt, sbt = detail["flash_attention_bwd_time"], detail["ssd_scan_bwd_time"]
-    runs = (sm, ms, tr, mt, ac)
+    runs = (sm, ms, tr, mt, ac, pp, ct)
+    mlp_t = detail["mlp_ops"]["times"]["256x256"]
 
     def summed(name: str) -> dict:
-        """Launches of ``name`` over the five paths (the ACAN path's
-        crash-free run), in all and by path."""
+        """Launches of ``name`` over the seven paths (the ACAN path's
+        crash-free run, the paper's four MLP runs, the two-tenant cloud's
+        crash run), in all and by path."""
         by = {p: sum(r["launches_by_path"][name][p] for r in runs)
               for p in sm["launches_by_path"][name]}
         return dict(launches=sum(r["launches"][name] for r in runs), launches_by_path=by)
@@ -1293,7 +1604,16 @@ def main() -> int:
              | {"max_abs_err": detail["tile_matmul_grad_err"][str(torch.bfloat16)],
                 "timed": "dx = dz @ w^T (w read in place, K-major wgmma B) and "
                          "dw = x^T @ dz (x read in place, MN-major wgmma A) of one "
-                         "smollm layer's 7 projections, M=4096, bf16"}),
+                         "smollm layer's 7 projections, M=4096, bf16"},
+             mlp_f32={k: mlp_t[k] for k in ("ms", "device_ms", "plain_ms", "library_ms",
+                                            "library_device_ms", "bound_ms", "bound_by",
+                                            "path")}
+             | {"max_abs_err": max(detail["mlp_ops"]["max_abs_err"].values()),
+                "launches": pp["launches_by_path"]["tile_matmul"]["skinny"]
+                + pp["launches_by_path"]["tile_matmul"]["ffma"],
+                "timed": "one launch of the paper MLP's layer-0 product: 16 masked rows "
+                         "(16, 256) @ (256, 256), float32; launches: the paper's four "
+                         "runs, skinny + ffma"}),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:88",

@@ -35,9 +35,10 @@ frontier from TS state alone. Everything a program writes must
 therefore be either idempotent or guarded by the Manager's §5.4 commit
 window.
 
-Built-in programs: :mod:`repro_torch.programs.torch_sgd` (training a zoo
-model on the card). The reference's MLP and MoE routing programs are not
-ported yet (ROADMAP.md).
+Built-in programs: :mod:`repro_torch.programs.mlp` (the paper §6 workload,
+its tile products on the card) and :mod:`repro_torch.programs.torch_sgd`
+(training a zoo model on the card). The reference's MoE routing program is
+not ported yet (ROADMAP.md).
 
 Port of the reference's ``repro/core/program.py``: the same code, with
 ``repro.`` renamed ``repro_torch.``; :func:`ensure_builtin_ops` imports the
@@ -149,8 +150,8 @@ class OpRegistry:
         return out
 
 
-#: Shared registry for stateless ops (none is ported yet: the MLP and MoE
-#: routing ops come with their programs).
+#: Shared registry for stateless ops (the MLP's; the MoE routing ops come
+#: with their program).
 GLOBAL_OPS = OpRegistry()
 
 

@@ -1019,3 +1019,99 @@ def test_acan_runner_on_the_card_gives_the_same_bits_with_and_without_crashes(cu
     assert clean.reissues == 0 and crashed.crashes >= 1
     assert all(np.isfinite(clean.losses)) and crashed.losses == clean.losses
     assert all(torch.equal(a, b) for a, b in zip(p0, p1))
+
+
+# The paper MLP's tile products: float32 launches of SKINNY_MAX_M masked
+# rows; (M, K, N) of its forward (K = n_in) and backward (K = n_out)
+# products at the paper's width and on a ragged layer pair.
+MLP_SHAPES = [(16, 256, 256, "skinny"), (16, 256, 1, "ffma"), (16, 1, 256, "skinny"),
+              (16, 40, 24, "skinny"), (16, 24, 1, "ffma"), (16, 1, 24, "skinny")]
+
+
+def _masked_rows(v, spans):
+    rows = torch.zeros((len(spans), v.shape[0]), dtype=v.dtype, device=v.device)
+    for i, (lo, hi) in enumerate(spans):
+        rows[i, lo:hi] = v[lo:hi]
+    return rows
+
+
+@pytest.mark.parametrize("m,k,n,path", MLP_SHAPES)
+def test_mlp_product_shapes_take_their_path_and_match_plain(cuda, m, k, n, path):
+    x = _randn((m, k), torch.float32, cuda, k)
+    w = _randn((k, n), torch.float32, cuda, n, k ** -0.5)
+    before = dict(tm_kernel.tile_matmul.paths)
+    out = tm_kernel.tile_matmul(x, w)
+    assert tm_kernel.tile_matmul.paths[path] - before[path] == 1
+    torch.testing.assert_close(out, tile_matmul_ref(x, w), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("m,k,n,path", MLP_SHAPES)
+def test_an_mlp_row_has_the_same_bits_whatever_shares_its_launch(cuda, m, k, n, path):
+    """A re-issued MLP task runs in another handler batch: its row's bits
+    must not depend on the other rows of the launch nor on its position."""
+    v = _randn((k,), torch.float32, cuda, 5)
+    w = _randn((k, n), torch.float32, cuda, 6, k ** -0.5)
+    step = max(k // m, 1)
+    spans = [(min(i * step, k - 1), min(i * step + step, k)) for i in range(m)]
+    full = tm_kernel.tile_matmul(_masked_rows(v, spans), w)
+    noise = _randn((m, k), torch.float32, cuda, 7)
+    for i in (0, m // 2, m - 1):
+        alone = torch.zeros((m, k), device=cuda)
+        alone[m - 1 - i] = _masked_rows(v, [spans[i]])[0]
+        assert torch.equal(tm_kernel.tile_matmul(alone, w)[m - 1 - i], full[i])
+        mixed = noise.clone()
+        mixed[i] = alone[m - 1 - i]
+        assert torch.equal(tm_kernel.tile_matmul(mixed, w)[i], full[i])
+
+
+def test_an_mlp_op_body_launches_from_a_fresh_thread(cuda):
+    """The forward and backward bodies of the paper's layer 0 on handler
+    batches of 16, run from a thread whose first CUDA work is the body:
+    the values equal the main thread's, and each product was a launch."""
+    from repro_torch.core.executor import ExecContext
+    from repro_torch.core.program import GLOBAL_OPS
+    from repro_torch.core.space import TupleSpace
+    from repro_torch.programs import mlp
+
+    layers = [mlp.LayerSpec(256, 256), mlp.LayerSpec(256, 1)]
+    ts = TupleSpace()
+    ts.put(("x", 0), _randn((256,), torch.float32, cuda, 1))
+    ts.put(("w", 0), _randn((256, 256), torch.float32, cuda, 2, 1 / 16))
+    ts.put(("dy", 0, 0), _randn((256,), torch.float32, cuda, 3))
+    ctx = ExecContext(ts, {"lr": 0.002})
+
+    def in_a_thread(body, tasks):
+        return dict(_in_threads(1, lambda _i: body(ctx, tasks))[0])
+
+    for op, stage in (("forward", "fwd_0"), ("backward", "bwd_0")):
+        body = GLOBAL_OPS.resolve(op).batch_fn
+        tasks = [p for t in mlp.prototype_tasks(layers, 0, 0)[stage]
+                 for p in GLOBAL_OPS.partition(t, 256.0)][:16]
+        want = dict(body(ctx, tasks))
+        before = tm_kernel.tile_matmul.paths["skinny"]
+        got = in_a_thread(body, tasks)
+        assert tm_kernel.tile_matmul.paths["skinny"] - before == 1
+        assert got.keys() == want.keys()
+        assert all(v.is_cuda and torch.equal(v, want[k]) for k, v in got.items())
+
+
+def test_the_paper_mlp_on_the_card_gives_the_same_bits_with_and_without_crashes(cuda):
+    """Exp 3's faults at N = 64 on the card: the crash run's losses and
+    weights are the crash-free run's, bit for bit."""
+    from repro_torch.core import ACANCloud, CloudConfig, FaultPlan, LayerSpec
+
+    runs = []
+    for plan in (FaultPlan(interval=1e9),
+                 FaultPlan(interval=0.1, speed_levels=(1.0, 5.0, 10.0), p_speed_change=1.0,
+                           p_handler_crash=1.0, p_manager_crash=1.0, seed=1)):
+        cloud = ACANCloud(CloudConfig(
+            layers=[LayerSpec(64, 64), LayerSpec(64, 1)], n_handlers=4, epochs=1,
+            n_samples=10, task_cap=64.0, pouch_size=50, lr=0.02, time_scale=1e-6,
+            initial_timeout=0.1, fault_plan=plan, ts_backend="checked+local"))
+        res = cloud.run()
+        assert res.ledger_ok and res.ts_violations == 0 and res.ts_leaks == {}
+        runs.append((res, [cloud.ts.try_read((n, l))[1] for l in range(2) for n in "wb"]))
+    (clean, w0), (crashed, w1) = runs
+    assert crashed.manager_revivals >= 1 and crashed.handler_revivals >= 1
+    assert [l for _, l in crashed.loss_history] == [l for _, l in clean.loss_history]
+    assert all(a.is_cuda and torch.equal(a, b) for a, b in zip(w0, w1))

@@ -106,7 +106,7 @@ def test_acan_runner_raises_without_cuda_unless_given_the_cpu(monkeypatch):
 
 def test_the_import_scans_cover_the_training_modules():
     """The two scans above walk every module of the port, the training
-    slice's and the ACAN runtime's among them."""
+    slice's, the ACAN runtime's and the paper experiments' among them."""
     names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
     assert {"optim/optimizer.py", "data/pipeline.py", "core/gss.py",
             "distributed/watchdog.py", "checkpoint/checkpoint.py",
@@ -120,6 +120,26 @@ def test_the_import_scans_cover_the_training_modules():
             "core/space/crashpoint.py", "core/space/facade.py", "programs/__init__.py",
             "programs/torch_sgd.py", "ts_exec/step_runner.py",
             "kernels/_count.py"} <= names
+    assert {"core/faults.py", "core/cloud.py", "core/__init__.py", "programs/mlp.py",
+            "configs/paper_mlp.py"} <= names
+
+
+def test_the_example_twins_import_only_the_port():
+    """The port's examples (``examples/torch_*.py``) import neither JAX nor
+    the reference, as the port's modules do not."""
+    examples = sorted((SRC.parent / "examples").glob("torch_*.py"))
+    assert "torch_acan_mlp_train.py" in [p.name for p in examples]
+    for path in examples:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            assert not [n for n in names
+                        if n.split(".")[0] in ("jax", "jaxlib", "repro", "_example_args")], \
+                (path.name, names)
 
 
 class _SlowInt(int):

@@ -162,7 +162,8 @@ VERBATIM = ["core/tasks.py", "core/ledger.py", "core/space/api.py", "core/space/
             "core/space/schema.py", "core/space/scoped.py", "core/space/checked.py",
             "core/space/instrumented.py", "core/space/sharded.py", "core/space/raced.py",
             "core/space/crashpoint.py", "core/conflict.py", "core/costmodel.py",
-            "core/gss.py", "core/executor.py", "core/manager.py"]
+            "core/gss.py", "core/executor.py", "core/manager.py", "core/faults.py",
+            "data/pipeline.py"]
 
 
 def _code(path: Path, rename: bool) -> str:
