@@ -58,6 +58,7 @@ import json
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -162,11 +163,15 @@ def _bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
 
 
 def _to(tree, device):
+    """Every tensor of a tree of dicts, lists and tuples moved to ``device``;
+    other leaves as they are."""
     if isinstance(tree, torch.Tensor):
         return tree.to(device)
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
-    return type(tree)(_to(v, device) for v in tree)
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, device) for v in tree)
+    return tree
 
 
 # Shapes beyond the serving paths', so that every tile_matmul path is held
@@ -1399,6 +1404,340 @@ def cloud_tenants(counters: dict) -> dict:
     return out
 
 
+# ------------------------------------------------------------ process fleet
+FLEET_RUN = dict(epochs=2, n_samples=8)
+
+
+def _round_s(cloud) -> float:
+    """Seconds a round in steady state: the ledger's span from the first
+    loss record to the last over the rounds between them, so a process
+    fleet's worker boot, before the first round, is left out."""
+    t = sorted(e.wallclock for e in cloud.ts.ledger.entries
+               if e.op == "put" and e.key[0] == "losshist")
+    return (t[-1] - t[0]) / (len(t) - 1)
+
+
+def _waiting_takes() -> int:
+    return sum(t.name == "ts-wait-take_batch" for t in threading.enumerate())
+
+
+def _worker_boot_s(workers) -> float:
+    """One worker's boot on the card: from its spawn to its first
+    ``take_batch`` at a tuple-space server in this process, which parks
+    each blocking op on a thread named for it. Covers the interpreter,
+    ``import torch``, the CUDA context and the tile_matmul library's
+    load."""
+    from repro_torch.core.space import TSServer
+
+    deadline = time.perf_counter() + 10.0
+    while _waiting_takes() and time.perf_counter() < deadline:
+        time.sleep(0.01)        # an earlier server's waiters unpark in 0.5 s
+    assert not _waiting_takes(), "a take_batch waiter of an earlier run is still parked"
+    srv = TSServer("sharded", device="cuda").start()
+    t0 = time.perf_counter()
+    hp = workers.spawn_worker(srv.addr, "boot", device="cuda")
+    try:
+        while not _waiting_takes():
+            assert hp.is_alive(), "the worker exited before its first take_batch"
+            assert time.perf_counter() - t0 < 120, "the worker did not boot in 120 s"
+            time.sleep(0.002)
+        return time.perf_counter() - t0
+    finally:
+        hp.terminate()
+        hp.join(10.0)
+        hp.kill_hard()
+        hp.join()
+        srv.close()
+
+
+def _worker_launches(counts: dict, counters: dict) -> tuple[dict, dict]:
+    """A fleet's worker counts (``CloudResult.worker_launches``) as
+    (launches, by path)."""
+    return ({k: counts.get(k, {}).get("launches", 0) for k in counters},
+            {k: dict(counts.get(k, {}).get("paths", dict.fromkeys(fn.paths, 0)))
+             for k, fn in counters.items()})
+
+
+def process_fleet(counters: dict) -> dict:
+    """The paper's exp 1 at its width (N = 256, task cap 256, pouch 100,
+    4 handlers; 8 samples x 2 epochs) on a ``checked+sharded:4`` space,
+    on the thread fleet and on the process fleet (4 worker processes on
+    the card, over the cloud's embedded tuple-space server): the same
+    losses and final weights bit for bit, no violation, leak or broken
+    ledger. The workers' own tile_matmul launches, by path, come from the
+    counts they write when they stop (``CloudResult.worker_launches``);
+    the cloud process launches nothing. A worker's boot on the card is measured first; then the same
+    run with every worker SIGKILLed at an interval of 3 boots (emulated
+    compute stretches it to 1.4 intervals, so a firing lands in it: sleep,
+    not math) must revive and keep the bits. Last, a float32 and a bf16 CUDA tensor
+    round-trip through a ``remote+checked+sharded:4`` space (a private
+    server on the CPU) and come back on the card with equal bits."""
+    from repro_torch.configs import paper_mlp
+    from repro_torch.core import ACANCloud, FaultPlan, workers
+    from repro_torch.core.program import GLOBAL_OPS
+    from repro_torch.core.space import TupleSpace, make_backend
+    from repro_torch.programs import mlp
+
+    base = paper_mlp.feasibility_config(device="cuda", **FLEET_RUN)
+    base.ts_backend = "checked+sharded:4"
+    base.wall_limit = 120.0
+    rounds = base.epochs * base.n_samples
+    boot_s = _worker_boot_s(workers)
+    interval = 3 * boot_s
+    units = sum(GLOBAL_OPS.cost(p) for tasks in mlp.prototype_tasks(base.layers, 0, 0).values()
+                for t in tasks for p in GLOBAL_OPS.partition(t, base.task_cap))
+    out: dict = dict(boot_s=boot_s, kill_interval_s=interval, units_a_round=units)
+    weights = {}
+    for name in ("thread", "process", "process_sigkill"):
+        kw = {}
+        if name != "thread":
+            kw = dict(fleet="process")
+        if name == "process_sigkill":
+            # Emulated compute (sleep) that stretches the fault-free
+            # process run to 1.4 intervals, so the first firing lands in it.
+            extra = max(1.4 * interval - out["process"]["wall_s"], 0.0)
+            kw |= dict(time_scale=base.time_scale + extra * base.n_handlers / (units * rounds),
+                       fault_plan=FaultPlan(interval=interval, p_handler_crash=1.0, seed=1))
+            out["kill_time_scale"] = kw["time_scale"]
+        cloud = ACANCloud(dataclasses.replace(base, **kw))
+        res, wall, launches, by_path = _cloud_run(cloud, counters)
+        rec = out[name] = _mlp_summary(res, wall, launches, by_path, base.epochs)
+        rec["round_s"] = _round_s(cloud)
+        weights[name] = _final_weights(cloud)
+        assert rec["rounds"] == rounds, rec
+        assert rec["ledger_ok"] and rec["ts_violations"] == 0 and rec["ts_leaks"] == {}, rec
+        assert all(w.is_cuda and w.dtype == torch.float32 for w in weights[name]), name
+        if name != "thread":
+            assert all(n == 0 for n in launches.values()), ("the cloud process launched", launches)
+            rec["cloud_launches"] = launches
+            rec["worker_counts"] = res.worker_launches
+            rec["launches"], rec["launches_by_path"] = _worker_launches(rec["worker_counts"],
+                                                                        counters)
+        tm = rec["launches_by_path"]["tile_matmul"]
+        assert all(rec["launches"][k] == 0 for k in counters if k != "tile_matmul"), rec
+        assert tm["skinny"] > 0 and tm["ffma"] > 0 and tm["wgmma"] == tm["mma"] == 0, (name, tm)
+        assert rec["launches"]["tile_matmul"] == sum(tm.values()), rec
+    t, p, k = out["thread"], out["process"], out["process_sigkill"]
+    assert p["losses"] == t["losses"], "the process fleet's losses differ from the thread fleet's"
+    assert all(torch.equal(a, b) for a, b in zip(weights["process"], weights["thread"]))
+    assert k["handler_revivals"] >= 1, k
+    assert k["losses"] == t["losses"], "the SIGKILL run's losses differ"
+    assert all(torch.equal(a, b) for a, b in zip(weights["process_sigkill"], weights["thread"]))
+
+    ts = TupleSpace(backend=make_backend("remote+checked+sharded:4", device="cuda"))
+    try:
+        sent = {("w", 0): _randn((256, 256), torch.float32, 40),
+                ("w", 1): _randn((16, 960), torch.bfloat16, 41)}
+        t0 = time.perf_counter()
+        for key, v in sent.items():
+            ts.put(key, v)
+        back = {key: ts.read(key)[1] for key in sent}
+        rt_s = time.perf_counter() - t0
+    finally:
+        ts.backend.close()
+    out["remote_round_trip"] = dict(
+        s=rt_s, exact={str(key[1]): bool(b.is_cuda and b.dtype == sent[key].dtype
+                                         and torch.equal(b, sent[key]))
+                       for key, b in back.items()})
+    assert all(out["remote_round_trip"]["exact"].values()), out["remote_round_trip"]
+    out["launches"] = {c: sum(out[r]["launches"][c] for r in ("thread", "process",
+                                                              "process_sigkill"))
+                       for c in counters}
+    out["launches_by_path"] = {c: {q: sum(out[r]["launches_by_path"][c][q]
+                                          for r in ("thread", "process", "process_sigkill"))
+                                   for q in counters[c].paths} for c in counters}
+    return out
+
+
+# ------------------------------------------------------------------ the MoE
+# examples/acan_moe_routing.py's program and cloud: T 128, minibatch 32,
+# d_in 16, d_hidden 16, d_out 8, 4 experts, top-2, 16 steps, 4 handlers,
+# task cap 256, pouch 64, time_scale 1e-6.
+MOE = dict(steps=16, seed=0)
+MOE_CLOUD = dict(n_handlers=4, task_cap=256.0, pouch_size=64, time_scale=1e-6,
+                 initial_timeout=0.1, wall_limit=60.0, max_inflight_stages=8,
+                 ts_backend="checked+local")
+# The example's crash plan (every 0.15 s, p = 1.0), run under five seeds;
+# each run revives the Manager 3-5 times (probe_moe_recovery.py).
+MOE_CRASHES = dict(interval=0.15, speed_levels=(1.0, 5.0, 10.0), p_speed_change=1.0,
+                   p_handler_crash=1.0, p_manager_crash=1.0)
+MOE_CRASH_SEEDS = (1, 2, 3, 4, 5)
+MOE_MIN_MANAGER_REVIVALS = 10
+MOE_TOL = 2e-4
+
+
+def _moe_groups(prog, ts, cap: float) -> dict:
+    """Round 0's task groups of each MoE op, as a handler batch holds
+    them: the route tasks, and each expert's forward and gradient tasks
+    partitioned at the task cap."""
+    from repro_torch.core.program import GLOBAL_OPS
+
+    def parts(stage):
+        return [p for t in prog.stage_tasks(ts, 0, stage) for p in GLOBAL_OPS.partition(t, cap)]
+    return {"moe_route": [parts("route")],
+            "moe_fwd": [g for e in range(prog.E) if (g := parts(f"expert_{e}"))],
+            "moe_grad": [g for e in range(prog.E) if (g := parts(f"grad_{e}"))]}
+
+
+def check_moe_ops(tm_kernel, tile_matmul_ref) -> dict:
+    """The MoE's three op bodies on the card against the plain bodies on
+    the CPU, on the same round-0 tuples (float32, 2e-4; the routed expert
+    ids exactly): the CPU runs round 0 up to its gradient stage and the
+    card gets a copy of every tuple. Every task run alone gives the bits
+    it gave inside its handler batch. Then one expert forward task's two
+    products timed beside torch.matmul."""
+    from repro_torch.core.executor import ExecContext, TaskExecutor
+    from repro_torch.core.program import GLOBAL_OPS
+    from repro_torch.core.space import TupleSpace
+    from repro_torch.kernels.tile_matmul.ops import product
+    from repro_torch.programs.moe import MoERoutingProgram
+
+    cap = MOE_CLOUD["task_cap"]
+    prog = MoERoutingProgram(**MOE, device="cpu")
+    cpu = TupleSpace()
+    prog.setup(cpu)
+    run = TaskExecutor(cpu).execute_batch
+    run(prog.stage_tasks(cpu, 0, "route"))
+    prog._combine_route(cpu, 0)
+    for g in _moe_groups(prog, cpu, cap)["moe_fwd"]:
+        run(g)
+    prog._combine_expert(cpu, 0, 0)
+    card = TupleSpace()
+    for key, v in cpu.snapshot().items():
+        card.put(key, _to(v, "cuda"))
+    ctx = {"cuda": ExecContext(card), "cpu": ExecContext(cpu)}
+    fn = tm_kernel.tile_matmul
+    paths, layouts = dict(fn.paths), dict(fn.layouts)
+    err, rows = {}, {}
+    for op, groups in _moe_groups(prog, cpu, cap).items():
+        body = GLOBAL_OPS.resolve(op).batch_fn
+        e = 0.0
+        rows[op] = [t.n for g in groups for t in g]
+        for group in groups:
+            got, want = dict(body(ctx["cuda"], group)), dict(body(ctx["cpu"], group))
+            assert got.keys() == want.keys()
+            for key, v in got.items():
+                pairs = v.items() if isinstance(v, dict) else [("", v)]
+                for field, x in pairs:
+                    w = want[key][field] if field else want[key]
+                    assert x.is_cuda and x.dtype == w.dtype, (key, field)
+                    if x.dtype == torch.int64:
+                        assert torch.equal(x.cpu(), w), ("routed experts differ", key)
+                    else:
+                        e = max(e, (x.cpu() - w).abs().max().item())
+            for t in group:
+                for key, v in body(ctx["cuda"], [t]):
+                    same = (all(torch.equal(x, got[key][f]) for f, x in v.items())
+                            if isinstance(v, dict) else torch.equal(v, got[key]))
+                    assert same, ("alone != in its batch", key)
+        err[op] = e
+    launched = {q: fn.paths[q] - paths[q] for q in fn.paths}
+    by_layout = {q: fn.layouts[q] - layouts[q] for q in fn.layouts}
+    assert max(err.values()) <= MOE_TOL, err
+    assert launched["ffma"] > 0 and launched["skinny"] > 0, launched
+    assert launched["wgmma"] == launched["mma"] == 0, launched
+    assert all(by_layout.values()), by_layout
+
+    # One expert forward task: relu(x @ W1^T) then h @ W2^T, n routed rows.
+    n = max(rows["moe_fwd"])
+    x = _randn((n, prog.d_in), torch.float32, 50)
+    w1 = _randn((prog.d_h, prog.d_in), torch.float32, 51, prog.d_in ** -0.5)
+    w2 = _randn((prog.d_out, prog.d_h), torch.float32, 52, prog.d_h ** -0.5)
+    kern = lambda: product(product(x, w1, activation="relu", trans_w=True),  # noqa: E731
+                           w2, trans_w=True)
+    plain = lambda: tile_matmul_ref(tile_matmul_ref(x, w1, activation="relu",  # noqa: E731
+                                                    trans_w=True), w2, trans_w=True)
+    lib = lambda: torch.matmul(torch.relu(torch.matmul(x, w1.T)), w2.T)  # noqa: E731
+    flops = 2 * n * prog.d_in * prog.d_h + 2 * n * prog.d_h * prog.d_out
+    nbytes = 4 * (n * prog.d_in + prog.d_h * prog.d_in + 2 * n * prog.d_h
+                  + prog.d_out * prog.d_h + n * prog.d_out)
+    bound_ms, bound_by = _bound(flops, nbytes, torch.float32)
+    times = dict(shape=dict(n=n, d_in=prog.d_in, d_h=prog.d_h, d_out=prog.d_out),
+                 paths=[tm_kernel.choose_path(n, prog.d_h, prog.d_in, torch.float32, True,
+                                              "x@w^T"),
+                        tm_kernel.choose_path(n, prog.d_out, prog.d_h, torch.float32, True,
+                                              "x@w^T")],
+                 ms=_time_ms(kern, iters=200), device_ms=_graph_ms(kern, iters=200),
+                 plain_ms=_time_ms(plain, iters=200),
+                 library_ms=_time_ms(lib, iters=200), library_device_ms=_graph_ms(lib, iters=200),
+                 flops=flops, bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by,
+                 max_abs_err=(kern() - lib()).abs().max().item())
+    return dict(max_abs_err=err, task_rows=rows, launches_by_path=launched,
+                launches_by_layout=by_layout, times=times)
+
+
+def moe_path(counters: dict) -> dict:
+    """The MoE routing program at ``examples/acan_moe_routing.py``'s size
+    on the thread fleet on the card (``checked+local``, frontier 8):
+    fault-free, then under the example's Manager and Handler crashes
+    (p = 1.0 every 0.15 s, speeds re-drawn) with five seeds, each run's
+    losses and expert weights the fault-free run's bit for bit, at least
+    ten Manager revivals in all; the loss falls.
+    Every product is a tile_matmul launch (ffma, and skinny for dy @ W2)
+    and nothing else runs: each gradient task makes one plain product and
+    two transposed-x ones. The float32 run on the card is held against
+    the same run on the CPU over its 16 steps (1e-5 relative)."""
+    from repro_torch.core import ACANCloud, CloudConfig, FaultPlan, MoERoutingProgram
+
+    out, weights = {}, {}
+    crash_runs = [f"crashes_seed{seed}" for seed in MOE_CRASH_SEEDS]
+    plans = {f"crashes_seed{seed}": FaultPlan(**MOE_CRASHES, seed=seed)
+             for seed in MOE_CRASH_SEEDS}
+    for name, dev in (("fault_free", "cuda"), *((r, "cuda") for r in crash_runs), ("cpu", "cpu")):
+        plan = plans.get(name, FaultPlan(interval=1e9))
+        prog = MoERoutingProgram(**MOE, device=dev)
+        cloud = ACANCloud(CloudConfig(**MOE_CLOUD, fault_plan=plan, device=dev), program=prog)
+        res, wall, launches, by_path = _cloud_run(cloud, counters)
+        losses = [loss for _, loss in res.loss_history]
+        out[name] = dict(rounds=len(losses), losses=losses, wall_s=wall,
+                         step_s=_round_s(cloud), manager_revivals=res.manager_revivals,
+                         handler_revivals=res.handler_revivals, speed_changes=res.speed_changes,
+                         ledger_ok=res.ledger_ok, ts_violations=res.ts_violations,
+                         ts_violation_samples=res.ts_violation_samples[:5],
+                         ts_leaks=res.ts_leaks, launches=launches, launches_by_path=by_path,
+                         launches_by_layout=dict(counters["tile_matmul"].layouts))
+        weights[name] = [cloud.ts.try_read((w, e))[1]
+                         for e in range(prog.E) for w in ("we1", "we2")]
+        rec = out[name]
+        assert rec["rounds"] == MOE["steps"], rec
+        assert rec["ledger_ok"] and rec["ts_violations"] == 0 and rec["ts_leaks"] == {}, rec
+        if dev == "cuda":
+            assert all(w.is_cuda and w.dtype == torch.float32 for w in weights[name]), name
+            assert launches["tile_matmul"] > 0 and all(
+                launches[k] == 0 for k in launches if k != "tile_matmul"), launches
+            tm, lay = by_path["tile_matmul"], rec["launches_by_layout"]
+            assert tm["ffma"] > 0 and tm["skinny"] > 0 and tm["wgmma"] == tm["mma"] == 0, tm
+            assert all(lay.values()), lay
+        else:
+            assert all(n == 0 for n in launches.values()), launches
+    clean, cpu = out["fault_free"], out["cpu"]
+    lay, tm = clean["launches_by_layout"], clean["launches_by_path"]["tile_matmul"]
+    assert lay["x^T@w"] == 2 * lay["x@w"] == 2 * tm["skinny"], (lay, tm)
+    assert tm["ffma"] == lay["x@w^T"] + lay["x^T@w"], (lay, tm)
+    for name in crash_runs:
+        crashed = out[name]
+        assert crashed["manager_revivals"] >= 1 and crashed["handler_revivals"] >= 1, crashed
+        assert crashed["losses"] == clean["losses"], f"{name}: the losses differ"
+        assert all(torch.equal(a, b) for a, b in zip(weights[name], weights["fault_free"])), name
+    out["crash_manager_revivals"] = sum(out[r]["manager_revivals"] for r in crash_runs)
+    out["crash_handler_revivals"] = sum(out[r]["handler_revivals"] for r in crash_runs)
+    assert out["crash_manager_revivals"] >= MOE_MIN_MANAGER_REVIVALS, out["crash_manager_revivals"]
+    n = len(clean["losses"]) // 4
+    assert np.mean(clean["losses"][-n:]) < np.mean(clean["losses"][:n]), clean["losses"]
+    out["max_loss_rel_err_cpu"] = max(abs(a - b) / abs(b)
+                                      for a, b in zip(clean["losses"], cpu["losses"]))
+    out["max_weight_err_rel_cpu"] = max((a.cpu() - b).abs().max().item() / b.abs().max().item()
+                                        for a, b in zip(weights["fault_free"], weights["cpu"]))
+    assert out["max_loss_rel_err_cpu"] <= 1e-5 and out["max_weight_err_rel_cpu"] <= 1e-5, out
+    card_runs = ["fault_free", *crash_runs]
+    out["launches"] = {k: sum(out[r]["launches"][k] for r in card_runs) for k in counters}
+    out["launches_by_path"] = {k: {q: sum(out[r]["launches_by_path"][k][q] for r in card_runs)
+                                   for q in counters[k].paths} for k in counters}
+    out["launches_by_layout"] = {q: sum(out[r]["launches_by_layout"][q] for r in card_runs)
+                                 for q in clean["launches_by_layout"]}
+    return out
+
+
 def _record(phase: str, out: dict) -> None:
     """One phase's record: a JSON object on a line of its own."""
     print(json.dumps({"phase": phase} | out, default=str))
@@ -1466,6 +1805,8 @@ def main() -> int:
     detail["ssd_scan_bwd_err"] = check_ssd_bwd(ssd_kernel, ssd_plain_bwd)
     detail["mlp_ops"] = check_mlp_ops(tm_kernel, tile_matmul_ref)
     _record("check_mlp_ops", detail["mlp_ops"])
+    detail["moe_ops"] = check_moe_ops(tm_kernel, tile_matmul_ref)
+    _record("check_moe_ops", detail["moe_ops"])
     print(f"checks: tile_matmul max |err| {detail['tile_matmul_err']}, "
           f"flash_attention max |err| {detail['flash_attention_err']}, "
           f"ssd_scan max |err| {detail['ssd_scan_err']}, "
@@ -1571,18 +1912,33 @@ def main() -> int:
     _record("parity_mlp_f32", detail["parity_mlp_f32"])
     ct = detail["cloud_tenants"] = cloud_tenants(counters)
     _record("cloud_tenants", ct)
+    torch.cuda.empty_cache()
 
-    # 11. Results. A kernel that runs on several paths: its launches are the sum.
+    # 11. Path 7: the paper's exp 1 on the thread fleet and on the process
+    # fleet (worker processes on the card, their launches read from the
+    # counts they write), with and without SIGKILLed workers; CUDA tensors
+    # through a remote space.
+    pf = detail["process_fleet"] = process_fleet(counters)
+    _record("process_fleet", pf)
+
+    # 12. Path 8: the MoE routing program on the card, fault-free and under
+    # crashes, against the CPU.
+    mp = detail["moe"] = moe_path(counters)
+    _record("moe_path", mp)
+
+    # 13. Results. A kernel that runs on several paths: its launches are the sum.
     tmt, fat = detail["tile_matmul_time"]["prefill"], detail["flash_attention_time"]
     sst, gt = detail["ssd_scan_time"], detail["tile_matmul_grad_time"]
     fbt, sbt = detail["flash_attention_bwd_time"], detail["ssd_scan_bwd_time"]
-    runs = (sm, ms, tr, mt, ac, pp, ct)
+    runs = (sm, ms, tr, mt, ac, pp, ct, pf, mp)
     mlp_t = detail["mlp_ops"]["times"]["256x256"]
+    moe_t = detail["moe_ops"]["times"]
 
     def summed(name: str) -> dict:
-        """Launches of ``name`` over the seven paths (the ACAN path's
+        """Launches of ``name`` over the nine paths (the ACAN path's
         crash-free run, the paper's four MLP runs, the two-tenant cloud's
-        crash run), in all and by path."""
+        crash run, exp 1's three fleet runs with the workers' own
+        launches, the MoE's six runs on the card), in all and by path."""
         by = {p: sum(r["launches_by_path"][name][p] for r in runs)
               for p in sm["launches_by_path"][name]}
         return dict(launches=sum(r["launches"][name] for r in runs), launches_by_path=by)
@@ -1613,7 +1969,16 @@ def main() -> int:
                 + pp["launches_by_path"]["tile_matmul"]["ffma"],
                 "timed": "one launch of the paper MLP's layer-0 product: 16 masked rows "
                          "(16, 256) @ (256, 256), float32; launches: the paper's four "
-                         "runs, skinny + ffma"}),
+                         "runs, skinny + ffma"},
+             moe_f32={k: moe_t[k] for k in ("ms", "device_ms", "plain_ms", "library_ms",
+                                            "library_device_ms", "bound_ms", "bound_by",
+                                            "paths", "shape")}
+             | {"max_abs_err": max(detail["moe_ops"]["max_abs_err"].values()),
+                "launches": mp["launches"]["tile_matmul"],
+                "launches_by_layout": mp["launches_by_layout"],
+                "timed": "one MoE expert forward task's two products, relu(x @ W1^T) "
+                         "and h @ W2^T (x@w^T layout), float32; library: torch.matmul "
+                         "and relu; launches: the MoE's six runs on the card"}),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:88",

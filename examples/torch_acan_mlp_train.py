@@ -20,43 +20,14 @@ import sys
 
 import numpy as np
 
+from _torch_example_args import device_arg, protocol_audit, ts_backend_arg
 from repro_torch.configs import paper_mlp
 from repro_torch.core import ACANCloud, CloudConfig, FaultPlan, LayerSpec
-from repro_torch.core.space import find_checked
-
-
-def _flag(name: str, usage: str, argv: list[str] | None = None) -> str | None:
-    """Value of ``--name`` if present."""
-    argv = sys.argv if argv is None else argv
-    if name not in argv:
-        return None
-    idx = argv.index(name) + 1
-    if idx >= len(argv):
-        sys.exit(f"{name} requires a value ({usage})")
-    return argv[idx]
-
-
-def protocol_audit(backend, res) -> None:
-    """Print the CheckedBackend shutdown report when the protocol
-    sanitizer is stacked (``--ts-backend checked+local`` etc.): every run
-    must end with zero schema/role violations and zero tuple leaks."""
-    if find_checked(backend) is None:
-        return
-    n_leaks = sum(e["count"] for e in res.ts_leaks.values())
-    print(f"protocol audit : violations {res.ts_violations}, "
-          f"leaked tuples {n_leaks} (both must be 0 — every key "
-          f"schema-clean, every non-persistent tuple swept)")
-    for sample in res.ts_violation_samples[:3]:
-        print(f"  {sample}")
-    for label, entry in list(res.ts_leaks.items())[:3]:
-        print(f"  leak {label}: {entry['count']}x {entry['lifecycle']} "
-              f"e.g. {entry['sample'][0]}")
 
 
 def main() -> None:
-    ts_backend = _flag("--ts-backend", "local | sharded[:n] | "
-                       "instrumented[:spec] | checked+spec")
-    device = _flag("--device", "cpu | cuda") or "cuda"
+    ts_backend = ts_backend_arg()
+    device = device_arg()
     if "--paper-scale" in sys.argv:
         cfg = paper_mlp.robustness_config(interval=0.5, n_samples=20,
                                           device=device)

@@ -1,8 +1,7 @@
 """ACAN / Tuple-Space fault-tolerant reconfigurable runtime — the paper's
 core contribution (Li et al., "Fault Tolerant Reconfigurable ML
 Multiprocessor", 2025). Port of ``repro/core/__init__.py``: the same
-exports, less the MoE routing program, which is not ported yet
-(ROADMAP.md)."""
+exports."""
 
 from repro_torch.core.cloud import (ACANCloud, CloudConfig, CloudResult,
                                     MultiCloudResult)
@@ -33,11 +32,10 @@ def __getattr__(name: str):
     if name in _MLP_EXPORTS:
         from repro_torch.programs import mlp
         return getattr(mlp, name)
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}"
-                         + (" (the MoE routing program is not ported yet: "
-                            "ROADMAP.md §1 item 3.4)"
-                            if name == "MoERoutingProgram" else ""))
-
+    if name == "MoERoutingProgram":
+        from repro_torch.programs.moe import MoERoutingProgram
+        return MoERoutingProgram
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 __all__ = [
     "ACANCloud", "CloudConfig", "CloudResult", "MultiCloudResult",
@@ -46,7 +44,7 @@ __all__ = [
     "gss_chunk", "Handler", "HandlerTenant", "SpeedBox", "Ledger",
     "Manager", "ManagerConfig",
     "GLOBAL_OPS", "OpRegistry", "OpSpec", "UnknownOp", "WorkloadProgram",
-    "partition", "LayerSpec", "MLPProgram",
+    "partition", "LayerSpec", "MLPProgram", "MoERoutingProgram",
     "prototype_tasks", "stage_order", "TaskDesc", "content_key",
     "ANY", "TSTimeout", "TupleSpace", "match", "make_backend",
     "SpaceBackend", "LocalBackend", "ShardedBackend", "InstrumentedBackend",

@@ -34,20 +34,33 @@ namespace: keys, ledger and the §6.1 trajectory stay bit-identical to
 a single-tenant cloud.
 
 Port of the reference's ``repro/core/cloud.py``: the same code, with
-``repro.`` renamed ``repro_torch.``, two changes:
+``repro.`` renamed ``repro_torch.``, and these changes:
 
 - :class:`CloudConfig` gains ``device`` (``None`` means CUDA, which raises
-  without a card), which the default :class:`MLPProgram` runs on;
-- ``fleet="process"`` (handlers as worker processes over a tuple-space
-  server) raises :class:`NotImplementedError`: the port has no server yet
-  (ROADMAP.md §1 item 3.3), so the thread fleet is the only one;
+  without a card), which the default :class:`MLPProgram` runs on, a
+  ``remote`` space's client rebuilds the tensors it reads on and, on a
+  process fleet, the embedded server stores tensors on and every worker
+  runs its ops on;
+- on a process fleet on the card the kernels are built before the first
+  worker is spawned (a worker that found no library would run ``nvcc``
+  itself, for longer than any revival interval);
+- a process fleet's kernel launches happen in the workers, so the cloud's
+  own counters read 0: each worker writes its counters into a private
+  directory of the cloud's when it stops cleanly, and the results carry
+  their sum as ``worker_launches`` (a lower bound when a worker was
+  SIGKILLed, whose launches die with it);
 - ``run()`` joins every Manager and Handler thread until it exits (the
   reference waits 2 s for each), so no late gradient of a torch tenant
-  launches or writes after it returns.
+  launches or writes after it returns; worker processes keep the
+  reference's SIGTERM, 2 s join, SIGKILL, and are then reaped.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import pathlib
+import tempfile
 import threading
 import time
 from dataclasses import dataclass, field
@@ -59,8 +72,29 @@ from repro_torch.core.program import WorkloadProgram
 from repro_torch.core.space import (ANY, CONTROL_SCHEMAS, DEFAULT_NAMESPACE,
                               TSTimeout, TupleSpace, as_scoped, find_checked,
                               find_crashpoint, find_raced, role)
+from repro_torch.device import resolve_device
 
 __all__ = ["ACANCloud", "CloudConfig", "CloudResult", "MultiCloudResult"]
+
+
+def _sum_worker_counts(directory: str) -> dict:
+    """The sum of every counts file under ``directory`` (one a worker
+    incarnation that stopped cleanly), in
+    :func:`repro_torch.core.workers.launch_counts`' form; ``"workers"`` is
+    the number of files."""
+    total: dict = {"workers": 0}
+    for path in sorted(pathlib.Path(directory).glob("*.json")):
+        total["workers"] += 1
+        for name, rec in json.loads(path.read_text()).items():
+            out = total.setdefault(name, {})
+            for attr, v in rec.items():
+                if isinstance(v, dict):
+                    per = out.setdefault(attr, {})
+                    for key, n in v.items():
+                        per[key] = per.get(key, 0) + n
+                else:
+                    out[attr] = out.get(attr, 0) + v
+    return total
 
 
 def _default_layers() -> list:
@@ -117,9 +151,12 @@ class CloudConfig:
     #: Must have exactly ``n_handlers`` entries; None = all 1.0. The
     #: MonitorDaemon's speed re-draws still apply on top.
     handler_speeds: list | None = None
-    #: Fleet placement: "thread" (the only one ported). The reference's
-    #: "process" (worker processes over a tuple-space server) raises here
-    #: until the port has that server (ROADMAP.md §1 item 3.3).
+    #: Fleet placement: "thread" (default) or "process" — handlers become
+    #: real worker processes over a tuple-space server embedded in this
+    #: cloud (see :mod:`repro_torch.core.workers`), escaping the GIL.
+    #: Managers and the daemon stay in-process; fault injection SIGKILLs
+    #: real workers. Speed re-draws reach a process worker at its next
+    #: (re)spawn.
     fleet: str = "thread"
     #: Handler emulated-compute mode: "sleep" (GIL-released, default) or
     #: "spin" (GIL-holding busy loop — the honest baseline for
@@ -127,7 +164,9 @@ class CloudConfig:
     compute_mode: str = "sleep"
     #: Where the default MLP program keeps its tensors and runs its tile
     #: products: None means CUDA (raises without a card); "cpu" takes the
-    #: plain path.
+    #: plain path. On a process fleet also where the embedded server
+    #: stores tensors and every worker runs its ops.
+    #: A ``remote`` space's client rebuilds the tensors it reads here.
     device: object = None
 
     def __post_init__(self) -> None:
@@ -135,11 +174,6 @@ class CloudConfig:
         if self.fleet not in ("thread", "process"):
             raise ValueError(f"unknown fleet {self.fleet!r} "
                              f"(expected 'thread' | 'process')")
-        if self.fleet == "process":
-            raise NotImplementedError(
-                "fleet='process' needs the tuple-space server and worker "
-                "processes, which the port does not have yet (ROADMAP.md "
-                "§1 item 3.3); use the thread fleet")
         if self.compute_mode not in ("sleep", "spin"):
             raise ValueError(f"unknown compute_mode {self.compute_mode!r} "
                              f"(expected 'sleep' | 'spin')")
@@ -183,6 +217,13 @@ class CloudResult:
     #: run was race-free): one formatted line per unordered conflicting
     #: stage pair.
     race_report: list = field(default_factory=list)
+    #: Process fleet only (empty on threads, whose launches the cloud's
+    #: own counters see): the fleet's kernel launches, summed over every
+    #: worker incarnation that stopped cleanly (see
+    #: :func:`repro_torch.core.workers.launch_counts` for the form);
+    #: ``workers`` counts them, ``killed`` the SIGKILLed ones whose
+    #: launches are lost, so the sum is exact only when that is 0.
+    worker_launches: dict = field(default_factory=dict)
 
 
 @dataclass
@@ -203,6 +244,8 @@ class MultiCloudResult:
     ts_leaks: dict = field(default_factory=dict)
     #: The whole shared space's race-sanitizer outcome.
     race_report: list = field(default_factory=list)
+    #: The fleet's kernel launches (see :attr:`CloudResult.worker_launches`).
+    worker_launches: dict = field(default_factory=dict)
 
 
 class ACANCloud:
@@ -244,7 +287,21 @@ class ACANCloud:
                 f"CloudConfig.tenant_caps must be >= 1 (a 0 cap is a "
                 f"livelock, not a cap — drop the tenant from the fleet "
                 f"instead): {bad_caps}")
-        self.ts = TupleSpace(backend=cfg.ts_backend)
+        if cfg.fleet == "process":
+            # Worker processes build their op registry from the global
+            # builtin table (ensure_builtin_ops) — a program carrying a
+            # custom registry object cannot ship it across the process
+            # boundary, and silently running with different ops would be
+            # far worse than refusing.
+            from repro_torch.core.program import GLOBAL_OPS
+            for prog in self.programs:
+                if prog.registry is not GLOBAL_OPS:
+                    raise ValueError(
+                        f"fleet='process' requires the built-in op "
+                        f"registry; program {getattr(prog, 'name', prog)!r} "
+                        f"carries a custom one — use the thread fleet")
+            self.device = resolve_device(cfg.device)
+        self.ts = TupleSpace(backend=cfg.ts_backend, device=cfg.device)
         self.spaces = [as_scoped(self.ts, ns) for ns in self.namespaces]
         self.stop_event = threading.Event()
         # When the selected backend stack carries a CheckedBackend
@@ -320,6 +377,8 @@ class ACANCloud:
             h.busy_time for h in self._handlers if h is not None)
 
     def _make_handler(self, i: int):
+        if self.cfg.fleet == "process":
+            return self._spawn_worker(i)
         old = self._handlers[i]
         if old is not None:
             # Revival replaces the Handler object; bank the dead
@@ -352,6 +411,28 @@ class ACANCloud:
                               name=f"acan-{h.name}", daemon=True)
         th.start()
         return th
+
+    def _spawn_worker(self, i: int):
+        """Process-fleet slot ``i``: spawn a real worker over the
+        embedded server and re-point its crash event's kill target. Same
+        signature contract as the thread factory — the MonitorDaemon's
+        revival path calls this without knowing the difference."""
+        from repro_torch.core.workers import spawn_worker
+        cfg = self.cfg
+        self._spawned += 1
+        counts = os.path.join(self._counts_dir.name, f"h{i}-{self._spawned}.json")
+        hp = spawn_worker(
+            self._server.addr, f"h{i}",
+            speed=self._speed_boxes[i].get(),      # re-draws land here
+            capacity=cfg.task_cap, lr=cfg.lr,
+            time_scale=cfg.time_scale, batch_size=cfg.handler_batch,
+            scheduling=cfg.scheduling, compute_mode=cfg.compute_mode,
+            autotune=cfg.autotune,
+            namespaces=self.namespaces if self.multi else None,
+            tenant_caps=(cfg.tenant_caps or None) if self.multi else None,
+            device=self.device, counts_file=counts)
+        self._handler_crashes[i].proc = hp
+        return hp
 
     @staticmethod
     def _handler_body(h: Handler) -> None:
@@ -449,8 +530,25 @@ class ACANCloud:
         cfg = self.cfg
         n_programs = len(self.programs)
         self._manager_crashes = [threading.Event() for _ in range(n_programs)]
-        self._handler_crashes = [threading.Event()
-                                 for _ in range(cfg.n_handlers)]
+        self._server = None
+        if cfg.fleet == "process":
+            from repro_torch.core.space.server import TSServer
+            from repro_torch.core.workers import ProcessCrashEvent
+            if self.device.type == "cuda":
+                from repro_torch.kernels import _build
+                _build.build_all()
+            self._counts_dir = tempfile.TemporaryDirectory(prefix="acan-launches-")
+            self._spawned = 0
+            # The server wraps THIS cloud's live backend stack — checked/
+            # raced/crashpoint sanitizers, the ledger hook and the leak
+            # scan all keep working unchanged; workers are just remote
+            # clients of the same store.
+            self._server = TSServer(self.ts.backend, device=self.device).start()
+            self._handler_crashes = [ProcessCrashEvent()
+                                     for _ in range(cfg.n_handlers)]
+        else:
+            self._handler_crashes = [threading.Event()
+                                     for _ in range(cfg.n_handlers)]
         speeds = cfg.handler_speeds or [1.0] * cfg.n_handlers
         self._speed_boxes = [SpeedBox(float(s)) for s in speeds]
         self._handlers: list[Handler | None] = [None] * cfg.n_handlers
@@ -507,13 +605,34 @@ class ACANCloud:
         # Quiesce the fleet before the shutdown protocol scan: a handler
         # (or manager) still mid-write would race the leak snapshot. The
         # daemon holds the *latest* thread incarnations (post-revival).
-        # Each is joined until it exits: a handler sees the stop within its
-        # take timeout plus the batch it is running, and a torch tenant's
-        # gradient task can outlast the reference's 2 s grace — a thread
-        # left running would go on launching kernels and writing to the
-        # space after run() returned.
+        # Each thread is joined until it exits: a handler sees the stop
+        # within its take timeout plus the batch it is running, and a torch
+        # tenant's gradient task can outlast the reference's 2 s grace — a
+        # thread left running would go on launching kernels and writing to
+        # the space after run() returned. Process workers don't see
+        # stop_event — SIGTERM them first, and SIGKILL any that outlive the
+        # join grace (the scan must not race a live writer).
         for th in daemon.threads():
+            if hasattr(th, "terminate"):
+                th.terminate()
+        killed = 0
+        for th in daemon.threads():
+            if hasattr(th, "kill_hard"):
+                th.join(timeout=2.0)
+                if th.is_alive():
+                    th.kill_hard()
+                    killed += 1
             th.join()
+        worker_launches: dict = {}
+        if self._server is not None:
+            self._server.close()
+            # Every incarnation that stopped cleanly wrote its counters;
+            # the SIGKILLed ones (faults, and any that outlived the join
+            # grace) took theirs with them.
+            worker_launches = _sum_worker_counts(self._counts_dir.name)
+            worker_launches["killed"] = killed + sum(
+                ev.kills for ev in self._handler_crashes)
+            self._counts_dir.cleanup()
         wall = time.monotonic() - t0
 
         # Verify the shared hash chain and snapshot stats ONCE — the
@@ -530,6 +649,8 @@ class ACANCloud:
         results = [self._collect(i, daemon, wall, ts_stats, ledger_ok,
                                  report, raced)
                    for i in range(n_programs)]
+        for r in results:
+            r.worker_launches = worker_launches
         if not self.multi:
             return results[0]
         return MultiCloudResult(
@@ -545,4 +666,5 @@ class ACANCloud:
                                   else list(report["violation_samples"])),
             ts_leaks={} if report is None else dict(report["leaks"]),
             race_report=[] if raced is None else raced.race_report(),
+            worker_launches=worker_launches,
         )

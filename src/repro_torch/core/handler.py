@@ -52,8 +52,10 @@ single-tenant fast path, byte-identical to the single-tenant behaviour
 (fixed-subject ``("task", ANY)`` pattern, atomic bucket drains).
 
 Port of the reference's ``repro/core/handler.py``: the same code, with
-``repro.`` renamed ``repro_torch.``, and :func:`_values_match` comparing
-tensors by value.
+``repro.`` renamed ``repro_torch.``, :func:`_values_match` comparing
+tensors by value, and a crash signalled while the handler is parked in a
+blocking take landing before the take (:meth:`Handler._crash_before_take`;
+the reference takes the tasks that wake it and dies holding them).
 """
 
 from __future__ import annotations
@@ -245,6 +247,22 @@ class Handler:
             self.crash_event.clear()
             raise HandlerCrash(self.name)
 
+    def _crash_before_take(self, taken: list[tuple]) -> None:
+        """A crash signalled while we were parked in a blocking take
+        landed before the take: a crashed handler takes nothing. Hand what
+        the take returned back untouched (compensated like a store re-put
+        if its round closed meanwhile), then die. Otherwise every handler
+        parked at a firing would wake on the next pouch only to die
+        holding it, and a Manager whose timeout outlasts the fault
+        interval would never see that pouch done."""
+        if not self.crash_event.is_set():
+            return
+        self.ts.put_many(taken)
+        for key, value in taken:
+            task = TaskDesc.from_wire(_unpack_task(value)[0])
+            self._unstore_if_stale(key, value, task, self._rt.get(key_namespace(key)))
+        self._maybe_crash()
+
     def _throttled_sleep(self, seconds: float) -> None:
         """Sleep in small slices so crash/stop events interrupt work.
         ``busy_time`` accrues the *actual* elapsed emulated compute —
@@ -406,6 +424,7 @@ class Handler:
                                            timeout=self.take_timeout)
             except TSTimeout:
                 continue
+            self._crash_before_take(batch)
             self.batches_taken += 1
             now = time.monotonic()
             # (ns, task, cost, key, wire, defer_ok) per kept task — key/
@@ -647,6 +666,7 @@ class Handler:
                 key, value = self.ts.get(self._take_pat, timeout=0.05)
             except TSTimeout:
                 continue
+            self._crash_before_take([(key, value)])
             wire, _ = _unpack_task(value)
             task = TaskDesc.from_wire(wire)
             rt = self._rt.get(key_namespace(key))

@@ -36,13 +36,12 @@ therefore be either idempotent or guarded by the Manager's §5.4 commit
 window.
 
 Built-in programs: :mod:`repro_torch.programs.mlp` (the paper §6 workload,
-its tile products on the card) and :mod:`repro_torch.programs.torch_sgd`
-(training a zoo model on the card). The reference's MoE routing program is
-not ported yet (ROADMAP.md).
+its tile products on the card), :mod:`repro_torch.programs.torch_sgd`
+(training a zoo model on the card), and :mod:`repro_torch.programs.moe`
+(non-regular expert routing, its products on the card).
 
 Port of the reference's ``repro/core/program.py``: the same code, with
-``repro.`` renamed ``repro_torch.``; :func:`ensure_builtin_ops` imports the
-port's :mod:`repro_torch.programs`, which registers only what is ported.
+``repro.`` renamed ``repro_torch.``.
 """
 
 from __future__ import annotations
@@ -150,8 +149,7 @@ class OpRegistry:
         return out
 
 
-#: Shared registry for stateless ops (the MLP's; the MoE routing ops come
-#: with their program).
+#: Shared registry for stateless ops (MLP, MoE routing).
 GLOBAL_OPS = OpRegistry()
 
 

@@ -18,10 +18,12 @@ Public API:
 - namespace scoping: :class:`ScopedSpace` per-program views over one
   shared space (multi-tenant ACAN), with the :class:`NsSubject` fused
   subject and the helpers in :mod:`repro_torch.core.space.scoped`
+- distribution: :class:`RemoteBackend` client /
+  :class:`TSServer` host over the :mod:`repro_torch.core.space.wire` protocol
+  — spec head ``remote`` (``remote+checked+sharded:4``) or
+  ``$REPRO_TS_ADDR``
 
-Port of the reference's ``repro/core/space/__init__.py`` without the
-reference's distribution modules (``wire``, ``server``, ``remote``: ROADMAP.md
-§1 item 3.3); a ``remote`` spec raises :class:`NotImplementedError`.
+Port of the reference's ``repro/core/space/__init__.py``.
 """
 
 from repro_torch.core.space.api import (ANY, FieldIn, FieldLE, Journal, Key,
@@ -37,6 +39,8 @@ from repro_torch.core.space.facade import (BACKEND_ENV, TupleSpace,
 from repro_torch.core.space.instrumented import InstrumentedBackend
 from repro_torch.core.space.raced import (Race, RacedBackend, find_raced,
                                           stage_context, task_context)
+from repro_torch.core.space.remote import (ADDR_ENV, RemoteBackend, RemoteOpError,
+                                           RemoteSpaceError, server_timeout)
 from repro_torch.core.space.schema import (CONTROL_SCHEMAS, FieldSpec, KeySchema,
                                            LIFECYCLES, ROLES, SchemaRegistry)
 from repro_torch.core.space.local import LocalBackend
@@ -44,6 +48,7 @@ from repro_torch.core.space.scoped import (DEFAULT_NAMESPACE, NsSubject,
                                            NsSubjectPred, ScopedSpace, as_scoped,
                                            key_namespace, scope_key, scope_pattern,
                                            task_take_pattern, unscope_key)
+from repro_torch.core.space.server import TSServer
 from repro_torch.core.space.sharded import ShardedBackend
 
 __all__ = [
@@ -51,6 +56,8 @@ __all__ = [
     "SpaceBackend", "TSTimeout",
     "match", "subject_is_fixed", "is_concrete", "validate_key",
     "BACKEND_ENV", "TupleSpace", "canonicalize_key", "make_backend",
+    "ADDR_ENV", "RemoteBackend", "RemoteOpError", "RemoteSpaceError",
+    "TSServer", "server_timeout",
     "LocalBackend", "ShardedBackend", "InstrumentedBackend",
     "CheckedBackend", "Violation", "find_checked", "get_role", "role",
     "set_role",

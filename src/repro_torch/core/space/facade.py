@@ -17,11 +17,13 @@ it is chosen per instance::
 (``instrumented:sharded:4``) or ``+``-stacked (``checked+sharded:4``,
 ``raced+checked+sharded``); the leftmost wrapper is outermost.
 
-``remote`` (the reference's process-boundary split,
-``remote+checked+sharded:4``) needs the wire protocol, the server and the
-remote client, which the port does not have yet (ROADMAP.md §1 item 3.3):
-any spec naming it raises :class:`NotImplementedError` rather than
-quietly hosting the space in process.
+``remote`` splits the stack across a process boundary:
+everything right of ``remote`` is the spec the *server* hosts,
+everything left of it wraps the client. ``remote+checked+sharded:4``
+connects a :class:`~repro_torch.core.space.remote.RemoteBackend` to a server
+hosting ``checked+sharded:4`` — spawned privately unless
+``$REPRO_TS_ADDR`` names a running one. ``remote`` alone hosts the
+default ``sharded``.
 
 The facade is also the **key canonicalization point**: numpy
 scalar key fields (``np.int64(3)``, ``np.float32(0.5)``, ...) are
@@ -36,8 +38,10 @@ wires ``ledger.append`` into the backend's journal hook, so every
 mutation is recorded regardless of backend — the recovery trace Manager
 restarts rely on.
 
-Port of the reference's ``repro/core/space/facade.py``: the same code
-without the ``remote`` backend.
+Port of the reference's ``repro/core/space/facade.py``: the same code,
+with a ``device`` on :func:`make_backend` and :class:`TupleSpace` (where a
+``remote`` client rebuilds the tensors it reads; ``None`` means CUDA, as
+everywhere in the port), which the reference has no use for.
 """
 
 from __future__ import annotations
@@ -54,6 +58,7 @@ from repro_torch.core.space.crashpoint import CrashPointBackend
 from repro_torch.core.space.instrumented import InstrumentedBackend
 from repro_torch.core.space.local import LocalBackend
 from repro_torch.core.space.raced import RacedBackend
+from repro_torch.core.space.remote import RemoteBackend
 from repro_torch.core.space.sharded import ShardedBackend
 
 #: Environment variable consulted when no backend is passed explicitly.
@@ -65,16 +70,13 @@ _WRAPPERS = {"instrumented": InstrumentedBackend, "checked": CheckedBackend,
              "raced": RacedBackend, "crashpoint": CrashPointBackend}
 
 
-def _no_remote(spec: str) -> None:
-    raise NotImplementedError(
-        f"tuple-space spec {spec!r}: the remote backend (wire, server, "
-        f"remote) is not ported yet (ROADMAP.md §1 item 3.3)")
-
-
-def make_backend(spec: str | None = None, journal=None) -> SpaceBackend:
+def make_backend(spec: str | None = None, journal=None,
+                 device=None) -> SpaceBackend:
     """Build a backend from a spec string (see module docstring).
 
     ``None``/empty falls back to ``$REPRO_TS_BACKEND``, then ``local``.
+    A ``remote`` client rebuilds the tensors it reads on ``device``
+    (``None`` means CUDA, which raises without a card).
     """
     if spec is None or spec == "":
         spec = os.environ.get(BACKEND_ENV, "") or "local"
@@ -84,10 +86,19 @@ def make_backend(spec: str | None = None, journal=None) -> SpaceBackend:
         # Wrapper stack: "checked+sharded:4" / "instrumented+checked+local".
         parts = [p.strip() for p in head.split("+") if p.strip()]
         if "remote" in parts:
-            _no_remote(spec)
-        backend: SpaceBackend = make_backend(
-            parts[-1] + ((":" + rest) if rest else ""), journal=journal)
-        wrappers = parts[:-1]
+            # Everything right of "remote" ships to the server as its
+            # hosted spec; everything left of it wraps the client.
+            cut = parts.index("remote")
+            server_spec = "+".join(parts[cut + 1:]) + (
+                (":" + rest) if rest else "")
+            backend: SpaceBackend = RemoteBackend(
+                server_spec=server_spec or "sharded", journal=journal,
+                device=device)
+            wrappers = parts[:cut]
+        else:
+            backend = make_backend(
+                parts[-1] + ((":" + rest) if rest else ""), journal=journal)
+            wrappers = parts[:-1]
         for name in reversed(wrappers):
             if name not in _WRAPPERS:
                 raise ValueError(f"unknown tuple-space wrapper {name!r} "
@@ -95,7 +106,9 @@ def make_backend(spec: str | None = None, journal=None) -> SpaceBackend:
             backend = _WRAPPERS[name](backend)
         return backend
     if head == "remote":
-        _no_remote(spec)
+        # Colon form: "remote:checked+sharded:4" — rest is the server spec.
+        return RemoteBackend(server_spec=rest or "sharded", journal=journal,
+                             device=device)
     if head == "local":
         return LocalBackend(journal=journal)
     if head == "sharded":
@@ -103,7 +116,8 @@ def make_backend(spec: str | None = None, journal=None) -> SpaceBackend:
             return ShardedBackend(n_shards=int(rest), journal=journal)
         return ShardedBackend(journal=journal)
     if head in _WRAPPERS:
-        return _WRAPPERS[head](make_backend(rest or "local", journal=journal))
+        return _WRAPPERS[head](make_backend(rest or "local", journal=journal,
+                                            device=device))
     raise ValueError(
         f"unknown tuple-space backend {spec!r} "
         f"(expected local | sharded[:n] | instrumented[:spec] | "
@@ -137,10 +151,12 @@ class TupleSpace:
     """
 
     def __init__(self, ledger: Ledger | None = None,
-                 backend: SpaceBackend | str | None = None) -> None:
+                 backend: SpaceBackend | str | None = None,
+                 device=None) -> None:
         self.ledger = ledger if ledger is not None else Ledger()
         if backend is None or isinstance(backend, str):
-            backend = make_backend(backend, journal=self.ledger.append)
+            backend = make_backend(backend, journal=self.ledger.append,
+                                   device=device)
         else:
             # A pre-wired hook must keep firing, but this facade's ledger
             # must record too — a silently dead ledger would still verify()

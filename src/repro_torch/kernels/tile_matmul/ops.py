@@ -21,7 +21,7 @@ from repro_torch.kernels.tile_matmul import kernel
 from repro_torch.kernels.tile_matmul.ref import ACT_GRADS, tile_matmul_ref
 
 
-def _product(x, w, b=None, **kw) -> torch.Tensor:
+def product(x, w, b=None, **kw) -> torch.Tensor:
     """One product on ``x``'s device: the plain version for a CPU tensor,
     a kernel launch for any other."""
     if x.device.type == "cpu":
@@ -34,19 +34,19 @@ class _Matmul(torch.autograd.Function):
     def forward(ctx, x, w, b, activation, out_dtype):
         ctx.save_for_backward(x, w, b)
         ctx.activation = activation
-        return _product(x, w, b, activation=activation, out_dtype=out_dtype)
+        return product(x, w, b, activation=activation, out_dtype=out_dtype)
 
     @staticmethod
     def backward(ctx, dy):
         x, w, b = ctx.saved_tensors
         dz32 = dy.float()
         if ctx.activation != "none":
-            z = _product(x, w, b, out_dtype=torch.float32)
+            z = product(x, w, b, out_dtype=torch.float32)
             dz32 = dz32 * ACT_GRADS[ctx.activation](z)
         dz = dz32.to(x.dtype).contiguous()
         need_x, need_w, need_b = ctx.needs_input_grad[:3]
-        dx = _product(dz, w, trans_w=True) if need_x else None
-        dw = _product(x, dz, trans_x=True) if need_w else None
+        dx = product(dz, w, trans_w=True) if need_x else None
+        dw = product(x, dz, trans_x=True) if need_w else None
         db = dz32.sum(0).to(b.dtype) if need_b else None
         return dx, dw, db, None, None
 
@@ -64,5 +64,5 @@ def matmul(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
     if grad:
         out = _Matmul.apply(x2, w, b, activation, out_dtype)
     else:
-        out = _product(x2, w, b, activation=activation, out_dtype=out_dtype)
+        out = product(x2, w, b, activation=activation, out_dtype=out_dtype)
     return out.reshape(*lead, w.shape[1])

@@ -11,7 +11,7 @@ launch on the default stream, so their device work is serialised.
 
 The one addition to the reference's interface is ``device`` (``None``
 means ``cuda``, which raises without a card; pass ``"cpu"`` for the plain
-path). Before the Manager starts, :meth:`ACANStepRunner.warm_up` runs one
+path); a ``remote`` space's client rebuilds what it reads there too. Before the Manager starts, :meth:`ACANStepRunner.warm_up` runs one
 microbatch gradient on the device, which builds and loads every kernel
 the step launches: a first build takes tens of seconds, which would
 otherwise time out every task of the first round and re-issue it.
@@ -67,7 +67,7 @@ class ACANStepRunner:
             handler_crash_prob=tcfg.handler_crash_prob,
             data_mode=tcfg.data_mode, seed=tcfg.seed, device=device)
         self.device = self.program.device
-        self.ts = TupleSpace(backend=tcfg.ts_backend)
+        self.ts = TupleSpace(backend=tcfg.ts_backend, device=self.device)
         self._warm = False
         # Declare the key protocol when a CheckedBackend is stacked
         # (single-tenant runner — default namespace).

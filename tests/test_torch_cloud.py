@@ -56,12 +56,16 @@ def _small_cfg(pkg, **kw):
 def _run(pkg, **kw):
     """(losses, final weights and biases as numpy, result) of one run."""
     cloud = pkg.ACANCloud(_small_cfg(pkg, **kw))
-    res = cloud.run()
-    params = []
-    for l in range(2):
-        for name in ("w", "b"):
-            v = cloud.ts.try_read((name, l))[1]
-            params.append(v.numpy() if isinstance(v, torch.Tensor) else v)
+    try:
+        res = cloud.run()
+        params = []
+        for l in range(2):
+            for name in ("w", "b"):
+                v = cloud.ts.try_read((name, l))[1]
+                params.append(v.numpy() if isinstance(v, torch.Tensor) else v)
+    finally:
+        if hasattr(cloud.ts.backend, "close"):
+            cloud.ts.backend.close()
     return [loss for _, loss in res.loss_history], params, res
 
 
@@ -82,11 +86,12 @@ def test_exp1_matches_the_reference_trajectory_and_weights():
 
 
 @pytest.mark.parametrize("variant", ["exp3_crashes", "sharded:4", "checked+local",
-                                     "max_inflight_stages=3"])
+                                     "remote+checked+sharded:4", "max_inflight_stages=3"])
 def test_a_variant_gives_the_crash_free_run_bit_for_bit(variant):
     kw = {"exp3_crashes": dict(fault_plan=FaultPlan(**EXP3), ts_backend="checked+local"),
           "sharded:4": dict(ts_backend="sharded:4"),
           "checked+local": dict(ts_backend="checked+local"),
+          "remote+checked+sharded:4": dict(ts_backend="remote+checked+sharded:4"),
           "max_inflight_stages=3": dict(max_inflight_stages=3)}[variant]
     want, want_params, _ = _clean_port_run()
     got, got_params, res = _run(core, **kw)
@@ -98,6 +103,79 @@ def test_a_variant_gives_the_crash_free_run_bit_for_bit(variant):
 
 
 # ------------------------------------------------------------- the fault plane
+class _CrashWhileParked:
+    """The space, except that the handler's first take signals its crash
+    and issues a task just before it takes: a crash that lands while the
+    handler is parked in its blocking take, woken by the next pouch."""
+
+    def __init__(self, ts, item) -> None:
+        self._ts, self._item, self.handler = ts, item, None
+
+    def __getattr__(self, name):
+        return getattr(self._ts, name)
+
+    def _arm(self) -> None:
+        if self._item is not None:
+            self.handler.crash_event.set()
+            self._ts.put(*self._item)
+            self._item = None
+
+    def take_batch(self, *a, **kw):
+        self._arm()
+        return self._ts.take_batch(*a, **kw)
+
+    def get(self, *a, **kw):
+        self._arm()
+        return self._ts.get(*a, **kw)
+
+
+def _crash_while_parked(pkg_core, Handler, HandlerCrash, OpSpec, OpRegistry, TaskDesc,
+                        scheduling: str) -> tuple:
+    """(the space's tuples after the handler died, ops the handler ran, what
+    ended it) for one handler whose crash lands while it is parked."""
+    ran = []
+    registry = OpRegistry()
+    registry.register(OpSpec(name="noop", batch_fn=lambda ctx, ts: ran.extend(ts) or [],
+                             cost_fn=lambda t: 1.0))
+    task = ("task", "e1t1"), TaskDesc(op="noop", layer=0, data_id=0, step=0).to_wire()
+    ts = pkg_core.TupleSpace(backend="local")
+    space = _CrashWhileParked(ts, task)
+    h = Handler(ts=space, name="h0", speed=SpeedBox(1.0) if pkg_core is core else
+                RefSpeedBox(1.0), registry=registry, scheduling=scheduling, time_scale=1e-6)
+    space.handler = h
+    ended = []
+
+    def body():
+        try:
+            h.run()
+        except HandlerCrash as e:
+            ended.append(e)
+    th = threading.Thread(target=body)
+    th.start()
+    th.join(10.0)
+    assert not th.is_alive()
+    return ts.snapshot(), ran, ended
+
+
+@pytest.mark.parametrize("scheduling", ["event", "poll"])
+def test_a_handler_crashed_while_parked_in_its_take_takes_nothing(scheduling):
+    """A crash signalled while the handler waits in its blocking take lands
+    before the take: the task that woke it stays in the space, untouched and
+    not run, and the handler dies. (The reference's handler takes it and
+    dies holding it: under a fault plan that crashes the whole fleet, every
+    parked handler then ate the next pouch, and once the Manager's timeout
+    outgrew the interval no pouch ever finished.)"""
+    from repro_torch.core.handler import HandlerCrash
+    from repro_torch.core.program import OpRegistry, OpSpec
+    from repro_torch.core.tasks import TaskDesc
+
+    left, ran, ended = _crash_while_parked(core, Handler, HandlerCrash, OpSpec, OpRegistry,
+                                           TaskDesc, scheduling)
+    assert len(ended) == 1 and ran == []
+    assert left == {("task", "e1t1"): TaskDesc(op="noop", layer=0, data_id=0,
+                                                step=0).to_wire()}
+
+
 def _daemon(pkg, box, plan, **kw):
     return pkg.MonitorDaemon(
         plan=plan, handler_crashes=[threading.Event() for _ in range(3)],
@@ -146,9 +224,9 @@ def test_tenant_plans_fire_the_reference_sequence(seed):
     assert got[-1][1][0] > 5 and got[-1][1][1] > 5
 
 
-def test_the_process_fleet_raises_until_it_is_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CloudConfig(fleet="process", device="cpu")
+def test_the_process_fleet_is_accepted_and_an_unknown_fleet_raises():
+    cfg = CloudConfig(fleet="process", device="cpu")
+    assert ACANCloud(cfg).device == torch.device("cpu")
     with pytest.raises(ValueError, match="unknown fleet"):
         CloudConfig(fleet="processes", device="cpu")
 
@@ -162,6 +240,21 @@ def test_the_default_program_runs_on_the_configured_device(monkeypatch):
         ACANCloud(paper_mlp.feasibility_config())
 
 
+def test_a_remote_space_takes_the_clouds_device(monkeypatch):
+    """A cloud's remote client rebuilds what it reads on the cloud's device
+    (None = CUDA), on either fleet: without a card a cloud with no device
+    refuses a remote space, even for a program of its own on the CPU."""
+    prog = MLPProgram([LayerSpec(4, 4)], epochs=1, n_samples=1, device="cpu")
+    cloud = ACANCloud(CloudConfig(ts_backend="remote:sharded", device="cpu"), program=prog)
+    try:
+        assert cloud.ts.backend.device == torch.device("cpu")
+    finally:
+        cloud.ts.backend.close()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ACANCloud(CloudConfig(ts_backend="remote:sharded"), program=prog)
+
+
 def test_the_paper_configs_are_the_reference_configs():
     from repro.configs import paper_mlp as ref_paper
 
@@ -173,11 +266,14 @@ def test_the_paper_configs_are_the_reference_configs():
     assert paper_mlp.PAPER_LR == ref_paper.PAPER_LR
 
 
-def test_core_exports_the_reference_names_but_moe():
-    assert set(core.__all__) == set(ref_core.__all__) - {"MoERoutingProgram"}
+def test_core_exports_the_reference_names():
+    from repro_torch.programs.moe import MoERoutingProgram
+
+    assert core.__all__ == ref_core.__all__
     assert all(getattr(core, n) is not None for n in core.__all__)
-    with pytest.raises(AttributeError, match="ROADMAP"):
-        core.MoERoutingProgram  # noqa: B018
+    assert core.MoERoutingProgram is MoERoutingProgram
+    with pytest.raises(AttributeError):
+        core.NoSuchProgram  # noqa: B018
 
 
 # ------------------------------------------------------------- two tenants
@@ -304,3 +400,109 @@ def test_run_returns_only_after_every_handler_has_stopped():
     assert len(calls) >= 2 and live == []
     assert len(res.loss_history) == 1
     assert res.ts_violations == 0 and res.ts_leaks == {}
+
+
+# --------------------------------------------- twins of the reference's MLP tests
+def test_exp3_robustness_crashes_everywhere():
+    """Twin of ``tests/test_acan_training.py``'s test: training completes
+    despite 100%-probability crashes of everything, and learns."""
+    cloud = ACANCloud(_small_cfg(core, fault_plan=FaultPlan(**EXP3)))
+    res = cloud.run()
+    losses = [l for _, l in res.loss_history]
+    assert len(losses) == 20
+    assert np.mean(losses[10:]) < np.mean(losses[:10])
+    assert res.manager_revivals >= 1
+    assert res.handler_revivals >= 1
+    assert res.ledger_ok
+
+
+def test_manager_restart_mid_training_continues():
+    """Twin of ``tests/test_acan_training.py``'s test: kill the manager
+    mid-run, without handler faults — it resumes from the TS cursor and
+    completes every sample exactly once (here also with the crash-free
+    run's first epoch, bit for bit)."""
+    res = ACANCloud(_small_cfg(
+        core, epochs=1,
+        fault_plan=FaultPlan(interval=0.08, p_manager_crash=1.0, seed=2))).run()
+    steps = [s for s, _ in res.loss_history]
+    assert sorted(set(steps)) == list(range(10))
+    assert res.manager_revivals >= 1
+    assert [l for _, l in res.loss_history] == _clean_port_run()[0][:10]
+
+
+def test_mlp_backward_combine_resumes_after_partial_crash():
+    """Twin of ``tests/test_programs.py``'s test: the backward combine's
+    guard is dy (the last-written tuple), so a crash between the gW and
+    gB/dy puts does not make the revived Manager skip the rest."""
+    layers = [LayerSpec(8, 8), LayerSpec(8, 1)]
+    prog = MLPProgram(layers, epochs=1, n_samples=1, seed=0, device="cpu")
+    rng = np.random.default_rng(5)
+    f = lambda *s: torch.tensor(rng.standard_normal(s), dtype=torch.float32)  # noqa: E731
+    ts = TupleSpace()
+    l, d = 1, 0
+    ts.put(("gw", l, d, 0, 1, 0, 8), f(1, 8))
+    ts.put(("gb", l, d, 0, 1), f(1))
+    ts.put(("bpart", l, d, 0, 8, 0, 1), f(8))
+    ts.put(("act", 0, d), f(8))
+    prog._combine_backward(ts, l, d, layers[l])
+    full_gB = ts.try_read(("gB", l, d))[1]
+    # Simulate a crash after the gW put but before gB/dy landed.
+    ts.delete(("gB", l, d))
+    ts.delete(("dy", 0, d))
+    prog._combine_backward(ts, l, d, layers[l])   # revived re-run
+    assert torch.equal(ts.try_read(("gB", l, d))[1], full_gB)
+    assert ts.try_read(("dy", 0, d)) is not None
+
+
+def test_mlp_program_equals_legacy_cloud_path():
+    """Twin of ``tests/test_programs.py``'s test: CloudConfig without an
+    explicit program builds the MLP program — and an explicitly-passed
+    MLPProgram gives its losses (here bit for bit)."""
+    base = dict(layers=[LayerSpec(16, 16), LayerSpec(16, 1)], n_handlers=3,
+                epochs=1, n_samples=6, task_cap=32.0, pouch_size=64,
+                lr=0.05, time_scale=1e-6, initial_timeout=0.1,
+                fault_plan=FaultPlan(interval=1e9), seed=0, wall_limit=60.0,
+                device="cpu")
+    res_default = ACANCloud(CloudConfig(**base)).run()
+    cfg = CloudConfig(**base)
+    res_explicit = ACANCloud(cfg, program=MLPProgram(
+        cfg.layers, epochs=1, n_samples=6, seed=0, device="cpu")).run()
+    ld = [l for _, l in res_default.loss_history]
+    le = [l for _, l in res_explicit.loss_history]
+    np.testing.assert_allclose(ld, le, rtol=1e-6, atol=1e-8)
+    assert ld == le and len(ld) == 6
+
+
+@pytest.mark.parametrize("backend", ["local", "sharded:4"])
+def test_manager_epoch_persists_and_prefixes_tids(backend):
+    """Twin of ``tests/test_multitenant.py``'s test: the Manager's epoch
+    persists in its namespace, and a revived Manager's task ids carry the
+    next epoch, so they never re-mint a predecessor's."""
+    from repro_torch.core import ANY, ScopedSpace
+    from repro_torch.core.handler import HandlerTenant
+
+    ts = TupleSpace(backend=backend)
+    prog = MLPProgram([LayerSpec(4, 4), LayerSpec(4, 1)], epochs=1,
+                      n_samples=1, seed=0, device="cpu")
+    space = ScopedSpace(ts, "mlp")
+    stop = threading.Event()
+    h = Handler(ts=ts, name="h0", speed=SpeedBox(1.0), capacity=64.0,
+                time_scale=1e-9, stop_event=stop,
+                tenants={"mlp": HandlerTenant(space, prog.registry)})
+    th = threading.Thread(target=h.run, daemon=True)
+    th.start()
+    Manager(ts=space, program=prog,
+            cfg=ManagerConfig(task_cap=64.0, initial_timeout=5.0)).run()
+    assert space.try_read(("mstate", "epoch"))[1] == 1
+    space2 = ScopedSpace(ts, "mlp")
+    prog2 = MLPProgram([LayerSpec(4, 4), LayerSpec(4, 1)], epochs=1,
+                       n_samples=1, seed=0, device="cpu")
+    m2 = Manager(ts=space2, program=prog2,
+                 cfg=ManagerConfig(task_cap=64.0, initial_timeout=5.0))
+    m2._bump_epoch()
+    assert m2.epoch == 2
+    m2._issue(prog2.stage_tasks(space2, 0, "fwd_0"))
+    tids = [k[1] for k in space2.keys(("task", ANY))]
+    assert tids and all(t.startswith("e2t") for t in tids)
+    stop.set()
+    th.join(timeout=2.0)

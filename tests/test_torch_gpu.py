@@ -50,7 +50,9 @@ def _to(tree, device):
         return tree.to(device)
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
-    return type(tree)(_to(v, device) for v in tree)
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, device) for v in tree)
+    return tree
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1115,3 +1117,153 @@ def test_the_paper_mlp_on_the_card_gives_the_same_bits_with_and_without_crashes(
     assert crashed.manager_revivals >= 1 and crashed.handler_revivals >= 1
     assert [l for _, l in crashed.loss_history] == [l for _, l in clean.loss_history]
     assert all(a.is_cuda and torch.equal(a, b) for a, b in zip(w0, w1))
+
+
+# ------------------------------------------ the wire, the process fleet, the MoE
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int64, torch.bool])
+def test_a_cuda_tensor_crosses_the_wire_onto_the_readers_device(cuda, dtype):
+    """Encoded from the card as host bytes, decoded onto the card (and onto
+    the CPU): the same dtype, shape and bits; a non-contiguous and a 0-d
+    tensor too."""
+    from repro_torch.core.space.wire import decode_msg, encode_segments
+
+    x = (_randn((6, 10), torch.float32, cuda, 70) * 4).to(dtype)
+    for t in (x, x[:, ::3], x[2, 3]):
+        body = b"".join(bytes(s) for s in encode_segments((1, "ok", {"v": t}))[1:])
+        for dev in (cuda, torch.device("cpu")):
+            got = decode_msg(body, dev)[2]["v"]
+            assert got.device.type == dev.type and got.dtype == t.dtype
+            assert got.shape == t.shape and torch.equal(got.cpu(), t.cpu())
+
+
+def test_cuda_tensors_round_trip_a_remote_space_exactly(cuda):
+    """A remote space on a private CPU server: what the card puts comes back
+    on the card, bit for bit, through a checked, sharded server stack."""
+    from repro_torch.core.space import TupleSpace, make_backend
+
+    ts = TupleSpace(backend=make_backend("remote+checked+sharded:4", device="cuda"))
+    try:
+        sent = {("w", 0): _randn((64, 48), torch.float32, cuda, 71),
+                ("w", 1): _randn((32, 40), torch.bfloat16, cuda, 72)}
+        for k, v in sent.items():
+            ts.put(k, v)
+        for k, v in sent.items():
+            got = ts.read(k)[1]
+            assert got.is_cuda and got.dtype == v.dtype and torch.equal(got, v)
+            assert ts.get(k)[1].is_cuda
+    finally:
+        ts.backend.close()
+
+
+def _fleet_run(fleet: str, **kw):
+    from repro_torch.core import ACANCloud, CloudConfig, FaultPlan, LayerSpec
+
+    cfg = dict(layers=[LayerSpec(64, 64), LayerSpec(64, 1)], n_handlers=2, epochs=1,
+               n_samples=6, task_cap=64.0, pouch_size=50, lr=0.05, time_scale=1e-6,
+               initial_timeout=0.2, wall_limit=240.0, seed=0, ts_backend="checked+sharded:4",
+               fault_plan=FaultPlan(interval=1e9), fleet=fleet)
+    cloud = ACANCloud(CloudConfig(**(cfg | kw)))
+    try:
+        res = cloud.run()
+        assert res.ledger_ok and res.ts_violations == 0 and res.ts_leaks == {}
+        return ([l for _, l in res.loss_history],
+                [cloud.ts.try_read((n, l))[1] for l in range(2) for n in "wb"], res)
+    finally:
+        if hasattr(cloud.ts.backend, "close"):
+            cloud.ts.backend.close()
+
+
+def test_the_process_fleet_on_the_card_gives_the_thread_fleets_bits(cuda):
+    """Two worker processes on the card over the cloud's embedded server:
+    the thread fleet's losses and weights bit for bit, the weights on the
+    card; every tile_matmul launch happened in a worker (the result's
+    worker counts hold them, the cloud's counters none)."""
+    base_losses, base_w, _ = _fleet_run("thread")
+    before = tm_kernel.tile_matmul.launches
+    losses, w, res = _fleet_run("process")
+    assert tm_kernel.tile_matmul.launches == before
+    assert losses == base_losses
+    assert all(a.is_cuda and torch.equal(a, b) for a, b in zip(w, base_w))
+    counts = res.worker_launches
+    assert counts["workers"] >= 1 and counts["tile_matmul"]["launches"] > 0
+    paths = counts["tile_matmul"]["paths"]
+    assert paths["skinny"] > 0 and paths["wgmma"] == paths["mma"] == 0
+
+
+def test_a_cuda_cloud_on_a_remote_space_runs_its_products_on_the_card(cuda):
+    """A cloud on the card over ``remote+checked+sharded:4`` (a private
+    server on the CPU): its client rebuilds what it reads on the card, so
+    the handlers' products launch tile_matmul, and the run gives the bits
+    of the same cloud on ``checked+sharded:4``, its weights on the card."""
+    base_losses, base_w, _ = _fleet_run("thread")
+    before = dict(tm_kernel.tile_matmul.paths)
+    losses, w, _ = _fleet_run("thread", ts_backend="remote+checked+sharded:4")
+    launched = {q: n - before[q] for q, n in tm_kernel.tile_matmul.paths.items()}
+    assert launched["skinny"] > 0 and launched["wgmma"] == launched["mma"] == 0, launched
+    assert losses == base_losses
+    assert all(a.is_cuda and torch.equal(a, b) for a, b in zip(w, base_w))
+
+
+def test_a_worker_asked_for_a_missing_card_exits_and_says_why(cuda):
+    """``--device cuda:<n>`` past the host's last card: the worker exits
+    non-zero before it connects anywhere, naming the device."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, PYTHONPATH=src + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    bad = f"cuda:{torch.cuda.device_count()}"
+    res = subprocess.run([sys.executable, "-m", "repro_torch.core.workers", "--addr",
+                          "127.0.0.1:9", "--device", bad], capture_output=True, text=True,
+                         timeout=120, env=env)
+    assert res.returncode != 0
+    assert "cuda" in res.stderr.lower()
+
+
+def test_a_moe_task_has_the_same_bits_alone_and_in_its_batch(cuda):
+    """Round 0 of the MoE program on the card: each route, expert-forward
+    and expert-gradient task run alone gives the bits it gave in its
+    handler batch, and the ops match the CPU's at 2e-4."""
+    from repro_torch.core.executor import ExecContext, TaskExecutor
+    from repro_torch.core.program import GLOBAL_OPS
+    from repro_torch.core.space import TupleSpace
+    from repro_torch.programs.moe import MoERoutingProgram
+
+    spaces = {}
+    for dev in ("cpu", "cuda"):
+        prog = MoERoutingProgram(steps=2, seed=0, device=dev)
+        ts = spaces[dev] = TupleSpace()
+        prog.setup(ts)
+    prog = MoERoutingProgram(steps=2, seed=0, device="cpu")
+    cpu = spaces["cpu"]
+    TaskExecutor(cpu).execute_batch(prog.stage_tasks(cpu, 0, "route"))
+    prog._combine_route(cpu, 0)
+
+    def parts(stage):
+        return [p for t in prog.stage_tasks(cpu, 0, stage) for p in GLOBAL_OPS.partition(t, 256.0)]
+
+    for e in range(prog.E):
+        TaskExecutor(cpu).execute_batch(parts(f"expert_{e}"))
+    prog._combine_expert(cpu, 0, 0)
+    card = spaces["cuda"]
+    for k, v in cpu.snapshot().items():
+        card.put(k, _to(v, cuda))
+    groups = [parts("route")] + [g for e in range(prog.E) for stage in ("expert", "grad")
+                                 if (g := parts(f"{stage}_{e}"))]
+    for group in groups:
+        body = GLOBAL_OPS.resolve(group[0].op).batch_fn
+        got = dict(body(ExecContext(card), group))
+        want = dict(body(ExecContext(cpu), group))
+        for k, v in got.items():
+            flat = v if isinstance(v, dict) else {"": v}
+            ref = want[k] if isinstance(v, dict) else {"": want[k]}
+            for f, x in flat.items():
+                assert x.is_cuda
+                torch.testing.assert_close(x.cpu(), ref[f], rtol=0, atol=TOL[torch.float32])
+        for t in group:
+            for k, v in body(ExecContext(card), [t]):
+                flat = v if isinstance(v, dict) else {"": v}
+                ref = got[k] if isinstance(v, dict) else {"": got[k]}
+                assert all(torch.equal(x, ref[f]) for f, x in flat.items()), k

@@ -106,7 +106,8 @@ def test_acan_runner_raises_without_cuda_unless_given_the_cpu(monkeypatch):
 
 def test_the_import_scans_cover_the_training_modules():
     """The two scans above walk every module of the port, the training
-    slice's, the ACAN runtime's and the paper experiments' among them."""
+    slice's, the ACAN runtime's, the paper experiments', and the process
+    fleet's and the MoE program's among them."""
     names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
     assert {"optim/optimizer.py", "data/pipeline.py", "core/gss.py",
             "distributed/watchdog.py", "checkpoint/checkpoint.py",
@@ -122,13 +123,18 @@ def test_the_import_scans_cover_the_training_modules():
             "kernels/_count.py"} <= names
     assert {"core/faults.py", "core/cloud.py", "core/__init__.py", "programs/mlp.py",
             "configs/paper_mlp.py"} <= names
+    assert {"core/space/wire.py", "core/space/server.py", "core/space/remote.py",
+            "core/workers.py", "programs/moe.py"} <= names
 
 
 def test_the_example_twins_import_only_the_port():
-    """The port's examples (``examples/torch_*.py``) import neither JAX nor
-    the reference, as the port's modules do not."""
-    examples = sorted((SRC.parent / "examples").glob("torch_*.py"))
-    assert "torch_acan_mlp_train.py" in [p.name for p in examples]
+    """The port's examples (``examples/torch_*.py`` and their helpers in
+    ``_torch_example_args.py``) import neither JAX nor the reference, as
+    the port's modules do not."""
+    examples = sorted((SRC.parent / "examples").glob("*torch_*.py"))
+    assert {"torch_acan_mlp_train.py", "torch_acan_moe_routing.py",
+            "torch_acan_multi_tenant.py", "_torch_example_args.py"} <= \
+        {p.name for p in examples}
     for path in examples:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):

@@ -7,8 +7,9 @@ go through ``repro.core.space.TupleSpace`` and
 result must be the same. Also: namespaces stay apart under
 ``ScopedSpace``, blocking calls time out with each package's
 ``TSTimeout``, the ledger verifies, the control-plane schemas are the
-reference's field for field, a ``remote`` spec raises, and the copies that
-the port keeps verbatim have the reference's code.
+reference's field for field, a ``remote`` spec builds the reference's
+client stack over a private server, and the copies that the port keeps
+verbatim have the reference's code.
 """
 
 import ast
@@ -18,6 +19,7 @@ import re
 from pathlib import Path
 
 import pytest
+import torch
 from _hypothesis_compat import given, settings, st
 
 from repro.core import space as ref_space
@@ -149,16 +151,55 @@ def test_control_schemas_match_the_reference_field_for_field():
     assert port_schema.LIFECYCLES == ref_schema.LIFECYCLES
 
 
+def _stack(backend) -> list:
+    """The backend stack's class names, outermost first, and the remote
+    client's hosted spec."""
+    names = []
+    while backend is not None:
+        names.append(type(backend).__name__)
+        if hasattr(backend, "server_spec"):
+            names.append(backend.server_spec)
+        backend = getattr(backend, "inner", None)
+    return names
+
+
+def _remote(backend):
+    while not hasattr(backend, "server_spec"):
+        backend = backend.inner
+    return backend
+
+
 @pytest.mark.parametrize("spec", ["remote", "remote+checked+sharded:4", "remote:local",
                                   "checked+remote+local"])
-def test_the_remote_spec_raises_instead_of_hosting_the_space_in_process(spec):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_space.make_backend(spec)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_space.TupleSpace(backend=spec)
+def test_a_remote_spec_builds_the_references_stack(spec):
+    """Each spec builds a client over a private server hosting the
+    reference's split of the spec, wrapped as the reference wraps it, and
+    the space behind it answers as the reference's does."""
+    ref = ref_space.TupleSpace(backend=spec)
+    port = port_space.TupleSpace(backend=spec, device="cpu")
+    try:
+        assert _stack(port.backend) == _stack(ref.backend)
+        assert isinstance(_remote(port.backend), port_space.RemoteBackend)
+        assert _remote(port.backend).device == torch.device("cpu")
+        for ts, pkg in ((ref, ref_space), (port, port_space)):
+            ts.put(("a", 1, 2), "v")
+            ts.put(("a", 1, 3), "w")
+        for ts, pkg in ((ref, ref_space), (port, port_space)):
+            assert ts.count(("a", 1, pkg.ANY)) == 2
+            assert sorted(ts.keys(("a", 1, pkg.ANY))) == [("a", 1, 2), ("a", 1, 3)]
+            assert ts.try_get(("a", 1, 2)) == (("a", 1, 2), "v")
+            assert ts.ledger.verify()
+    finally:
+        _remote(port.backend).close()
+        _remote(ref.backend).close()
+    if spec.startswith("remote"):         # a server hosting a client would recurse
+        for pkg in (ref_space, port_space):
+            with pytest.raises(ValueError, match="recurse"):
+                pkg.TSServer(spec)
 
 
 VERBATIM = ["core/tasks.py", "core/ledger.py", "core/space/api.py", "core/space/local.py",
+            "core/space/__init__.py", "core/__init__.py", "programs/__init__.py",
             "core/space/schema.py", "core/space/scoped.py", "core/space/checked.py",
             "core/space/instrumented.py", "core/space/sharded.py", "core/space/raced.py",
             "core/space/crashpoint.py", "core/conflict.py", "core/costmodel.py",
