@@ -6,7 +6,14 @@ each against its plain PyTorch version at the serving and training paths'
 shapes, times them, and drives the port's two serving paths through its
 ``serve`` entry point (batch 8 x 512-token prompts, 32 greedy tokens each):
 full-width smollm_360m (tile_matmul + flash_attention) and full-width,
-full-depth mamba2_2_7b (tile_matmul + ssd_scan); then its training path
+full-depth mamba2_2_7b (tile_matmul + ssd_scan); then the three
+dense-attention configs at full width, each its own phase and record:
+gemma3_12b at full depth (4 x 2048 prompts; sliding window, qk-norm,
+sandwich norms, flash_attention at D 256), h2o_danube_1_8b at full depth
+(2 x 8192; window 4096, D 80) and command_r_plus_104b at 8 of its 64 layers
+(8 x 512; parallel residual, G 12), each with exact launch counts, one
+prefill and one decode step profiled and float32 logits against the CPU's
+at 1e-4 (reduced depth); then its training path
 through ``train``: five AdamW steps of full-width, full-depth smollm_360m on
 8 x 512 tokens, every projection's forward and both gradient products
 through tile_matmul, every attention through flash_attention and its
@@ -46,7 +53,8 @@ Usage (from the repository root, on a host with a CUDA device)::
     python3 chip_smoke.py
 
 Prints the device and its power limit, one ``{"phase": ...}`` JSON line for
-each of the MLP phases, a ``{"kernels": [...]}`` line, and as the last line
+each of the dense-attention serves and of the MLP, fleet and MoE phases, a
+``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises
 and exits non-zero. Imports neither JAX nor the JAX package.
 """
@@ -274,12 +282,47 @@ def kernel_build_report(build, ptxas: dict) -> dict:
     return report
 
 
-FLASH_CASES = (  # (name, BH, G, Tq, Tkv, window, softcap)
-    ("causal", 40, 3, 512, 512, 0, 0.0),
-    ("window", 40, 3, 512, 512, 128, 0.0),
-    ("softcap", 40, 3, 512, 512, 0, 30.0),
-    ("q_offset", 40, 3, 256, 512, 0, 0.0),
+FLASH_CASES = (  # (name, BH, G, Tq, Tkv, D, window, softcap)
+    ("causal", 40, 3, 512, 512, 64, 0, 0.0),
+    ("window", 40, 3, 512, 512, 64, 128, 0.0),
+    ("softcap", 40, 3, 512, 512, 64, 0, 30.0),
+    ("q_offset", 40, 3, 256, 512, 64, 0, 0.0),
+    # The dense-attention configs' prefill layers at the shapes their serves
+    # launch: gemma3_12b's global and local (window 1024) layers (batch 4 x 8
+    # kv heads, G 2, D 256), h2o_danube_1_8b's (batch 2 x 8 kv heads, window
+    # 4096, G 4, D 80) and command_r_plus_104b's (batch 8 x 8 kv heads, G 12,
+    # D 128); then each new D with the other configs' G, windowed and global,
+    # Tq ragged.
+    ("gemma3_global", 32, 2, 2048, 2048, 256, 0, 0.0),
+    ("gemma3_local", 32, 2, 2048, 2048, 256, 1024, 0.0),
+    ("danube", 16, 4, 8192, 8192, 80, 4096, 0.0),
+    ("command_r", 64, 12, 512, 512, 128, 0, 0.0),
+    ("d256_g4_window_ragged", 8, 4, 1000, 1500, 256, 300, 0.0),
+    ("d256_g12_ragged", 4, 12, 333, 333, 256, 0, 0.0),
+    ("d80_g2_global_ragged", 8, 2, 1000, 1000, 80, 0, 0.0),
+    ("d80_g12_window_ragged", 4, 12, 777, 1200, 80, 256, 0.0),
 )
+
+
+def _flash_limit(ref: torch.Tensor, dtype) -> torch.Tensor:
+    """The forward's limit per element, TOL (|plain| + min(1, rms of the
+    plain output's row)). An output row that sees N keys is of size
+    sqrt(e / N), 0.03 at N = 4096, so a limit of TOL alone would hide a key
+    tile dropped or misplaced; the rows that see few keys are of size 1,
+    where P rounded to bf16 at other points than the plain version's moves
+    an element near 0 by about 2^-8 of its row."""
+    rms = ref.square().mean(-1, keepdim=True).sqrt().clamp(max=1.0)
+    return TOL[dtype] * (ref.abs() + rms)
+
+
+# The float32 scores the plain version holds at once, at most: it runs over
+# batch x kv-head slices of the layer where the whole would not fit.
+PLAIN_SCORE_BYTES = 2.2e9
+
+
+def _plain_step(bh: int, g: int, tq: int, tkv: int) -> int:
+    """Batch x kv-head slices of a layer the plain version takes at once."""
+    return max(1, min(bh, int(PLAIN_SCORE_BYTES // (g * tq * tkv * 4))))
 
 
 # The path each dtype must take at the checks' shapes.
@@ -293,27 +336,43 @@ def _took(fn, path: str, before: dict) -> None:
 
 
 def check_flash(fa_kernel, flash_attention_ref) -> dict:
-    """Kernel vs plain version at the serving shape and its window, softcap
-    and q_offset variants: the mma path in bf16, the ffma path in float32."""
-    err = {}
+    """Kernel vs plain version at the serving shapes of ``FLASH_CASES``
+    (smollm's with its window, softcap and q_offset variants, and the dense
+    configs' at D 80, 128 and 256), each case launched whole and held slice
+    by slice where the plain version's scores would not fit at once: the
+    mma path in bf16, the ffma path in float32, each element within
+    ``flash_limit``. Worst error per dtype, per path and per case; per case
+    also ``margin``, the largest |error| / limit (at most 1)."""
+    err: dict = {"by_case": {}}
     fn = fa_kernel.flash_attention
     for dtype in (torch.bfloat16, torch.float32):
         worst = 0.0
-        for name, bh, g, tq, tkv, window, softcap in FLASH_CASES:
-            q = _randn((bh, g, tq, 64), dtype, 1)
-            k = _randn((bh, tkv, 64), dtype, 2)
-            v = _randn((bh, tkv, 64), dtype, 3)
+        for name, bh, g, tq, tkv, d, window, softcap in FLASH_CASES:
+            q = _randn((bh, g, tq, d), dtype, 1)
+            k = _randn((bh, tkv, d), dtype, 2)
+            v = _randn((bh, tkv, d), dtype, 3)
             kw = dict(causal=True, window=window, softcap=softcap, q_offset=tkv - tq)
             before = dict(fn.paths)
             out = fn(q, k, v, **kw)
             _took(fn, DTYPE_PATH[dtype], before)
-            ref = flash_attention_ref(q, k, v, **kw)
-            torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype],
-                                       atol=TOL[dtype], msg=lambda m, c=name: f"{c}: {m}")
-            worst = max(worst, (out.float() - ref.float()).abs().max().item())
+            e = margin = 0.0
+            step = _plain_step(bh, g, tq, tkv)
+            for i in range(0, bh, step):
+                ref = flash_attention_ref(q[i:i + step], k[i:i + step], v[i:i + step],
+                                          **kw).float()
+                diff = (out[i:i + step].float() - ref).abs()
+                limit = _flash_limit(ref, dtype)
+                e = max(e, diff.max().item())
+                margin = max(margin, (diff / limit).max().item())
+                assert bool((diff <= limit).all()), (name, str(dtype), i, e, margin)
+                del ref, diff, limit
+            err["by_case"][f"{name} {dtype}"] = dict(max_abs_err=e, margin=margin)
+            worst = max(worst, e)
+            del q, k, v, out
         err[str(dtype)] = worst
         err[DTYPE_PATH[dtype]] = worst
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     return err
 
 
@@ -359,17 +418,20 @@ def check_tile_matmul_grad(tm_kernel, tile_matmul_ref) -> dict:
 
 def check_flash_bwd(fa_kernel, flash_attention_ref, flash_attention_bwd_ref) -> dict:
     """The backward kernels against the explicit formula at ``check_flash``'s
-    cases (the forward's lse against the plain version's first): the mma
-    path in bf16, the ffma path in float32; two launches give the same bits."""
+    training cases, D 64 (the forward's lse against the plain version's
+    first): the mma path in bf16, the ffma path in float32; two launches
+    give the same bits. D 80 and 256 have no backward kernel yet."""
     err = {}
     bwd = fa_kernel.flash_attention_bwd
     for dtype in (torch.bfloat16, torch.float32):
         worst = {"lse": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0}
-        for name, bh, g, tq, tkv, window, softcap in FLASH_CASES:
-            q = _randn((bh, g, tq, 64), dtype, 1)
-            k = _randn((bh, tkv, 64), dtype, 2)
-            v = _randn((bh, tkv, 64), dtype, 3)
-            do = _randn((bh, g, tq, 64), dtype, 4)
+        for name, bh, g, tq, tkv, d, window, softcap in FLASH_CASES:
+            if d != 64:
+                continue
+            q = _randn((bh, g, tq, d), dtype, 1)
+            k = _randn((bh, tkv, d), dtype, 2)
+            v = _randn((bh, tkv, d), dtype, 3)
+            do = _randn((bh, g, tq, d), dtype, 4)
             kw = dict(causal=True, window=window, softcap=softcap, q_offset=tkv - tq)
             o, lse = fa_kernel.flash_attention(q, k, v, return_lse=True, **kw)
             _, lse_ref = flash_attention_ref(q, k, v, return_lse=True, **kw)
@@ -438,33 +500,84 @@ def time_tile_matmul(tm_kernel, tile_matmul_ref) -> dict:
     return out
 
 
+# One prefill layer's attention of each served config, bf16, causal:
+# (batch, kv heads, G, T, D, window).
+FLASH_TIMED = {"smollm_360m": (BATCH, 5, 3, PROMPT, 64, 0),
+               "gemma3_12b global": (4, 8, 2, 2048, 256, 0),
+               "gemma3_12b local": (4, 8, 2, 2048, 256, 1024),
+               "h2o_danube_1_8b": (2, 8, 4, 8192, 80, 4096),
+               "command_r_plus_104b": (8, 8, 12, 512, 128, 0)}
+def _visible_pairs(tq: int, tkv: int, window: int) -> int:
+    """(query, key) pairs a causal, windowed query row block sees (q_offset
+    tkv - tq): the attention's work, counted as the kernel skips the rest."""
+    qpos = np.arange(tkv - tq, tkv)
+    lo = np.maximum(0, qpos - window + 1) if window > 0 else np.zeros_like(qpos)
+    return int((qpos + 1 - lo).sum())
+
+
+def _sdpa_backend(fn) -> str:
+    """Which of SDPA's kernels ``fn`` ran, from a torch.profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = " ".join(k for k, _, _ in _device_kernels(prof)).lower()
+    for backend, keys in (("cudnn", ("cudnn",)), ("flash", ("flash",)),
+                          ("efficient", ("fmha", "efficient", "cutlass"))):
+        if any(key in names for key in keys):
+            return backend
+    return "math"
+
+
 def time_flash(fa_kernel, flash_attention_ref) -> dict:
-    """Prefill attention of one layer, bf16: q (40, 3, 512, 64), causal,
-    through the mma path (``ms``) and, once, the ffma path (``ffma_ms``),
-    beside SDPA (``library_ms``); kernel and SDPA also by CUDA-graph replay
-    (``device_ms``, ``library_device_ms``)."""
-    dt, bh, g, t, d = torch.bfloat16, BATCH * 5, 3, PROMPT, 64
-    q = _randn((bh, g, t, d), dt, 1)
-    k = _randn((bh, t, d), dt, 2)
-    v = _randn((bh, t, d), dt, 3)
-    kern = _time_ms(lambda: fa_kernel.flash_attention(q, k, v, causal=True))
-    ffma = _time_ms(lambda: fa_kernel.flash_attention(q, k, v, causal=True, path="ffma"))
-    plain = _time_ms(lambda: flash_attention_ref(q, k, v, causal=True))
-    qs = q.reshape(BATCH, 15, t, d)
-    ks = k.reshape(BATCH, 5, t, d).repeat_interleave(g, dim=1)
-    vs = v.reshape(BATCH, 5, t, d).repeat_interleave(g, dim=1)
-    library = _time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True))
-    device = _graph_ms(lambda: fa_kernel.flash_attention(q, k, v, causal=True))
-    library_device = _graph_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs,
-                                                                      is_causal=True))
-    pairs = bh * g * t * (t + 1) // 2          # unmasked (query, key) pairs
-    flops = 4 * d * pairs
-    nbytes = (q.numel() * 2 + k.numel() + v.numel()) * 2
-    bound_ms, bound_by = _bound(flops, nbytes, dt)
-    return dict(ms=kern, ffma_ms=ffma, plain_ms=plain, library_ms=library,
-                vs_library=kern / library, device_ms=device,
-                library_device_ms=library_device, flop=flops, bytes=nbytes,
-                bound_ms=bound_ms, bound_by=bound_by)
+    """One prefill layer's attention of each served config (``FLASH_TIMED``),
+    bf16: the mma path (``ms``) and, once, the ffma path (``ffma_ms``), the
+    plain version (in batch x kv-head slices where its scores would not fit
+    at once), and SDPA (``library_ms``, K/V repeated to every head; a window
+    as a boolean mask, ``library_backend`` says which kernel SDPA took);
+    kernel and SDPA also by CUDA-graph replay (``device_ms``,
+    ``library_device_ms``)."""
+    dt, out = torch.bfloat16, {}
+    for name, (b, hkv, g, t, d, window) in FLASH_TIMED.items():
+        bh = b * hkv
+        q = _randn((bh, g, t, d), dt, 1)
+        k = _randn((bh, t, d), dt, 2)
+        v = _randn((bh, t, d), dt, 3)
+        kw = dict(causal=True, window=window)
+        kern = _time_ms(lambda: fa_kernel.flash_attention(q, k, v, **kw))
+        ffma = _time_ms(lambda: fa_kernel.flash_attention(q, k, v, path="ffma", **kw), iters=5)
+        step = _plain_step(bh, g, t, t)
+        plain = _time_ms(lambda: [flash_attention_ref(q[i:i + step], k[i:i + step],
+                                                      v[i:i + step], **kw)
+                                  for i in range(0, bh, step)], iters=3)
+        qs = q.reshape(b, hkv * g, t, d)
+        ks = k.reshape(b, hkv, t, d).repeat_interleave(g, dim=1)
+        vs = v.reshape(b, hkv, t, d).repeat_interleave(g, dim=1)
+        if window > 0:
+            pos = torch.arange(t, device="cuda")
+            mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+        else:
+            def sdpa():
+                return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        library = _time_ms(sdpa)
+        device = _graph_ms(lambda: fa_kernel.flash_attention(q, k, v, **kw))
+        library_device = _graph_ms(sdpa)
+        flops = 4 * d * bh * g * _visible_pairs(t, t, window)
+        nbytes = (q.numel() * 2 + k.numel() + v.numel()) * 2
+        bound_ms, bound_by = _bound(flops, nbytes, dt)
+        out[name] = dict(q_shape=(bh, g, t, d), window=window, ms=kern, ffma_ms=ffma,
+                         plain_ms=plain, plain_slices=-(-bh // step), library_ms=library,
+                         library_backend=_sdpa_backend(sdpa), vs_library=kern / library,
+                         device_ms=device, library_device_ms=library_device, flop=flops,
+                         bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by,
+                         vs_bound=device / bound_ms)
+        del q, k, v, qs, ks, vs
+        torch.cuda.empty_cache()
+    return out
 
 
 def time_tile_matmul_grad(tm_kernel, tile_matmul_ref, arch: str = "smollm_360m") -> dict:
@@ -716,12 +829,14 @@ def _read(counters: dict) -> dict:
     return {k: fn.launches for k, fn in counters.items()}
 
 
-def serve_path(serve, M, cfg, params, counters: dict) -> dict:
-    """Serve full-width ``cfg`` through ``serve``: a short warm-up serve
-    first, so the timed run holds no first-call set-up, then the timed run
-    with every launch count set to 0 just before it and read just after."""
-    kw = dict(reduced=False, batch=BATCH, prompt_len=PROMPT, cache_len=CACHE, seed=0,
-              device="cuda", params=params)
+def serve_path(serve, M, cfg, params, counters: dict, batch: int = BATCH,
+               prompt_len: int = PROMPT, cache_len: int = CACHE) -> dict:
+    """Serve ``cfg`` at full width and the depth of ``params`` through
+    ``serve``: a short warm-up serve first, so the timed run holds no
+    first-call set-up, then the timed run with every launch count set to 0
+    just before it and read just after."""
+    kw = dict(reduced=False, batch=batch, prompt_len=prompt_len, cache_len=cache_len,
+              seed=0, device="cuda", params=params)
     serve(cfg.name, gen=2, log=lambda _: None, **kw)
     torch.cuda.reset_peak_memory_stats()
     _zero(counters)
@@ -731,14 +846,14 @@ def serve_path(serve, M, cfg, params, counters: dict) -> dict:
     paths = by_path["tile_matmul"]
     peak = torch.cuda.max_memory_allocated()
     toks = res["tokens"]
-    assert toks.shape == (BATCH, GEN), toks.shape
+    assert toks.shape == (batch, GEN), toks.shape
     assert ((toks >= 0) & (toks < cfg.vocab)).all()
-    out = dict(arch=cfg.name, batch=BATCH, prompt_len=PROMPT, gen=GEN, cache_len=CACHE,
-               prefill_s=res["t_prefill"], decode_s=res["t_decode"],
-               decode_tok_s=BATCH * GEN / res["t_decode"], peak_mem_bytes=peak,
+    out = dict(arch=cfg.name, batch=batch, prompt_len=prompt_len, gen=GEN,
+               cache_len=cache_len, prefill_s=res["t_prefill"], decode_s=res["t_decode"],
+               decode_tok_s=batch * GEN / res["t_decode"], peak_mem_bytes=peak,
                launches=launches, tile_matmul_paths=paths, launches_by_path=by_path,
                params=M.param_count(cfg))
-    print(f"serve {cfg.name}: prefill {BATCH}x{PROMPT} {res['t_prefill']:.4f} s, decode "
+    print(f"serve {cfg.name}: prefill {batch}x{prompt_len} {res['t_prefill']:.4f} s, decode "
           f"{out['decode_tok_s']:.1f} tok/s, peak memory {peak / 2**30:.3f} GiB, "
           f"launches {launches}, by path {by_path}")
     # Every bf16 projection takes wgmma in prefill and skinny in decode;
@@ -750,20 +865,21 @@ def serve_path(serve, M, cfg, params, counters: dict) -> dict:
     return out
 
 
-def profile_steps(M, cfg, params, rehome, counters: dict) -> dict:
-    """One prefill (8 x 512) and one decode step of the served model: host
-    wall time without tracing (median of 3), device kernel time from a
-    torch.profiler trace of one more run, their ratio as the device's busy
-    share, the kernels that take the most device time, and the launches of
-    the traced run."""
+def profile_steps(M, cfg, params, rehome, counters: dict, batch: int = BATCH,
+                  prompt_len: int = PROMPT, cache_len: int = CACHE) -> dict:
+    """One prefill (``batch`` x ``prompt_len``) and one decode step of the
+    served model: host wall time without tracing (median of 3), device
+    kernel time from a torch.profiler trace of one more run, their ratio as
+    the device's busy share, the kernels that take the most device time, and
+    the launches of the traced run."""
     from torch.profiler import ProfilerActivity, profile
 
-    tokens = torch.as_tensor(np.random.default_rng(2).integers(0, cfg.vocab, (BATCH, PROMPT)),
-                             device="cuda")
+    tokens = torch.as_tensor(
+        np.random.default_rng(2).integers(0, cfg.vocab, (batch, prompt_len)), device="cuda")
     small, logits = M.prefill(params, cfg, {"tokens": tokens})
-    cache = rehome(M.init_cache(cfg, BATCH, CACHE, "cuda"), small)
+    cache = rehome(M.init_cache(cfg, batch, cache_len, "cuda"), small)
     del small
-    step = {"token": torch.argmax(logits, dim=-1), "cur_len": PROMPT}
+    step = {"token": torch.argmax(logits, dim=-1), "cur_len": prompt_len}
     fns = {"prefill": lambda: M.prefill(params, cfg, {"tokens": tokens}),
            "decode": lambda: M.decode_step(params, cfg, cache, step)}
     out = {}
@@ -791,19 +907,20 @@ def profile_steps(M, cfg, params, rehome, counters: dict) -> dict:
     return out
 
 
-def parity_f32(M, cfg, rehome, prompt_len: int) -> float:
+def parity_f32(M, cfg, rehome, prompt_len: int, batch: int = 2, tol: float = 1e-3) -> float:
     """Full-width float32 logits of ``cfg``: kernel path on the card vs the
-    plain path on the CPU, prefill of 2 x ``prompt_len`` tokens then 4
-    decode steps."""
+    plain path on the CPU, prefill of ``batch`` x ``prompt_len`` tokens then
+    4 decode steps, held at ``tol`` (relative and absolute)."""
     params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(1), "cuda",
                            dtype_override=torch.float32)
     plain = _to(params, "cpu")
-    tokens = np.random.default_rng(1).integers(0, cfg.vocab, (2, prompt_len))
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab, (batch, prompt_len))
     worst = 0.0
     runs = {}
     for dev, p in (("cuda", params), ("cpu", plain)):
         caches, logits = M.prefill(p, cfg, {"tokens": torch.as_tensor(tokens, device=dev)})
-        cache = rehome(M.init_cache(cfg, 2, prompt_len + 8, dev, dtype=torch.float32), caches)
+        cache = rehome(M.init_cache(cfg, batch, prompt_len + 8, dev, dtype=torch.float32),
+                       caches)
         runs[dev] = (p, cache, [logits.cpu()])
     for step in range(4):
         tok = torch.argmax(runs["cpu"][2][-1], dim=-1)
@@ -812,9 +929,151 @@ def parity_f32(M, cfg, rehome, prompt_len: int) -> float:
                                       {"token": tok.to(dev), "cur_len": prompt_len + step})
             outs.append(logits.cpu())
     for got, want in zip(runs["cuda"][2], runs["cpu"][2]):
-        torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
         worst = max(worst, (got - want).abs().max().item())
     return worst
+
+
+# The dense-attention configs (gemma3_12b: sliding window, qk-norm,
+# sandwich norms, embeddings scaled by sqrt(d), D 256; h2o_danube_1_8b:
+# window 4096, D 80; command_r_plus_104b: parallel residual, G 12), each
+# served at full width: its serving run (batch, prompt, decode cache), its
+# depth (all of it, but command_r's 64 layers, 208 GB in bf16, are cut to 8)
+# and its float32 parity run (periods kept, batch, prompt; each prompt longer
+# than the window, so the ring runs at full width). gemma3's parity run keeps
+# one local and one global layer; command_r's one layer (6.3 GB in float32,
+# beside a 12.6 GB embedding).
+DENSE_SERVE = {
+    "gemma3_12b": dict(run=dict(batch=4, prompt_len=2048, cache_len=4096), n_periods=None,
+                       parity_periods=1, parity=dict(batch=2, prompt_len=1280)),
+    "h2o_danube_1_8b": dict(run=dict(batch=2, prompt_len=8192, cache_len=8224),
+                            n_periods=None, parity_periods=2,
+                            parity=dict(batch=1, prompt_len=4608)),
+    "command_r_plus_104b": dict(run=dict(batch=BATCH, prompt_len=PROMPT, cache_len=CACHE),
+                                n_periods=8, parity_periods=1,
+                                parity=dict(batch=2, prompt_len=256)),
+}
+DENSE_PARITY_TOL = 1e-4
+
+
+def _leaves(tree) -> list:
+    """The tensors of a tree of dicts, lists and tuples."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [t for v in (tree.values() if isinstance(tree, dict) else tree) for t in _leaves(v)]
+
+
+def _layer_projections(M, cfg) -> list[tuple[int, int, str]]:
+    """(K, N, activation) of each projection of each distinct layer of
+    ``cfg``, from the model's parameter specs (the SwiGLU gate's SiLU is
+    fused into its product)."""
+    out = []
+
+    def walk(tree, key=""):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, k)
+        elif len(tree.shape) == 3:  # stacked on n_periods
+            out.append((tree.shape[1], tree.shape[2], "silu" if key == "w_gate" else "none"))
+
+    for spec in M.param_specs(cfg)["period"]:
+        walk(spec)
+    return sorted(set(out))
+
+
+def check_dense_projections(tm_kernel, tile_matmul_ref, M, get_config) -> dict:
+    """tile_matmul against its plain version at each projection of the
+    dense configs, bf16, at their prefill M (wgmma) and decode M (skinny):
+    the first launches at K 12288 and 33792 (command_r's widths)."""
+    err, paths = {}, tm_kernel.tile_matmul.paths
+    for arch, spec in DENSE_SERVE.items():
+        run = spec["run"]
+        for m, path in ((run["batch"] * run["prompt_len"], "wgmma"), (run["batch"], "skinny")):
+            for k, n, act in _layer_projections(M, get_config(arch)):
+                x = _randn((m, k), torch.bfloat16, m + k)
+                w = _randn((k, n), torch.bfloat16, n, k ** -0.5)
+                before = dict(paths)
+                out = tm_kernel.tile_matmul(x, w, activation=act)
+                _took(tm_kernel.tile_matmul, path, before)
+                ref = tile_matmul_ref(x, w, activation=act)
+                torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[torch.bfloat16],
+                                           atol=TOL[torch.bfloat16],
+                                           msg=lambda e, c=(arch, m, k, n): f"{c}: {e}")
+                err[f"{arch} {m}x{k}x{n}"] = (out.float() - ref.float()).abs().max().item()
+                del x, w, out, ref
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return err
+
+
+def dense_serve(serve, M, rehome, get_config, arch: str, counters: dict) -> dict:
+    """Serve ``arch`` at full width through ``serve`` from seeded random
+    weights, as ``DENSE_SERVE`` sizes it: every launch counted (tile_matmul
+    once for each weight matrix of each layer, a forward pass, prefill and
+    every decode step; flash_attention once a layer in prefill and never in
+    decode; no other kernel), one prefill and one decode step profiled, then
+    float32 logits of the kernel path against the CPU's at
+    ``DENSE_PARITY_TOL``, the depth cut to the parity run's layers."""
+    spec = DENSE_SERVE[arch]
+    cfg = get_config(arch)
+    if spec["n_periods"] is not None:
+        cfg = dataclasses.replace(cfg, n_periods=spec["n_periods"])
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    # Each layer's weight matrices: one tile_matmul launch each a forward pass.
+    projections = sum(t.dim() == 2 for t in _leaves((params["prefix"], params["period"])))
+    out = serve_path(serve, M, cfg, params, counters, **spec["run"])
+    want = dict.fromkeys(counters, 0) | {"tile_matmul": projections * (1 + GEN),
+                                         "flash_attention": cfg.n_layers}
+    assert out["launches"] == want, (out["launches"], want)
+    prof = out["profile"] = profile_steps(M, cfg, params, rehome, counters, **spec["run"])
+    _print_profile(cfg.name, prof)
+    for phase, flash in (("prefill", cfg.n_layers), ("decode", 0)):
+        assert prof[phase]["launches"] == want | {"tile_matmul": projections,
+                                                  "flash_attention": flash}, prof[phase]
+    out.update(layers=cfg.n_layers, projections=projections,
+               param_bytes=sum(t.numel() * t.element_size()
+                               for t in _leaves(params)))
+    if spec["n_periods"] is not None:
+        full = get_config(arch)
+        out["reduced"] = {"n_periods": f"{full.n_periods} -> {cfg.n_periods}"}
+    del params
+    torch.cuda.empty_cache()
+    pcfg = _parity_config(get_config(arch), spec["parity_periods"])
+    out["parity_f32"] = dict(layers=pcfg.n_layers, **spec["parity"])
+    out["parity_f32_max_err"] = parity_f32(M, pcfg, rehome, tol=DENSE_PARITY_TOL,
+                                           **spec["parity"])
+    print(f"parity f32 {arch} full width, {pcfg.n_layers} layers, "
+          f"{spec['parity']['batch']}x{spec['parity']['prompt_len']}: max |logit err| "
+          f"{out['parity_f32_max_err']:.3e}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def _parity_config(cfg, n_periods: int):
+    """``cfg`` at full width with ``n_periods`` repetitions of its period,
+    a mixed period cut to its first and last layers (gemma3: one local, one
+    global)."""
+    return dataclasses.replace(cfg, period=tuple(dict.fromkeys((cfg.period[0],
+                                                                cfg.period[-1]))),
+                               n_periods=n_periods)
+
+
+def serve_gemma3(serve, M, rehome, get_config, counters: dict) -> dict:
+    """gemma3_12b at full width and depth: 48 layers, 5 local (window 1024)
+    to 1 global, qk-norm, sandwich norms, head dim 256."""
+    return dense_serve(serve, M, rehome, get_config, "gemma3_12b", counters)
+
+
+def serve_danube(serve, M, rehome, get_config, counters: dict) -> dict:
+    """h2o_danube_1_8b at full width and depth: 24 layers, window 4096,
+    head dim 80, an untied head."""
+    return dense_serve(serve, M, rehome, get_config, "h2o_danube_1_8b", counters)
+
+
+def serve_command_r(serve, M, rehome, get_config, counters: dict) -> dict:
+    """command_r_plus_104b at full width, 8 of its 64 layers: parallel
+    residual blocks, G 12, K up to 33792."""
+    return dense_serve(serve, M, rehome, get_config, "command_r_plus_104b", counters)
 
 
 TRAIN_STEPS = 5
@@ -1802,16 +2061,21 @@ def main() -> int:
     detail["tile_matmul_grad_err"] = check_tile_matmul_grad(tm_kernel, tile_matmul_ref)
     detail["flash_attention_bwd_err"] = check_flash_bwd(fa_kernel, flash_attention_ref,
                                                         flash_attention_bwd_ref)
+    detail["dense_projections_err"] = check_dense_projections(tm_kernel, tile_matmul_ref, M,
+                                                              get_config)
     detail["ssd_scan_bwd_err"] = check_ssd_bwd(ssd_kernel, ssd_plain_bwd)
     detail["mlp_ops"] = check_mlp_ops(tm_kernel, tile_matmul_ref)
     _record("check_mlp_ops", detail["mlp_ops"])
     detail["moe_ops"] = check_moe_ops(tm_kernel, tile_matmul_ref)
     _record("check_moe_ops", detail["moe_ops"])
     print(f"checks: tile_matmul max |err| {detail['tile_matmul_err']}, "
-          f"flash_attention max |err| {detail['flash_attention_err']}, "
+          f"flash_attention max |err| "
+          f"{ {k: v for k, v in detail['flash_attention_err'].items() if k != 'by_case'} }, "
           f"ssd_scan max |err| {detail['ssd_scan_err']}, "
           f"tile_matmul dx/dw max |err| {detail['tile_matmul_grad_err']}, "
           f"flash_attention_bwd max |err| {detail['flash_attention_bwd_err']}, "
+          f"dense configs' projections max |err| "
+          f"{max(detail['dense_projections_err'].values())}, "
           f"ssd_scan_bwd max |err| / max |grad| {detail['ssd_scan_bwd_err']}")
 
     # 4. Times: kernel, plain version, one PyTorch call as yardstick.
@@ -1862,8 +2126,22 @@ def main() -> int:
           f"{detail['parity_f32_mamba2_max_err']:.3e}")
     torch.cuda.empty_cache()
 
-    # 7. Path 3: train full-width, full-depth smollm_360m through ``train``.
-    # 8. Path 4: the same for full-width, full-depth mamba2_2_7b.
+    # 7. Paths 3-5: serve the dense-attention configs at full width (gemma3
+    # and danube at full depth, command_r at 8 of 64 layers): every
+    # projection through tile_matmul, every prefill attention through
+    # flash_attention at D 256, 80 and 128; float32 logits against the CPU.
+    t0 = time.perf_counter()
+    g3 = detail["serve_gemma3"] = serve_gemma3(serve, M, rehome, get_config, counters)
+    _record("serve_gemma3_12b", g3)
+    dn = detail["serve_danube"] = serve_danube(serve, M, rehome, get_config, counters)
+    _record("serve_h2o_danube_1_8b", dn)
+    cr = detail["serve_command_r"] = serve_command_r(serve, M, rehome, get_config, counters)
+    _record("serve_command_r_plus_104b", cr)
+    detail["dense_serve_s"] = time.perf_counter() - t0
+    print(f"dense-attention serve phases: {detail['dense_serve_s']:.1f} s")
+
+    # 8. Path 6: train full-width, full-depth smollm_360m through ``train``.
+    # 9. Path 7: the same for full-width, full-depth mamba2_2_7b.
     trains = {}
     for key, tcfg in (("", cfg), ("_mamba2", mcfg)):
         tr, res = train_path(train, tcfg, counters)
@@ -1884,7 +2162,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     tr, mt = trains[cfg.name], trains[mcfg.name]
 
-    # 9. Path 5: train full-width, full-depth smollm_360m through the ACAN
+    # 10. Path 8: train full-width, full-depth smollm_360m through the ACAN
     # runner (Manager and Handler threads over the tuple space), with and
     # without handler crashes; one step profiled; float32 against the CPU.
     ac = detail["acan"] = acan_path(step_runner, M, cfg, counters)
@@ -1902,7 +2180,7 @@ def main() -> int:
     print(f"parity f32 acan {cfg.name} full width, 4 layers: {detail['parity_acan_f32']}")
     torch.cuda.empty_cache()
 
-    # 10. Path 6: the paper's three experiments at its width, the MLP's tile
+    # 11. Path 9: the paper's three experiments at its width, the MLP's tile
     # products through tile_matmul (float32 skinny / ffma); the float32 MLP
     # against the CPU's; the MLP and full-width smollm_360m as two tenants of
     # one cloud under Manager and Handler crashes.
@@ -1914,31 +2192,33 @@ def main() -> int:
     _record("cloud_tenants", ct)
     torch.cuda.empty_cache()
 
-    # 11. Path 7: the paper's exp 1 on the thread fleet and on the process
+    # 12. Path 10: the paper's exp 1 on the thread fleet and on the process
     # fleet (worker processes on the card, their launches read from the
     # counts they write), with and without SIGKILLed workers; CUDA tensors
     # through a remote space.
     pf = detail["process_fleet"] = process_fleet(counters)
     _record("process_fleet", pf)
 
-    # 12. Path 8: the MoE routing program on the card, fault-free and under
+    # 13. Path 11: the MoE routing program on the card, fault-free and under
     # crashes, against the CPU.
     mp = detail["moe"] = moe_path(counters)
     _record("moe_path", mp)
 
-    # 13. Results. A kernel that runs on several paths: its launches are the sum.
+    # 14. Results. A kernel that runs on several paths: its launches are the sum.
     tmt, fat = detail["tile_matmul_time"]["prefill"], detail["flash_attention_time"]
+    fat = fat["smollm_360m"]
     sst, gt = detail["ssd_scan_time"], detail["tile_matmul_grad_time"]
     fbt, sbt = detail["flash_attention_bwd_time"], detail["ssd_scan_bwd_time"]
-    runs = (sm, ms, tr, mt, ac, pp, ct, pf, mp)
+    runs = (sm, ms, g3, dn, cr, tr, mt, ac, pp, ct, pf, mp)
     mlp_t = detail["mlp_ops"]["times"]["256x256"]
     moe_t = detail["moe_ops"]["times"]
 
     def summed(name: str) -> dict:
-        """Launches of ``name`` over the nine paths (the ACAN path's
-        crash-free run, the paper's four MLP runs, the two-tenant cloud's
-        crash run, exp 1's three fleet runs with the workers' own
-        launches, the MoE's six runs on the card), in all and by path."""
+        """Launches of ``name`` over the twelve paths (the five serves, the
+        two train runs, the ACAN path's crash-free run, the paper's four MLP
+        runs, the two-tenant cloud's crash run, exp 1's three fleet runs
+        with the workers' own launches, the MoE's six runs on the card), in
+        all and by path."""
         by = {p: sum(r["launches_by_path"][name][p] for r in runs)
               for p in sm["launches_by_path"][name]}
         return dict(launches=sum(r["launches"][name] for r in runs), launches_by_path=by)
@@ -1988,7 +2268,12 @@ def main() -> int:
              bound_by=fat["bound_by"], library_ms=fat["library_ms"], ffma_ms=fat["ffma_ms"],
              device_ms=fat["device_ms"], library_device_ms=fat["library_device_ms"],
              timed="one layer's prefill attention, q (40, 3, 512, 64), causal, bf16, "
-                   "mma path"),
+                   "mma path; the dense configs' layers under by_config",
+             by_config={k: {key: t[key] for key in (
+                 "q_shape", "window", "ms", "device_ms", "plain_ms", "library_ms",
+                 "library_device_ms", "library_backend", "bound_ms", "bound_by", "ffma_ms")}
+                 for k, t in detail["flash_attention_time"].items() if k != "smollm_360m"},
+             err_by_case=detail["flash_attention_err"]["by_case"]),
         dict(name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan/kernel.py:70",
              **summed("ssd_scan"),

@@ -33,9 +33,16 @@
 //    gathered once with cp.async (each folded row is a contiguous run of D
 //    values) and kept in registers as A fragments (ldmatrix). K/V tiles of
 //    64 keys stream through a two-stage cp.async ring in padded shared
-//    memory (row stride D + 8, so ldmatrix is free of bank conflicts): the
-//    next tile loads while this one is multiplied. K enters S = QK^T through
-//    ldmatrix, V enters PV through ldmatrix.trans. The online softmax runs on
+//    memory (row stride D + 8, so ldmatrix is free of bank conflicts: the
+//    stride is 16 bytes past a multiple of 32 words for every D here, 80
+//    and 256 included, so the 8 row addresses of an ldmatrix start in 8
+//    distinct 4-bank groups): the next tile loads while this one is
+//    multiplied. Head dims 16, 32, 64, 80 (h2o-danube), 128 and 256
+//    (gemma3). At D = 256 (about 1.4e11 FLOP against 0.2 GB in a global
+//    gemma3 layer's prefill: bound by operations) the output accumulator
+//    takes 128 registers a thread, so Q stays in shared memory (one
+//    ldmatrix a k-step) and K/V tiles hold 32 keys. K enters S = QK^T
+//    through ldmatrix, V enters PV through ldmatrix.trans. The online softmax runs on
 //    the S accumulators in registers (a row lives in a quad of lanes: two
 //    shfl_xor for its max and sum), and P, rounded to bf16, is the A
 //    fragment of PV as it stands: the m16n8 accumulator layout is the
@@ -231,7 +238,6 @@ flash_fwd_ffma(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 // ---------------------------------------------------------------------------
 constexpr int PAD = 8;  // bf16 elements past each shared row: 16 bytes
 constexpr int MMA_WARPS = 4;               // 16 folded rows each
-constexpr int MMA_BK = 64;                 // keys a K/V tile holds
 constexpr int MMA_ROWS = 16 * MMA_WARPS;   // rows a block owns
 constexpr int MMA_THREADS = 32 * MMA_WARPS;
 constexpr float LOG2E = 1.4426950408889634f;
@@ -280,9 +286,24 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// Keys a K/V tile holds. At D = 256 a thread's output accumulator alone is
+// D / 8 * 4 = 128 floats, so the key tile halves (S takes 16 registers, not
+// 32) and the shared memory with it (101 KB, two blocks an SM).
+template <int D>
+__host__ __device__ constexpr int mma_bk() {
+  return D > 128 ? 32 : 64;
+}
+// Q kept in registers as A fragments (D / 16 * 4 registers) up to D = 128;
+// at D = 256 those 64 registers do not fit beside the accumulator, and each
+// k-step reads its Q fragment from the shared tile Q was gathered into.
+template <int D>
+__host__ __device__ constexpr bool mma_q_in_regs() {
+  return D <= 128;
+}
+
 template <int D>
 constexpr int mma_smem_bytes() {
-  return (MMA_ROWS + 4 * MMA_BK) * (D + PAD) * 2;  // Q, and two stages of K and V
+  return (MMA_ROWS + 4 * mma_bk<D>()) * (D + PAD) * 2;  // Q, and two stages of K and V
 }
 
 template <int D>
@@ -293,13 +314,16 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
               float softcap, int q_offset, float scale) {
   constexpr int LD = D + PAD;   // shared row stride (elements)
   constexpr int KC = D / 16;    // k-steps of S = QK^T
-  constexpr int DT = D / 8;     // 8-wide column tiles of the output
+  constexpr int DT = D / 8;     // 8-wide column tiles of the output (even: D % 16 == 0)
   constexpr int CPR = D / 8;    // 16-byte pieces of a row
-  constexpr int NT = MMA_BK / 8;  // 8-key tiles of S
+  constexpr int BK = mma_bk<D>();
+  constexpr int NT = BK / 8;    // 8-key tiles of S
+  constexpr bool Q_REGS = mma_q_in_regs<D>();
+  static_assert(D % 16 == 0 && BK % 16 == 0, "k-steps of 16");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [MMA_ROWS][LD]
-  __nv_bfloat16* Ks = Qs + MMA_ROWS * LD;                          // [2][MMA_BK][LD]
-  __nv_bfloat16* Vs = Ks + 2 * MMA_BK * LD;                        // [2][MMA_BK][LD]
+  __nv_bfloat16* Ks = Qs + MMA_ROWS * LD;                          // [2][BK][LD]
+  __nv_bfloat16* Vs = Ks + 2 * BK * LD;                            // [2][BK][LD]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
@@ -325,13 +349,13 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   const int qmin = q_offset + r0 / G;
   const int qmax = q_offset + (min(R, r0 + MMA_ROWS) - 1) / G;
   const int kv_end = causal ? min(Tkv, qmax + 1) : Tkv;
-  const int kv_begin = window > 0 ? max(0, qmin - window + 1) / MMA_BK * MMA_BK : 0;
+  const int kv_begin = window > 0 ? max(0, qmin - window + 1) / BK * BK : 0;
 
   auto load_kv = [&](int kv0, int stage) {
-    __nv_bfloat16* ks = Ks + stage * MMA_BK * LD;
-    __nv_bfloat16* vs = Vs + stage * MMA_BK * LD;
+    __nv_bfloat16* ks = Ks + stage * BK * LD;
+    __nv_bfloat16* vs = Vs + stage * BK * LD;
 #pragma unroll 1
-    for (int i = tid; i < MMA_BK * CPR; i += MMA_THREADS) {
+    for (int i = tid; i < BK * CPR; i += MMA_THREADS) {
       const int r = i / CPR, c = (i % CPR) * 8, kp = kv0 + r;
       const bool in = kp < Tkv;
       const size_t off = in ? (size_t)kp * D + c : 0;
@@ -350,7 +374,9 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
     const int rr = r0 + wrow + g + 8 * h;
     qpos[h] = q_offset + (rr < R ? rr / G : 0);
   }
-  uint32_t qf[KC][4];
+  // Q's A fragment of k-step kc (rows wrow .. wrow + 15, columns 16 kc ..).
+  const uint32_t q_addr = smem_u32(Qs + (wrow + (lane & 15)) * LD + ((lane >> 4) << 3));
+  uint32_t qf[Q_REGS ? KC : 1][4];
   float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f};
   float acc[DT][4];
 #pragma unroll
@@ -359,38 +385,47 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
   int stage = 0;
-  for (int kv0 = kv_begin; kv0 < kv_end; kv0 += MMA_BK, stage ^= 1) {
-    if (kv0 + MMA_BK < kv_end) load_kv(kv0 + MMA_BK, stage ^ 1);
+  for (int kv0 = kv_begin; kv0 < kv_end; kv0 += BK, stage ^= 1) {
+    if (kv0 + BK < kv_end) load_kv(kv0 + BK, stage ^ 1);
     cp_async_commit();
     cp_async_wait<1>();  // this tile (and Q) landed; the next stays in flight
     __syncthreads();
-    if (kv0 == kv_begin) {
+    if constexpr (Q_REGS) {
+      if (kv0 == kv_begin) {
 #pragma unroll
-      for (int kc = 0; kc < KC; ++kc)
-        ldsm_x4(qf[kc], smem_u32(Qs + (wrow + (lane & 15)) * LD + kc * 16 + ((lane >> 4) << 3)));
+        for (int kc = 0; kc < KC; ++kc) ldsm_x4(qf[kc], q_addr + kc * 32);
+      }
     }
-    const __nv_bfloat16* ks = Ks + stage * MMA_BK * LD;
-    const __nv_bfloat16* vs = Vs + stage * MMA_BK * LD;
+    const __nv_bfloat16* ks = Ks + stage * BK * LD;
+    const __nv_bfloat16* vs = Vs + stage * BK * LD;
 
-    // S = Q K^T: 16 rows x MMA_BK keys a warp, NT 8-key tiles.
+    // S = Q K^T: 16 rows x BK keys a warp, NT 8-key tiles.
     float s[NT][4];
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-    for (int kc = 0; kc < KC; ++kc)
+    for (int kc = 0; kc < KC; ++kc) {
+      uint32_t a[4];
+      if constexpr (Q_REGS) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = qf[kc][e];
+      } else {
+        ldsm_x4(a, q_addr + kc * 32);  // 16 bf16 columns: 32 bytes a k-step
+      }
 #pragma unroll
       for (int np = 0; np < NT / 2; ++np) {
         uint32_t b[4];
         const int key = np * 16 + ((lane >> 4) << 3) + (lane & 7);
         ldsm_x4(b, smem_u32(ks + key * LD + kc * 16 + (((lane >> 3) & 1) << 3)));
-        mma_bf16(s[2 * np], qf[kc], b[0], b[1]);
-        mma_bf16(s[2 * np + 1], qf[kc], b[2], b[3]);
+        mma_bf16(s[2 * np], a, b[0], b[1]);
+        mma_bf16(s[2 * np + 1], a, b[2], b[3]);
       }
+    }
 
     // Online softmax in the log2 domain; masks only where the tile needs them.
-    const bool masked = kv0 + MMA_BK > Tkv || (causal && kv0 + MMA_BK - 1 > qmin) ||
+    const bool masked = kv0 + BK > Tkv || (causal && kv0 + BK - 1 > qmin) ||
                         (window > 0 && kv0 <= qmax - window);
     float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
@@ -495,7 +530,7 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
 // Launch.
 // ---------------------------------------------------------------------------
 bool path_fits(int path, int dtype, int D, bool aligned) {
-  const bool d_ok = D == 16 || D == 32 || D == 64 || D == 128;
+  const bool d_ok = D == 16 || D == 32 || D == 64 || D == 80 || D == 128 || D == 256;
   switch (path) {
     case PATH_MMA: return d_ok && dtype == 1 && aligned;
     case PATH_FFMA: return d_ok && (dtype == 0 || dtype == 1);
@@ -539,14 +574,16 @@ cudaError_t dispatch(int path, int D, const void* q, const void* k, const void* 
     case 16: return launch<T, 16>(path, q, k, v, o, lse, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s);
     case 32: return launch<T, 32>(path, q, k, v, o, lse, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s);
     case 64: return launch<T, 64>(path, q, k, v, o, lse, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s);
+    case 80: return launch<T, 80>(path, q, k, v, o, lse, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s);
     case 128: return launch<T, 128>(path, q, k, v, o, lse, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s);
+    case 256: return launch<T, 256>(path, q, k, v, o, lse, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16. D in {16, 32, 64, 128}. path: 0 =
+// dtype codes: 0 = float32, 1 = bfloat16. D in {16, 32, 64, 80, 128, 256}. path: 0 =
 // mma (bf16, q/k/v/o 16-byte aligned), 1 = ffma. lse: float32 (BH, G, Tq)
 // or null. Returns the CUDA error of the launch (cudaErrorInvalidValue for a
 // path the inputs cannot take); 0 means launched.

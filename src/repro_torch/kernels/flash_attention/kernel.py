@@ -14,7 +14,8 @@ switches):
 
 - ``mma``: bf16 with 16-byte aligned q, k, v and output (every serving
   prefill). Both products on bf16 tensor cores (``mma.sync.m16n8k16``),
-  Q and P in registers, K/V tiles in a two-stage ``cp.async`` ring.
+  Q (up to D = 128) and P in registers, K/V tiles in a two-stage
+  ``cp.async`` ring.
 - ``ffma``: float32, for the 2e-4 parity runs, and bf16 the ``mma`` path
   cannot take. True float32 FFMA.
 
@@ -25,8 +26,9 @@ counts them per path. The source's header says what bounds each on the card.
 (``return_lse``), which :func:`flash_attention_bwd` takes with the output to
 launch the backward (``csrc/flash_attention_bwd.cu``: a dQ kernel, then a
 dK/dV kernel, no atomics), with the forward's two paths: ``mma`` (bf16 on
-tensor cores) and ``ffma`` (float32). ``flash_attention_bwd.launches`` and
-``.paths`` count its calls.
+tensor cores) and ``ffma`` (float32), at the head dims of ``BWD_HEAD_DIMS``
+(not yet 80 or 256, which the forward takes). ``flash_attention_bwd.launches``
+and ``.paths`` count its calls.
 """
 
 from __future__ import annotations
@@ -40,7 +42,10 @@ from repro_torch.kernels import _build, _count
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 PATH_CODES = {"mma": 0, "ffma": 1}
-HEAD_DIMS = (16, 32, 64, 128)
+# Head dims the forward kernels take (80: h2o_danube_1_8b, 256: gemma3_12b)
+# and the fewer the backward kernels take.
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+BWD_HEAD_DIMS = (16, 32, 64, 128)
 
 
 def choose_path(dtype: torch.dtype, d: int, aligned: bool) -> str:
@@ -122,17 +127,20 @@ def bwd_tile_visible(G: int, Tq: int, Tkv: int, r0: int, kv0: int, *, causal: bo
     return ok
 
 
-def _check(q, k, v) -> None:
-    """Raises on inputs no kernel takes: CUDA, shapes, dtype, contiguity."""
-    if not (q.is_cuda and k.is_cuda and v.is_cuda):
-        raise ValueError("flash_attention kernel needs CUDA tensors")
+def _check(q, k, v, head_dims=HEAD_DIMS) -> None:
+    """Raises on inputs no kernel takes: shapes, head dim (one of
+    ``head_dims``), CUDA, dtype, contiguity."""
     if q.dim() != 4 or k.dim() != 3 or v.shape != k.shape:
         raise ValueError(f"bad shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
     BH, D = q.shape[0], q.shape[3]
-    if k.shape[0] != BH or k.shape[2] != D or D not in HEAD_DIMS:
-        raise ValueError(f"need k (BH, Tkv, D) with D in {HEAD_DIMS}; "
-                         f"got q {tuple(q.shape)}, k {tuple(k.shape)}")
+    if k.shape[0] != BH or k.shape[2] != D or D not in head_dims:
+        note = (f"; the forward takes D {D}, its backward waits for slice 13 of the "
+                "port (ROADMAP.md §1)" if D in HEAD_DIMS and D not in head_dims else "")
+        raise ValueError(f"need k (BH, Tkv, D) with D in {head_dims}; "
+                         f"got q {tuple(q.shape)}, k {tuple(k.shape)}{note}")
+    if not (q.is_cuda and k.is_cuda and v.is_cuda):
+        raise ValueError("flash_attention kernel needs CUDA tensors")
     if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"dtypes {q.dtype}/{k.dtype}/{v.dtype}: need one of "
                          "float32, bfloat16")
@@ -182,8 +190,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     output was ``o`` and row log-sum-exp ``lse``, for the output gradient
     ``do``; same shapes and layout as q, k, v. On CUDA; raises on anything
     the kernels do not take. ``path`` as :func:`flash_attention`'s, picked
-    by the same rule: ``mma`` for aligned bf16, else ``ffma``."""
-    _check(q, k, v)
+    by the same rule: ``mma`` for aligned bf16, else ``ffma``. Head dims 80
+    and 256, which the forward takes, have no backward kernel yet: training
+    h2o_danube_1_8b and gemma3_12b is slice 13 of ROADMAP.md's port."""
+    _check(q, k, v, BWD_HEAD_DIMS)
     BH, G, Tq, D = q.shape
     Tkv = k.shape[1]
     if o.shape != q.shape or do.shape != q.shape or lse.shape != (BH, G, Tq):

@@ -10,11 +10,17 @@ Usage::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_360m --full
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_2_7b --full
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3_12b --device cpu
+
+``--arch`` takes ``smollm_360m``, ``mamba2_2_7b``, ``gemma3_12b``,
+``h2o_danube_1_8b`` and ``command_r_plus_104b``; without ``--full`` the
+reduced config.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -50,9 +56,12 @@ def serve(arch: str, *, reduced: bool = True, batch: int = 4,
           seed: int = 0, greedy: bool = True, log=print, device=None,
           params: dict | None = None) -> dict:
     """``params`` (optional) replaces the seeded random init, e.g. weights
-    carried over with :mod:`repro_torch.checkpoint.convert`."""
+    carried over with :mod:`repro_torch.checkpoint.convert`; the model runs
+    at their depth (a model too deep for one card, cut in depth)."""
     dev = resolve_device(device)
     cfg = get_config(arch, reduced=reduced)
+    if params is not None:
+        cfg = dataclasses.replace(cfg, n_periods=len(params["period"][0]))
     rng = np.random.default_rng(seed)
     if params is None:
         params = M.init_params(
@@ -92,9 +101,18 @@ def rehome(big, small):
     """Copy a prefill cache into the fixed-capacity decode cache ``big``, in
     place, leaf by leaf as the reference's ``rehome``: a leaf whose shape
     agrees (an SSM state, a conv buffer) is copied whole, otherwise it fills
-    the start of the single axis that differs (the cache sequence axis:
-    prompt position p lives at slot p; ring layouts agree as long as
-    window <= prompt_len, which the configs guarantee). Returns ``big``."""
+    the start of the single axis that differs (the cache sequence axis).
+    Returns ``big``.
+
+    A sliding-window layer's prefill cache holds the last ``min(window, T)``
+    of the T prompt positions, position p at slot ``p % min(window, T)``;
+    decode writes position p at slot ``p % S`` of a cache of
+    ``S = min(cache_len, window)`` slots. The two agree whenever the prefill
+    cache fits, in every regime: a prompt shorter than the window fills
+    slots 0 .. T - 1 with positions 0 .. T - 1, and a prompt as long as the
+    window or longer gives a ring of the decode cache's own shape, copied
+    whole (``cache_len >= window``). A ``cache_len`` below the window makes
+    decode wrap at ``cache_len``, as the reference's does."""
     if isinstance(big, torch.Tensor):
         dst = big
         if big.shape != small.shape:

@@ -1,0 +1,108 @@
+"""Shared parity checks of the dense-attention configs (gemma3_12b,
+h2o_danube_1_8b, command_r_plus_104b) between the port and the JAX
+reference, on the CPU, for ``tests/test_torch_{gemma3,danube,command_r}.py``.
+
+Weights are a JAX PRNGKey(0) init of the reduced config carried over as
+numpy through ``params_from_numpy``; inputs are numpy draws given to both.
+Tolerance 1e-4 in float32: the two packages sum the same float32 products
+in different orders.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from repro.checkpoint.checkpoint import _flatten_with_paths
+from repro.configs.base import get_config as jax_get_config
+from repro.launch.serve import serve as jax_serve
+from repro.models import model as JM
+from repro_torch.checkpoint.convert import params_from_numpy
+from repro_torch.configs.base import get_config
+from repro_torch.launch.serve import rehome, serve
+from repro_torch.models import model as TM
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+CPU = torch.device("cpu")
+
+
+def np32(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else x, np.float32)
+
+
+def reference_flat(jparams) -> dict:
+    return {k: np.asarray(v) for k, v in _flatten_with_paths(jparams).items()}
+
+
+def both_params(jcfg, tcfg, seed: int = 0):
+    """A JAX init of ``jcfg`` and the same weights in the port's tree."""
+    jparams = JM.init_params(jcfg, jax.random.PRNGKey(seed))
+    return jparams, params_from_numpy(reference_flat(jparams), tcfg, CPU)
+
+
+def assert_configs_match(arch: str, reduced: bool) -> None:
+    assert dataclasses.asdict(get_config(arch, reduced)) == \
+        dataclasses.asdict(jax_get_config(arch, reduced))
+    assert TM.param_count(get_config(arch, reduced)) == \
+        JM.param_count(jax_get_config(arch, reduced))
+
+
+def jax_rehome(big, small):
+    """The reference's ``rehome`` (``repro/launch/serve.py``, a closure of
+    ``serve``), leaf by leaf."""
+    small = small.astype(big.dtype)
+    if big.shape == small.shape:
+        return small
+    diff = [i for i, (a, b) in enumerate(zip(big.shape, small.shape)) if a != b]
+    assert len(diff) == 1, (big.shape, small.shape)
+    return jax.lax.dynamic_update_slice_in_dim(big, small, 0, diff[0])
+
+
+def assert_caches_match(tcache, jcache, cfg) -> None:
+    """The port's per-layer caches (``cache["period"][j][i]``) against the
+    reference's stacked ones (``cache["period"][j][name][i]``)."""
+    for j in range(len(cfg.period)):
+        for i in range(cfg.n_periods):
+            for name in ("k", "v"):
+                np.testing.assert_allclose(np32(tcache["period"][j][i][name]),
+                                           np32(jcache["period"][j][name][i]), **TOL)
+
+
+def assert_prefill_and_decode_match(jcfg, tcfg, jparams, tparams, prompt_len: int,
+                                    steps: int, batch: int = 2, seed: int = 0) -> None:
+    """Prefill ``prompt_len`` tokens in both packages, re-home each cache
+    into a decode cache of ``prompt_len + steps`` slots with its own
+    package's ``rehome``, then decode ``steps`` forced tokens: logits and
+    caches at 1e-4 after the prefill, after the re-home and after every
+    step (a windowed layer's ring wraps once the steps pass the window)."""
+    rng = np.random.default_rng(seed + prompt_len)
+    prompt = rng.integers(0, jcfg.vocab, (batch, prompt_len))
+    forced = rng.integers(0, jcfg.vocab, (steps, batch))
+    cap = prompt_len + steps
+    jcache, jl = JM.prefill(jparams, jcfg, {"tokens": jnp.asarray(prompt, jnp.int32)})
+    tcache, tl = TM.prefill(tparams, tcfg, {"tokens": torch.from_numpy(prompt)})
+    np.testing.assert_allclose(np32(tl), np32(jl), **TOL)
+    assert_caches_match(tcache, jcache, jcfg)
+    jbig = jax.tree.map(jax_rehome, JM.init_cache(jcfg, batch, cap), jcache)
+    tbig = rehome(TM.init_cache(tcfg, batch, cap, CPU), tcache)
+    assert_caches_match(tbig, jbig, jcfg)
+    jdecode = jax.jit(lambda p, c, b: JM.decode_step(p, jcfg, c, b))
+    for s in range(steps):
+        jl, jbig = jdecode(jparams, jbig, {"token": jnp.asarray(forced[s], jnp.int32),
+                                           "cur_len": jnp.asarray(prompt_len + s, jnp.int32)})
+        tl, tbig = TM.decode_step(tparams, tcfg, tbig, {"token": torch.from_numpy(forced[s]),
+                                                        "cur_len": prompt_len + s})
+        np.testing.assert_allclose(np32(tl), np32(jl), err_msg=f"step {s}", **TOL)
+    assert_caches_match(tbig, jbig, jcfg)
+
+
+def assert_serve_tokens_match(arch: str, tparams, prompt_len: int, gen: int) -> None:
+    """Greedy ``serve()`` of the reduced config in both packages, the port
+    given the reference's PRNGKey(0) weights: the same tokens."""
+    kw = dict(reduced=True, seed=0, prompt_len=prompt_len, gen=gen,
+              cache_len=prompt_len + gen, log=lambda _: None)
+    ref = jax_serve(arch, **kw)
+    out = serve(arch, device="cpu", params=tparams, **kw)
+    np.testing.assert_array_equal(out["tokens"], np.asarray(ref["tokens"]))

@@ -38,14 +38,20 @@ def _inputs(seed, shapes, dtype):
     (1, 3, 32, 32, 16, 8, 0.0),     # sliding window
     (2, 1, 16, 24, 32, 0, 30.0),    # softcap, q_offset = 8
     (1, 2, 40, 40, 16, 12, 20.0),   # window + softcap
+    (1, 2, 24, 40, 80, 16, 0.0),    # D = 80 (h2o_danube), G = 2, window, q_offset = 16
+    (1, 12, 13, 29, 80, 9, 0.0),    # D = 80, G = 12, window, ragged Tq = 13
+    (1, 2, 21, 37, 256, 9, 0.0),    # D = 256 (gemma3), G = 2, window, ragged Tq = 21
+    (1, 12, 11, 24, 256, 0, 0.0),   # D = 256, G = 12, ragged Tq = 11
 ])
 def test_plain_version_matches_reference_kernel(bh, g, tq, tk, d, window, softcap,
                                                 dtype):
+    """Ragged lengths run as one reference block (its blocks must tile T)."""
     (jq, jk, jv), (tq_, tk_, tv) = _inputs(
         bh * 100 + tq + tk, [(bh, g, tq, d), (bh, tk, d), (bh, tk, d)], dtype)
     q_off = tk - tq
     ref = jax_flash(jq, jk, jv, window=window, softcap=softcap, q_offset=q_off,
-                    bq=8, bk=8, interpret=True)
+                    bq=8 if tq % 8 == 0 else tq, bk=8 if tk % 8 == 0 else tk,
+                    interpret=True)
     out = flash_attention_ref(tq_, tk_, tv, window=window, softcap=softcap,
                               q_offset=q_off)
     assert out.dtype == tq_.dtype
@@ -108,6 +114,11 @@ def test_non_cpu_tensor_goes_to_the_kernel_never_the_plain_version():
     (torch.bfloat16, 64, True, "mma"),       # every serving prefill
     (torch.bfloat16, 128, True, "mma"),
     (torch.bfloat16, 16, True, "mma"),
+    (torch.bfloat16, 80, True, "mma"),       # h2o_danube_1_8b's prefill
+    (torch.bfloat16, 256, True, "mma"),      # gemma3_12b's prefill
+    (torch.bfloat16, 256, False, "ffma"),
+    (torch.float32, 80, True, "ffma"),
+    (torch.float32, 256, True, "ffma"),
     (torch.bfloat16, 64, False, "ffma"),     # cp.async needs 16-byte rows
     (torch.float32, 64, True, "ffma"),       # float32 parity runs
     (torch.float32, 128, False, "ffma"),
@@ -117,7 +128,7 @@ def test_path_choice(dtype, d, aligned, path):
     assert set(kernel.flash_attention.paths) == set(kernel.PATH_CODES) == {"mma", "ffma"}
 
 
-@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 48), (torch.bfloat16, 256),
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 48), (torch.bfloat16, 512),
                                      (torch.float32, 8), (torch.float16, 64)])
 def test_path_choice_refuses_what_no_kernel_takes(dtype, d):
     with pytest.raises(ValueError):
@@ -208,6 +219,21 @@ def test_backward_formula_matches_autograd_of_the_plain_forward():
     got = flash_attention_bwd_ref(q, k, v, out.detach(), do, lse.detach(), **kw)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.parametrize("d", [80, 256])
+def test_backward_refuses_the_head_dims_only_the_forward_takes(d):
+    """D = 80 and 256 have forward kernels but no backward yet: the backward
+    raises a ValueError naming the slice that brings it, before any launch
+    (never a plain backward, never the C entry's error)."""
+    q = torch.zeros((1, 2, 8, d), device="meta")
+    k = torch.zeros((1, 8, d), device="meta")
+    lse = torch.zeros((1, 2, 8), device="meta")
+    before = kernel.flash_attention_bwd.launches
+    with pytest.raises(ValueError, match="slice 13"):
+        kernel.flash_attention_bwd(q, k, k, q, q, lse)
+    assert kernel.flash_attention_bwd.launches == before
+    assert d in kernel.HEAD_DIMS and d not in kernel.BWD_HEAD_DIMS
 
 
 def test_attention_gradient_of_a_non_cpu_tensor_goes_to_the_kernel():

@@ -268,6 +268,85 @@ def test_flash_attention_c_entry_refuses_a_path_the_inputs_cannot_take(cuda):
                    16, 16, 48, 1, 1, 0, 0.0, 0, 0.125, codes[path], stream) == 1
 
 
+FLASH_NEW_D_CASES = [  # (bh, g, tq, tk, d, window): the dense configs' head dims
+    (4, 2, 300, 300, 256, 0),       # gemma3_12b global, G = 2, ragged
+    (4, 2, 300, 300, 256, 128),     # gemma3_12b local (windowed)
+    (2, 12, 77, 133, 256, 40),      # G = 12, q_offset = 56, both ragged
+    (2, 4, 600, 600, 80, 256),      # h2o_danube_1_8b (windowed), G = 4
+    (3, 2, 130, 130, 80, 0),        # D = 80, G = 2, global, ragged
+    (2, 12, 90, 190, 80, 70),       # D = 80, G = 12, window + q_offset = 100
+]
+
+
+def _flash_limit(ref, dtype):
+    """TOL (|plain| + min(1, rms of the plain row)) per element: scaled to
+    the output, whose rows are of size sqrt(e / keys seen)."""
+    return TOL[dtype] * (ref.abs() + ref.square().mean(-1, keepdim=True).sqrt().clamp(max=1.0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,g,tq,tk,d,window", FLASH_NEW_D_CASES)
+def test_flash_attention_new_head_dims_match_plain(cuda, bh, g, tq, tk, d, window, dtype):
+    """D = 80 and 256 on the path their dtype takes (bf16: mma, float32:
+    ffma), the row log-sum-exp too, and bf16 once more through ffma."""
+    q = _randn((bh, g, tq, d), dtype, cuda, 1)
+    k = _randn((bh, tk, d), dtype, cuda, 2)
+    v = _randn((bh, tk, d), dtype, cuda, 3)
+    kw = dict(causal=True, window=window, q_offset=tk - tq)
+    ref, ref_lse = flash_attention_ref(q, k, v, return_lse=True, **kw)
+    paths = [fa_kernel.choose_path(dtype, d, True)] + (["ffma"] if dtype == torch.bfloat16 else [])
+    assert paths[0] == ("mma" if dtype == torch.bfloat16 else "ffma")
+    for path in paths:
+        before = dict(fa_kernel.flash_attention.paths)
+        out, lse = fa_kernel.flash_attention(q, k, v, path=path, return_lse=True, **kw)
+        assert fa_kernel.flash_attention.paths[path] == before[path] + 1
+        diff = (out.float() - ref.float()).abs()
+        assert bool((diff <= _flash_limit(ref.float(), dtype)).all()), diff.max().item()
+        torch.testing.assert_close(lse, ref_lse, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("arch", ["gemma3_12b", "h2o_danube_1_8b", "command_r_plus_104b"])
+def test_reduced_dense_config_logits_on_card_match_cpu(cuda, arch):
+    """Float32 prefill past the reduced window, re-home, then decode steps
+    that wrap the ring: logits on the card (every projection and attention
+    through the kernels) against the plain path on the CPU at 1e-4."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import rehome
+    from repro_torch.models import model as M
+    cfg = get_config(arch, reduced=True)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 40)))
+    runs = {}
+    for dev in ("cpu", cuda):
+        p = _to(params, dev)
+        before = fa_kernel.flash_attention.launches
+        small, logits = M.prefill(p, cfg, {"tokens": prompt.to(dev)})
+        if dev != "cpu":
+            assert fa_kernel.flash_attention.launches == before + cfg.n_layers
+        cache = rehome(M.init_cache(cfg, 2, 80, dev), small)
+        outs = [logits.cpu()]
+        for step in range(36):
+            tok = torch.full((2,), (7 * step) % cfg.vocab, dtype=torch.int64, device=dev)
+            logits, cache = M.decode_step(p, cfg, cache, {"token": tok, "cur_len": 40 + step})
+            outs.append(logits.cpu())
+        runs[str(dev)] = outs
+    for got, want in zip(runs[str(cuda)], runs["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_training_danube_on_the_card_raises_the_backward_error(cuda, tmp_path):
+    """Full-width h2o_danube_1_8b trains through flash_attention's forward at
+    D = 80, whose backward kernel is not written yet: train() raises the
+    backward's ValueError and runs no plain backward in its place."""
+    from repro_torch.launch.train import train
+    before = (fa_kernel.flash_attention.launches, fa_kernel.flash_attention_bwd.launches)
+    with pytest.raises(ValueError, match="slice 13"):
+        train("h2o_danube_1_8b", reduced=False, steps=1, batch=1, seq=64,
+              ckpt_dir=str(tmp_path), ckpt_every=0, log=lambda _: None)
+    assert fa_kernel.flash_attention.launches > before[0]
+    assert fa_kernel.flash_attention_bwd.launches == before[1]
+
+
 def test_gqa_attention_on_cuda_matches_cpu_chunked_twin(cuda):
     from repro_torch.models.attention import AttnCfg, gqa_attention
     cfg = AttnCfg(n_heads=15, n_kv_heads=5, head_dim=64, window=0)
