@@ -20,6 +20,10 @@ through tile_matmul, every attention through flash_attention and its
 backward kernel, and one float32 train step held against the CPU's; then
 the same for full-width, full-depth mamba2_2_7b, every scan through
 ssd_scan and its gradient through ssd_scan_bwd; then full-width, full-depth
+h2o_danube_1_8b (2 x 8192) and full-width gemma3_12b at 12 of its 48 layers
+(2 x 2048), every attention's gradient through flash_attention_bwd at D 80
+and 256, each its own phase and record with one float32 train step of 2
+layers held against the CPU's; then full-width, full-depth
 smollm_360m trained by the paper's ACAN runtime (``ACANStepRunner``: Manager
 and Handler threads over the tuple space, one task a microbatch gradient,
 4 x 2 x 512 tokens a step) without and with injected handler crashes, whose
@@ -43,17 +47,18 @@ mamba2 at full width and 8 layers).
 
 The gradient products (``dx = dz @ w^T``, ``dw = x^T @ dz`` through
 tile_matmul's transposed layouts, at both models' projection shapes),
-flash_attention's backward and ssd_scan's backward are checked against
-their plain versions (and for repeat launches giving the same bits) and
-timed beside ``torch.matmul`` and SDPA's backward (no single PyTorch call
-computes the scan's gradient).
+flash_attention's backward (at every case of ``FLASH_CASES``: D 64, 80,
+128 and 256) and ssd_scan's backward are checked against their plain
+versions (and for repeat launches giving the same bits) and timed beside
+``torch.matmul`` and SDPA's backward (no single PyTorch call computes the
+scan's gradient), the attention backward at each trained config's shape.
 
 Usage (from the repository root, on a host with a CUDA device)::
 
     python3 chip_smoke.py
 
 Prints the device and its power limit, one ``{"phase": ...}`` JSON line for
-each of the dense-attention serves and of the MLP, fleet and MoE phases, a
+each of the dense-attention serves and trains and of the MLP, fleet and MoE phases, a
 ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises
 and exits non-zero. Imports neither JAX nor the JAX package.
@@ -63,6 +68,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -71,8 +77,15 @@ import time
 from pathlib import Path
 
 import numpy as np
-import torch
-import torch.nn.functional as F
+
+# The caching allocator maps pages into growing segments instead of carving
+# fixed ones: gemma3_12b's training frees the old moments leaf by leaf
+# (hundreds of 60-240 MB blocks) and then asks for 4 GB loss-chunk tensors,
+# which fixed segments left 27 GB short (OOM at 50 of 79 GiB in use).
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out" / "chip_smoke.json"
@@ -145,24 +158,35 @@ def _device_kernels(prof) -> list[tuple[str, float, int]]:
     return sorted(kern, key=lambda r: -r[1])
 
 
-def _traced_ms(fn, names: tuple[str, ...], iters=10) -> dict:
+def _traced_ms(fn, names: tuple[str, ...], iters=10, tries=3) -> dict:
     """Device time a launch of each kernel whose name holds one of
     ``names``, from a torch.profiler trace of ``iters`` calls after a
-    warm-up call. Fails unless each ran once a call."""
+    warm-up call and, inside the trace, one small kernel. A trace can lose
+    a launch (at gemma3's shape 1 of the 3 dQ launches, in 3 traces of 3):
+    up to ``tries`` traces are taken until each name matches one kernel
+    that ran once a call; failing that, the last is used if each kernel
+    ran at least ``iters`` - 1 times, and the time is over the launches
+    traced. Fails otherwise. ``traces`` counts the traces taken,
+    ``traced_launches`` each kernel's launches in the one used."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for name in names:
-        hits = [(t, c) for k, t, c in _device_kernels(prof) if name in k]
-        assert len(hits) == 1 and hits[0][1] == iters, (name, hits)
-        out[name] = hits[0][0] / iters
-    return out
+    for n in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = _device_kernels(prof)
+        hits = {name: [(t, c) for k, t, c in kernels if name in k] for name in names}
+        if all(len(h) == 1 and h[0][1] == iters for h in hits.values()):
+            break
+    assert all(len(h) == 1 and iters - 1 <= h[0][1] <= iters for h in hits.values()), \
+        ("launches missing from every trace", iters, hits)
+    return {name: h[0][0] / h[0][1] for name, h in hits.items()} | dict(
+        traces=n, traced_launches={name: h[0][1] for name, h in hits.items()})
 
 
 def _bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
@@ -247,10 +271,12 @@ def _sass_ops(so: Path, ops) -> dict:
 # Kernels that must not spill, by a substring of their mangled names, and the
 # SASS each library must hold: wgmma (HGMMA) in tile_matmul (with TMA,
 # UTMALDG) and in the attention backward at D = 64, the mma paths'
-# tensor-core products (HMMA) and ldmatrix (LDSM) loads.
+# tensor-core products (HMMA) and ldmatrix (LDSM) loads. The attention
+# backward's kernels at the dense configs' head dims (80, 256) are held on
+# both paths.
 NO_SPILL = {"tile_matmul": ("wgmma", "skinny"), "flash_attention": ("flash_fwd_mma",),
             "ssd_scan": ("ssd_fwd_mma",),
-            "flash_attention_bwd": ("_mmaI", "_wgmma"),
+            "flash_attention_bwd": ("_mmaI", "_wgmma", "Li80E", "Li256E"),
             "ssd_scan_bwd": ("ssd_bwd_mma",)}
 SASS_OPS = {"tile_matmul": ("HGMMA", "UTMALDG", "LDL", "STL"),
             "flash_attention": ("HMMA", "LDSM", "LDGSTS", "LDL", "STL"),
@@ -315,8 +341,22 @@ def _flash_limit(ref: torch.Tensor, dtype) -> torch.Tensor:
     return TOL[dtype] * (ref.abs() + rms)
 
 
-# The float32 scores the plain version holds at once, at most: it runs over
-# batch x kv-head slices of the layer where the whole would not fit.
+def _flash_bwd_limit(ref: torch.Tensor, dtype) -> torch.Tensor:
+    """The backward's limit per element, TOL (|plain| + max(rms of the
+    plain gradient's row, rms of the whole)). A gradient row whose query
+    sees N keys (or whose key is seen by N query rows) is of size about
+    sqrt(e / N): 0.026 for danube's dq, so a limit of TOL alone would hide
+    a 64 x 64 tile pair dropped (about 0.003 a dq row) or a window edge one
+    key off. The whole's rms floors the rows whose gradient is rounding
+    noise: a row that sees one key has dS = P (dP - Dv) = 0 exactly."""
+    rms = ref.square().mean(-1, keepdim=True).sqrt().clamp(min=ref.square().mean().sqrt().item())
+    return TOL[dtype] * (ref.abs() + rms)
+
+
+# The bytes of one float32 score tensor (a slice's G x Tq x Tkv) the plain
+# version forms, at most: it runs over batch x kv-head slices of the layer
+# where the whole would not fit. Its forward holds up to three such tensors
+# at once (the masked scores, P, P in the values' dtype).
 PLAIN_SCORE_BYTES = 2.2e9
 
 
@@ -416,41 +456,64 @@ def check_tile_matmul_grad(tm_kernel, tile_matmul_ref) -> dict:
     return err
 
 
+# The explicit backward formula holds up to six float32 score tensors at
+# once (s, P, dP, dP - Dv, P (dP - Dv) and dS; the softcap factor besides),
+# twice the forward's three: its slices are this many times thinner.
+PLAIN_BWD_SCORES = 2
+
+
 def check_flash_bwd(fa_kernel, flash_attention_ref, flash_attention_bwd_ref) -> dict:
-    """The backward kernels against the explicit formula at ``check_flash``'s
-    training cases, D 64 (the forward's lse against the plain version's
-    first): the mma path in bf16, the ffma path in float32; two launches
-    give the same bits. D 80 and 256 have no backward kernel yet."""
-    err = {}
+    """The backward kernels against the explicit formula at every case of
+    ``FLASH_CASES`` (smollm's training shape and its variants at D 64, the
+    dense configs' layers at D 80, 128 and 256, the ragged ones), the
+    forward's lse against the plain version's first: the mma path in bf16,
+    the ffma path in float32, each launched whole and held slice by slice
+    where the plain formula's scores would not fit at once, each gradient
+    element within ``_flash_bwd_limit``; two launches give the same bits.
+    Worst error per dtype and per case; per case also each gradient's
+    ``margin``, the largest |error| / limit (at most 1)."""
+    err: dict = {"by_case": {}}
     bwd = fa_kernel.flash_attention_bwd
     for dtype in (torch.bfloat16, torch.float32):
         worst = {"lse": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0}
         for name, bh, g, tq, tkv, d, window, softcap in FLASH_CASES:
-            if d != 64:
-                continue
             q = _randn((bh, g, tq, d), dtype, 1)
             k = _randn((bh, tkv, d), dtype, 2)
             v = _randn((bh, tkv, d), dtype, 3)
             do = _randn((bh, g, tq, d), dtype, 4)
             kw = dict(causal=True, window=window, softcap=softcap, q_offset=tkv - tq)
             o, lse = fa_kernel.flash_attention(q, k, v, return_lse=True, **kw)
-            _, lse_ref = flash_attention_ref(q, k, v, return_lse=True, **kw)
-            torch.testing.assert_close(lse, lse_ref, rtol=TOL[dtype], atol=TOL[dtype],
-                                       msg=lambda m, c=name: f"lse {c}: {m}")
-            worst["lse"] = max(worst["lse"], (lse - lse_ref).abs().max().item())
             before = dict(bwd.paths)
             grads = bwd(q, k, v, o, do, lse, **kw)
             _took(bwd, DTYPE_PATH[dtype], before)
-            refs = flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)
-            for gname, got, want in zip(("dq", "dk", "dv"), grads, refs):
-                torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
-                                           atol=TOL[dtype],
-                                           msg=lambda m, c=(name, gname): f"{c}: {m}")
-                worst[gname] = max(worst[gname], (got.float() - want.float()).abs().max().item())
             again = bwd(q, k, v, o, do, lse, **kw)
             assert all(torch.equal(a, b) for a, b in zip(grads, again)), ("bwd", name)
+            del again
+            case = dict.fromkeys(worst, 0.0) | {"margin": dict.fromkeys(("dq", "dk", "dv"), 0.0)}
+            step = max(1, _plain_step(bh, g, tq, tkv) // PLAIN_BWD_SCORES)
+            for i in range(0, bh, step):
+                sl = slice(i, i + step)
+                _, lse_ref = flash_attention_ref(q[sl], k[sl], v[sl], return_lse=True, **kw)
+                torch.testing.assert_close(lse[sl], lse_ref, rtol=TOL[dtype], atol=TOL[dtype],
+                                           msg=lambda m, c=(name, i): f"lse {c}: {m}")
+                case["lse"] = max(case["lse"], (lse[sl] - lse_ref).abs().max().item())
+                refs = flash_attention_bwd_ref(q[sl], k[sl], v[sl], o[sl], do[sl], lse[sl], **kw)
+                for gname, got, want in zip(("dq", "dk", "dv"), grads, refs):
+                    want = want.float()
+                    diff = (got[sl].float() - want).abs()
+                    limit = _flash_bwd_limit(want, dtype)
+                    case[gname] = max(case[gname], diff.max().item())
+                    case["margin"][gname] = max(case["margin"][gname],
+                                                (diff / limit).max().item())
+                    assert bool((diff <= limit).all()), (name, str(dtype), gname, i, case)
+                    del want, diff, limit
+                del lse_ref, refs
+            err["by_case"][f"{name} {dtype}"] = case
+            worst = {key: max(worst[key], case[key]) for key in worst}
+            del q, k, v, do, o, lse, grads
         err[str(dtype)] = worst
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     return err
 
 
@@ -615,52 +678,95 @@ def time_tile_matmul_grad(tm_kernel, tile_matmul_ref, arch: str = "smollm_360m")
     return out
 
 
+# One layer's attention backward at each trained config's training shape,
+# bf16, causal: (batch, kv heads, G, T, D, window).
+FLASH_BWD_TIMED = {"smollm_360m": (BATCH, 5, 3, PROMPT, 64, 0),
+                   "h2o_danube_1_8b": (2, 8, 4, 8192, 80, 4096),
+                   "gemma3_12b global": (2, 8, 2, 2048, 256, 0),
+                   "gemma3_12b local": (2, 8, 2, 2048, 256, 1024)}
+
+
 def time_flash_bwd(fa_kernel, flash_attention_bwd_ref) -> dict:
-    """One layer's attention backward at the training shape, q (40, 3, 512,
-    64) causal, bf16: the mma path by CUDA events (``ms``) and graph replay
+    """One layer's attention backward at each shape of ``FLASH_BWD_TIMED``,
+    bf16: the mma path by CUDA events (``ms``) and graph replay
     (``device_ms``), the ffma path on the same inputs once (``ffma_ms``),
-    the explicit plain formula, and SDPA's backward with K/V repeated to the
-    15 query heads: its aten op (``_scaled_dot_product_flash_attention_
-    backward``, from the forward's own outputs) by CUDA events
-    (``library_ms``) and by graph replay (``library_device_ms``); each of the
-    two kernels' device time a launch from a profiler trace (``dq_ms``,
-    ``dkv_ms``). Work: the five products of the function, 2 D operations
-    each a visible (query, key) pair."""
-    dt, bh, g, t, d = torch.bfloat16, BATCH * 5, 3, PROMPT, 64
-    q = _randn((bh, g, t, d), dt, 1)
-    k = _randn((bh, t, d), dt, 2)
-    v = _randn((bh, t, d), dt, 3)
-    do = _randn((bh, g, t, d), dt, 4)
-    o, lse = fa_kernel.flash_attention(q, k, v, causal=True, return_lse=True)
-    kern = _time_ms(lambda: fa_kernel.flash_attention_bwd(q, k, v, o, do, lse))
-    ffma = _time_ms(lambda: fa_kernel.flash_attention_bwd(q, k, v, o, do, lse, path="ffma"),
-                    iters=5)
-    device = _graph_ms(lambda: fa_kernel.flash_attention_bwd(q, k, v, o, do, lse), iters=5)
-    traced = _traced_ms(lambda: fa_kernel.flash_attention_bwd(q, k, v, o, do, lse),
-                        ("flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma"))
-    plain = _time_ms(lambda: flash_attention_bwd_ref(q, k, v, o, do, lse), iters=3)
-    qs = q.reshape(BATCH, 15, t, d)
-    ks = k.reshape(BATCH, 5, t, d).repeat_interleave(g, dim=1)
-    vs = v.reshape(BATCH, 5, t, d).repeat_interleave(g, dim=1)
-    dos = do.reshape(BATCH, 15, t, d)
-    aten = torch.ops.aten
-    fwd = aten._scaled_dot_product_flash_attention(qs, ks, vs, 0.0, True, False)
-    out_f, lse_f, cq, ck, mq, mk, seed, offset = fwd[:8]
+    the explicit plain formula (in batch x kv-head slices where its scores
+    would not fit at once), each of the two kernels' device time a launch
+    from a profiler trace (``dq_ms``, ``dkv_ms``), and SDPA's backward with
+    K/V repeated to every query head (``library_ms``): at smollm's shape its
+    flash backward op from the forward's own outputs (also by graph replay,
+    ``library_device_ms``); at the dense configs' the backward alone of an
+    SDPA call under autograd, a window as a boolean mask
+    (``library_backend`` says which kernel SDPA took). Work: the five
+    products of the function, 2 D operations each a visible (query, key)
+    pair."""
+    dt, out = torch.bfloat16, {}
+    for name, (b, hkv, g, t, d, window) in FLASH_BWD_TIMED.items():
+        bh = b * hkv
+        q = _randn((bh, g, t, d), dt, 1)
+        k = _randn((bh, t, d), dt, 2)
+        v = _randn((bh, t, d), dt, 3)
+        do = _randn((bh, g, t, d), dt, 4)
+        kw = dict(causal=True, window=window)
+        o, lse = fa_kernel.flash_attention(q, k, v, return_lse=True, **kw)
 
-    def sdpa_bwd():
-        return aten._scaled_dot_product_flash_attention_backward(
-            dos, qs, ks, vs, out_f, lse_f, cq, ck, mq, mk, 0.0, True, seed, offset)
+        def kern_bwd(**extra):
+            return fa_kernel.flash_attention_bwd(q, k, v, o, do, lse, **kw, **extra)
 
-    library = _time_ms(sdpa_bwd)
-    library_device = _graph_ms(sdpa_bwd, iters=5)
-    pairs = bh * g * t * (t + 1) // 2
-    flops = 10 * d * pairs
-    nbytes = (4 * q.numel() + 4 * k.numel()) * 2 + lse.numel() * 4
-    bound_ms, bound_by = _bound(flops, nbytes, dt)
-    return dict(ms=kern, ffma_ms=ffma, device_ms=device, dq_ms=traced["flash_bwd_dq_wgmma"],
-                dkv_ms=traced["flash_bwd_dkv_wgmma"], plain_ms=plain, library_ms=library, library_device_ms=library_device, vs_library=kern / library,
-                device_vs_library=device / library_device, flop=flops, bytes=nbytes,
-                bound_ms=bound_ms, bound_by=bound_by, tflop_s=flops / kern / 1e9)
+        kern = _time_ms(kern_bwd)
+        ffma = _time_ms(lambda: kern_bwd(path="ffma"), iters=2)
+        device = _graph_ms(kern_bwd, iters=5)
+        names = (("flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma") if d == 64
+                 else ("flash_bwd_dq_mma", "flash_bwd_dkv_mma"))
+        traced = _traced_ms(kern_bwd, names, iters=3)
+        step = max(1, _plain_step(bh, g, t, t) // PLAIN_BWD_SCORES)
+        plain = _time_ms(lambda: [flash_attention_bwd_ref(q[i:i + step], k[i:i + step],
+                                                          v[i:i + step], o[i:i + step],
+                                                          do[i:i + step], lse[i:i + step], **kw)
+                                  for i in range(0, bh, step)], iters=2)
+        qs = q.reshape(b, hkv * g, t, d)
+        ks = k.reshape(b, hkv, t, d).repeat_interleave(g, dim=1)
+        vs = v.reshape(b, hkv, t, d).repeat_interleave(g, dim=1)
+        dos = do.reshape(b, hkv * g, t, d)
+        extra = {}
+        if name == "smollm_360m":
+            aten = torch.ops.aten
+            fwd = aten._scaled_dot_product_flash_attention(qs, ks, vs, 0.0, True, False)
+            out_f, lse_f, cq, ck, mq, mk, seed, offset = fwd[:8]
+
+            def sdpa_bwd():
+                return aten._scaled_dot_product_flash_attention_backward(
+                    dos, qs, ks, vs, out_f, lse_f, cq, ck, mq, mk, 0.0, True, seed, offset)
+
+            extra["library_device_ms"] = _graph_ms(sdpa_bwd, iters=5)
+        else:
+            leaves = [x.detach().requires_grad_() for x in (qs, ks, vs)]
+            if window > 0:
+                pos = torch.arange(t, device="cuda")
+                mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+                sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+            else:
+                sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+
+            def sdpa_bwd():
+                return torch.autograd.grad(sdpa_out, leaves, dos, retain_graph=True)
+
+            extra["library_backend"] = _sdpa_backend(sdpa_bwd)
+        library = _time_ms(sdpa_bwd, iters=5)
+        flops = 10 * d * bh * g * _visible_pairs(t, t, window)
+        nbytes = (4 * q.numel() + 4 * k.numel()) * 2 + lse.numel() * 4
+        bound_ms, bound_by = _bound(flops, nbytes, dt)
+        out[name] = dict(q_shape=(bh, g, t, d), window=window, ms=kern, ffma_ms=ffma,
+                         device_ms=device, dq_ms=traced[names[0]], dkv_ms=traced[names[1]],
+                         traces=traced["traces"], traced_launches=traced["traced_launches"],
+                         plain_ms=plain, plain_slices=-(-bh // step), library_ms=library,
+                         vs_library=kern / library, flop=flops, bytes=nbytes,
+                         bound_ms=bound_ms, bound_by=bound_by, vs_bound=device / bound_ms,
+                         tflop_s=flops / kern / 1e9, **extra)
+        del q, k, v, do, o, lse, qs, ks, vs, dos
+        sdpa_bwd = sdpa_out = leaves = None
+        torch.cuda.empty_cache()
+    return out
 
 
 def _ssd_inputs(bt, t, h, p, g, n, dtype, seed):
@@ -813,8 +919,10 @@ def time_ssd_bwd(ssd_kernel, ssd_plain_bwd) -> dict:
               + 4 * bt * t * g * n * 2 + 4 * h * 4)
     bound_ms, bound_by = _bound(flops, nbytes, dt)
     return dict(ms=kern, ffma_ms=ffma, device_ms=device, walk_ms=traced["ssd_bwd_mma"],
-                head_sum_ms=traced["ssd_bwd_reduce"], plain_ms=plain, library_ms=None, flop=flops,
-                bytes=nbytes, states_bytes=states_bytes, bound_ms=bound_ms, bound_by=bound_by)
+                head_sum_ms=traced["ssd_bwd_reduce"], traces=traced["traces"],
+                traced_launches=traced["traced_launches"], plain_ms=plain, library_ms=None,
+                flop=flops, bytes=nbytes, states_bytes=states_bytes, bound_ms=bound_ms,
+                bound_by=bound_by)
 
 
 def _zero(counters: dict) -> None:
@@ -1084,11 +1192,12 @@ def _train_want(cfg) -> tuple[dict, dict, dict]:
     kernel and path (every bf16 product on wgmma, every attention and scan
     and their backward on mma), and tile_matmul's by layout."""
     n = cfg.n_layers * TRAIN_STEPS
-    if cfg.name == "smollm_360m":
-        # Each step: every projection forward, again where remat recomputes
-        # it, once more for the SiLU gate's z (float32, no activation) and
-        # its two gradient products; every attention forward twice and its
-        # backward once.
+    if cfg.period[0].mixer == "attn":
+        # smollm_360m, h2o_danube_1_8b, gemma3_12b (seven projections a
+        # layer, a SwiGLU MLP). Each step: every projection forward, again
+        # where remat recomputes it, once more for the SiLU gate's z
+        # (float32, no activation) and its two gradient products; every
+        # attention forward twice and its backward once.
         launches = {"tile_matmul": 7 * n * 4 + n, "flash_attention": 2 * n,
                     "flash_attention_bwd": n, "ssd_scan": 0, "ssd_scan_bwd": 0}
         layouts = {"x@w": 7 * n * 2 + n, "x@w^T": 7 * n, "x^T@w": 7 * n}
@@ -1104,33 +1213,42 @@ def _train_want(cfg) -> tuple[dict, dict, dict]:
     return launches, by_path, layouts
 
 
-def train_path(train, cfg, counters: dict) -> tuple[dict, dict]:
-    """Train full-width, full-depth ``cfg`` for ``TRAIN_STEPS`` steps of
-    8 x 512 cyclic tokens through ``train`` (seed 0, bf16, float32 AdamW
+def train_path(train, M, cfg, counters: dict, batch: int = BATCH,
+               seq: int = PROMPT) -> tuple[dict, dict]:
+    """Train full-width ``cfg`` for ``TRAIN_STEPS`` steps of ``batch`` x
+    ``seq`` cyclic tokens through ``train`` (seed 0, bf16, float32 AdamW
     moments, remat "nothing"), every launch count set to 0 just before and
-    read just after. A step's time is the host clock between two of its log
-    lines (each step ends by reading its loss to the host); the median of
-    steps 2-5 gives tokens/s."""
+    read just after. The weights are seeded as ``train`` seeds its own and
+    passed in, so that it runs at ``cfg``'s depth (gemma3_12b is cut). A
+    step's time is the host clock between two of its log lines (each step
+    ends by reading its loss to the host); the median of steps 2-5 gives
+    tokens/s. ``alloc_retries``: the times the caching allocator ran out of
+    memory it could map, freed its cache and tried again."""
     stamps = []
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero(counters)
     t0 = time.perf_counter()
-    res = train(cfg.name, reduced=False, steps=TRAIN_STEPS, batch=BATCH, seq=PROMPT,
+    # The weights are made in the call, so that ``train`` holds the only
+    # reference and drops them after the first step (7.4 GB for gemma3).
+    res = train(cfg.name, reduced=False, steps=TRAIN_STEPS, batch=batch, seq=seq,
                 data_mode="cyclic", ckpt_every=0, resume=False, seed=0, device="cuda",
                 ckpt_dir=str(ROOT / "build" / "chip_smoke_train"),
+                params=M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"),
                 log=lambda line: (stamps.append(time.perf_counter()), print(line)))
     launches = _read(counters)
     by_path = {k: dict(fn.paths) for k, fn in counters.items() if hasattr(fn, "paths")}
     layouts = dict(counters["tile_matmul"].layouts)
     peak = torch.cuda.max_memory_allocated()
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries
     losses = res["losses"]
     assert len(losses) == TRAIN_STEPS and all(np.isfinite(losses)), losses
     steps_s = np.diff([t0] + stamps)
     median = float(np.median(steps_s[1:]))
-    out = dict(arch=cfg.name, batch=BATCH, seq=PROMPT, steps=TRAIN_STEPS, losses=losses,
-               step_s=steps_s.tolist(), median_step_s=median,
-               tokens_per_s=BATCH * PROMPT / median, peak_mem_bytes=peak,
+    out = dict(arch=cfg.name, layers=cfg.n_layers, batch=batch, seq=seq, steps=TRAIN_STEPS,
+               losses=losses, step_s=steps_s.tolist(), median_step_s=median,
+               tokens_per_s=batch * seq / median, peak_mem_bytes=peak, alloc_retries=retries,
                launches=launches, launches_by_path=by_path, tile_matmul_layouts=layouts,
                watchdog=res["watchdog"])
     print(f"train {cfg.name}: losses {losses}, median step {median:.4f} s "
@@ -1143,7 +1261,8 @@ def train_path(train, cfg, counters: dict) -> tuple[dict, dict]:
     return out, res
 
 
-def profile_train_step(steps_mod, cfg, res, counters: dict) -> dict:
+def profile_train_step(steps_mod, cfg, res, counters: dict, batch: int = BATCH,
+                       seq: int = PROMPT) -> dict:
     """One more train step from ``train``'s final state: host wall time
     without tracing (median of 3), device kernel time from a torch.profiler
     trace of a fourth, their ratio as the busy share, the top kernels, and
@@ -1156,7 +1275,7 @@ def profile_train_step(steps_mod, cfg, res, counters: dict) -> dict:
 
     opt = OptConfig(peak_lr=1e-3, warmup_steps=5, decay_steps=TRAIN_STEPS, weight_decay=0.0)
     step = steps_mod.make_train_step(cfg, opt)
-    batch = TokenPipeline(PipelineConfig(vocab=cfg.vocab, batch=BATCH, seq=PROMPT,
+    batch = TokenPipeline(PipelineConfig(vocab=cfg.vocab, batch=batch, seq=seq,
                                          mode="cyclic")).batch_at(TRAIN_STEPS)
     batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
     params, opt_state = res["params"], res["opt_state"]
@@ -1182,45 +1301,94 @@ def profile_train_step(steps_mod, cfg, res, counters: dict) -> dict:
                                calls=e.count) for e in host])
 
 
-def parity_train_f32(M, steps_mod, cfg) -> dict:
-    """One float32 train step of full-width ``cfg`` cut to 4 layers, batch
-    2 x 128: the kernel path on the card against the plain path on the CPU,
-    from the same seeded weights and batch. Loss and grad norm at 1e-3 (the
-    logits' bar). The gradients, read back from the first moment (after one
-    step from zero, m = 0.1 x the clipped gradient), within 1e-3 of each
-    tensor's largest entry. The updated weights within half the learning
+def parity_train_f32(M, steps_mod, pcfg, batch: int = 2, seq: int = 128) -> dict:
+    """One float32 train step of ``pcfg`` (a full-width config cut in
+    depth), ``batch`` x ``seq`` tokens: the kernel path on the card against
+    the plain path on the CPU, from the same seeded weights and batch. Loss
+    and grad norm at 1e-3 (the logits' bar). The gradients, read back from
+    the first moment (after one step from zero, m = 0.1 x the clipped
+    gradient), within 1e-3 of each tensor's largest entry (the farthest
+    tensor is named). The updated weights within half the learning
     rate: Adam's first step moves a weight by lr g / (|g| + 1e-8), which
     turns the two devices' float32 rounding of a gradient entry near 1e-8
     into a visible part of lr; the gradient check above is the close one."""
+    from repro_torch.checkpoint.checkpoint import _flatten
     from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
     from repro_torch.optim.optimizer import OptConfig, init_opt_state, tree_leaves
 
-    pcfg = dataclasses.replace(cfg, n_periods=4, param_dtype="float32")
+    pcfg = dataclasses.replace(pcfg, param_dtype="float32")
     opt = OptConfig(peak_lr=1e-3, warmup_steps=5, decay_steps=TRAIN_STEPS, weight_decay=0.0)
     params = M.init_params(pcfg, torch.Generator(device="cuda").manual_seed(3), "cuda")
-    batch = TokenPipeline(PipelineConfig(vocab=cfg.vocab, batch=2, seq=128,
-                                         mode="cyclic")).batch_at(0)
+    tokens = TokenPipeline(PipelineConfig(vocab=pcfg.vocab, batch=batch, seq=seq,
+                                          mode="cyclic")).batch_at(0)
     step = steps_mod.make_train_step(pcfg, opt)
     runs = {}
     for dev in ("cuda", "cpu"):
         p = _to(params, dev)
         runs[dev] = step(p, init_opt_state(p, opt), {k: torch.as_tensor(v, device=dev)
-                                                     for k, v in batch.items()})
+                                                     for k, v in tokens.items()})
     (pg, sg, mg), (pc, sc, mc) = runs["cuda"], runs["cpu"]
     lr = mc["lr"]
     assert abs(mg["loss"] - mc["loss"]) <= 1e-3, (mg, mc)
     assert abs(mg["grad_norm"] - mc["grad_norm"]) <= 1e-3 * max(1.0, mc["grad_norm"]), (mg, mc)
-    grad_err = 0.0
-    for a, b in zip(tree_leaves(sg["m"]), tree_leaves(sc["m"])):
-        err = (a.cpu() - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
-        grad_err = max(grad_err, err)
+    got, want = _flatten(sg["m"]), _flatten(sc["m"])
+    grad_errs = {k: (got[k].cpu() - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+                 for k, b in want.items()}
+    worst = max(grad_errs, key=grad_errs.get)
     param_err = max((a.cpu() - b).abs().max().item()
                     for a, b in zip(tree_leaves(pg), tree_leaves(pc)))
-    out = dict(loss_gpu=mg["loss"], loss_cpu=mc["loss"], grad_norm_gpu=mg["grad_norm"],
-               grad_norm_cpu=mc["grad_norm"], lr=lr, max_grad_err_rel=grad_err,
-               max_param_err=param_err, max_param_err_in_lr=param_err / lr)
+    out = dict(layers=pcfg.n_layers, batch=batch, seq=seq, loss_gpu=mg["loss"],
+               loss_cpu=mc["loss"], grad_norm_gpu=mg["grad_norm"],
+               grad_norm_cpu=mc["grad_norm"], lr=lr, max_grad_err_rel=grad_errs[worst],
+               max_grad_err_at=worst, max_param_err=param_err,
+               max_param_err_in_lr=param_err / lr)
+    grad_err = grad_errs[worst]
     assert grad_err <= 1e-3, out
     assert param_err <= 0.5 * lr, out
+    return out
+
+
+# The dense-attention configs' training runs through ``train``: full width,
+# batch x seq of twice the sliding window, so that the backward walks its
+# band whole; gemma3_12b cut to two periods (12 layers, 10 local and 2
+# global, 3.70 B parameters: 74 GB at the update's 20 bytes a parameter,
+# where its 48 layers would take 235 GB). Then a float32 train step of each
+# against the CPU's (periods kept, a mixed period cut to its first and last
+# layers; tokens past the window).
+DENSE_TRAIN = {
+    "h2o_danube_1_8b": dict(batch=2, seq=8192, n_periods=None, parity_periods=2,
+                            parity=dict(batch=1, seq=4224)),
+    "gemma3_12b": dict(batch=2, seq=2048, n_periods=2, parity_periods=1,
+                       parity=dict(batch=1, seq=1152)),
+}
+
+
+def dense_train(train, M, steps_mod, get_config, arch: str, counters: dict) -> dict:
+    """Train ``arch`` as ``DENSE_TRAIN`` sizes it through ``train_path``
+    (launches asserted per kernel, path and layout: flash_attention_bwd on
+    mma once a layer a step), profile one more step, then hold a float32
+    train step against the CPU's."""
+    spec = DENSE_TRAIN[arch]
+    full = get_config(arch)
+    cfg = full if spec["n_periods"] is None else dataclasses.replace(
+        full, n_periods=spec["n_periods"])
+    out, res = train_path(train, M, cfg, counters, batch=spec["batch"], seq=spec["seq"])
+    if cfg is not full:
+        out["reduced"] = {"n_periods": f"{full.n_periods} -> {cfg.n_periods}"}
+    out["params"] = M.param_count(cfg)
+    prof = out["profile"] = profile_train_step(steps_mod, cfg, res, counters,
+                                               spec["batch"], spec["seq"])
+    print(f"profile {arch} train step: wall {prof['wall_ms']:.3f} ms, device kernels "
+          f"{prof['device_ms']:.3f} ms, busy share {prof['busy_share']:.3f}, "
+          f"launches {prof['launches']}, top {prof['top_kernels'][:5]}")
+    assert prof["launches"] == {k: v // TRAIN_STEPS
+                                for k, v in _train_want(cfg)[0].items()}, prof["launches"]
+    del res
+    torch.cuda.empty_cache()
+    pcfg = _parity_config(full, spec["parity_periods"])
+    par = out["parity_f32"] = parity_train_f32(M, steps_mod, pcfg, **spec["parity"])
+    print(f"parity f32 train step {arch} full width, {pcfg.n_layers} layers: {par}")
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2044,11 +2212,19 @@ def main() -> int:
     print(smi)
     detail: dict = {"device": name, "nvidia_smi": smi}
 
+    # Wall seconds of each part of the script, from the end of the one before.
+    phase_s = detail["phase_s"] = {}
+    clock = [time.perf_counter()]
+
+    def mark(part: str) -> None:
+        now = time.perf_counter()
+        phase_s[part] = now - clock[0]
+        clock[0] = now
+
     # 2. Build every kernel, one nvcc each, all at once.
-    t0 = time.perf_counter()
     _build.build_all()
-    detail["build_s"] = time.perf_counter() - t0
-    print(f"build: {detail['build_s']:.1f} s")
+    mark("build")
+    print(f"build: {phase_s['build']:.1f} s")
     detail["ptxas"] = {k: _build.build_log(k) for k in _build.KERNELS}
     detail["kernel_build"] = kernel_build_report(_build, detail["ptxas"])
     for k, rep in detail["kernel_build"].items():
@@ -2078,6 +2254,8 @@ def main() -> int:
           f"{max(detail['dense_projections_err'].values())}, "
           f"ssd_scan_bwd max |err| / max |grad| {detail['ssd_scan_bwd_err']}")
 
+    mark("checks")
+
     # 4. Times: kernel, plain version, one PyTorch call as yardstick.
     detail["tile_matmul_time"] = time_tile_matmul(tm_kernel, tile_matmul_ref)
     detail["flash_attention_time"] = time_flash(fa_kernel, flash_attention_ref)
@@ -2090,6 +2268,8 @@ def main() -> int:
     for k in ("tile_matmul", "flash_attention", "ssd_scan", "tile_matmul_grad",
               "flash_attention_bwd", "tile_matmul_grad_mamba2", "ssd_scan_bwd"):
         print(f"times (ms): {k} {detail[k + '_time']}")
+
+    mark("times")
 
     # 5. Path 1: serve full-width smollm_360m from seeded random weights.
     cfg = get_config("smollm_360m")
@@ -2105,6 +2285,8 @@ def main() -> int:
     print(f"parity f32 smollm_360m full depth: max |logit err| "
           f"{detail['parity_f32_max_err']:.3e}")
     torch.cuda.empty_cache()
+
+    mark("serve_smollm_360m")
 
     # 6. Path 2: serve full-width, full-depth mamba2_2_7b: six tile_matmul
     # projections a layer each forward pass, one ssd_scan a layer in prefill.
@@ -2130,21 +2312,20 @@ def main() -> int:
     # and danube at full depth, command_r at 8 of 64 layers): every
     # projection through tile_matmul, every prefill attention through
     # flash_attention at D 256, 80 and 128; float32 logits against the CPU.
-    t0 = time.perf_counter()
+    mark("serve_mamba2_2_7b")
     g3 = detail["serve_gemma3"] = serve_gemma3(serve, M, rehome, get_config, counters)
     _record("serve_gemma3_12b", g3)
     dn = detail["serve_danube"] = serve_danube(serve, M, rehome, get_config, counters)
     _record("serve_h2o_danube_1_8b", dn)
     cr = detail["serve_command_r"] = serve_command_r(serve, M, rehome, get_config, counters)
     _record("serve_command_r_plus_104b", cr)
-    detail["dense_serve_s"] = time.perf_counter() - t0
-    print(f"dense-attention serve phases: {detail['dense_serve_s']:.1f} s")
+    mark("serve_dense")
 
     # 8. Path 6: train full-width, full-depth smollm_360m through ``train``.
     # 9. Path 7: the same for full-width, full-depth mamba2_2_7b.
     trains = {}
     for key, tcfg in (("", cfg), ("_mamba2", mcfg)):
-        tr, res = train_path(train, tcfg, counters)
+        tr, res = train_path(train, M, tcfg, counters)
         detail["train" + key] = tr
         prof = detail["profile_train" + key] = profile_train_step(steps_mod, tcfg, res,
                                                                   counters)
@@ -2156,11 +2337,24 @@ def main() -> int:
         trains[tcfg.name] = tr
         del res
         torch.cuda.empty_cache()
-        detail["parity_train_f32" + key] = parity_train_f32(M, steps_mod, tcfg)
+        detail["parity_train_f32" + key] = parity_train_f32(
+            M, steps_mod, dataclasses.replace(tcfg, n_periods=4))
         print(f"parity f32 train step {tcfg.name} full width, 4 layers: "
               f"{detail['parity_train_f32' + key]}")
         torch.cuda.empty_cache()
     tr, mt = trains[cfg.name], trains[mcfg.name]
+
+    # 9b. The dense-attention train paths: full-width, full-depth h2o_danube_1_8b (2 x 8192)
+    # and full-width gemma3_12b at 12 layers (2 x 2048): every attention's
+    # gradient through flash_attention_bwd at D 80 and 256.
+    mark("train_smollm_mamba2")
+    tdn = detail["train_danube"] = dense_train(train, M, steps_mod, get_config,
+                                               "h2o_danube_1_8b", counters)
+    _record("train_h2o_danube_1_8b", tdn)
+    tg3 = detail["train_gemma3"] = dense_train(train, M, steps_mod, get_config, "gemma3_12b",
+                                               counters)
+    _record("train_gemma3_12b", tg3)
+    mark("train_dense")
 
     # 10. Path 8: train full-width, full-depth smollm_360m through the ACAN
     # runner (Manager and Handler threads over the tuple space), with and
@@ -2180,6 +2374,8 @@ def main() -> int:
     print(f"parity f32 acan {cfg.name} full width, 4 layers: {detail['parity_acan_f32']}")
     torch.cuda.empty_cache()
 
+    mark("acan")
+
     # 11. Path 9: the paper's three experiments at its width, the MLP's tile
     # products through tile_matmul (float32 skinny / ffma); the float32 MLP
     # against the CPU's; the MLP and full-width smollm_360m as two tenants of
@@ -2192,6 +2388,8 @@ def main() -> int:
     _record("cloud_tenants", ct)
     torch.cuda.empty_cache()
 
+    mark("paper")
+
     # 12. Path 10: the paper's exp 1 on the thread fleet and on the process
     # fleet (worker processes on the card, their launches read from the
     # counts they write), with and without SIGKILLed workers; CUDA tensors
@@ -2199,23 +2397,30 @@ def main() -> int:
     pf = detail["process_fleet"] = process_fleet(counters)
     _record("process_fleet", pf)
 
+    mark("process_fleet")
+
     # 13. Path 11: the MoE routing program on the card, fault-free and under
     # crashes, against the CPU.
     mp = detail["moe"] = moe_path(counters)
     _record("moe_path", mp)
 
+    mark("moe")
+    print(f"phase seconds: { {k: round(v, 1) for k, v in phase_s.items()} }, "
+          f"in all {sum(phase_s.values()):.1f}")
+
     # 14. Results. A kernel that runs on several paths: its launches are the sum.
     tmt, fat = detail["tile_matmul_time"]["prefill"], detail["flash_attention_time"]
     fat = fat["smollm_360m"]
     sst, gt = detail["ssd_scan_time"], detail["tile_matmul_grad_time"]
-    fbt, sbt = detail["flash_attention_bwd_time"], detail["ssd_scan_bwd_time"]
-    runs = (sm, ms, g3, dn, cr, tr, mt, ac, pp, ct, pf, mp)
+    fbts, sbt = detail["flash_attention_bwd_time"], detail["ssd_scan_bwd_time"]
+    fbt = fbts["smollm_360m"]
+    runs = (sm, ms, g3, dn, cr, tr, mt, tdn, tg3, ac, pp, ct, pf, mp)
     mlp_t = detail["mlp_ops"]["times"]["256x256"]
     moe_t = detail["moe_ops"]["times"]
 
     def summed(name: str) -> dict:
-        """Launches of ``name`` over the twelve paths (the five serves, the
-        two train runs, the ACAN path's crash-free run, the paper's four MLP
+        """Launches of ``name`` over the fourteen paths (the five serves, the
+        four train runs, the ACAN path's crash-free run, the paper's four MLP
         runs, the two-tenant cloud's crash run, exp 1's three fleet runs
         with the workers' own launches, the MoE's six runs on the card), in
         all and by path."""
@@ -2297,7 +2502,16 @@ def main() -> int:
              dq_ms=fbt["dq_ms"], dkv_ms=fbt["dkv_ms"], ffma_ms=fbt["ffma_ms"],
              timed="one layer's attention backward, q (40, 3, 512, 64), causal, bf16, "
                    "mma path (wgmma at D = 64); library: SDPA's flash backward op, K/V "
-                   "repeated"),
+                   "repeated; the dense configs' training layers (mma.sync at D 80 and "
+                   "256; library: the backward of an SDPA call, a window as a mask) "
+                   "under by_config",
+             by_config={k: {key: t[key] for key in (
+                 "q_shape", "window", "ms", "device_ms", "plain_ms", "library_ms",
+                 "library_backend", "bound_ms", "bound_by", "ffma_ms", "dq_ms", "dkv_ms",
+                 "flop")} for k, t in fbts.items() if k != "smollm_360m"},
+             launches_by_train_run={r["arch"]: r["launches"]["flash_attention_bwd"]
+                                    for r in (tr, tdn, tg3)},
+             err_by_case=detail["flash_attention_bwd_err"]["by_case"]),
         dict(name="ssd_scan_bwd", route="cuda", source="src/repro_torch/csrc/ssd_scan_bwd.cu",
              replaces="src/repro/kernels/ssd_scan/kernel.py:70",
              replaces_part="the gradient of ssd_scan, which the Pallas kernel lacks; the "

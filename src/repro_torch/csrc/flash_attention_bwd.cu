@@ -24,7 +24,9 @@
 //    causal/window band and accumulates dQ; it also forms Dv for its rows
 //    and writes it to a float32 scratch for the second kernel.
 //  * dkv: a block per (BH, 64 keys) walks the row tiles that can see its
-//    keys and accumulates dK and dV.
+//    keys and accumulates dK and dV (at D = 256 on the mma path, a block
+//    per (BH, 64 keys, 128 columns of dK and dV); the ffma path's tiles are
+//    32 rows or keys at D = 256).
 // Both recompute S and dP (two 64 x 64 x D products a tile pair), so the
 // pair does seven products where the function needs five. Blocks are
 // launched heaviest first: the dq grid's row tiles from the last, the dkv
@@ -62,21 +64,33 @@
 //    dQ kernel that only reads it (five products instead of seven); it was
 //    faster alone and moved no train step, at a scratch of about Tkv / D
 //    times q's size.
-//  * mma at D = 16, 32, 128 (bf16): the same walk on mma.sync.m16n8k16 with
-//    the forward mma path's fragments. 4 warps own 16 rows (dq) or 16 keys
-//    (dkv) each; the block's own Q, dO, O (dq) or K, V (dkv) are gathered
-//    once by cp.async, the streamed tiles (K, V or Q, dO, with lse and Dv)
-//    in a two-stage cp.async ring. dkv computes S^T = K Q^T and dP^T = V
-//    dO^T, so P^T and dS^T come out of the accumulators already in the A
-//    layout of dV += P^T dO and dK += dS^T Q (the m16n8 accumulator layout
-//    is the m16n8k16 A layout); dq computes dS the same way for dQ += dS K.
+//  * mma at D = 16, 32, 80, 128, 256 (bf16; 80 is h2o_danube_1_8b's head
+//    dim, 256 gemma3_12b's): the same walk on mma.sync.m16n8k16 with the
+//    forward mma path's fragments. 4 warps own 16 rows (dq) or 16 keys
+//    (dkv) each; the block's own Q, dO (dq) or K, V (dkv) are gathered once
+//    by cp.async, the streamed tiles (K, V or Q, dO, with lse and Dv) in a
+//    two-stage cp.async ring; dq reads O for Dv from device memory, once,
+//    so that six [64][D + 8] bf16 tiles are all its shared memory (198 KB
+//    at D = 256, under the 227 KB a block may have). At D = 256 the dK and
+//    dV accumulators of a warp's 16 keys by 256 columns would be 256
+//    floats a thread, so a dkv block owns 128 of the columns (grid z): it
+//    recomputes the whole S^T and dP^T of its keys, as the other column
+//    block does: 6 products of 64 x 64 x 256 a tile pair where one block
+//    would do 4. The row stride D + 8 keeps ldmatrix free of bank
+//    conflicts at every D (176 B at 80, 528 B at 256: the 8 rows of a
+//    fragment land on 8 distinct 4-bank groups). dkv computes S^T = K Q^T
+//    and dP^T = V dO^T, so P^T and dS^T come out of the accumulators
+//    already in the A layout of dV += P^T dO and dK += dS^T Q (the m16n8
+//    accumulator layout is the m16n8k16 A layout); dq computes dS the same
+//    way for dQ += dS K.
 //    The second operand of those three goes through ldmatrix.trans. P and
 //    dS are rounded to bf16 for their products.
 //  * ffma (float32, and bf16 the mma path cannot take): float32 FFMA, the
 //    first version. Each thread holds a 4 x 4 block of the 64 x 64 score
 //    tile and a 4-row (or 4-key) x D/16 block of its accumulator; operands
 //    sit in padded shared memory (row stride D + 1) so that the reads are
-//    free of bank conflicts.
+//    free of bank conflicts. At D = 256 the tiles are 32 x 32 (a 2 x 2
+//    block a thread): four [32][257] float tiles take 132 KB.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,8 +98,7 @@
 
 namespace {
 
-constexpr int TILE = 64;      // folded rows of a dq block, keys of a dkv block
-constexpr int THREADS = 256;  // 16 x 16: a 4 x 4 block of the score tile each
+constexpr int THREADS = 256;  // ffma: 16 x 16 threads, an RT x RT block of the score tile each
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -109,60 +122,6 @@ __device__ __forceinline__ size_t row_off(int rr, int G, int Tq) {
   return (size_t)(rr % G) * Tq + rr / G;
 }
 
-// 64 folded rows from r0 of src (G, Tq, D) into dst[64][D + 1] as float;
-// rows past R read as zeros.
-template <class T, int D>
-__device__ __forceinline__ void load_rows(float* dst, const T* src, int r0, int R, int G,
-                                          int Tq) {
-  for (int i = threadIdx.x; i < TILE * D; i += THREADS) {
-    const int r = i / D, d = i % D, rr = r0 + r;
-    dst[r * (D + 1) + d] = rr < R ? to_f(src[row_off(rr, G, Tq) * D + d]) : 0.f;
-  }
-}
-
-// 64 keys from kv0 of src (Tkv, D) into dst[64][D + 1]; keys past Tkv read
-// as zeros.
-template <class T, int D>
-__device__ __forceinline__ void load_keys(float* dst, const T* src, int kv0, int Tkv) {
-  for (int i = threadIdx.x; i < TILE * D; i += THREADS) {
-    const int c = i / D, d = i % D, kp = kv0 + c;
-    dst[c * (D + 1) + d] = kp < Tkv ? to_f(src[(size_t)kp * D + d]) : 0.f;
-  }
-}
-
-// s[i][j] = Q[rq + i] . K[kk + 16 j] and dp[i][j] = dO[rq + i] . V[kk + 16 j]
-// over the tile's shared rows (stride D + 1).
-template <int D>
-__device__ __forceinline__ void score_tile(const float* Qs, const float* dOs, const float* Ks,
-                                           const float* Vs, int rq, int kk, float (&s)[4][4],
-                                           float (&dp)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float qa[4], da[4], kb[4], vb[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qa[i] = Qs[(rq + i) * (D + 1) + d];
-      da[i] = dOs[(rq + i) * (D + 1) + d];
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      kb[j] = Ks[(kk + 16 * j) * (D + 1) + d];
-      vb[j] = Vs[(kk + 16 * j) * (D + 1) + d];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
-        dp[i][j] = fmaf(da[i], vb[j], dp[i][j]);
-      }
-  }
-}
-
 // P and dS (scaled to the raw q.k product) of one score: row rr at query
 // position qpos with log-sum-exp lse and Dv dv, key kp. Both paths.
 __device__ __forceinline__ void prob_grad(Attn a, float s, float dp, int rr, int R,
@@ -183,48 +142,114 @@ __device__ __forceinline__ void prob_grad(Attn a, float s, float dp, int rr, int
 }
 
 // ---------------------------------------------------------------------------
-// ffma: float32 FFMA (and bf16 inputs the mma path cannot take).
+// ffma: float32 FFMA (and bf16 inputs the mma path cannot take). A block
+// owns BT folded rows (dq) or keys (dkv) and walks tiles of BT keys or rows:
+// BT = 64, and 32 at D = 256, where four [64][D + 1] float tiles would take
+// 263 KB of the 227 KB a block may have (four [32][257] take 132 KB).
 // ---------------------------------------------------------------------------
 template <int D>
+__host__ __device__ constexpr int ffma_tile() {
+  return D > 128 ? 32 : 64;
+}
+
+// BT folded rows from r0 of src (G, Tq, D) into dst[BT][D + 1] as float;
+// rows past R read as zeros.
+template <class T, int D, int BT>
+__device__ __forceinline__ void load_rows(float* dst, const T* src, int r0, int R, int G,
+                                          int Tq) {
+  for (int i = threadIdx.x; i < BT * D; i += THREADS) {
+    const int r = i / D, d = i % D, rr = r0 + r;
+    dst[r * (D + 1) + d] = rr < R ? to_f(src[row_off(rr, G, Tq) * D + d]) : 0.f;
+  }
+}
+
+// BT keys from kv0 of src (Tkv, D) into dst[BT][D + 1]; keys past Tkv read
+// as zeros.
+template <class T, int D, int BT>
+__device__ __forceinline__ void load_keys(float* dst, const T* src, int kv0, int Tkv) {
+  for (int i = threadIdx.x; i < BT * D; i += THREADS) {
+    const int c = i / D, d = i % D, kp = kv0 + c;
+    dst[c * (D + 1) + d] = kp < Tkv ? to_f(src[(size_t)kp * D + d]) : 0.f;
+  }
+}
+
+// s[i][j] = Q[rq + i] . K[kk + 16 j] and dp[i][j] = dO[rq + i] . V[kk + 16 j]
+// over the tile's shared rows (stride D + 1), i, j < RT.
+template <int D, int RT>
+__device__ __forceinline__ void score_tile(const float* Qs, const float* dOs, const float* Ks,
+                                           const float* Vs, int rq, int kk, float (&s)[RT][RT],
+                                           float (&dp)[RT][RT]) {
+#pragma unroll
+  for (int i = 0; i < RT; ++i)
+#pragma unroll
+    for (int j = 0; j < RT; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    float qa[RT], da[RT], kb[RT], vb[RT];
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      qa[i] = Qs[(rq + i) * (D + 1) + d];
+      da[i] = dOs[(rq + i) * (D + 1) + d];
+    }
+#pragma unroll
+    for (int j = 0; j < RT; ++j) {
+      kb[j] = Ks[(kk + 16 * j) * (D + 1) + d];
+      vb[j] = Vs[(kk + 16 * j) * (D + 1) + d];
+    }
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+#pragma unroll
+      for (int j = 0; j < RT; ++j) {
+        s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
+        dp[i][j] = fmaf(da[i], vb[j], dp[i][j]);
+      }
+  }
+}
+
+template <int D>
 constexpr int dq_smem_floats() {
-  return 4 * TILE * (D + 1) + TILE * (TILE + 1) + 2 * TILE;
+  constexpr int BT = ffma_tile<D>();
+  return 4 * BT * (D + 1) + BT * (BT + 1) + 2 * BT;
 }
 
 template <class T, int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
              const T* __restrict__ o, const T* __restrict__ dout,
              const float* __restrict__ lse, T* __restrict__ dq, float* __restrict__ dvec,
              Attn a) {
-  constexpr int DC = D / 16;  // dQ columns a thread owns
+  constexpr int BT = ffma_tile<D>(), RT = BT / 16;
+  constexpr int DC = D / 16;            // dQ columns a thread owns
+  constexpr int LPR = THREADS / BT;     // lanes a row in the Dv sum
   extern __shared__ float smem[];
-  float* Qs = smem;                   // [TILE][D + 1]
-  float* dOs = Qs + TILE * (D + 1);   // [TILE][D + 1]
-  float* Ks = dOs + TILE * (D + 1);   // [TILE][D + 1]; first O, for Dv
-  float* Vs = Ks + TILE * (D + 1);    // [TILE][D + 1]
-  float* dSs = Vs + TILE * (D + 1);   // [TILE][TILE + 1]
-  float* lse_s = dSs + TILE * (TILE + 1);
-  float* dv_s = lse_s + TILE;
+  float* Qs = smem;                   // [BT][D + 1]
+  float* dOs = Qs + BT * (D + 1);     // [BT][D + 1]
+  float* Ks = dOs + BT * (D + 1);     // [BT][D + 1]; first O, for Dv
+  float* Vs = Ks + BT * (D + 1);      // [BT][D + 1]
+  float* dSs = Vs + BT * (D + 1);     // [BT][BT + 1]
+  float* lse_s = dSs + BT * (BT + 1);
+  float* dv_s = lse_s + BT;
 
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int bh = blockIdx.y, r0 = (gridDim.x - 1 - blockIdx.x) * TILE;  // longest first
+  const int bh = blockIdx.y, r0 = (gridDim.x - 1 - blockIdx.x) * BT;  // longest first
   const int G = a.G, Tq = a.Tq, R = G * Tq;
   const size_t qoff = (size_t)bh * R * D, koff = (size_t)bh * a.Tkv * D;
 
-  load_rows<T, D>(Qs, q + qoff, r0, R, G, Tq);
-  load_rows<T, D>(dOs, dout + qoff, r0, R, G, Tq);
-  load_rows<T, D>(Ks, o + qoff, r0, R, G, Tq);
-  if (tid < TILE) {
+  load_rows<T, D, BT>(Qs, q + qoff, r0, R, G, Tq);
+  load_rows<T, D, BT>(dOs, dout + qoff, r0, R, G, Tq);
+  load_rows<T, D, BT>(Ks, o + qoff, r0, R, G, Tq);
+  if (tid < BT) {
     const int rr = r0 + tid;
     lse_s[tid] = rr < R ? lse[(size_t)bh * R + row_off(rr, G, Tq)] : 0.f;
   }
   __syncthreads();
-  {  // Dv = rowsum(dO o O): four lanes a row, then two shuffles
-    const int r = tid >> 2, part = tid & 3;
+  {  // Dv = rowsum(dO o O): LPR neighbouring lanes a row, then shuffles
+    const int r = tid / LPR, part = tid % LPR;
     float acc = 0.f;
-    for (int d = part; d < D; d += 4) acc = fmaf(dOs[r * (D + 1) + d], Ks[r * (D + 1) + d], acc);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    for (int d = part; d < D; d += LPR)
+      acc = fmaf(dOs[r * (D + 1) + d], Ks[r * (D + 1) + d], acc);
+#pragma unroll
+    for (int m = 1; m < LPR; m <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m);
     if (part == 0) {
       dv_s[r] = acc;
       if (r0 + r < R) dvec[(size_t)bh * R + row_off(r0 + r, G, Tq)] = acc;
@@ -233,55 +258,55 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 
   // The keys these rows can see, as in the forward.
   const int qmin = a.q_offset + r0 / G;
-  const int qmax = a.q_offset + (min(R, r0 + TILE) - 1) / G;
+  const int qmax = a.q_offset + (min(R, r0 + BT) - 1) / G;
   const int kv_end = a.causal ? min(a.Tkv, qmax + 1) : a.Tkv;
-  const int kv_begin = a.window > 0 ? max(0, qmin - a.window + 1) / TILE * TILE : 0;
+  const int kv_begin = a.window > 0 ? max(0, qmin - a.window + 1) / BT * BT : 0;
 
-  int qpos[4];
+  int qpos[RT];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) qpos[i] = a.q_offset + (r0 + ty * 4 + i) / G;
-  float acc[4][DC];
+  for (int i = 0; i < RT; ++i) qpos[i] = a.q_offset + (r0 + ty * RT + i) / G;
+  float acc[RT][DC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RT; ++i)
 #pragma unroll
     for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
 
-  for (int kv0 = kv_begin; kv0 < kv_end; kv0 += TILE) {
+  for (int kv0 = kv_begin; kv0 < kv_end; kv0 += BT) {
     __syncthreads();  // the previous tile's Ks/Vs/dSs (and O) are consumed
-    load_keys<T, D>(Ks, k + koff, kv0, a.Tkv);
-    load_keys<T, D>(Vs, v + koff, kv0, a.Tkv);
+    load_keys<T, D, BT>(Ks, k + koff, kv0, a.Tkv);
+    load_keys<T, D, BT>(Vs, v + koff, kv0, a.Tkv);
     __syncthreads();
-    float s[4][4], dp[4][4];
-    score_tile<D>(Qs, dOs, Ks, Vs, ty * 4, tx, s, dp);
+    float s[RT][RT], dp[RT][RT];
+    score_tile<D, RT>(Qs, dOs, Ks, Vs, ty * RT, tx, s, dp);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
+    for (int i = 0; i < RT; ++i) {
+      const int r = ty * RT + i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RT; ++j) {
         float p, ds;
         prob_grad(a, s[i][j], dp[i][j], r0 + r, R, qpos[i], kv0 + tx + 16 * j, lse_s[r],
                   dv_s[r], p, ds);
-        dSs[r * (TILE + 1) + tx + 16 * j] = ds;
+        dSs[r * (BT + 1) + tx + 16 * j] = ds;
       }
     }
     __syncthreads();
 #pragma unroll 4
-    for (int c = 0; c < TILE; ++c) {
-      float dsv[4];
+    for (int c = 0; c < BT; ++c) {
+      float dsv[RT];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = dSs[(ty * 4 + i) * (TILE + 1) + c];
+      for (int i = 0; i < RT; ++i) dsv[i] = dSs[(ty * RT + i) * (BT + 1) + c];
 #pragma unroll
       for (int j = 0; j < DC; ++j) {
         const float kv = Ks[c * (D + 1) + tx + 16 * j];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(dsv[i], kv, acc[i][j]);
+        for (int i = 0; i < RT; ++i) acc[i][j] = fmaf(dsv[i], kv, acc[i][j]);
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int rr = r0 + ty * 4 + i;
+  for (int i = 0; i < RT; ++i) {
+    const int rr = r0 + ty * RT + i;
     if (rr >= R) continue;
     T* row = dq + qoff + row_off(rr, G, Tq) * D;
 #pragma unroll
@@ -291,88 +316,90 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 
 template <int D>
 constexpr int dkv_smem_floats() {
-  return 4 * TILE * (D + 1) + 2 * TILE * (TILE + 1) + 2 * TILE;
+  constexpr int BT = ffma_tile<D>();
+  return 4 * BT * (D + 1) + 2 * BT * (BT + 1) + 2 * BT;
 }
 
 template <class T, int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
               const T* __restrict__ dout, const float* __restrict__ lse,
               const float* __restrict__ dvec, T* __restrict__ dk, T* __restrict__ dv, Attn a) {
+  constexpr int BT = ffma_tile<D>(), RT = BT / 16;
   constexpr int DC = D / 16;  // dK / dV columns a thread owns
   extern __shared__ float smem[];
-  float* Ks = smem;                   // [TILE][D + 1]: this block's keys
-  float* Vs = Ks + TILE * (D + 1);
-  float* Qs = Vs + TILE * (D + 1);    // [TILE][D + 1]: the current row tile
-  float* dOs = Qs + TILE * (D + 1);
-  float* Ps = dOs + TILE * (D + 1);   // [TILE rows][TILE + 1]
-  float* dSs = Ps + TILE * (TILE + 1);
-  float* lse_s = dSs + TILE * (TILE + 1);
-  float* dv_s = lse_s + TILE;
+  float* Ks = smem;                   // [BT][D + 1]: this block's keys
+  float* Vs = Ks + BT * (D + 1);
+  float* Qs = Vs + BT * (D + 1);      // [BT][D + 1]: the current row tile
+  float* dOs = Qs + BT * (D + 1);
+  float* Ps = dOs + BT * (D + 1);     // [BT rows][BT + 1]
+  float* dSs = Ps + BT * (BT + 1);
+  float* lse_s = dSs + BT * (BT + 1);
+  float* dv_s = lse_s + BT;
 
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int bh = blockIdx.y, kv0 = blockIdx.x * TILE;
+  const int bh = blockIdx.y, kv0 = blockIdx.x * BT;
   const int G = a.G, Tq = a.Tq, R = G * Tq;
   const size_t qoff = (size_t)bh * R * D, koff = (size_t)bh * a.Tkv * D;
 
-  load_keys<T, D>(Ks, k + koff, kv0, a.Tkv);
-  load_keys<T, D>(Vs, v + koff, kv0, a.Tkv);
+  load_keys<T, D, BT>(Ks, k + koff, kv0, a.Tkv);
+  load_keys<T, D, BT>(Vs, v + koff, kv0, a.Tkv);
 
   // The folded rows that can see a key of [kv0, kv1): query position at
   // least kv0 (causal) and below kv1 - 1 + window (sliding window).
-  const int kv1 = min(a.Tkv, kv0 + TILE);
+  const int kv1 = min(a.Tkv, kv0 + BT);
   const int rr_lo = a.causal ? max(0, (kv0 - a.q_offset) * G) : 0;
   const int rr_hi = a.window > 0 ? min(R, max(0, kv1 - 1 + a.window - a.q_offset) * G) : R;
 
-  float acc_k[4][DC], acc_v[4][DC];
+  float acc_k[RT][DC], acc_v[RT][DC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RT; ++i)
 #pragma unroll
     for (int c = 0; c < DC; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
 
-  for (int r0 = rr_lo / TILE * TILE; r0 < rr_hi; r0 += TILE) {
+  for (int r0 = rr_lo / BT * BT; r0 < rr_hi; r0 += BT) {
     __syncthreads();  // the previous row tile is consumed
-    load_rows<T, D>(Qs, q + qoff, r0, R, G, Tq);
-    load_rows<T, D>(dOs, dout + qoff, r0, R, G, Tq);
-    if (tid < TILE) {
+    load_rows<T, D, BT>(Qs, q + qoff, r0, R, G, Tq);
+    load_rows<T, D, BT>(dOs, dout + qoff, r0, R, G, Tq);
+    if (tid < BT) {
       const int rr = r0 + tid;
       const size_t off = (size_t)bh * R + row_off(rr < R ? rr : 0, G, Tq);
       lse_s[tid] = rr < R ? lse[off] : 0.f;
       dv_s[tid] = rr < R ? dvec[off] : 0.f;
     }
     __syncthreads();
-    float s[4][4], dp[4][4];
-    score_tile<D>(Qs, dOs, Ks, Vs, ty * 4, tx, s, dp);
+    float s[RT][RT], dp[RT][RT];
+    score_tile<D, RT>(Qs, dOs, Ks, Vs, ty * RT, tx, s, dp);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i, rr = r0 + r;
+    for (int i = 0; i < RT; ++i) {
+      const int r = ty * RT + i, rr = r0 + r;
       const int qpos = a.q_offset + rr / G;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RT; ++j) {
         float p, ds;
         prob_grad(a, s[i][j], dp[i][j], rr, R, qpos, kv0 + tx + 16 * j, lse_s[r], dv_s[r],
                   p, ds);
-        Ps[r * (TILE + 1) + tx + 16 * j] = p;
-        dSs[r * (TILE + 1) + tx + 16 * j] = ds;
+        Ps[r * (BT + 1) + tx + 16 * j] = p;
+        dSs[r * (BT + 1) + tx + 16 * j] = ds;
       }
     }
     __syncthreads();
     // dV[key] += P[row, key] dO[row]; dK[key] += dS[row, key] Q[row]; this
-    // thread's keys are ty * 4 + i, its columns tx + 16 j.
+    // thread's keys are ty * RT + i, its columns tx + 16 j.
 #pragma unroll 4
-    for (int r = 0; r < TILE; ++r) {
-      float pv[4], dsv[4];
+    for (int r = 0; r < BT; ++r) {
+      float pv[RT], dsv[RT];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = Ps[r * (TILE + 1) + ty * 4 + i];
-        dsv[i] = dSs[r * (TILE + 1) + ty * 4 + i];
+      for (int i = 0; i < RT; ++i) {
+        pv[i] = Ps[r * (BT + 1) + ty * RT + i];
+        dsv[i] = dSs[r * (BT + 1) + ty * RT + i];
       }
 #pragma unroll
       for (int j = 0; j < DC; ++j) {
         const float dov = dOs[r * (D + 1) + tx + 16 * j];
         const float qv = Qs[r * (D + 1) + tx + 16 * j];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < RT; ++i) {
           acc_v[i][j] = fmaf(pv[i], dov, acc_v[i][j]);
           acc_k[i][j] = fmaf(dsv[i], qv, acc_k[i][j]);
         }
@@ -381,8 +408,8 @@ flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kp = kv0 + ty * 4 + i;
+  for (int i = 0; i < RT; ++i) {
+    const int kp = kv0 + ty * RT + i;
     if (kp >= a.Tkv) continue;
 #pragma unroll
     for (int j = 0; j < DC; ++j) {
@@ -496,17 +523,17 @@ __device__ __forceinline__ void rows_by_rows(float (&acc)[8][4], const __nv_bflo
   }
 }
 
-// acc (16 x D) += F B: F (16 x 64) as bf16 A fragments, B the 64 shared rows
-// at `b` read through ldmatrix.trans (k = row, n = column of D).
-template <int D>
-__device__ __forceinline__ void frags_by_rows(float (&acc)[D / 8][4], const uint32_t (&f)[4][4],
+// acc (16 x N) += F B: F (16 x 64) as bf16 A fragments, B the N columns
+// from `b` of 64 shared rows of stride LD, read through ldmatrix.trans
+// (k = row, n = column).
+template <int N, int LD>
+__device__ __forceinline__ void frags_by_rows(float (&acc)[N / 8][4], const uint32_t (&f)[4][4],
                                               const __nv_bfloat16* b) {
-  constexpr int LD = D + PAD;
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int kc = 0; kc < 4; ++kc)
 #pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
+    for (int dp = 0; dp < N / 16; ++dp) {
       uint32_t bf[4];
       const int r = kc * 16 + (((lane >> 3) & 1) << 3) + (lane & 7);
       ldsm_x4_trans(bf, smem_u32(b + r * LD + dp * 16 + ((lane >> 4) << 3)));
@@ -527,7 +554,7 @@ __device__ __forceinline__ void to_frags(uint32_t (&f)[4][4], const float (&acc)
 
 template <int D>
 constexpr int dq_mma_smem_bytes() {
-  return 7 * MMA_TILE * (D + PAD) * 2;  // Q, dO, O, two stages of K and V
+  return 6 * MMA_TILE * (D + PAD) * 2;  // Q, dO, two stages of K and V
 }
 
 template <int D>
@@ -540,8 +567,7 @@ flash_bwd_dq_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64][LD]
   __nv_bfloat16* dOs = Qs + MMA_TILE * LD;                          // [64][LD]
-  __nv_bfloat16* Os = dOs + MMA_TILE * LD;                          // [64][LD]
-  __nv_bfloat16* Ks = Os + MMA_TILE * LD;                           // [2][64][LD]
+  __nv_bfloat16* Ks = dOs + MMA_TILE * LD;                          // [2][64][LD]
   __nv_bfloat16* Vs = Ks + 2 * MMA_TILE * LD;                       // [2][64][LD]
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t4 = lane & 3;
@@ -551,7 +577,6 @@ flash_bwd_dq_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 
   gather_rows<D>(Qs, q + qoff, r0, R, G, Tq);
   gather_rows<D>(dOs, dout + qoff, r0, R, G, Tq);
-  gather_rows<D>(Os, o + qoff, r0, R, G, Tq);
   const int qmin = a.q_offset + r0 / G;
   const int qmax = a.q_offset + (min(R, r0 + MMA_TILE) - 1) / G;
   const int kv_end = a.causal ? min(a.Tkv, qmax + 1) : a.Tkv;
@@ -562,24 +587,27 @@ flash_bwd_dq_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   };
   if (kv_begin < kv_end) load_kv(kv_begin, 0);
   cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
 
-  // This thread's rows: g and g + 8 of the warp's 16. Dv over a quad's lanes.
+  // This thread's rows: g and g + 8 of the warp's 16. Dv over a quad's
+  // lanes, from dO and O in device memory (O has no shared tile).
   const int wrow = warp * 16;
   int qpos[2];
   float lse_r[2], dv_r[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int r = wrow + g + 8 * h, rr = r0 + r;
+    const int rr = r0 + wrow + g + 8 * h;
     qpos[h] = a.q_offset + (rr < R ? rr / G : 0);
     lse_r[h] = rr < R ? lse[(size_t)bh * R + row_off(rr, G, Tq)] : 0.f;
     float acc = 0.f;
-    for (int c = 2 * t4; c < D; c += 8) {
-      const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(dOs + r * LD + c);
-      const __nv_bfloat162 y = *reinterpret_cast<const __nv_bfloat162*>(Os + r * LD + c);
-      acc = fmaf(__low2float(x), __low2float(y), acc);
-      acc = fmaf(__high2float(x), __high2float(y), acc);
+    if (rr < R) {
+      const size_t off = qoff + row_off(rr, G, Tq) * D;
+#pragma unroll 1
+      for (int c = 2 * t4; c < D; c += 8) {
+        const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(dout + off + c);
+        const __nv_bfloat162 y = *reinterpret_cast<const __nv_bfloat162*>(o + off + c);
+        acc = fmaf(__low2float(x), __low2float(y), acc);
+        acc = fmaf(__high2float(x), __high2float(y), acc);
+      }
     }
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
     acc += __shfl_xor_sync(0xffffffffu, acc, 2);
@@ -613,7 +641,7 @@ flash_bwd_dq_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
       }
     uint32_t dsf[4][4];
     to_frags(dsf, s);
-    frags_by_rows<D>(acc, dsf, ks);  // dQ += dS K
+    frags_by_rows<D, LD>(acc, dsf, ks);  // dQ += dS K
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
   cp_async_wait<0>();
@@ -635,13 +663,21 @@ constexpr int dkv_mma_smem_bytes() {
   return 6 * MMA_TILE * (D + PAD) * 2 + 4 * MMA_TILE * 4;  // K, V, 2 x (Q, dO), lse, Dv
 }
 
+// Columns of dK and dV a dK/dV block owns: all of D up to 128; at D = 256 a
+// block owns half, as the accumulators of all 256 would take 256 registers
+// a thread. Each block still forms the whole S^T and dP^T of its keys.
+template <int D>
+__host__ __device__ constexpr int dkv_mma_cols() {
+  return D > 128 ? 128 : D;
+}
+
 template <int D>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_bwd_dkv_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
                   const float* __restrict__ lse, const float* __restrict__ dvec,
                   __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, Attn a) {
-  constexpr int LD = D + PAD, DT = D / 8;
+  constexpr int LD = D + PAD, DN = dkv_mma_cols<D>(), DT = DN / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64][LD]
   __nv_bfloat16* Vs = Ks + MMA_TILE * LD;                           // [64][LD]
@@ -651,7 +687,7 @@ flash_bwd_dkv_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
   float* dv_s = lse_s + 2 * MMA_TILE;                                // [2][64]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t4 = lane & 3;
-  const int bh = blockIdx.y, kv0 = blockIdx.x * MMA_TILE;
+  const int bh = blockIdx.y, kv0 = blockIdx.x * MMA_TILE, c0 = blockIdx.z * DN;
   const int G = a.G, Tq = a.Tq, R = G * Tq;
   const size_t qoff = (size_t)bh * R * D, koff = (size_t)bh * a.Tkv * D;
 
@@ -708,9 +744,9 @@ flash_bwd_dkv_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
       }
     uint32_t f[4][4];
     to_frags(f, s);
-    frags_by_rows<D>(acc_v, f, dos);  // dV += P^T dO
+    frags_by_rows<DN, LD>(acc_v, f, dos + c0);  // dV += P^T dO, this block's columns
     to_frags(f, dp);
-    frags_by_rows<D>(acc_k, f, qs);   // dK += dS^T Q
+    frags_by_rows<DN, LD>(acc_k, f, qs + c0);   // dK += dS^T Q
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
   cp_async_wait<0>();
@@ -718,7 +754,7 @@ flash_bwd_dkv_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (kpos[h] >= a.Tkv) continue;
-    const size_t off = koff + (size_t)kpos[h] * D;
+    const size_t off = koff + (size_t)kpos[h] * D + c0;
 #pragma unroll
     for (int j = 0; j < DT; ++j) {
       *reinterpret_cast<uint32_t*>(dk + off + 8 * j + 2 * t4) =
@@ -1171,7 +1207,7 @@ flash_bwd_dkv_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 enum Path { PATH_MMA = 0, PATH_FFMA = 1 };
 
 bool path_fits(int path, int dtype, int D, bool aligned) {
-  const bool d_ok = D == 16 || D == 32 || D == 64 || D == 128;
+  const bool d_ok = D == 16 || D == 32 || D == 64 || D == 80 || D == 128 || D == 256;
   switch (path) {
     case PATH_MMA: return d_ok && dtype == 1 && aligned;
     case PATH_FFMA: return d_ok && (dtype == 0 || dtype == 1);
@@ -1188,7 +1224,8 @@ cudaError_t launch(int path, const void* q, const void* k, const void* v, const 
   const T* vt = static_cast<const T*>(v);
   const T* ot = static_cast<const T*>(o);
   const T* dot = static_cast<const T*>(dout);
-  const dim3 dq_grid((a.G * a.Tq + TILE - 1) / TILE, BH), dkv_grid((a.Tkv + TILE - 1) / TILE, BH);
+  const int R = a.G * a.Tq, mma_rows = (R + MMA_TILE - 1) / MMA_TILE;
+  const int mma_keys = (a.Tkv + MMA_TILE - 1) / MMA_TILE;
   if constexpr (sizeof(T) == 2 && D == 64) {
     if (path == PATH_MMA) {
       static const cudaError_t attr_dq = cudaFuncSetAttribute(
@@ -1198,45 +1235,50 @@ cudaError_t launch(int path, const void* q, const void* k, const void* v, const 
       if (attr_dq != cudaSuccess) return attr_dq;
       if (attr_dkv != cudaSuccess) return attr_dkv;
       // grid y: row tiles longest first (dQ), key tiles heaviest first (dK/dV)
-      flash_bwd_dq_wgmma<<<dim3(BH, dq_grid.x), 128, DQ_WG_SMEM, stream>>>(
+      flash_bwd_dq_wgmma<<<dim3(BH, mma_rows), 128, DQ_WG_SMEM, stream>>>(
           qt, kt, vt, ot, dot, lse, static_cast<T*>(dq), dvec, a);
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return err;
-      flash_bwd_dkv_wgmma<<<dim3(BH, dkv_grid.x), 128 * DKV_WGS, DKV_WG_SMEM, stream>>>(
+      flash_bwd_dkv_wgmma<<<dim3(BH, mma_keys), 128 * DKV_WGS, DKV_WG_SMEM, stream>>>(
           qt, kt, vt, dot, lse, dvec, static_cast<T*>(dk), static_cast<T*>(dv), a);
       return cudaGetLastError();
     }
   } else if constexpr (sizeof(T) == 2) {
     if (path == PATH_MMA) {
       constexpr int dq_bytes = dq_mma_smem_bytes<D>(), dkv_bytes = dkv_mma_smem_bytes<D>();
+      static_assert(dq_bytes <= 232448 && dkv_bytes <= 232448, "227 KB of shared memory a block");
       static const cudaError_t attr_dq = cudaFuncSetAttribute(
           flash_bwd_dq_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
       static const cudaError_t attr_dkv = cudaFuncSetAttribute(
           flash_bwd_dkv_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_bytes);
       if (attr_dq != cudaSuccess) return attr_dq;
       if (attr_dkv != cudaSuccess) return attr_dkv;
-      flash_bwd_dq_mma<D><<<dq_grid, MMA_THREADS, dq_bytes, stream>>>(
+      flash_bwd_dq_mma<D><<<dim3(mma_rows, BH), MMA_THREADS, dq_bytes, stream>>>(
           qt, kt, vt, ot, dot, lse, static_cast<T*>(dq), dvec, a);
       cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return err;
+      // grid z: the column blocks of dK and dV (two at D = 256)
+      const dim3 dkv_grid(mma_keys, BH, D / dkv_mma_cols<D>());
       flash_bwd_dkv_mma<D><<<dkv_grid, MMA_THREADS, dkv_bytes, stream>>>(
           qt, kt, vt, dot, lse, dvec, static_cast<T*>(dk), static_cast<T*>(dv), a);
       return cudaGetLastError();
     }
   }
+  constexpr int BT = ffma_tile<D>();
   constexpr int dq_bytes = dq_smem_floats<D>() * sizeof(float);
   constexpr int dkv_bytes = dkv_smem_floats<D>() * sizeof(float);
+  static_assert(dq_bytes <= 232448 && dkv_bytes <= 232448, "227 KB of shared memory a block");
   static const cudaError_t attr_dq = cudaFuncSetAttribute(
       flash_bwd_dq<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
   static const cudaError_t attr_dkv = cudaFuncSetAttribute(
       flash_bwd_dkv<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_bytes);
   if (attr_dq != cudaSuccess) return attr_dq;
   if (attr_dkv != cudaSuccess) return attr_dkv;
-  flash_bwd_dq<T, D><<<dq_grid, THREADS, dq_bytes, stream>>>(
+  flash_bwd_dq<T, D><<<dim3((R + BT - 1) / BT, BH), THREADS, dq_bytes, stream>>>(
       qt, kt, vt, ot, dot, lse, static_cast<T*>(dq), dvec, a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dkv<T, D><<<dkv_grid, THREADS, dkv_bytes, stream>>>(
+  flash_bwd_dkv<T, D><<<dim3((a.Tkv + BT - 1) / BT, BH), THREADS, dkv_bytes, stream>>>(
       qt, kt, vt, dot, lse, dvec, static_cast<T*>(dk), static_cast<T*>(dv), a);
   return cudaGetLastError();
 }
@@ -1249,7 +1291,9 @@ cudaError_t dispatch(int path, int D, const void* q, const void* k, const void* 
     case 16: return launch<T, 16>(path, q, k, v, o, dout, lse, dq, dk, dv, dvec, BH, a, s);
     case 32: return launch<T, 32>(path, q, k, v, o, dout, lse, dq, dk, dv, dvec, BH, a, s);
     case 64: return launch<T, 64>(path, q, k, v, o, dout, lse, dq, dk, dv, dvec, BH, a, s);
+    case 80: return launch<T, 80>(path, q, k, v, o, dout, lse, dq, dk, dv, dvec, BH, a, s);
     case 128: return launch<T, 128>(path, q, k, v, o, dout, lse, dq, dk, dv, dvec, BH, a, s);
+    case 256: return launch<T, 256>(path, q, k, v, o, dout, lse, dq, dk, dv, dvec, BH, a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1258,7 +1302,7 @@ cudaError_t dispatch(int path, int D, const void* q, const void* k, const void* 
 
 // dtype codes: 0 = float32, 1 = bfloat16 (q, k, v, o, dO and the gradients
 // share it); lse and dvec float32, dvec (BH, G, Tq) scratch for Dv. D in
-// {16, 32, 64, 128}. path: 0 = mma (bf16, every tensor 16-byte aligned),
+// {16, 32, 64, 80, 128, 256}. path: 0 = mma (bf16, every tensor 16-byte aligned),
 // 1 = ffma. Launches the dQ kernel, then the dK/dV kernel, on `stream`;
 // returns the CUDA error of the launches (cudaErrorInvalidValue for a path
 // the inputs cannot take), 0 when both launched.

@@ -26,9 +26,8 @@ counts them per path. The source's header says what bounds each on the card.
 (``return_lse``), which :func:`flash_attention_bwd` takes with the output to
 launch the backward (``csrc/flash_attention_bwd.cu``: a dQ kernel, then a
 dK/dV kernel, no atomics), with the forward's two paths: ``mma`` (bf16 on
-tensor cores) and ``ffma`` (float32), at the head dims of ``BWD_HEAD_DIMS``
-(not yet 80 or 256, which the forward takes). ``flash_attention_bwd.launches``
-and ``.paths`` count its calls.
+tensor cores) and ``ffma`` (float32), at every head dim the forward takes.
+``flash_attention_bwd.launches`` and ``.paths`` count its calls.
 """
 
 from __future__ import annotations
@@ -42,10 +41,10 @@ from repro_torch.kernels import _build, _count
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 PATH_CODES = {"mma": 0, "ffma": 1}
-# Head dims the forward kernels take (80: h2o_danube_1_8b, 256: gemma3_12b)
-# and the fewer the backward kernels take.
+# Head dims the kernels take (80: h2o_danube_1_8b, 256: gemma3_12b); the
+# backward takes every one the forward takes.
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)
-BWD_HEAD_DIMS = (16, 32, 64, 128)
+BWD_HEAD_DIMS = HEAD_DIMS
 
 
 def choose_path(dtype: torch.dtype, d: int, aligned: bool) -> str:
@@ -83,18 +82,28 @@ BWD_TILE = 64        # folded rows or keys of a tile in the backward kernels
 DKV_WARPGROUPS = 3   # DKV_WGS in csrc/flash_attention_bwd.cu
 
 
+def bwd_tile(d: int, path: str) -> int:
+    """Folded rows or keys of a tile of the backward's ``path`` at head dim
+    ``d``: ``BWD_TILE``, but 32 on the ffma path at D = 256, where four
+    float32 tiles of 64 rows would not fit a block's shared memory
+    (``ffma_tile`` in ``csrc/flash_attention_bwd.cu``)."""
+    return 32 if path == "ffma" and d > 128 else BWD_TILE
+
+
 def bwd_walks(G: int, Tq: int, Tkv: int, *, causal: bool = True, window: int = 0,
-              q_offset: int = 0):
+              q_offset: int = 0, tile: int = BWD_TILE):
     """The tiles the backward kernels walk, as ``csrc/flash_attention_bwd.cu``
-    computes them (all of its kernels share the band arithmetic). Folded row
-    ``rr = t * G + g`` sits at query position ``q_offset + rr // G``.
+    computes them (all of its kernels share the band arithmetic), at tiles
+    of ``tile`` (:func:`bwd_tile`). Folded row ``rr = t * G + g`` sits at
+    query position ``q_offset + rr // G``.
 
     Returns ``(dq, dkv)``: ``dq[r0]``, the first key of each key tile the dQ
-    kernel's block of rows ``r0 .. r0 + 63`` walks; ``dkv[kv0][w]``, the
-    first row of each row tile that warpgroup ``w`` of the dK/dV block of
-    keys ``kv0 .. kv0 + 63`` walks (every ``DKV_WARPGROUPS``-th tile of the
-    band, from tile ``w``)."""
-    R, T = G * Tq, BWD_TILE
+    kernel's block of rows ``r0 .. r0 + tile - 1`` walks; ``dkv[kv0][w]``,
+    the first row of each row tile that warpgroup ``w`` of the dK/dV block
+    of keys ``kv0 .. kv0 + tile - 1`` walks (every ``DKV_WARPGROUPS``-th tile
+    of the band, from tile ``w``; the kernels other than the D = 64 wgmma
+    pair walk the whole band in one)."""
+    R, T = G * Tq, tile
     dq = {}
     for r0 in range(0, R, T):
         qmin, qmax = q_offset + r0 // G, q_offset + (min(R, r0 + T) - 1) // G
@@ -115,9 +124,10 @@ def bwd_walks(G: int, Tq: int, Tkv: int, *, causal: bool = True, window: int = 0
 
 def bwd_tile_visible(G: int, Tq: int, Tkv: int, r0: int, kv0: int, *, causal: bool = True,
                      window: int = 0, q_offset: int = 0) -> bool:
-    """Whether every (row, key) pair of the tile pair at folded row ``r0`` and
-    key ``kv0`` is visible, so that the kernels skip its mask
-    (``tile_visible`` in ``csrc/flash_attention_bwd.cu``)."""
+    """Whether every (row, key) pair of the 64 x 64 tile pair at folded row
+    ``r0`` and key ``kv0`` is visible, so that the D = 64 wgmma kernels skip
+    its mask (``tile_visible`` in ``csrc/flash_attention_bwd.cu``; the other
+    kernels mask every score)."""
     T = BWD_TILE
     ok = r0 + T <= G * Tq and kv0 + T <= Tkv
     if causal:
@@ -127,18 +137,16 @@ def bwd_tile_visible(G: int, Tq: int, Tkv: int, r0: int, kv0: int, *, causal: bo
     return ok
 
 
-def _check(q, k, v, head_dims=HEAD_DIMS) -> None:
+def _check(q, k, v) -> None:
     """Raises on inputs no kernel takes: shapes, head dim (one of
-    ``head_dims``), CUDA, dtype, contiguity."""
+    ``HEAD_DIMS``), CUDA, dtype, contiguity."""
     if q.dim() != 4 or k.dim() != 3 or v.shape != k.shape:
         raise ValueError(f"bad shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
     BH, D = q.shape[0], q.shape[3]
-    if k.shape[0] != BH or k.shape[2] != D or D not in head_dims:
-        note = (f"; the forward takes D {D}, its backward waits for slice 13 of the "
-                "port (ROADMAP.md §1)" if D in HEAD_DIMS and D not in head_dims else "")
-        raise ValueError(f"need k (BH, Tkv, D) with D in {head_dims}; "
-                         f"got q {tuple(q.shape)}, k {tuple(k.shape)}{note}")
+    if k.shape[0] != BH or k.shape[2] != D or D not in HEAD_DIMS:
+        raise ValueError(f"need k (BH, Tkv, D) with D in {HEAD_DIMS}; "
+                         f"got q {tuple(q.shape)}, k {tuple(k.shape)}")
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("flash_attention kernel needs CUDA tensors")
     if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -190,10 +198,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     output was ``o`` and row log-sum-exp ``lse``, for the output gradient
     ``do``; same shapes and layout as q, k, v. On CUDA; raises on anything
     the kernels do not take. ``path`` as :func:`flash_attention`'s, picked
-    by the same rule: ``mma`` for aligned bf16, else ``ffma``. Head dims 80
-    and 256, which the forward takes, have no backward kernel yet: training
-    h2o_danube_1_8b and gemma3_12b is slice 13 of ROADMAP.md's port."""
-    _check(q, k, v, BWD_HEAD_DIMS)
+    by the same rule: ``mma`` for aligned bf16, else ``ffma``."""
+    _check(q, k, v)
     BH, G, Tq, D = q.shape
     Tkv = k.shape[1]
     if o.shape != q.shape or do.shape != q.shape or lse.shape != (BH, G, Tq):

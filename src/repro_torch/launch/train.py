@@ -18,6 +18,7 @@ Usage::
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import time
 
@@ -41,12 +42,15 @@ def train(arch: str, *, reduced: bool = True, steps: int = 20, batch: int = 8,
           data_mode: str = "cyclic", opt: OptConfig | None = None,
           log=print, device=None, params: dict | None = None) -> dict:
     """``params`` (optional) replaces the seeded random init, e.g. weights
-    carried over with :mod:`repro_torch.checkpoint.convert`."""
+    carried over with :mod:`repro_torch.checkpoint.convert`; the model runs
+    at their depth (a model too deep for one card, cut in depth)."""
     if model_axis != 1:
         raise NotImplementedError("model_axis > 1 needs sharding, which is not "
                                   "ported yet (ROADMAP.md, 'Sharding')")
     dev = resolve_device(device)
     cfg = get_config(arch, reduced=reduced)
+    if params is not None:
+        cfg = dataclasses.replace(cfg, n_periods=len(params["period"][0]))
     opt = opt or OptConfig(peak_lr=1e-3, warmup_steps=5, decay_steps=steps,
                            weight_decay=0.0)
 

@@ -9,7 +9,10 @@ quantized along the last axis, one float32 absmax scale per block of
 Everything works on tensors under ``torch.no_grad()`` and out of place:
 :func:`adamw_update` returns new parameter and state trees and leaves its
 inputs as they were, as the reference's pure update does, so a step the
-watchdog re-issues starts again from the same state. Trees are the port's
+watchdog re-issues starts again from the same state. The one exception is
+asked for by a caller whose gradients are its own temporaries
+(``donate_grads``): the new parameters are then written into the gradients'
+memory. Trees are the port's
 parameter trees (dicts, tuples and lists of tensors); an int8 moment is a
 ``{"q", "s"}`` dict where the parameter has a tensor.
 """
@@ -17,6 +20,7 @@ parameter trees (dicts, tuples and lists of tensors); an int8 moment is a
 from __future__ import annotations
 
 import math
+from collections import Counter
 from dataclasses import dataclass
 
 import torch
@@ -168,24 +172,49 @@ def _chunks(leaves, limit: int = 1 << 26):
         yield chunk
 
 
+# Elements a float32 norm sums at once on the CPU: PyTorch's CPU reduction
+# drifts with length (about 3.5e-4 relative at 1e7 elements, 0.9% at 1e8;
+# probe_train_parity.py --cpu-norm), where runs of 2^16 stay near 2e-7. On
+# the card it is a tree, and a leaf is one run.
+NORM_RUN = 1 << 16
+
+
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in float32."""
+    """sqrt of the sum of squares of every leaf, as a float32 scalar: float32
+    norms of each leaf (of runs of ``NORM_RUN`` elements on the CPU), their
+    squares summed in float64."""
     leaves = tree_leaves(tree)
     if not leaves:
         return torch.zeros(())
     sq = []
     for idx in _chunks(leaves):
-        norms = torch._foreach_norm([leaves[i].float() for i in idx])
-        sq.append(torch.stack(norms).square().sum())
-    return torch.sqrt(torch.stack(sq).sum())
+        terms = [leaves[i].float() for i in idx]
+        if terms[0].device.type == "cpu":
+            terms = [run for t in terms for run in t.reshape(-1).split(NORM_RUN)]
+        norms = torch._foreach_norm(terms)
+        sq.append(torch.stack(norms).double().square().sum())
+    return torch.sqrt(torch.stack(sq).sum()).float()
 
 
-def _adam_float(ps, gs, ms, vs, decay, cfg: OptConfig, scale, lr, bc1, bc2):
+def _donatable(ps, gs) -> list[bool]:
+    """Which gradients can take their parameter's new value in place: a
+    dense tensor of the parameter's shape and dtype that fills its memory,
+    which no other gradient shares (autograd may hand one tensor to two
+    inputs of a sum)."""
+    owners = Counter(g.untyped_storage().data_ptr() for g in gs)
+    return [g.dtype == p.dtype and g.shape == p.shape and g.is_contiguous()
+            and g.untyped_storage().nbytes() == g.numel() * g.element_size()
+            and owners[g.untyped_storage().data_ptr()] == 1 for p, g in zip(ps, gs)]
+
+
+def _adam_float(ps, gs, ms, vs, decay, cfg: OptConfig, scale, lr, bc1, bc2, into):
     """The reference's per-leaf AdamW arithmetic on lists of leaves (float32
     or bfloat16 moments), op for op in float32 through ``torch._foreach``
     kernels, a bounded chunk of leaves at a time: a few launches a chunk
     where one a leaf and an op would cost the host thousands. Returns the
-    new params, m and v as lists; the inputs are not written."""
+    new params, m and v as lists; a new parameter is written into its
+    gradient where ``into`` says so (after the chunk has read that
+    gradient), and no other input is written."""
     b1, b2, wd = cfg.b1, cfg.b2, cfg.weight_decay
     new_p, new_m, new_v = [None] * len(ps), [None] * len(ps), [None] * len(ps)
     for idx in _chunks(ps):
@@ -211,17 +240,24 @@ def _adam_float(ps, gs, ms, vs, decay, cfg: OptConfig, scale, lr, bc1, bc2):
         torch._foreach_mul_(upd, lr)
         newp = torch._foreach_sub(p32, upd)
         for j, i in enumerate(idx):
-            new_p[i] = newp[j].to(ps[i].dtype)
+            new_p[i] = gs[i].copy_(newp[j]) if into[i] else newp[j].to(ps[i].dtype)
             new_m[i], new_v[i] = m[j].to(cfg.mdtype), v[j].to(cfg.mdtype)
     return new_p, new_m, new_v
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state: dict, cfg: OptConfig):
-    """Returns (new_params, new_state, metrics); nothing is updated in place.
-    Weight decay applies to tensors of rank 2 and more in the reference's
-    stacked layout (:func:`stacked_ranks`), as the reference applies it: a
-    period's norm scales decay, ``final_ln`` does not."""
+def adamw_update(params, grads, state: dict, cfg: OptConfig, *, donate_grads: bool = False):
+    """Returns (new_params, new_state, metrics); nothing is updated in place
+    unless ``donate_grads``: then ``grads`` are the caller's to lose, and
+    each new parameter is written into its gradient's memory where
+    :func:`_donatable` allows it, so that the update holds one
+    parameter-sized tree fewer at its peak (params, gradients, moments and
+    new moments: 20 bytes a parameter in bf16 with float32 moments, not 22).
+    The train step donates; the default keeps the reference's pure update,
+    which the tests hold the port to leaf for leaf. Weight decay applies to
+    tensors of rank 2 and more in the reference's stacked layout
+    (:func:`stacked_ranks`), as the reference applies it: a period's norm
+    scales decay, ``final_ln`` does not."""
     step = state["step"] + 1
     lr = schedule(cfg, step)
     gnorm = global_norm(grads)
@@ -234,20 +270,23 @@ def adamw_update(params, grads, state: dict, cfg: OptConfig):
     decay = [r >= 2 for r in tree_leaves_of(stacked_ranks(params), params)]
     ps, gs = tree_leaves(params), tree_leaves_of(grads, params)
     ms, vs = tree_leaves_of(state["m"], params), tree_leaves_of(state["v"], params)
+    into = _donatable(ps, gs) if donate_grads else [False] * len(ps)
     if cfg.moment_dtype == "int8":
         out = [_adam_int8(*leaf, cfg, scale, lr, bc1, bc2)
-               for leaf in zip(ps, gs, ms, vs, decay)]
+               for leaf in zip(ps, gs, ms, vs, decay, into)]
         new_p, new_m, new_v = (list(x) for x in zip(*out)) if out else ([], [], [])
     else:
-        new_p, new_m, new_v = _adam_float(ps, gs, ms, vs, decay, cfg, scale, lr, bc1, bc2)
+        new_p, new_m, new_v = _adam_float(ps, gs, ms, vs, decay, cfg, scale, lr, bc1, bc2,
+                                          into)
     return (_unflatten(params, new_p),
             {"m": _unflatten(params, new_m), "v": _unflatten(params, new_v), "step": step},
             {"lr": lr, "grad_norm": gnorm})
 
 
-def _adam_int8(p, g, m, v, decay: bool, cfg: OptConfig, scale, lr, bc1, bc2):
+def _adam_int8(p, g, m, v, decay: bool, into: bool, cfg: OptConfig, scale, lr, bc1, bc2):
     """One leaf with blockwise int8 moments: dequantize, the float32 update,
-    quantize."""
+    quantize; the new parameter written into ``g`` when ``into``."""
+    grad = g
     g = g.float() * scale
     shape = tuple(p.shape)
     m32 = cfg.b1 * dequantize_blockwise(m, shape) + (1 - cfg.b1) * g
@@ -255,7 +294,8 @@ def _adam_int8(p, g, m, v, decay: bool, cfg: OptConfig, scale, lr, bc1, bc2):
     update = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps)
     if cfg.weight_decay > 0 and decay:
         update = update + cfg.weight_decay * p.float()
-    new_p = (p.float() - lr * update).to(p.dtype)
+    new_p = p.float() - lr * update
+    new_p = grad.copy_(new_p) if into else new_p.to(p.dtype)
     return new_p, quantize_blockwise(m32), quantize_blockwise(v32)
 
 

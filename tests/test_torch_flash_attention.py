@@ -152,6 +152,14 @@ GRAD_CASES = [  # (B, Tq, Tkv, Hq, Hkv, D, window, softcap)
     (2, 20, 20, 2, 2, 32, 0, 25.0),     # softcap, G = 1
     (1, 13, 29, 6, 2, 16, 0, 0.0),      # q_offset = 16, ragged Tq / Tkv
     (2, 17, 40, 3, 1, 16, 9, 20.0),     # window + softcap + q_offset
+    # The dense configs' head dims: 80 (h2o_danube_1_8b, G 4, windowed) and
+    # 256 (gemma3_12b, G 2, local and global), each also at G 12; ragged Tq.
+    (1, 19, 30, 8, 2, 80, 7, 0.0),      # D = 80, G = 4, window, q_offset = 11
+    (1, 13, 13, 12, 1, 80, 0, 0.0),     # D = 80, G = 12, global, ragged Tq = 13
+    (2, 15, 20, 8, 2, 80, 6, 20.0),     # D = 80, window + softcap + q_offset
+    (1, 21, 37, 4, 2, 256, 9, 0.0),     # D = 256, G = 2, window, q_offset = 16
+    (2, 17, 17, 4, 2, 256, 0, 0.0),     # D = 256, G = 2, global, ragged Tq = 17
+    (1, 11, 24, 12, 1, 256, 5, 0.0),    # D = 256, G = 12, window, ragged Tq = 11
 ]
 
 
@@ -221,19 +229,23 @@ def test_backward_formula_matches_autograd_of_the_plain_forward():
         torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-6)
 
 
-@pytest.mark.parametrize("d", [80, 256])
-def test_backward_refuses_the_head_dims_only_the_forward_takes(d):
-    """D = 80 and 256 have forward kernels but no backward yet: the backward
-    raises a ValueError naming the slice that brings it, before any launch
-    (never a plain backward, never the C entry's error)."""
+@pytest.mark.parametrize("d", [48, 512])
+def test_backward_takes_every_head_dim_the_forward_takes(d):
+    """The backward's head dims are the forward's; a head dim neither takes
+    raises a ValueError before any launch (never a plain backward, never
+    the C entry's error). The backward's tiles: 64 rows or keys, but 32 on
+    the ffma path at D = 256 (``ffma_tile`` in the CUDA source)."""
+    assert kernel.BWD_HEAD_DIMS == kernel.HEAD_DIMS and d not in kernel.HEAD_DIMS
     q = torch.zeros((1, 2, 8, d), device="meta")
     k = torch.zeros((1, 8, d), device="meta")
     lse = torch.zeros((1, 2, 8), device="meta")
     before = kernel.flash_attention_bwd.launches
-    with pytest.raises(ValueError, match="slice 13"):
+    with pytest.raises(ValueError, match="D in"):
         kernel.flash_attention_bwd(q, k, k, q, q, lse)
     assert kernel.flash_attention_bwd.launches == before
-    assert d in kernel.HEAD_DIMS and d not in kernel.BWD_HEAD_DIMS
+    assert {(h, p): kernel.bwd_tile(h, p) for h in kernel.HEAD_DIMS for p in kernel.PATH_CODES} \
+        == {(h, p): 32 if (h, p) == (256, "ffma") else 64
+            for h in kernel.HEAD_DIMS for p in kernel.PATH_CODES}
 
 
 def test_attention_gradient_of_a_non_cpu_tensor_goes_to_the_kernel():
@@ -264,15 +276,9 @@ WALK_CASES = [  # (G, Tq, Tkv, causal, window, q_offset)
 ]
 
 
-@pytest.mark.parametrize("g,tq,tk,causal,window,q_offset", WALK_CASES)
-def test_backward_walks_cover_each_visible_pair_once(g, tq, tk, causal, window, q_offset):
-    """The backward kernels' band arithmetic (``kernel.bwd_walks``, mirrored
-    by ``csrc/flash_attention_bwd.cu``): the dQ blocks' key tiles and the
-    dK/dV warpgroups' row tiles each hold every visible (folded row, key)
-    pair exactly once, and a tile pair the kernels leave unmasked
-    (``bwd_tile_visible``) holds only visible pairs."""
+def _assert_walks_cover_each_visible_pair_once(g, tq, tk, causal, window, q_offset, tile):
     kw = dict(causal=causal, window=window, q_offset=q_offset)
-    R, T = g * tq, kernel.BWD_TILE
+    R, T = g * tq, tile
     qpos = q_offset + torch.arange(R) // g
     kp = torch.arange(tk)
     vis = torch.ones(R, tk, dtype=torch.bool)
@@ -280,7 +286,7 @@ def test_backward_walks_cover_each_visible_pair_once(g, tq, tk, causal, window, 
         vis &= kp[None] <= qpos[:, None]
     if window > 0:
         vis &= kp[None] > qpos[:, None] - window
-    dq, dkv = kernel.bwd_walks(g, tq, tk, **kw)
+    dq, dkv = kernel.bwd_walks(g, tq, tk, tile=tile, **kw)
     by_dq = torch.zeros(R, tk, dtype=torch.int32)
     for r0, kv0s in dq.items():
         for kv0 in kv0s:
@@ -293,7 +299,29 @@ def test_backward_walks_cover_each_visible_pair_once(g, tq, tk, causal, window, 
                 by_dkv[r0:r0 + T, kv0:kv0 + T] += 1
     for by in (by_dq, by_dkv):
         assert (by[vis] == 1).all() and (by <= 1).all()
-    for r0 in range(0, R, T):
-        for kv0 in range(0, tk, T):
+    V = kernel.BWD_TILE
+    for r0 in range(0, R, V):
+        for kv0 in range(0, tk, V):
             if kernel.bwd_tile_visible(g, tq, tk, r0, kv0, **kw):
-                assert vis[r0:r0 + T, kv0:kv0 + T].all()
+                assert vis[r0:r0 + V, kv0:kv0 + V].all()
+
+
+@pytest.mark.parametrize("g,tq,tk,causal,window,q_offset", WALK_CASES)
+def test_backward_walks_cover_each_visible_pair_once(g, tq, tk, causal, window, q_offset):
+    """The backward kernels' band arithmetic (``kernel.bwd_walks``, mirrored
+    by ``csrc/flash_attention_bwd.cu``) at 64-row tiles: the dQ blocks' key
+    tiles and the dK/dV warpgroups' row tiles each hold every visible
+    (folded row, key) pair exactly once, and a tile pair the wgmma kernels
+    leave unmasked (``bwd_tile_visible``) holds only visible pairs."""
+    _assert_walks_cover_each_visible_pair_once(g, tq, tk, causal, window, q_offset,
+                                               kernel.BWD_TILE)
+
+
+@pytest.mark.parametrize("g,tq,tk,causal,window,q_offset", WALK_CASES)
+def test_backward_walks_at_the_ffma_tile_of_d256_cover_each_visible_pair_once(
+        g, tq, tk, causal, window, q_offset):
+    """The same at the ffma path's 32-row tiles at D = 256
+    (``kernel.bwd_tile(256, "ffma")``)."""
+    assert kernel.bwd_tile(256, "ffma") == 32
+    _assert_walks_cover_each_visible_pair_once(g, tq, tk, causal, window, q_offset,
+                                               kernel.bwd_tile(256, "ffma"))

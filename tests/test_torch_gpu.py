@@ -334,17 +334,24 @@ def test_reduced_dense_config_logits_on_card_match_cpu(cuda, arch):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
-def test_training_danube_on_the_card_raises_the_backward_error(cuda, tmp_path):
-    """Full-width h2o_danube_1_8b trains through flash_attention's forward at
-    D = 80, whose backward kernel is not written yet: train() raises the
-    backward's ValueError and runs no plain backward in its place."""
+@pytest.mark.parametrize("arch", ["h2o_danube_1_8b", "gemma3_12b"])
+def test_training_a_dense_config_on_the_card_runs_the_backward_kernel(cuda, tmp_path, arch):
+    """Full-width h2o_danube_1_8b (D = 80) and gemma3_12b (D = 256), cut to
+    one period through ``train(params=...)``: two steps, every attention's
+    gradient one flash_attention_bwd launch on the mma path, finite losses."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
     from repro_torch.launch.train import train
-    before = (fa_kernel.flash_attention.launches, fa_kernel.flash_attention_bwd.launches)
-    with pytest.raises(ValueError, match="slice 13"):
-        train("h2o_danube_1_8b", reduced=False, steps=1, batch=1, seq=64,
-              ckpt_dir=str(tmp_path), ckpt_every=0, log=lambda _: None)
-    assert fa_kernel.flash_attention.launches > before[0]
-    assert fa_kernel.flash_attention_bwd.launches == before[1]
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config(arch), n_periods=1)
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), cuda)
+    before = dict(fa_kernel.flash_attention_bwd.paths)
+    res = train(arch, reduced=False, steps=2, batch=1, seq=64, ckpt_dir=str(tmp_path),
+                ckpt_every=0, params=params, log=lambda _: None)
+    after = fa_kernel.flash_attention_bwd.paths
+    assert {p: after[p] - before[p] for p in after} == {"mma": 2 * cfg.n_layers, "ffma": 0}
+    assert all(np.isfinite(res["losses"]))
 
 
 def test_gqa_attention_on_cuda_matches_cpu_chunked_twin(cuda):
@@ -616,6 +623,75 @@ def test_flash_attention_backward_matches_plain(cuda, bh, g, tq, tk, d, window, 
                                    atol=TOL[dtype])
     again = fa_kernel.flash_attention_bwd(q, k, v, o, do, lse, **kw)
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+def _flash_bwd_limit(want, dtype):
+    """TOL (|plain| + max(rms of the plain gradient's row, rms of the
+    whole)) per element: scaled to the gradient, whose rows are of size
+    sqrt(e / keys or rows seen); the whole's rms floors rows that are
+    rounding noise (one key seen: dS = 0)."""
+    rms = want.square().mean(-1, keepdim=True).sqrt()
+    return TOL[dtype] * (want.abs() + rms.clamp(min=want.square().mean().sqrt().item()))
+
+
+def _assert_attention_grads_close(grads, refs, dtype):
+    for got, want in zip(grads, refs):
+        assert got.dtype == dtype and got.shape == want.shape
+        diff = (got.float() - want.float()).abs()
+        assert bool((diff <= _flash_bwd_limit(want.float(), dtype)).all()), diff.max().item()
+
+
+FLASH_BWD_NEW_D_CASES = [  # (bh, g, tq, tk, d, window, softcap): the dense configs' head dims
+    (4, 2, 300, 300, 256, 0, 0.0),      # gemma3_12b global, G = 2, ragged
+    (4, 2, 300, 300, 256, 128, 15.0),   # gemma3_12b local, softcap
+    (2, 12, 77, 133, 256, 40, 0.0),     # G = 12, q_offset = 56, both ragged
+    (2, 4, 600, 600, 80, 256, 0.0),     # h2o_danube_1_8b (windowed), G = 4
+    (3, 2, 70, 70, 80, 0, 20.0),        # D = 80, G = 2, global, softcap, ragged
+    (2, 12, 90, 190, 80, 70, 0.0),      # D = 80, G = 12, window + q_offset = 100
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,g,tq,tk,d,window,softcap", FLASH_BWD_NEW_D_CASES)
+def test_flash_attention_backward_new_head_dims_match_plain(cuda, bh, g, tq, tk, d, window,
+                                                            softcap, dtype):
+    """D = 80 and 256 on the path their dtype takes (bf16: mma, whose dK/dV
+    blocks own half of D's columns at 256; float32: ffma, 32-row tiles at
+    256), and bf16 once more through ffma: against the explicit formula,
+    each element within ``_flash_bwd_limit``; the same bits on a second
+    launch."""
+    q = _randn((bh, g, tq, d), dtype, cuda, 1)
+    k = _randn((bh, tk, d), dtype, cuda, 2)
+    v = _randn((bh, tk, d), dtype, cuda, 3)
+    do = _randn((bh, g, tq, d), dtype, cuda, 4)
+    kw = dict(causal=True, window=window, softcap=softcap, q_offset=tk - tq)
+    o, lse = fa_kernel.flash_attention(q, k, v, return_lse=True, **kw)
+    refs = flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)
+    paths = ["mma", "ffma"] if dtype == torch.bfloat16 else ["ffma"]
+    assert fa_kernel.choose_path(dtype, d, True) == paths[0]
+    for path in paths:
+        before = dict(fa_kernel.flash_attention_bwd.paths)
+        grads = fa_kernel.flash_attention_bwd(q, k, v, o, do, lse, path=path, **kw)
+        assert fa_kernel.flash_attention_bwd.paths[path] == before[path] + 1
+        _assert_attention_grads_close(grads, refs, dtype)
+        again = fa_kernel.flash_attention_bwd(q, k, v, o, do, lse, path=path, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.parametrize("d", fa_kernel.HEAD_DIMS)
+def test_flash_attention_backward_takes_every_head_dim(cuda, d):
+    """No head dim the forward takes is refused by the backward, on either
+    path: one launch each (bf16 mma and ffma, float32 ffma) against the
+    formula."""
+    for dtype, paths in ((torch.bfloat16, ("mma", "ffma")), (torch.float32, ("ffma",))):
+        q = _randn((2, 2, 40, d), dtype, cuda, 1)
+        k = _randn((2, 50, d), dtype, cuda, 2)
+        do = _randn((2, 2, 40, d), dtype, cuda, 3)
+        o, lse = fa_kernel.flash_attention(q, k, k, return_lse=True, q_offset=10)
+        refs = flash_attention_bwd_ref(q, k, k, o, do, lse, q_offset=10)
+        for path in paths:
+            grads = fa_kernel.flash_attention_bwd(q, k, k, o, do, lse, q_offset=10, path=path)
+            _assert_attention_grads_close(grads, refs, dtype)
 
 
 FLASH_BWD_EDGE_CASES = [  # (bh, g, tq, tk, causal, window, softcap): bf16, D = 64 (wgmma)

@@ -150,7 +150,7 @@ def test_the_example_twins_import_only_the_port():
     the port's modules do not."""
     examples = sorted((SRC.parent / "examples").glob("*torch_*.py"))
     assert {"torch_acan_mlp_train.py", "torch_acan_moe_routing.py",
-            "torch_acan_multi_tenant.py", "_torch_example_args.py"} <= \
+            "torch_acan_multi_tenant.py", "torch_quickstart.py", "_torch_example_args.py"} <= \
         {p.name for p in examples}
     for path in examples:
         for node in ast.walk(ast.parse(path.read_text())):
@@ -163,6 +163,20 @@ def test_the_example_twins_import_only_the_port():
             assert not [n for n in names
                         if n.split(".")[0] in ("jax", "jaxlib", "repro", "_example_args")], \
                 (path.name, names)
+
+
+def test_quickstart_twin_trains_then_serves_on_the_cpu(tmp_path):
+    """``examples/torch_quickstart.py --device cpu``: 30 steps of reduced
+    smollm_360m through ``train`` (the loss falls), then ``serve`` of the
+    trained weights; journal and checkpoints under the working directory."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, str(SRC.parent / "examples" / "torch_quickstart.py"),
+                          "--device", "cpu"], capture_output=True, text=True, cwd=tmp_path,
+                         env=env, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "loss:" in res.stdout and "decode 8 tokens" in res.stdout
+    assert (tmp_path / "runs/torch_quickstart/smollm_360m_reduced/ckpt_29/manifest.json").exists()
 
 
 class _SlowInt(int):

@@ -179,3 +179,40 @@ def test_weight_decay_follows_the_reference_stacked_rank():
     moved = {k: not np.array_equal(v, _port_flat(tp)[k]) for k, v in _port_flat(new).items()}
     assert moved == {"embed/tok": True, "final_ln": False, "period/0/w": True,
                      "period/0/ln": True, "bias": False}
+
+
+@pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16", "int8"])
+def test_donated_gradients_take_the_new_params(moment_dtype):
+    """``donate_grads``: the same update, each new parameter written into its
+    gradient's memory, except where two leaves share one gradient tensor
+    (which stays as it was); params and state are left as they were."""
+    cfg = T.OptConfig(**_opt_kwargs(moment_dtype))
+    _, tp = _trees(3)
+    state = T.init_opt_state(tp, cfg)
+    _, tg = _trees(4)
+    shared = torch.full((24,), 0.5)
+    tg["final_ln"] = tg["period"][0][0]["ln"] = shared
+    want_p, want_s, want_m = T.adamw_update(tp, tg, state, cfg)
+    before, grads = _port_flat(tp), T.tree_map(torch.clone, tg)
+    grads["final_ln"] = grads["period"][0][0]["ln"] = shared
+    got_p, got_s, got_m = T.adamw_update(tp, grads, state, cfg, donate_grads=True)
+    assert all(np.array_equal(v, _port_flat(tp)[k]) for k, v in before.items())
+    assert torch.equal(shared, torch.full((24,), 0.5))
+    for k in ("lr", "grad_norm"):
+        assert torch.equal(got_m[k], want_m[k])
+    for a, b in zip(T.tree_leaves((got_p, got_s)), T.tree_leaves((want_p, want_s))):
+        assert torch.equal(a, b)
+    for p, g in zip(T.tree_leaves(got_p), T.tree_leaves(grads)):
+        assert (p.data_ptr() == g.data_ptr()) == (g is not shared)
+
+
+def test_global_norm_of_a_long_leaf_holds_float32_precision_on_the_cpu():
+    """A 2^23-element leaf (gemma3_12b's tied embedding has 1e9): the CPU's
+    float32 norm of the whole leaf drifts by about 3e-4; summed in runs,
+    the global norm stays within 1e-6 of the float64 one."""
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(1 << 23).astype(np.float32))
+    tree = {"embed": x * 1e-4, "ln": torch.full((24,), 1e-3)}
+    want = np.sqrt(sum(float((t.double() ** 2).sum()) for t in tree.values()))
+    got = T.global_norm(tree)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.item(), want, rtol=1e-6)
