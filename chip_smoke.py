@@ -249,15 +249,22 @@ def check_tile_matmul(tm_kernel, tile_matmul_ref) -> dict:
 
 
 def _ptxas_kernels(ptxas: str) -> dict:
-    """Registers, shared memory and spills of each kernel, from ptxas -v."""
+    """Registers, shared memory, stack and spills of each kernel, from
+    ptxas -v, and whether ptxas serialized its wgmmas (its C7514 note)."""
     kernels, name = {}, None
     for line in ptxas.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
         elif name and "spill stores" in line:
-            kernels[name] = {"spill": line.split(",", 1)[1].strip()}
+            stack, spill = line.split(",", 1)
+            kernels[name] = {"spill": spill.strip(), "stack": stack.strip()}
         elif name and "Used" in line and name in kernels:
             kernels[name]["used"] = line.split(":", 1)[1].strip()
+    for line in ptxas.splitlines():
+        if "C7514" in line:
+            for kname, info in kernels.items():
+                if kname in line:
+                    info["wgmma_serialized"] = True
     return kernels
 
 
@@ -270,30 +277,40 @@ def _sass_ops(so: Path, ops) -> dict:
 
 # Kernels that must not spill, by a substring of their mangled names, and the
 # SASS each library must hold: wgmma (HGMMA) in tile_matmul (with TMA,
-# UTMALDG) and in the attention backward at D = 64, the mma paths'
-# tensor-core products (HMMA) and ldmatrix (LDSM) loads. The attention
-# backward's kernels at the dense configs' head dims (80, 256) are held on
-# both paths.
-NO_SPILL = {"tile_matmul": ("wgmma", "skinny"), "flash_attention": ("flash_fwd_mma",),
+# UTMALDG), in the attention forward at D = 256 (with TMA) and in the
+# attention backward at D = 64 and 256 (the `_wg256` kernels), the mma
+# paths' tensor-core products (HMMA) and ldmatrix (LDSM) loads. The
+# attention backward's kernels at the dense configs' head dims (80, 256)
+# are held on both paths.
+NO_SPILL = {"tile_matmul": ("wgmma", "skinny"),
+            "flash_attention": ("flash_fwd_mma", "flash_fwd_wg256"),
             "ssd_scan": ("ssd_fwd_mma",),
-            "flash_attention_bwd": ("_mmaI", "_wgmma", "Li80E", "Li256E"),
+            "flash_attention_bwd": ("_mmaI", "_wgmma", "_wg256", "Li80E", "Li256E"),
             "ssd_scan_bwd": ("ssd_bwd_mma",)}
 SASS_OPS = {"tile_matmul": ("HGMMA", "UTMALDG", "LDL", "STL"),
-            "flash_attention": ("HMMA", "LDSM", "LDGSTS", "LDL", "STL"),
+            "flash_attention": ("HGMMA", "UTMALDG", "HMMA", "LDSM", "LDGSTS", "LDL", "STL"),
             "ssd_scan": ("HMMA", "LDSM", "LDGSTS", "LDL", "STL"),
             "flash_attention_bwd": ("HGMMA", "HMMA", "LDSM", "LDGSTS", "LDL", "STL"),
             "ssd_scan_bwd": ("HMMA", "LDSM", "LDGSTS", "LDL", "STL")}
-SASS_NEED = {"tile_matmul": ("HGMMA", "UTMALDG"), "flash_attention": ("HMMA", "LDSM"),
+SASS_NEED = {"tile_matmul": ("HGMMA", "UTMALDG"),
+             "flash_attention": ("HGMMA", "UTMALDG", "HMMA", "LDSM"),
              "ssd_scan": ("HMMA", "LDSM"), "flash_attention_bwd": ("HGMMA", "HMMA", "LDSM"),
              "ssd_scan_bwd": ("HMMA", "LDSM", "LDGSTS")}
+# The attention backward's two kernels at each head dim chip_smoke.py times,
+# as named in a profiler trace.
+FLASH_BWD_KERNELS = {64: ("flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma"),
+                     80: ("flash_bwd_dq_mma", "flash_bwd_dkv_mma"),
+                     256: ("flash_bwd_dq_wg256", "flash_bwd_dkv_wg256")}
 
 
 def kernel_build_report(build, ptxas: dict) -> dict:
     """What ptxas said of each kernel of each library (registers, shared
     memory, spills) and the counts of ``SASS_OPS`` in each library. Fails on
-    a spill in a kernel of ``NO_SPILL``, and on a library without the
+    a spill in a kernel of ``NO_SPILL``, on the D 256 attention kernels'
+    wgmmas serialized by ptxas, and on a library without the
     instructions of ``SASS_NEED`` (the wgmma of tile_matmul and of the
-    attention backward, tile_matmul's TMA, the mma paths' HMMA and LDSM)."""
+    attention forward at D 256 and of the attention backward, the TMA of
+    tile_matmul and of the attention forward, the mma paths' HMMA and LDSM)."""
     report = {}
     no_spill = "0 bytes spill stores, 0 bytes spill loads"
     for lib, keys in NO_SPILL.items():
@@ -303,6 +320,8 @@ def kernel_build_report(build, ptxas: dict) -> dict:
         assert kernels and (checked or not keys), (lib, sorted(kernels))
         for kname in checked:
             assert kernels[kname]["spill"].startswith(no_spill), (kname, kernels[kname])
+            assert not ("wg256" in kname and kernels[kname].get("wgmma_serialized")), \
+                (kname, kernels[kname])
         assert all(ops[op] > 0 for op in SASS_NEED[lib]), (lib, ops)
         report[lib] = {"kernels": kernels, "sass_ops": ops}
     return report
@@ -697,7 +716,9 @@ def time_flash_bwd(fa_kernel, flash_attention_bwd_ref) -> dict:
     flash backward op from the forward's own outputs (also by graph replay,
     ``library_device_ms``); at the dense configs' the backward alone of an
     SDPA call under autograd, a window as a boolean mask
-    (``library_backend`` says which kernel SDPA took). Work: the five
+    (``library_backend`` says which kernel SDPA took), and at gemma3's
+    global layer also cuDNN's backward op by graph replay
+    (``library_device_ms``). Work: the five
     products of the function, 2 D operations each a visible (query, key)
     pair."""
     dt, out = torch.bfloat16, {}
@@ -716,8 +737,7 @@ def time_flash_bwd(fa_kernel, flash_attention_bwd_ref) -> dict:
         kern = _time_ms(kern_bwd)
         ffma = _time_ms(lambda: kern_bwd(path="ffma"), iters=2)
         device = _graph_ms(kern_bwd, iters=5)
-        names = (("flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma") if d == 64
-                 else ("flash_bwd_dq_mma", "flash_bwd_dkv_mma"))
+        names = FLASH_BWD_KERNELS[d]
         traced = _traced_ms(kern_bwd, names, iters=3)
         step = max(1, _plain_step(bh, g, t, t) // PLAIN_BWD_SCORES)
         plain = _time_ms(lambda: [flash_attention_bwd_ref(q[i:i + step], k[i:i + step],
@@ -752,6 +772,21 @@ def time_flash_bwd(fa_kernel, flash_attention_bwd_ref) -> dict:
                 return torch.autograd.grad(sdpa_out, leaves, dos, retain_graph=True)
 
             extra["library_backend"] = _sdpa_backend(sdpa_bwd)
+            if window == 0:
+                # The same cuDNN backward by graph replay: its op called on
+                # its own forward's outputs (autograd.grad fails under capture).
+                aten = torch.ops.aten
+                fwd = aten._scaled_dot_product_cudnn_attention(qs, ks, vs, None, True, 0.0, True,
+                                                               False)
+                out_c, lse_c, cq, ck, mq, mk, seed, offset = fwd[:8]
+
+                def cudnn_bwd():
+                    return aten._scaled_dot_product_cudnn_attention_backward(
+                        dos, qs, ks, vs, out_c, lse_c, seed, offset, None, cq, ck, mq, mk, 0.0,
+                        True)
+
+                extra["library_device_ms"] = _graph_ms(cudnn_bwd, iters=5)
+                del fwd, out_c, lse_c
         library = _time_ms(sdpa_bwd, iters=5)
         flops = 10 * d * bh * g * _visible_pairs(t, t, window)
         nbytes = (4 * q.numel() + 4 * k.numel()) * 2 + lse.numel() * 4
@@ -2502,13 +2537,14 @@ def main() -> int:
              dq_ms=fbt["dq_ms"], dkv_ms=fbt["dkv_ms"], ffma_ms=fbt["ffma_ms"],
              timed="one layer's attention backward, q (40, 3, 512, 64), causal, bf16, "
                    "mma path (wgmma at D = 64); library: SDPA's flash backward op, K/V "
-                   "repeated; the dense configs' training layers (mma.sync at D 80 and "
-                   "256; library: the backward of an SDPA call, a window as a mask) "
-                   "under by_config",
-             by_config={k: {key: t[key] for key in (
+                   "repeated; the dense configs' training layers (mma.sync at D 80, "
+                   "wgmma at D 256; library: the backward of an SDPA call, a window as "
+                   "a mask; at gemma3's global layer also cuDNN's backward op by graph "
+                   "replay) under by_config",
+             by_config={k: {key: t.get(key) for key in (
                  "q_shape", "window", "ms", "device_ms", "plain_ms", "library_ms",
-                 "library_backend", "bound_ms", "bound_by", "ffma_ms", "dq_ms", "dkv_ms",
-                 "flop")} for k, t in fbts.items() if k != "smollm_360m"},
+                 "library_device_ms", "library_backend", "bound_ms", "bound_by", "ffma_ms",
+                 "dq_ms", "dkv_ms", "flop")} for k, t in fbts.items() if k != "smollm_360m"},
              launches_by_train_run={r["arch"]: r["launches"]["flash_attention_bwd"]
                                     for r in (tr, tdn, tg3)},
              err_by_case=detail["flash_attention_bwd_err"]["by_case"]),

@@ -94,7 +94,8 @@ def build(names: list[str]) -> dict:
         cu = OUT / f"{name}.cu"
         cu.write_text(source(name))
         procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(OUT / f"{name}.so"), str(cu)],
+            [_build._nvcc(), *_build.NVCC_FLAGS, *_build.INCLUDE, "-o",
+             str(OUT / f"{name}.so"), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     logs = {}
     for name, p in procs.items():

@@ -52,7 +52,8 @@ VARIANTS = {
     "attn.cut_dq": [CUT_DQ],
     # the dK/dV kernel alone, and with parts of its tile-pair loop left out
     "attn.cut_dq_scores": [CUT_DQ,
-                           ("for (int e = 0; e < 2; ++e) {", "for (int e = 0; e < 0; ++e) {")],
+                           ("for (int e = 0; e < 2; ++e) {\n        const int col",
+                            "for (int e = 0; e < 0; ++e) {\n        const int col")],
     "attn.cut_dq_score_products": [
         CUT_DQ,
         ("wgmma_ss(s, desc_k(sK, kk), desc_k(qs, kk), kk);", "{}"),
@@ -90,7 +91,8 @@ def build(names: list[str]) -> dict:
         cu = OUT / f"{name}.cu"
         cu.write_text(source(name))
         procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(OUT / f"{name}.so"), str(cu)],
+            [_build._nvcc(), *_build.NVCC_FLAGS, *_build.INCLUDE, "-o",
+             str(OUT / f"{name}.so"), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     logs = {}
     for name, p in procs.items():

@@ -73,6 +73,8 @@ SHAPES = {"smollm": ((960, 960), (960, 320), (960, 2560), (2560, 960)),
 def source(name: str) -> str:
     from repro_torch.kernels import _build
     text = (_build.CSRC / "tile_matmul.cu").read_text()
+    # the shared header inline, so that the watchdog reaches its mbar_wait
+    text = text.replace('#include "hopper.cuh"', (_build.CSRC / "hopper.cuh").read_text())
     for old, new in WATCHDOG + VARIANTS[name]:
         if text.count(old) != 1:
             raise RuntimeError(f"variant {name}: patch target not found once: {old!r}")
@@ -89,7 +91,8 @@ def build(names: list[str]) -> dict:
         src = OUT / f"{name}.cu"
         src.write_text(source(name))
         procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(OUT / f"lib{name}.so"), str(src)],
+            [_build._nvcc(), *_build.NVCC_FLAGS, *_build.INCLUDE, "-o",
+             str(OUT / f"lib{name}.so"), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     built = {}
     for name, proc in procs.items():

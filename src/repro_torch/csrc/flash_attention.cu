@@ -28,29 +28,46 @@
 //    slower. So it is bound by how fast ldmatrix feeds mma.sync (about 105
 //    TFLOP/s of the attention's work); wgmma from shared memory, or two
 //    16-row tiles a warp so each K/V fragment serves twice, is the next step.
-//    Both products run on bf16 tensor cores (mma.sync.m16n8k16, float32
-//    accumulate). A block of 4 warps owns 64 folded rows, 16 a warp; Q is
-//    gathered once with cp.async (each folded row is a contiguous run of D
-//    values) and kept in registers as A fragments (ldmatrix). K/V tiles of
-//    64 keys stream through a two-stage cp.async ring in padded shared
-//    memory (row stride D + 8, so ldmatrix is free of bank conflicts: the
-//    stride is 16 bytes past a multiple of 32 words for every D here, 80
-//    and 256 included, so the 8 row addresses of an ldmatrix start in 8
-//    distinct 4-bank groups): the next tile loads while this one is
-//    multiplied. Head dims 16, 32, 64, 80 (h2o-danube), 128 and 256
-//    (gemma3). At D = 256 (about 1.4e11 FLOP against 0.2 GB in a global
-//    gemma3 layer's prefill: bound by operations) the output accumulator
-//    takes 128 registers a thread, so Q stays in shared memory (one
-//    ldmatrix a k-step) and K/V tiles hold 32 keys. K enters S = QK^T
-//    through ldmatrix, V enters PV through ldmatrix.trans. The online softmax runs on
-//    the S accumulators in registers (a row lives in a quad of lanes: two
-//    shfl_xor for its max and sum), and P, rounded to bf16, is the A
-//    fragment of PV as it stands: the m16n8 accumulator layout is the
-//    m16n8k16 A layout, so P never goes through shared memory. Masks are
-//    computed only on tiles that cross the causal diagonal, the window edge
-//    or the Tkv tail; tiles outside the band are never loaded. Row tiles are
-//    launched longest first (the causal band grows with the row), and the
-//    output goes out through shared memory as 16-byte stores.
+//    Head dims 16, 32, 64, 80 (h2o-danube) and 128: both products on bf16
+//    tensor cores (mma.sync.m16n8k16, float32 accumulate). A block of 4
+//    warps owns 64 folded rows, 16 a warp; Q is gathered once with cp.async
+//    (each folded row is a contiguous run of D values) and kept in
+//    registers as A fragments (ldmatrix). K/V tiles of 64 keys stream
+//    through a two-stage cp.async ring in padded shared memory (row stride
+//    D + 8, so ldmatrix is free of bank conflicts: the stride is 16 bytes
+//    past a multiple of 32 words for every D here, 80 included, so the 8
+//    row addresses of an ldmatrix start in 8 distinct 4-bank groups): the
+//    next tile loads while this one is multiplied. K enters S = QK^T
+//    through ldmatrix, V enters PV through ldmatrix.trans. The online
+//    softmax runs on the S accumulators in registers (a row lives in a quad
+//    of lanes: two shfl_xor for its max and sum), and P, rounded to bf16,
+//    is the A fragment of PV as it stands: the m16n8 accumulator layout is
+//    the m16n8k16 A layout, so P never goes through shared memory. Masks
+//    are computed only on tiles that cross the causal diagonal, the window
+//    edge or the Tkv tail; tiles outside the band are never loaded. Row
+//    tiles are launched longest first (the causal band grows with the
+//    row), and the output goes out through shared memory as 16-byte stores.
+//    Head dim 256 (gemma3_12b) takes its own kernel, flash_fwd_wg256. What
+//    bounds it: a global gemma3 layer's prefill, q (32, 2, 2048, 256)
+//    causal, is 137.5 GFLOP against 201 MB, so operations (0.139 ms at the
+//    card's 989 TFLOP/s); its output accumulator of 64 rows is 128 floats
+//    a thread, so the design is a register budget. Both products are
+//    wgmma: S = Q K^T (m64n64k16, 16 k-steps) with
+//    Q and K in 128-byte-swizzled shared tiles (a 256-wide row is four
+//    64-column atoms), and O += P V (m64n256k16) with P from registers (the
+//    wgmma accumulator layout is its register-A layout) and V read MN-major.
+//    A block owns 128 folded rows: warpgroup 0 is the producer (one thread
+//    keeps a two-stage ring of 64-key K and V tiles full by TMA, a 3-D
+//    tensor map (D, Tkv, BH) that zero-fills past Tkv, completion on
+//    mbarriers), warpgroups 1 and 2 each own 64 rows, gather their Q by
+//    cp.async (folded rows are one TMA box only where G divides them) and
+//    share every K/V tile; setmaxnreg gives the consumers 240 registers a
+//    thread for the 128-float accumulator, the producer 24. Each consumer
+//    skips the tiles of the block's band that its own rows cannot see.
+//    Shared memory: Q 64 KB, two stages of K and V 128 KB (193 KB in
+//    all); 168 registers at entry. One rescale of the accumulator serves
+//    64 keys. On an H100 (PERF.md) the global layer takes about 0.37 ms
+//    (369 TFLOP/s).
 //  * ffma (float32, and bf16 the mma path cannot take). True float32 FFMA
 //    (never TF32) for the float32 parity runs: each thread keeps a 4-row x
 //    8-key score tile and a 4-row x D/8 output tile in registers, reads Q
@@ -68,9 +85,12 @@
 // and l sums the unrounded p, as the reference does. Deterministic: one
 // block owns an output row, no atomics.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -242,10 +262,6 @@ constexpr int MMA_ROWS = 16 * MMA_WARPS;   // rows a block owns
 constexpr int MMA_THREADS = 32 * MMA_WARPS;
 constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // 16 bytes from global to shared; zero-filled when !in (src is not read).
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool in) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
@@ -286,24 +302,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Keys a K/V tile holds. At D = 256 a thread's output accumulator alone is
-// D / 8 * 4 = 128 floats, so the key tile halves (S takes 16 registers, not
-// 32) and the shared memory with it (101 KB, two blocks an SM).
-template <int D>
-__host__ __device__ constexpr int mma_bk() {
-  return D > 128 ? 32 : 64;
-}
-// Q kept in registers as A fragments (D / 16 * 4 registers) up to D = 128;
-// at D = 256 those 64 registers do not fit beside the accumulator, and each
-// k-step reads its Q fragment from the shared tile Q was gathered into.
-template <int D>
-__host__ __device__ constexpr bool mma_q_in_regs() {
-  return D <= 128;
-}
-
 template <int D>
 constexpr int mma_smem_bytes() {
-  return (MMA_ROWS + 4 * mma_bk<D>()) * (D + PAD) * 2;  // Q, and two stages of K and V
+  return (MMA_ROWS + 4 * BK) * (D + PAD) * 2;  // Q, and two stages of K and V
 }
 
 template <int D>
@@ -316,10 +317,8 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   constexpr int KC = D / 16;    // k-steps of S = QK^T
   constexpr int DT = D / 8;     // 8-wide column tiles of the output (even: D % 16 == 0)
   constexpr int CPR = D / 8;    // 16-byte pieces of a row
-  constexpr int BK = mma_bk<D>();
   constexpr int NT = BK / 8;    // 8-key tiles of S
-  constexpr bool Q_REGS = mma_q_in_regs<D>();
-  static_assert(D % 16 == 0 && BK % 16 == 0, "k-steps of 16");
+  static_assert(D % 16 == 0 && D <= 128, "k-steps of 16; D 256 takes flash_fwd_wg256");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [MMA_ROWS][LD]
   __nv_bfloat16* Ks = Qs + MMA_ROWS * LD;                          // [2][BK][LD]
@@ -376,7 +375,7 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   }
   // Q's A fragment of k-step kc (rows wrow .. wrow + 15, columns 16 kc ..).
   const uint32_t q_addr = smem_u32(Qs + (wrow + (lane & 15)) * LD + ((lane >> 4) << 3));
-  uint32_t qf[Q_REGS ? KC : 1][4];
+  uint32_t qf[KC][4];
   float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f};
   float acc[DT][4];
 #pragma unroll
@@ -390,11 +389,9 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
     cp_async_commit();
     cp_async_wait<1>();  // this tile (and Q) landed; the next stays in flight
     __syncthreads();
-    if constexpr (Q_REGS) {
-      if (kv0 == kv_begin) {
+    if (kv0 == kv_begin) {
 #pragma unroll
-        for (int kc = 0; kc < KC; ++kc) ldsm_x4(qf[kc], q_addr + kc * 32);
-      }
+      for (int kc = 0; kc < KC; ++kc) ldsm_x4(qf[kc], q_addr + kc * 32);
     }
     const __nv_bfloat16* ks = Ks + stage * BK * LD;
     const __nv_bfloat16* vs = Vs + stage * BK * LD;
@@ -407,20 +404,13 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
     for (int kc = 0; kc < KC; ++kc) {
-      uint32_t a[4];
-      if constexpr (Q_REGS) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) a[e] = qf[kc][e];
-      } else {
-        ldsm_x4(a, q_addr + kc * 32);  // 16 bf16 columns: 32 bytes a k-step
-      }
 #pragma unroll
       for (int np = 0; np < NT / 2; ++np) {
         uint32_t b[4];
         const int key = np * 16 + ((lane >> 4) << 3) + (lane & 7);
         ldsm_x4(b, smem_u32(ks + key * LD + kc * 16 + (((lane >> 3) & 1) << 3)));
-        mma_bf16(s[2 * np], a, b[0], b[1]);
-        mma_bf16(s[2 * np + 1], a, b[2], b[3]);
+        mma_bf16(s[2 * np], qf[kc], b[0], b[1]);
+        mma_bf16(s[2 * np + 1], qf[kc], b[2], b[3]);
       }
     }
 
@@ -527,6 +517,294 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
 }
 
 // ---------------------------------------------------------------------------
+// mma at D = 256 (gemma3_12b): wgmma, K/V by TMA, one producer warpgroup.
+// ---------------------------------------------------------------------------
+constexpr int WG_THREADS = 384;    // warpgroup 0 loads; 1 and 2 own 64 folded rows each
+constexpr int WG_ROWS = 128;       // folded rows a block owns
+constexpr int WG_STAGES = 2;       // K/V tiles in flight
+constexpr int TILE256 = 4 * SW_ATOM;  // 64 rows x 256 columns: four atoms, 32 KB
+// Q of both consumers, the K and V ring, its 3 x WG_STAGES mbarriers; alignment
+constexpr int WG_SMEM = (2 + 2 * WG_STAGES) * TILE256 + 3 * WG_STAGES * 8 + 1024;
+
+// One TMA box of `map` at (c0 innermost, c1, c2) into shared memory at
+// `dst`; its bytes count toward the transactions `bar` expects.
+__device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                          int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Folded row rr of a (G, Tq, D) head block: row rr / G of head rr % G.
+__device__ __forceinline__ size_t row_off(int rr, int G, int Tq) {
+  return (size_t)(rr % G) * Tq + rr / G;
+}
+
+// Online softmax of the S of the tile at key kv0, in the log2 domain, masked
+// when `masked`: s[4j + 2h + e] is row 16 warp + g + 8h (query
+// position qpos[h]), key kv0 + 8j + 2 t4 + e. P = exp(s - m), rounded to
+// bf16 as the register A operand of PV (the accumulator's 8-key groups 2kc
+// and 2kc + 1 are the A fragment of k step kc); corr rescales the output
+// accumulator, l sums the unrounded P.
+__device__ __forceinline__ void fwd_softmax(float (&s)[32], uint32_t (&pf)[4][4], float (&m_r)[2],
+                                            float (&l_r)[2], float (&corr)[2], bool masked,
+                                            int kv0, int Tkv, int causal, int window,
+                                            float softcap, float scale, const int (&qpos)[2],
+                                            int t4) {
+  float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int h = (i >> 1) & 1;
+    float x = s[i] * scale;
+    if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
+    x *= LOG2E;
+    if (masked) {
+      const int kp = kv0 + (i >> 2) * 8 + 2 * t4 + (i & 1);
+      bool ok = kp < Tkv;
+      if (causal) ok = ok && kp <= qpos[h];
+      if (window > 0) ok = ok && kp > qpos[h] - window;
+      if (!ok) x = NEG_INF;
+    }
+    s[i] = x;
+    mx[h] = fmaxf(mx[h], x);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    const float m_new = fmaxf(m_r[h], mx[h]);
+    corr[h] = exp2f(m_r[h] - m_new);
+    m_r[h] = m_new;
+  }
+  float ps[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float p0 = exp2f(s[4 * j] - m_r[0]), p1 = exp2f(s[4 * j + 1] - m_r[0]);
+    const float p2 = exp2f(s[4 * j + 2] - m_r[1]), p3 = exp2f(s[4 * j + 3] - m_r[1]);
+    ps[0] += p0 + p1;
+    ps[1] += p2 + p3;
+    pf[j >> 1][(j & 1) * 2] = pack_bf16(p0, p1);
+    pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    ps[h] += __shfl_xor_sync(0xffffffffu, ps[h], 1);
+    ps[h] += __shfl_xor_sync(0xffffffffu, ps[h], 2);
+    l_r[h] = l_r[h] * corr[h] + ps[h];
+  }
+}
+
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_fwd_wg256(const __grid_constant__ CUtensorMap tmap_k,
+                const __grid_constant__ CUtensorMap tmap_v, const __nv_bfloat16* __restrict__ q,
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int G, int Tq, int Tkv,
+                int causal, int window, float softcap, int q_offset, float scale) {
+  constexpr int D = 256;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - smem_u32(smem_raw));
+  // Q of consumer c at base + c TILE256; K and V of stage st after both; then
+  // the barriers: full_k, full_v (the producer's TMA), empty (the consumers).
+  const uint32_t sK = base + 2 * TILE256, bars = base + (2 + 2 * WG_STAGES) * TILE256;
+  auto k_of = [&](int st) { return sK + 2 * st * TILE256; };
+  auto full_k = [&](int st) { return bars + 8 * st; };
+  auto full_v = [&](int st) { return bars + 8 * (WG_STAGES + st); };
+  auto empty = [&](int st) { return bars + 8 * (2 * WG_STAGES + st); };
+
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int bh = blockIdx.x, r0 = (gridDim.y - 1 - blockIdx.y) * WG_ROWS;  // longest first
+  const int R = G * Tq;
+  // Query positions the block covers, and the band of keys they can see.
+  const int qmin = q_offset + r0 / G;
+  const int qmax = q_offset + (min(R, r0 + WG_ROWS) - 1) / G;
+  const int kv_end = causal ? min(Tkv, qmax + 1) : Tkv;
+  const int kv_begin = window > 0 ? max(0, qmin - window + 1) / BK * BK : 0;
+  const int ntile = kv_end > kv_begin ? (kv_end - kv_begin + BK - 1) / BK : 0;
+
+  if (tid == 0) {
+    for (int st = 0; st < WG_STAGES; ++st) {
+      mbar_init(full_k(st), 1);
+      mbar_init(full_v(st), 1);
+      mbar_init(empty(st), 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer: one thread keeps the K/V ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (tid == 0) {
+      for (int it = 0; it < ntile; ++it) {
+        const int st = it % WG_STAGES, kv0 = kv_begin + BK * it;
+        if (it >= WG_STAGES) mbar_wait(empty(st), ((it / WG_STAGES) & 1) ^ 1);
+        mbar_expect_tx(full_k(st), TILE256);
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          tma_load3(k_of(st) + c * SW_ATOM, &tmap_k, full_k(st), 64 * c, kv0, bh);
+        mbar_expect_tx(full_v(st), TILE256);
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          tma_load3(k_of(st) + TILE256 + c * SW_ATOM, &tmap_v, full_v(st), 64 * c, kv0, bh);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+
+  // Consumer c owns folded rows rw .. rw + 63 of the block.
+  const int c = wg - 1, t = tid & 127, warp = t >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int rw = r0 + 64 * c;
+  const uint32_t sQ = base + c * TILE256;
+  const __nv_bfloat16* qb = q + (size_t)bh * R * D;
+  // Thread t copies chunk t % 32 (16 bytes) of rows t / 32, t / 32 + 4, ...
+  const int ch = t & 31;
+#pragma unroll 1
+  for (int r = t >> 5; r < 64; r += 4) {
+    const int rr = rw + r;
+    const bool in = rr < R;
+    cp_async16(sQ + (ch >> 3) * SW_ATOM + r * 128 + (((ch & 7) ^ (r & 7)) << 4),
+               in ? qb + row_off(rr, G, Tq) * D + ch * 8 : qb, in);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  fence_proxy_async();
+  wg_sync(1 + c);
+
+  // The band of this warpgroup's rows (empty when it has none): the tiles
+  // it_lo .. it_hi - 1 of the block's band. The others are waited on and
+  // released, not computed.
+  const bool rows = rw < R;
+  const int qmin_w = q_offset + rw / G, qmax_w = q_offset + (min(R, rw + 64) - 1) / G;
+  const int end_w = !rows ? 0 : causal ? min(Tkv, qmax_w + 1) : Tkv;
+  const int begin_w = window > 0 ? max(0, qmin_w - window + 1) : 0;
+  const int it_hi = max(0, min(ntile, (end_w - kv_begin + BK - 1) / BK));
+  const int it_lo = min(it_hi, max(0, (begin_w - kv_begin) / BK));
+  int qpos[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int rr = rw + 16 * warp + g + 8 * h;
+    qpos[h] = q_offset + (rr < R ? rr / G : 0);
+  }
+  float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f}, corr[2];
+  float s[32], acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  uint32_t pf[4][4];
+
+  // Tile it: S = Q K^T, its softmax and the rescale of acc, then acc += P V
+  // (V read MN-major, k = key, n = all 256 columns). Overlapping one tile's
+  // softmax with the last one's PV in the same warpgroup was slower
+  // (ptxas serializes the wgmmas around the softmax's reads); the two
+  // consumers' tiles overlap instead.
+  for (int it = 0; it < ntile; ++it) {
+    const int st = it % WG_STAGES, kv0 = kv_begin + BK * it;
+    const uint32_t par = (it / WG_STAGES) & 1;
+    mbar_wait(full_k(st), par);
+    if (it < it_lo || it >= it_hi) {  // released only once it has landed
+      mbar_wait(full_v(st), par);
+      if (lane == 0) mbar_arrive(empty(st));
+      continue;
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 16; ++kk) wgmma_ss(s, desc_k256(sQ, kk), desc_k256(k_of(st), kk), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
+    // masks only where the tile crosses the Tkv tail, the causal diagonal or
+    // the window edge of this warpgroup's rows
+    const bool masked = kv0 + BK > Tkv || (causal && kv0 + BK - 1 > qmin_w) ||
+                        (window > 0 && kv0 <= qmax_w - window);
+    fwd_softmax(s, pf, m_r, l_r, corr, masked, kv0, Tkv, causal, window, softcap, scale, qpos,
+                t4);
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] *= corr[(i >> 1) & 1];
+    mbar_wait(full_v(st), par);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) wgmma_rs256(acc, pf[kc], desc_mn256(k_of(st) + TILE256, kc));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc);
+    fence_frags(pf);
+    if (lane == 0) mbar_arrive(empty(st));
+  }
+
+  // O = acc / l through this warpgroup's Q tile (64 rows of 512 bytes, the
+  // 16-byte chunks of a row XOR-swizzled by row), a warp its own 16 rows,
+  // then 16-byte stores.
+  const float inv[2] = {1.f / fmaxf(l_r[0], 1e-30f), 1.f / fmaxf(l_r[1], 1e-30f)};
+  if (lse != nullptr && t4 == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int rr = rw + 16 * warp + g + 8 * h;
+      if (rr < R)  // back from the log2 domain: ln 2 (m + log2 l)
+        lse[(size_t)bh * R + row_off(rr, G, Tq)] =
+            0.6931471805599453f * (m_r[h] + log2f(fmaxf(l_r[h], 1e-30f)));
+    }
+  }
+  fence_proxy_async();  // the wgmma reads of Q are done before it is overwritten
+  unsigned char* os = gbase + c * TILE256;
+#pragma unroll
+  for (int j = 0; j < 32; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * warp + g + 8 * h;
+      *reinterpret_cast<uint32_t*>(os + r * 512 + ((j ^ (r & 7)) << 4) + 4 * t4) =
+          pack_bf16(acc[4 * j + 2 * h] * inv[h], acc[4 * j + 2 * h + 1] * inv[h]);
+    }
+  __syncwarp();
+  __nv_bfloat16* ob = o + (size_t)bh * R * D;
+#pragma unroll 4
+  for (int i = lane; i < 16 * 32; i += 32) {
+    const int r = 16 * warp + (i >> 5), ch = i & 31, rr = rw + r;
+    if (rr < R)
+      *reinterpret_cast<uint4*>(ob + row_off(rr, G, Tq) * D + ch * 8) =
+          *reinterpret_cast<const uint4*>(os + r * 512 + ((ch ^ (r & 7)) << 4));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Host side of the D = 256 kernel: K and V as TMA tensor maps.
+// ---------------------------------------------------------------------------
+// A (BH, Tkv, 256) bf16 tensor in boxes of 64 keys x 64 columns (128 bytes,
+// the 128-byte swizzle) of one BH; keys past Tkv fill with zeros. Binds the
+// thread's context first: the encoder fails on a thread with none.
+bool encode_keys(CUtensorMap* map, const void* ptr, int BH, int Tkv) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  bind_context();
+  const cuuint64_t dims[3] = {256, static_cast<cuuint64_t>(Tkv), static_cast<cuuint64_t>(BH)};
+  const cuuint64_t strides[2] = {512, static_cast<cuuint64_t>(Tkv) * 512};
+  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+cudaError_t launch_wg256(const void* q, const void* k, const void* v, void* o, float* lse,
+                         int BH, int G, int Tq, int Tkv, int causal, int window, float softcap,
+                         int q_offset, float scale, cudaStream_t stream) {
+  CUtensorMap tk, tv;
+  if (!encode_keys(&tk, k, BH, Tkv) || !encode_keys(&tv, v, BH, Tkv))
+    return cudaErrorInvalidValue;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_wg256, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
+  if (attr != cudaSuccess) return attr;
+  // grid y: row blocks longest first, over every BH before the next
+  const dim3 grid(BH, (G * Tq + WG_ROWS - 1) / WG_ROWS);
+  flash_fwd_wg256<<<grid, WG_THREADS, WG_SMEM, stream>>>(
+      tk, tv, static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(o), lse, G, Tq,
+      Tkv, causal, window, softcap, q_offset, scale);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // Launch.
 // ---------------------------------------------------------------------------
 bool path_fits(int path, int dtype, int D, bool aligned) {
@@ -542,7 +820,11 @@ template <class T, int D>
 cudaError_t launch(int path, const void* q, const void* k, const void* v, void* o,
                    float* lse, int BH, int G, int Tq, int Tkv, int causal, int window,
                    float softcap, int q_offset, float scale, cudaStream_t stream) {
-  if constexpr (sizeof(T) == 2) {
+  if constexpr (sizeof(T) == 2 && D == 256) {
+    if (path == PATH_MMA)
+      return launch_wg256(q, k, v, o, lse, BH, G, Tq, Tkv, causal, window, softcap, q_offset,
+                          scale, stream);
+  } else if constexpr (sizeof(T) == 2) {
     if (path == PATH_MMA) {
       dim3 grid((G * Tq + MMA_ROWS - 1) / MMA_ROWS, BH);
       constexpr int bytes = mma_smem_bytes<D>();

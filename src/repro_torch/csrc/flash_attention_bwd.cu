@@ -24,9 +24,8 @@
 //    causal/window band and accumulates dQ; it also forms Dv for its rows
 //    and writes it to a float32 scratch for the second kernel.
 //  * dkv: a block per (BH, 64 keys) walks the row tiles that can see its
-//    keys and accumulates dK and dV (at D = 256 on the mma path, a block
-//    per (BH, 64 keys, 128 columns of dK and dV); the ffma path's tiles are
-//    32 rows or keys at D = 256).
+//    keys and accumulates dK and dV (the ffma path's tiles are 32 rows or
+//    keys at D = 256).
 // Both recompute S and dP (two 64 x 64 x D products a tile pair), so the
 // pair does seven products where the function needs five. Blocks are
 // launched heaviest first: the dq grid's row tiles from the last, the dkv
@@ -64,25 +63,45 @@
 //    dQ kernel that only reads it (five products instead of seven); it was
 //    faster alone and moved no train step, at a scratch of about Tkv / D
 //    times q's size.
-//  * mma at D = 16, 32, 80, 128, 256 (bf16; 80 is h2o_danube_1_8b's head
-//    dim, 256 gemma3_12b's): the same walk on mma.sync.m16n8k16 with the
-//    forward mma path's fragments. 4 warps own 16 rows (dq) or 16 keys
-//    (dkv) each; the block's own Q, dO (dq) or K, V (dkv) are gathered once
-//    by cp.async, the streamed tiles (K, V or Q, dO, with lse and Dv) in a
-//    two-stage cp.async ring; dq reads O for Dv from device memory, once,
-//    so that six [64][D + 8] bf16 tiles are all its shared memory (198 KB
-//    at D = 256, under the 227 KB a block may have). At D = 256 the dK and
-//    dV accumulators of a warp's 16 keys by 256 columns would be 256
-//    floats a thread, so a dkv block owns 128 of the columns (grid z): it
-//    recomputes the whole S^T and dP^T of its keys, as the other column
-//    block does: 6 products of 64 x 64 x 256 a tile pair where one block
-//    would do 4. The row stride D + 8 keeps ldmatrix free of bank
-//    conflicts at every D (176 B at 80, 528 B at 256: the 8 rows of a
-//    fragment land on 8 distinct 4-bank groups). dkv computes S^T = K Q^T
-//    and dP^T = V dO^T, so P^T and dS^T come out of the accumulators
-//    already in the A layout of dV += P^T dO and dK += dS^T Q (the m16n8
-//    accumulator layout is the m16n8k16 A layout); dq computes dS the same
-//    way for dQ += dS K.
+//  * mma at D = 256 (bf16; gemma3_12b's head dim). What bounds it: a global
+//    gemma3 layer's backward, q (16, 2, 2048, 256) causal, is 171.9 GFLOP
+//    against 202 MB, so operations (0.174 ms at the card's 989 TFLOP/s);
+//    at D = 256 an accumulator of 64 rows is 128 floats a thread, so the
+//    design is a register budget. Every product is wgmma on [64][256]
+//    tiles of four 64-column 128-byte-swizzled atoms filled by cp.async
+//    (swizzle by hand), each product formed once, two warpgroups a block
+//    (one block, 8 warps, an SM):
+//    - dQ: both warpgroups share the block's Q, dO and a two-stage K/V
+//      ring; warpgroup w takes keys 32 w .. 32 w + 31 of each tile: S and
+//      dP of 64 rows x 32 keys (m64n32k16 over 16 k-steps), dS in
+//      registers as the A operand of dQ += dS K (m64n256k16, K read
+//      MN-major), a partial dQ of all 256 columns a warpgroup; the two are
+//      added in warpgroup order once, through shared memory. 3 products a
+//      tile pair; 204 registers, 193 KB of shared memory.
+//    - dK/dV: both warpgroups share the block's K, V and a two-stage ring
+//      of Q, dO, lse and Dv. Warpgroup 0 forms S^T = K Q^T, P^T from it,
+//      leaves P'^T = P^T (1 - (s/c)^2 under a softcap) as float32 in shared
+//      memory (its accumulator layout is warpgroup 1's, so thread t reads
+//      what thread t wrote) and accumulates dV += P^T dO; warpgroup 1 forms
+//      dP^T = V dO^T, waits on a named barrier for P'^T, forms dS^T = P'^T
+//      (dP^T - Dv) and accumulates dK += dS^T Q. 4 products a tile pair;
+//      216 registers, 210 KB.
+//    Each kernel issues its next tile's gather while its score products
+//    run. No atomics; Dv goes from the dQ kernel to the dK/dV kernel
+//    through the float32 scratch. On an H100 (PERF.md) the global layer
+//    takes about 1.03 ms (167 TFLOP/s): dQ 0.37, dK/dV 0.65.
+//  * mma at D = 16, 32, 80, 128 (bf16; 80 is h2o_danube_1_8b's head dim):
+//    the same walk on mma.sync.m16n8k16 with the forward mma path's
+//    fragments. 4 warps own 16 rows (dq) or 16 keys (dkv) each; the block's
+//    own Q, dO (dq) or K, V (dkv) are gathered once by cp.async, the
+//    streamed tiles (K, V or Q, dO, with lse and Dv) in a two-stage cp.async
+//    ring; dq reads O for Dv from device memory, once. The row stride D + 8
+//    keeps ldmatrix free of bank conflicts at every D (176 B at 80: the 8
+//    rows of a fragment land on 8 distinct 4-bank groups). dkv computes
+//    S^T = K Q^T and dP^T = V dO^T, so P^T and dS^T come out of the
+//    accumulators already in the A layout of dV += P^T dO and dK += dS^T Q
+//    (the m16n8 accumulator layout is the m16n8k16 A layout); dq computes
+//    dS the same way for dQ += dS K.
 //    The second operand of those three goes through ldmatrix.trans. P and
 //    dS are rounded to bf16 for their products.
 //  * ffma (float32, and bf16 the mma path cannot take): float32 FFMA, the
@@ -95,6 +114,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -428,9 +449,6 @@ constexpr int MMA_WARPS = 4;                  // 16 rows (dq) or keys (dkv) each
 constexpr int MMA_TILE = 16 * MMA_WARPS;      // rows or keys a block owns, and a tile
 constexpr int MMA_THREADS = 32 * MMA_WARPS;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 // 16 (or 4) bytes from global to shared; zero-filled when !in (src is not read).
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool in) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
@@ -554,6 +572,7 @@ __device__ __forceinline__ void to_frags(uint32_t (&f)[4][4], const float (&acc)
 
 template <int D>
 constexpr int dq_mma_smem_bytes() {
+  static_assert(D <= 128, "D 256 takes flash_bwd_dq_wg256");
   return 6 * MMA_TILE * (D + PAD) * 2;  // Q, dO, two stages of K and V
 }
 
@@ -663,21 +682,14 @@ constexpr int dkv_mma_smem_bytes() {
   return 6 * MMA_TILE * (D + PAD) * 2 + 4 * MMA_TILE * 4;  // K, V, 2 x (Q, dO), lse, Dv
 }
 
-// Columns of dK and dV a dK/dV block owns: all of D up to 128; at D = 256 a
-// block owns half, as the accumulators of all 256 would take 256 registers
-// a thread. Each block still forms the whole S^T and dP^T of its keys.
-template <int D>
-__host__ __device__ constexpr int dkv_mma_cols() {
-  return D > 128 ? 128 : D;
-}
-
 template <int D>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_bwd_dkv_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
                   const float* __restrict__ lse, const float* __restrict__ dvec,
                   __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, Attn a) {
-  constexpr int LD = D + PAD, DN = dkv_mma_cols<D>(), DT = DN / 8;
+  constexpr int LD = D + PAD, DT = D / 8;
+  static_assert(D <= 128, "D 256 takes flash_bwd_dkv_wg256");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64][LD]
   __nv_bfloat16* Vs = Ks + MMA_TILE * LD;                           // [64][LD]
@@ -687,7 +699,7 @@ flash_bwd_dkv_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
   float* dv_s = lse_s + 2 * MMA_TILE;                                // [2][64]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t4 = lane & 3;
-  const int bh = blockIdx.y, kv0 = blockIdx.x * MMA_TILE, c0 = blockIdx.z * DN;
+  const int bh = blockIdx.y, kv0 = blockIdx.x * MMA_TILE;
   const int G = a.G, Tq = a.Tq, R = G * Tq;
   const size_t qoff = (size_t)bh * R * D, koff = (size_t)bh * a.Tkv * D;
 
@@ -744,9 +756,9 @@ flash_bwd_dkv_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
       }
     uint32_t f[4][4];
     to_frags(f, s);
-    frags_by_rows<DN, LD>(acc_v, f, dos + c0);  // dV += P^T dO, this block's columns
+    frags_by_rows<D, LD>(acc_v, f, dos);  // dV += P^T dO
     to_frags(f, dp);
-    frags_by_rows<DN, LD>(acc_k, f, qs + c0);   // dK += dS^T Q
+    frags_by_rows<D, LD>(acc_k, f, qs);   // dK += dS^T Q
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
   cp_async_wait<0>();
@@ -754,7 +766,7 @@ flash_bwd_dkv_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (kpos[h] >= a.Tkv) continue;
-    const size_t off = koff + (size_t)kpos[h] * D + c0;
+    const size_t off = koff + (size_t)kpos[h] * D;
 #pragma unroll
     for (int j = 0; j < DT; ++j) {
       *reinterpret_cast<uint32_t*>(dk + off + 8 * j + 2 * t4) =
@@ -772,14 +784,9 @@ flash_bwd_dkv_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
 // swizzle row), filled by cp.async with the swizzle applied by hand: the
 // folded rows of a tile are not one TMA box when 64 is not a multiple of G.
 // ---------------------------------------------------------------------------
-constexpr int SW_TILE = 64 * 128;   // bytes of one swizzled 64 x 64 bf16 tile
+constexpr int SW_TILE = SW_ATOM;    // bytes of one swizzled 64 x 64 bf16 tile
 constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | static_cast<uint64_t>(1) << 62;
-}
 // K-major operand (k along the 128-byte row): k step kk of 16 is 32 bytes
 // along the row, 8-row groups 1024 bytes apart.
 __device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
@@ -788,33 +795,6 @@ __device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
 // MN-major operand (k down the rows, n along them): k step kk is 16 rows.
 __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
   return sw128_desc(tile + 2048 * kk, SW_TILE, 1024);
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Pins an accumulator in place across the asynchronous wgmma window.
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-// Keeps register A fragments live until the wgmma that reads them is waited on.
-__device__ __forceinline__ void fence_frags(uint32_t (&f)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(f[i >> 2][i & 3])::"memory");
-}
-// cp.async writes through the generic proxy, wgmma reads through the async one.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// A barrier of the 128 threads of one warpgroup (ids 1 and up; 0 is __syncthreads).
-__device__ __forceinline__ void wg_sync(int id) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
 }
 
 #define FA_ACC4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
@@ -825,17 +805,6 @@ __device__ __forceinline__ void wg_sync(int id) {
   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
   "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
 
-// d (64 x 64) = (acc ? d : 0) + A B over 16 k; A and B shared, K-major
-// (or MN-major: TA, TB = 1).
-template <int TA = 0, int TB = 0>
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" FA_REGS32
-      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
-      : FA_ACC32
-      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
-}
 // d += A B over 16 k; A (64 x 16) in registers (the m16n8k16 A fragment of
 // each warp's 16 rows), B shared and MN-major.
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
@@ -1003,7 +972,7 @@ flash_bwd_dq_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) wgmma_ss(dp, desc_k(sdO, kk), desc_k(vs, kk), kk);
     wgmma_commit();
-    wgmma_wait0();
+    wgmma_wait<0>();
     fence_acc(s);
     fence_acc(dp);
     const bool masked = !tile_visible(a, r0, kv0);
@@ -1023,7 +992,7 @@ flash_bwd_dq_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
 #pragma unroll
     for (int kc = 0; kc < 4; ++kc) wgmma_rs(acc, f[kc], desc_mn(ks, kc));
     wgmma_commit();
-    wgmma_wait0();
+    wgmma_wait<0>();
     fence_acc(acc);
     fence_frags(f);
     __syncthreads();  // every warp is done with this stage before it is refilled
@@ -1121,7 +1090,7 @@ flash_bwd_dkv_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) wgmma_ss(dp, desc_k(sV, kk), desc_k(dos, kk), kk);
     wgmma_commit();
-    wgmma_wait0();
+    wgmma_wait<0>();
     fence_acc(s);
     fence_acc(dp);
     const bool masked = !tile_visible(a, r0, kv0);
@@ -1149,7 +1118,7 @@ flash_bwd_dkv_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 #pragma unroll
     for (int kc = 0; kc < 4; ++kc) wgmma_rs(acc_k, fs[kc], desc_mn(qs, kc));
     wgmma_commit();
-    wgmma_wait0();
+    wgmma_wait<0>();
     fence_acc(acc_v);
     fence_acc(acc_k);
     fence_frags(fp);
@@ -1202,6 +1171,349 @@ flash_bwd_dkv_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 }
 
 // ---------------------------------------------------------------------------
+// mma at D = 256 (gemma3_12b): wgmma on [64][256] tiles of four 64-column
+// swizzle atoms filled by cp.async, two warpgroups a block, every product
+// once.
+// ---------------------------------------------------------------------------
+constexpr int TILE256 = 4 * SW_TILE;  // 64 rows x 256 columns: 32 KB
+// dQ: Q, dO and two stages of K and V; dK/dV: K, V, two stages of Q and dO,
+// P^T (64 x 64 float32) and two stages of each row's lse and Dv. Alignment.
+constexpr int DQ256_SMEM = 6 * TILE256 + 1024;
+constexpr int DKV256_SMEM = 6 * TILE256 + 64 * 64 * 4 + 2 * 2 * 64 * 4 + 1024;
+
+// Named barrier `id` over 256 threads: one warpgroup arrives, the other waits.
+__device__ __forceinline__ void bar_arrive256(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void bar_sync256(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+
+#define FA_ACC4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define FA_ACC16(i) FA_ACC4(i), FA_ACC4(i + 4), FA_ACC4(i + 8), FA_ACC4(i + 12)
+#define FA_REGS16(a, b, c, d, e, f, g, h, i, j, k, l, m, n, o, p) \
+  "%" #a ", %" #b ", %" #c ", %" #d ", %" #e ", %" #f ", %" #g ", %" #h ", %" #i ", %" #j \
+  ", %" #k ", %" #l ", %" #m ", %" #n ", %" #o ", %" #p
+
+// d (64 x 32) = (acc ? d : 0) + A B over 16 k; A and B shared, K-major.
+__device__ __forceinline__ void wgmma_ss32(float (&d)[16], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      FA_REGS16(0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15)
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : FA_ACC16(0)
+      : "l"(da), "l"(db), "r"(acc));
+}
+#undef FA_REGS16
+#undef FA_ACC16
+#undef FA_ACC4
+
+// Chunk c (8 bf16, 0..31) of row r of a [64][256] tile of four atoms.
+__device__ __forceinline__ uint32_t sw_chunk256(uint32_t tile, int r, int c) {
+  return sw_chunk(tile + (c >> 3) * SW_TILE, r, c & 7);
+}
+// 64 folded rows from r0 of two (G, Tq, 256) head blocks (Q and dO) into
+// two [64][256] tiles, zeros past R, by 256 threads: thread t copies chunk
+// t % 32 of rows t / 32, t / 32 + 8, ..., each row's offset found once for
+// both tiles.
+__device__ __forceinline__ void gather_rows256(uint32_t ta, uint32_t tb, const __nv_bfloat16* a,
+                                               const __nv_bfloat16* b, int r0, int R, int G,
+                                               int Tq, int t) {
+  const int c = t & 31;
+#pragma unroll 1
+  for (int r = t >> 5; r < 64; r += 8) {
+    const int rr = r0 + r;
+    const bool in = rr < R;
+    const size_t off = in ? row_off(rr, G, Tq) * 256 + c * 8 : 0;
+    cp_async16(sw_chunk256(ta, r, c), a + off, in);
+    cp_async16(sw_chunk256(tb, r, c), b + off, in);
+  }
+}
+// 64 keys from kv0 of two (Tkv, 256) blocks (K and V) into two [64][256]
+// tiles, zeros past Tkv, by 256 threads as gather_rows256.
+__device__ __forceinline__ void gather_keys256(uint32_t ta, uint32_t tb, const __nv_bfloat16* a,
+                                               const __nv_bfloat16* b, int kv0, int Tkv, int t) {
+  const int c = t & 31;
+#pragma unroll 1
+  for (int r = t >> 5; r < 64; r += 8) {
+    const int kp = kv0 + r;
+    const bool in = kp < Tkv;
+    const size_t off = in ? (size_t)kp * 256 + c * 8 : 0;
+    cp_async16(sw_chunk256(ta, r, c), a + off, in);
+    cp_async16(sw_chunk256(tb, r, c), b + off, in);
+  }
+}
+
+// dQ of 64 folded rows at D = 256: both warpgroups walk the key tiles of
+// the rows' band; warpgroup w takes keys 32 w .. 32 w + 31 of each tile
+// (S and dP of 64 rows x 32 keys, then dQ += dS K over its keys, all 256
+// columns), and the two partial dQ are added in warpgroup order at the end.
+__global__ void __launch_bounds__(256, 1)
+flash_bwd_dq_wg256(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
+                   const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                   __nv_bfloat16* __restrict__ dq, float* __restrict__ dvec, Attn a) {
+  constexpr int D = 256;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - smem_u32(smem_raw));
+  // K and V of stage st at sK + 2 st TILE256, one tile apart.
+  const uint32_t sQ = base, sdO = base + TILE256, sK = base + 2 * TILE256;
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
+  const int lane = tid & 31, warp = t >> 5, g = lane >> 2, t4 = lane & 3;
+  const int bh = blockIdx.x, r0 = (gridDim.y - 1 - blockIdx.y) * 64;  // longest first
+  const int G = a.G, Tq = a.Tq, R = G * Tq;
+  const size_t qoff = (size_t)bh * R * D, koff = (size_t)bh * a.Tkv * D;
+
+  gather_rows256(sQ, sdO, q + qoff, dout + qoff, r0, R, G, Tq, tid);
+  const int qmin = a.q_offset + r0 / G;
+  const int qmax = a.q_offset + (min(R, r0 + 64) - 1) / G;
+  const int kv_end = a.causal ? min(a.Tkv, qmax + 1) : a.Tkv;
+  const int kv_begin = a.window > 0 ? max(0, qmin - a.window + 1) / 64 * 64 : 0;
+  auto load_kv = [&](int kv0, int st) {
+    gather_keys256(sK + 2 * st * TILE256, sK + (2 * st + 1) * TILE256, k + koff, v + koff, kv0,
+                   a.Tkv, tid);
+  };
+  if (kv_begin < kv_end) load_kv(kv_begin, 0);
+  cp_async_commit();
+
+  // This thread's rows: 16 warp + g + 8h (the same in both warpgroups). Dv
+  // = rowsum(dO o O) over a quad, 16 bytes a load, in a fixed order.
+  float lse2[2], dv_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int rr = r0 + 16 * warp + g + 8 * h;
+    lse2[h] = rr < R ? lse[(size_t)bh * R + row_off(rr, G, Tq)] * LOG2E : 0.f;
+    float acc = 0.f;
+    if (rr < R) {
+      const size_t off = qoff + row_off(rr, G, Tq) * D;
+#pragma unroll 2
+      for (int c = 8 * t4; c < D; c += 32) {
+        const uint4 x4 = *reinterpret_cast<const uint4*>(dout + off + c);
+        const uint4 y4 = *reinterpret_cast<const uint4*>(o + off + c);
+        const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&x4);
+        const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&y4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc = fmaf(__low2float(x[e]), __low2float(y[e]), acc);
+          acc = fmaf(__high2float(x[e]), __high2float(y[e]), acc);
+        }
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    dv_r[h] = acc;
+    if (wg == 0 && t4 == 0 && rr < R) dvec[(size_t)bh * R + row_off(rr, G, Tq)] = acc;
+  }
+
+  const float sl2 = a.scale * LOG2E;
+  const uint32_t kofs = wg * 32 * 128;  // this warpgroup's 32 keys: rows 32 wg .. of each atom
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  for (int kv0 = kv_begin, it = 0; kv0 < kv_end; kv0 += 64, ++it) {
+    const int st = it & 1;
+    cp_async_wait<0>();  // this tile (and Q, dO) landed
+    fence_proxy_async();
+    __syncthreads();
+    const uint32_t ks = sK + 2 * st * TILE256, vs = ks + TILE256;
+    // S = Q K^T and dP = dO V^T over this warpgroup's keys; the next tile
+    // loads into the other stage meanwhile.
+    float s[16], dp[16];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 16; ++kk) wgmma_ss32(s, desc_k256(sQ, kk), desc_k256(ks + kofs, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < 16; ++kk)
+      wgmma_ss32(dp, desc_k256(sdO, kk), desc_k256(vs + kofs, kk), kk);
+    wgmma_commit();
+    if (kv0 + 64 < kv_end) load_kv(kv0 + 64, st ^ 1);
+    cp_async_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
+    fence_acc(dp);
+    const bool masked = !tile_visible(a, r0, kv0);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int h = (i >> 1) & 1;
+      float p;
+      prob_grad2(a, sl2, masked, s[i], dp[i], r0 + 16 * warp + g + 8 * h,
+                 kv0 + 32 * wg + (i >> 2) * 8 + 2 * t4 + (i & 1), lse2[h], dv_r[h], p, s[i]);
+    }
+    // dQ += dS K: dS as the A fragments of two k steps, K read MN-major.
+    uint32_t f[2][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      f[j >> 1][(j & 1) * 2] = pack_bf16(s[4 * j], s[4 * j + 1]);
+      f[j >> 1][(j & 1) * 2 + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 2; ++kc) wgmma_rs256(acc, f[kc], desc_mn256(ks + kofs, kc));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc);
+    fence_frags(f);
+    __syncthreads();  // both warpgroups are done with this stage before it is refilled
+  }
+  cp_async_wait<0>();
+
+  // Fixed-order sum: warpgroup 1 leaves its partial dQ in the K/V stages
+  // (thread by thread: both hold the same fragment layout), warpgroup 0 adds it.
+  float* red = reinterpret_cast<float*>(gbase + 2 * TILE256);
+  __syncthreads();
+  if (wg == 1) {
+#pragma unroll
+    for (int i = 0; i < 128; ++i) red[i * 128 + t] = acc[i];
+  }
+  __syncthreads();
+  if (wg == 1) return;
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] += red[i * 128 + t];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int rr = r0 + 16 * warp + g + 8 * h;
+    if (rr >= R) continue;
+    __nv_bfloat16* row = dq + qoff + row_off(rr, G, Tq) * D;
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+      *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * t4) =
+          pack_bf16(acc[4 * j + 2 * h] * a.scale, acc[4 * j + 2 * h + 1] * a.scale);
+  }
+}
+
+// dK, dV of 64 keys at D = 256: both warpgroups walk the row tiles of the
+// keys' band. Warpgroup 0 forms S^T = K Q^T, P^T from it, leaves P'^T = P^T
+// (1 - (s / c)^2 under a softcap) in shared memory and accumulates dV +=
+// P^T dO; warpgroup 1 forms dP^T = V dO^T, dS^T / scale = P'^T (dP^T - Dv)
+// and accumulates dK += dS^T Q.
+__global__ void __launch_bounds__(256, 1)
+flash_bwd_dkv_wg256(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ dvec,
+                    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, Attn a) {
+  constexpr int D = 256;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t sK = base, sV = base + TILE256;
+  auto stage = [&](int st) { return base + (2 + 2 * st) * TILE256; };  // Q; dO one tile on
+  float* pt = reinterpret_cast<float*>(gbase + 6 * TILE256);  // P'^T: [32][128], thread-major
+  float* ld_s = pt + 64 * 64;                                 // [2 stages][lse, Dv][64]
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
+  const int lane = tid & 31, warp = t >> 5, g = lane >> 2, t4 = lane & 3;
+  const int bh = blockIdx.x, kv0 = blockIdx.y * 64;  // causal: heaviest key tiles first
+  const int G = a.G, Tq = a.Tq, R = G * Tq;
+  const size_t qoff = (size_t)bh * R * D, koff = (size_t)bh * a.Tkv * D;
+
+  gather_keys256(sK, sV, k + koff, v + koff, kv0, a.Tkv, tid);
+  // The folded rows that can see a key of [kv0, kv1), as the other kernels.
+  const int kv1 = min(a.Tkv, kv0 + 64);
+  const int rr_lo = a.causal ? max(0, (kv0 - a.q_offset) * G) : 0;
+  const int rr_hi = a.window > 0 ? min(R, max(0, kv1 - 1 + a.window - a.q_offset) * G) : R;
+  const int r_first = rr_lo / 64 * 64;
+  const int ntile = rr_hi > r_first ? (rr_hi - r_first + 63) / 64 : 0;
+  auto load_rows = [&](int i, int st) {
+    const int r0 = r_first + 64 * i;
+    gather_rows256(stage(st), stage(st) + TILE256, q + qoff, dout + qoff, r0, R, G, Tq, tid);
+    if (tid < 64) {
+      const int rr = r0 + tid;
+      const size_t off = (size_t)bh * R + row_off(rr < R ? rr : 0, G, Tq);
+      cp_async4(smem_u32(ld_s + st * 128 + tid), lse + off, rr < R);
+      cp_async4(smem_u32(ld_s + st * 128 + 64 + tid), dvec + off, rr < R);
+    }
+  };
+  if (ntile > 0) load_rows(0, 0);
+  cp_async_commit();
+
+  const float sl2 = a.scale * LOG2E;
+  float acc[128];  // dV (warpgroup 0) or dK (warpgroup 1): keys 16 warp + g + 8h
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  for (int i = 0; i < ntile; ++i) {
+    const int r0 = r_first + 64 * i, st = i & 1;
+    cp_async_wait<0>();  // this stage (and K, V) landed
+    fence_proxy_async();
+    __syncthreads();
+    const uint32_t qs = stage(st), dos = qs + TILE256;
+    const float* lds = ld_s + st * 128;
+    const bool masked = !tile_visible(a, r0, kv0);
+    // s[4j + 2h + e]: key 16 warp + g + 8h, row 8j + 2 t4 + e of the tile.
+    // The next row tile loads into the other stage under the product.
+    float s[32];
+    uint32_t f[4][4];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 16; ++kk)
+      wgmma_ss(s, desc_k256(wg == 0 ? sK : sV, kk), desc_k256(wg == 0 ? qs : dos, kk), kk);
+    wgmma_commit();
+    if (i + 1 < ntile) load_rows(i + 1, st ^ 1);
+    cp_async_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
+    if (wg == 0) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * j + 2 * t4 + e;
+          const float lse2 = lds[col] * LOG2E;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            // P and P' = P (1 - (s / c)^2): prob_grad2's dS at dP - Dv = 1
+            const int i2 = 4 * j + 2 * h + e;
+            float pf;
+            prob_grad2(a, sl2, masked, s[i2], 1.f, r0 + col, kv0 + 16 * warp + g + 8 * h, lse2,
+                       0.f, s[i2], pf);
+            pt[i2 * 128 + t] = pf;
+          }
+        }
+      bar_arrive256(1);  // P'^T is in shared memory for warpgroup 1
+    } else {
+      bar_sync256(1);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float dvr = lds[64 + 8 * j + 2 * t4 + e];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i2 = 4 * j + 2 * h + e;
+            s[i2] = pt[i2 * 128 + t] * (s[i2] - dvr);
+          }
+        }
+    }
+    // dV += P^T dO (warpgroup 0) or dK += dS^T Q (warpgroup 1): the rows
+    // read MN-major (k = row).
+    acc_frags(f, s);
+    const uint32_t b = wg == 0 ? dos : qs;
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) wgmma_rs256(acc, f[kc], desc_mn256(b, kc));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc);
+    fence_frags(f);
+    __syncthreads();  // both warpgroups are done with this stage and P'^T
+  }
+  cp_async_wait<0>();
+
+  __nv_bfloat16* out = wg == 0 ? dv : dk;
+  const float sc = wg == 0 ? 1.f : a.scale;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int kp = kv0 + 16 * warp + g + 8 * h;
+    if (kp >= a.Tkv) continue;
+    __nv_bfloat16* row = out + koff + (size_t)kp * D;
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+      *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * t4) =
+          pack_bf16(acc[4 * j + 2 * h] * sc, acc[4 * j + 2 * h + 1] * sc);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launch.
 // ---------------------------------------------------------------------------
 enum Path { PATH_MMA = 0, PATH_FFMA = 1 };
@@ -1243,6 +1555,23 @@ cudaError_t launch(int path, const void* q, const void* k, const void* v, const 
           qt, kt, vt, dot, lse, dvec, static_cast<T*>(dk), static_cast<T*>(dv), a);
       return cudaGetLastError();
     }
+  } else if constexpr (sizeof(T) == 2 && D == 256) {
+    if (path == PATH_MMA) {
+      static const cudaError_t attr_dq = cudaFuncSetAttribute(
+          flash_bwd_dq_wg256, cudaFuncAttributeMaxDynamicSharedMemorySize, DQ256_SMEM);
+      static const cudaError_t attr_dkv = cudaFuncSetAttribute(
+          flash_bwd_dkv_wg256, cudaFuncAttributeMaxDynamicSharedMemorySize, DKV256_SMEM);
+      if (attr_dq != cudaSuccess) return attr_dq;
+      if (attr_dkv != cudaSuccess) return attr_dkv;
+      // grid y: row tiles longest first (dQ), key tiles heaviest first (dK/dV)
+      flash_bwd_dq_wg256<<<dim3(BH, mma_rows), 256, DQ256_SMEM, stream>>>(
+          qt, kt, vt, ot, dot, lse, static_cast<T*>(dq), dvec, a);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+      flash_bwd_dkv_wg256<<<dim3(BH, mma_keys), 256, DKV256_SMEM, stream>>>(
+          qt, kt, vt, dot, lse, dvec, static_cast<T*>(dk), static_cast<T*>(dv), a);
+      return cudaGetLastError();
+    }
   } else if constexpr (sizeof(T) == 2) {
     if (path == PATH_MMA) {
       constexpr int dq_bytes = dq_mma_smem_bytes<D>(), dkv_bytes = dkv_mma_smem_bytes<D>();
@@ -1257,9 +1586,7 @@ cudaError_t launch(int path, const void* q, const void* k, const void* v, const 
           qt, kt, vt, ot, dot, lse, static_cast<T*>(dq), dvec, a);
       cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return err;
-      // grid z: the column blocks of dK and dV (two at D = 256)
-      const dim3 dkv_grid(mma_keys, BH, D / dkv_mma_cols<D>());
-      flash_bwd_dkv_mma<D><<<dkv_grid, MMA_THREADS, dkv_bytes, stream>>>(
+      flash_bwd_dkv_mma<D><<<dim3(mma_keys, BH), MMA_THREADS, dkv_bytes, stream>>>(
           qt, kt, vt, dot, lse, dvec, static_cast<T*>(dk), static_cast<T*>(dv), a);
       return cudaGetLastError();
     }

@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 into ``build/repro_torch/lib<name>-<hash>.so`` at the repository root,
-named by the hash of its source and flags so an edited source rebuilds, then
-loaded with ``ctypes``. Nothing is built when a module is imported: the CPU
+named by the hash of its source, the shared headers ``csrc/*.cuh`` and the
+flags so an edited source or header rebuilds, then loaded with ``ctypes``. Nothing is built when a module is imported: the CPU
 tests import every module on hosts with no ``nvcc``.
 """
 
@@ -24,6 +24,7 @@ KERNELS = ("tile_matmul", "flash_attention", "flash_attention_bwd", "ssd_scan",
            "ssd_scan_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
+INCLUDE = ["-I", str(CSRC)]  # the shared headers, for a source copied elsewhere
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -39,6 +40,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD / f"lib{name}-{digest[:12]}.so"
 

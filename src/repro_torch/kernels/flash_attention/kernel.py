@@ -13,9 +13,11 @@ as an int (it returns an error for a path the inputs cannot take; it never
 switches):
 
 - ``mma``: bf16 with 16-byte aligned q, k, v and output (every serving
-  prefill). Both products on bf16 tensor cores (``mma.sync.m16n8k16``),
-  Q (up to D = 128) and P in registers, K/V tiles in a two-stage
-  ``cp.async`` ring.
+  prefill). Up to D = 128 both products on bf16 tensor cores
+  (``mma.sync.m16n8k16``), Q and P in registers, K/V tiles in a two-stage
+  ``cp.async`` ring; at D = 256 both on ``wgmma``, K/V tiles by TMA into a
+  ring that a producer warpgroup keeps full for two consumer warpgroups of
+  64 rows each (:func:`fwd_walks` mirrors their walk).
 - ``ffma``: float32, for the 2e-4 parity runs, and bf16 the ``mma`` path
   cannot take. True float32 FFMA.
 
@@ -80,6 +82,50 @@ def _lib_bwd():
 
 BWD_TILE = 64        # folded rows or keys of a tile in the backward kernels
 DKV_WARPGROUPS = 3   # DKV_WGS in csrc/flash_attention_bwd.cu
+FWD_ROWS = 128       # WG_ROWS: folded rows a block of the D = 256 forward owns
+FWD_TILE = 64        # its warpgroups' rows, and the keys of a K/V tile
+
+
+def fwd_walks(G: int, Tq: int, Tkv: int, *, causal: bool = True, window: int = 0,
+              q_offset: int = 0):
+    """The key tiles the D = 256 forward kernel computes, as
+    ``flash_fwd_wg256`` in ``csrc/flash_attention.cu`` finds them: its
+    producer loads every tile of a block's band (the 128 rows' keys), and
+    each consumer warpgroup computes the run of them its own 64 rows can see
+    and only releases the rest. Folded row ``rr = t * G + g`` sits at query
+    position ``q_offset + rr // G``.
+
+    Returns ``{r0: [walk of warpgroup 0, walk of warpgroup 1]}`` by block,
+    each walk the first key of each tile that warpgroup computes."""
+    R, B, T = G * Tq, FWD_ROWS, FWD_TILE
+    out = {}
+    for r0 in range(0, R, B):
+        qmin, qmax = q_offset + r0 // G, q_offset + (min(R, r0 + B) - 1) // G
+        kv_end = min(Tkv, qmax + 1) if causal else Tkv
+        kv_begin = max(0, qmin - window + 1) // T * T if window > 0 else 0
+        ntile = -(-(kv_end - kv_begin) // T) if kv_end > kv_begin else 0
+        walks = []
+        for rw in (r0, r0 + T):
+            qmin_w, qmax_w = q_offset + rw // G, q_offset + (min(R, rw + T) - 1) // G
+            end_w = 0 if rw >= R else min(Tkv, qmax_w + 1) if causal else Tkv
+            begin_w = max(0, qmin_w - window + 1) if window > 0 else 0
+            hi = max(0, min(ntile, -(-(end_w - kv_begin) // T)))
+            lo = min(hi, (begin_w - kv_begin) // T)
+            walks.append([kv_begin + T * i for i in range(lo, hi)])
+        out[r0] = walks
+    return out
+
+
+def fwd_tile_visible(G: int, Tq: int, Tkv: int, rw: int, kv0: int, *, causal: bool = True,
+                     window: int = 0, q_offset: int = 0) -> bool:
+    """Whether the D = 256 forward's warpgroup of rows ``rw .. rw + 63``
+    computes the key tile at ``kv0`` without its mask (every (row, key) pair
+    of its rows below ``G * Tq`` visible), as ``flash_fwd_wg256`` decides."""
+    R, T = G * Tq, FWD_TILE
+    qmin_w, qmax_w = q_offset + rw // G, q_offset + (min(R, rw + T) - 1) // G
+    masked = (kv0 + T > Tkv or (causal and kv0 + T - 1 > qmin_w)
+              or (window > 0 and kv0 <= qmax_w - window))
+    return not masked
 
 
 def bwd_tile(d: int, path: str) -> int:
@@ -101,8 +147,9 @@ def bwd_walks(G: int, Tq: int, Tkv: int, *, causal: bool = True, window: int = 0
     kernel's block of rows ``r0 .. r0 + tile - 1`` walks; ``dkv[kv0][w]``,
     the first row of each row tile that warpgroup ``w`` of the dK/dV block
     of keys ``kv0 .. kv0 + tile - 1`` walks (every ``DKV_WARPGROUPS``-th tile
-    of the band, from tile ``w``; the kernels other than the D = 64 wgmma
-    pair walk the whole band in one)."""
+    of the band, from tile ``w``). The dK/dV kernels other than the D = 64
+    wgmma pair walk the union of these walks in one pass: the D = 256
+    kernel's two warpgroups each take every tile, one for dV, one for dK."""
     R, T = G * Tq, tile
     dq = {}
     for r0 in range(0, R, T):
@@ -125,9 +172,9 @@ def bwd_walks(G: int, Tq: int, Tkv: int, *, causal: bool = True, window: int = 0
 def bwd_tile_visible(G: int, Tq: int, Tkv: int, r0: int, kv0: int, *, causal: bool = True,
                      window: int = 0, q_offset: int = 0) -> bool:
     """Whether every (row, key) pair of the 64 x 64 tile pair at folded row
-    ``r0`` and key ``kv0`` is visible, so that the D = 64 wgmma kernels skip
-    its mask (``tile_visible`` in ``csrc/flash_attention_bwd.cu``; the other
-    kernels mask every score)."""
+    ``r0`` and key ``kv0`` is visible, so that the wgmma kernels (D = 64 and
+    256) skip its mask (``tile_visible`` in ``csrc/flash_attention_bwd.cu``;
+    the other kernels mask every score)."""
     T = BWD_TILE
     ok = r0 + T <= G * Tq and kv0 + T <= Tkv
     if causal:

@@ -276,16 +276,22 @@ WALK_CASES = [  # (G, Tq, Tkv, causal, window, q_offset)
 ]
 
 
-def _assert_walks_cover_each_visible_pair_once(g, tq, tk, causal, window, q_offset, tile):
-    kw = dict(causal=causal, window=window, q_offset=q_offset)
-    R, T = g * tq, tile
-    qpos = q_offset + torch.arange(R) // g
+def _visible(g, tq, tk, causal, window, q_offset):
+    """(folded row, key) pairs the attention sees: (G * Tq, Tkv) bools."""
+    qpos = q_offset + torch.arange(g * tq) // g
     kp = torch.arange(tk)
-    vis = torch.ones(R, tk, dtype=torch.bool)
+    vis = torch.ones(g * tq, tk, dtype=torch.bool)
     if causal:
         vis &= kp[None] <= qpos[:, None]
     if window > 0:
         vis &= kp[None] > qpos[:, None] - window
+    return vis
+
+
+def _assert_walks_cover_each_visible_pair_once(g, tq, tk, causal, window, q_offset, tile):
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    R, T = g * tq, tile
+    vis = _visible(g, tq, tk, causal, window, q_offset)
     dq, dkv = kernel.bwd_walks(g, tq, tk, tile=tile, **kw)
     by_dq = torch.zeros(R, tk, dtype=torch.int32)
     for r0, kv0s in dq.items():
@@ -325,3 +331,27 @@ def test_backward_walks_at_the_ffma_tile_of_d256_cover_each_visible_pair_once(
     assert kernel.bwd_tile(256, "ffma") == 32
     _assert_walks_cover_each_visible_pair_once(g, tq, tk, causal, window, q_offset,
                                                kernel.bwd_tile(256, "ffma"))
+
+
+@pytest.mark.parametrize("g,tq,tk,causal,window,q_offset", WALK_CASES)
+def test_forward_walks_at_d256_cover_each_visible_pair_once(g, tq, tk, causal, window,
+                                                            q_offset):
+    """The D = 256 forward's band arithmetic (``kernel.fwd_walks``, mirrored
+    by ``flash_fwd_wg256`` in ``csrc/flash_attention.cu``): each warpgroup's
+    computed key tiles hold every visible (folded row, key) pair of its 64
+    rows exactly once, and a tile it computes without its mask
+    (``fwd_tile_visible``) holds only visible pairs."""
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    R, T = g * tq, kernel.FWD_TILE
+    vis = _visible(g, tq, tk, causal, window, q_offset)
+    by = torch.zeros(R, tk, dtype=torch.int32)
+    for r0, walks in kernel.fwd_walks(g, tq, tk, **kw).items():
+        assert len(walks) == kernel.FWD_ROWS // T
+        for w, kv0s in enumerate(walks):
+            rw = r0 + T * w
+            assert kv0s == sorted(kv0s) and len(set(kv0s)) == len(kv0s)
+            for kv0 in kv0s:
+                by[rw:rw + T, kv0:kv0 + T] += 1
+                if kernel.fwd_tile_visible(g, tq, tk, rw, kv0, **kw):
+                    assert vis[rw:rw + T, kv0:kv0 + T].all()
+    assert (by[vis] == 1).all() and (by <= 1).all()

@@ -272,6 +272,8 @@ FLASH_NEW_D_CASES = [  # (bh, g, tq, tk, d, window): the dense configs' head dim
     (4, 2, 300, 300, 256, 0),       # gemma3_12b global, G = 2, ragged
     (4, 2, 300, 300, 256, 128),     # gemma3_12b local (windowed)
     (2, 12, 77, 133, 256, 40),      # G = 12, q_offset = 56, both ragged
+    (2, 4, 200, 260, 256, 70),      # G = 4, window + q_offset = 60
+    (1, 5, 129, 129, 256, 0),       # G = 5, global, ragged
     (2, 4, 600, 600, 80, 256),      # h2o_danube_1_8b (windowed), G = 4
     (3, 2, 130, 130, 80, 0),        # D = 80, G = 2, global, ragged
     (2, 12, 90, 190, 80, 70),       # D = 80, G = 12, window + q_offset = 100
@@ -645,6 +647,8 @@ FLASH_BWD_NEW_D_CASES = [  # (bh, g, tq, tk, d, window, softcap): the dense conf
     (4, 2, 300, 300, 256, 0, 0.0),      # gemma3_12b global, G = 2, ragged
     (4, 2, 300, 300, 256, 128, 15.0),   # gemma3_12b local, softcap
     (2, 12, 77, 133, 256, 40, 0.0),     # G = 12, q_offset = 56, both ragged
+    (2, 4, 200, 260, 256, 70, 0.0),     # G = 4, window + q_offset = 60
+    (1, 5, 129, 129, 256, 0, 30.0),     # G = 5, global, softcap, ragged
     (2, 4, 600, 600, 80, 256, 0.0),     # h2o_danube_1_8b (windowed), G = 4
     (3, 2, 70, 70, 80, 0, 20.0),        # D = 80, G = 2, global, softcap, ragged
     (2, 12, 90, 190, 80, 70, 0.0),      # D = 80, G = 12, window + q_offset = 100
@@ -655,9 +659,9 @@ FLASH_BWD_NEW_D_CASES = [  # (bh, g, tq, tk, d, window, softcap): the dense conf
 @pytest.mark.parametrize("bh,g,tq,tk,d,window,softcap", FLASH_BWD_NEW_D_CASES)
 def test_flash_attention_backward_new_head_dims_match_plain(cuda, bh, g, tq, tk, d, window,
                                                             softcap, dtype):
-    """D = 80 and 256 on the path their dtype takes (bf16: mma, whose dK/dV
-    blocks own half of D's columns at 256; float32: ffma, 32-row tiles at
-    256), and bf16 once more through ffma: against the explicit formula,
+    """D = 80 and 256 on the path their dtype takes (bf16: mma, the wgmma
+    kernels at 256; float32: ffma, 32-row tiles at 256), and bf16 once more
+    through ffma: against the explicit formula,
     each element within ``_flash_bwd_limit``; the same bits on a second
     launch."""
     q = _randn((bh, g, tq, d), dtype, cuda, 1)
@@ -720,6 +724,78 @@ def test_flash_attention_backward_wgmma_edges(cuda, bh, g, tq, tk, causal, windo
     for got, want in zip(grads, flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)):
         torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
     again = fa_kernel.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+FLASH_D256_EDGE_CASES = [  # (bh, g, tq, tk, causal, window, softcap): bf16, D = 256 (wgmma)
+    (2, 1, 65, 65, False, 0, 0.0),     # not causal, one row past a 64-row tile
+    (2, 1, 129, 129, True, 0, 0.0),    # one row past a 128-row forward block
+    (3, 2, 1, 65, True, 0, 0.0),       # a single step (one query position, q_offset = 64)
+    (2, 3, 130, 200, True, 10, 0.0),   # a window narrower than a tile, q_offset = 70
+    (2, 3, 64, 640, True, 0, 0.0),     # q_offset = 576: one row tile sees all key tiles
+    (1, 5, 100, 100, True, 0, 15.0),   # G = 5 folds rows across tile edges, softcap
+    (1, 12, 50, 90, True, 30, 0.0),    # G = 12 across tile edges, window, q_offset = 40
+    (2, 2, 96, 96, True, 0, 50.0),     # softcap
+    (2, 4, 70, 150, False, 0, 0.0),    # not causal, fewer rows than keys
+]
+
+
+FLASH_D256_SHORT_CASES = [  # forward only: fewer keys than one 64-key TMA box
+    (3, 2, 1, 1, True, 0, 0.0),        # one key: the output is v
+    (2, 2, 17, 17, True, 0, 0.0),      # a prompt of 17 tokens
+    (2, 3, 5, 40, True, 0, 0.0),       # q_offset = 35
+    (1, 4, 20, 50, True, 8, 30.0),     # window, softcap, q_offset = 30
+    (2, 2, 10, 33, False, 0, 0.0),     # not causal
+]
+
+
+def _took_twice(fn, before, path="mma"):
+    after = fn.paths
+    assert {p: after[p] - before[p] for p in after} == {p: 2 * int(p == path) for p in after}
+
+
+@pytest.mark.parametrize("bh,g,tq,tk,causal,window,softcap",
+                         FLASH_D256_EDGE_CASES + FLASH_D256_SHORT_CASES)
+def test_flash_attention_d256_edges_match_plain(cuda, bh, g, tq, tk, causal, window, softcap):
+    """Shapes the D = 256 forward's tiling makes special (partial tiles and
+    blocks, a warpgroup's band narrower than its block's, tiles left
+    unmasked, fewer keys than one TMA box, whose rest fills with zeros)
+    against the plain version, each element within ``_flash_limit``, the
+    lse too; two launches on mma, the same bits."""
+    q = _randn((bh, g, tq, 256), torch.bfloat16, cuda, 1)
+    k = _randn((bh, tk, 256), torch.bfloat16, cuda, 2)
+    v = _randn((bh, tk, 256), torch.bfloat16, cuda, 3)
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=tk - tq)
+    ref, ref_lse = flash_attention_ref(q, k, v, return_lse=True, **kw)
+    before = dict(fa_kernel.flash_attention.paths)
+    out, lse = fa_kernel.flash_attention(q, k, v, return_lse=True, **kw)
+    again = fa_kernel.flash_attention(q, k, v, **kw)
+    _took_twice(fa_kernel.flash_attention, before)
+    diff = (out.float() - ref.float()).abs()
+    assert bool((diff <= _flash_limit(ref.float(), torch.bfloat16)).all()), diff.max().item()
+    torch.testing.assert_close(lse, ref_lse, rtol=2e-4, atol=2e-4)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("bh,g,tq,tk,causal,window,softcap", FLASH_D256_EDGE_CASES)
+def test_flash_attention_backward_d256_edges_match_plain(cuda, bh, g, tq, tk, causal, window,
+                                                         softcap):
+    """The same shapes through the D = 256 backward kernels (the dQ
+    warpgroups' key halves, the dK/dV warpgroups' P^T hand-over, tiles left
+    unmasked) against the explicit formula, each element within
+    ``_flash_bwd_limit``; two launches on mma, the same bits."""
+    q = _randn((bh, g, tq, 256), torch.bfloat16, cuda, 1)
+    k = _randn((bh, tk, 256), torch.bfloat16, cuda, 2)
+    v = _randn((bh, tk, 256), torch.bfloat16, cuda, 3)
+    do = _randn((bh, g, tq, 256), torch.bfloat16, cuda, 4)
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=tk - tq)
+    o, lse = fa_kernel.flash_attention(q, k, v, return_lse=True, **kw)
+    before = dict(fa_kernel.flash_attention_bwd.paths)
+    grads = fa_kernel.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    again = fa_kernel.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    _took_twice(fa_kernel.flash_attention_bwd, before)
+    _assert_attention_grads_close(grads, flash_attention_bwd_ref(q, k, v, o, do, lse, **kw),
+                                  torch.bfloat16)
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
 
 
