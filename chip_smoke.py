@@ -67,6 +67,7 @@ and exits non-zero. Imports neither JAX nor the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import shutil
@@ -268,22 +269,30 @@ def _ptxas_kernels(ptxas: str) -> dict:
     return kernels
 
 
-def _sass_ops(so: Path, ops) -> dict:
+def _sass_ops(so: Path, ops) -> tuple[dict, dict]:
+    """Counts of each of ``ops`` in a library's SASS, in all and by kernel
+    (a ``Function :`` section of ``cuobjdump -sass``)."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True, text=True,
                           check=True, timeout=120).stdout
-    return {op: sass.count(op) for op in ops}
+    by_kernel = {}
+    for part in sass.split("Function : ")[1:]:
+        name, _, body = part.partition("\n")
+        by_kernel[name.strip()] = {op: body.count(op) for op in ops}
+    return {op: sass.count(op) for op in ops}, by_kernel
 
 
 # Kernels that must not spill, by a substring of their mangled names, and the
 # SASS each library must hold: wgmma (HGMMA) in tile_matmul (with TMA,
-# UTMALDG), in the attention forward at D = 256 (with TMA) and in the
-# attention backward at D = 64 and 256 (the `_wg256` kernels), the mma
-# paths' tensor-core products (HMMA) and ldmatrix (LDSM) loads. The
-# attention backward's kernels at the dense configs' head dims (80, 256)
-# are held on both paths.
+# UTMALDG), in the attention forward at D = 80, 128 and 256 (with TMA) and
+# in the attention backward at D = 64, 80 and 256, the mma paths'
+# tensor-core products (HMMA) and ldmatrix (LDSM) loads. The attention
+# backward's kernels at the dense configs' head dims (80, 256) are held on
+# both paths. Every attention kernel whose name holds ``WGMMA_KERNEL`` must
+# itself hold HGMMA, and ptxas must not have serialized its wgmmas.
+WGMMA_KERNEL = "_wg"
 NO_SPILL = {"tile_matmul": ("wgmma", "skinny"),
-            "flash_attention": ("flash_fwd_mma", "flash_fwd_wg256"),
+            "flash_attention": ("flash_fwd_mma", "flash_fwd_wg"),
             "ssd_scan": ("ssd_fwd_mma",),
             "flash_attention_bwd": ("_mmaI", "_wgmma", "_wg256", "Li80E", "Li256E"),
             "ssd_scan_bwd": ("ssd_bwd_mma",)}
@@ -296,32 +305,39 @@ SASS_NEED = {"tile_matmul": ("HGMMA", "UTMALDG"),
              "flash_attention": ("HGMMA", "UTMALDG", "HMMA", "LDSM"),
              "ssd_scan": ("HMMA", "LDSM"), "flash_attention_bwd": ("HGMMA", "HMMA", "LDSM"),
              "ssd_scan_bwd": ("HMMA", "LDSM", "LDGSTS")}
-# The attention backward's two kernels at each head dim chip_smoke.py times,
-# as named in a profiler trace.
-FLASH_BWD_KERNELS = {64: ("flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma"),
-                     80: ("flash_bwd_dq_mma", "flash_bwd_dkv_mma"),
+# The attention's kernel (forward) and two kernels (backward) at each head
+# dim chip_smoke.py times, as named in a profiler trace.
+FLASH_FWD_KERNELS = {64: "flash_fwd_mma<64>", 80: "flash_fwd_wg<80>", 128: "flash_fwd_wg<128>",
+                     256: "flash_fwd_wg256"}
+FLASH_BWD_KERNELS = {64: ("flash_bwd_dq_wgmma<64>", "flash_bwd_dkv_wgmma<64>"),
+                     80: ("flash_bwd_dq_wgmma<80>", "flash_bwd_dkv_wgmma<80>"),
                      256: ("flash_bwd_dq_wg256", "flash_bwd_dkv_wg256")}
 
 
 def kernel_build_report(build, ptxas: dict) -> dict:
     """What ptxas said of each kernel of each library (registers, shared
     memory, spills) and the counts of ``SASS_OPS`` in each library. Fails on
-    a spill in a kernel of ``NO_SPILL``, on the D 256 attention kernels'
-    wgmmas serialized by ptxas, and on a library without the
-    instructions of ``SASS_NEED`` (the wgmma of tile_matmul and of the
-    attention forward at D 256 and of the attention backward, the TMA of
-    tile_matmul and of the attention forward, the mma paths' HMMA and LDSM)."""
+    a spill or a stack frame in a kernel of ``NO_SPILL``, on an attention
+    wgmma kernel (``WGMMA_KERNEL``) without HGMMA or with its wgmmas
+    serialized by ptxas, and on a library without the instructions of
+    ``SASS_NEED`` (the wgmma of tile_matmul and of the attention forward and
+    backward, the TMA of tile_matmul and of the attention forward, the mma
+    paths' HMMA and LDSM)."""
     report = {}
     no_spill = "0 bytes spill stores, 0 bytes spill loads"
     for lib, keys in NO_SPILL.items():
         kernels = _ptxas_kernels(ptxas[lib])
-        ops = _sass_ops(build._target(lib), SASS_OPS[lib])
+        ops, by_kernel = _sass_ops(build._target(lib), SASS_OPS[lib])
         checked = [k for k in kernels if any(key in k for key in keys)]
         assert kernels and (checked or not keys), (lib, sorted(kernels))
         for kname in checked:
             assert kernels[kname]["spill"].startswith(no_spill), (kname, kernels[kname])
-            assert not ("wg256" in kname and kernels[kname].get("wgmma_serialized")), \
-                (kname, kernels[kname])
+            assert kernels[kname]["stack"].startswith("0 bytes stack"), (kname, kernels[kname])
+        if lib.startswith("flash_attention"):
+            for kname in (k for k in kernels if WGMMA_KERNEL in k):
+                assert not kernels[kname].get("wgmma_serialized"), (kname, kernels[kname])
+                kernels[kname]["sass_ops"] = by_kernel[kname]
+                assert by_kernel[kname]["HGMMA"] > 0, (kname, by_kernel[kname])
         assert all(ops[op] > 0 for op in SASS_NEED[lib]), (lib, ops)
         report[lib] = {"kernels": kernels, "sass_ops": ops}
     return report
@@ -614,12 +630,13 @@ def _sdpa_backend(fn) -> str:
 
 def time_flash(fa_kernel, flash_attention_ref) -> dict:
     """One prefill layer's attention of each served config (``FLASH_TIMED``),
-    bf16: the mma path (``ms``) and, once, the ffma path (``ffma_ms``), the
+    bf16: the mma path (``ms``; ``kernel``, the kernel it launches, as a
+    trace names it) and, once, the ffma path (``ffma_ms``), the
     plain version (in batch x kv-head slices where its scores would not fit
     at once), and SDPA (``library_ms``, K/V repeated to every head; a window
     as a boolean mask, ``library_backend`` says which kernel SDPA took);
     kernel and SDPA also by CUDA-graph replay (``device_ms``,
-    ``library_device_ms``)."""
+    ``library_device_ms``), and the kernel's TFLOP/s by graph replay."""
     dt, out = torch.bfloat16, {}
     for name, (b, hkv, g, t, d, window) in FLASH_TIMED.items():
         bh = b * hkv
@@ -651,12 +668,14 @@ def time_flash(fa_kernel, flash_attention_ref) -> dict:
         flops = 4 * d * bh * g * _visible_pairs(t, t, window)
         nbytes = (q.numel() * 2 + k.numel() + v.numel()) * 2
         bound_ms, bound_by = _bound(flops, nbytes, dt)
-        out[name] = dict(q_shape=(bh, g, t, d), window=window, ms=kern, ffma_ms=ffma,
+        out[name] = dict(q_shape=(bh, g, t, d), window=window, kernel=FLASH_FWD_KERNELS[d],
+                         ms=kern, ffma_ms=ffma,
                          plain_ms=plain, plain_slices=-(-bh // step), library_ms=library,
                          library_backend=_sdpa_backend(sdpa), vs_library=kern / library,
-                         device_ms=device, library_device_ms=library_device, flop=flops,
+                         device_ms=device, library_device_ms=library_device,
+                         vs_library_device=device / library_device, flop=flops,
                          bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by,
-                         vs_bound=device / bound_ms)
+                         vs_bound=device / bound_ms, tflop_s=flops / device / 1e9)
         del q, k, v, qs, ks, vs
         torch.cuda.empty_cache()
     return out
@@ -791,8 +810,9 @@ def time_flash_bwd(fa_kernel, flash_attention_bwd_ref) -> dict:
         flops = 10 * d * bh * g * _visible_pairs(t, t, window)
         nbytes = (4 * q.numel() + 4 * k.numel()) * 2 + lse.numel() * 4
         bound_ms, bound_by = _bound(flops, nbytes, dt)
-        out[name] = dict(q_shape=(bh, g, t, d), window=window, ms=kern, ffma_ms=ffma,
-                         device_ms=device, dq_ms=traced[names[0]], dkv_ms=traced[names[1]],
+        out[name] = dict(q_shape=(bh, g, t, d), window=window, kernels=names, ms=kern,
+                         ffma_ms=ffma, device_ms=device, dq_ms=traced[names[0]],
+                         dkv_ms=traced[names[1]], device_tflop_s=flops / device / 1e9,
                          traces=traced["traces"], traced_launches=traced["traced_launches"],
                          plain_ms=plain, plain_slices=-(-bh // step), library_ms=library,
                          vs_library=kern / library, flop=flops, bytes=nbytes,
@@ -1444,22 +1464,46 @@ def _acan_runner(step_runner, cfg, params, **kw):
 
 def _acan_run(runner, counters: dict) -> tuple:
     """``runner.run()`` with every launch count set to 0 just before and read
-    just after; also each step's host seconds (``step_seconds``), and the
+    just after; also each step's host seconds (``step_seconds``), the
     seconds of the pouch rounds that ended at their deadline with a task
-    unfinished."""
+    unfinished, each round's seconds over the deadline it ran under (a
+    round re-issues its unfinished tasks at 1), and the garbage collector's
+    passes during the run: for each generation their count and seconds,
+    and when each full pass began (seconds after the start) and its length,
+    beside the objects it tracked before the run."""
     from repro_torch.core.space import ANY
     from repro_torch.ts_exec.step_runner import step_seconds
 
+    passes: list = []
+
+    def on_gc(phase, info):
+        passes.append((phase, info["generation"], time.time()))
+
     torch.cuda.synchronize()
+    tracked = len(gc.get_objects())
     _zero(counters)
+    gc.callbacks.append(on_gc)
     t0 = time.time()
-    res = runner.run()
+    try:
+        res = runner.run()
+    finally:
+        gc.callbacks.remove(on_gc)
     launches = _read(counters)
+    gcs = {"tracked": tracked, "count": [0, 0, 0], "s": [0.0, 0.0, 0.0], "full": []}
+    for (ph, gen, t), (_, _, t_end) in zip(passes[::2], passes[1::2]):
+        assert ph == "start", passes
+        gcs["count"][gen] += 1
+        gcs["s"][gen] += t_end - t
+        if gen == 2:
+            gcs["full"].append((t - t0, t_end - t))
     by_path = {k: dict(fn.paths) for k, fn in counters.items() if hasattr(fn, "paths")}
     steps_s = step_seconds(runner, t0)
-    rounds = [runner.ts.try_read(k)[1] for k in runner.ts.keys(("thist", ANY, ANY))]
+    rounds = [runner.ts.try_read(k)[1]
+              for k in sorted(runner.ts.keys(("thist", ANY, ANY)), key=lambda k: k[2])]
     waited = sum(r["elapsed"] for r in rounds if r["done_frac"] < 1.0)
-    return res, launches, by_path, steps_s, waited
+    deadlines = [runner.tcfg.timeout] + [r["timeout"] for r in rounds[:-1]]
+    over = [r["elapsed"] / d for r, d in zip(rounds, deadlines)]
+    return res, launches, by_path, steps_s, waited, over, gcs
 
 
 def acan_path(step_runner, M, cfg, counters: dict) -> dict:
@@ -1486,10 +1530,10 @@ def acan_path(step_runner, M, cfg, counters: dict) -> dict:
     want = {k: v // TRAIN_STEPS for k, v in _train_want(cfg)[0].items()}
     assert per_grad == want, (per_grad, want)
     torch.cuda.reset_peak_memory_stats()
-    res, launches, by_path, steps_s, waited_clean = _acan_run(clean, counters)
+    res, launches, by_path, steps_s, waited_clean, over, gcs = _acan_run(clean, counters)
     peak = torch.cuda.max_memory_allocated()
     crashed = _acan_runner(step_runner, cfg, params, handler_crash_prob=0.25)
-    res_c, launches_c, by_path_c, steps_c, waited = _acan_run(crashed, counters)
+    res_c, launches_c, by_path_c, steps_c, waited, _, _ = _acan_run(crashed, counters)
     final = [tree_leaves(r.ts.try_read(("params", steps))[1]) for r in (clean, crashed)]
     median = float(np.median(steps_s[1:]))
     tokens = n_micro * ACAN["micro_batch"] * ACAN["seq"]
@@ -1501,13 +1545,16 @@ def acan_path(step_runner, M, cfg, counters: dict) -> dict:
                ts_leaks=[res.ts_leaks, res_c.ts_leaks], step_s=steps_s,
                median_step_s=median, tokens_per_s=tokens / median, step_s_crash=steps_c,
                timeout_wait_s=waited, timeout_wait_s_clean=waited_clean,
+               round_over_deadline=over, gc=gcs,
                peak_mem_bytes=peak, launches_per_grad=per_grad, launches=launches,
                launches_by_path=by_path, launches_crash=launches_c,
                launches_by_path_crash=by_path_c)
     print(f"acan {cfg.name}: losses {res.losses}, crash run losses {res_c.losses}; "
           f"crash-free run {res.crashes} crashes, {res.reissues} re-issues; crash run "
           f"{res_c.crashes} crashes, {res_c.reissues} re-issues, {waited:.3f} s of "
-          f"rounds ended at their deadline; median step (2-{steps}) {median:.4f} s "
+          f"rounds ended at their deadline; crash-free rounds over their deadline "
+          f"{max(over):.3f} at most ({over}), garbage collector {gcs}; "
+          f"median step (2-{steps}) {median:.4f} s "
           f"({out['tokens_per_s']:.0f} tokens/s), steps {steps_s}; peak memory "
           f"{peak / 2**30:.3f} GiB; launches a gradient {per_grad}, crash-free run "
           f"{launches}, by path {by_path}; crash run {launches_c}")
@@ -2510,8 +2557,9 @@ def main() -> int:
              timed="one layer's prefill attention, q (40, 3, 512, 64), causal, bf16, "
                    "mma path; the dense configs' layers under by_config",
              by_config={k: {key: t[key] for key in (
-                 "q_shape", "window", "ms", "device_ms", "plain_ms", "library_ms",
-                 "library_device_ms", "library_backend", "bound_ms", "bound_by", "ffma_ms")}
+                 "q_shape", "window", "kernel", "ms", "device_ms", "tflop_s", "plain_ms",
+                 "library_ms", "library_device_ms", "library_backend", "bound_ms", "bound_by",
+                 "ffma_ms")}
                  for k, t in detail["flash_attention_time"].items() if k != "smollm_360m"},
              err_by_case=detail["flash_attention_err"]["by_case"]),
         dict(name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
@@ -2537,14 +2585,15 @@ def main() -> int:
              dq_ms=fbt["dq_ms"], dkv_ms=fbt["dkv_ms"], ffma_ms=fbt["ffma_ms"],
              timed="one layer's attention backward, q (40, 3, 512, 64), causal, bf16, "
                    "mma path (wgmma at D = 64); library: SDPA's flash backward op, K/V "
-                   "repeated; the dense configs' training layers (mma.sync at D 80, "
-                   "wgmma at D 256; library: the backward of an SDPA call, a window as "
+                   "repeated; the dense configs' training layers (wgmma at D 80 and "
+                   "256; library: the backward of an SDPA call, a window as "
                    "a mask; at gemma3's global layer also cuDNN's backward op by graph "
                    "replay) under by_config",
              by_config={k: {key: t.get(key) for key in (
-                 "q_shape", "window", "ms", "device_ms", "plain_ms", "library_ms",
-                 "library_device_ms", "library_backend", "bound_ms", "bound_by", "ffma_ms",
-                 "dq_ms", "dkv_ms", "flop")} for k, t in fbts.items() if k != "smollm_360m"},
+                 "q_shape", "window", "kernels", "ms", "device_ms", "device_tflop_s",
+                 "plain_ms", "library_ms", "library_device_ms", "library_backend", "bound_ms",
+                 "bound_by", "ffma_ms", "dq_ms", "dkv_ms", "flop")}
+                 for k, t in fbts.items() if k != "smollm_360m"},
              launches_by_train_run={r["arch"]: r["launches"]["flash_attention_bwd"]
                                     for r in (tr, tdn, tg3)},
              err_by_case=detail["flash_attention_bwd_err"]["by_case"]),

@@ -38,17 +38,17 @@ sys.path.insert(0, str(ROOT / "src"))
 OUT = ROOT / "build" / "probe_gradients"
 RESULT = ROOT / "chiprun_out" / "probe_gradients.json"
 SRC = {"attn": "flash_attention_bwd", "ssd": "ssd_scan_bwd"}
-DKV = "DKV_WGS = 3, DKV_STAGES = 2;"
-CUT_DQ = ("      flash_bwd_dq_wgmma<<<", "      if (BH < 0) flash_bwd_dq_wgmma<<<")
+DKV = "SWB = 128, DQ_BLOCKS = 4, DKV_WGS = 3;"  # D 64's BwdWg
+CUT_DQ = ("      flash_bwd_dq_wgmma<D><<<", "      if (BH < 0) flash_bwd_dq_wgmma<D><<<")
 
 # "<kernel>.<name>" -> (old, new) text patches of the kernel's source.
 VARIANTS = {
     "attn.shipped": [],
-    "attn.dkv_warpgroups2": [(DKV, "DKV_WGS = 2, DKV_STAGES = 2;")],
-    "attn.dkv_warpgroups4": [(DKV, "DKV_WGS = 4, DKV_STAGES = 2;")],
-    "attn.stages3": [(DKV, "DKV_WGS = 3, DKV_STAGES = 3;"),
+    "attn.dkv_warpgroups2": [(DKV, DKV.replace("DKV_WGS = 3", "DKV_WGS = 2"))],
+    "attn.dkv_warpgroups4": [(DKV, DKV.replace("DKV_WGS = 3", "DKV_WGS = 4"))],
+    "attn.stages3": [("constexpr int DKV_STAGES = 2;", "constexpr int DKV_STAGES = 3;"),
                      ("constexpr int DQ_STAGES = 2;", "constexpr int DQ_STAGES = 3;")],
-    "attn.cut_dkv": [("      flash_bwd_dkv_wgmma<<<", "      if (BH < 0) flash_bwd_dkv_wgmma<<<")],
+    "attn.cut_dkv": [("      flash_bwd_dkv_wgmma<D><<<", "      if (BH < 0) flash_bwd_dkv_wgmma<D><<<")],
     "attn.cut_dq": [CUT_DQ],
     # the dK/dV kernel alone, and with parts of its tile-pair loop left out
     "attn.cut_dq_scores": [CUT_DQ,
@@ -56,12 +56,14 @@ VARIANTS = {
                             "for (int e = 0; e < 0; ++e) {\n        const int col")],
     "attn.cut_dq_score_products": [
         CUT_DQ,
-        ("wgmma_ss(s, desc_k(sK, kk), desc_k(qs, kk), kk);", "{}"),
-        ("wgmma_ss(dp, desc_k(sV, kk), desc_k(dos, kk), kk);", "{}")],
+        ("wgmma_ss(s, desc_kb<SWB, 64>(sK, kk), desc_kb<SWB, 64>(qs, kk), kk);", "{}"),
+        ("wgmma_ss(dp, desc_kb<SWB, 64>(sV, kk), desc_kb<SWB, 64>(dos, kk), kk);", "{}")],
     "attn.cut_dq_gradient_products": [
         CUT_DQ,
-        ("for (int kc = 0; kc < 4; ++kc) wgmma_rs(acc_v, fp[kc], desc_mn(dos, kc));", ""),
-        ("for (int kc = 0; kc < 4; ++kc) wgmma_rs(acc_k, fs[kc], desc_mn(qs, kc));", "")],
+        ("for (int kc = 0; kc < 4; ++kc) wgmma_rs_n<D>(acc_v, fp[kc], desc_mnb<SWB, 64>(dos, kc));",
+         ""),
+        ("for (int kc = 0; kc < 4; ++kc) wgmma_rs_n<D>(acc_k, fs[kc], desc_mnb<SWB, 64>(qs, kc));",
+         "")],
     "ssd.shipped": [],
     "ssd.cut_head_sum": [("  ssd_bwd_reduce<T><<<", "  if (Bt < 0) ssd_bwd_reduce<T><<<")],
     # the walk alone, without its per-head partials' stores, or without G's update

@@ -28,14 +28,14 @@
 //    slower. So it is bound by how fast ldmatrix feeds mma.sync (about 105
 //    TFLOP/s of the attention's work); wgmma from shared memory, or two
 //    16-row tiles a warp so each K/V fragment serves twice, is the next step.
-//    Head dims 16, 32, 64, 80 (h2o-danube) and 128: both products on bf16
+//    Head dims 16, 32 and 64: both products on bf16
 //    tensor cores (mma.sync.m16n8k16, float32 accumulate). A block of 4
 //    warps owns 64 folded rows, 16 a warp; Q is gathered once with cp.async
 //    (each folded row is a contiguous run of D values) and kept in
 //    registers as A fragments (ldmatrix). K/V tiles of 64 keys stream
 //    through a two-stage cp.async ring in padded shared memory (row stride
 //    D + 8, so ldmatrix is free of bank conflicts: the stride is 16 bytes
-//    past a multiple of 32 words for every D here, 80 included, so the 8
+//    past a multiple of 32 words for every D here, so the 8
 //    row addresses of an ldmatrix start in 8 distinct 4-bank groups): the
 //    next tile loads while this one is multiplied. K enters S = QK^T
 //    through ldmatrix, V enters PV through ldmatrix.trans. The online
@@ -68,6 +68,28 @@
 //    all); 168 registers at entry. One rescale of the accumulator serves
 //    64 keys. On an H100 (PERF.md) the global layer takes about 0.37 ms
 //    (369 TFLOP/s).
+//    Head dims 80 (h2o_danube_1_8b) and 128 (command_r_plus_104b) take
+//    flash_fwd_wg<D>: the same producer and consumers, on tiles of boxes
+//    (hopper.cuh's desc_kb / desc_mnb). A 160-byte D 80 row is no whole
+//    number of 128-byte swizzle rows, so its tiles are five boxes of 16
+//    columns under the 32-byte swizzle, which TMA writes and wgmma reads as
+//    they stand (D 128: two 128-byte atoms; 32-byte boxes measured the same
+//    there). What bounds them: danube's layer, q (16, 4, 8192, 80) with
+//    window 4096, is 515 GFLOP against 210 MB, so operations (0.52 ms); at
+//    D 80 its exponentials alone (one a score, 16 a clock an SM) hold the
+//    special-function unit 0.44 ms, so the design overlaps them with the
+//    tensor cores: a consumer issues S = Q K^T of tile j and O += P V of
+//    tile j - 1 together and runs tile j's softmax under the latter (two P
+//    buffers in registers; K and V released on barriers of their own), and
+//    the scale is fused into the exponent where a tile has no mask. Three
+//    consumers of 64 rows on 64-key tiles at D 80 (160 registers each after
+//    setmaxnreg), two at D 128 (240; three spill). command_r's layer, q
+//    (64, 12, 512, 128) causal, is 51.6 GFLOP against 218 MB, so bytes
+//    (0.065 ms), but a block of 128 rows sees about four key tiles, so its
+//    fixed cost (Q gather, the first tile's latency, the output) is most of
+//    its time, and one block an SM hides none of it; two blocks an SM of one
+//    consumer each measured no faster. On an H100 (PERF.md) danube's layer
+//    takes about 1.39 ms (371 TFLOP/s), command_r's about 0.24 ms.
 //  * ffma (float32, and bf16 the mma path cannot take). True float32 FFMA
 //    (never TF32) for the float32 parity runs: each thread keeps a 4-row x
 //    8-key score tile and a 4-row x D/8 output tile in registers, reads Q
@@ -318,7 +340,7 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   constexpr int DT = D / 8;     // 8-wide column tiles of the output (even: D % 16 == 0)
   constexpr int CPR = D / 8;    // 16-byte pieces of a row
   constexpr int NT = BK / 8;    // 8-key tiles of S
-  static_assert(D % 16 == 0 && D <= 128, "k-steps of 16; D 256 takes flash_fwd_wg256");
+  static_assert(D % 16 == 0 && D <= 64, "k-steps of 16; D 80, 128, 256 take the wgmma kernels");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [MMA_ROWS][LD]
   __nv_bfloat16* Ks = Qs + MMA_ROWS * LD;                          // [2][BK][LD]
@@ -542,47 +564,56 @@ __device__ __forceinline__ size_t row_off(int rr, int G, int Tq) {
   return (size_t)(rr % G) * Tq + rr / G;
 }
 
-// Online softmax of the S of the tile at key kv0, in the log2 domain, masked
-// when `masked`: s[4j + 2h + e] is row 16 warp + g + 8h (query
-// position qpos[h]), key kv0 + 8j + 2 t4 + e. P = exp(s - m), rounded to
-// bf16 as the register A operand of PV (the accumulator's 8-key groups 2kc
-// and 2kc + 1 are the A fragment of k step kc); corr rescales the output
-// accumulator, l sums the unrounded P.
-__device__ __forceinline__ void fwd_softmax(float (&s)[32], uint32_t (&pf)[4][4], float (&m_r)[2],
-                                            float (&l_r)[2], float (&corr)[2], bool masked,
-                                            int kv0, int Tkv, int causal, int window,
-                                            float softcap, float scale, const int (&qpos)[2],
-                                            int t4) {
-  float mx[2] = {NEG_INF, NEG_INF};
+// Online softmax of the S of the tile of 64 keys at kv0, masked when
+// `masked`: s[4j + 2h + e] is row 16 warp + g + 8h (query position qpos[h]),
+// key kv0 + 8j + 2 t4 + e. In the log2 domain a score is s sl2 (sl2 = scale
+// log2 e), the multiply fused into the exponent where no score of the tile
+// is masked; under a softcap c it is tanh(s scale / c) c log2 e (scale_cap =
+// scale / c). P = exp(s - m),
+// rounded to bf16 as the register A operand of PV (the accumulator's 8-key
+// groups 2kc and 2kc + 1 are the A fragment of k step kc); corr rescales the
+// output accumulator, l sums the unrounded P.
+__device__ __forceinline__ void fwd_softmax(float (&s)[32], uint32_t (&pf)[4][4],
+                                            float (&m_r)[2], float (&l_r)[2], float (&corr)[2],
+                                            bool masked, int kv0, int Tkv, int causal, int window,
+                                            float softcap, float sl2, float scale_cap,
+                                            const int (&qpos)[2], int t4) {
+  float mul = sl2;
+  if (softcap > 0.f) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const int h = (i >> 1) & 1;
-    float x = s[i] * scale;
-    if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
-    x *= LOG2E;
-    if (masked) {
-      const int kp = kv0 + (i >> 2) * 8 + 2 * t4 + (i & 1);
+    for (int i = 0; i < 32; ++i) s[i] = tanhf(s[i] * scale_cap) * (softcap * LOG2E);
+    mul = 1.f;
+  }
+  float mx[2] = {NEG_INF, NEG_INF};
+  if (masked) {  // scaled first: a masked score is NEG_INF in the log2 domain itself
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i >> 1) & 1, kp = kv0 + (i >> 2) * 8 + 2 * t4 + (i & 1);
       bool ok = kp < Tkv;
       if (causal) ok = ok && kp <= qpos[h];
       if (window > 0) ok = ok && kp > qpos[h] - window;
-      if (!ok) x = NEG_INF;
+      s[i] = ok ? s[i] * mul : NEG_INF;
+      mx[h] = fmaxf(mx[h], s[i]);
     }
-    s[i] = x;
-    mx[h] = fmaxf(mx[h], x);
+    mul = 1.f;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
     mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-    const float m_new = fmaxf(m_r[h], mx[h]);
-    corr[h] = exp2f(m_r[h] - m_new);
+    const float m_new = fmaxf(m_r[h], mx[h] * mul);
+    corr[h] = ex2(m_r[h] - m_new);
     m_r[h] = m_new;
   }
   float ps[2] = {0.f, 0.f};
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
-    const float p0 = exp2f(s[4 * j] - m_r[0]), p1 = exp2f(s[4 * j + 1] - m_r[0]);
-    const float p2 = exp2f(s[4 * j + 2] - m_r[1]), p3 = exp2f(s[4 * j + 3] - m_r[1]);
+    const float p0 = ex2(fmaf(s[4 * j], mul, -m_r[0])), p1 = ex2(fmaf(s[4 * j + 1], mul, -m_r[0]));
+    const float p2 = ex2(fmaf(s[4 * j + 2], mul, -m_r[1]));
+    const float p3 = ex2(fmaf(s[4 * j + 3], mul, -m_r[1]));
     ps[0] += p0 + p1;
     ps[1] += p2 + p3;
     pf[j >> 1][(j & 1) * 2] = pack_bf16(p0, p1);
@@ -689,6 +720,7 @@ flash_fwd_wg256(const __grid_constant__ CUtensorMap tmap_k,
     qpos[h] = q_offset + (rr < R ? rr / G : 0);
   }
   float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f}, corr[2];
+  const float sl2 = scale * LOG2E, scale_cap = softcap > 0.f ? __fdividef(scale, softcap) : 0.f;
   float s[32], acc[128];
 #pragma unroll
   for (int i = 0; i < 128; ++i) acc[i] = 0.f;
@@ -718,8 +750,8 @@ flash_fwd_wg256(const __grid_constant__ CUtensorMap tmap_k,
     // the window edge of this warpgroup's rows
     const bool masked = kv0 + BK > Tkv || (causal && kv0 + BK - 1 > qmin_w) ||
                         (window > 0 && kv0 <= qmax_w - window);
-    fwd_softmax(s, pf, m_r, l_r, corr, masked, kv0, Tkv, causal, window, softcap, scale, qpos,
-                t4);
+    fwd_softmax(s, pf, m_r, l_r, corr, masked, kv0, Tkv, causal, window, softcap, sl2, scale_cap,
+                qpos, t4);
 #pragma unroll
     for (int i = 0; i < 128; ++i) acc[i] *= corr[(i >> 1) & 1];
     mbar_wait(full_v(st), par);
@@ -768,22 +800,278 @@ flash_fwd_wg256(const __grid_constant__ CUtensorMap tmap_k,
 }
 
 // ---------------------------------------------------------------------------
-// Host side of the D = 256 kernel: K and V as TMA tensor maps.
+// mma at D = 80 and 128 (h2o_danube_1_8b, command_r_plus_104b): the D = 256
+// kernel's producer and consumers, on tiles of boxes (hopper.cuh's
+// desc_kb / desc_mnb) that TMA fills with the box's swizzle.
 // ---------------------------------------------------------------------------
-// A (BH, Tkv, 256) bf16 tensor in boxes of 64 keys x 64 columns (128 bytes,
-// the 128-byte swizzle) of one BH; keys past Tkv fill with zeros. Binds the
-// thread's context first: the encoder fails on a thread with none.
-bool encode_keys(CUtensorMap* map, const void* ptr, int BH, int Tkv) {
+// Per head dim: consumer warpgroups of 64 folded rows (NC) and the bytes of
+// a box row (SWB: 128 where a row is whole 64-column atoms; 32 at D = 80,
+// whose 160-byte rows are five 32-byte boxes). K/V tiles of BK keys in a
+// ring of WG_STAGES, as at D = 256.
+template <int D> struct FwdWg;
+template <> struct FwdWg<80> { static constexpr int NC = 3, SWB = 32; };
+template <> struct FwdWg<128> { static constexpr int NC = 2, SWB = 128; };
+// Registers a consumer thread takes once the producer warpgroup has given up
+// all but 24 of its own: the block's registers at launch (the most one block
+// of its threads may have, in units of 8) shared out again (setmaxnreg: a
+// multiple of 8, here at most 240).
+template <int D>
+__host__ __device__ constexpr int fwd_consumer_regs() {
+  const int threads = 128 * (FwdWg<D>::NC + 1), entry = 65536 / threads / 8 * 8;
+  const int r = (threads * entry - 128 * 24) / (128 * FwdWg<D>::NC) / 8 * 8;
+  return r < 240 ? r : 240;
+}
+
+// Q of every consumer, the K/V ring, its 4 x WG_STAGES mbarriers; alignment.
+template <int D>
+__host__ __device__ constexpr int fwd_wg_smem() {
+  return FwdWg<D>::NC * 64 * D * 2 + 2 * WG_STAGES * BK * D * 2 + 4 * WG_STAGES * 8 + 1024;
+}
+
+template <int D>
+__global__ void __launch_bounds__(128 * (FwdWg<D>::NC + 1), 1)
+flash_fwd_wg(const __grid_constant__ CUtensorMap tmap_k, const __grid_constant__ CUtensorMap tmap_v,
+             const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ o,
+             float* __restrict__ lse, int G, int Tq, int Tkv, int causal, int window,
+             float softcap, int q_offset, float scale) {
+  constexpr int NC = FwdWg<D>::NC, SWB = FwdWg<D>::SWB, STAGES = WG_STAGES;
+  constexpr int ROWS = 64 * NC;   // folded rows a block owns
+  constexpr int QT = 64 * D * 2;  // bytes of a consumer's Q tile
+  constexpr int KT = BK * D * 2;  // bytes of a K or V tile
+  constexpr int BOX = SWB / 2;    // columns a box holds
+  constexpr int CPR = D / 8;      // 16-byte chunks a row
+  static_assert(D % BOX == 0, "whole boxes");
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - smem_u32(smem_raw));
+  // Q of consumer c at base + c QT; K and V of stage st after them; then the
+  // barriers: full_k, full_v (the producer's TMA), empty_k, empty_v (the
+  // consumers: K is released once S is formed, V once P V is).
+  const uint32_t sK = base + NC * QT, bars = sK + 2 * STAGES * KT;
+  auto k_of = [&](int st) { return sK + 2 * st * KT; };
+  auto full_k = [&](int st) { return bars + 8 * st; };
+  auto full_v = [&](int st) { return bars + 8 * (STAGES + st); };
+  auto empty_k = [&](int st) { return bars + 8 * (2 * STAGES + st); };
+  auto empty_v = [&](int st) { return bars + 8 * (3 * STAGES + st); };
+
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int bh = blockIdx.x, r0 = (gridDim.y - 1 - blockIdx.y) * ROWS;  // longest first
+  const int R = G * Tq;
+  // Query positions the block covers, and the band of keys they can see.
+  const int qmin = q_offset + r0 / G;
+  const int qmax = q_offset + (min(R, r0 + ROWS) - 1) / G;
+  const int kv_end = causal ? min(Tkv, qmax + 1) : Tkv;
+  const int kv_begin = window > 0 ? max(0, qmin - window + 1) / BK * BK : 0;
+  const int ntile = kv_end > kv_begin ? (kv_end - kv_begin + BK - 1) / BK : 0;
+
+  if (tid == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full_k(st), 1);
+      mbar_init(full_v(st), 1);
+      mbar_init(empty_k(st), 4 * NC);  // one arrival per consumer warp
+      mbar_init(empty_v(st), 4 * NC);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer: one thread keeps the K/V ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (tid == 0) {
+      for (int it = 0; it < ntile; ++it) {
+        const int st = it % STAGES, kv0 = kv_begin + BK * it;
+        const uint32_t par = ((it / STAGES) & 1) ^ 1;
+        if (it >= STAGES) mbar_wait(empty_k(st), par);
+        mbar_expect_tx(full_k(st), KT);
+#pragma unroll
+        for (int b = 0; b < D / BOX; ++b)
+          tma_load3(k_of(st) + b * BK * SWB, &tmap_k, full_k(st), BOX * b, kv0, bh);
+        if (it >= STAGES) mbar_wait(empty_v(st), par);
+        mbar_expect_tx(full_v(st), KT);
+#pragma unroll
+        for (int b = 0; b < D / BOX; ++b)
+          tma_load3(k_of(st) + KT + b * BK * SWB, &tmap_v, full_v(st), BOX * b, kv0, bh);
+      }
+    }
+    return;
+  }
+  // the consumers share what the producer gave up
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(fwd_consumer_regs<D>()) : "memory");
+
+  // Consumer c owns folded rows rw .. rw + 63 of the block.
+  const int c = wg - 1, t = tid & 127, warp = t >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int rw = r0 + 64 * c;
+  const uint32_t sQ = base + c * QT;
+  const __nv_bfloat16* qb = q + (size_t)bh * R * D;
+#pragma unroll 1
+  for (int i = t; i < 64 * CPR; i += 128) {
+    const int r = i / CPR, ch = i % CPR, rr = rw + r;
+    const bool in = rr < R;
+    cp_async16(sw_chunk_b<SWB, 64>(sQ, r, ch), in ? qb + row_off(rr, G, Tq) * D + ch * 8 : qb,
+               in);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  fence_proxy_async();
+  wg_sync(1 + c);
+
+  // The band of this warpgroup's rows (empty when it has none): the tiles
+  // it_lo .. it_hi - 1 of the block's band. The others are waited on and
+  // released, not computed.
+  const bool rows = rw < R;
+  const int qmin_w = q_offset + rw / G, qmax_w = q_offset + (min(R, rw + 64) - 1) / G;
+  const int end_w = !rows ? 0 : causal ? min(Tkv, qmax_w + 1) : Tkv;
+  const int begin_w = window > 0 ? max(0, qmin_w - window + 1) : 0;
+  const int it_hi = max(0, min(ntile, (end_w - kv_begin + BK - 1) / BK));
+  const int it_lo = min(it_hi, max(0, (begin_w - kv_begin) / BK));
+  int qpos[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int rr = rw + 16 * warp + g + 8 * h;
+    qpos[h] = q_offset + (rr < R ? rr / G : 0);
+  }
+  const float sl2 = scale * LOG2E, scale_cap = softcap > 0.f ? __fdividef(scale, softcap) : 0.f;
+  float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f}, corr[2];
+  float s[32], acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  uint32_t pa[4][4], pb[4][4];  // P of the last tile and of this one, in turn
+
+  auto release = [&](int it) {  // a tile this warpgroup does not compute
+    const int st = it % STAGES;
+    const uint32_t par = (it / STAGES) & 1;
+    mbar_wait(full_k(st), par);
+    mbar_wait(full_v(st), par);
+    if (lane == 0) {
+      mbar_arrive(empty_k(st));
+      mbar_arrive(empty_v(st));
+    }
+  };
+  // S = Q K^T of tile it (m64n64, D / 16 k-steps), issued, not waited on.
+  auto issue_s = [&](int it) {
+    const int st = it % STAGES;
+    mbar_wait(full_k(st), (it / STAGES) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(s, desc_kb<SWB, 64>(sQ, kk), desc_kb<SWB, BK>(k_of(st), kk), kk);
+    wgmma_commit();
+  };
+  // acc += P V of tile it (m64n<D>, V read MN-major), issued, not waited on.
+  auto issue_pv = [&](int it, uint32_t(&pf)[4][4]) {
+    const int st = it % STAGES;
+    mbar_wait(full_v(st), (it / STAGES) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc)
+      wgmma_rs_n<D>(acc, pf[kc], desc_mnb<SWB, BK>(k_of(st) + KT, kc));
+    wgmma_commit();
+  };
+  // The softmax of tile it's S, once formed; K is released. Masks only where
+  // the tile crosses the Tkv tail, the causal diagonal or the window edge of
+  // this warpgroup's rows.
+  auto softmax = [&](int it, uint32_t(&pf)[4][4]) {
+    fence_acc(s);
+    if (lane == 0) mbar_arrive(empty_k(it % STAGES));
+    const int kv0 = kv_begin + BK * it;
+    const bool masked = kv0 + BK > Tkv || (causal && kv0 + BK - 1 > qmin_w) ||
+                        (window > 0 && kv0 <= qmax_w - window);
+    fwd_softmax(s, pf, m_r, l_r, corr, masked, kv0, Tkv, causal, window, softcap, sl2, scale_cap,
+                qpos, t4);
+  };
+  // Tile it after the first: its S is formed while the last tile's P V runs,
+  // its softmax runs under that P V, then acc is rescaled.
+  auto step = [&](int it, uint32_t(&last)[4][4], uint32_t(&next)[4][4]) {
+    issue_s(it);
+    issue_pv(it - 1, last);
+    wgmma_wait<1>();
+    softmax(it, next);
+    wgmma_wait<0>();
+    fence_acc(acc);
+    fence_frags(last);
+    if (lane == 0) mbar_arrive(empty_v((it - 1) % STAGES));
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+  };
+
+  for (int it = 0; it < it_lo; ++it) release(it);
+  if (it_lo < it_hi) {
+    issue_s(it_lo);
+    wgmma_wait<0>();
+    softmax(it_lo, pa);  // acc is zero: no rescale
+    int it = it_lo + 1;
+    for (; it + 1 < it_hi; it += 2) {
+      step(it, pa, pb);
+      step(it + 1, pb, pa);
+    }
+    const bool in_b = it < it_hi;  // one tile left: its P goes to pb
+    if (in_b) step(it, pa, pb);
+    if (in_b) issue_pv(it_hi - 1, pb); else issue_pv(it_hi - 1, pa);
+    wgmma_wait<0>();
+    fence_acc(acc);
+    fence_frags(pa);
+    fence_frags(pb);
+    if (lane == 0) mbar_arrive(empty_v((it_hi - 1) % STAGES));
+  }
+  for (int it = max(it_lo, it_hi); it < ntile; ++it) release(it);
+
+  // O = acc / l through this warpgroup's Q tile (in its box layout), a warp
+  // its own 16 rows, then 16-byte stores.
+  const float inv[2] = {__fdividef(1.f, fmaxf(l_r[0], 1e-30f)),
+                        __fdividef(1.f, fmaxf(l_r[1], 1e-30f))};
+  if (lse != nullptr && t4 == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int rr = rw + 16 * warp + g + 8 * h;
+      if (rr < R)  // back from the log2 domain: ln 2 (m + log2 l)
+        lse[(size_t)bh * R + row_off(rr, G, Tq)] =
+            0.6931471805599453f * (m_r[h] + log2f(fmaxf(l_r[h], 1e-30f)));
+    }
+  }
+  fence_proxy_async();  // the wgmma reads of Q are done before it is overwritten
+  unsigned char* os = gbase + c * QT;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * warp + g + 8 * h;
+      *reinterpret_cast<uint32_t*>(os + sw_chunk_b<SWB, 64>(0, r, j) + 4 * t4) =
+          pack_bf16(acc[4 * j + 2 * h] * inv[h], acc[4 * j + 2 * h + 1] * inv[h]);
+    }
+  __syncwarp();
+  __nv_bfloat16* ob = o + (size_t)bh * R * D;
+#pragma unroll 2
+  for (int i = lane; i < 16 * CPR; i += 32) {
+    const int r = 16 * warp + i / CPR, ch = i % CPR, rr = rw + r;
+    if (rr < R)
+      *reinterpret_cast<uint4*>(ob + row_off(rr, G, Tq) * D + ch * 8) =
+          *reinterpret_cast<const uint4*>(os + sw_chunk_b<SWB, 64>(0, r, ch));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Host side of the wgmma kernels: K and V as TMA tensor maps.
+// ---------------------------------------------------------------------------
+// A (BH, Tkv, D) bf16 tensor in boxes of `rows` keys x `cols` columns of one
+// BH, swizzled over the box's 2 cols bytes (128 or 32); keys past Tkv fill
+// with zeros. Binds the thread's context first: the encoder fails on a
+// thread with none.
+bool encode_keys(CUtensorMap* map, const void* ptr, int BH, int Tkv, int D, int cols, int rows) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   bind_context();
-  const cuuint64_t dims[3] = {256, static_cast<cuuint64_t>(Tkv), static_cast<cuuint64_t>(BH)};
-  const cuuint64_t strides[2] = {512, static_cast<cuuint64_t>(Tkv) * 512};
-  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(Tkv),
+                              static_cast<cuuint64_t>(BH)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(Tkv) * D * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(cols), static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t unit[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle = cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                  : CU_TENSOR_MAP_SWIZZLE_32B;
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
-            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -791,7 +1079,7 @@ cudaError_t launch_wg256(const void* q, const void* k, const void* v, void* o, f
                          int BH, int G, int Tq, int Tkv, int causal, int window, float softcap,
                          int q_offset, float scale, cudaStream_t stream) {
   CUtensorMap tk, tv;
-  if (!encode_keys(&tk, k, BH, Tkv) || !encode_keys(&tv, v, BH, Tkv))
+  if (!encode_keys(&tk, k, BH, Tkv, 256, 64, 64) || !encode_keys(&tv, v, BH, Tkv, 256, 64, 64))
     return cudaErrorInvalidValue;
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_fwd_wg256, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
@@ -799,6 +1087,27 @@ cudaError_t launch_wg256(const void* q, const void* k, const void* v, void* o, f
   // grid y: row blocks longest first, over every BH before the next
   const dim3 grid(BH, (G * Tq + WG_ROWS - 1) / WG_ROWS);
   flash_fwd_wg256<<<grid, WG_THREADS, WG_SMEM, stream>>>(
+      tk, tv, static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(o), lse, G, Tq,
+      Tkv, causal, window, softcap, q_offset, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_wg(const void* q, const void* k, const void* v, void* o, float* lse, int BH,
+                      int G, int Tq, int Tkv, int causal, int window, float softcap,
+                      int q_offset, float scale, cudaStream_t stream) {
+  constexpr int bytes = fwd_wg_smem<D>(), NC = FwdWg<D>::NC;
+  static_assert(bytes <= 232448, "227 KB of shared memory a block");
+  CUtensorMap tk, tv;
+  if (!encode_keys(&tk, k, BH, Tkv, D, FwdWg<D>::SWB / 2, BK) ||
+      !encode_keys(&tv, v, BH, Tkv, D, FwdWg<D>::SWB / 2, BK))
+    return cudaErrorInvalidValue;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_wg<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr != cudaSuccess) return attr;
+  // grid y: row blocks longest first, over every BH before the next
+  const dim3 grid(BH, (G * Tq + 64 * NC - 1) / (64 * NC));
+  flash_fwd_wg<D><<<grid, 128 * (NC + 1), bytes, stream>>>(
       tk, tv, static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(o), lse, G, Tq,
       Tkv, causal, window, softcap, q_offset, scale);
   return cudaGetLastError();
@@ -823,6 +1132,10 @@ cudaError_t launch(int path, const void* q, const void* k, const void* v, void* 
   if constexpr (sizeof(T) == 2 && D == 256) {
     if (path == PATH_MMA)
       return launch_wg256(q, k, v, o, lse, BH, G, Tq, Tkv, causal, window, softcap, q_offset,
+                          scale, stream);
+  } else if constexpr (sizeof(T) == 2 && (D == 80 || D == 128)) {
+    if (path == PATH_MMA)
+      return launch_wg<D>(q, k, v, o, lse, BH, G, Tq, Tkv, causal, window, softcap, q_offset,
                           scale, stream);
   } else if constexpr (sizeof(T) == 2) {
     if (path == PATH_MMA) {

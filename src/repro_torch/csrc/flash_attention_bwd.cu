@@ -35,15 +35,19 @@
 // causal, the function is about 10 GFLOP against 42 MB, bound by bytes
 // (about 13 us) on the card. Paths, picked as the forward's (the wrapper's
 // choose_path; the C side refuses a path the inputs cannot take):
-//  * mma at D = 64 (bf16, every tensor 16-byte aligned; every attention
-//    layer of the zoo that trains): the five products on wgmma.m64n64k16, a
-//    warpgroup a 64 x 64 tile pair. Q, dO, K and V sit in 128-byte-swizzled
-//    shared tiles filled by cp.async (a 64-wide bf16 row is one swizzle
-//    row; the folded rows of a tile are not one TMA box when 64 is not a
-//    multiple of G). S, dP (dq) and S^T, dP^T (dkv) are products of two
+//  * mma at D = 64 (bf16, every tensor 16-byte aligned; smollm_360m's
+//    layers) and D = 80 (h2o_danube_1_8b): the five products on wgmma
+//    (m64n64k16 for the scores, m64n<D>k16 for the gradients), a warpgroup a
+//    64 x 64 tile pair. Q, dO, K and V sit in swizzled shared tiles filled
+//    by cp.async (a 64-wide bf16 row is one 128-byte swizzle row; a 160-byte
+//    D 80 row is five 32-byte boxes under the 32-byte swizzle, hopper.cuh's
+//    desc_kb / desc_mnb; the folded rows of a tile are not one TMA box when
+//    64 is not a multiple of G; a row's offset is found by a multiply,
+//    row_off_m, not an integer divide). S, dP (dq) and S^T, dP^T (dkv) are products of two
 //    shared operands; P^T, dS^T and dS stay in registers as the A operand
 //    of dV += P^T dO, dK += dS^T Q and dQ += dS K, whose B (dO, Q, K) is read
-//    MN-major from the same tiles. The dkv block has three warpgroups that
+//    MN-major from the same tiles. The dkv block has three warpgroups (two
+//    at D = 80, where three spill at their 168 registers) that
 //    walk every third row tile of the band and sum their dK, dV in
 //    warpgroup order through shared memory: it shortens the longest walk
 //    (the causal key tile 0 sees all 24 row tiles) threefold and holds 12
@@ -90,7 +94,15 @@
 //    run. No atomics; Dv goes from the dQ kernel to the dK/dV kernel
 //    through the float32 scratch. On an H100 (PERF.md) the global layer
 //    takes about 1.03 ms (167 TFLOP/s): dQ 0.37, dK/dV 0.65.
-//  * mma at D = 16, 32, 80, 128 (bf16; 80 is h2o_danube_1_8b's head dim):
+//    At D = 80 (danube's layer, q (16, 4, 8192, 80) with window 4096: 1289
+//    GFLOP against 422 MB, so operations, 1.30 ms) both kernels walk long
+//    bands (a dK/dV block about 256 row tiles) and are bound the same way
+//    as at D = 64; on an H100 (PERF.md) the layer takes about 8.0 ms (dQ
+//    2.9, dK/dV 5.3). Tried and slower there: a dQ block of two warpgroups
+//    sharing each K/V tile, and a dK/dV warpgroup that issues a tile's score
+//    products with the last tile's gradient products and runs the
+//    elementwise work under the latter (236 registers).
+//  * mma at D = 16, 32, 128 (bf16):
 //    the same walk on mma.sync.m16n8k16 with the forward mma path's
 //    fragments. 4 warps own 16 rows (dq) or 16 keys (dkv) each; the block's
 //    own Q, dO (dq) or K, V (dkv) are gathered once by cp.async, the
@@ -136,6 +148,8 @@ struct Attn {
   float softcap;
   int q_offset;
   float scale;
+  float scale_cap;            // scale / softcap (0 without a softcap)
+  unsigned long long fold_m;  // 2^32 / G + 1: rr / G by a multiply (row_off_m)
 };
 
 // Folded row rr of a (G, Tq, D) head block: row rr / G of head rr % G.
@@ -778,46 +792,27 @@ flash_bwd_dkv_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
 }
 
 // ---------------------------------------------------------------------------
-// mma at D = 64 (every attention layer of the zoo that trains): the five
-// products on wgmma.m64n64k16, a warpgroup a 64 x 64 tile, operands in
-// 128-byte-swizzled shared tiles (a 64-wide bf16 row is one 128-byte
-// swizzle row), filled by cp.async with the swizzle applied by hand: the
-// folded rows of a tile are not one TMA box when 64 is not a multiple of G.
+// mma at D = 64 (every attention layer of the zoo that trains) and D = 80
+// (h2o_danube_1_8b): the five products on wgmma, a warpgroup a 64 x 64 tile
+// pair, operands in swizzled shared tiles of boxes (hopper.cuh's desc_kb /
+// desc_mnb: at D = 64 one 128-byte box a row, at D = 80 five 32-byte boxes,
+// as 160-byte rows are not a whole number of 128-byte ones), filled by
+// cp.async with the swizzle applied by hand: the folded rows of a tile are
+// not one TMA box when 64 is not a multiple of G.
 // ---------------------------------------------------------------------------
-constexpr int SW_TILE = SW_ATOM;    // bytes of one swizzled 64 x 64 bf16 tile
 constexpr float LOG2E = 1.4426950408889634f;
 
-// K-major operand (k along the 128-byte row): k step kk of 16 is 32 bytes
-// along the row, 8-row groups 1024 bytes apart.
-__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
-  return sw128_desc(tile + 32 * kk, 16, 1024);
+// Per head dim: the bytes of a box row (SWB), the dQ kernel's blocks an SM
+// (DQ_BLOCKS: its register budget; shared memory allows as many), and the
+// dK/dV kernel's warpgroups (DKV_WGS), each walking every DKV_WGS-th row
+// tile (3 at D = 80 spill at their 168 registers; 2 take 184).
+template <int D> struct BwdWg;
+template <> struct BwdWg<64> { static constexpr int SWB = 128, DQ_BLOCKS = 4, DKV_WGS = 3; };
+template <> struct BwdWg<80> { static constexpr int SWB = 32, DQ_BLOCKS = 3, DKV_WGS = 2; };
+template <int D>
+__host__ __device__ constexpr int wg_tile() {  // bytes of a 64 x D bf16 tile
+  return 64 * D * 2;
 }
-// MN-major operand (k down the rows, n along them): k step kk is 16 rows.
-__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
-  return sw128_desc(tile + 2048 * kk, SW_TILE, 1024);
-}
-
-#define FA_ACC4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
-#define FA_ACC32                                                                        \
-  FA_ACC4(0), FA_ACC4(4), FA_ACC4(8), FA_ACC4(12), FA_ACC4(16), FA_ACC4(20), FA_ACC4(24), \
-      FA_ACC4(28)
-#define FA_REGS32                                                                        \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
-  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-
-// d += A B over 16 k; A (64 x 16) in registers (the m16n8k16 A fragment of
-// each warp's 16 rows), B shared and MN-major.
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" FA_REGS32
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : FA_ACC32
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-#undef FA_REGS32
-#undef FA_ACC32
-#undef FA_ACC4
 
 // A warpgroup's 64 x 64 accumulator as bf16 A fragments of its 4 k steps:
 // accumulator d[4j + 2h + e] is row 16 warp + g + 8h, column 8j + 2 t4 + e,
@@ -830,29 +825,43 @@ __device__ __forceinline__ void acc_frags(uint32_t (&f)[4][4], const float (&d)[
   }
 }
 
-// Chunk c (8 bf16) of row r of a swizzled tile.
-__device__ __forceinline__ uint32_t sw_chunk(uint32_t tile, int r, int c) {
-  return tile + r * 128 + ((c ^ (r & 7)) << 4);
+// row_off without an integer divide: rr / G as (rr fold_m) >> 32, at most
+// one too large (fold_m = 2^32 / G + 1 and rr < 2^31), then corrected.
+__device__ __forceinline__ size_t row_off_m(int rr, const Attn& a) {
+  int t = static_cast<int>((static_cast<unsigned long long>(rr) * a.fold_m) >> 32);
+  t -= t * a.G > rr;
+  return (size_t)(rr - t * a.G) * a.Tq + t;
 }
-// 64 folded rows from r0 of a (G, Tq, 64) head block into a swizzled tile,
-// zeros past R, by `n` threads of which this is thread t.
-__device__ __forceinline__ void gather_rows_sw(uint32_t tile, const __nv_bfloat16* src, int r0,
-                                               int R, int G, int Tq, int t, int n) {
+
+// 64 folded rows from r0 of two (G, Tq, D) head blocks (Q and dO) into two
+// swizzled tiles, zeros past R, by `n` threads of which this is thread t;
+// each chunk's row offset found once for both.
+template <int D>
+__device__ __forceinline__ void gather_rows_sw(uint32_t ta, uint32_t tb, const __nv_bfloat16* srca,
+                                               const __nv_bfloat16* srcb, int r0, const Attn& a,
+                                               int t, int n) {
+  constexpr int CPR = D / 8;
+  const int R = a.G * a.Tq;
 #pragma unroll 1
-  for (int i = t; i < 64 * 8; i += n) {
-    const int r = i >> 3, c = i & 7, rr = r0 + r;
+  for (int i = t; i < 64 * CPR; i += n) {
+    const int r = i / CPR, c = i % CPR, rr = r0 + r;
     const bool in = rr < R;
-    cp_async16(sw_chunk(tile, r, c), in ? src + row_off(rr, G, Tq) * 64 + c * 8 : src, in);
+    const size_t off = in ? row_off_m(rr, a) * D + c * 8 : 0;
+    cp_async16(sw_chunk_b<BwdWg<D>::SWB, 64>(ta, r, c), srca + off, in);
+    cp_async16(sw_chunk_b<BwdWg<D>::SWB, 64>(tb, r, c), srcb + off, in);
   }
 }
-// 64 keys from kv0 of a (Tkv, 64) block into a swizzled tile, zeros past Tkv.
+// 64 keys from kv0 of a (Tkv, D) block into a swizzled tile, zeros past Tkv.
+template <int D>
 __device__ __forceinline__ void gather_keys_sw(uint32_t tile, const __nv_bfloat16* src, int kv0,
                                                int Tkv, int t, int n) {
+  constexpr int CPR = D / 8;
 #pragma unroll 1
-  for (int i = t; i < 64 * 8; i += n) {
-    const int r = i >> 3, c = i & 7, kp = kv0 + r;
+  for (int i = t; i < 64 * CPR; i += n) {
+    const int r = i / CPR, c = i % CPR, kp = kv0 + r;
     const bool in = kp < Tkv;
-    cp_async16(sw_chunk(tile, r, c), in ? src + (size_t)kp * 64 + c * 8 : src, in);
+    cp_async16(sw_chunk_b<BwdWg<D>::SWB, 64>(tile, r, c), in ? src + (size_t)kp * D + c * 8 : src,
+               in);
   }
 }
 
@@ -866,12 +875,6 @@ __device__ __forceinline__ bool tile_visible(const Attn& a, int r0, int kv0) {
   return all;
 }
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // P and dS / scale of one score, as prob_grad but lean, for the wgmma
 // kernels' fragments: sl2 = scale log2(e), lse2 = lse log2(e); the scale of
 // dS is applied to the dQ and dK accumulators once, after the walk. The mask
@@ -880,7 +883,7 @@ __device__ __forceinline__ void prob_grad2(const Attn& a, float sl2, bool masked
                                            float dp, int rr, int kp, float lse2, float dv,
                                            float& p, float& ds) {
   if (a.softcap > 0.f) {
-    const float t = tanhf(s * a.scale / a.softcap);
+    const float t = tanhf(s * a.scale_cap);
     p = ex2(t * a.softcap * LOG2E - lse2);
     ds = p * (dp - dv) * (1.f - t * t);
   } else {
@@ -897,32 +900,36 @@ __device__ __forceinline__ void prob_grad2(const Attn& a, float sl2, bool masked
 }
 
 constexpr int DQ_STAGES = 2;  // K/V buffers of the dQ kernel (three measured slower)
-constexpr int DQ_WG_SMEM = (2 + 2 * DQ_STAGES) * SW_TILE + 1024;  // Q, dO, the K/V ring; alignment
+template <int D>
+__host__ __device__ constexpr int dq_wg_smem() {  // Q, dO, the K/V ring; alignment
+  return (2 + 2 * DQ_STAGES) * wg_tile<D>() + 1024;
+}
 
 // dQ of 64 folded rows: one warpgroup walks the key tiles of its band.
-__global__ void __launch_bounds__(128)
+template <int D>
+__global__ void __launch_bounds__(128, BwdWg<D>::DQ_BLOCKS)
 flash_bwd_dq_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
                    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
                    __nv_bfloat16* __restrict__ dq, float* __restrict__ dvec, Attn a) {
+  constexpr int SWB = BwdWg<D>::SWB, TB = wg_tile<D>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
-  // K and V of stage st at sK + 2 st SW_TILE, sK + (2 st + 1) SW_TILE.
-  const uint32_t sQ = base, sdO = base + SW_TILE, sK = base + 2 * SW_TILE;
+  // K and V of stage st at sK + 2 st TB, sK + (2 st + 1) TB.
+  const uint32_t sQ = base, sdO = base + TB, sK = base + 2 * TB;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t4 = lane & 3;
   const int bh = blockIdx.x, r0 = (gridDim.y - 1 - blockIdx.y) * 64;  // longest first
   const int G = a.G, Tq = a.Tq, R = G * Tq;
-  const size_t qoff = (size_t)bh * R * 64, koff = (size_t)bh * a.Tkv * 64;
+  const size_t qoff = (size_t)bh * R * D, koff = (size_t)bh * a.Tkv * D;
 
-  gather_rows_sw(sQ, q + qoff, r0, R, G, Tq, tid, 128);
-  gather_rows_sw(sdO, dout + qoff, r0, R, G, Tq, tid, 128);
+  gather_rows_sw<D>(sQ, sdO, q + qoff, dout + qoff, r0, a, tid, 128);
   const int qmin = a.q_offset + r0 / G;
   const int qmax = a.q_offset + (min(R, r0 + 64) - 1) / G;
   const int kv_end = a.causal ? min(a.Tkv, qmax + 1) : a.Tkv;
   const int kv_begin = a.window > 0 ? max(0, qmin - a.window + 1) / 64 * 64 : 0;
   auto load_kv = [&](int kv0, int st) {
-    gather_keys_sw(sK + 2 * st * SW_TILE, k + koff, kv0, a.Tkv, tid, 128);
-    gather_keys_sw(sK + (2 * st + 1) * SW_TILE, v + koff, kv0, a.Tkv, tid, 128);
+    gather_keys_sw<D>(sK + 2 * st * TB, k + koff, kv0, a.Tkv, tid, 128);
+    gather_keys_sw<D>(sK + (2 * st + 1) * TB, v + koff, kv0, a.Tkv, tid, 128);
   };
 #pragma unroll
   for (int st = 0; st < DQ_STAGES - 1; ++st) {
@@ -938,9 +945,9 @@ flash_bwd_dq_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
     lse2[h] = rr < R ? lse[(size_t)bh * R + row_off(rr, G, Tq)] * LOG2E : 0.f;
     float acc = 0.f;
     if (rr < R) {
-      const size_t off = qoff + row_off(rr, G, Tq) * 64;
+      const size_t off = qoff + row_off(rr, G, Tq) * D;
 #pragma unroll
-      for (int c = 2 * t4; c < 64; c += 8) {
+      for (int c = 2 * t4; c < D; c += 8) {
         const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(dout + off + c);
         const __nv_bfloat162 y = *reinterpret_cast<const __nv_bfloat162*>(o + off + c);
         acc = fmaf(__low2float(x), __low2float(y), acc);
@@ -954,9 +961,11 @@ flash_bwd_dq_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
   }
 
   const float sl2 = a.scale * LOG2E;
-  float acc[32], s[32], dp[32];
+  float acc[D / 2], s[32], dp[32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = s[i] = dp[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
   for (int kv0 = kv_begin, it = 0; kv0 < kv_end; kv0 += 64, ++it) {
     const int st = it % DQ_STAGES, ahead = kv0 + 64 * (DQ_STAGES - 1);
     if (ahead < kv_end) load_kv(ahead, (it + DQ_STAGES - 1) % DQ_STAGES);
@@ -964,13 +973,15 @@ flash_bwd_dq_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
     cp_async_wait<DQ_STAGES - 1>();  // this tile (and Q, dO) landed; the next stay in flight
     fence_proxy_async();
     __syncthreads();
-    const uint32_t ks = sK + 2 * st * SW_TILE, vs = ks + SW_TILE;
+    const uint32_t ks = sK + 2 * st * TB, vs = ks + TB;
     // S = Q K^T and dP = dO V^T.
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_ss(s, desc_k(sQ, kk), desc_k(ks, kk), kk);
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(s, desc_kb<SWB, 64>(sQ, kk), desc_kb<SWB, 64>(ks, kk), kk);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_ss(dp, desc_k(sdO, kk), desc_k(vs, kk), kk);
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(dp, desc_kb<SWB, 64>(sdO, kk), desc_kb<SWB, 64>(vs, kk), kk);
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(s);
@@ -990,7 +1001,7 @@ flash_bwd_dq_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
     acc_frags(f, s);
     wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc) wgmma_rs(acc, f[kc], desc_mn(ks, kc));
+    for (int kc = 0; kc < 4; ++kc) wgmma_rs_n<D>(acc, f[kc], desc_mnb<SWB, 64>(ks, kc));
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(acc);
@@ -1003,9 +1014,9 @@ flash_bwd_dq_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
   for (int h = 0; h < 2; ++h) {
     const int rr = r0 + 16 * warp + g + 8 * h;
     if (rr >= R) continue;
-    __nv_bfloat16* row = dq + qoff + row_off(rr, G, Tq) * 64;
+    __nv_bfloat16* row = dq + qoff + row_off(rr, G, Tq) * D;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * t4) =
           pack_bf16(acc[4 * j + 2 * h] * a.scale, acc[4 * j + 2 * h + 1] * a.scale);
   }
@@ -1016,34 +1027,42 @@ flash_bwd_dq_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
 // with DKV_STAGES buffers of (Q, dO). Shared memory: K, V; the buffers; lse
 // and Dv of each buffer; alignment. The fixed-order sum of the walks goes
 // through the buffers of warpgroups 1 and up.
-constexpr int DKV_WGS = 3, DKV_STAGES = 2;
-constexpr int DKV_TILES = 2 + 2 * DKV_STAGES * DKV_WGS;  // K, V, the buffers
-constexpr int DKV_WG_SMEM = DKV_TILES * SW_TILE + DKV_WGS * DKV_STAGES * 2 * 64 * 4 + 1024;
+constexpr int DKV_STAGES = 2;
+template <int D>
+__host__ __device__ constexpr int dkv_tiles() {  // K, V, the buffers
+  return 2 + 2 * DKV_STAGES * BwdWg<D>::DKV_WGS;
+}
+template <int D>
+__host__ __device__ constexpr int dkv_wg_smem() {
+  return dkv_tiles<D>() * wg_tile<D>() + BwdWg<D>::DKV_WGS * DKV_STAGES * 2 * 64 * 4 + 1024;
+}
 
 // dK, dV of 64 keys: the warpgroups walk alternate row tiles of the keys'
 // band, then sum their accumulators in warpgroup order.
-__global__ void __launch_bounds__(128 * DKV_WGS, 1)
+template <int D>
+__global__ void __launch_bounds__(128 * BwdWg<D>::DKV_WGS, 1)
 flash_bwd_dkv_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ dvec,
                     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, Attn a) {
+  constexpr int SWB = BwdWg<D>::SWB, DKV_WGS = BwdWg<D>::DKV_WGS, TB = wg_tile<D>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   unsigned char* gbase = smem_raw + (base - smem_u32(smem_raw));
-  const uint32_t sK = base, sV = base + SW_TILE;
+  const uint32_t sK = base, sV = base + TB;
   const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
   const int lane = tid & 31, warp = t >> 5, g = lane >> 2, t4 = lane & 3;
   // Warpgroup wg, stage st: Q at stage(st), dO one tile on.
-  auto stage = [&](int st) { return base + (2 + 2 * (DKV_STAGES * wg + st)) * SW_TILE; };
+  auto stage = [&](int st) { return base + (2 + 2 * (DKV_STAGES * wg + st)) * TB; };
   // lse and Dv of each stage's rows: [DKV_STAGES][2][64]
-  float* ld_s = reinterpret_cast<float*>(gbase + DKV_TILES * SW_TILE) + wg * DKV_STAGES * 128;
+  float* ld_s = reinterpret_cast<float*>(gbase + dkv_tiles<D>() * TB) + wg * DKV_STAGES * 128;
 
   const int bh = blockIdx.x, kv0 = blockIdx.y * 64;  // causal: heaviest key tiles first
   const int G = a.G, Tq = a.Tq, R = G * Tq;
-  const size_t qoff = (size_t)bh * R * 64, koff = (size_t)bh * a.Tkv * 64;
+  const size_t qoff = (size_t)bh * R * D, koff = (size_t)bh * a.Tkv * D;
 
-  gather_keys_sw(sK, k + koff, kv0, a.Tkv, tid, 128 * DKV_WGS);
-  gather_keys_sw(sV, v + koff, kv0, a.Tkv, tid, 128 * DKV_WGS);
+  gather_keys_sw<D>(sK, k + koff, kv0, a.Tkv, tid, 128 * DKV_WGS);
+  gather_keys_sw<D>(sV, v + koff, kv0, a.Tkv, tid, 128 * DKV_WGS);
   cp_async_commit();
   // The folded rows that can see a key of [kv0, kv1), as the other kernels.
   const int kv1 = min(a.Tkv, kv0 + 64);
@@ -1053,11 +1072,10 @@ flash_bwd_dkv_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   const int ntile = rr_hi > r_first ? (rr_hi - r_first + 63) / 64 : 0;
   auto load_rows = [&](int i, int st) {
     const int r0 = r_first + 64 * i;
-    gather_rows_sw(stage(st), q + qoff, r0, R, G, Tq, t, 128);
-    gather_rows_sw(stage(st) + SW_TILE, dout + qoff, r0, R, G, Tq, t, 128);
+    gather_rows_sw<D>(stage(st), stage(st) + TB, q + qoff, dout + qoff, r0, a, t, 128);
     if (t < 64) {
       const int rr = r0 + t;
-      const size_t off = (size_t)bh * R + row_off(rr < R ? rr : 0, G, Tq);
+      const size_t off = (size_t)bh * R + row_off_m(rr < R ? rr : 0, a);
       cp_async4(smem_u32(ld_s + st * 128 + t), lse + off, rr < R);
       cp_async4(smem_u32(ld_s + st * 128 + 64 + t), dvec + off, rr < R);
     }
@@ -1072,9 +1090,11 @@ flash_bwd_dkv_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   __syncthreads();
 
   const float sl2 = a.scale * LOG2E;
-  float acc_k[32], acc_v[32], s[32], dp[32];
+  float acc_k[D / 2], acc_v[D / 2], s[32], dp[32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc_k[i] = acc_v[i] = s[i] = dp[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
   for (int i = wg, it = 0; i < ntile; i += DKV_WGS, ++it) {
     const int r0 = r_first + 64 * i, st = it % DKV_STAGES, ahead = i + DKV_WGS * (DKV_STAGES - 1);
     if (ahead < ntile) load_rows(ahead, (it + DKV_STAGES - 1) % DKV_STAGES);
@@ -1082,20 +1102,25 @@ flash_bwd_dkv_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
     cp_async_wait<DKV_STAGES - 1>();  // this stage landed; the next stay in flight
     fence_proxy_async();
     wg_sync(1 + wg);
-    const uint32_t qs = stage(st), dos = qs + SW_TILE;
+    const uint32_t qs = stage(st), dos = qs + TB;
     // S^T = K Q^T and dP^T = V dO^T: this warpgroup's 64 keys by 64 rows.
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_ss(s, desc_k(sK, kk), desc_k(qs, kk), kk);
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(s, desc_kb<SWB, 64>(sK, kk), desc_kb<SWB, 64>(qs, kk), kk);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_ss(dp, desc_k(sV, kk), desc_k(dos, kk), kk);
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(dp, desc_kb<SWB, 64>(sV, kk), desc_kb<SWB, 64>(dos, kk), kk);
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(s);
     fence_acc(dp);
     const bool masked = !tile_visible(a, r0, kv0);
+    // P^T and dS^T of each 8 rows, packed at once as the A fragments of
+    // dV += P^T dO and dK += dS^T Q (acc_frags' layout)
+    uint32_t fp[4][4], fs[4][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int col = 8 * j + 2 * t4 + e;
@@ -1108,15 +1133,17 @@ flash_bwd_dkv_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
                      lse2, dvr, s[i2], dp[i2]);
         }
       }
-    // dV += P^T dO and dK += dS^T Q, dO and Q read MN-major (k = row).
-    uint32_t fp[4][4], fs[4][4];
-    acc_frags(fp, s);
-    acc_frags(fs, dp);
+      fp[j >> 1][(j & 1) * 2] = pack_bf16(s[4 * j], s[4 * j + 1]);
+      fp[j >> 1][(j & 1) * 2 + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
+      fs[j >> 1][(j & 1) * 2] = pack_bf16(dp[4 * j], dp[4 * j + 1]);
+      fs[j >> 1][(j & 1) * 2 + 1] = pack_bf16(dp[4 * j + 2], dp[4 * j + 3]);
+    }
+    // dO and Q read MN-major (k = row).
     wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc) wgmma_rs(acc_v, fp[kc], desc_mn(dos, kc));
+    for (int kc = 0; kc < 4; ++kc) wgmma_rs_n<D>(acc_v, fp[kc], desc_mnb<SWB, 64>(dos, kc));
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc) wgmma_rs(acc_k, fs[kc], desc_mn(qs, kc));
+    for (int kc = 0; kc < 4; ++kc) wgmma_rs_n<D>(acc_k, fs[kc], desc_mnb<SWB, 64>(qs, kc));
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(acc_v);
@@ -1130,17 +1157,18 @@ flash_bwd_dkv_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   // Fixed-order sum of the walks: warpgroup w > 0 leaves its accumulators
   // in its own stages (thread by thread: every warpgroup holds the same
   // fragment layout), warpgroup 0 adds them in order w = 1, 2, ...
-  static_assert(DKV_STAGES >= 2, "the sum goes through a warpgroup's stages: 32 KB");
+  static_assert(2 * DKV_STAGES * TB >= D * 128 * 4,
+                "the sum goes through a warpgroup's stages: D 128 floats");
   auto red = [&](int w) {
-    return reinterpret_cast<float*>(gbase + (2 + 2 * DKV_STAGES * w) * SW_TILE);
+    return reinterpret_cast<float*>(gbase + (2 + 2 * DKV_STAGES * w) * TB);
   };
   __syncthreads();
   if (wg > 0) {
     float* r = red(wg);
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
+    for (int i = 0; i < D / 2; ++i) {
       r[i * 128 + t] = acc_k[i];
-      r[(32 + i) * 128 + t] = acc_v[i];
+      r[(D / 2 + i) * 128 + t] = acc_v[i];
     }
   }
   __syncthreads();
@@ -1149,18 +1177,18 @@ flash_bwd_dkv_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   for (int w = 1; w < DKV_WGS; ++w) {
     const float* r = red(w);
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
+    for (int i = 0; i < D / 2; ++i) {
       acc_k[i] += r[i * 128 + t];
-      acc_v[i] += r[(32 + i) * 128 + t];
+      acc_v[i] += r[(D / 2 + i) * 128 + t];
     }
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int kp = kv0 + 16 * warp + g + 8 * h;
     if (kp >= a.Tkv) continue;
-    const size_t off = koff + (size_t)kp * 64;
+    const size_t off = koff + (size_t)kp * D;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < D / 8; ++j) {
       const int i0 = 4 * j + 2 * h;
       *reinterpret_cast<uint32_t*>(dk + off + 8 * j + 2 * t4) =
           pack_bf16(acc_k[i0] * a.scale, acc_k[i0 + 1] * a.scale);
@@ -1175,7 +1203,7 @@ flash_bwd_dkv_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 // swizzle atoms filled by cp.async, two warpgroups a block, every product
 // once.
 // ---------------------------------------------------------------------------
-constexpr int TILE256 = 4 * SW_TILE;  // 64 rows x 256 columns: 32 KB
+constexpr int TILE256 = 4 * SW_ATOM;  // 64 rows x 256 columns: 32 KB
 // dQ: Q, dO and two stages of K and V; dK/dV: K, V, two stages of Q and dO,
 // P^T (64 x 64 float32) and two stages of each row's lse and Dv. Alignment.
 constexpr int DQ256_SMEM = 6 * TILE256 + 1024;
@@ -1209,10 +1237,6 @@ __device__ __forceinline__ void wgmma_ss32(float (&d)[16], uint64_t da, uint64_t
 #undef FA_ACC16
 #undef FA_ACC4
 
-// Chunk c (8 bf16, 0..31) of row r of a [64][256] tile of four atoms.
-__device__ __forceinline__ uint32_t sw_chunk256(uint32_t tile, int r, int c) {
-  return sw_chunk(tile + (c >> 3) * SW_TILE, r, c & 7);
-}
 // 64 folded rows from r0 of two (G, Tq, 256) head blocks (Q and dO) into
 // two [64][256] tiles, zeros past R, by 256 threads: thread t copies chunk
 // t % 32 of rows t / 32, t / 32 + 8, ..., each row's offset found once for
@@ -1226,8 +1250,8 @@ __device__ __forceinline__ void gather_rows256(uint32_t ta, uint32_t tb, const _
     const int rr = r0 + r;
     const bool in = rr < R;
     const size_t off = in ? row_off(rr, G, Tq) * 256 + c * 8 : 0;
-    cp_async16(sw_chunk256(ta, r, c), a + off, in);
-    cp_async16(sw_chunk256(tb, r, c), b + off, in);
+    cp_async16(sw_chunk_b<128, 64>(ta, r, c), a + off, in);
+    cp_async16(sw_chunk_b<128, 64>(tb, r, c), b + off, in);
   }
 }
 // 64 keys from kv0 of two (Tkv, 256) blocks (K and V) into two [64][256]
@@ -1240,8 +1264,8 @@ __device__ __forceinline__ void gather_keys256(uint32_t ta, uint32_t tb, const _
     const int kp = kv0 + r;
     const bool in = kp < Tkv;
     const size_t off = in ? (size_t)kp * 256 + c * 8 : 0;
-    cp_async16(sw_chunk256(ta, r, c), a + off, in);
-    cp_async16(sw_chunk256(tb, r, c), b + off, in);
+    cp_async16(sw_chunk_b<128, 64>(ta, r, c), a + off, in);
+    cp_async16(sw_chunk_b<128, 64>(tb, r, c), b + off, in);
   }
 }
 
@@ -1538,20 +1562,22 @@ cudaError_t launch(int path, const void* q, const void* k, const void* v, const 
   const T* dot = static_cast<const T*>(dout);
   const int R = a.G * a.Tq, mma_rows = (R + MMA_TILE - 1) / MMA_TILE;
   const int mma_keys = (a.Tkv + MMA_TILE - 1) / MMA_TILE;
-  if constexpr (sizeof(T) == 2 && D == 64) {
+  if constexpr (sizeof(T) == 2 && (D == 64 || D == 80)) {
     if (path == PATH_MMA) {
+      constexpr int dq_bytes = dq_wg_smem<D>(), dkv_bytes = dkv_wg_smem<D>();
+      static_assert(dkv_bytes <= 232448, "227 KB of shared memory a block");
       static const cudaError_t attr_dq = cudaFuncSetAttribute(
-          flash_bwd_dq_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, DQ_WG_SMEM);
+          flash_bwd_dq_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
       static const cudaError_t attr_dkv = cudaFuncSetAttribute(
-          flash_bwd_dkv_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, DKV_WG_SMEM);
+          flash_bwd_dkv_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_bytes);
       if (attr_dq != cudaSuccess) return attr_dq;
       if (attr_dkv != cudaSuccess) return attr_dkv;
       // grid y: row tiles longest first (dQ), key tiles heaviest first (dK/dV)
-      flash_bwd_dq_wgmma<<<dim3(BH, mma_rows), 128, DQ_WG_SMEM, stream>>>(
+      flash_bwd_dq_wgmma<D><<<dim3(BH, mma_rows), 128, dq_bytes, stream>>>(
           qt, kt, vt, ot, dot, lse, static_cast<T*>(dq), dvec, a);
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return err;
-      flash_bwd_dkv_wgmma<<<dim3(BH, mma_keys), 128 * DKV_WGS, DKV_WG_SMEM, stream>>>(
+      flash_bwd_dkv_wgmma<D><<<dim3(BH, mma_keys), 128 * BwdWg<D>::DKV_WGS, dkv_bytes, stream>>>(
           qt, kt, vt, dot, lse, dvec, static_cast<T*>(dk), static_cast<T*>(dv), a);
       return cudaGetLastError();
     }
@@ -1646,7 +1672,8 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
   if (dtype < 0 || dtype > 1 || BH < 1 || G < 1 || Tq < 1 || Tkv < 1 ||
       !path_fits(path, dtype, D, (any & 15) == 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Attn a{G, Tq, Tkv, causal, window, softcap, q_offset, scale};
+  const Attn a{G, Tq, Tkv, causal, window, softcap, q_offset, scale,
+               softcap > 0.f ? scale / softcap : 0.f, (1ull << 32) / G + 1};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dvp = static_cast<float*>(dvec);

@@ -48,23 +48,49 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 // ---------------------------------------------------------------------------
 constexpr int SW_ATOM = 64 * 128;  // bytes of a 64-row x 64-column bf16 swizzle atom
 
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), layout 1 = B128.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+// wgmma shared-memory descriptor of an operand swizzled over SWB-byte rows
+// (SWB = 128, 64 or 32): start address, leading and stride byte offsets
+// (16-byte units), layout 1 = B128, 2 = B64, 3 = B32.
+template <int SWB>
+__device__ __forceinline__ uint64_t sw_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  static_assert(SWB == 128 || SWB == 64 || SWB == 32, "a wgmma swizzle");
+  constexpr uint64_t layout = SWB == 128 ? 1 : SWB == 64 ? 2 : 3;
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | static_cast<uint64_t>(1) << 62;
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | layout << 62;
 }
-// K-major operand of a [rows][256] tile of four atoms: k step kk (16 of the
-// 256 columns) is 32 bytes along a 128-byte row of atom kk / 4; 8-row groups
-// 1024 bytes apart.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return sw_desc<128>(addr, lbo, sbo);
+}
+
+// A bf16 tile of ROWS rows is stored as boxes of ROWS x SWB bytes (SWB / 2
+// columns each, swizzled over SWB-byte rows: the layout a TMA box of that
+// width and swizzle writes), box b holding columns b SWB / 2 ..; at D = 80
+// (160-byte rows, not a whole number of 128-byte rows) SWB is 32, five boxes.
+// K-major operand (k along the row): k step kk (16 columns, 32 bytes) lies in
+// box 32 kk / SWB; 8-row groups 8 SWB bytes apart.
+template <int SWB, int ROWS>
+__device__ __forceinline__ uint64_t desc_kb(uint32_t tile, int kk) {
+  return sw_desc<SWB>(tile + (32 * kk / SWB) * ROWS * SWB + (32 * kk) % SWB, 16, 8 * SWB);
+}
+// MN-major operand (k down the rows, n across the boxes): k step kk is rows
+// 16 kk ..; boxes ROWS SWB bytes apart, 8-row groups 8 SWB.
+template <int SWB, int ROWS>
+__device__ __forceinline__ uint64_t desc_mnb(uint32_t tile, int kk) {
+  return sw_desc<SWB>(tile + 16 * SWB * kk, ROWS * SWB, 8 * SWB);
+}
+// Shared address of 16-byte chunk c (columns 8c ..) of row r of such a tile.
+template <int SWB, int ROWS>
+__device__ __forceinline__ uint32_t sw_chunk_b(uint32_t tile, int r, int c) {
+  constexpr int CB = SWB / 16;  // chunks a box row holds
+  return tile + (c / CB) * ROWS * SWB + r * SWB + (((c % CB) ^ ((r * SWB >> 7) & (CB - 1))) << 4);
+}
+// [rows][256] tiles of four 128-byte atoms (D = 256).
 __device__ __forceinline__ uint64_t desc_k256(uint32_t tile, int kk) {
-  return sw128_desc(tile + (kk >> 2) * SW_ATOM + 32 * (kk & 3), 16, 1024);
+  return desc_kb<128, 64>(tile, kk);
 }
-// MN-major operand (k down the rows, the 256 columns across the atoms): k
-// step kk is 16 rows; atoms SW_ATOM bytes apart.
 __device__ __forceinline__ uint64_t desc_mn256(uint32_t tile, int kk) {
-  return sw128_desc(tile + 2048 * kk, SW_ATOM, 1024);
+  return desc_mnb<128, 64>(tile, kk);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -93,6 +119,12 @@ __device__ __forceinline__ void fence_frags(uint32_t (&f)[K][4]) {
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
+// 2^x by the special-function unit, subnormals flushed to zero.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 // A barrier of the 128 threads of one warpgroup (ids 1 and up; 0 is __syncthreads).
 __device__ __forceinline__ void wg_sync(int id) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
@@ -101,6 +133,8 @@ __device__ __forceinline__ void wg_sync(int id) {
 #define HOPPER_ACC4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 #define HOPPER_ACC16(i) \
   HOPPER_ACC4(i), HOPPER_ACC4(i + 4), HOPPER_ACC4(i + 8), HOPPER_ACC4(i + 12)
+#define HOPPER_REGS8(a, b, c, d, e, f, g, h) \
+  "%" #a ", %" #b ", %" #c ", %" #d ", %" #e ", %" #f ", %" #g ", %" #h
 #define HOPPER_REGS16(a, b, c, d, e, f, g, h, i, j, k, l, m, n, o, p)                    \
   "%" #a ", %" #b ", %" #c ", %" #d ", %" #e ", %" #f ", %" #g ", %" #h ", %" #i ", %" #j \
   ", %" #k ", %" #l ", %" #m ", %" #n ", %" #o ", %" #p
@@ -118,10 +152,42 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t d
       : HOPPER_ACC16(0), HOPPER_ACC16(16)
       : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
 }
-// d (64 x 256) += A B over 16 k; A (64 x 16) in registers (the m16n8k16 A
-// fragment of each warp's 16 rows), B shared and MN-major.
-__device__ __forceinline__ void wgmma_rs256(float (&d)[128], const uint32_t (&a)[4],
-                                            uint64_t db) {
+// d (64 x N) += A B over 16 k; A (64 x 16) in registers (the m16n8k16 A
+// fragment of each warp's 16 rows), B shared and MN-major: N = 64, 80, 128, 256.
+__device__ __forceinline__ void wgmma_rs64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      HOPPER_REGS16(0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15) ", "
+      HOPPER_REGS16(16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31)
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : HOPPER_ACC16(0), HOPPER_ACC16(16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void wgmma_rs80(float (&d)[40], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      HOPPER_REGS16(0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15) ", "
+      HOPPER_REGS16(16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31) ", "
+      HOPPER_REGS8(32, 33, 34, 35, 36, 37, 38, 39)
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : HOPPER_ACC16(0), HOPPER_ACC16(16), HOPPER_ACC4(32), HOPPER_ACC4(36)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void wgmma_rs128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      HOPPER_REGS16(0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15) ", "
+      HOPPER_REGS16(16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31) ", "
+      HOPPER_REGS16(32, 33, 34, 35, 36, 37, 38, 39, 40, 41, 42, 43, 44, 45, 46, 47) ", "
+      HOPPER_REGS16(48, 49, 50, 51, 52, 53, 54, 55, 56, 57, 58, 59, 60, 61, 62, 63)
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : HOPPER_ACC16(0), HOPPER_ACC16(16), HOPPER_ACC16(32), HOPPER_ACC16(48)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void wgmma_rs256(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
@@ -140,7 +206,15 @@ __device__ __forceinline__ void wgmma_rs256(float (&d)[128], const uint32_t (&a)
         HOPPER_ACC16(64), HOPPER_ACC16(80), HOPPER_ACC16(96), HOPPER_ACC16(112)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
+template <int N>
+__device__ __forceinline__ void wgmma_rs_n(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 64) wgmma_rs64(d, a, db);
+  else if constexpr (N == 80) wgmma_rs80(d, a, db);
+  else if constexpr (N == 128) wgmma_rs128(d, a, db);
+  else wgmma_rs256(d, a, db);
+}
 #undef HOPPER_REGS16
+#undef HOPPER_REGS8
 #undef HOPPER_ACC16
 #undef HOPPER_ACC4
 

@@ -13,11 +13,14 @@ as an int (it returns an error for a path the inputs cannot take; it never
 switches):
 
 - ``mma``: bf16 with 16-byte aligned q, k, v and output (every serving
-  prefill). Up to D = 128 both products on bf16 tensor cores
+  prefill). At D = 16, 32 and 64 both products on bf16 tensor cores
   (``mma.sync.m16n8k16``), Q and P in registers, K/V tiles in a two-stage
-  ``cp.async`` ring; at D = 256 both on ``wgmma``, K/V tiles by TMA into a
-  ring that a producer warpgroup keeps full for two consumer warpgroups of
-  64 rows each (:func:`fwd_walks` mirrors their walk).
+  ``cp.async`` ring; at D = 80, 128 and 256 both on ``wgmma``, K/V tiles by
+  TMA into a ring that a producer warpgroup keeps full for consumer
+  warpgroups of 64 rows each (:func:`fwd_walks` mirrors their walk; at D 80
+  the tiles are 32-byte boxes, as a 160-byte row is no whole number of
+  128-byte swizzle rows, and each consumer runs a tile's softmax under the
+  last tile's P V).
 - ``ffma``: float32, for the 2e-4 parity runs, and bf16 the ``mma`` path
   cannot take. True float32 FFMA.
 
@@ -28,7 +31,9 @@ counts them per path. The source's header says what bounds each on the card.
 (``return_lse``), which :func:`flash_attention_bwd` takes with the output to
 launch the backward (``csrc/flash_attention_bwd.cu``: a dQ kernel, then a
 dK/dV kernel, no atomics), with the forward's two paths: ``mma`` (bf16 on
-tensor cores) and ``ffma`` (float32), at every head dim the forward takes.
+tensor cores: ``wgmma`` at D = 64, 80 and 256, ``mma.sync`` at the others;
+:func:`bwd_walks` mirrors their walks) and ``ffma`` (float32), at every head
+dim the forward takes.
 ``flash_attention_bwd.launches`` and ``.paths`` count its calls.
 """
 
@@ -81,23 +86,30 @@ def _lib_bwd():
 
 
 BWD_TILE = 64        # folded rows or keys of a tile in the backward kernels
-DKV_WARPGROUPS = 3   # DKV_WGS in csrc/flash_attention_bwd.cu
-FWD_ROWS = 128       # WG_ROWS: folded rows a block of the D = 256 forward owns
-FWD_TILE = 64        # its warpgroups' rows, and the keys of a K/V tile
+# BwdWg<D>::DKV_WGS in csrc/flash_attention_bwd.cu: the warpgroups of a wgmma
+# dK/dV block at D = 64 and 80 (the other kernels' walks are those of 3)
+DKV_WARPGROUPS = {64: 3, 80: 2}
+FWD_TILE = 64        # folded rows of a consumer warpgroup of the wgmma forward
+# The wgmma forward kernels' blocks by head dim: (consumer warpgroups, keys
+# of a K/V tile); flash_fwd_wg256, and FwdWg<D> in csrc/flash_attention.cu.
+FWD_WG = {80: (3, 64), 128: (2, 64), 256: (2, 64)}
+FWD_ROWS = FWD_WG[256][0] * FWD_TILE  # folded rows a block of the D = 256 forward owns
 
 
 def fwd_walks(G: int, Tq: int, Tkv: int, *, causal: bool = True, window: int = 0,
-              q_offset: int = 0):
-    """The key tiles the D = 256 forward kernel computes, as
-    ``flash_fwd_wg256`` in ``csrc/flash_attention.cu`` finds them: its
-    producer loads every tile of a block's band (the 128 rows' keys), and
-    each consumer warpgroup computes the run of them its own 64 rows can see
-    and only releases the rest. Folded row ``rr = t * G + g`` sits at query
-    position ``q_offset + rr // G``.
+              q_offset: int = 0, d: int = 256):
+    """The key tiles the wgmma forward kernel at head dim ``d`` (a key of
+    ``FWD_WG``) computes, as ``flash_fwd_wg256`` and ``flash_fwd_wg<D>`` in
+    ``csrc/flash_attention.cu`` find them: the producer loads every tile of
+    a block's band (its rows' keys), and each consumer warpgroup computes
+    the run of them its own 64 rows can see and only releases the rest.
+    Folded row ``rr = t * G + g`` sits at query position ``q_offset + rr //
+    G``.
 
-    Returns ``{r0: [walk of warpgroup 0, walk of warpgroup 1]}`` by block,
-    each walk the first key of each tile that warpgroup computes."""
-    R, B, T = G * Tq, FWD_ROWS, FWD_TILE
+    Returns ``{r0: [walk of warpgroup 0, walk of warpgroup 1, ...]}`` by
+    block, each walk the first key of each tile that warpgroup computes."""
+    nc, T = FWD_WG[d]
+    R, W, B = G * Tq, FWD_TILE, nc * FWD_TILE
     out = {}
     for r0 in range(0, R, B):
         qmin, qmax = q_offset + r0 // G, q_offset + (min(R, r0 + B) - 1) // G
@@ -105,8 +117,8 @@ def fwd_walks(G: int, Tq: int, Tkv: int, *, causal: bool = True, window: int = 0
         kv_begin = max(0, qmin - window + 1) // T * T if window > 0 else 0
         ntile = -(-(kv_end - kv_begin) // T) if kv_end > kv_begin else 0
         walks = []
-        for rw in (r0, r0 + T):
-            qmin_w, qmax_w = q_offset + rw // G, q_offset + (min(R, rw + T) - 1) // G
+        for rw in range(r0, r0 + B, W):
+            qmin_w, qmax_w = q_offset + rw // G, q_offset + (min(R, rw + W) - 1) // G
             end_w = 0 if rw >= R else min(Tkv, qmax_w + 1) if causal else Tkv
             begin_w = max(0, qmin_w - window + 1) if window > 0 else 0
             hi = max(0, min(ntile, -(-(end_w - kv_begin) // T)))
@@ -117,12 +129,13 @@ def fwd_walks(G: int, Tq: int, Tkv: int, *, causal: bool = True, window: int = 0
 
 
 def fwd_tile_visible(G: int, Tq: int, Tkv: int, rw: int, kv0: int, *, causal: bool = True,
-                     window: int = 0, q_offset: int = 0) -> bool:
-    """Whether the D = 256 forward's warpgroup of rows ``rw .. rw + 63``
-    computes the key tile at ``kv0`` without its mask (every (row, key) pair
-    of its rows below ``G * Tq`` visible), as ``flash_fwd_wg256`` decides."""
-    R, T = G * Tq, FWD_TILE
-    qmin_w, qmax_w = q_offset + rw // G, q_offset + (min(R, rw + T) - 1) // G
+                     window: int = 0, q_offset: int = 0, d: int = 256) -> bool:
+    """Whether the wgmma forward's warpgroup of rows ``rw .. rw + 63`` at
+    head dim ``d`` computes the key tile at ``kv0`` without its mask (every
+    (row, key) pair of its rows below ``G * Tq`` visible), as the kernel
+    decides."""
+    R, W, T = G * Tq, FWD_TILE, FWD_WG[d][1]
+    qmin_w, qmax_w = q_offset + rw // G, q_offset + (min(R, rw + W) - 1) // G
     masked = (kv0 + T > Tkv or (causal and kv0 + T - 1 > qmin_w)
               or (window > 0 and kv0 <= qmax_w - window))
     return not masked
@@ -137,7 +150,7 @@ def bwd_tile(d: int, path: str) -> int:
 
 
 def bwd_walks(G: int, Tq: int, Tkv: int, *, causal: bool = True, window: int = 0,
-              q_offset: int = 0, tile: int = BWD_TILE):
+              q_offset: int = 0, tile: int = BWD_TILE, warpgroups: int = DKV_WARPGROUPS[64]):
     """The tiles the backward kernels walk, as ``csrc/flash_attention_bwd.cu``
     computes them (all of its kernels share the band arithmetic), at tiles
     of ``tile`` (:func:`bwd_tile`). Folded row ``rr = t * G + g`` sits at
@@ -146,10 +159,11 @@ def bwd_walks(G: int, Tq: int, Tkv: int, *, causal: bool = True, window: int = 0
     Returns ``(dq, dkv)``: ``dq[r0]``, the first key of each key tile the dQ
     kernel's block of rows ``r0 .. r0 + tile - 1`` walks; ``dkv[kv0][w]``,
     the first row of each row tile that warpgroup ``w`` of the dK/dV block
-    of keys ``kv0 .. kv0 + tile - 1`` walks (every ``DKV_WARPGROUPS``-th tile
-    of the band, from tile ``w``). The dK/dV kernels other than the D = 64
-    wgmma pair walk the union of these walks in one pass: the D = 256
-    kernel's two warpgroups each take every tile, one for dV, one for dK."""
+    of keys ``kv0 .. kv0 + tile - 1`` walks (every ``warpgroups``-th tile of
+    the band, from tile ``w``: ``DKV_WARPGROUPS``). The dK/dV kernels other
+    than the D = 64 and 80 wgmma pairs walk the union of these walks in one
+    pass: the D = 256 kernel's two warpgroups each take every tile, one for
+    dV, one for dK."""
     R, T = G * Tq, tile
     dq = {}
     for r0 in range(0, R, T):
@@ -164,17 +178,17 @@ def bwd_walks(G: int, Tq: int, Tkv: int, *, causal: bool = True, window: int = 0
         rr_hi = min(R, max(0, kv1 - 1 + window - q_offset) * G) if window > 0 else R
         r_first = rr_lo // T * T
         ntile = (rr_hi - r_first + T - 1) // T if rr_hi > r_first else 0
-        dkv[kv0] = [[r_first + T * i for i in range(w, ntile, DKV_WARPGROUPS)]
-                    for w in range(DKV_WARPGROUPS)]
+        dkv[kv0] = [[r_first + T * i for i in range(w, ntile, warpgroups)]
+                    for w in range(warpgroups)]
     return dq, dkv
 
 
 def bwd_tile_visible(G: int, Tq: int, Tkv: int, r0: int, kv0: int, *, causal: bool = True,
                      window: int = 0, q_offset: int = 0) -> bool:
     """Whether every (row, key) pair of the 64 x 64 tile pair at folded row
-    ``r0`` and key ``kv0`` is visible, so that the wgmma kernels (D = 64 and
-    256) skip its mask (``tile_visible`` in ``csrc/flash_attention_bwd.cu``;
-    the other kernels mask every score)."""
+    ``r0`` and key ``kv0`` is visible, so that the wgmma kernels (D = 64, 80
+    and 256) skip its mask (``tile_visible`` in
+    ``csrc/flash_attention_bwd.cu``; the other kernels mask every score)."""
     T = BWD_TILE
     ok = r0 + T <= G * Tq and kv0 + T <= Tkv
     if causal:

@@ -17,12 +17,14 @@ generic Manager/Handler plane, every microbatch gradient one ACAN task.
 Gradients stay on the device: the op puts the gradient tensors
 themselves into the space (the in-process backends hold references and
 the ledger hashes keys only, so nothing is copied), and ``float(loss)``
-is the one read that waits for the device. The combine takes the mean of
-the microbatch gradients in micro order in float32 on the device, then
-applies ``p - lr * g`` in float32 and casts to the parameter's dtype. In
-float32 that is the reference's arithmetic; for bf16 parameters the
-reference's ``np.mean`` rounds every partial sum to bf16, where this one
-keeps them in float32 (PERF.md, "Numerics").
+is the one read that waits for the device. Handlers compute gradients
+one at a time: the launches of one gradient hold a lock (see ``grad``).
+The combine takes the mean of the microbatch gradients in micro order in
+float32 on the device, then applies ``p - lr * g`` in float32 and casts
+to the parameter's dtype. In float32 that is the reference's
+arithmetic; for bf16 parameters the reference's ``np.mean`` rounds every
+partial sum to bf16, where this one keeps them in float32 (PERF.md,
+"Numerics").
 
 The op closes over the model config and the data pipeline, so it
 registers in a **program-private** registry chained to the global one.
@@ -99,6 +101,12 @@ class TorchSGDProgram(WorkloadProgram):
         # The op runs on every Handler thread; Generator is not
         # thread-safe and the counter would undercount unsynchronized.
         self._crash_lock = threading.Lock()
+        # One gradient at a time, whichever handler runs it. Handler
+        # threads launch on one stream, so the device runs their work in
+        # turn anyway; interleaved, they only fight for the GIL, which made
+        # a step of four handlers 2.7x one handler's and its rounds erratic
+        # enough to outlast the GSS timeout with no crash (a re-issue).
+        self._grad_lock = threading.Lock()
         self.pipe = TokenPipeline(PipelineConfig(
             vocab=cfg.vocab, batch=micro_batch, seq=seq,
             seed=seed, mode=data_mode,
@@ -141,8 +149,9 @@ class TorchSGDProgram(WorkloadProgram):
 
     def grad(self, params, batch) -> tuple[float, dict]:
         """(loss, gradient tree shaped like ``params``) of one microbatch;
-        the gradients stay where the params are."""
-        with torch.enable_grad():
+        the gradients stay where the params are. Its launches hold the
+        program's gradient lock; the loss is read after it is released."""
+        with self._grad_lock, torch.enable_grad():
             leaves = tree_map(lambda t: t.detach().requires_grad_(True),
                               params)
             loss = M.train_loss(leaves, self.cfg, batch)[0]

@@ -7,7 +7,8 @@ all come from :mod:`repro_torch.core.manager`.
 This is the bridge between ``core/`` (the paper) and the model zoo: the
 handlers' microbatch gradients run on the card through the hand-written
 kernels. Handlers are threads of this process: they share one GIL and
-launch on the default stream, so their device work is serialised.
+launch on the default stream, so their device work is serialised, and the
+program's lock lets one of them launch a gradient at a time.
 
 The one addition to the reference's interface is ``device`` (``None``
 means ``cuda``, which raises without a card; pass ``"cpu"`` for the plain

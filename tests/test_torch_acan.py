@@ -209,6 +209,34 @@ def test_run_returns_only_after_every_handler_has_stopped():
     assert len(steps) == 1 and steps[0] > 0
 
 
+def test_handlers_compute_one_gradient_at_a_time(monkeypatch):
+    """Three handlers take the three microbatch tasks of a round together,
+    but their gradients run one after another: the program holds a lock
+    while one gradient launches. Each loss evaluation pauses a little so
+    that gradients left to interleave would overlap."""
+    from repro_torch.programs import torch_sgd
+
+    lock, live, peak = threading.Lock(), [0], [0]
+    train_loss = torch_sgd.M.train_loss
+
+    def counted(*args, **kw):
+        with lock:
+            live[0] += 1
+            peak[0] = max(peak[0], live[0])
+        try:
+            time.sleep(0.05)
+            return train_loss(*args, **kw)
+        finally:
+            with lock:
+                live[0] -= 1
+
+    monkeypatch.setattr(torch_sgd.M, "train_loss", counted)
+    res, _ = _port_run(2, 0.0, 20.0)
+    _clean(res, 2)
+    assert res.reissues == 0
+    assert peak[0] == 1 and live[0] == 0
+
+
 def _t(*v, dtype=torch.float32):
     return torch.tensor(v, dtype=dtype)
 

@@ -288,18 +288,19 @@ def _visible(g, tq, tk, causal, window, q_offset):
     return vis
 
 
-def _assert_walks_cover_each_visible_pair_once(g, tq, tk, causal, window, q_offset, tile):
+def _assert_walks_cover_each_visible_pair_once(g, tq, tk, causal, window, q_offset, tile,
+                                                warpgroups=kernel.DKV_WARPGROUPS[64]):
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     R, T = g * tq, tile
     vis = _visible(g, tq, tk, causal, window, q_offset)
-    dq, dkv = kernel.bwd_walks(g, tq, tk, tile=tile, **kw)
+    dq, dkv = kernel.bwd_walks(g, tq, tk, tile=tile, warpgroups=warpgroups, **kw)
     by_dq = torch.zeros(R, tk, dtype=torch.int32)
     for r0, kv0s in dq.items():
         for kv0 in kv0s:
             by_dq[r0:r0 + T, kv0:kv0 + T] += 1
     by_dkv = torch.zeros(R, tk, dtype=torch.int32)
     for kv0, walks in dkv.items():
-        assert len(walks) == kernel.DKV_WARPGROUPS
+        assert len(walks) == warpgroups
         for r0s in walks:
             for r0 in r0s:
                 by_dkv[r0:r0 + T, kv0:kv0 + T] += 1
@@ -324,6 +325,15 @@ def test_backward_walks_cover_each_visible_pair_once(g, tq, tk, causal, window, 
 
 
 @pytest.mark.parametrize("g,tq,tk,causal,window,q_offset", WALK_CASES)
+def test_backward_walks_at_d80_cover_each_visible_pair_once(g, tq, tk, causal, window, q_offset):
+    """The same for the D = 80 wgmma kernels, whose dK/dV blocks split the
+    walk over ``DKV_WARPGROUPS[80]`` warpgroups."""
+    assert kernel.DKV_WARPGROUPS[80] == 2
+    _assert_walks_cover_each_visible_pair_once(g, tq, tk, causal, window, q_offset,
+                                               kernel.BWD_TILE, kernel.DKV_WARPGROUPS[80])
+
+
+@pytest.mark.parametrize("g,tq,tk,causal,window,q_offset", WALK_CASES)
 def test_backward_walks_at_the_ffma_tile_of_d256_cover_each_visible_pair_once(
         g, tq, tk, causal, window, q_offset):
     """The same at the ffma path's 32-row tiles at D = 256
@@ -331,6 +341,24 @@ def test_backward_walks_at_the_ffma_tile_of_d256_cover_each_visible_pair_once(
     assert kernel.bwd_tile(256, "ffma") == 32
     _assert_walks_cover_each_visible_pair_once(g, tq, tk, causal, window, q_offset,
                                                kernel.bwd_tile(256, "ffma"))
+
+
+def _assert_forward_walks_cover_each_visible_pair_once(g, tq, tk, causal, window, q_offset, d):
+    kw = dict(causal=causal, window=window, q_offset=q_offset, d=d)
+    R, W = g * tq, kernel.FWD_TILE
+    nc, T = kernel.FWD_WG[d]
+    vis = _visible(g, tq, tk, causal, window, q_offset)
+    by = torch.zeros(R, tk, dtype=torch.int32)
+    for r0, walks in kernel.fwd_walks(g, tq, tk, **kw).items():
+        assert len(walks) == nc
+        for w, kv0s in enumerate(walks):
+            rw = r0 + W * w
+            assert kv0s == sorted(kv0s) and len(set(kv0s)) == len(kv0s)
+            for kv0 in kv0s:
+                by[rw:rw + W, kv0:kv0 + T] += 1
+                if kernel.fwd_tile_visible(g, tq, tk, rw, kv0, **kw):
+                    assert vis[rw:rw + W, kv0:kv0 + T].all()
+    assert (by[vis] == 1).all() and (by <= 1).all()
 
 
 @pytest.mark.parametrize("g,tq,tk,causal,window,q_offset", WALK_CASES)
@@ -341,17 +369,14 @@ def test_forward_walks_at_d256_cover_each_visible_pair_once(g, tq, tk, causal, w
     computed key tiles hold every visible (folded row, key) pair of its 64
     rows exactly once, and a tile it computes without its mask
     (``fwd_tile_visible``) holds only visible pairs."""
-    kw = dict(causal=causal, window=window, q_offset=q_offset)
-    R, T = g * tq, kernel.FWD_TILE
-    vis = _visible(g, tq, tk, causal, window, q_offset)
-    by = torch.zeros(R, tk, dtype=torch.int32)
-    for r0, walks in kernel.fwd_walks(g, tq, tk, **kw).items():
-        assert len(walks) == kernel.FWD_ROWS // T
-        for w, kv0s in enumerate(walks):
-            rw = r0 + T * w
-            assert kv0s == sorted(kv0s) and len(set(kv0s)) == len(kv0s)
-            for kv0 in kv0s:
-                by[rw:rw + T, kv0:kv0 + T] += 1
-                if kernel.fwd_tile_visible(g, tq, tk, rw, kv0, **kw):
-                    assert vis[rw:rw + T, kv0:kv0 + T].all()
-    assert (by[vis] == 1).all() and (by <= 1).all()
+    assert kernel.FWD_ROWS == 128
+    _assert_forward_walks_cover_each_visible_pair_once(g, tq, tk, causal, window, q_offset, 256)
+
+
+@pytest.mark.parametrize("d", [80, 128])
+@pytest.mark.parametrize("g,tq,tk,causal,window,q_offset", WALK_CASES)
+def test_forward_walks_at_d80_and_d128_cover_each_visible_pair_once(g, tq, tk, causal, window,
+                                                                    q_offset, d):
+    """The same for ``flash_fwd_wg<D>`` at D = 80 and 128, whose key tiles
+    (``kernel.FWD_WG``) are wider than a warpgroup's 64 rows."""
+    _assert_forward_walks_cover_each_visible_pair_once(g, tq, tk, causal, window, q_offset, d)

@@ -799,6 +799,114 @@ def test_flash_attention_backward_d256_edges_match_plain(cuda, bh, g, tq, tk, ca
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
 
 
+FLASH_WG_EDGE_CASES = [  # (bh, g, tq, tk, causal, window, softcap): bf16, D = 80 and 128
+    (2, 1, 65, 65, False, 0, 0.0),       # not causal, G = 1, one row past a tile
+    (2, 1, 129, 129, True, 0, 0.0),      # one row past a 128-row forward block
+    (3, 2, 1, 65, True, 0, 0.0),         # a single query position, q_offset = 64
+    (2, 2, 130, 200, True, 10, 0.0),     # a window narrower than a tile, q_offset = 70
+    (2, 4, 64, 640, True, 0, 0.0),       # q_offset = 576: one row tile sees every key tile
+    (1, 4, 300, 300, True, 0, 15.0),     # softcap, G = 4
+    (1, 12, 50, 90, True, 30, 0.0),      # G = 12 across tile edges, window, q_offset = 40
+    (2, 4, 200, 333, True, 150, 30.0),   # window, softcap, both ragged, q_offset = 133
+    (2, 4, 70, 150, False, 0, 0.0),      # not causal, fewer rows than keys
+]
+FLASH_WG_SHORT_CASES = [  # fewer keys than one TMA box of the forward
+    (3, 2, 1, 1, True, 0, 0.0),          # one key: the output is v
+    (2, 2, 17, 17, True, 0, 0.0),        # a prompt of 17 tokens
+    (2, 12, 5, 40, True, 0, 0.0),        # G = 12, q_offset = 35
+    (1, 4, 20, 50, True, 8, 30.0),       # window, softcap, q_offset = 30
+    (2, 1, 10, 33, False, 0, 0.0),       # not causal
+]
+
+
+@pytest.mark.parametrize("d", [80, 128])
+@pytest.mark.parametrize("bh,g,tq,tk,causal,window,softcap",
+                         FLASH_WG_EDGE_CASES + FLASH_WG_SHORT_CASES)
+def test_flash_attention_d80_d128_edges_match_plain(cuda, bh, g, tq, tk, causal, window, softcap,
+                                                    d):
+    """Shapes the wgmma forward at D = 80 (32-byte boxes) and 128 makes
+    special (partial tiles and blocks, a warpgroup's band narrower than its
+    block's, tiles left unmasked, fewer keys than one TMA box, whose rest
+    fills with zeros) against the plain version, each element within
+    ``_flash_limit``, the lse too; two launches on mma, the same bits."""
+    q = _randn((bh, g, tq, d), torch.bfloat16, cuda, 1)
+    k = _randn((bh, tk, d), torch.bfloat16, cuda, 2)
+    v = _randn((bh, tk, d), torch.bfloat16, cuda, 3)
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=tk - tq)
+    ref, ref_lse = flash_attention_ref(q, k, v, return_lse=True, **kw)
+    before = dict(fa_kernel.flash_attention.paths)
+    out, lse = fa_kernel.flash_attention(q, k, v, return_lse=True, **kw)
+    again = fa_kernel.flash_attention(q, k, v, **kw)
+    _took_twice(fa_kernel.flash_attention, before)
+    diff = (out.float() - ref.float()).abs()
+    assert bool((diff <= _flash_limit(ref.float(), torch.bfloat16)).all()), diff.max().item()
+    torch.testing.assert_close(lse, ref_lse, rtol=2e-4, atol=2e-4)
+    assert torch.equal(out, again)
+
+
+# (the one-key case has no gradient to hold: dS = P (dP - Dv) is zero there,
+# and so is the limit)
+@pytest.mark.parametrize("bh,g,tq,tk,causal,window,softcap",
+                         FLASH_WG_EDGE_CASES + FLASH_WG_SHORT_CASES[1:])
+def test_flash_attention_backward_d80_edges_match_plain(cuda, bh, g, tq, tk, causal, window,
+                                                        softcap):
+    """The same shapes through the D = 80 wgmma backward kernels (32-byte
+    boxes, the dK/dV warpgroups' walks summed in order, tiles left
+    unmasked) against the explicit formula, each element within
+    ``_flash_bwd_limit``; two launches on mma, the same bits."""
+    q = _randn((bh, g, tq, 80), torch.bfloat16, cuda, 1)
+    k = _randn((bh, tk, 80), torch.bfloat16, cuda, 2)
+    v = _randn((bh, tk, 80), torch.bfloat16, cuda, 3)
+    do = _randn((bh, g, tq, 80), torch.bfloat16, cuda, 4)
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=tk - tq)
+    o, lse = fa_kernel.flash_attention(q, k, v, return_lse=True, **kw)
+    before = dict(fa_kernel.flash_attention_bwd.paths)
+    grads = fa_kernel.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    again = fa_kernel.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    _took_twice(fa_kernel.flash_attention_bwd, before)
+    _assert_attention_grads_close(grads, flash_attention_bwd_ref(q, k, v, o, do, lse, **kw),
+                                  torch.bfloat16)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+def test_flash_attention_backward_limit_catches_a_dropped_tile_pair_at_danube_shape(
+        cuda, monkeypatch):
+    """One batch x kv-head slice of h2o_danube_1_8b's training attention, q
+    (1, 4, 8192, 80), window 4096: the D = 80 kernels' gradients are within
+    ``_flash_bwd_limit`` of the explicit formula, and the formula with one
+    64 x 64 tile pair in the middle of the band masked out (what a kernel
+    that skipped it would give) is not."""
+    from repro_torch.kernels.flash_attention import ref as ref_mod
+    g, t, d, window = 4, 8192, 80, 4096
+    q = _randn((1, g, t, d), torch.bfloat16, cuda, 1)
+    k = _randn((1, t, d), torch.bfloat16, cuda, 2)
+    v = _randn((1, t, d), torch.bfloat16, cuda, 3)
+    do = _randn((1, g, t, d), torch.bfloat16, cuda, 4)
+    o, lse = fa_kernel.flash_attention(q, k, v, window=window, return_lse=True)
+    grads = fa_kernel.flash_attention_bwd(q, k, v, o, do, lse, window=window)
+    refs = flash_attention_bwd_ref(q, k, v, o, do, lse, window=window)
+    _assert_attention_grads_close(grads, refs, torch.bfloat16)
+    # the middle row tile, and the key tile in the middle of what its first query sees
+    r0 = (g * t // 2) // 64 * 64
+    pos = r0 // g
+    c0 = (pos - min(window, pos + 1) // 2) // 64 * 64
+    rr = torch.arange(t, device=cuda)[None, :] * g + torch.arange(g, device=cuda)[:, None]
+    kv = torch.arange(t, device=cuda)
+    drop = (((rr >= r0) & (rr < r0 + 64))[:, :, None]
+            & ((kv >= c0) & (kv < c0 + 64))[None, None, :])[None]
+    scores = ref_mod._scores
+
+    def dropped(*a, **kw):
+        s, cap, mask = scores(*a, **kw)
+        return torch.where(drop, ref_mod.NEG_INF, s), cap, mask
+
+    monkeypatch.setattr(ref_mod, "_scores", dropped)
+    planted = ref_mod.flash_attention_bwd_ref(q, k, v, o, do, lse, window=window)
+    for bad, want in zip(planted, refs):
+        diff = (bad.float() - want.float()).abs()
+        assert not bool((diff <= _flash_bwd_limit(want.float(), torch.bfloat16)).all())
+
+
 @pytest.mark.parametrize("dtype,path", [(torch.bfloat16, "mma"), (torch.float32, "ffma")])
 def test_flash_attention_backward_counts_its_path(cuda, dtype, path):
     q = _randn((4, 3, 200, 64), dtype, cuda, 1)
