@@ -13,7 +13,10 @@ sandwich norms, flash_attention at D 256), h2o_danube_1_8b at full depth
 (2 x 8192; window 4096, D 80) and command_r_plus_104b at 8 of its 64 layers
 (8 x 512; parallel residual, G 12), each with exact launch counts, one
 prefill and one decode step profiled and float32 logits against the CPU's
-at 1e-4 (reduced depth); then its training path
+at 1e-4 (reduced depth); then qwen2_moe_a2_7b at full width and depth (8 x
+1024; 60 experts top-4, each expert product one batched tile_matmul launch
+over the experts, the float32 router, D 128 attention at G 1), its float32
+routing and then logits held against the CPU's on 2 layers; then its training path
 through ``train``: five AdamW steps of full-width, full-depth smollm_360m on
 8 x 512 tokens, every projection's forward and both gradient products
 through tile_matmul, every attention through flash_attention and its
@@ -311,6 +314,7 @@ FLASH_FWD_KERNELS = {64: "flash_fwd_mma<64>", 80: "flash_fwd_wg<80>", 128: "flas
                      256: "flash_fwd_wg256"}
 FLASH_BWD_KERNELS = {64: ("flash_bwd_dq_wgmma<64>", "flash_bwd_dkv_wgmma<64>"),
                      80: ("flash_bwd_dq_wgmma<80>", "flash_bwd_dkv_wgmma<80>"),
+                     128: ("flash_bwd_dq_mma<128>", "flash_bwd_dkv_mma<128>"),
                      256: ("flash_bwd_dq_wg256", "flash_bwd_dkv_wg256")}
 
 
@@ -352,12 +356,14 @@ FLASH_CASES = (  # (name, BH, G, Tq, Tkv, D, window, softcap)
     # launch: gemma3_12b's global and local (window 1024) layers (batch 4 x 8
     # kv heads, G 2, D 256), h2o_danube_1_8b's (batch 2 x 8 kv heads, window
     # 4096, G 4, D 80) and command_r_plus_104b's (batch 8 x 8 kv heads, G 12,
-    # D 128); then each new D with the other configs' G, windowed and global,
-    # Tq ragged.
+    # D 128) and qwen2_moe_a2_7b's (batch 8 x 16 kv heads, G 1, D 128);
+    # then each new D with the other configs' G, windowed and global, Tq
+    # ragged.
     ("gemma3_global", 32, 2, 2048, 2048, 256, 0, 0.0),
     ("gemma3_local", 32, 2, 2048, 2048, 256, 1024, 0.0),
     ("danube", 16, 4, 8192, 8192, 80, 4096, 0.0),
     ("command_r", 64, 12, 512, 512, 128, 0, 0.0),
+    ("qwen2", 128, 1, 1024, 1024, 128, 0, 0.0),
     ("d256_g4_window_ragged", 8, 4, 1000, 1500, 256, 300, 0.0),
     ("d256_g12_ragged", 4, 12, 333, 333, 256, 0, 0.0),
     ("d80_g2_global_ragged", 8, 2, 1000, 1000, 80, 0, 0.0),
@@ -604,7 +610,8 @@ FLASH_TIMED = {"smollm_360m": (BATCH, 5, 3, PROMPT, 64, 0),
                "gemma3_12b global": (4, 8, 2, 2048, 256, 0),
                "gemma3_12b local": (4, 8, 2, 2048, 256, 1024),
                "h2o_danube_1_8b": (2, 8, 4, 8192, 80, 4096),
-               "command_r_plus_104b": (8, 8, 12, 512, 128, 0)}
+               "command_r_plus_104b": (8, 8, 12, 512, 128, 0),
+               "qwen2_moe_a2_7b": (8, 16, 1, 1024, 128, 0)}
 def _visible_pairs(tq: int, tkv: int, window: int) -> int:
     """(query, key) pairs a causal, windowed query row block sees (q_offset
     tkv - tq): the attention's work, counted as the kernel skips the rest."""
@@ -721,7 +728,8 @@ def time_tile_matmul_grad(tm_kernel, tile_matmul_ref, arch: str = "smollm_360m")
 FLASH_BWD_TIMED = {"smollm_360m": (BATCH, 5, 3, PROMPT, 64, 0),
                    "h2o_danube_1_8b": (2, 8, 4, 8192, 80, 4096),
                    "gemma3_12b global": (2, 8, 2, 2048, 256, 0),
-                   "gemma3_12b local": (2, 8, 2, 2048, 256, 1024)}
+                   "gemma3_12b local": (2, 8, 2, 2048, 256, 1024),
+                   "qwen2_moe_a2_7b": (8, 16, 1, 1024, 128, 0)}
 
 
 def time_flash_bwd(fa_kernel, flash_attention_bwd_ref) -> dict:
@@ -993,11 +1001,14 @@ def _read(counters: dict) -> dict:
 
 
 def serve_path(serve, M, cfg, params, counters: dict, batch: int = BATCH,
-               prompt_len: int = PROMPT, cache_len: int = CACHE) -> dict:
+               prompt_len: int = PROMPT, cache_len: int = CACHE,
+               want_paths: dict | None = None) -> dict:
     """Serve ``cfg`` at full width and the depth of ``params`` through
     ``serve``: a short warm-up serve first, so the timed run holds no
     first-call set-up, then the timed run with every launch count set to 0
-    just before it and read just after."""
+    just before it and read just after. ``want_paths``: tile_matmul's
+    launches by path, where not every product is a bf16 projection (by
+    default each takes wgmma in prefill and skinny in decode)."""
     kw = dict(reduced=False, batch=batch, prompt_len=prompt_len, cache_len=cache_len,
               seed=0, device="cuda", params=params)
     serve(cfg.name, gen=2, log=lambda _: None, **kw)
@@ -1021,8 +1032,10 @@ def serve_path(serve, M, cfg, params, counters: dict, batch: int = BATCH,
           f"launches {launches}, by path {by_path}")
     # Every bf16 projection takes wgmma in prefill and skinny in decode;
     # every bf16 prefill attention and scan takes mma.
-    per_pass = launches["tile_matmul"] // (1 + GEN)
-    assert paths == {"wgmma": per_pass, "mma": 0, "skinny": per_pass * GEN, "ffma": 0}, paths
+    if want_paths is None:
+        per_pass = launches["tile_matmul"] // (1 + GEN)
+        want_paths = {"wgmma": per_pass, "mma": 0, "skinny": per_pass * GEN, "ffma": 0}
+    assert paths == want_paths, (paths, want_paths)
     for k in ("flash_attention", "ssd_scan"):
         assert by_path[k] == {"mma": launches[k], "ffma": 0}, (k, by_path[k])
     return out
@@ -1070,28 +1083,39 @@ def profile_steps(M, cfg, params, rehome, counters: dict, batch: int = BATCH,
     return out
 
 
-def parity_f32(M, cfg, rehome, prompt_len: int, batch: int = 2, tol: float = 1e-3) -> float:
-    """Full-width float32 logits of ``cfg``: kernel path on the card vs the
-    plain path on the CPU, prefill of ``batch`` x ``prompt_len`` tokens then
-    4 decode steps, held at ``tol`` (relative and absolute)."""
+def _f32_logits(M, cfg, rehome, prompt_len: int, batch: int, wrap=None) -> tuple[list, list]:
+    """Full-width float32 logits of ``cfg`` on the card (kernel path) and
+    on the CPU (plain path) from the same seeded weights: a prefill of
+    ``batch`` x ``prompt_len`` tokens, then 4 decode steps of the CPU's
+    greedy tokens. ``wrap(device, call)`` (optional) runs each forward
+    pass. Returns (card's logits, CPU's logits), one entry a pass."""
+    wrap = wrap or (lambda _dev, call: call())
     params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(1), "cuda",
                            dtype_override=torch.float32)
     plain = _to(params, "cpu")
     tokens = np.random.default_rng(1).integers(0, cfg.vocab, (batch, prompt_len))
-    worst = 0.0
     runs = {}
     for dev, p in (("cuda", params), ("cpu", plain)):
-        caches, logits = M.prefill(p, cfg, {"tokens": torch.as_tensor(tokens, device=dev)})
+        caches, logits = wrap(dev, lambda: M.prefill(
+            p, cfg, {"tokens": torch.as_tensor(tokens, device=dev)}))
         cache = rehome(M.init_cache(cfg, batch, prompt_len + 8, dev, dtype=torch.float32),
                        caches)
         runs[dev] = (p, cache, [logits.cpu()])
     for step in range(4):
         tok = torch.argmax(runs["cpu"][2][-1], dim=-1)
         for dev, (p, cache, outs) in runs.items():
-            logits, _ = M.decode_step(p, cfg, cache,
-                                      {"token": tok.to(dev), "cur_len": prompt_len + step})
+            logits, _ = wrap(dev, lambda: M.decode_step(
+                p, cfg, cache, {"token": tok.to(dev), "cur_len": prompt_len + step}))
             outs.append(logits.cpu())
-    for got, want in zip(runs["cuda"][2], runs["cpu"][2]):
+    return runs["cuda"][2], runs["cpu"][2]
+
+
+def parity_f32(M, cfg, rehome, prompt_len: int, batch: int = 2, tol: float = 1e-3) -> float:
+    """Full-width float32 logits of ``cfg``: kernel path on the card vs the
+    plain path on the CPU, prefill of ``batch`` x ``prompt_len`` tokens then
+    4 decode steps, held at ``tol`` (relative and absolute)."""
+    worst = 0.0
+    for got, want in zip(*_f32_logits(M, cfg, rehome, prompt_len, batch)):
         torch.testing.assert_close(got, want, rtol=tol, atol=tol)
         worst = max(worst, (got - want).abs().max().item())
     return worst
@@ -1239,6 +1263,266 @@ def serve_command_r(serve, M, rehome, get_config, counters: dict) -> dict:
     return dense_serve(serve, M, rehome, get_config, "command_r_plus_104b", counters)
 
 
+# qwen2_moe_a2_7b served at full width and full depth (24 layers, 28.6 GB
+# in bf16): 8 x 1024 prompts (prefill T 8192: four groups of 2048 tokens,
+# capacity 43 a slot, so tokens drop; 4 slots x 4 groups x 43 = 688 rows an
+# expert) and 32 decode steps of T 8 (one group, dropless: 4 x 8 = 32 rows an
+# expert). Its float32 parity run: 2 layers, 2 x 512 (one group of 1024,
+# capacity 22: tokens drop). A token whose top-k set differs between the
+# card and the CPU is a fault unless the CPU's margin between its k-th and
+# (k+1)-th probabilities is below NEAR_TIE; the logits are held where none
+# flipped.
+QWEN2 = "qwen2_moe_a2_7b"
+QWEN2_RUN = dict(batch=BATCH, prompt_len=1024, cache_len=1056)
+QWEN2_ROWS = {"prefill": 688, "decode": 32}
+QWEN2_PARITY = dict(batch=2, prompt_len=512)
+QWEN2_PARITY_PERIODS = 2
+NEAR_TIE = 1e-5
+
+
+def _expert_products(cfg) -> tuple[int, tuple]:
+    """(E, ((K, N, activation) of the gate, up and down expert products))."""
+    moe, d = cfg.period[0].moe, cfg.d_model
+    return moe.n_experts, ((d, moe.d_ff, "silu"), (d, moe.d_ff, "none"), (moe.d_ff, d, "none"))
+
+
+def check_moe_batched(tm_kernel, tile_matmul_ref, get_config) -> dict:
+    """The batched expert launch against its plain version (one product an
+    expert) at qwen2's three expert products, prefill and decode rows: bf16
+    on wgmma (2e-2), float32 on ffma (2e-4), each launch counted once under
+    the ``batched`` layout."""
+    E, prods = _expert_products(get_config(QWEN2))
+    fn, err = tm_kernel.tile_matmul, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for phase, m in QWEN2_ROWS.items():
+            for k, n, act in prods:
+                x = _randn((E, m, k), dtype, m + k)
+                w = _randn((E, k, n), dtype, n, k ** -0.5)
+                before, layouts = dict(fn.paths), dict(fn.layouts)
+                out = tm_kernel.tile_matmul(x, w, activation=act)
+                _took(fn, {torch.bfloat16: "wgmma", torch.float32: "ffma"}[dtype], before)
+                assert {q: fn.layouts[q] - layouts[q] for q in fn.layouts} == {
+                    q: int(q == "batched") for q in fn.layouts}, fn.layouts
+                ref = torch.stack([tile_matmul_ref(x[e], w[e], activation=act)
+                                   for e in range(E)])
+                torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype],
+                                           atol=TOL[dtype],
+                                           msg=lambda e, c=(phase, m, k, n): f"{c}: {e}")
+                err[f"{phase} {E}x{m}x{k}x{n} {act} {dtype}"] = \
+                    (out.float() - ref.float()).abs().max().item()
+                del x, w, out, ref
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return err
+
+
+def time_moe_batched(tm_kernel, tile_matmul_batched_ref, get_config) -> dict:
+    """One qwen2 layer's three expert products, bf16, at prefill and decode
+    rows: the batched launches by CUDA events (kernel and ``torch.bmm`` in
+    turns) and by CUDA-graph replay, the plain version (one float32 product
+    an expert), and the bound of the three products. The decode products
+    read 1.04 GB of weights, twenty times the L2: every launch finds them
+    cold, as a decode step does."""
+    dt, out = torch.bfloat16, {}
+    E, prods = _expert_products(get_config(QWEN2))
+    for phase, m in QWEN2_ROWS.items():
+        xs = {k: _randn((E, m, k), dt, k) for k in {k for k, _, _ in prods}}
+        ws = [_randn((E, k, n), dt, 10 + i, k ** -0.5) for i, (k, n, _) in enumerate(prods)]
+
+        def run(fn):
+            return [fn(xs[k], w, act) for (k, _, act), w in zip(prods, ws)]
+
+        def kern():
+            return run(lambda x, w, a: tm_kernel.tile_matmul(x, w, activation=a))
+
+        def lib():
+            return run(lambda x, w, a: F.silu(torch.bmm(x, w)) if a == "silu" else torch.bmm(x, w))
+
+        turns = [_time_ms(f, iters=10) for f in (kern, lib) * 2]
+        kern_ms, lib_ms = (turns[0] + turns[2]) / 2, (turns[1] + turns[3]) / 2
+        flops = sum(2 * E * m * k * n for k, n, _ in prods)
+        nbytes = sum(E * (m * k + k * n + m * n) * 2 for k, n, _ in prods)
+        bound_ms, bound_by = _bound(flops, nbytes, dt)
+        device = _graph_ms(kern, iters=5)
+        out[phase] = dict(shape=f"E {E}, M {m}, (K, N) {[(k, n) for k, n, _ in prods]}",
+                          ms=kern_ms, device_ms=device,
+                          plain_ms=_time_ms(lambda: run(lambda x, w, a: tile_matmul_batched_ref(
+                              x, w, activation=a)), iters=2),
+                          library_ms=lib_ms, library_device_ms=_graph_ms(lib, iters=5),
+                          turns_ms=turns, vs_library=kern_ms / lib_ms, flop=flops,
+                          bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by,
+                          vs_bound=device / bound_ms, tflop_s=flops / device / 1e9,
+                          gb_s=nbytes / device / 1e6)
+        del xs, ws
+        torch.cuda.empty_cache()
+    return out
+
+
+def _routing_flips(routes: dict, k: int) -> dict:
+    """Tokens whose top-k set differs between the card's and the CPU's
+    routing, layer by layer and pass by pass; a flip where the CPU's margin
+    between its k-th and (k+1)-th probabilities is NEAR_TIE or more is a
+    fault."""
+    assert len(routes["cuda"]) == len(routes["cpu"]) > 0, {d: len(r) for d, r in routes.items()}
+    flips, margins, checked = 0, [], 0
+    for (_, got), (probs, want) in zip(routes["cuda"], routes["cpu"]):
+        differ = (got.cpu().sort(-1).values != want.sort(-1).values).any(-1)
+        top = probs.sort(-1, descending=True).values
+        margin = top[:, k - 1] - top[:, k]
+        checked += len(want)
+        if differ.any():
+            flips += int(differ.sum())
+            margins += margin[differ].tolist()
+    assert all(m < NEAR_TIE for m in margins), ("top-k flipped past a near-tie", margins)
+    return dict(tokens_checked=checked, near_tie_flips=flips, flip_margins=margins)
+
+
+def parity_qwen2_f32(M, cfg, rehome, prompt_len: int, batch: int) -> dict:
+    """Full-width float32 qwen2 on the card against the CPU: the routing of
+    every layer and pass first (``_routing_flips``), then the logits at
+    DENSE_PARITY_TOL where no near-tie flipped. Also the (token, slot)
+    pairs the CPU's prefill dropped, layer by layer (some must drop)."""
+    from repro_torch.models.moe import capacity, recording_routes
+
+    routes: dict = {"cuda": [], "cpu": []}
+
+    def wrap(dev, call):
+        with recording_routes() as seen:
+            out = call()
+        routes[dev] += seen
+        return out
+
+    got, want = _f32_logits(M, cfg, rehome, prompt_len, batch, wrap=wrap)
+    moe = cfg.period[0].moe
+    out = _routing_flips(routes, moe.top_k)
+    tokens = batch * prompt_len
+    group, cap = capacity(moe, tokens)
+    out.update(group=group, capacity=cap, dropped_in_prefill=[
+        int((F.one_hot(top_i.reshape(tokens // group, group, -1), moe.n_experts).sum(1) - cap)
+            .clamp(min=0).sum()) for _, top_i in routes["cpu"][:cfg.n_layers]])
+    assert sum(out["dropped_in_prefill"]) > 0, out
+    out["max_logit_err"] = None
+    if out["near_tie_flips"] == 0:
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=DENSE_PARITY_TOL, atol=DENSE_PARITY_TOL)
+        out["max_logit_err"] = max((g - w).abs().max().item() for g, w in zip(got, want))
+    return out
+
+
+def _routed_bounds(routes: list, cfg, param_bytes: int, embed_bytes: int) -> dict:
+    """The bounds of one serve's MoE work as its routing needs it, beside
+    those of the padded batched launches that do it. ``routes``: the
+    serve's (probs, top-k ids) of every layer, prefill first, then each
+    decode step. A decode step needs only the experts its (token, slot)
+    pairs route to (the launches read all 60); a prefill's expert products
+    need only the kept (token, slot) rows (the launches multiply every
+    capacity row, padding too). Bytes: each weight read once, each row read
+    and written once; per layer, means over layers and steps."""
+    from repro_torch.models.moe import capacity
+
+    moe, d, L = cfg.period[0].moe, cfg.d_model, cfg.n_layers
+    E, k, f = moe.n_experts, moe.top_k, moe.d_ff
+    per_expert = 3 * d * f * 2                        # gate, up, down; bf16
+    dense = param_bytes - embed_bytes - L * E * per_expert
+    passes = [routes[i:i + L] for i in range(0, len(routes), L)]
+    decode = [[len(torch.unique(top_i)) for _, top_i in p] for p in passes[1:]]
+    decode_bytes = [dense + sum(n) * per_expert for n in decode]
+    (_, t0), = {len(t): (None, t) for _, t in passes[0]}.values()    # one prefill T
+    T = len(t0)
+    group, cap = capacity(moe, T)
+    rows = [int(F.one_hot(t.reshape(T // group, group, k), E).sum(1).clamp(max=cap).sum())
+            for _, t in passes[0]]
+    used = [len(torch.unique(t)) for _, t in passes[0]]
+    prefill = [_bound(2 * r * 3 * d * f, u * per_expert + r * 3 * (d + f) * 2, torch.bfloat16)
+               for r, u in zip(rows, used)]
+    padded = E * k * (T // group) * cap
+    n_decode = sum(map(sum, decode)) / (len(decode) * L)
+    pairs = len(passes[1][0][1]) * k                  # (token, slot) rows a decode layer
+    return dict(
+        decode_experts_per_layer=n_decode,
+        decode_experts_bound_ms=(n_decode * per_expert + pairs * 3 * (d + f) * 2)
+        / PEAK_BYTES * 1e3,
+        decode_bound_ms=sum(decode_bytes) / len(decode_bytes) / PEAK_BYTES * 1e3,
+        decode_padded_bound_ms=(dense + L * E * per_expert) / PEAK_BYTES * 1e3,
+        prefill_rows_kept_per_layer=sum(rows) / L, prefill_rows_padded_per_layer=padded,
+        prefill_experts_bound_ms=sum(ms for ms, _ in prefill) / L,
+        prefill_experts_bound_by=prefill[0][1],
+        prefill_experts_padded_bound_ms=_bound(
+            2 * padded * 3 * d * f, E * per_expert + padded * 3 * (d + f) * 2,
+            torch.bfloat16)[0])
+
+
+def serve_qwen2(serve, M, rehome, get_config, counters: dict) -> dict:
+    """qwen2_moe_a2_7b at full width and full depth from seeded random
+    weights: every launch counted, prefill and each decode step (tile_matmul
+    once for each 2-D weight matrix of each layer, bf16 ones on wgmma in
+    prefill and skinny in decode, the float32 router on ffma and skinny, and
+    three batched expert launches a layer on wgmma, never a launch an
+    expert; flash_attention once a layer in prefill, never in decode; no
+    other kernel), one prefill and one decode step profiled beside the
+    bounds of the work the timed serve's routing needs and of the padded
+    launches (``_routed_bounds``), then float32 routing and logits against
+    the CPU at 2 layers."""
+    from repro_torch.models.moe import recording_routes
+
+    cfg = get_config(QWEN2)
+    L = cfg.n_layers
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    layer_leaves = _leaves((params["prefix"], params["period"]))
+    bf16_2d = sum(t.dim() == 2 and t.dtype == torch.bfloat16 for t in layer_leaves)
+    f32_2d = sum(t.dim() == 2 and t.dtype == torch.float32 for t in layer_leaves)
+    experts = sum(t.dim() == 3 for t in layer_leaves)
+    assert (bf16_2d, f32_2d, experts) == (7 * L, L, 3 * L), (bf16_2d, f32_2d, experts)
+    E = cfg.period[0].moe.n_experts
+    prefill_paths = {"wgmma": bf16_2d + experts, "mma": 0, "skinny": 0, "ffma": f32_2d}
+    decode_paths = {"wgmma": experts, "mma": 0, "skinny": bf16_2d + f32_2d, "ffma": 0}
+    per_pass = bf16_2d + f32_2d + experts
+    with recording_routes() as routes:
+        out = serve_path(serve, M, cfg, params, counters, **QWEN2_RUN,
+                         want_paths={p: prefill_paths[p] + GEN * decode_paths[p]
+                                     for p in prefill_paths})
+    routes = routes[-(1 + GEN) * L:]                  # the timed serve's, after its warm-up
+    layouts = dict(counters["tile_matmul"].layouts)
+    want = dict.fromkeys(counters, 0) | {"tile_matmul": per_pass * (1 + GEN),
+                                         "flash_attention": L}
+    assert out["launches"] == want, (out["launches"], want)
+    assert layouts == {"x@w": (bf16_2d + f32_2d) * (1 + GEN), "x@w^T": 0, "x^T@w": 0,
+                       "batched": experts * (1 + GEN)}, layouts
+    prof = out["profile"] = profile_steps(M, cfg, params, rehome, counters, **QWEN2_RUN)
+    _print_profile(cfg.name, prof)
+    for phase, flash, paths in (("prefill", L, prefill_paths), ("decode", 0, decode_paths)):
+        assert prof[phase]["launches"] == want | {"tile_matmul": per_pass,
+                                                  "flash_attention": flash}, prof[phase]
+        assert prof[phase]["tile_matmul_paths"] == paths, (phase, prof[phase])
+    param_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    embed_bytes = params["embed"]["tok"].numel() * 2
+    out.update(layers=L, tile_matmul_layouts=layouts, param_bytes=param_bytes,
+               expert_launches_per_layer=experts // L,
+               params_active=M.active_param_count(cfg),
+               **_routed_bounds(routes, cfg, param_bytes, embed_bytes))
+    print(f"serve {cfg.name}: {param_bytes / 1e9:.2f} GB of weights; a decode step routes to "
+          f"{out['decode_experts_per_layer']:.2f} experts a layer of {E}: its bytes bound "
+          f"{out['decode_bound_ms']:.4f} ms, {out['decode_padded_bound_ms']:.4f} ms for the "
+          f"padded launches, which read every expert; the step took "
+          f"{prof['decode']['wall_ms']:.2f} ms (device {prof['decode']['device_ms']:.2f} ms). "
+          f"Prefill keeps {out['prefill_rows_kept_per_layer']:.1f} of "
+          f"{out['prefill_rows_padded_per_layer']} expert rows a layer: expert products bound "
+          f"{out['prefill_experts_bound_ms']:.4f} ms a layer, "
+          f"{out['prefill_experts_padded_bound_ms']:.4f} ms padded")
+    del params, layer_leaves, routes
+    torch.cuda.empty_cache()
+    pcfg = dataclasses.replace(cfg, n_periods=QWEN2_PARITY_PERIODS)
+    par = out["parity_f32"] = dict(layers=pcfg.n_layers, **QWEN2_PARITY) | parity_qwen2_f32(
+        M, pcfg, rehome, **QWEN2_PARITY)
+    print(f"parity f32 {cfg.name} full width, {pcfg.n_layers} layers, "
+          f"{QWEN2_PARITY['batch']}x{QWEN2_PARITY['prompt_len']} (group {par['group']}, "
+          f"capacity {par['capacity']}, dropped {par['dropped_in_prefill']}): "
+          f"{par['tokens_checked']} routings checked, {par['near_tie_flips']} near-tie flips, "
+          f"max |logit err| {par['max_logit_err']}")
+    torch.cuda.empty_cache()
+    return out
+
+
 TRAIN_STEPS = 5
 
 
@@ -1255,14 +1539,14 @@ def _train_want(cfg) -> tuple[dict, dict, dict]:
         # attention forward twice and its backward once.
         launches = {"tile_matmul": 7 * n * 4 + n, "flash_attention": 2 * n,
                     "flash_attention_bwd": n, "ssd_scan": 0, "ssd_scan_bwd": 0}
-        layouts = {"x@w": 7 * n * 2 + n, "x@w^T": 7 * n, "x^T@w": 7 * n}
+        layouts = {"x@w": 7 * n * 2 + n, "x@w^T": 7 * n, "x^T@w": 7 * n, "batched": 0}
     else:
         # Mamba-2: six projections (no activation) forward, recomputed, and
         # their two gradient products; the scan forward twice, its backward
         # once.
         launches = {"tile_matmul": 6 * n * 4, "flash_attention": 0,
                     "flash_attention_bwd": 0, "ssd_scan": 2 * n, "ssd_scan_bwd": n}
-        layouts = {"x@w": 6 * n * 2, "x@w^T": 6 * n, "x^T@w": 6 * n}
+        layouts = {"x@w": 6 * n * 2, "x@w^T": 6 * n, "x^T@w": 6 * n, "batched": 0}
     by_path = {k: ({"wgmma": v, "mma": 0, "skinny": 0, "ffma": 0} if k == "tile_matmul"
                    else {"mma": v, "ffma": 0}) for k, v in launches.items()}
     return launches, by_path, layouts
@@ -2145,7 +2429,8 @@ def check_moe_ops(tm_kernel, tile_matmul_ref) -> dict:
     assert max(err.values()) <= MOE_TOL, err
     assert launched["ffma"] > 0 and launched["skinny"] > 0, launched
     assert launched["wgmma"] == launched["mma"] == 0, launched
-    assert all(by_layout.values()), by_layout
+    assert all(v > 0 for q, v in by_layout.items() if q != "batched"), by_layout
+    assert by_layout["batched"] == 0, by_layout
 
     # One expert forward task: relu(x @ W1^T) then h @ W2^T, n routed rows.
     n = max(rows["moe_fwd"])
@@ -2216,7 +2501,8 @@ def moe_path(counters: dict) -> dict:
                 launches[k] == 0 for k in launches if k != "tile_matmul"), launches
             tm, lay = by_path["tile_matmul"], rec["launches_by_layout"]
             assert tm["ffma"] > 0 and tm["skinny"] > 0 and tm["wgmma"] == tm["mma"] == 0, tm
-            assert all(lay.values()), lay
+            assert all(v > 0 for q, v in lay.items() if q != "batched"), lay
+            assert lay["batched"] == 0, lay
         else:
             assert all(n == 0 for n in launches.values()), launches
     clean, cpu = out["fault_free"], out["cpu"]
@@ -2272,7 +2558,7 @@ def main() -> int:
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     from repro_torch.kernels.ssd_scan.ops import ssd_plain, ssd_plain_bwd
     from repro_torch.kernels.tile_matmul import kernel as tm_kernel
-    from repro_torch.kernels.tile_matmul.ref import tile_matmul_ref
+    from repro_torch.kernels.tile_matmul.ref import tile_matmul_batched_ref, tile_matmul_ref
     from repro_torch.launch import steps as steps_mod
     from repro_torch.launch.serve import rehome, serve
     from repro_torch.launch.train import train
@@ -2322,6 +2608,7 @@ def main() -> int:
     detail["dense_projections_err"] = check_dense_projections(tm_kernel, tile_matmul_ref, M,
                                                               get_config)
     detail["ssd_scan_bwd_err"] = check_ssd_bwd(ssd_kernel, ssd_plain_bwd)
+    detail["moe_batched_err"] = check_moe_batched(tm_kernel, tile_matmul_ref, get_config)
     detail["mlp_ops"] = check_mlp_ops(tm_kernel, tile_matmul_ref)
     _record("check_mlp_ops", detail["mlp_ops"])
     detail["moe_ops"] = check_moe_ops(tm_kernel, tile_matmul_ref)
@@ -2334,7 +2621,8 @@ def main() -> int:
           f"flash_attention_bwd max |err| {detail['flash_attention_bwd_err']}, "
           f"dense configs' projections max |err| "
           f"{max(detail['dense_projections_err'].values())}, "
-          f"ssd_scan_bwd max |err| / max |grad| {detail['ssd_scan_bwd_err']}")
+          f"ssd_scan_bwd max |err| / max |grad| {detail['ssd_scan_bwd_err']}, "
+          f"batched expert products max |err| {detail['moe_batched_err']}")
 
     mark("checks")
 
@@ -2347,8 +2635,9 @@ def main() -> int:
     detail["tile_matmul_grad_mamba2_time"] = time_tile_matmul_grad(tm_kernel, tile_matmul_ref,
                                                                    "mamba2_2_7b")
     detail["ssd_scan_bwd_time"] = time_ssd_bwd(ssd_kernel, ssd_plain_bwd)
+    detail["moe_batched_time"] = time_moe_batched(tm_kernel, tile_matmul_batched_ref, get_config)
     for k in ("tile_matmul", "flash_attention", "ssd_scan", "tile_matmul_grad",
-              "flash_attention_bwd", "tile_matmul_grad_mamba2", "ssd_scan_bwd"):
+              "flash_attention_bwd", "tile_matmul_grad_mamba2", "ssd_scan_bwd", "moe_batched"):
         print(f"times (ms): {k} {detail[k + '_time']}")
 
     mark("times")
@@ -2402,6 +2691,14 @@ def main() -> int:
     cr = detail["serve_command_r"] = serve_command_r(serve, M, rehome, get_config, counters)
     _record("serve_command_r_plus_104b", cr)
     mark("serve_dense")
+
+    # 7b. Path 6: serve full-width, full-depth qwen2_moe_a2_7b: the expert
+    # products as three batched tile_matmul launches a layer, the float32
+    # router, D 128 attention at G 1; float32 routing and logits against
+    # the CPU.
+    q2 = detail["serve_qwen2"] = serve_qwen2(serve, M, rehome, get_config, counters)
+    _record("serve_qwen2_moe_a2_7b", q2)
+    mark("serve_qwen2_moe_a2_7b")
 
     # 8. Path 6: train full-width, full-depth smollm_360m through ``train``.
     # 9. Path 7: the same for full-width, full-depth mamba2_2_7b.
@@ -2496,12 +2793,13 @@ def main() -> int:
     sst, gt = detail["ssd_scan_time"], detail["tile_matmul_grad_time"]
     fbts, sbt = detail["flash_attention_bwd_time"], detail["ssd_scan_bwd_time"]
     fbt = fbts["smollm_360m"]
-    runs = (sm, ms, g3, dn, cr, tr, mt, tdn, tg3, ac, pp, ct, pf, mp)
+    runs = (sm, ms, g3, dn, cr, q2, tr, mt, tdn, tg3, ac, pp, ct, pf, mp)
     mlp_t = detail["mlp_ops"]["times"]["256x256"]
     moe_t = detail["moe_ops"]["times"]
+    qb = detail["moe_batched_time"]
 
     def summed(name: str) -> dict:
-        """Launches of ``name`` over the fourteen paths (the five serves, the
+        """Launches of ``name`` over the fifteen paths (the six serves, the
         four train runs, the ACAN path's crash-free run, the paper's four MLP
         runs, the two-tenant cloud's crash run, exp 1's three fleet runs
         with the workers' own launches, the MoE's six runs on the card), in
@@ -2545,7 +2843,24 @@ def main() -> int:
                 "launches_by_layout": mp["launches_by_layout"],
                 "timed": "one MoE expert forward task's two products, relu(x @ W1^T) "
                          "and h @ W2^T (x@w^T layout), float32; library: torch.matmul "
-                         "and relu; launches: the MoE's six runs on the card"}),
+                         "and relu; launches: the MoE's six runs on the card"},
+             moe_batched={phase: {k: qb[phase][k] for k in (
+                 "shape", "ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+                 "bound_ms", "bound_by", "tflop_s", "gb_s")}
+                 | {"launches": q2["tile_matmul_layouts"]["batched"] * (1 if phase == "prefill"
+                                                                       else GEN) // (1 + GEN),
+                    "max_abs_err": max(v for c, v in detail["moe_batched_err"].items()
+                                       if c.startswith(phase) and "bfloat16" in c)}
+                 for phase in QWEN2_ROWS}
+             | {"timed": "one qwen2_moe_a2_7b layer's three expert products (gate with SiLU, "
+                         "up, down), 60 experts, bf16, batched wgmma launches; library: "
+                         "torch.bmm (and silu); launches: the qwen2 serve's, prefill and its "
+                         "32 decode steps",
+                "bound_of": "the padded product timed here: every capacity row of all 60 "
+                            "experts; routed_bound_ms: the work the serve's routing needs, "
+                            "kept rows (prefill) and routed experts (decode), a layer",
+                "routed_bound_ms": {"prefill": q2["prefill_experts_bound_ms"],
+                                    "decode": q2["decode_experts_bound_ms"]}}),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:88",

@@ -170,7 +170,8 @@ def measure(so: str) -> dict:
         "current_stream": host_us(lambda: torch.cuda.current_stream(dev).cuda_stream),
         "raw_stream": host_us(lambda: torch._C._cuda_getCurrentRawStream(dev.index)),
         "ctypes_refused": host_us(lambda: launch(x8.data_ptr(), w8.data_ptr(), None,
-                                                 out8.data_ptr(), 8, 64, 64, 1, 1, 0, 9, 0)),
+                                                 out8.data_ptr(), 8, 64, 64, 1, 1, 0, 9, 0, 1,
+                                                 None)),
         "choose_path": host_us(lambda: K.choose_path(8, 64, 64, torch.bfloat16, True)),
         "skinny_call": host_us(lambda: K.tile_matmul(x8, w8)),
         "wgmma_call": host_us(lambda: K.tile_matmul(x64, w8)),

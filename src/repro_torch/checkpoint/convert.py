@@ -86,10 +86,12 @@ def _tensor(flat: dict, key: str, device, dtype=None) -> torch.Tensor:
 def params_from_numpy(flat: dict, cfg: M.ModelConfig, device, dtype=None) -> dict:
     """Build this package's params from a flat reference-keyed dict.
     Shapes are checked against the config; ``dtype`` (optional) casts every
-    leaf; the ``n_periods`` axis is unstacked into per-layer tensors."""
+    leaf but a MoE layer's router, which stays float32 whatever the model's
+    dtype, as the reference keeps it; the ``n_periods`` axis is unstacked
+    into per-layer tensors."""
 
     def leaf(path, spec):
-        t = _tensor(flat, path, device, dtype)
+        t = _tensor(flat, path, device, None if path.endswith("/w_router") else dtype)
         if tuple(t.shape) != spec.shape:
             raise ValueError(f"{path}: shape {tuple(t.shape)} != {spec.shape}")
         return t

@@ -68,10 +68,10 @@ from dataclasses import dataclass, field
 from repro_torch.core.faults import FaultPlan, MonitorDaemon
 from repro_torch.core.handler import Handler, HandlerTenant, SpeedBox
 from repro_torch.core.manager import Manager, ManagerConfig, validate_scheduling
-from repro_torch.core.program import WorkloadProgram
+from repro_torch.core.program import FINISH_STAGE, WorkloadProgram
 from repro_torch.core.space import (ANY, CONTROL_SCHEMAS, DEFAULT_NAMESPACE,
                               TSTimeout, TupleSpace, as_scoped, find_checked,
-                              find_crashpoint, find_raced, role)
+                              find_crashpoint, find_raced, role, stage_context)
 from repro_torch.device import resolve_device
 
 __all__ = ["ACANCloud", "CloudConfig", "CloudResult", "MultiCloudResult"]
@@ -95,6 +95,23 @@ def _sum_worker_counts(directory: str) -> dict:
                 else:
                     out[attr] = out.get(attr, 0) + v
     return total
+
+
+class _DeleteCounter:
+    """A tenant space as ``finish_round`` sees it, counting what it
+    deletes."""
+
+    def __init__(self, space) -> None:
+        self._space = space
+        self.deleted = 0
+
+    def delete(self, pattern) -> int:
+        n = self._space.delete(pattern)
+        self.deleted += n
+        return n
+
+    def __getattr__(self, name):
+        return getattr(self._space, name)
 
 
 def _default_layers() -> list:
@@ -224,6 +241,11 @@ class CloudResult:
     #: ``workers`` counts them, ``killed`` the SIGKILLed ones whose
     #: launches are lost, so the sum is exact only when that is 0.
     worker_launches: dict = field(default_factory=dict)
+    #: Tuples of finished rounds deleted after a handler died mid-run (see
+    #: ``ACANCloud._reap``): the writes of a dead handler that its
+    #: post-write fence never undid, plus any the Manager's own cleanup of
+    #: those rounds had not reached yet. 0 in a run with no handler death.
+    stale_reaped: int = 0
 
 
 @dataclass
@@ -376,6 +398,49 @@ class ACANCloud:
         return self._busy_retired + sum(
             h.busy_time for h in self._handlers if h is not None)
 
+    def _round_base(self, j: int) -> int:
+        """Tenant ``j``'s persisted frontier base: every round below it is
+        finished (all of them once the job is). The cursor carries the same
+        round and covers the gap of the checkpoint, which deletes the
+        frontier and then puts the new one."""
+        space = self.spaces[j]
+        if space.try_read(("mstate", "finished")) is not None:
+            return self.programs[j].n_rounds()
+        hit = space.try_read(("mstate", "frontier"))
+        if hit is not None:
+            return int(hit[1].get("base", 0))
+        hit = space.try_read(("mstate", "cursor"))
+        return 0 if hit is None else int(hit[1].get("round", 0))
+
+    def _reap(self, i: int) -> None:
+        """Handler slot ``i``'s incarnation died mid-run and can no longer
+        write: re-run ``finish_round`` (pure, idempotent deletes) of each
+        tenant's rounds that finished while it lived. A handler that
+        passed its pre-execute fence can write a finished round's partials
+        and done marks after the Manager's cleanup of that round; its
+        post-write fence undoes them, unless it dies between its write and
+        that fence (a crash point, a SIGKILLed worker), and then nothing
+        else would. The fence admits only rounds at or above the base, and
+        the base only grows, so the rounds below its value at the
+        incarnation's start cannot hold its writes. The tuples deleted are
+        counted in ``CloudResult.stale_reaped``."""
+        with role("manager"):
+            for j, prog in enumerate(self.programs):
+                rounds = prog.recleanable_rounds(self._born[i][j],
+                                                 self._round_base(j))
+                space = _DeleteCounter(self.spaces[j])
+                for r in rounds:
+                    with stage_context(r, FINISH_STAGE):
+                        prog.finish_round(space, r)
+                self._stale_reaped[j] += space.deleted
+
+    def _birth(self, i: int) -> None:
+        """Note each tenant's base as slot ``i``'s new incarnation starts."""
+        with role("manager"):
+            self._born[i] = [self._round_base(j)
+                             for j in range(len(self.programs))]
+        self._fault_ended[i] = False
+
     def _make_handler(self, i: int):
         if self.cfg.fleet == "process":
             return self._spawn_worker(i)
@@ -385,6 +450,8 @@ class ACANCloud:
             # incarnation's busy seconds so handler_busy_time() spans the
             # whole run, not just the current fleet generation.
             self._busy_retired += old.busy_time
+            self._reap(i)
+        self._birth(i)
         if self.multi:
             caps = self.cfg.tenant_caps or {}
             tenants = {ns: HandlerTenant(space, prog.registry,
@@ -407,7 +474,7 @@ class ACANCloud:
                     crash_event=self._handler_crashes[i],
                     stop_event=self.stop_event)
         self._handlers[i] = h
-        th = threading.Thread(target=self._handler_body, args=(h,),
+        th = threading.Thread(target=self._handler_body, args=(i, h),
                               name=f"acan-{h.name}", daemon=True)
         th.start()
         return th
@@ -419,6 +486,9 @@ class ACANCloud:
         revival path calls this without knowing the difference."""
         from repro_torch.core.workers import spawn_worker
         cfg = self.cfg
+        if self._handler_crashes[i].proc is not None:
+            self._reap(i)               # a revival: the old worker is dead
+        self._birth(i)
         self._spawned += 1
         counts = os.path.join(self._counts_dir.name, f"h{i}-{self._spawned}.json")
         hp = spawn_worker(
@@ -434,12 +504,11 @@ class ACANCloud:
         self._handler_crashes[i].proc = hp
         return hp
 
-    @staticmethod
-    def _handler_body(h: Handler) -> None:
+    def _handler_body(self, i: int, h: Handler) -> None:
         try:
             h.run()
         except Exception:
-            return
+            self._fault_ended[i] = True
 
     # ------------------------------------------------------------- results
     def _finished(self, i: int) -> bool:
@@ -516,6 +585,7 @@ class ACANCloud:
             cost_report=cost_report,
             race_report=([] if raced is None
                          else raced.race_report(self.namespaces[i])),
+            stale_reaped=self._stale_reaped[i],
         )
 
     # ----------------------------------------------------------------- run
@@ -554,6 +624,9 @@ class ACANCloud:
         self._handlers: list[Handler | None] = [None] * cfg.n_handlers
         self._managers: list[Manager | None] = [None] * n_programs
         self._busy_retired = 0.0
+        self._born: list[list[int]] = [[] for _ in range(cfg.n_handlers)]
+        self._fault_ended = [False] * cfg.n_handlers
+        self._stale_reaped = [0] * n_programs
 
         daemon = MonitorDaemon(
             plan=cfg.fault_plan,
@@ -634,6 +707,14 @@ class ACANCloud:
                 ev.kills for ev in self._handler_crashes)
             self._counts_dir.cleanup()
         wall = time.monotonic() - t0
+        # The last incarnation of a slot that died of a fault and was not
+        # revived before the stop (a SIGKILLed worker exits non-zero).
+        for i in range(cfg.n_handlers):
+            ev = self._handler_crashes[i]
+            ended = (ev.proc.proc.returncode != 0 if cfg.fleet == "process"
+                     else self._fault_ended[i])
+            if ended:
+                self._reap(i)
 
         # Verify the shared hash chain and snapshot stats ONCE — the
         # ledger replay is O(total mutations) and identical for every

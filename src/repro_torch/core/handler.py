@@ -301,22 +301,33 @@ class Handler:
             return None
 
     # ------------------------------------------------- finished-round fence
-    @staticmethod
-    def _fence_base(rt: _TenantRT) -> float:
+    def _fence_base(self, rt: _TenantRT) -> float:
         """The tenant's finished-round fence: every round strictly below
         the returned base is over (``inf`` once the whole job is), read
         from the Manager's persisted frontier. Every built-in program's
         tasks carry their round in ``step``, so ``task.step < base``
         means the task's results can never be combined again — executing
         it would only write partials nobody will clean (the leak).
-        No frontier in the space (bare-Handler tests, no Manager) = -inf:
-        the fence never fires."""
-        if rt.space.try_read(("mstate", "finished")) is not None:
-            return float("inf")
-        hit = rt.space.try_read(("mstate", "frontier"))
-        if hit is None:
-            return float("-inf")
-        return float(hit[1].get("base", 0))
+        No Manager in the space (no ``("mstate", "epoch")``: bare-Handler
+        tests) = -inf: the fence never fires. Once a Manager has run, an
+        absent frontier is the gap of its checkpoint, which deletes the
+        frontier and then puts the new one (or, after a Manager crash
+        between the two, the time until its revival puts it back): read as
+        -inf there, the post-write fence kept a finished round's writes.
+        The handler waits for the frontier instead."""
+        while True:
+            if rt.space.try_read(("mstate", "finished")) is not None:
+                return float("inf")
+            hit = rt.space.try_read(("mstate", "frontier"))
+            if hit is not None:
+                return float(hit[1].get("base", 0))
+            if (rt.space.try_read(("mstate", "epoch")) is None
+                    or self.stop_event.is_set()):
+                return float("-inf")
+            try:
+                rt.space.read(("mstate", "frontier"), timeout=0.01)
+            except TSTimeout:
+                pass
 
     def _unstore_if_stale(self, key, value, task, rt) -> None:
         """Put-back compensation: a "store" re-put can land after

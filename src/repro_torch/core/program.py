@@ -322,6 +322,13 @@ class WorkloadProgram(abc.ABC):
         only overlaps when ``n_samples >= 2``)."""
         return 1
 
+    def recleanable_rounds(self, lo: int, base: int) -> range:
+        """The finished rounds in ``[lo, base)`` whose ``finish_round`` may
+        run again while rounds from ``base`` on are in flight (the cleanup
+        after a handler's death). Default: all of them, since each round's
+        tuples carry the round."""
+        return range(lo, base)
+
     @abc.abstractmethod
     def stage_tasks(self, ts: "SpaceLike", rnd: int,
                     stage: str) -> list[TaskDesc]:

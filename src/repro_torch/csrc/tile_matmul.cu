@@ -52,6 +52,17 @@
 //    read neighbouring addresses in each.
 // mma and skinny take only the plain layout: no gradient product reaches
 // them (training's M is the token count, and its K and N multiples of 8).
+//
+// Batched (tile_matmul_launch with batch = E): out(E, M, N) = act(x(E, M, K) @
+// w(E, K, N)), one launch for the E experts of a MoE layer's expert
+// products (the reference's einsums in models/moe.py::_expert_ffn, which
+// run outside its Pallas kernel). The expert is blockIdx.z; wgmma reads x
+// and w through 3-D tensor maps (K or N, rows, expert), so TMA zero-fills
+// the rows past M of each expert and no tile reads another expert's rows;
+// ffma offsets its pointers by the expert. bf16 takes wgmma, float32 ffma,
+// whatever M: qwen2_moe_a2_7b's prefill (M = 688 rows an expert, 714 GFLOP
+// a layer for the three products) is bound by operations, its decode (M =
+// 32) by bytes, each expert's 17.3 MB of weights read once a layer.
 
 #include <cooperative_groups.h>
 #include <cuda.h>
@@ -119,14 +130,14 @@ struct WgTile {
   static constexpr int SMEM = WG_STAGES * STAGE + 2 * WG_STAGES * 8 + 1024;
 };
 
-// One TMA box of `map` at (c0 innermost, c1) into shared memory at `dst`;
-// its bytes count toward the transactions `bar` expects.
+// One TMA box of `map` at (c0 innermost, c1, batch c2) into shared memory
+// at `dst`; its bytes count toward the transactions `bar` expects.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1) {
+                                         int c0, int c1, int c2) {
   asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -204,7 +215,7 @@ tile_matmul_wgmma(const __grid_constant__ CUtensorMap tmap_x,
   // (W_T): one box of BN n-rows x 64 k. Each box is 128-byte swizzled.
   const uint32_t ring = (smem_u32(dyn_smem) + 1023) & ~1023u;
   const uint32_t full = ring + WG_STAGES * T::STAGE, empty = full + WG_STAGES * 8;
-  const int m0 = blockIdx.y * WG_BM, n0 = blockIdx.x * BN;
+  const int m0 = blockIdx.y * WG_BM, n0 = blockIdx.x * BN, z = blockIdx.z;
   const int nk = (K + WG_BK - 1) / WG_BK;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
@@ -225,17 +236,17 @@ tile_matmul_wgmma(const __grid_constant__ CUtensorMap tmap_x,
         const uint32_t sa = ring + s * T::STAGE, sb = sa + T::A_BYTES, bar = full + 8 * s;
         mbar_expect_tx(bar, T::STAGE);
         if constexpr (TA) {
-          tma_load(sa, &tmap_x, bar, m0, kt * WG_BK);
-          tma_load(sa + WG_BK * 128, &tmap_x, bar, m0 + 64, kt * WG_BK);
+          tma_load(sa, &tmap_x, bar, m0, kt * WG_BK, z);
+          tma_load(sa + WG_BK * 128, &tmap_x, bar, m0 + 64, kt * WG_BK, z);
         } else {
-          tma_load(sa, &tmap_x, bar, kt * WG_BK, m0);
+          tma_load(sa, &tmap_x, bar, kt * WG_BK, m0, z);
         }
         if constexpr (TB) {
 #pragma unroll
           for (int j = 0; j < BN / 64; ++j)
-            tma_load(sb + j * (WG_BK * 128), &tmap_w, bar, n0 + 64 * j, kt * WG_BK);
+            tma_load(sb + j * (WG_BK * 128), &tmap_w, bar, n0 + 64 * j, kt * WG_BK, z);
         } else {
-          tma_load(sb, &tmap_w, bar, kt * WG_BK, n0);
+          tma_load(sb, &tmap_w, bar, kt * WG_BK, n0, z);
         }
       }
     }
@@ -277,6 +288,7 @@ tile_matmul_wgmma(const __grid_constant__ CUtensorMap tmap_x,
 
   // Epilogue. Accumulator fragment: acc[4j + 2h + e] is row 16 (warp % 4) +
   // lane / 4 + 8h, column 8j + 2 (lane % 4) + e of the warpgroup's 64 x BN.
+  out += (size_t)z * M * N;
   const int row = m0 + wg * 64 + (warp & 3) * 16 + (lane >> 2);
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
@@ -415,6 +427,9 @@ tile_matmul_ffma(const TIn* __restrict__ x, const TIn* __restrict__ w,
                  int act, int layout) {
   __shared__ float As[FF_BK][FF_BM + 4];  // k-major: row reads broadcast
   __shared__ float Bs[FF_BK][FF_BN + 4];
+  x += (size_t)blockIdx.z * M * K;  // the expert of a batched launch
+  w += (size_t)blockIdx.z * K * N;
+  out += (size_t)blockIdx.z * M * N;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int m0 = blockIdx.y * FF_BM, n0 = blockIdx.x * FF_BN;
   float acc[4][4] = {};
@@ -616,17 +631,21 @@ tile_matmul_skinny(const TIn* __restrict__ x, const TIn* __restrict__ w,
 // ---------------------------------------------------------------------------
 // Host side.
 // ---------------------------------------------------------------------------
-// A row-major bf16 (rows, cols) tensor read in boxes of (box_rows, 64 columns =
-// 128 bytes) with the 128-byte swizzle; boxes past the edge fill with zeros.
-bool encode_bf16(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
+// `batch` row-major bf16 (rows, cols) matrices, one after another, read in
+// boxes of (box_rows, 64 columns = 128 bytes) of one matrix with the
+// 128-byte swizzle; boxes past a matrix's edge fill with zeros.
+bool encode_bf16(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows,
+                 int batch) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   bind_context();
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t unit[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * 2,
+                                 static_cast<cuuint64_t>(cols) * rows * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -644,18 +663,18 @@ int sm_count() {
 
 template <int BN, int LAYOUT, class TOut>
 cudaError_t launch_wgmma(const void* x, const void* w, const void* b, void* out, int M, int N,
-                         int K, int act, cudaStream_t stream) {
+                         int K, int act, int batch, cudaStream_t stream) {
   CUtensorMap tx, tw;
-  const bool ok_x = LAYOUT == X_T ? encode_bf16(&tx, x, K, M, WG_BK)
-                                  : encode_bf16(&tx, x, M, K, WG_BM);
-  const bool ok_w = LAYOUT == W_T ? encode_bf16(&tw, w, N, K, BN)
-                                  : encode_bf16(&tw, w, K, N, WG_BK);
+  const bool ok_x = LAYOUT == X_T ? encode_bf16(&tx, x, K, M, WG_BK, batch)
+                                  : encode_bf16(&tx, x, M, K, WG_BM, batch);
+  const bool ok_w = LAYOUT == W_T ? encode_bf16(&tw, w, N, K, BN, batch)
+                                  : encode_bf16(&tw, w, K, N, WG_BK, batch);
   if (!ok_x || !ok_w) return cudaErrorInvalidValue;
   auto kernel = tile_matmul_wgmma<BN, LAYOUT, TOut>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WgTile<BN>::SMEM);
   if (attr != cudaSuccess) return attr;
-  dim3 grid((N + BN - 1) / BN, (M + WG_BM - 1) / WG_BM);
+  dim3 grid((N + BN - 1) / BN, (M + WG_BM - 1) / WG_BM, batch);
   kernel<<<grid, WG_THREADS, WgTile<BN>::SMEM, stream>>>(
       tx, tw, static_cast<const __nv_bfloat16*>(b), static_cast<TOut*>(out), M, N, K, act);
   return cudaGetLastError();
@@ -698,23 +717,27 @@ cudaError_t launch_skinny(const void* x, const void* w, const void* b, void* out
 
 template <int LAYOUT, class TOut>
 cudaError_t launch_wgmma_bn(const void* x, const void* w, const void* b, void* out, int M,
-                            int N, int K, int act, cudaStream_t stream) {
-  return N >= 512 ? launch_wgmma<256, LAYOUT, TOut>(x, w, b, out, M, N, K, act, stream)
-                  : launch_wgmma<128, LAYOUT, TOut>(x, w, b, out, M, N, K, act, stream);
+                            int N, int K, int act, int batch, cudaStream_t stream) {
+  return N >= 512 ? launch_wgmma<256, LAYOUT, TOut>(x, w, b, out, M, N, K, act, batch, stream)
+                  : launch_wgmma<128, LAYOUT, TOut>(x, w, b, out, M, N, K, act, batch, stream);
 }
 
+// `batch` products of (M, N, K), one after another in x, w and out: the
+// expert axis of a batched launch (1 otherwise), blockIdx.z of the wgmma
+// and ffma grids; skinny and mma take only 1 (path_fits).
 template <class TIn, class TOut>
 cudaError_t launch(int path, int layout, const void* x, const void* w, const void* b,
-                   void* out, int M, int N, int K, int act, cudaStream_t stream) {
+                   void* out, int M, int N, int K, int act, int batch, cudaStream_t stream) {
   if (path == PATH_SKINNY)
     return M <= 8 ? launch_skinny<TIn, TOut, 8>(x, w, b, out, M, N, K, act, stream)
                   : launch_skinny<TIn, TOut, 16>(x, w, b, out, M, N, K, act, stream);
   if constexpr (std::is_same<TIn, __nv_bfloat16>::value) {
     if (path == PATH_WGMMA) {
       switch (layout) {
-        case W_T: return launch_wgmma_bn<W_T, TOut>(x, w, b, out, M, N, K, act, stream);
-        case X_T: return launch_wgmma_bn<X_T, TOut>(x, w, b, out, M, N, K, act, stream);
-        default: return launch_wgmma_bn<PLAIN, TOut>(x, w, b, out, M, N, K, act, stream);
+        case W_T: return launch_wgmma_bn<W_T, TOut>(x, w, b, out, M, N, K, act, batch, stream);
+        case X_T: return launch_wgmma_bn<X_T, TOut>(x, w, b, out, M, N, K, act, batch, stream);
+        default:
+          return launch_wgmma_bn<PLAIN, TOut>(x, w, b, out, M, N, K, act, batch, stream);
       }
     }
     const int vec_x = (K % 8 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
@@ -723,7 +746,7 @@ cudaError_t launch(int path, int layout, const void* x, const void* w, const voi
         static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
         static_cast<const __nv_bfloat16*>(b), static_cast<TOut*>(out), M, N, K, act, vec_x);
   } else {
-    dim3 grid((N + FF_BN - 1) / FF_BN, (M + FF_BM - 1) / FF_BM);
+    dim3 grid((N + FF_BN - 1) / FF_BN, (M + FF_BM - 1) / FF_BM, batch);
     tile_matmul_ffma<TIn, TOut><<<grid, FF_THREADS, 0, stream>>>(
         static_cast<const TIn*>(x), static_cast<const TIn*>(w), static_cast<const TIn*>(b),
         static_cast<TOut*>(out), M, N, K, act, layout);
@@ -735,11 +758,12 @@ cudaError_t launch(int path, int layout, const void* x, const void* w, const voi
 // mirrors it. TMA needs 16-byte row strides: the stored rows of x and w are
 // K long (w^T's too), except x^T's, which are M long (then K counts rows).
 bool path_fits(int path, int layout, int M, int N, int K, int dtype, const void* x,
-               const void* w) {
+               const void* w, int batch) {
   const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(w) % 16 == 0;
   const int elem = dtype == 1 ? 2 : 4;
-  if (layout < PLAIN || layout > X_T) return false;
+  if (layout < PLAIN || layout > X_T || batch < 1 || batch > 65535) return false;
+  if (batch > 1 && (layout != PLAIN || (path != PATH_WGMMA && path != PATH_FFMA))) return false;
   switch (path) {
     case PATH_WGMMA:
       return dtype == 1 && K > 0 && N % 8 == 0 && aligned &&
@@ -756,25 +780,27 @@ bool path_fits(int path, int layout, int M, int N, int K, int dtype, const void*
 
 // dtype codes: 0 = float32, 1 = bfloat16 (x, w and b share one type); path
 // codes as enum Path, layout codes as enum Layout; (M, N, K) are the
-// product's: out (M, N), reduction K, whatever the layout. Returns
-// cudaGetLastError() after the launch (0 means launched), or
+// product's: out (M, N), reduction K, whatever the layout. `batch` > 1 is a
+// batched launch: x (batch, M, K) @ w (batch, K, N) [+ b (N,), the same for
+// every expert] -> out (batch, M, N), plain layout, wgmma or ffma path.
+// Returns cudaGetLastError() after the launch (0 means launched), or
 // cudaErrorInvalidValue for a path the shape or layout cannot take.
 extern "C" int tile_matmul_launch(const void* x, const void* w, const void* b, void* out,
                                   int M, int N, int K, int dtype, int out_dtype, int act,
-                                  int path, int layout, void* stream) {
+                                  int path, int layout, int batch, void* stream) {
   if (dtype < 0 || dtype > 1 || out_dtype < 0 || out_dtype > 1 || M < 1 || N < 1 || K < 0 ||
-      !path_fits(path, layout, M, N, K, dtype, x, w))
+      !path_fits(path, layout, M, N, K, dtype, x, w, batch))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (dtype == 1 && out_dtype == 1) {
-    e = launch<__nv_bfloat16, __nv_bfloat16>(path, layout, x, w, b, out, M, N, K, act, s);
+    e = launch<__nv_bfloat16, __nv_bfloat16>(path, layout, x, w, b, out, M, N, K, act, batch, s);
   } else if (dtype == 1) {
-    e = launch<__nv_bfloat16, float>(path, layout, x, w, b, out, M, N, K, act, s);
+    e = launch<__nv_bfloat16, float>(path, layout, x, w, b, out, M, N, K, act, batch, s);
   } else if (out_dtype == 0) {
-    e = launch<float, float>(path, layout, x, w, b, out, M, N, K, act, s);
+    e = launch<float, float>(path, layout, x, w, b, out, M, N, K, act, batch, s);
   } else {
-    e = launch<float, __nv_bfloat16>(path, layout, x, w, b, out, M, N, K, act, s);
+    e = launch<float, __nv_bfloat16>(path, layout, x, w, b, out, M, N, K, act, batch, s);
   }
   return static_cast<int>(e);
 }

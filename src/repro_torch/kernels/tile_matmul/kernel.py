@@ -38,6 +38,13 @@ wgmma's K-major B, ``dw = x^T @ dz`` reads x as its MN-major A, and the
 ``ffma`` kernel takes both. ``mma`` and ``skinny`` take only the plain
 layout; no training shape reaches them.
 
+Given a leading expert axis, ``x (E, M, K) @ w (E, K, N)`` (plain layout,
+no bias), ``tile_matmul`` multiplies every expert in one launch of the
+``wgmma`` (bf16) or ``ffma`` (float32) kernel with the expert on the grid's
+z axis: a MoE layer's expert products, which the reference writes as
+einsums outside its Pallas kernel. These launches count under the layout
+``batched``.
+
 ``tile_matmul.launches`` counts launches; ``tile_matmul.paths`` counts
 them per path and ``tile_matmul.layouts`` per layout.
 """
@@ -66,13 +73,14 @@ def layout_of(trans_x: bool, trans_w: bool) -> str:
 
 
 def choose_path(m: int, n: int, k: int, dtype: torch.dtype, aligned: bool,
-                layout: str = "x@w") -> str:
+                layout: str = "x@w", batched: bool = False) -> str:
     """The kernel for an ``(m, k) @ (k, n)`` product of ``dtype`` with its
-    operands as ``layout`` says; ``aligned``: x and w start on 16-byte
+    operands as ``layout`` says, or for one such product an expert where
+    ``batched`` (wgmma or ffma only); ``aligned``: x and w start on 16-byte
     boundaries. Mirrors ``path_fits`` in ``csrc/tile_matmul.cu``."""
     row_bytes = n * (2 if dtype == torch.bfloat16 else 4)
     plain = layout == "x@w"
-    if m <= SKINNY_MAX_M and row_bytes % 16 == 0 and aligned and plain:
+    if m <= SKINNY_MAX_M and row_bytes % 16 == 0 and aligned and plain and not batched:
         return "skinny"
     if dtype == torch.float32:
         return "ffma"
@@ -80,17 +88,18 @@ def choose_path(m: int, n: int, k: int, dtype: torch.dtype, aligned: bool,
     row = m if layout == "x^T@w" else k
     if k > 0 and row % 8 == 0 and n % 8 == 0 and aligned:
         return "wgmma"
-    if not plain:
-        raise ValueError(f"bf16 {layout} of (M, N, K) = ({m}, {n}, {k}) needs the "
-                         "wgmma path: N and the stored row length (M for x^T, "
-                         "else K) multiples of 8, 16-byte aligned operands")
+    if batched or not plain:
+        raise ValueError(f"bf16 {'batched ' if batched else ''}{layout} of (M, N, K) = "
+                         f"({m}, {n}, {k}) needs the wgmma path: N and the stored row "
+                         "length (M for x^T, else K) multiples of 8, 16-byte aligned "
+                         "operands")
     return "mma"
 
 
 @functools.cache
 def _lib():
     fn = _build.load("tile_matmul").tile_matmul_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -99,15 +108,20 @@ def tile_matmul(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
                 *, activation: str = "none", out_dtype=None, trans_x: bool = False,
                 trans_w: bool = False) -> torch.Tensor:
     """``act(x' @ w' + b)`` with ``x' = x.T`` if ``trans_x`` (x stored
-    (K, M)) and ``w' = w.T`` if ``trans_w`` (w stored (N, K)). Launches
-    the CUDA kernel on CUDA tensors; raises on anything else."""
+    (K, M)) and ``w' = w.T`` if ``trans_w`` (w stored (N, K)); with a
+    leading expert axis, ``act(x[e] @ w[e])`` for every e of ``x (E, M, K)``
+    and ``w (E, K, N)`` in one launch. Launches the CUDA kernel on CUDA
+    tensors; raises on anything else."""
     if not (x.is_cuda and w.is_cuda and (b is None or b.is_cuda)):
         raise ValueError("tile_matmul kernel needs CUDA tensors")
     layout = layout_of(trans_x, trans_w)
-    if x.dim() != 2 or w.dim() != 2:
-        raise ValueError(f"bad shapes {tuple(x.shape)} @ {tuple(w.shape)}")
-    M, K = x.shape[::-1] if trans_x else x.shape
-    Kw, N = w.shape[::-1] if trans_w else w.shape
+    batched = x.dim() == 3
+    if (x.dim(), w.dim()) not in ((2, 2), (3, 3)) or batched and (
+            len(x) != len(w) or layout != "x@w" or b is not None):
+        raise ValueError(f"bad shapes {tuple(x.shape)} @ {tuple(w.shape)} ({layout}"
+                         f"{', with a bias' if b is not None else ''})")
+    M, K = x.shape[-2:][::-1] if trans_x else x.shape[-2:]
+    Kw, N = w.shape[-2:][::-1] if trans_w else w.shape[-2:]
     if K != Kw:
         raise ValueError(f"bad shapes {tuple(x.shape)} @ {tuple(w.shape)} ({layout})")
     if x.dtype not in DTYPE_CODES or w.dtype != x.dtype:
@@ -121,24 +135,25 @@ def tile_matmul(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
     out_dtype = out_dtype or x.dtype
     if out_dtype not in DTYPE_CODES:
         raise ValueError(f"out_dtype {out_dtype} not supported")
-    out = x.new_empty((M, N), dtype=out_dtype)
-    if M == 0 or N == 0:
+    out = x.new_empty((*x.shape[:-2], M, N), dtype=out_dtype)
+    if out.numel() == 0:
         return out
     xp, wp = x.data_ptr(), w.data_ptr()
-    path = choose_path(M, N, K, x.dtype, xp % 16 == 0 and wp % 16 == 0, layout)
+    path = choose_path(M, N, K, x.dtype, xp % 16 == 0 and wp % 16 == 0, layout, batched)
     err = _lib()(xp, wp, None if b is None else b.data_ptr(), out.data_ptr(),
                  M, N, K, DTYPE_CODES[x.dtype], DTYPE_CODES[out_dtype],
                  ACT_CODES[activation], PATH_CODES[path], LAYOUT_CODES[layout],
+                 len(x) if batched else 1,
                  # the current stream's handle, without building a Stream
                  # object: a decode step makes hundreds of these calls
                  torch._C._cuda_getCurrentRawStream(x.get_device()))
     if err:
-        raise RuntimeError(f"tile_matmul launch failed ({path} path, {layout}): "
-                           f"CUDA error {err}")
-    _count.launch(tile_matmul, paths=path, layouts=layout)
+        raise RuntimeError(f"tile_matmul launch failed ({path} path, {layout}"
+                           f"{', batched' if batched else ''}): CUDA error {err}")
+    _count.launch(tile_matmul, paths=path, layouts="batched" if batched else layout)
     return out
 
 
 tile_matmul.launches = 0
 tile_matmul.paths = dict.fromkeys(PATH_CODES, 0)
-tile_matmul.layouts = dict.fromkeys(LAYOUT_CODES, 0)
+tile_matmul.layouts = dict.fromkeys((*LAYOUT_CODES, "batched"), 0)

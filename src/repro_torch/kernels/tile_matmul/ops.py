@@ -18,7 +18,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.tile_matmul import kernel
-from repro_torch.kernels.tile_matmul.ref import ACT_GRADS, tile_matmul_ref
+from repro_torch.kernels.tile_matmul.ref import (ACT_GRADS, tile_matmul_batched_ref,
+                                                  tile_matmul_ref)
 
 
 def product(x, w, b=None, **kw) -> torch.Tensor:
@@ -27,6 +28,19 @@ def product(x, w, b=None, **kw) -> torch.Tensor:
     if x.device.type == "cpu":
         return tile_matmul_ref(x, w, b, **kw)
     return kernel.tile_matmul(x, w, b, **kw)
+
+
+def batched_product(x, w, **kw) -> torch.Tensor:
+    """``x (E, M, K) @ w (E, K, N)`` on ``x``'s device: the plain version
+    for a CPU tensor (differentiable, as plain PyTorch), one batched kernel
+    launch for any other, which has no backward yet: it raises where a
+    gradient is wanted rather than drop it."""
+    if x.device.type == "cpu":
+        return tile_matmul_batched_ref(x, w, **kw)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise NotImplementedError("the batched expert product has no backward on the card "
+                                  "yet (ROADMAP.md: qwen2_moe_a2_7b's training)")
+    return kernel.tile_matmul(x.contiguous(), w.contiguous(), **kw)
 
 
 class _Matmul(torch.autograd.Function):

@@ -3,8 +3,10 @@
 cast. ``gelu`` is the tanh approximation, as ``jax.nn.gelu`` defaults to.
 
 ``trans_x`` / ``trans_w`` read an operand transposed, as the kernel's
-gradient layouts do; ``ACT_GRADS`` holds each activation's derivative for
-the backward of :func:`repro_torch.kernels.tile_matmul.ops.matmul`."""
+gradient layouts do; :func:`tile_matmul_batched_ref` is the batched
+product's, one :func:`tile_matmul_ref` an expert; ``ACT_GRADS`` holds each
+activation's derivative for the backward of
+:func:`repro_torch.kernels.tile_matmul.ops.matmul`."""
 
 from __future__ import annotations
 
@@ -52,3 +54,9 @@ def tile_matmul_ref(x, w, b=None, *, activation: str = "none",
         out = out + b.float()
     out = ACTS[activation](out)
     return out.to(out_dtype or x.dtype)
+
+
+def tile_matmul_batched_ref(x, w, *, activation: str = "none", out_dtype=None):
+    """``x (E, M, K) @ w (E, K, N)``: :func:`tile_matmul_ref` of each expert."""
+    return torch.stack([tile_matmul_ref(xe, we, activation=activation, out_dtype=out_dtype)
+                        for xe, we in zip(x, w)])

@@ -1,17 +1,17 @@
 """Transformer/SSM blocks (port of ``repro/models/blocks.py``, the attention,
-Mamba-2 and dense-FFN branches): param specs, cache specs, and the
+Mamba-2, dense-FFN and MoE branches): param specs, cache specs, and the
 train/prefill and decode paths with KV/SSM cache handling.
 
-Every projection runs through ``tile_matmul``, prefill attention through
+Every projection runs through ``tile_matmul`` (a MoE layer's expert
+products through its batched launch), prefill attention through
 ``flash_attention`` and the prefill SSD scan through ``ssd_scan`` (on CUDA
-tensors). The MLA and MoE branches are not ported yet and raise
+tensors). The MLA branch is not ported yet and raises
 ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any
 
 import torch
 import torch.nn.functional as F
@@ -23,9 +23,9 @@ from repro_torch.models.common import ParamSpec, apply_rope, norm_spec, rms_norm
 from repro_torch.models.mamba2 import (MambaCfg, _causal_conv, mamba_specs,
                                        ssd_chunked, ssd_decode_step)
 from repro_torch.models.mlp import DenseFfnCfg, dense_ffn, dense_ffn_specs
+from repro_torch.models.moe import MoECfg, moe_ffn, moe_specs
 
 _MLA = "MLA attention is not ported yet (ROADMAP.md, 'Rest of the zoo')"
-_MOE = "MoE FFN is not ported yet (ROADMAP.md, 'Rest of the zoo')"
 
 
 @dataclass(frozen=True)
@@ -35,7 +35,7 @@ class LayerCfg:
     mamba: MambaCfg | None = None
     ffn_kind: str = "none"           # "dense" | "moe" | "none"
     dense: DenseFfnCfg | None = None
-    moe: Any = None                  # MoECfg once MoE is ported
+    moe: MoECfg | None = None
     post_norm: bool = False          # gemma3 sandwich norms
     parallel: bool = False           # command-r parallel attn+ffn residual
 
@@ -78,12 +78,12 @@ def block_specs(d: int, lcfg: LayerCfg, dtype) -> dict:
             s["attn"]["post_ln"] = norm_spec(d)
     else:
         s["mamba"] = {"ln": norm_spec(d)} | mamba_specs(d, lcfg.mamba, dtype)
-    if lcfg.ffn_kind == "moe":
-        raise NotImplementedError(_MOE)
     if lcfg.ffn_kind == "dense":
         s["ffn"] = {"ln": norm_spec(d)} | dense_ffn_specs(d, lcfg.dense, dtype)
-        if lcfg.post_norm:
-            s["ffn"]["post_ln"] = norm_spec(d)
+    elif lcfg.ffn_kind == "moe":
+        s["ffn"] = {"ln": norm_spec(d)} | moe_specs(d, lcfg.moe, dtype)
+    if lcfg.ffn_kind != "none" and lcfg.post_norm:
+        s["ffn"]["post_ln"] = norm_spec(d)
     return s
 
 
@@ -289,12 +289,15 @@ def mamba_decode(p, x, cache, lcfg: LayerCfg):
 
 def ffn_core(p, h, lcfg: LayerCfg):
     """FFN on already-normed input; returns (out, aux)."""
-    if lcfg.ffn_kind != "dense":
-        raise NotImplementedError(_MOE)
-    out = dense_ffn(h, p, lcfg.dense)
+    if lcfg.ffn_kind == "dense":
+        out, aux = dense_ffn(h, p, lcfg.dense), 0.0
+    else:
+        B, T, d = h.shape
+        out, aux = moe_ffn(h.reshape(B * T, d), p, lcfg.moe)
+        out = out.reshape(B, T, d)
     if lcfg.post_norm:
         out = rms_norm(out, p["post_ln"])
-    return out, 0.0
+    return out, aux
 
 
 def ffn_apply(p, x, lcfg: LayerCfg):

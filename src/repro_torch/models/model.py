@@ -253,3 +253,25 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device,
 
 def param_count(cfg: ModelConfig) -> int:
     return sum(math.prod(s.shape) for s in tree_spec_leaves(param_specs(cfg)))
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Params touched per token (MoE: routed experts scaled by top_k/E), as
+    the reference's ``active_param_count``."""
+    if cfg.frontend != "tokens":
+        raise NotImplementedError(_FRONTENDS)
+
+    def layer_active(lcfg: LayerCfg) -> int:
+        full = sum(math.prod(s.shape)
+                   for s in tree_spec_leaves(block_specs(cfg.d_model, lcfg, cfg.dtype)))
+        if lcfg.ffn_kind == "moe":
+            m = lcfg.moe
+            full -= (m.n_experts - m.top_k) * 3 * cfg.d_model * m.d_ff
+        return full
+
+    total = sum(layer_active(l) for l in cfg.prefix)
+    total += cfg.n_periods * sum(layer_active(l) for l in cfg.period)
+    total += cfg.d_model + cfg.vocab * cfg.d_model     # final norm, embedding
+    if not cfg.tie_embeddings:
+        total += cfg.d_model * cfg.head_width
+    return total

@@ -565,6 +565,11 @@ class MLPProgram(WorkloadProgram):
         # the dataset has at least two samples.
         return 2 if self.n_samples >= 2 else 1
 
+    def recleanable_rounds(self, lo: int, base: int) -> range:
+        # finish_round(r) clears every round r + k * n_samples too: leave
+        # out the finished rounds that alias a round the frontier may hold.
+        return range(max(lo, base + self.round_overlap() - self.n_samples), base)
+
     def stage_tasks(self, ts, rnd: int, stage: str) -> list[TaskDesc]:  # noqa: ARG002
         data_id = rnd % self.n_samples
         return prototype_tasks(self.layers, data_id, rnd)[stage]

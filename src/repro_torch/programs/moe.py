@@ -57,7 +57,9 @@ key                                          value
 ``("wr",)``                                  frozen router (E, d_in)
 ``("we1", e)`` / ``("we2", e)``              expert weights (d_h, d_in) /
                                              (d_out, d_h)
-``("wever", e)``                             committed expert version
+``("wever", e)``                             committed expert version: 1 +
+                                             the last round committed (0
+                                             before the first)
 ``("route", rnd, lo, hi)``                   block routing: top-k expert ids
                                              + gates for minibatch slots
 ``("disp", rnd, e)``                         dispatch list: token ids +
@@ -481,11 +483,23 @@ class MoERoutingProgram(WorkloadProgram):
         once per (expert, round) — the §5.4 window keyed by expert. Runs
         in ``grad_<e>``'s combine, so a pipelined Manager commits each
         expert the moment its own grad stage closes, independent of
-        sibling experts still in flight."""
+        sibling experts still in flight. The update is incremental, so
+        the version ``("wever", e)`` (1 + the last round committed) keeps
+        a revived Manager, whose window predates the commit, from applying
+        it twice; the weights and the version are written by one
+        ``put_many``. The reference deletes and re-puts each key and counts
+        commits instead."""
         hit = ts.try_read(("disp", rnd, e))
         if hit is None or len(hit[1]["ids"]) == 0:
             return
         if not window.can_commit(e, rnd):
+            return
+        ver = ts.try_read(("wever", e))
+        if ver is not None and ver[1] > rnd:
+            # This round's update landed, and the Manager died before its
+            # checkpoint recorded the commit in the window: record it
+            # now. Applying it again would subtract the gradient twice.
+            window.commit(e, rnd)
             return
         n_e = len(hit[1]["ids"])
         k1 = ts.keys(("gw1", rnd, e, ANY, ANY))
@@ -501,11 +515,10 @@ class MoERoutingProgram(WorkloadProgram):
         W1 = ts.try_read(("we1", e))[1] - self.lr * gW1
         W2 = ts.try_read(("we2", e))[1] - self.lr * gW2
         if window.commit(e, rnd):
-            ts.delete(("we1", e)); ts.put(("we1", e), W1)
-            ts.delete(("we2", e)); ts.put(("we2", e), W2)
-            ver = ts.try_read(("wever", e))
-            ts.delete(("wever", e))
-            ts.put(("wever", e), (ver[1] if ver else 0) + 1)
+            # One put_many, which replaces each key: both weights and the
+            # version that records this round land together or not at all,
+            # and no weight key is ever absent (every later op waits on it).
+            ts.put_many([(("we1", e), W1), (("we2", e), W2), (("wever", e), rnd + 1)])
 
     # ------------------------------------------------------------ probing
     def probe_expert_tasks(self, rnd: int = 0) -> list[TaskDesc]:
@@ -573,7 +586,6 @@ class MoERoutingProgram(WorkloadProgram):
                 reads("gw1", round=rnd, expert=e),
                 writes("gw2", round=rnd, expert=e),
                 reads("gw2", round=rnd, expert=e),
-                writes("we1", expert=e), deletes("we1", expert=e),
-                writes("we2", expert=e), deletes("we2", expert=e),
-                writes("wever", expert=e), deletes("wever", expert=e))
+                writes("we1", expert=e), writes("we2", expert=e),
+                writes("wever", expert=e))
         return eff

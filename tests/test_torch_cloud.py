@@ -416,6 +416,31 @@ def test_exp3_robustness_crashes_everywhere():
     assert res.ledger_ok
 
 
+def test_exp2_timeout_falls_as_handler_power_rises():
+    """Twin of ``tests/test_acan_training.py``'s exp 2 (paper Fig. 2): the
+    GSS timeout the Manager records falls as the handlers' power (the sum
+    of their speeds) rises. The reference's run and plan (seed 3), its
+    compute emulated at 1e-5 s a cost unit instead of 1e-6, so that a
+    task's emulated compute outweighs its host cost, and the plan firing
+    every 0.1 s. Held on the recorded (timeout, power) pairs, with no bar on
+    time: the reference's r < 0, and the log-log correlation of each power
+    level with its median timeout below -0.5 (-0.89 to -0.93 on this
+    host's runs of seeds 3-5)."""
+    res = ACANCloud(_small_cfg(core, epochs=4, n_samples=20, time_scale=1e-5,
+                               fault_plan=FaultPlan(interval=0.1,
+                                                    speed_levels=(1.0, 5.0, 10.0),
+                                                    p_speed_change=1.0, seed=3))).run()
+    t = np.array([x[1] for x in res.timeout_history])
+    p = np.array([x[2] for x in res.timeout_history])
+    t, p = t[p > 0], p[p > 0]
+    assert len(t) > 10 and res.speed_changes >= 2
+    assert np.corrcoef(t, p)[0, 1] < 0
+    levels = np.unique(p)
+    assert len(levels) >= 4, levels
+    medians = [np.median(t[p == level]) for level in levels]
+    assert np.corrcoef(np.log(levels), np.log(medians))[0, 1] < -0.5, (levels, medians)
+
+
 def test_manager_restart_mid_training_continues():
     """Twin of ``tests/test_acan_training.py``'s test: kill the manager
     mid-run, without handler faults — it resumes from the TS cursor and

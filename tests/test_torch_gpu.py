@@ -162,7 +162,7 @@ def test_tile_matmul_c_entry_refuses_a_path_the_shape_cannot_take(cuda):
     codes = tm_kernel.PATH_CODES
     for path in ("wgmma", "skinny", "ffma"):
         err = tm_kernel._lib()(x.data_ptr(), w.data_ptr(), None, out.data_ptr(), 257, 20, 40,
-                               1, 1, 0, codes[path], 0, stream)
+                               1, 1, 0, codes[path], 0, 1, stream)
         assert err == 1, path  # cudaErrorInvalidValue
 
 
@@ -176,6 +176,99 @@ def test_tile_matmul_counts_launches_and_rejects_bad_input(cuda):
     with pytest.raises(ValueError):
         tm_kernel.tile_matmul(x.t(), _randn((8, 8), torch.float32, cuda, 6))
     assert tm_kernel.tile_matmul.launches == before + 1
+
+
+# The batched expert products: x (E, M, K) @ w (E, K, N), one launch.
+def _batched_plain(x, w, act):
+    return torch.stack([tile_matmul_ref(x[e], w[e], activation=act) for e in range(len(x))])
+
+
+@pytest.mark.parametrize("act", ["none", "silu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,m,k,n", [
+    (1, 1, 64, 128), (1, 688, 2048, 1408), (60, 1, 2048, 1408), (60, 32, 2048, 1408),
+    (60, 32, 1408, 2048), (60, 688, 1408, 2048), (7, 100, 72, 136), (3, 250, 40, 24)])
+def test_tile_matmul_batched_matches_plain(cuda, e, m, k, n, dtype, act):
+    """Every expert against its own plain product; E 1 and 60 (qwen2's
+    experts), M 1, 32 (decode) and 688 (prefill), ragged M, K and N."""
+    x = _randn((e, m, k), dtype, cuda, 1)
+    w = _randn((e, k, n), dtype, cuda, 2, k ** -0.5)
+    fn = tm_kernel.tile_matmul
+    before, layouts = dict(fn.paths), dict(fn.layouts)
+    out = tm_kernel.tile_matmul(x, w, activation=act)
+    path = "wgmma" if dtype == torch.bfloat16 else "ffma"
+    assert {p: fn.paths[p] - before[p] for p in fn.paths} == {
+        p: int(p == path) for p in tm_kernel.PATH_CODES}
+    assert {q: fn.layouts[q] - layouts[q] for q in fn.layouts} == {
+        q: int(q == "batched") for q in fn.layouts}
+    torch.testing.assert_close(out.float(), _batched_plain(x, w, act).float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tile_matmul_batched_rows_never_bleed_into_the_next_expert(cuda, dtype):
+    """Every odd expert's x and w are NaN: an even expert's tile that read a
+    row or a K row past its own (M 100 and K 72 leave ragged tiles) would
+    turn NaN. The even experts match the plain version and are finite."""
+    x = _randn((6, 100, 72), dtype, cuda, 3)
+    w = _randn((6, 72, 136), dtype, cuda, 4, 0.1)
+    x[1::2] = float("nan")
+    w[1::2] = float("nan")
+    out = tm_kernel.tile_matmul(x, w)
+    assert torch.isfinite(out[0::2].float()).all()
+    assert torch.isnan(out[1::2].float()).all()
+    torch.testing.assert_close(out[0::2].float(), _batched_plain(x[0::2], w[0::2], "none")
+                               .float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_tile_matmul_batched_is_deterministic_and_refuses_bad_input(cuda):
+    x = _randn((4, 50, 64), torch.bfloat16, cuda, 5)
+    w = _randn((4, 64, 64), torch.bfloat16, cuda, 6)
+    assert torch.equal(tm_kernel.tile_matmul(x, w), tm_kernel.tile_matmul(x, w))
+    before = tm_kernel.tile_matmul.launches
+    for bad in (w[:3], w.transpose(1, 2), w.float()):
+        with pytest.raises(ValueError):
+            tm_kernel.tile_matmul(x, bad)
+    with pytest.raises(ValueError):   # bf16 K not a multiple of 8: no wgmma
+        tm_kernel.tile_matmul(x[..., :60].contiguous(), w[:, :60].contiguous())
+    with pytest.raises(ValueError):   # no bias, no transposed operand
+        tm_kernel.tile_matmul(x, w, torch.zeros(64, dtype=x.dtype, device=cuda))
+    with pytest.raises(ValueError):
+        tm_kernel.tile_matmul(x, w, trans_w=True)
+    assert tm_kernel.tile_matmul.launches == before
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    out = torch.empty((4, 50, 64), dtype=torch.bfloat16, device=cuda)
+    for path in ("mma", "skinny"):   # the C side takes only wgmma and ffma batched
+        assert tm_kernel._lib()(x.data_ptr(), w.data_ptr(), None, out.data_ptr(), 50, 64, 64,
+                                1, 1, 0, tm_kernel.PATH_CODES[path], 0, 4, stream) == 1
+
+
+def test_tile_matmul_wgmma_kernels_hold_hgmma_without_spills(cuda):
+    """The batched launch runs the wgmma kernels of the 2-D product, with the
+    expert on blockIdx.z: their SASS holds HGMMA and TMA loads, and ptxas
+    reports no spill and no stack frame for any of them."""
+    import shutil
+    import subprocess
+
+    from repro_torch.kernels import _build
+
+    _build.load("tile_matmul")
+    log = _build.build_log("tile_matmul")
+    if not log:
+        pytest.skip("library built by an earlier process: no ptxas log")
+    name, seen = None, 0
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and "tile_matmul_wgmma" in name and "spill stores" in line:
+            assert "0 bytes stack" in line and "0 bytes spill stores" in line, (name, line)
+            seen += 1
+    assert seen > 0
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(_build._target("tile_matmul"))],
+                          capture_output=True, text=True, check=True).stdout
+    wg = [part for part in sass.split("Function : ")[1:] if "tile_matmul_wgmma" in part[:200]]
+    assert wg and all("HGMMA" in part and "UTMALDG" in part for part in wg)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -572,9 +665,10 @@ def test_tile_matmul_c_entry_refuses_a_layout_the_path_cannot_take(cuda):
     for path in ("mma", "skinny"):
         for layout in ("x@w^T", "x^T@w"):
             assert tm_kernel._lib()(x.data_ptr(), w.data_ptr(), None, out.data_ptr(), 8, 64,
-                                    64, 1, 1, 0, codes[path], layouts[layout], stream) == 1
+                                    64, 1, 1, 0, codes[path], layouts[layout], 1,
+                                    stream) == 1
     assert tm_kernel._lib()(x.data_ptr(), w.data_ptr(), None, out.data_ptr(), 8, 64, 64, 1,
-                            1, 0, codes["wgmma"], 3, stream) == 1
+                            1, 0, codes["wgmma"], 3, 1, stream) == 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
