@@ -26,7 +26,12 @@ ssd_scan and its gradient through ssd_scan_bwd; then full-width, full-depth
 h2o_danube_1_8b (2 x 8192) and full-width gemma3_12b at 12 of its 48 layers
 (2 x 2048), every attention's gradient through flash_attention_bwd at D 80
 and 256, each its own phase and record with one float32 train step of 2
-layers held against the CPU's; then full-width, full-depth
+layers held against the CPU's; then full-width qwen2_moe_a2_7b at 4 of its
+24 layers (8 x 1024), each expert product's gradients two batched
+tile_matmul launches (``x@w^T`` and ``x^T@w``), the attention's gradient
+through flash_attention_bwd at D 128 on wgmma, remat "nothing" against
+"none" bit for bit, and a float32 step of 2 layers against the CPU's,
+routing first; then full-width, full-depth
 smollm_360m trained by the paper's ACAN runtime (``ACANStepRunner``: Manager
 and Handler threads over the tuple space, one task a microbatch gradient,
 4 x 2 x 512 tokens a step) without and with injected handler crashes, whose
@@ -288,7 +293,7 @@ def _sass_ops(so: Path, ops) -> tuple[dict, dict]:
 # Kernels that must not spill, by a substring of their mangled names, and the
 # SASS each library must hold: wgmma (HGMMA) in tile_matmul (with TMA,
 # UTMALDG), in the attention forward at D = 80, 128 and 256 (with TMA) and
-# in the attention backward at D = 64, 80 and 256, the mma paths'
+# in the attention backward at D = 64, 80, 128 and 256, the mma paths'
 # tensor-core products (HMMA) and ldmatrix (LDSM) loads. The attention
 # backward's kernels at the dense configs' head dims (80, 256) are held on
 # both paths. Every attention kernel whose name holds ``WGMMA_KERNEL`` must
@@ -297,7 +302,8 @@ WGMMA_KERNEL = "_wg"
 NO_SPILL = {"tile_matmul": ("wgmma", "skinny"),
             "flash_attention": ("flash_fwd_mma", "flash_fwd_wg"),
             "ssd_scan": ("ssd_fwd_mma",),
-            "flash_attention_bwd": ("_mmaI", "_wgmma", "_wg256", "Li80E", "Li256E"),
+            "flash_attention_bwd": ("_mmaI", "_wgmma", "_wg256", "_wgsplit", "Li80E",
+                                    "Li256E"),
             "ssd_scan_bwd": ("ssd_bwd_mma",)}
 SASS_OPS = {"tile_matmul": ("HGMMA", "UTMALDG", "LDL", "STL"),
             "flash_attention": ("HGMMA", "UTMALDG", "HMMA", "LDSM", "LDGSTS", "LDL", "STL"),
@@ -314,8 +320,8 @@ FLASH_FWD_KERNELS = {64: "flash_fwd_mma<64>", 80: "flash_fwd_wg<80>", 128: "flas
                      256: "flash_fwd_wg256"}
 FLASH_BWD_KERNELS = {64: ("flash_bwd_dq_wgmma<64>", "flash_bwd_dkv_wgmma<64>"),
                      80: ("flash_bwd_dq_wgmma<80>", "flash_bwd_dkv_wgmma<80>"),
-                     128: ("flash_bwd_dq_mma<128>", "flash_bwd_dkv_mma<128>"),
-                     256: ("flash_bwd_dq_wg256", "flash_bwd_dkv_wg256")}
+                     128: ("flash_bwd_dq_wgmma<128>", "flash_bwd_dkv_wgmma<128>"),
+                     256: ("flash_bwd_dq_wg256", "flash_bwd_dkv_wgsplit<256>")}
 
 
 def kernel_build_report(build, ptxas: dict) -> dict:
@@ -1286,13 +1292,35 @@ def _expert_products(cfg) -> tuple[int, tuple]:
     return moe.n_experts, ((d, moe.d_ff, "silu"), (d, moe.d_ff, "none"), (moe.d_ff, d, "none"))
 
 
+def _moe_grad_operands(E: int, m: int, k: int, n: int, dtype) -> tuple:
+    """(name, a, b, kwargs, layout) of the two gradient products of the
+    expert product x (E, m, k) @ w (E, k, n): dx = dz @ w^T (w read where it
+    lies) and dw = x^T @ dz (x read where it lies, the reduction over an
+    expert's m rows)."""
+    x = _randn((E, m, k), dtype, m + k)
+    w = _randn((E, k, n), dtype, n, k ** -0.5)
+    dz = _randn((E, m, n), dtype, 3, m ** -0.5)
+    return (("dx", dz, w, dict(trans_w=True), "batched x@w^T"),
+            ("dw", x, dz, dict(trans_x=True), "batched x^T@w"))
+
+
 def check_moe_batched(tm_kernel, tile_matmul_ref, get_config) -> dict:
     """The batched expert launch against its plain version (one product an
-    expert) at qwen2's three expert products, prefill and decode rows: bf16
-    on wgmma (2e-2), float32 on ffma (2e-4), each launch counted once under
-    the ``batched`` layout."""
+    expert) at qwen2's three expert products, prefill and decode rows, and
+    its two gradient layouts at the training rows (688 an expert): bf16 on
+    wgmma (2e-2), float32 on ffma (2e-4), each launch counted once under
+    its layout (``batched``, ``batched x@w^T``, ``batched x^T@w``)."""
     E, prods = _expert_products(get_config(QWEN2))
     fn, err = tm_kernel.tile_matmul, {}
+
+    def held(out, ref, dtype, case, layout, before, layouts):
+        _took(fn, {torch.bfloat16: "wgmma", torch.float32: "ffma"}[dtype], before)
+        assert {q: fn.layouts[q] - layouts[q] for q in fn.layouts} == {
+            q: int(q == layout) for q in fn.layouts}, fn.layouts
+        torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype], atol=TOL[dtype],
+                                   msg=lambda e: f"{case}: {e}")
+        err[case] = (out.float() - ref.float()).abs().max().item()
+
     for dtype in (torch.bfloat16, torch.float32):
         for phase, m in QWEN2_ROWS.items():
             for k, n, act in prods:
@@ -1300,17 +1328,20 @@ def check_moe_batched(tm_kernel, tile_matmul_ref, get_config) -> dict:
                 w = _randn((E, k, n), dtype, n, k ** -0.5)
                 before, layouts = dict(fn.paths), dict(fn.layouts)
                 out = tm_kernel.tile_matmul(x, w, activation=act)
-                _took(fn, {torch.bfloat16: "wgmma", torch.float32: "ffma"}[dtype], before)
-                assert {q: fn.layouts[q] - layouts[q] for q in fn.layouts} == {
-                    q: int(q == "batched") for q in fn.layouts}, fn.layouts
                 ref = torch.stack([tile_matmul_ref(x[e], w[e], activation=act)
                                    for e in range(E)])
-                torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype],
-                                           atol=TOL[dtype],
-                                           msg=lambda e, c=(phase, m, k, n): f"{c}: {e}")
-                err[f"{phase} {E}x{m}x{k}x{n} {act} {dtype}"] = \
-                    (out.float() - ref.float()).abs().max().item()
+                held(out, ref, dtype, f"{phase} {E}x{m}x{k}x{n} {act} {dtype}", "batched",
+                     before, layouts)
                 del x, w, out, ref
+        m = QWEN2_ROWS["prefill"]
+        for k, n in dict.fromkeys((k, n) for k, n, _ in prods):   # gate and up share one
+            for name, a, b, kw, layout in _moe_grad_operands(E, m, k, n, dtype):
+                before, layouts = dict(fn.paths), dict(fn.layouts)
+                out = tm_kernel.tile_matmul(a, b, **kw)
+                ref = torch.stack([tile_matmul_ref(a[e], b[e], **kw) for e in range(E)])
+                held(out, ref, dtype, f"train {name} {E}x{m}x{k}x{n} {dtype}", layout, before,
+                     layouts)
+                del a, b, out, ref
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return err
@@ -1358,6 +1389,47 @@ def time_moe_batched(tm_kernel, tile_matmul_batched_ref, get_config) -> dict:
     return out
 
 
+def time_moe_batched_grad(tm_kernel, tile_matmul_batched_ref, get_config) -> dict:
+    """The gradient products of one qwen2 layer's three expert products at
+    the training rows (688 an expert), bf16, each layout's three launches
+    together: dx = dz @ w^T (``x@w^T``) and dw = x^T @ dz (``x^T@w``), by
+    CUDA events (kernel and ``torch.bmm`` on the transposed views in turns)
+    and by CUDA-graph replay, the plain version (one float32 product an
+    expert), and the bound: 714.2 GFLOP a layout, as the forward's."""
+    dt, out = torch.bfloat16, {}
+    E, prods = _expert_products(get_config(QWEN2))
+    m = QWEN2_ROWS["prefill"]
+    ops = [_moe_grad_operands(E, m, k, n, dt) for k, n, _ in prods]
+    for i, layout in enumerate(("x@w^T", "x^T@w")):
+        calls = [op[i][1:4] for op in ops]
+
+        def kern():
+            return [tm_kernel.tile_matmul(a, b, **kw) for a, b, kw in calls]
+
+        def lib():
+            return [torch.bmm(a.transpose(1, 2) if "trans_x" in kw else a,
+                              b.transpose(1, 2) if "trans_w" in kw else b)
+                    for a, b, kw in calls]
+
+        turns = [_time_ms(f, iters=10) for f in (kern, lib) * 2]
+        kern_ms, lib_ms = (turns[0] + turns[2]) / 2, (turns[1] + turns[3]) / 2
+        flops = sum(2 * E * m * k * n for k, n, _ in prods)
+        nbytes = sum(E * (m * k + k * n + m * n) * 2 for k, n, _ in prods)
+        bound_ms, bound_by = _bound(flops, nbytes, dt)
+        device = _graph_ms(kern, iters=5)
+        out[layout] = dict(shape=f"E {E}, rows {m}, (K, N) {[(k, n) for k, n, _ in prods]}",
+                           product=ops[0][i][0], ms=kern_ms, device_ms=device,
+                           plain_ms=_time_ms(lambda: [tile_matmul_batched_ref(a, b, **kw)
+                                                      for a, b, kw in calls], iters=1),
+                           library_ms=lib_ms, library_device_ms=_graph_ms(lib, iters=5),
+                           turns_ms=turns, vs_library=kern_ms / lib_ms, flop=flops,
+                           bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by,
+                           vs_bound=device / bound_ms, tflop_s=flops / device / 1e9)
+    del ops
+    torch.cuda.empty_cache()
+    return out
+
+
 def _routing_flips(routes: dict, k: int) -> dict:
     """Tokens whose top-k set differs between the card's and the CPU's
     routing, layer by layer and pass by pass; a flip where the CPU's margin
@@ -1375,6 +1447,16 @@ def _routing_flips(routes: dict, k: int) -> dict:
             margins += margin[differ].tolist()
     assert all(m < NEAR_TIE for m in margins), ("top-k flipped past a near-tie", margins)
     return dict(tokens_checked=checked, near_tie_flips=flips, flip_margins=margins)
+
+
+def _dropped_pairs(routes: list, moe, tokens: int) -> list[int]:
+    """The (token, slot) pairs past capacity in each layer of ``routes``
+    ((probs, top-k ids) of ``tokens`` tokens each)."""
+    from repro_torch.models.moe import capacity
+
+    group, cap = capacity(moe, tokens)
+    return [int((F.one_hot(top_i.reshape(tokens // group, group, -1), moe.n_experts).sum(1)
+                 - cap).clamp(min=0).sum()) for _, top_i in routes]
 
 
 def parity_qwen2_f32(M, cfg, rehome, prompt_len: int, batch: int) -> dict:
@@ -1397,9 +1479,8 @@ def parity_qwen2_f32(M, cfg, rehome, prompt_len: int, batch: int) -> dict:
     out = _routing_flips(routes, moe.top_k)
     tokens = batch * prompt_len
     group, cap = capacity(moe, tokens)
-    out.update(group=group, capacity=cap, dropped_in_prefill=[
-        int((F.one_hot(top_i.reshape(tokens // group, group, -1), moe.n_experts).sum(1) - cap)
-            .clamp(min=0).sum()) for _, top_i in routes["cpu"][:cfg.n_layers]])
+    out.update(group=group, capacity=cap,
+               dropped_in_prefill=_dropped_pairs(routes["cpu"][:cfg.n_layers], moe, tokens))
     assert sum(out["dropped_in_prefill"]) > 0, out
     out["max_logit_err"] = None
     if out["near_tie_flips"] == 0:
@@ -1486,8 +1567,8 @@ def serve_qwen2(serve, M, rehome, get_config, counters: dict) -> dict:
     want = dict.fromkeys(counters, 0) | {"tile_matmul": per_pass * (1 + GEN),
                                          "flash_attention": L}
     assert out["launches"] == want, (out["launches"], want)
-    assert layouts == {"x@w": (bf16_2d + f32_2d) * (1 + GEN), "x@w^T": 0, "x^T@w": 0,
-                       "batched": experts * (1 + GEN)}, layouts
+    assert layouts == dict.fromkeys(layouts, 0) | {"x@w": (bf16_2d + f32_2d) * (1 + GEN),
+                                                   "batched": experts * (1 + GEN)}, layouts
     prof = out["profile"] = profile_steps(M, cfg, params, rehome, counters, **QWEN2_RUN)
     _print_profile(cfg.name, prof)
     for phase, flash, paths in (("prefill", L, prefill_paths), ("decode", 0, decode_paths)):
@@ -1528,10 +1609,29 @@ TRAIN_STEPS = 5
 
 def _train_want(cfg) -> tuple[dict, dict, dict]:
     """The launches ``TRAIN_STEPS`` steps of ``cfg`` make: by kernel, by
-    kernel and path (every bf16 product on wgmma, every attention and scan
-    and their backward on mma), and tile_matmul's by layout."""
+    kernel and path (every bf16 product on wgmma, the float32 router on
+    ffma, every attention and scan and their backward on mma), and
+    tile_matmul's by layout."""
     n = cfg.n_layers * TRAIN_STEPS
-    if cfg.period[0].mixer == "attn":
+    layer, ffma = cfg.period[0], 0
+    layouts = dict.fromkeys(("x@w", "x@w^T", "x^T@w", "batched", "batched x@w^T",
+                             "batched x^T@w"), 0)
+    if layer.mixer == "attn" and layer.ffn_kind == "moe":
+        # qwen2_moe_a2_7b: eight 2-D products a layer (q, k, v, o, the
+        # shared expert's gate, up and down, and the float32 router on ffma)
+        # and three batched expert products (gate, up, down, one launch
+        # each over the 60 experts). Each step: every product forward, again
+        # where remat recomputes it, and its two gradient products (the
+        # batched ones in their batched transposed layouts); one float32 z
+        # for each SiLU gate, the shared one's 2-D, the experts' batched:
+        # 46 launches a layer a step. Every attention forward twice and its
+        # backward once.
+        launches = {"tile_matmul": 8 * n * 4 + n + 3 * n * 4 + n, "flash_attention": 2 * n,
+                    "flash_attention_bwd": n, "ssd_scan": 0, "ssd_scan_bwd": 0}
+        layouts |= {"x@w": 8 * n * 2 + n, "x@w^T": 8 * n, "x^T@w": 8 * n,
+                    "batched": 3 * n * 2 + n, "batched x@w^T": 3 * n, "batched x^T@w": 3 * n}
+        ffma = 4 * n
+    elif layer.mixer == "attn":
         # smollm_360m, h2o_danube_1_8b, gemma3_12b (seven projections a
         # layer, a SwiGLU MLP). Each step: every projection forward, again
         # where remat recomputes it, once more for the SiLU gate's z
@@ -1539,16 +1639,17 @@ def _train_want(cfg) -> tuple[dict, dict, dict]:
         # attention forward twice and its backward once.
         launches = {"tile_matmul": 7 * n * 4 + n, "flash_attention": 2 * n,
                     "flash_attention_bwd": n, "ssd_scan": 0, "ssd_scan_bwd": 0}
-        layouts = {"x@w": 7 * n * 2 + n, "x@w^T": 7 * n, "x^T@w": 7 * n, "batched": 0}
+        layouts |= {"x@w": 7 * n * 2 + n, "x@w^T": 7 * n, "x^T@w": 7 * n}
     else:
         # Mamba-2: six projections (no activation) forward, recomputed, and
         # their two gradient products; the scan forward twice, its backward
         # once.
         launches = {"tile_matmul": 6 * n * 4, "flash_attention": 0,
                     "flash_attention_bwd": 0, "ssd_scan": 2 * n, "ssd_scan_bwd": n}
-        layouts = {"x@w": 6 * n * 2, "x@w^T": 6 * n, "x^T@w": 6 * n, "batched": 0}
-    by_path = {k: ({"wgmma": v, "mma": 0, "skinny": 0, "ffma": 0} if k == "tile_matmul"
-                   else {"mma": v, "ffma": 0}) for k, v in launches.items()}
+        layouts |= {"x@w": 6 * n * 2, "x@w^T": 6 * n, "x^T@w": 6 * n}
+    by_path = {k: ({"wgmma": v - ffma, "mma": 0, "skinny": 0, "ffma": ffma}
+                   if k == "tile_matmul" else {"mma": v, "ffma": 0})
+               for k, v in launches.items()}
     return launches, by_path, layouts
 
 
@@ -1601,11 +1702,12 @@ def train_path(train, M, cfg, counters: dict, batch: int = BATCH,
 
 
 def profile_train_step(steps_mod, cfg, res, counters: dict, batch: int = BATCH,
-                       seq: int = PROMPT) -> dict:
+                       seq: int = PROMPT, names: tuple[str, ...] = ()) -> dict:
     """One more train step from ``train``'s final state: host wall time
     without tracing (median of 3), device kernel time from a torch.profiler
-    trace of a fourth, their ratio as the busy share, the top kernels, and
-    the host's top operations by their own time (traced, so inflated)."""
+    trace of a fourth, their ratio as the busy share, the top kernels, the
+    host's top operations by their own time (traced, so inflated), and the
+    traced launches of each kernel whose name holds one of ``names``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1635,6 +1737,7 @@ def profile_train_step(steps_mod, cfg, res, counters: dict, batch: int = BATCH,
     device_ms = sum(r[1] for r in kern)
     return dict(wall_ms=wall_ms, device_ms=device_ms, busy_share=device_ms / wall_ms,
                 launches=_read(counters),
+                traced_launches={n: sum(c for k, _, c in kern if n in k) for n in names},
                 top_kernels=[dict(name=k[:90], ms=t, calls=c) for k, t, c in kern[:12]],
                 top_host=[dict(name=e.key[:60], self_ms=e.self_cpu_time_total / 1e3,
                                calls=e.count) for e in host])
@@ -1651,10 +1754,18 @@ def parity_train_f32(M, steps_mod, pcfg, batch: int = 2, seq: int = 128) -> dict
     rate: Adam's first step moves a weight by lr g / (|g| + 1e-8), which
     turns the two devices' float32 rounding of a gradient entry near 1e-8
     into a visible part of lr; the gradient check above is the close one."""
-    from repro_torch.checkpoint.checkpoint import _flatten
-    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
-    from repro_torch.optim.optimizer import OptConfig, init_opt_state, tree_leaves
+    return _compare_train_steps(_train_steps_f32(M, steps_mod, pcfg, batch, seq), pcfg,
+                                batch, seq)
 
+
+def _train_steps_f32(M, steps_mod, pcfg, batch: int, seq: int, wrap=None) -> dict:
+    """One float32 train step of ``pcfg`` on the card and on the CPU from
+    the same seeded weights and batch: {device: (params, opt state,
+    metrics)}. ``wrap(device, call)`` (optional) runs each step."""
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.optim.optimizer import OptConfig, init_opt_state
+
+    wrap = wrap or (lambda _dev, call: call())
     pcfg = dataclasses.replace(pcfg, param_dtype="float32")
     opt = OptConfig(peak_lr=1e-3, warmup_steps=5, decay_steps=TRAIN_STEPS, weight_decay=0.0)
     params = M.init_params(pcfg, torch.Generator(device="cuda").manual_seed(3), "cuda")
@@ -1664,8 +1775,17 @@ def parity_train_f32(M, steps_mod, pcfg, batch: int = 2, seq: int = 128) -> dict
     runs = {}
     for dev in ("cuda", "cpu"):
         p = _to(params, dev)
-        runs[dev] = step(p, init_opt_state(p, opt), {k: torch.as_tensor(v, device=dev)
-                                                     for k, v in tokens.items()})
+        runs[dev] = wrap(dev, lambda: step(p, init_opt_state(p, opt), {
+            k: torch.as_tensor(v, device=dev) for k, v in tokens.items()}))
+    return runs
+
+
+def _compare_train_steps(runs: dict, pcfg, batch: int, seq: int) -> dict:
+    """``_train_steps_f32``'s two steps held against each other as
+    ``parity_train_f32`` says."""
+    from repro_torch.checkpoint.checkpoint import _flatten
+    from repro_torch.optim.optimizer import tree_leaves
+
     (pg, sg, mg), (pc, sc, mc) = runs["cuda"], runs["cpu"]
     lr = mc["lr"]
     assert abs(mg["loss"] - mc["loss"]) <= 1e-3, (mg, mc)
@@ -1727,6 +1847,117 @@ def dense_train(train, M, steps_mod, get_config, arch: str, counters: dict) -> d
     pcfg = _parity_config(full, spec["parity_periods"])
     par = out["parity_f32"] = parity_train_f32(M, steps_mod, pcfg, **spec["parity"])
     print(f"parity f32 train step {arch} full width, {pcfg.n_layers} layers: {par}")
+    torch.cuda.empty_cache()
+    return out
+
+
+# qwen2_moe_a2_7b's training through ``train``: full width, cut to 4 of
+# its 24 layers (2.905 B parameters, 58.1 GB at the update's 20 bytes a
+# parameter; 5 layers would take 69.5 GB before the float32 logits of 8192
+# tokens and their gradient, 9 GiB more), on 8 x 1024 tokens (four groups of
+# 2048, capacity 43 a slot, 688 rows an expert: tokens drop). Then the
+# remat check on 2 layers, 2 x 1024 (one group of 2048), bf16, and a
+# float32 step of 2 layers on 2 x 512 (one group of 1024, capacity 22)
+# against the CPU's, routing first.
+QWEN2_TRAIN = dict(batch=BATCH, seq=1024, n_periods=4, parity_periods=2,
+                   parity=dict(batch=2, seq=512), remat=dict(batch=2, seq=1024))
+
+
+def remat_determinism(M, cfg, batch: int, seq: int) -> dict:
+    """bf16 gradients of ``train_loss`` of ``cfg`` from seeded weights on
+    one cyclic batch under remat "nothing" (each layer's forward recomputed
+    in the backward, a MoE layer's routing included), "none" (every
+    activation kept) and "nothing" again: every gradient the same bits in
+    all three. A MoE layer's buffers have one shape whatever the routing,
+    so a recompute that routed a token otherwise would pass autograd's
+    checks and give the gradient of another routing; and the backward adds
+    nothing by index, so two passes agree."""
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.optim.optimizer import tree_leaves, tree_map
+
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(4), "cuda")
+    tokens = {k: torch.as_tensor(v, device="cuda") for k, v in TokenPipeline(PipelineConfig(
+        vocab=cfg.vocab, batch=batch, seq=seq, mode="cyclic")).batch_at(1).items()}
+    runs = []
+    for remat in ("nothing", "none", "nothing"):
+        leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        loss, _ = M.train_loss(leaves, dataclasses.replace(cfg, remat=remat), tokens)
+        grads = torch.autograd.grad(loss, tree_leaves(leaves), materialize_grads=True)
+        runs.append((loss.item(), grads))
+        del leaves, loss
+    (loss0, g0), *rest = runs
+    out = dict(layers=cfg.n_layers, batch=batch, seq=seq, losses=[r[0] for r in runs],
+               tensors=len(g0), remats=("nothing", "none", "nothing"),
+               tensors_differing=[sum(not torch.equal(a, b) for a, b in zip(g0, g))
+                                  for _, g in rest])
+    assert all(r[0] == loss0 for r in rest) and out["tensors_differing"] == [0, 0], out
+    del params, runs, g0, rest
+    torch.cuda.empty_cache()
+    return out
+
+
+def parity_train_qwen2_f32(M, steps_mod, pcfg, batch: int, seq: int) -> dict:
+    """``parity_train_f32`` of a MoE config, routing first: each layer's
+    routing in the forward of the card's step and of the CPU's
+    (``_routing_flips``: a differing top-k set is a fault unless the CPU's
+    margin is under NEAR_TIE), then, where no near-tie flipped, loss,
+    gradients and weights as ``parity_train_f32`` holds them. The
+    backward's recompute is not compared: on the card it runs on autograd's
+    device thread, which the thread-local recording does not see."""
+    from repro_torch.models.moe import recording_routes
+
+    routes: dict = {"cuda": [], "cpu": []}
+
+    def wrap(dev, call):
+        with recording_routes() as seen:
+            out = call()
+        routes[dev] += seen[:pcfg.n_layers]
+        return out
+
+    runs = _train_steps_f32(M, steps_mod, pcfg, batch, seq, wrap=wrap)
+    moe = pcfg.period[0].moe
+    out = _routing_flips(routes, moe.top_k)
+    out["dropped"] = _dropped_pairs(routes["cpu"], moe, batch * seq)
+    assert sum(out["dropped"]) > 0, out
+    if out["near_tie_flips"] == 0:
+        out |= _compare_train_steps(runs, pcfg, batch, seq)
+    del runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_qwen2(train, M, steps_mod, get_config, counters: dict) -> dict:
+    """Train qwen2_moe_a2_7b as ``QWEN2_TRAIN`` sizes it through
+    ``train_path`` (launches asserted per kernel, path and layout: each
+    expert product's dx and dw one batched launch in ``x@w^T`` and
+    ``x^T@w``, the router on ffma, flash_attention_bwd once a layer a
+    step), profile one more step (its attention backward traced on the D
+    128 wgmma kernels), then ``remat_determinism`` and the float32 step
+    against the CPU's (``parity_train_qwen2_f32``)."""
+    spec, full = QWEN2_TRAIN, get_config(QWEN2)
+    cfg = dataclasses.replace(full, n_periods=spec["n_periods"])
+    out, res = train_path(train, M, cfg, counters, batch=spec["batch"], seq=spec["seq"])
+    out["reduced"] = {"n_periods": f"{full.n_periods} -> {cfg.n_periods}"}
+    out["params"] = M.param_count(cfg)
+    names = FLASH_BWD_KERNELS[cfg.period[0].attn.head_dim]
+    prof = out["profile"] = profile_train_step(steps_mod, cfg, res, counters, spec["batch"],
+                                               spec["seq"], names=names)
+    print(f"profile {cfg.name} train step: wall {prof['wall_ms']:.3f} ms, device kernels "
+          f"{prof['device_ms']:.3f} ms, busy share {prof['busy_share']:.3f}, "
+          f"launches {prof['launches']}, traced {prof['traced_launches']}, "
+          f"top {prof['top_kernels'][:6]}")
+    assert prof["launches"] == {k: v // TRAIN_STEPS
+                                for k, v in _train_want(cfg)[0].items()}, prof["launches"]
+    # a trace can lose a launch (``_traced_ms``): one a kernel at most
+    assert all(cfg.n_layers - 1 <= c <= cfg.n_layers
+               for c in prof["traced_launches"].values()), prof["traced_launches"]
+    del res
+    torch.cuda.empty_cache()
+    rcfg = dataclasses.replace(full, n_periods=spec["parity_periods"])
+    rm = out["remat"] = remat_determinism(M, rcfg, **spec["remat"])
+    print(f"remat {cfg.name} full width, {rcfg.n_layers} layers, bf16: {rm}")
+    par = out["parity_f32"] = parity_train_qwen2_f32(M, steps_mod, rcfg, **spec["parity"])
+    print(f"parity f32 train step {cfg.name} full width, {rcfg.n_layers} layers: {par}")
     torch.cuda.empty_cache()
     return out
 
@@ -2429,8 +2660,8 @@ def check_moe_ops(tm_kernel, tile_matmul_ref) -> dict:
     assert max(err.values()) <= MOE_TOL, err
     assert launched["ffma"] > 0 and launched["skinny"] > 0, launched
     assert launched["wgmma"] == launched["mma"] == 0, launched
-    assert all(v > 0 for q, v in by_layout.items() if q != "batched"), by_layout
-    assert by_layout["batched"] == 0, by_layout
+    assert all(v > 0 for q, v in by_layout.items() if not q.startswith("batched")), by_layout
+    assert all(v == 0 for q, v in by_layout.items() if q.startswith("batched")), by_layout
 
     # One expert forward task: relu(x @ W1^T) then h @ W2^T, n routed rows.
     n = max(rows["moe_fwd"])
@@ -2501,8 +2732,8 @@ def moe_path(counters: dict) -> dict:
                 launches[k] == 0 for k in launches if k != "tile_matmul"), launches
             tm, lay = by_path["tile_matmul"], rec["launches_by_layout"]
             assert tm["ffma"] > 0 and tm["skinny"] > 0 and tm["wgmma"] == tm["mma"] == 0, tm
-            assert all(v > 0 for q, v in lay.items() if q != "batched"), lay
-            assert lay["batched"] == 0, lay
+            assert all(v > 0 for q, v in lay.items() if not q.startswith("batched")), lay
+            assert all(v == 0 for q, v in lay.items() if q.startswith("batched")), lay
         else:
             assert all(n == 0 for n in launches.values()), launches
     clean, cpu = out["fault_free"], out["cpu"]
@@ -2636,8 +2867,11 @@ def main() -> int:
                                                                    "mamba2_2_7b")
     detail["ssd_scan_bwd_time"] = time_ssd_bwd(ssd_kernel, ssd_plain_bwd)
     detail["moe_batched_time"] = time_moe_batched(tm_kernel, tile_matmul_batched_ref, get_config)
+    detail["moe_batched_grad_time"] = time_moe_batched_grad(tm_kernel, tile_matmul_batched_ref,
+                                                            get_config)
     for k in ("tile_matmul", "flash_attention", "ssd_scan", "tile_matmul_grad",
-              "flash_attention_bwd", "tile_matmul_grad_mamba2", "ssd_scan_bwd", "moe_batched"):
+              "flash_attention_bwd", "tile_matmul_grad_mamba2", "ssd_scan_bwd", "moe_batched",
+              "moe_batched_grad"):
         print(f"times (ms): {k} {detail[k + '_time']}")
 
     mark("times")
@@ -2735,6 +2969,14 @@ def main() -> int:
     _record("train_gemma3_12b", tg3)
     mark("train_dense")
 
+    # 9c. Train full-width qwen2_moe_a2_7b at 4 of its 24 layers (8 x 1024):
+    # each expert product's gradients as batched tile_matmul launches in
+    # x@w^T and x^T@w, the attention's through flash_attention_bwd at D 128
+    # on wgmma; remat and determinism; a float32 step against the CPU.
+    tq2 = detail["train_qwen2"] = train_qwen2(train, M, steps_mod, get_config, counters)
+    _record("train_qwen2_moe_a2_7b", tq2)
+    mark("train_qwen2_moe_a2_7b")
+
     # 10. Path 8: train full-width, full-depth smollm_360m through the ACAN
     # runner (Manager and Handler threads over the tuple space), with and
     # without handler crashes; one step profiled; float32 against the CPU.
@@ -2793,14 +3035,14 @@ def main() -> int:
     sst, gt = detail["ssd_scan_time"], detail["tile_matmul_grad_time"]
     fbts, sbt = detail["flash_attention_bwd_time"], detail["ssd_scan_bwd_time"]
     fbt = fbts["smollm_360m"]
-    runs = (sm, ms, g3, dn, cr, q2, tr, mt, tdn, tg3, ac, pp, ct, pf, mp)
+    runs = (sm, ms, g3, dn, cr, q2, tr, mt, tdn, tg3, tq2, ac, pp, ct, pf, mp)
     mlp_t = detail["mlp_ops"]["times"]["256x256"]
     moe_t = detail["moe_ops"]["times"]
-    qb = detail["moe_batched_time"]
+    qb, qbg = detail["moe_batched_time"], detail["moe_batched_grad_time"]
 
     def summed(name: str) -> dict:
-        """Launches of ``name`` over the fifteen paths (the six serves, the
-        four train runs, the ACAN path's crash-free run, the paper's four MLP
+        """Launches of ``name`` over the sixteen paths (the six serves, the
+        five train runs, the ACAN path's crash-free run, the paper's four MLP
         runs, the two-tenant cloud's crash run, exp 1's three fleet runs
         with the workers' own launches, the MoE's six runs on the card), in
         all and by path."""
@@ -2813,7 +3055,7 @@ def main() -> int:
              replaces="src/repro/kernels/tile_matmul/kernel.py:58",
              **summed("tile_matmul"),
              launches_by_layout_in_training={
-                 k: tr["tile_matmul_layouts"][k] + mt["tile_matmul_layouts"][k]
+                 k: sum(r["tile_matmul_layouts"][k] for r in (tr, mt, tdn, tg3, tq2))
                  for k in tr["tile_matmul_layouts"]},
              max_abs_err=detail["tile_matmul_err"][str(torch.bfloat16)],
              ms=tmt["ms"], plain_ms=tmt["plain_ms"], bound_ms=tmt["bound_ms"],
@@ -2860,7 +3102,19 @@ def main() -> int:
                             "experts; routed_bound_ms: the work the serve's routing needs, "
                             "kept rows (prefill) and routed experts (decode), a layer",
                 "routed_bound_ms": {"prefill": q2["prefill_experts_bound_ms"],
-                                    "decode": q2["decode_experts_bound_ms"]}}),
+                                    "decode": q2["decode_experts_bound_ms"]}},
+             moe_batched_grad={layout: {k: qbg[layout][k] for k in (
+                 "shape", "product", "ms", "device_ms", "plain_ms", "library_ms",
+                 "library_device_ms", "bound_ms", "bound_by", "tflop_s")}
+                 | {"launches": tq2["tile_matmul_layouts"]["batched " + layout],
+                    "max_abs_err": max(v for c, v in detail["moe_batched_err"].items()
+                                       if c.startswith(f"train {qbg[layout]['product']}")
+                                       and "bfloat16" in c)}
+                 for layout in qbg}
+             | {"timed": "one qwen2_moe_a2_7b layer's three expert products' dx = dz @ w^T "
+                         "and dw = x^T @ dz at 688 rows an expert, bf16, batched wgmma "
+                         "launches reading the transposed operand where it lies; library: "
+                         "torch.bmm on the transposed views; launches: the qwen2 train run"}),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:88",
@@ -2900,9 +3154,9 @@ def main() -> int:
              dq_ms=fbt["dq_ms"], dkv_ms=fbt["dkv_ms"], ffma_ms=fbt["ffma_ms"],
              timed="one layer's attention backward, q (40, 3, 512, 64), causal, bf16, "
                    "mma path (wgmma at D = 64); library: SDPA's flash backward op, K/V "
-                   "repeated; the dense configs' training layers (wgmma at D 80 and "
-                   "256; library: the backward of an SDPA call, a window as "
-                   "a mask; at gemma3's global layer also cuDNN's backward op by graph "
+                   "repeated; the dense configs' and qwen2's training layers (wgmma at "
+                   "D 80, 128 and 256; library: the backward of an SDPA call, a window "
+                   "as a mask; without a window also cuDNN's backward op by graph "
                    "replay) under by_config",
              by_config={k: {key: t.get(key) for key in (
                  "q_shape", "window", "kernels", "ms", "device_ms", "device_tflop_s",
@@ -2910,7 +3164,7 @@ def main() -> int:
                  "bound_by", "ffma_ms", "dq_ms", "dkv_ms", "flop")}
                  for k, t in fbts.items() if k != "smollm_360m"},
              launches_by_train_run={r["arch"]: r["launches"]["flash_attention_bwd"]
-                                    for r in (tr, tdn, tg3)},
+                                    for r in (tr, tdn, tg3, tq2)},
              err_by_case=detail["flash_attention_bwd_err"]["by_case"]),
         dict(name="ssd_scan_bwd", route="cuda", source="src/repro_torch/csrc/ssd_scan_bwd.cu",
              replaces="src/repro/kernels/ssd_scan/kernel.py:70",

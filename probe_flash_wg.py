@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Design probe for the wgmma attention kernels at head dims 80 and 128 on
-one NVIDIA GPU: ``flash_fwd_wg<D>`` in ``csrc/flash_attention.cu`` and the
-D 80 instances of ``flash_bwd_{dq,dkv}_wgmma`` in
-``csrc/flash_attention_bwd.cu``.
+one NVIDIA GPU: ``flash_fwd_wg<D>`` in ``csrc/flash_attention.cu``, and in
+``csrc/flash_attention_bwd.cu`` the D 80 and 128 instances of
+``flash_bwd_{dq,dkv}_wgmma`` (and at D 128 the role-split
+``flash_bwd_dkv_wgsplit<128>`` as a variant).
 
 Builds each source and named variants of it, each a text patch listed in
 ``VARIANTS`` (one ``nvcc`` each, all started together), and, where
@@ -14,9 +15,10 @@ each kernel's registers, spills and whether ptxas serialized its wgmmas
 (bf16, ``chip_smoke.py``'s per-element limits) at edge cases and for
 repeat launches giving the same bits, then times each by CUDA-graph replay
 at ``chip_smoke.py``'s shapes: h2o_danube_1_8b's and command_r_plus_104b's
-prefill attention, danube's attention backward and smollm_360m's (D 64,
-whose kernels share the D 80 source), twice, in turns: variants in order,
-then in reverse. Results go to ``chiprun_out/probe_flash_wg.json``.
+prefill attention, danube's attention backward, smollm_360m's (D 64,
+whose kernels share the D 80 source) and qwen2_moe_a2_7b's (D 128, G 1),
+twice, in turns: variants in order, then in reverse. Results go to
+``chiprun_out/probe_flash_wg.json``.
 
 Usage (from the repository root, on a host with a CUDA device)::
 
@@ -41,7 +43,19 @@ RESULT = ROOT / "chiprun_out" / "probe_flash_wg.json"
 SRC = {"fwd": "flash_attention", "bwd": "flash_attention_bwd"}
 FWD80 = "struct FwdWg<80> { static constexpr int NC = 3, SWB = 32; };"
 FWD128 = "struct FwdWg<128> { static constexpr int NC = 2, SWB = 128; };"
-BWD80 = "static constexpr int SWB = 32, DQ_BLOCKS = 3, DKV_WGS = 2;"
+BWD80 = "static constexpr int SWB = 32, DQ_BLOCKS = 3, DQ_STAGES = 2, DKV_WGS = 2;"
+BWD128 = "static constexpr int SWB = 128, DQ_BLOCKS = 3, DQ_STAGES = 1, DKV_WGS = 1;"
+SPLIT256 = "template <> struct BwdSplit<256> { static constexpr int STAGES = 2; };"
+
+
+def split_dkv(stages: int) -> list:
+    """D 128's dK/dV as D 256's role split (one warpgroup forms P^T and owns
+    dV, the other dS^T and dK) with a Q/dO ring of ``stages``, instead of
+    one warpgroup owning both."""
+    return [("constexpr int DKV_SPLIT_D = 256;", "constexpr int DKV_SPLIT_D = 128;"),
+            (SPLIT256, SPLIT256.replace("256> { static constexpr int STAGES = 2",
+                                        f"128> {{ static constexpr int STAGES = {stages}")
+             + "\n" + SPLIT256)]
 
 
 # "<fwd|bwd>.<name>" -> (old, new) text patches of the source.
@@ -57,6 +71,15 @@ VARIANTS = {
     "bwd.dkv3": [(BWD80, BWD80.replace("DKV_WGS = 2", "DKV_WGS = 3"))],
     # a third Q/dO buffer a dK/dV warpgroup (D 64 and 80)
     "bwd.dkv_stages3": [("constexpr int DKV_STAGES = 2;", "constexpr int DKV_STAGES = 3;")],
+    # D 128's dK/dV as the role split, with a three-stage Q/dO ring (147 KB)
+    # and with two, as at D 256: 158 registers, but one block an SM
+    "bwd.d128_split": split_dkv(3),
+    "bwd.d128_split_stages2": split_dkv(2),
+    # two dK/dV warpgroups a block walking alternate row tiles, one block an SM
+    "bwd.d128_two_wgs": [(BWD128, BWD128.replace("DKV_WGS = 1", "DKV_WGS = 2"))],
+    # two dQ blocks an SM on two K/V stages (97 KB), as at D 64 and 80
+    "bwd.d128_dq2": [(BWD128, BWD128.replace("DQ_BLOCKS = 3, DQ_STAGES = 1",
+                                             "DQ_BLOCKS = 2, DQ_STAGES = 2"))],
 }
 
 FWD_CASES = (  # (bh, g, tq, tk, d, causal, window, softcap)
@@ -71,11 +94,14 @@ BWD_CASES = (
     (2, 4, 600, 600, 80, True, 256, 0.0), (3, 2, 70, 70, 80, True, 0, 20.0),
     (2, 12, 90, 190, 80, True, 70, 0.0), (2, 1, 65, 65, 80, False, 0, 0.0),
     (2, 3, 64, 640, 80, True, 0, 0.0), (1, 5, 100, 100, 80, True, 0, 15.0),
-    (40, 3, 512, 512, 64, True, 0, 0.0), (4, 3, 77, 133, 64, True, 0, 0.0))
+    (40, 3, 512, 512, 64, True, 0, 0.0), (4, 3, 77, 133, 64, True, 0, 0.0),
+    (8, 1, 300, 300, 128, True, 0, 0.0), (2, 4, 200, 333, 128, True, 150, 30.0),
+    (2, 1, 65, 65, 128, False, 0, 0.0), (3, 12, 90, 190, 128, True, 70, 0.0))
 # (name, b, hkv, g, t, d, window): chip_smoke.py's FLASH_TIMED / FLASH_BWD_TIMED
 FWD_TIMED = (("h2o_danube_1_8b", 2, 8, 4, 8192, 80, 4096),
              ("command_r_plus_104b", 8, 8, 12, 512, 128, 0))
-BWD_TIMED = (("h2o_danube_1_8b", 2, 8, 4, 8192, 80, 4096), ("smollm_360m", 8, 5, 3, 512, 64, 0))
+BWD_TIMED = (("h2o_danube_1_8b", 2, 8, 4, 8192, 80, 4096), ("smollm_360m", 8, 5, 3, 512, 64, 0),
+             ("qwen2_moe_a2_7b", 8, 16, 1, 1024, 128, 0))
 
 
 def source(name: str, parent: Path | None) -> tuple[str, Path | None]:

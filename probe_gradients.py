@@ -38,7 +38,7 @@ sys.path.insert(0, str(ROOT / "src"))
 OUT = ROOT / "build" / "probe_gradients"
 RESULT = ROOT / "chiprun_out" / "probe_gradients.json"
 SRC = {"attn": "flash_attention_bwd", "ssd": "ssd_scan_bwd"}
-DKV = "SWB = 128, DQ_BLOCKS = 4, DKV_WGS = 3;"  # D 64's BwdWg
+DKV = "SWB = 128, DQ_BLOCKS = 4, DQ_STAGES = 2, DKV_WGS = 3;"  # D 64's BwdWg
 CUT_DQ = ("      flash_bwd_dq_wgmma<D><<<", "      if (BH < 0) flash_bwd_dq_wgmma<D><<<")
 
 # "<kernel>.<name>" -> (old, new) text patches of the kernel's source.
@@ -47,7 +47,7 @@ VARIANTS = {
     "attn.dkv_warpgroups2": [(DKV, DKV.replace("DKV_WGS = 3", "DKV_WGS = 2"))],
     "attn.dkv_warpgroups4": [(DKV, DKV.replace("DKV_WGS = 3", "DKV_WGS = 4"))],
     "attn.stages3": [("constexpr int DKV_STAGES = 2;", "constexpr int DKV_STAGES = 3;"),
-                     ("constexpr int DQ_STAGES = 2;", "constexpr int DQ_STAGES = 3;")],
+                     (DKV, DKV.replace("DQ_STAGES = 2", "DQ_STAGES = 3"))],
     "attn.cut_dkv": [("      flash_bwd_dkv_wgmma<D><<<", "      if (BH < 0) flash_bwd_dkv_wgmma<D><<<")],
     "attn.cut_dq": [CUT_DQ],
     # the dK/dV kernel alone, and with parts of its tile-pair loop left out

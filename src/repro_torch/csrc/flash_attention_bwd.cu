@@ -102,7 +102,22 @@
 //    sharing each K/V tile, and a dK/dV warpgroup that issues a tile's score
 //    products with the last tile's gradient products and runs the
 //    elementwise work under the latter (236 registers).
-//  * mma at D = 16, 32, 128 (bf16):
+//  * mma at D = 128 (bf16; qwen2_moe_a2_7b's layer, q (128, 1, 1024, 128)
+//    causal: 86.0 GFLOP against 269 MB, so operations, 0.087 ms). A 64-row
+//    tile is two 128-byte swizzle atoms a row. Both kernels are the D = 64
+//    / 80 ones at D = 128, and the register budget sets their shape: a
+//    dK/dV warpgroup holds dK and dV of its 64 keys (128 floats a thread)
+//    beside S^T and dP^T, 228 registers without a spill, so the block is
+//    one warpgroup (DKV_WGS 1, 98 KB) and an SM holds two, each running
+//    its exponentials under the other's products; the dQ block (162
+//    registers) takes one K/V stage (65 KB), so an SM holds three. On an
+//    H100 (PERF.md; probe_flash_wg.py) the layer takes about 0.57 ms (dQ
+//    0.24 + dK/dV 0.33; 0.60 with two dQ blocks of two stages), where the
+//    mma.sync kernels took 1.03. Measured slower for dK/dV: D = 256's role
+//    split (flash_bwd_dkv_wgsplit<128>, 158 registers but one block of
+//    147 KB an SM; 0.52 ms for dK/dV alone, with two or three Q/dO stages),
+//    and two warpgroups a block walking alternate row tiles (0.36 ms).
+//  * mma at D = 16, 32 (bf16; D 128 until the D = 128 wgmma kernels above):
 //    the same walk on mma.sync.m16n8k16 with the forward mma path's
 //    fragments. 4 warps own 16 rows (dq) or 16 keys (dkv) each; the block's
 //    own Q, dO (dq) or K, V (dkv) are gathered once by cp.async, the
@@ -586,7 +601,7 @@ __device__ __forceinline__ void to_frags(uint32_t (&f)[4][4], const float (&acc)
 
 template <int D>
 constexpr int dq_mma_smem_bytes() {
-  static_assert(D <= 128, "D 256 takes flash_bwd_dq_wg256");
+  static_assert(D <= 32, "D 64 and up take the wgmma kernels");
   return 6 * MMA_TILE * (D + PAD) * 2;  // Q, dO, two stages of K and V
 }
 
@@ -703,7 +718,7 @@ flash_bwd_dkv_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
                   const float* __restrict__ lse, const float* __restrict__ dvec,
                   __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, Attn a) {
   constexpr int LD = D + PAD, DT = D / 8;
-  static_assert(D <= 128, "D 256 takes flash_bwd_dkv_wg256");
+  static_assert(D <= 32, "D 64 and up take the wgmma kernels");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64][LD]
   __nv_bfloat16* Vs = Ks + MMA_TILE * LD;                           // [64][LD]
@@ -803,12 +818,29 @@ flash_bwd_dkv_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
 constexpr float LOG2E = 1.4426950408889634f;
 
 // Per head dim: the bytes of a box row (SWB), the dQ kernel's blocks an SM
-// (DQ_BLOCKS: its register budget; shared memory allows as many), and the
-// dK/dV kernel's warpgroups (DKV_WGS), each walking every DKV_WGS-th row
-// tile (3 at D = 80 spill at their 168 registers; 2 take 184).
+// (DQ_BLOCKS: its register budget; shared memory allows as many) and K/V
+// buffers (DQ_STAGES: two at D = 64 and 80, where three measured slower),
+// and the dK/dV kernel's warpgroups (DKV_WGS), each walking every
+// DKV_WGS-th row tile (3 at D = 80 spill at their 168 registers; 2 take
+// 184). At D = 128 (two 128-byte atoms a row) the dQ block takes 162
+// registers and one K/V stage (65 KB), three blocks an SM, which beat two
+// blocks of two stages; the dK/dV block is one warpgroup holding both
+// accumulators (228 registers, no spill, 98 KB), two blocks an SM, which
+// beat two warpgroups a block walking alternate row tiles and the role
+// split (probe_flash_wg.py).
 template <int D> struct BwdWg;
-template <> struct BwdWg<64> { static constexpr int SWB = 128, DQ_BLOCKS = 4, DKV_WGS = 3; };
-template <> struct BwdWg<80> { static constexpr int SWB = 32, DQ_BLOCKS = 3, DKV_WGS = 2; };
+template <> struct BwdWg<64> {
+  static constexpr int SWB = 128, DQ_BLOCKS = 4, DQ_STAGES = 2, DKV_WGS = 3;
+};
+template <> struct BwdWg<80> {
+  static constexpr int SWB = 32, DQ_BLOCKS = 3, DQ_STAGES = 2, DKV_WGS = 2;
+};
+template <> struct BwdWg<128> {
+  static constexpr int SWB = 128, DQ_BLOCKS = 3, DQ_STAGES = 1, DKV_WGS = 1;
+};
+// The head dim from which the dK/dV kernel is the role split
+// (flash_bwd_dkv_wgsplit) rather than flash_bwd_dkv_wgmma.
+constexpr int DKV_SPLIT_D = 256;
 template <int D>
 __host__ __device__ constexpr int wg_tile() {  // bytes of a 64 x D bf16 tile
   return 64 * D * 2;
@@ -899,10 +931,9 @@ __device__ __forceinline__ void prob_grad2(const Attn& a, float sl2, bool masked
   }
 }
 
-constexpr int DQ_STAGES = 2;  // K/V buffers of the dQ kernel (three measured slower)
 template <int D>
 __host__ __device__ constexpr int dq_wg_smem() {  // Q, dO, the K/V ring; alignment
-  return (2 + 2 * DQ_STAGES) * wg_tile<D>() + 1024;
+  return (2 + 2 * BwdWg<D>::DQ_STAGES) * wg_tile<D>() + 1024;
 }
 
 // dQ of 64 folded rows: one warpgroup walks the key tiles of its band.
@@ -912,7 +943,7 @@ flash_bwd_dq_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
                    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
                    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
                    __nv_bfloat16* __restrict__ dq, float* __restrict__ dvec, Attn a) {
-  constexpr int SWB = BwdWg<D>::SWB, TB = wg_tile<D>();
+  constexpr int SWB = BwdWg<D>::SWB, TB = wg_tile<D>(), DQ_STAGES = BwdWg<D>::DQ_STAGES;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   // K and V of stage st at sK + 2 st TB, sK + (2 st + 1) TB.
@@ -1199,15 +1230,25 @@ flash_bwd_dkv_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 }
 
 // ---------------------------------------------------------------------------
-// mma at D = 256 (gemma3_12b): wgmma on [64][256] tiles of four 64-column
+// mma at D = 256 (gemma3_12b): wgmma on [64][D] tiles of D / 64 64-column
 // swizzle atoms filled by cp.async, two warpgroups a block, every product
-// once.
+// once: the dQ kernel's key split and the dK/dV kernel's role split (a
+// template of D: probe_flash_wg.py launches it at D = 128 too).
 // ---------------------------------------------------------------------------
 constexpr int TILE256 = 4 * SW_ATOM;  // 64 rows x 256 columns: 32 KB
-// dQ: Q, dO and two stages of K and V; dK/dV: K, V, two stages of Q and dO,
-// P^T (64 x 64 float32) and two stages of each row's lse and Dv. Alignment.
+// dQ at D = 256: Q, dO and two stages of K and V; alignment.
 constexpr int DQ256_SMEM = 6 * TILE256 + 1024;
-constexpr int DKV256_SMEM = 6 * TILE256 + 64 * 64 * 4 + 2 * 2 * 64 * 4 + 1024;
+// The role-split dK/dV kernel's ring of (Q, dO) stages by head dim: two at
+// D = 256 (210 KB). (probe_flash_wg.py adds D = 128, where a third fits.)
+template <int D> struct BwdSplit;
+template <> struct BwdSplit<256> { static constexpr int STAGES = 2; };
+// K, V, the stages of Q and dO, P'^T (64 x 64 float32), each stage's rows'
+// lse and Dv; alignment.
+template <int D>
+__host__ __device__ constexpr int dkv_split_smem() {
+  return (2 + 2 * BwdSplit<D>::STAGES) * wg_tile<D>() + 64 * 64 * 4 +
+         BwdSplit<D>::STAGES * 2 * 64 * 4 + 1024;
+}
 
 // Named barrier `id` over 256 threads: one warpgroup arrives, the other waits.
 __device__ __forceinline__ void bar_arrive256(int id) {
@@ -1237,33 +1278,37 @@ __device__ __forceinline__ void wgmma_ss32(float (&d)[16], uint64_t da, uint64_t
 #undef FA_ACC16
 #undef FA_ACC4
 
-// 64 folded rows from r0 of two (G, Tq, 256) head blocks (Q and dO) into
-// two [64][256] tiles, zeros past R, by 256 threads: thread t copies chunk
-// t % 32 of rows t / 32, t / 32 + 8, ..., each row's offset found once for
-// both tiles.
-__device__ __forceinline__ void gather_rows256(uint32_t ta, uint32_t tb, const __nv_bfloat16* a,
+// 64 folded rows from r0 of two (G, Tq, D) head blocks (Q and dO) into
+// two [64][D] tiles of 128-byte atoms, zeros past R, by 256 threads: thread
+// t copies chunk t % (D / 8) of rows t / (D / 8), t / (D / 8) + 2048 / D,
+// ..., each row's offset found once for both tiles.
+template <int D>
+__device__ __forceinline__ void gather_rows_at(uint32_t ta, uint32_t tb, const __nv_bfloat16* a,
                                                const __nv_bfloat16* b, int r0, int R, int G,
                                                int Tq, int t) {
-  const int c = t & 31;
+  constexpr int CPR = D / 8, STEP = 256 / CPR;
+  const int c = t % CPR;
 #pragma unroll 1
-  for (int r = t >> 5; r < 64; r += 8) {
+  for (int r = t / CPR; r < 64; r += STEP) {
     const int rr = r0 + r;
     const bool in = rr < R;
-    const size_t off = in ? row_off(rr, G, Tq) * 256 + c * 8 : 0;
+    const size_t off = in ? row_off(rr, G, Tq) * D + c * 8 : 0;
     cp_async16(sw_chunk_b<128, 64>(ta, r, c), a + off, in);
     cp_async16(sw_chunk_b<128, 64>(tb, r, c), b + off, in);
   }
 }
-// 64 keys from kv0 of two (Tkv, 256) blocks (K and V) into two [64][256]
-// tiles, zeros past Tkv, by 256 threads as gather_rows256.
-__device__ __forceinline__ void gather_keys256(uint32_t ta, uint32_t tb, const __nv_bfloat16* a,
+// 64 keys from kv0 of two (Tkv, D) blocks (K and V) into two [64][D]
+// tiles, zeros past Tkv, by 256 threads as gather_rows_at.
+template <int D>
+__device__ __forceinline__ void gather_keys_at(uint32_t ta, uint32_t tb, const __nv_bfloat16* a,
                                                const __nv_bfloat16* b, int kv0, int Tkv, int t) {
-  const int c = t & 31;
+  constexpr int CPR = D / 8, STEP = 256 / CPR;
+  const int c = t % CPR;
 #pragma unroll 1
-  for (int r = t >> 5; r < 64; r += 8) {
+  for (int r = t / CPR; r < 64; r += STEP) {
     const int kp = kv0 + r;
     const bool in = kp < Tkv;
-    const size_t off = in ? (size_t)kp * 256 + c * 8 : 0;
+    const size_t off = in ? (size_t)kp * D + c * 8 : 0;
     cp_async16(sw_chunk_b<128, 64>(ta, r, c), a + off, in);
     cp_async16(sw_chunk_b<128, 64>(tb, r, c), b + off, in);
   }
@@ -1290,14 +1335,14 @@ flash_bwd_dq_wg256(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
   const int G = a.G, Tq = a.Tq, R = G * Tq;
   const size_t qoff = (size_t)bh * R * D, koff = (size_t)bh * a.Tkv * D;
 
-  gather_rows256(sQ, sdO, q + qoff, dout + qoff, r0, R, G, Tq, tid);
+  gather_rows_at<D>(sQ, sdO, q + qoff, dout + qoff, r0, R, G, Tq, tid);
   const int qmin = a.q_offset + r0 / G;
   const int qmax = a.q_offset + (min(R, r0 + 64) - 1) / G;
   const int kv_end = a.causal ? min(a.Tkv, qmax + 1) : a.Tkv;
   const int kv_begin = a.window > 0 ? max(0, qmin - a.window + 1) / 64 * 64 : 0;
   auto load_kv = [&](int kv0, int st) {
-    gather_keys256(sK + 2 * st * TILE256, sK + (2 * st + 1) * TILE256, k + koff, v + koff, kv0,
-                   a.Tkv, tid);
+    gather_keys_at<D>(sK + 2 * st * TILE256, sK + (2 * st + 1) * TILE256, k + koff, v + koff,
+                      kv0, a.Tkv, tid);
   };
   if (kv_begin < kv_end) load_kv(kv_begin, 0);
   cp_async_commit();
@@ -1407,31 +1452,37 @@ flash_bwd_dq_wg256(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
   }
 }
 
-// dK, dV of 64 keys at D = 256: both warpgroups walk the row tiles of the
-// keys' band. Warpgroup 0 forms S^T = K Q^T, P^T from it, leaves P'^T = P^T
-// (1 - (s / c)^2 under a softcap) in shared memory and accumulates dV +=
-// P^T dO; warpgroup 1 forms dP^T = V dO^T, dS^T / scale = P'^T (dP^T - Dv)
-// and accumulates dK += dS^T Q.
+// dK, dV of 64 keys at D = 128 and 256: both warpgroups walk the row tiles
+// of the keys' band. Warpgroup 0 forms S^T = K Q^T, P^T from it, leaves P'^T
+// = P^T (1 - (s / c)^2 under a softcap) in shared memory and accumulates dV
+// += P^T dO; warpgroup 1 forms dP^T = V dO^T, dS^T / scale = P'^T (dP^T -
+// Dv) and accumulates dK += dS^T Q. Each holds one accumulator of D / 2
+// floats a thread, where one warpgroup owning both (flash_bwd_dkv_wgmma's
+// layout) would hold D plus the two score tiles' 64. Q, dO, lse and Dv
+// come through a ring of BwdSplit<D>::STAGES stages, each filled while the
+// products of the stages before it run.
+template <int D>
 __global__ void __launch_bounds__(256, 1)
-flash_bwd_dkv_wg256(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ dvec,
-                    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, Attn a) {
-  constexpr int D = 256;
+flash_bwd_dkv_wgsplit(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+                      const float* __restrict__ lse, const float* __restrict__ dvec,
+                      __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, Attn a) {
+  constexpr int TB = wg_tile<D>(), STAGES = BwdSplit<D>::STAGES;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   unsigned char* gbase = smem_raw + (base - smem_u32(smem_raw));
-  const uint32_t sK = base, sV = base + TILE256;
-  auto stage = [&](int st) { return base + (2 + 2 * st) * TILE256; };  // Q; dO one tile on
-  float* pt = reinterpret_cast<float*>(gbase + 6 * TILE256);  // P'^T: [32][128], thread-major
-  float* ld_s = pt + 64 * 64;                                 // [2 stages][lse, Dv][64]
+  const uint32_t sK = base, sV = base + TB;
+  auto stage = [&](int st) { return base + (2 + 2 * st) * TB; };  // Q; dO one tile on
+  // P'^T: [32][128], thread-major; then [STAGES][lse, Dv][64]
+  float* pt = reinterpret_cast<float*>(gbase + (2 + 2 * STAGES) * TB);
+  float* ld_s = pt + 64 * 64;
   const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
   const int lane = tid & 31, warp = t >> 5, g = lane >> 2, t4 = lane & 3;
   const int bh = blockIdx.x, kv0 = blockIdx.y * 64;  // causal: heaviest key tiles first
   const int G = a.G, Tq = a.Tq, R = G * Tq;
   const size_t qoff = (size_t)bh * R * D, koff = (size_t)bh * a.Tkv * D;
 
-  gather_keys256(sK, sV, k + koff, v + koff, kv0, a.Tkv, tid);
+  gather_keys_at<D>(sK, sV, k + koff, v + koff, kv0, a.Tkv, tid);
   // The folded rows that can see a key of [kv0, kv1), as the other kernels.
   const int kv1 = min(a.Tkv, kv0 + 64);
   const int rr_lo = a.causal ? max(0, (kv0 - a.q_offset) * G) : 0;
@@ -1440,7 +1491,7 @@ flash_bwd_dkv_wg256(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   const int ntile = rr_hi > r_first ? (rr_hi - r_first + 63) / 64 : 0;
   auto load_rows = [&](int i, int st) {
     const int r0 = r_first + 64 * i;
-    gather_rows256(stage(st), stage(st) + TILE256, q + qoff, dout + qoff, r0, R, G, Tq, tid);
+    gather_rows_at<D>(stage(st), stage(st) + TB, q + qoff, dout + qoff, r0, R, G, Tq, tid);
     if (tid < 64) {
       const int rr = r0 + tid;
       const size_t off = (size_t)bh * R + row_off(rr < R ? rr : 0, G, Tq);
@@ -1448,31 +1499,37 @@ flash_bwd_dkv_wg256(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
       cp_async4(smem_u32(ld_s + st * 128 + 64 + tid), dvec + off, rr < R);
     }
   };
-  if (ntile > 0) load_rows(0, 0);
-  cp_async_commit();
+  // One commit group a row tile (the first with K and V): tile i is group i.
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < ntile) load_rows(st, st);
+    cp_async_commit();
+  }
 
   const float sl2 = a.scale * LOG2E;
-  float acc[128];  // dV (warpgroup 0) or dK (warpgroup 1): keys 16 warp + g + 8h
+  float acc[D / 2];  // dV (warpgroup 0) or dK (warpgroup 1): keys 16 warp + g + 8h
 #pragma unroll
-  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   for (int i = 0; i < ntile; ++i) {
-    const int r0 = r_first + 64 * i, st = i & 1;
-    cp_async_wait<0>();  // this stage (and K, V) landed
+    const int r0 = r_first + 64 * i, st = i % STAGES;
+    cp_async_wait<STAGES - 2>();  // this stage (and K, V) landed; the later ones stay in flight
     fence_proxy_async();
     __syncthreads();
-    const uint32_t qs = stage(st), dos = qs + TILE256;
+    const uint32_t qs = stage(st), dos = qs + TB;
     const float* lds = ld_s + st * 128;
     const bool masked = !tile_visible(a, r0, kv0);
     // s[4j + 2h + e]: key 16 warp + g + 8h, row 8j + 2 t4 + e of the tile.
-    // The next row tile loads into the other stage under the product.
+    // The row tile STAGES - 1 on loads into the stage the last one freed,
+    // under the product.
     float s[32];
     uint32_t f[4][4];
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 16; ++kk)
-      wgmma_ss(s, desc_k256(wg == 0 ? sK : sV, kk), desc_k256(wg == 0 ? qs : dos, kk), kk);
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(s, desc_kb<128, 64>(wg == 0 ? sK : sV, kk),
+               desc_kb<128, 64>(wg == 0 ? qs : dos, kk), kk);
     wgmma_commit();
-    if (i + 1 < ntile) load_rows(i + 1, st ^ 1);
+    if (i + STAGES - 1 < ntile) load_rows(i + STAGES - 1, (i + STAGES - 1) % STAGES);
     cp_async_commit();
     wgmma_wait<0>();
     fence_acc(s);
@@ -1514,7 +1571,7 @@ flash_bwd_dkv_wg256(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
     const uint32_t b = wg == 0 ? dos : qs;
     wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc) wgmma_rs256(acc, f[kc], desc_mn256(b, kc));
+    for (int kc = 0; kc < 4; ++kc) wgmma_rs_n<D>(acc, f[kc], desc_mnb<128, 64>(b, kc));
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(acc);
@@ -1531,7 +1588,7 @@ flash_bwd_dkv_wg256(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
     if (kp >= a.Tkv) continue;
     __nv_bfloat16* row = out + koff + (size_t)kp * D;
 #pragma unroll
-    for (int j = 0; j < 32; ++j)
+    for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * t4) =
           pack_bf16(acc[4 * j + 2 * h] * sc, acc[4 * j + 2 * h + 1] * sc);
   }
@@ -1562,40 +1619,46 @@ cudaError_t launch(int path, const void* q, const void* k, const void* v, const 
   const T* dot = static_cast<const T*>(dout);
   const int R = a.G * a.Tq, mma_rows = (R + MMA_TILE - 1) / MMA_TILE;
   const int mma_keys = (a.Tkv + MMA_TILE - 1) / MMA_TILE;
-  if constexpr (sizeof(T) == 2 && (D == 64 || D == 80)) {
+  if constexpr (sizeof(T) == 2 && D >= 64) {
     if (path == PATH_MMA) {
-      constexpr int dq_bytes = dq_wg_smem<D>(), dkv_bytes = dkv_wg_smem<D>();
-      static_assert(dkv_bytes <= 232448, "227 KB of shared memory a block");
-      static const cudaError_t attr_dq = cudaFuncSetAttribute(
-          flash_bwd_dq_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
-      static const cudaError_t attr_dkv = cudaFuncSetAttribute(
-          flash_bwd_dkv_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_bytes);
-      if (attr_dq != cudaSuccess) return attr_dq;
-      if (attr_dkv != cudaSuccess) return attr_dkv;
-      // grid y: row tiles longest first (dQ), key tiles heaviest first (dK/dV)
-      flash_bwd_dq_wgmma<D><<<dim3(BH, mma_rows), 128, dq_bytes, stream>>>(
-          qt, kt, vt, ot, dot, lse, static_cast<T*>(dq), dvec, a);
+      // dQ: one warpgroup a block (flash_bwd_dq_wgmma<D>, D <= 128) or the
+      // two of flash_bwd_dq_wg256; dK/dV: DKV_WGS warpgroups each owning
+      // both accumulators (D < DKV_SPLIT_D) or the role split. Grid y: row
+      // tiles longest first (dQ), key tiles heaviest first (dK/dV).
+      if constexpr (D <= 128) {
+        constexpr int dq_bytes = dq_wg_smem<D>();
+        static const cudaError_t attr_dq = cudaFuncSetAttribute(
+            flash_bwd_dq_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
+        if (attr_dq != cudaSuccess) return attr_dq;
+        flash_bwd_dq_wgmma<D><<<dim3(BH, mma_rows), 128, dq_bytes, stream>>>(
+            qt, kt, vt, ot, dot, lse, static_cast<T*>(dq), dvec, a);
+      } else {
+        static const cudaError_t attr_dq = cudaFuncSetAttribute(
+            flash_bwd_dq_wg256, cudaFuncAttributeMaxDynamicSharedMemorySize, DQ256_SMEM);
+        if (attr_dq != cudaSuccess) return attr_dq;
+        flash_bwd_dq_wg256<<<dim3(BH, mma_rows), 256, DQ256_SMEM, stream>>>(
+            qt, kt, vt, ot, dot, lse, static_cast<T*>(dq), dvec, a);
+      }
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return err;
-      flash_bwd_dkv_wgmma<D><<<dim3(BH, mma_keys), 128 * BwdWg<D>::DKV_WGS, dkv_bytes, stream>>>(
-          qt, kt, vt, dot, lse, dvec, static_cast<T*>(dk), static_cast<T*>(dv), a);
-      return cudaGetLastError();
-    }
-  } else if constexpr (sizeof(T) == 2 && D == 256) {
-    if (path == PATH_MMA) {
-      static const cudaError_t attr_dq = cudaFuncSetAttribute(
-          flash_bwd_dq_wg256, cudaFuncAttributeMaxDynamicSharedMemorySize, DQ256_SMEM);
-      static const cudaError_t attr_dkv = cudaFuncSetAttribute(
-          flash_bwd_dkv_wg256, cudaFuncAttributeMaxDynamicSharedMemorySize, DKV256_SMEM);
-      if (attr_dq != cudaSuccess) return attr_dq;
-      if (attr_dkv != cudaSuccess) return attr_dkv;
-      // grid y: row tiles longest first (dQ), key tiles heaviest first (dK/dV)
-      flash_bwd_dq_wg256<<<dim3(BH, mma_rows), 256, DQ256_SMEM, stream>>>(
-          qt, kt, vt, ot, dot, lse, static_cast<T*>(dq), dvec, a);
-      const cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return err;
-      flash_bwd_dkv_wg256<<<dim3(BH, mma_keys), 256, DKV256_SMEM, stream>>>(
-          qt, kt, vt, dot, lse, dvec, static_cast<T*>(dk), static_cast<T*>(dv), a);
+      if constexpr (D < DKV_SPLIT_D) {
+        constexpr int dkv_bytes = dkv_wg_smem<D>();
+        static_assert(dkv_bytes <= 232448, "227 KB of shared memory a block");
+        static const cudaError_t attr_dkv = cudaFuncSetAttribute(
+            flash_bwd_dkv_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_bytes);
+        if (attr_dkv != cudaSuccess) return attr_dkv;
+        flash_bwd_dkv_wgmma<D><<<dim3(BH, mma_keys), 128 * BwdWg<D>::DKV_WGS, dkv_bytes,
+                                 stream>>>(qt, kt, vt, dot, lse, dvec, static_cast<T*>(dk),
+                                           static_cast<T*>(dv), a);
+      } else {
+        constexpr int dkv_bytes = dkv_split_smem<D>();
+        static_assert(dkv_bytes <= 232448, "227 KB of shared memory a block");
+        static const cudaError_t attr_dkv = cudaFuncSetAttribute(
+            flash_bwd_dkv_wgsplit<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_bytes);
+        if (attr_dkv != cudaSuccess) return attr_dkv;
+        flash_bwd_dkv_wgsplit<D><<<dim3(BH, mma_keys), 256, dkv_bytes, stream>>>(
+            qt, kt, vt, dot, lse, dvec, static_cast<T*>(dk), static_cast<T*>(dv), a);
+      }
       return cudaGetLastError();
     }
   } else if constexpr (sizeof(T) == 2) {

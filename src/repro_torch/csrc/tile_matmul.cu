@@ -63,6 +63,14 @@
 // whatever M: qwen2_moe_a2_7b's prefill (M = 688 rows an expert, 714 GFLOP
 // a layer for the three products) is bound by operations, its decode (M =
 // 32) by bytes, each expert's 17.3 MB of weights read once a layer.
+// Training's expert gradients take the two transposed layouts batched:
+// dx = dz (E, R, N) @ w^T with w stored (E, K, N), and dw = x^T @ dz with x
+// stored (E, R, K), whose reduction runs over an expert's R = 688 capacity
+// rows. The tensor maps' middle dimension is then the stored rows of one
+// expert (N for w^T, R for x^T and dz), so the last K box of each expert
+// (688 = 10 x 64 + 48) is zero-filled past R and never reaches the next
+// expert's rows; ffma's per-expert strides (M K, K N, M N elements) are the
+// same in every layout.
 
 #include <cooperative_groups.h>
 #include <cuda.h>
@@ -763,7 +771,7 @@ bool path_fits(int path, int layout, int M, int N, int K, int dtype, const void*
                        reinterpret_cast<uintptr_t>(w) % 16 == 0;
   const int elem = dtype == 1 ? 2 : 4;
   if (layout < PLAIN || layout > X_T || batch < 1 || batch > 65535) return false;
-  if (batch > 1 && (layout != PLAIN || (path != PATH_WGMMA && path != PATH_FFMA))) return false;
+  if (batch > 1 && path != PATH_WGMMA && path != PATH_FFMA) return false;
   switch (path) {
     case PATH_WGMMA:
       return dtype == 1 && K > 0 && N % 8 == 0 && aligned &&
@@ -782,7 +790,8 @@ bool path_fits(int path, int layout, int M, int N, int K, int dtype, const void*
 // codes as enum Path, layout codes as enum Layout; (M, N, K) are the
 // product's: out (M, N), reduction K, whatever the layout. `batch` > 1 is a
 // batched launch: x (batch, M, K) @ w (batch, K, N) [+ b (N,), the same for
-// every expert] -> out (batch, M, N), plain layout, wgmma or ffma path.
+// every expert] -> out (batch, M, N) in any layout (each expert's x and w
+// stored as the layout says), wgmma or ffma path.
 // Returns cudaGetLastError() after the launch (0 means launched), or
 // cudaErrorInvalidValue for a path the shape or layout cannot take.
 extern "C" int tile_matmul_launch(const void* x, const void* w, const void* b, void* out,

@@ -31,7 +31,7 @@ counts them per path. The source's header says what bounds each on the card.
 (``return_lse``), which :func:`flash_attention_bwd` takes with the output to
 launch the backward (``csrc/flash_attention_bwd.cu``: a dQ kernel, then a
 dK/dV kernel, no atomics), with the forward's two paths: ``mma`` (bf16 on
-tensor cores: ``wgmma`` at D = 64, 80 and 256, ``mma.sync`` at the others;
+tensor cores: ``wgmma`` at D = 64, 80, 128 and 256, ``mma.sync`` at 16 and 32;
 :func:`bwd_walks` mirrors their walks) and ``ffma`` (float32), at every head
 dim the forward takes.
 ``flash_attention_bwd.launches`` and ``.paths`` count its calls.
@@ -87,8 +87,8 @@ def _lib_bwd():
 
 BWD_TILE = 64        # folded rows or keys of a tile in the backward kernels
 # BwdWg<D>::DKV_WGS in csrc/flash_attention_bwd.cu: the warpgroups of a wgmma
-# dK/dV block at D = 64 and 80 (the other kernels' walks are those of 3)
-DKV_WARPGROUPS = {64: 3, 80: 2}
+# dK/dV block at D = 64, 80 and 128 (the other kernels' walks are those of 1)
+DKV_WARPGROUPS = {64: 3, 80: 2, 128: 1}
 FWD_TILE = 64        # folded rows of a consumer warpgroup of the wgmma forward
 # The wgmma forward kernels' blocks by head dim: (consumer warpgroups, keys
 # of a K/V tile); flash_fwd_wg256, and FwdWg<D> in csrc/flash_attention.cu.
@@ -160,10 +160,11 @@ def bwd_walks(G: int, Tq: int, Tkv: int, *, causal: bool = True, window: int = 0
     kernel's block of rows ``r0 .. r0 + tile - 1`` walks; ``dkv[kv0][w]``,
     the first row of each row tile that warpgroup ``w`` of the dK/dV block
     of keys ``kv0 .. kv0 + tile - 1`` walks (every ``warpgroups``-th tile of
-    the band, from tile ``w``: ``DKV_WARPGROUPS``). The dK/dV kernels other
-    than the D = 64 and 80 wgmma pairs walk the union of these walks in one
-    pass: the D = 256 kernel's two warpgroups each take every tile, one for
-    dV, one for dK."""
+    the band, from tile ``w``: ``DKV_WARPGROUPS``; at D = 128 one
+    warpgroup walks the band whole). The dK/dV kernels other than the D =
+    64, 80 and 128 wgmma ones walk the union of these walks in one pass: the
+    D = 256 kernel's two warpgroups each take every tile, one for dV, one
+    for dK."""
     R, T = G * Tq, tile
     dq = {}
     for r0 in range(0, R, T):
@@ -186,8 +187,8 @@ def bwd_walks(G: int, Tq: int, Tkv: int, *, causal: bool = True, window: int = 0
 def bwd_tile_visible(G: int, Tq: int, Tkv: int, r0: int, kv0: int, *, causal: bool = True,
                      window: int = 0, q_offset: int = 0) -> bool:
     """Whether every (row, key) pair of the 64 x 64 tile pair at folded row
-    ``r0`` and key ``kv0`` is visible, so that the wgmma kernels (D = 64, 80
-    and 256) skip its mask (``tile_visible`` in
+    ``r0`` and key ``kv0`` is visible, so that the wgmma kernels (D = 64, 80,
+    128 and 256) skip its mask (``tile_visible`` in
     ``csrc/flash_attention_bwd.cu``; the other kernels mask every score)."""
     T = BWD_TILE
     ok = r0 + T <= G * Tq and kv0 + T <= Tkv

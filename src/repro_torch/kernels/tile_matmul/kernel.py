@@ -38,12 +38,15 @@ wgmma's K-major B, ``dw = x^T @ dz`` reads x as its MN-major A, and the
 ``ffma`` kernel takes both. ``mma`` and ``skinny`` take only the plain
 layout; no training shape reaches them.
 
-Given a leading expert axis, ``x (E, M, K) @ w (E, K, N)`` (plain layout,
-no bias), ``tile_matmul`` multiplies every expert in one launch of the
-``wgmma`` (bf16) or ``ffma`` (float32) kernel with the expert on the grid's
-z axis: a MoE layer's expert products, which the reference writes as
-einsums outside its Pallas kernel. These launches count under the layout
-``batched``.
+Given a leading expert axis, ``x (E, M, K) @ w (E, K, N)`` (no bias),
+``tile_matmul`` multiplies every expert in one launch of the ``wgmma``
+(bf16) or ``ffma`` (float32) kernel with the expert on the grid's z axis: a
+MoE layer's expert products, which the reference writes as einsums outside
+its Pallas kernel. Their gradients take the two transposed layouts batched,
+each operand read where it lies: ``dx = dz @ w^T`` (w stored (E, K, N) read
+as (E, N, K)'s transpose) and ``dw = x^T @ dz`` (x stored (E, M, K)). These
+launches count under the layouts ``batched``, ``batched x@w^T`` and
+``batched x^T@w``.
 
 ``tile_matmul.launches`` counts launches; ``tile_matmul.paths`` counts
 them per path and ``tile_matmul.layouts`` per layout.
@@ -111,13 +114,14 @@ def tile_matmul(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
     (K, M)) and ``w' = w.T`` if ``trans_w`` (w stored (N, K)); with a
     leading expert axis, ``act(x[e] @ w[e])`` for every e of ``x (E, M, K)``
     and ``w (E, K, N)`` in one launch. Launches the CUDA kernel on CUDA
-    tensors; raises on anything else."""
+    tensors; raises on anything else. Batched, ``trans_x`` / ``trans_w``
+    read each expert's operand transposed as in the 2-D product."""
     if not (x.is_cuda and w.is_cuda and (b is None or b.is_cuda)):
         raise ValueError("tile_matmul kernel needs CUDA tensors")
     layout = layout_of(trans_x, trans_w)
     batched = x.dim() == 3
     if (x.dim(), w.dim()) not in ((2, 2), (3, 3)) or batched and (
-            len(x) != len(w) or layout != "x@w" or b is not None):
+            len(x) != len(w) or b is not None):
         raise ValueError(f"bad shapes {tuple(x.shape)} @ {tuple(w.shape)} ({layout}"
                          f"{', with a bias' if b is not None else ''})")
     M, K = x.shape[-2:][::-1] if trans_x else x.shape[-2:]
@@ -150,10 +154,12 @@ def tile_matmul(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
     if err:
         raise RuntimeError(f"tile_matmul launch failed ({path} path, {layout}"
                            f"{', batched' if batched else ''}): CUDA error {err}")
-    _count.launch(tile_matmul, paths=path, layouts="batched" if batched else layout)
+    _count.launch(tile_matmul, paths=path, layouts=BATCHED[layout] if batched else layout)
     return out
 
 
+# The counter key of a batched launch in each layout.
+BATCHED = {"x@w": "batched", "x@w^T": "batched x@w^T", "x^T@w": "batched x^T@w"}
 tile_matmul.launches = 0
 tile_matmul.paths = dict.fromkeys(PATH_CODES, 0)
-tile_matmul.layouts = dict.fromkeys((*LAYOUT_CODES, "batched"), 0)
+tile_matmul.layouts = dict.fromkeys((*LAYOUT_CODES, *BATCHED.values()), 0)

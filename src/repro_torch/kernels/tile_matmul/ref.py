@@ -56,7 +56,10 @@ def tile_matmul_ref(x, w, b=None, *, activation: str = "none",
     return out.to(out_dtype or x.dtype)
 
 
-def tile_matmul_batched_ref(x, w, *, activation: str = "none", out_dtype=None):
-    """``x (E, M, K) @ w (E, K, N)``: :func:`tile_matmul_ref` of each expert."""
-    return torch.stack([tile_matmul_ref(xe, we, activation=activation, out_dtype=out_dtype)
+def tile_matmul_batched_ref(x, w, *, activation: str = "none", out_dtype=None,
+                            trans_x: bool = False, trans_w: bool = False):
+    """``x (E, M, K) @ w (E, K, N)``, each operand read transposed where
+    ``trans_x`` / ``trans_w`` say: :func:`tile_matmul_ref` of each expert."""
+    return torch.stack([tile_matmul_ref(xe, we, activation=activation, out_dtype=out_dtype,
+                                        trans_x=trans_x, trans_w=trans_w)
                         for xe, we in zip(x, w)])

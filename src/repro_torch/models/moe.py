@@ -23,6 +23,10 @@ The reference's semantics, kept exactly:
 Where the reference multiplies one-hot dispatch and combine tensors into
 einsums, this port gathers and scatters rows: every output row is the one
 product the einsum's single nonzero term gives, so the bits are the same.
+Under autograd every gradient row has one owner (the dispatch's copy is
+differentiated as a gather, the combine's gather by :class:`_Gather` as a
+copy, a token's k slots summed by an expand's reduction), so two backward
+passes give the same bits and nothing adds by index.
 The k slots' dispatched rows of one expert are stacked into one ``(E, k·G·C,
 d)`` buffer (row ``(j·G + g)·C + c``), so each expert product is one batched
 ``tile_matmul`` launch that reads every expert's weights once a layer. No
@@ -112,6 +116,27 @@ def _expert_ffn(h, p):
     return batched_product(gate * batched_product(h, p["w_up"]), p["w_down"])
 
 
+class _Gather(torch.autograd.Function):
+    """``y[idx]`` where no two entries of ``idx`` below ``len(y)`` repeat,
+    and ``len(y)`` (a dropped pair) reads row 0. The backward copies each
+    gradient row to the one row of y it came from (the dropped pairs' to a
+    spare row, then cut off): every row of dy has one owner, so nothing
+    accumulates and the bits do not depend on the order of the writes,
+    where autograd's own gather backward adds into a row by index."""
+
+    @staticmethod
+    def forward(ctx, y, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = len(y)
+        return y[torch.where(idx < len(y), idx, 0)]
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        dy = g.new_zeros((ctx.rows + 1, g.shape[1])).index_copy_(0, idx, g)
+        return dy[:ctx.rows], None
+
+
 def moe_ffn(x, p, cfg: MoECfg):
     """x: (T, d) — flattened tokens. Returns (out (T, d), aux_loss scalar)."""
     T, d = x.shape
@@ -144,13 +169,15 @@ def moe_ffn(x, p, cfg: MoECfg):
     R = k * G * cap                                       # rows an expert
     row = ((torch.arange(k, device=dev) * G)[None, None, :]
            + torch.arange(G, device=dev)[:, None, None]) * cap + pos
-    dest = torch.where(keep, ig * R + row, E * R).reshape(T, k)
-    src = torch.arange(T, device=dev)[:, None].expand(T, k)
-    buf = x.new_zeros((E * R + 1, d)).index_copy(0, dest.reshape(-1), x[src.reshape(-1)])
+    dest = torch.where(keep, ig * R + row, E * R).reshape(T * k)
+    # token t's k copies, rows t k .. t k + k - 1: an expand, whose gradient
+    # sums the k slots' rows in slot order
+    rows = x[:, None].expand(T, k, d).reshape(T * k, d)
+    buf = x.new_zeros((E * R + 1, d)).index_copy(0, dest, rows)
     y = _expert_ffn(buf[:E * R].view(E, R, d), p).reshape(E * R, d)
 
     w = torch.where(keep.reshape(T, k), top_p, 0.0).to(x.dtype)
-    got = y[torch.where(dest < E * R, dest, 0)]            # (T, k, d)
+    got = _Gather.apply(y, dest).view(T, k, d)
     out = w[:, 0, None] * got[:, 0]
     for j in range(1, k):
         out = out + w[:, j, None] * got[:, j]

@@ -334,6 +334,16 @@ def test_backward_walks_at_d80_cover_each_visible_pair_once(g, tq, tk, causal, w
 
 
 @pytest.mark.parametrize("g,tq,tk,causal,window,q_offset", WALK_CASES)
+def test_backward_walks_at_d128_cover_each_visible_pair_once(g, tq, tk, causal, window,
+                                                             q_offset):
+    """The same for the D = 128 wgmma kernels, whose dK/dV block is one
+    warpgroup walking its keys' band whole (``DKV_WARPGROUPS[128]``)."""
+    assert kernel.DKV_WARPGROUPS[128] == 1
+    _assert_walks_cover_each_visible_pair_once(g, tq, tk, causal, window, q_offset,
+                                               kernel.BWD_TILE, kernel.DKV_WARPGROUPS[128])
+
+
+@pytest.mark.parametrize("g,tq,tk,causal,window,q_offset", WALK_CASES)
 def test_backward_walks_at_the_ffma_tile_of_d256_cover_each_visible_pair_once(
         g, tq, tk, causal, window, q_offset):
     """The same at the ffma path's 32-row tiles at D = 256

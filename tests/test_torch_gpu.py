@@ -231,16 +231,107 @@ def test_tile_matmul_batched_is_deterministic_and_refuses_bad_input(cuda):
             tm_kernel.tile_matmul(x, bad)
     with pytest.raises(ValueError):   # bf16 K not a multiple of 8: no wgmma
         tm_kernel.tile_matmul(x[..., :60].contiguous(), w[:, :60].contiguous())
-    with pytest.raises(ValueError):   # no bias, no transposed operand
+    with pytest.raises(ValueError):   # no bias
         tm_kernel.tile_matmul(x, w, torch.zeros(64, dtype=x.dtype, device=cuda))
-    with pytest.raises(ValueError):
-        tm_kernel.tile_matmul(x, w, trans_w=True)
+    with pytest.raises(ValueError):   # w^T stored (E, N, K) must have x's K
+        tm_kernel.tile_matmul(x, torch.zeros(4, 64, 32, dtype=x.dtype, device=cuda),
+                              trans_w=True)
     assert tm_kernel.tile_matmul.launches == before
     stream = torch.cuda.current_stream(cuda).cuda_stream
     out = torch.empty((4, 50, 64), dtype=torch.bfloat16, device=cuda)
     for path in ("mma", "skinny"):   # the C side takes only wgmma and ffma batched
         assert tm_kernel._lib()(x.data_ptr(), w.data_ptr(), None, out.data_ptr(), 50, 64, 64,
                                 1, 1, 0, tm_kernel.PATH_CODES[path], 0, 4, stream) == 1
+
+
+# The batched gradient layouts at qwen2_moe_a2_7b's training shapes (E 60,
+# R 688 rows an expert, d 2048, d_ff 1408: dx of the gate / up products and
+# of the down product, dw of each) and ragged ones: (E, R, K, N) of the
+# forward product x (E, R, K) @ w (E, K, N) whose gradients are taken.
+BATCHED_GRAD_SHAPES = [(60, 688, 2048, 1408), (60, 688, 1408, 2048), (3, 100, 72, 136),
+                       (5, 48, 40, 24), (2, 1, 64, 128)]
+
+
+def _batched_grad_products(e, r, k, n, dtype, cuda):
+    """(a, b, kwargs, layout) of dx = dz @ w^T and dw = x^T @ dz."""
+    x = _randn((e, r, k), dtype, cuda, 11)
+    w = _randn((e, k, n), dtype, cuda, 12, k ** -0.5)
+    dz = _randn((e, r, n), dtype, cuda, 13, r ** -0.5)
+    return ((dz, w, dict(trans_w=True), "batched x@w^T"),
+            (x, dz, dict(trans_x=True), "batched x^T@w"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,r,k,n", BATCHED_GRAD_SHAPES)
+def test_tile_matmul_batched_gradient_layouts_match_plain(cuda, e, r, k, n, dtype):
+    """The batched ``x@w^T`` (dx) and ``x^T@w`` (dw, its reduction over an
+    expert's R rows: 688 leaves a 48-row K tail) in one launch each, bf16
+    on wgmma, float32 on ffma, counted under their batched layouts; every
+    expert against its own plain product; a repeat gives the same bits."""
+    fn = tm_kernel.tile_matmul
+    path = "wgmma" if dtype == torch.bfloat16 else "ffma"
+    for a, b, kw, layout in _batched_grad_products(e, r, k, n, dtype, cuda):
+        paths, layouts = dict(fn.paths), dict(fn.layouts)
+        out = fn(a, b, **kw)
+        assert {p: fn.paths[p] - paths[p] for p in fn.paths} == {
+            p: int(p == path) for p in fn.paths}
+        assert {q: fn.layouts[q] - layouts[q] for q in fn.layouts} == {
+            q: int(q == layout) for q in fn.layouts}
+        ref = torch.stack([tile_matmul_ref(a[i], b[i], **kw) for i in range(e)])
+        assert out.shape == ref.shape and out.dtype == dtype
+        torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype], atol=TOL[dtype])
+        assert torch.equal(out, fn(a, b, **kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tile_matmul_batched_gradient_layouts_never_bleed_into_the_next_expert(cuda, dtype):
+    """Every odd expert's operands are NaN. dx and dw of the even experts
+    (R 100: dw's last K box of each expert is partial, and the rows past it
+    are the next expert's) match the plain version and are finite; the odd
+    experts' are NaN."""
+    for a, b, kw, _ in _batched_grad_products(6, 100, 72, 136, dtype, cuda):
+        a[1::2] = float("nan")
+        b[1::2] = float("nan")
+        out = tm_kernel.tile_matmul(a, b, **kw)
+        assert torch.isfinite(out[0::2].float()).all() and torch.isnan(out[1::2].float()).all()
+        ref = torch.stack([tile_matmul_ref(a[i], b[i], **kw) for i in range(0, 6, 2)])
+        torch.testing.assert_close(out[0::2].float(), ref.float(), rtol=TOL[dtype],
+                                   atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("act", ["none", "silu"])
+def test_batched_product_backward_on_the_card_launches_both_layouts(cuda, act):
+    """``batched_product`` under autograd on the card: the forward one
+    batched launch, the backward a float32 ``z`` launch (SiLU only), then
+    dx and dw, one launch each in their batched layouts on wgmma; the
+    gradients match the plain version of that backward (float32 products
+    of ``dz = dy act'(z)`` rounded to bf16, as the port rounds it; bf16
+    bar), and a second backward gives the same bits."""
+    from repro_torch.kernels.tile_matmul.ops import batched_product
+    from repro_torch.kernels.tile_matmul.ref import ACT_GRADS, tile_matmul_batched_ref
+    x = _randn((4, 150, 96), torch.bfloat16, cuda, 21).requires_grad_()
+    w = _randn((4, 96, 80), torch.bfloat16, cuda, 22, 0.1).requires_grad_()
+    dy = _randn((4, 150, 80), torch.bfloat16, cuda, 23)
+    fn = tm_kernel.tile_matmul
+    layouts = dict(fn.layouts)
+    out = batched_product(x, w, activation=act)
+    grads = torch.autograd.grad(out, (x, w), dy, retain_graph=True)
+    again = torch.autograd.grad(out, (x, w), dy)
+    assert {q: fn.layouts[q] - layouts[q] for q in fn.layouts} == dict.fromkeys(
+        fn.layouts, 0) | {"batched": 1 + 2 * (act != "none"), "batched x@w^T": 2,
+                          "batched x^T@w": 2}
+    xd, wd = x.detach(), w.detach()
+    torch.testing.assert_close(out.float(), tile_matmul_batched_ref(xd, wd, activation=act)
+                               .float(), rtol=2e-2, atol=2e-2)
+    dz = dy.float()
+    if act != "none":
+        dz = dz * ACT_GRADS[act](tile_matmul_batched_ref(xd, wd, out_dtype=torch.float32))
+    dz = dz.to(torch.bfloat16)
+    want = (tile_matmul_batched_ref(dz, wd, trans_w=True),
+            tile_matmul_batched_ref(xd, dz, trans_x=True))
+    for got, ref in zip(grads, want):
+        torch.testing.assert_close(got.float(), ref.float(), rtol=2e-2, atol=2e-2)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
 
 
 def test_tile_matmul_wgmma_kernels_hold_hgmma_without_spills(cuda):
@@ -447,6 +538,44 @@ def test_training_a_dense_config_on_the_card_runs_the_backward_kernel(cuda, tmp_
     after = fa_kernel.flash_attention_bwd.paths
     assert {p: after[p] - before[p] for p in after} == {"mma": 2 * cfg.n_layers, "ffma": 0}
     assert all(np.isfinite(res["losses"]))
+
+
+def test_qwen2_remat_recomputes_the_routing_and_the_gradients_bit_for_bit(cuda):
+    """Full-width qwen2_moe_a2_7b cut to 2 layers, bf16, 2 x 1024 tokens
+    (one group of 2048, capacity 43: tokens drop). Under remat "nothing"
+    the backward recomputes each layer's forward, routing included, into
+    buffers of the same shape whatever the routing: the gradients of every
+    weight equal those under remat "none" bit for bit only if every token
+    is routed again as it was. A second "nothing" pass from the same state
+    gives the same bits (the MoE backward adds nothing by index). Each
+    expert product's dx and dw are one batched launch each, a layer a
+    pass."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.models import model as M
+    from repro_torch.optim.optimizer import tree_leaves, tree_map
+    cfg = dataclasses.replace(get_config("qwen2_moe_a2_7b"), n_periods=2)
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), cuda)
+    batch = {k: torch.as_tensor(v, device=cuda) for k, v in TokenPipeline(PipelineConfig(
+        vocab=cfg.vocab, batch=2, seq=1024, mode="cyclic")).batch_at(0).items()}
+    fn = tm_kernel.tile_matmul
+    runs = []
+    for remat in ("nothing", "none", "nothing"):
+        leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        layouts = dict(fn.layouts)
+        loss, _ = M.train_loss(leaves, dataclasses.replace(cfg, remat=remat), batch)
+        grads = torch.autograd.grad(loss, tree_leaves(leaves), materialize_grads=True)
+        torch.cuda.synchronize()
+        assert {q: fn.layouts[q] - layouts[q] for q in ("batched x@w^T", "batched x^T@w")} \
+            == {"batched x@w^T": 3 * cfg.n_layers, "batched x^T@w": 3 * cfg.n_layers}
+        runs.append((loss.detach(), grads))
+        del leaves
+    (l0, g0), (l1, g1), (l2, g2) = runs
+    assert torch.isfinite(l0) and torch.equal(l0, l1) and torch.equal(l0, l2)
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+    assert all(torch.equal(a, b) for a, b in zip(g0, g2))
 
 
 def test_gqa_attention_on_cuda_matches_cpu_chunked_twin(cuda):
@@ -961,6 +1090,60 @@ def test_flash_attention_backward_d80_edges_match_plain(cuda, bh, g, tq, tk, cau
     _assert_attention_grads_close(grads, flash_attention_bwd_ref(q, k, v, o, do, lse, **kw),
                                   torch.bfloat16)
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.parametrize("bh,g,tq,tk,causal,window,softcap",
+                         FLASH_WG_EDGE_CASES + FLASH_WG_SHORT_CASES[1:])
+def test_flash_attention_backward_d128_edges_match_plain(cuda, bh, g, tq, tk, causal, window,
+                                                         softcap):
+    """The same shapes through the D = 128 wgmma backward kernels
+    (``flash_bwd_dq_wgmma<128>`` and ``flash_bwd_dkv_wgmma<128>``: two
+    128-byte swizzle atoms a row, one warpgroup a dK/dV block owning both
+    accumulators, tiles left unmasked) against the explicit formula, each
+    element within ``_flash_bwd_limit``; two launches on mma, the same
+    bits."""
+    q = _randn((bh, g, tq, 128), torch.bfloat16, cuda, 1)
+    k = _randn((bh, tk, 128), torch.bfloat16, cuda, 2)
+    v = _randn((bh, tk, 128), torch.bfloat16, cuda, 3)
+    do = _randn((bh, g, tq, 128), torch.bfloat16, cuda, 4)
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=tk - tq)
+    o, lse = fa_kernel.flash_attention(q, k, v, return_lse=True, **kw)
+    before = dict(fa_kernel.flash_attention_bwd.paths)
+    grads = fa_kernel.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    again = fa_kernel.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    _took_twice(fa_kernel.flash_attention_bwd, before)
+    _assert_attention_grads_close(grads, flash_attention_bwd_ref(q, k, v, o, do, lse, **kw),
+                                  torch.bfloat16)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.parametrize("bh,tq,tk,softcap", [
+    (128, 1024, 1024, 0.0),     # qwen2_moe_a2_7b's layer: 8 x 16 heads, G 1
+    (16, 1000, 1000, 30.0),     # a causal ragged tail (1000 = 15 x 64 + 40), a softcap
+    (16, 777, 1000, 0.0),       # q_offset 223: the band starts inside a key tile
+])
+def test_flash_attention_backward_d128_at_qwen2_shape_matches_plain(cuda, bh, tq, tk, softcap):
+    """qwen2_moe_a2_7b's training attention, q (128, 1, 1024, 128) causal,
+    and ragged variants through the D = 128 wgmma kernels, per element
+    within ``_flash_bwd_limit`` of the explicit formula (in slices of 16
+    heads), on the mma path, the same bits twice."""
+    q = _randn((bh, 1, tq, 128), torch.bfloat16, cuda, 5)
+    k = _randn((bh, tk, 128), torch.bfloat16, cuda, 6)
+    v = _randn((bh, tk, 128), torch.bfloat16, cuda, 7)
+    do = _randn((bh, 1, tq, 128), torch.bfloat16, cuda, 8)
+    kw = dict(causal=True, softcap=softcap, q_offset=tk - tq)
+    o, lse = fa_kernel.flash_attention(q, k, v, return_lse=True, **kw)
+    before = dict(fa_kernel.flash_attention_bwd.paths)
+    grads = fa_kernel.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    again = fa_kernel.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    _took_twice(fa_kernel.flash_attention_bwd, before)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    for i in range(0, bh, 16):
+        sl = slice(i, i + 16)
+        _assert_attention_grads_close(
+            [t[sl] for t in grads],
+            flash_attention_bwd_ref(q[sl], k[sl], v[sl], o[sl], do[sl], lse[sl], **kw),
+            torch.bfloat16)
 
 
 def test_flash_attention_backward_limit_catches_a_dropped_tile_pair_at_danube_shape(

@@ -1,8 +1,9 @@
 """The port's qwen2_moe_a2_7b against the JAX reference, on the CPU: the
 config field for field and its parameter counts, reduced prefill and
 decode logits and caches, greedy serving, ``train_loss`` with its MoE aux
-loss and every gradient, and the reference's parameters carried across
-(the float32 router included). Weights are the reference's PRNGKey(0)
+loss and every gradient, ``train()`` against the reference's ``train()``
+and at the depth of the params given, and the reference's parameters
+carried across (the float32 router included). Weights are the reference's PRNGKey(0)
 init; tolerance 1e-4 in float32 (``_torch_dense``)."""
 
 import dataclasses
@@ -114,6 +115,41 @@ def test_train_loss_aux_and_gradients_match_reference(reduced):
     got = {k: v.detach().float().numpy()
            for k, v in _flatten(tree_map(lambda _: next(it), tparams)).items()}
     _assert_trees_close(got, jgrads, 1e-4, "grad")
+
+
+def test_train_matches_reference_train(tmp_path):
+    """Reduced qwen2, 5 steps of 8 x 64 cyclic tokens (32 groups of 16, the
+    MoE aux loss in every step), seed 0: the reference's ``train()`` and the
+    port's from the reference's initial weights, losses at 1e-4."""
+    from repro.launch.train import train as jax_train
+    from repro_torch.launch.train import train
+
+    quiet = dict(steps=5, ckpt_every=0, resume=False, log=lambda _: None)
+    ref = jax_train(ARCH, ckpt_dir=str(tmp_path / "jax"), **quiet)
+    _, params = both_params(jax_get_config(ARCH, True), get_config(ARCH, True))
+    out = train(ARCH, ckpt_dir=str(tmp_path / "torch"), device="cpu", params=params, **quiet)
+    assert out["start_step"] == 0 and out["watchdog"] == {"timeouts": 0, "retries": 0}
+    np.testing.assert_allclose(out["losses"], ref["losses"], rtol=1e-4, atol=1e-4)
+    assert out["losses"][-1] < out["losses"][0]
+
+
+def test_train_runs_at_the_depth_of_the_params_given(tmp_path):
+    """``train(params=...)`` with one layer where the reduced config has
+    more: the run keeps one layer, and its first loss is the one-layer
+    model's (as the card trains qwen2 cut in depth)."""
+    from repro_torch.launch.train import train
+
+    cfg = dataclasses.replace(get_config(ARCH, True), n_periods=1)
+    assert get_config(ARCH, True).n_periods > 1
+    params = TM.init_params(cfg, torch.Generator().manual_seed(5), CPU)
+    out = train(ARCH, steps=2, ckpt_dir=str(tmp_path), ckpt_every=0, resume=False,
+                device="cpu", params=params, log=lambda _: None)
+    assert [len(per) for per in out["params"]["period"]] == [1]
+    batch = TokenPipeline(PipelineConfig(vocab=cfg.vocab, batch=8, seq=64,
+                                         mode="cyclic")).batch_at(0)
+    with torch.no_grad():
+        want, _ = TM.train_loss(params, cfg, {k: torch.as_tensor(v) for k, v in batch.items()})
+    np.testing.assert_allclose(out["losses"][0], want.item(), rtol=1e-6)
 
 
 def test_params_from_numpy_carries_the_moe_leaves(reduced):

@@ -232,3 +232,40 @@ def test_gradient_of_a_non_cpu_tensor_goes_to_the_kernel():
     with pytest.raises(ValueError, match="CUDA"):
         matmul(x, w)
     assert kernel.tile_matmul.launches == before
+
+
+@pytest.mark.parametrize("m,k,n,dtype,layout,path", [
+    (688, 1408, 2048, torch.bfloat16, "x@w^T", "wgmma"),   # qwen2 dx of the gate / up
+    (2048, 688, 1408, torch.bfloat16, "x^T@w", "wgmma"),   # their dw: K = 688 rows an expert
+    (688, 2048, 1408, torch.bfloat16, "x@w^T", "wgmma"),   # dx of the down product
+    (1408, 688, 2048, torch.bfloat16, "x^T@w", "wgmma"),   # its dw
+    (2048, 688, 1408, torch.float32, "x^T@w", "ffma"),
+    (1, 64, 128, torch.bfloat16, "x@w^T", "wgmma"),        # M 1: never skinny batched
+])
+def test_path_choice_of_the_batched_gradient_layouts(m, k, n, dtype, layout, path):
+    """A batched launch in either transposed layout takes wgmma (bf16) or
+    ffma (float32), as the plain batched product does; the counters hold a
+    key for each batched layout."""
+    assert kernel.choose_path(m, n, k, dtype, True, layout, batched=True) == path
+    assert set(kernel.tile_matmul.layouts) == {
+        "x@w", "x@w^T", "x^T@w", "batched", "batched x@w^T", "batched x^T@w"}
+    assert kernel.BATCHED[layout] in kernel.tile_matmul.layouts
+
+
+def test_batched_path_choice_refuses_what_wgmma_cannot_address():
+    """bf16 x^T stored with rows of M = 100 elements (not a multiple of 8)
+    has no wgmma path, and batched there is no other: it raises."""
+    with pytest.raises(ValueError, match="batched x\\^T@w"):
+        kernel.choose_path(100, 128, 688, torch.bfloat16, True, "x^T@w", batched=True)
+
+
+def test_batched_gradient_of_a_non_cpu_tensor_goes_to_the_kernel():
+    """Under autograd off the CPU the batched product is ``_Batched``, whose
+    forward is the kernel wrapper (which raises for a meta tensor), never
+    the plain version; nothing is counted."""
+    from repro_torch.kernels.tile_matmul.ops import batched_product
+    x = torch.empty((2, 3, 8), device="meta", requires_grad=True)
+    before = kernel.tile_matmul.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        batched_product(x, torch.empty((2, 8, 8), device="meta"))
+    assert kernel.tile_matmul.launches == before
