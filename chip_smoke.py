@@ -76,6 +76,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import itertools
 import json
 import os
 import shutil
@@ -316,8 +317,9 @@ SASS_NEED = {"tile_matmul": ("HGMMA", "UTMALDG"),
              "ssd_scan_bwd": ("HMMA", "LDSM", "LDGSTS")}
 # The attention's kernel (forward) and two kernels (backward) at each head
 # dim chip_smoke.py times, as named in a profiler trace.
-FLASH_FWD_KERNELS = {64: "flash_fwd_mma<64>", 80: "flash_fwd_wg<80>", 128: "flash_fwd_wg<128>",
-                     256: "flash_fwd_wg256"}
+FLASH_FWD_KERNELS = {64: "flash_fwd_mma<64>", 80: "flash_fwd_wg<80, 80>",
+                     128: "flash_fwd_wg<128, 128>", 256: "flash_fwd_wg256",
+                     (192, 128): "flash_fwd_wg<192, 128>"}
 FLASH_BWD_KERNELS = {64: ("flash_bwd_dq_wgmma<64>", "flash_bwd_dkv_wgmma<64>"),
                      80: ("flash_bwd_dq_wgmma<80>", "flash_bwd_dkv_wgmma<80>"),
                      128: ("flash_bwd_dq_wgmma<128>", "flash_bwd_dkv_wgmma<128>"),
@@ -375,6 +377,20 @@ FLASH_CASES = (  # (name, BH, G, Tq, Tkv, D, window, softcap)
     ("d80_g2_global_ragged", 8, 2, 1000, 1000, 80, 0, 0.0),
     ("d80_g12_window_ragged", 4, 12, 777, 1200, 80, 256, 0.0),
 )
+# The forward alone at MLA's head dims, q/k 192 and v 128 (its backward is
+# the deepseek training slice's): deepseek_v2_lite_16b's prefill layer
+# (batch 8 x 16 heads, G 1), then ragged, and G 2 with a window.
+FLASH_MLA_CASES = (
+    ("deepseek", 128, 1, 1024, 1024, (192, 128), 0, 0.0),
+    ("mla_g1_ragged", 8, 1, 1000, 1000, (192, 128), 0, 0.0),
+    ("mla_g2_window_ragged", 4, 2, 777, 1200, (192, 128), 300, 0.0),
+)
+
+
+def _dims(d) -> tuple[int, int]:
+    """(head dim of q and k, head dim of v and the output) of a case's D:
+    one int, or MLA's pair."""
+    return d if isinstance(d, tuple) else (d, d)
 
 
 def _flash_limit(ref: torch.Tensor, dtype) -> torch.Tensor:
@@ -425,7 +441,8 @@ def _took(fn, path: str, before: dict) -> None:
 def check_flash(fa_kernel, flash_attention_ref) -> dict:
     """Kernel vs plain version at the serving shapes of ``FLASH_CASES``
     (smollm's with its window, softcap and q_offset variants, and the dense
-    configs' at D 80, 128 and 256), each case launched whole and held slice
+    configs' at D 80, 128 and 256) and ``FLASH_MLA_CASES`` (deepseek's MLA
+    at q/k head dim 192 and v head dim 128), each case launched whole and held slice
     by slice where the plain version's scores would not fit at once: the
     mma path in bf16, the ffma path in float32, each element within
     ``flash_limit``. Worst error per dtype, per path and per case; per case
@@ -434,10 +451,11 @@ def check_flash(fa_kernel, flash_attention_ref) -> dict:
     fn = fa_kernel.flash_attention
     for dtype in (torch.bfloat16, torch.float32):
         worst = 0.0
-        for name, bh, g, tq, tkv, d, window, softcap in FLASH_CASES:
-            q = _randn((bh, g, tq, d), dtype, 1)
-            k = _randn((bh, tkv, d), dtype, 2)
-            v = _randn((bh, tkv, d), dtype, 3)
+        for name, bh, g, tq, tkv, d, window, softcap in FLASH_CASES + FLASH_MLA_CASES:
+            dk, dv = _dims(d)
+            q = _randn((bh, g, tq, dk), dtype, 1)
+            k = _randn((bh, tkv, dk), dtype, 2)
+            v = _randn((bh, tkv, dv), dtype, 3)
             kw = dict(causal=True, window=window, softcap=softcap, q_offset=tkv - tq)
             before = dict(fn.paths)
             out = fn(q, k, v, **kw)
@@ -611,13 +629,14 @@ def time_tile_matmul(tm_kernel, tile_matmul_ref) -> dict:
 
 
 # One prefill layer's attention of each served config, bf16, causal:
-# (batch, kv heads, G, T, D, window).
+# (batch, kv heads, G, T, D or (Dk, Dv), window).
 FLASH_TIMED = {"smollm_360m": (BATCH, 5, 3, PROMPT, 64, 0),
                "gemma3_12b global": (4, 8, 2, 2048, 256, 0),
                "gemma3_12b local": (4, 8, 2, 2048, 256, 1024),
                "h2o_danube_1_8b": (2, 8, 4, 8192, 80, 4096),
                "command_r_plus_104b": (8, 8, 12, 512, 128, 0),
-               "qwen2_moe_a2_7b": (8, 16, 1, 1024, 128, 0)}
+               "qwen2_moe_a2_7b": (8, 16, 1, 1024, 128, 0),
+               "deepseek_v2_lite_16b": (8, 16, 1, 1024, (192, 128), 0)}
 def _visible_pairs(tq: int, tkv: int, window: int) -> int:
     """(query, key) pairs a causal, windowed query row block sees (q_offset
     tkv - tq): the attention's work, counted as the kernel skips the rest."""
@@ -652,10 +671,10 @@ def time_flash(fa_kernel, flash_attention_ref) -> dict:
     ``library_device_ms``), and the kernel's TFLOP/s by graph replay."""
     dt, out = torch.bfloat16, {}
     for name, (b, hkv, g, t, d, window) in FLASH_TIMED.items():
-        bh = b * hkv
-        q = _randn((bh, g, t, d), dt, 1)
-        k = _randn((bh, t, d), dt, 2)
-        v = _randn((bh, t, d), dt, 3)
+        bh, (dk, dv) = b * hkv, _dims(d)
+        q = _randn((bh, g, t, dk), dt, 1)
+        k = _randn((bh, t, dk), dt, 2)
+        v = _randn((bh, t, dv), dt, 3)
         kw = dict(causal=True, window=window)
         kern = _time_ms(lambda: fa_kernel.flash_attention(q, k, v, **kw))
         ffma = _time_ms(lambda: fa_kernel.flash_attention(q, k, v, path="ffma", **kw), iters=5)
@@ -663,9 +682,9 @@ def time_flash(fa_kernel, flash_attention_ref) -> dict:
         plain = _time_ms(lambda: [flash_attention_ref(q[i:i + step], k[i:i + step],
                                                       v[i:i + step], **kw)
                                   for i in range(0, bh, step)], iters=3)
-        qs = q.reshape(b, hkv * g, t, d)
-        ks = k.reshape(b, hkv, t, d).repeat_interleave(g, dim=1)
-        vs = v.reshape(b, hkv, t, d).repeat_interleave(g, dim=1)
+        qs = q.reshape(b, hkv * g, t, dk)
+        ks = k.reshape(b, hkv, t, dk).repeat_interleave(g, dim=1)
+        vs = v.reshape(b, hkv, t, dv).repeat_interleave(g, dim=1)
         if window > 0:
             pos = torch.arange(t, device="cuda")
             mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
@@ -678,10 +697,11 @@ def time_flash(fa_kernel, flash_attention_ref) -> dict:
         library = _time_ms(sdpa)
         device = _graph_ms(lambda: fa_kernel.flash_attention(q, k, v, **kw))
         library_device = _graph_ms(sdpa)
-        flops = 4 * d * bh * g * _visible_pairs(t, t, window)
-        nbytes = (q.numel() * 2 + k.numel() + v.numel()) * 2
+        flops = 2 * (dk + dv) * bh * g * _visible_pairs(t, t, window)
+        nbytes = (q.numel() + bh * g * t * dv + k.numel() + v.numel()) * 2
         bound_ms, bound_by = _bound(flops, nbytes, dt)
-        out[name] = dict(q_shape=(bh, g, t, d), window=window, kernel=FLASH_FWD_KERNELS[d],
+        out[name] = dict(q_shape=(bh, g, t, dk), v_shape=(bh, t, dv), window=window,
+                         kernel=FLASH_FWD_KERNELS[d],
                          ms=kern, ffma_ms=ffma,
                          plain_ms=plain, plain_slices=-(-bh // step), library_ms=library,
                          library_backend=_sdpa_backend(sdpa), vs_library=kern / library,
@@ -1156,43 +1176,57 @@ def _leaves(tree) -> list:
     return [t for v in (tree.values() if isinstance(tree, dict) else tree) for t in _leaves(v)]
 
 
-def _layer_projections(M, cfg) -> list[tuple[int, int, str]]:
-    """(K, N, activation) of each projection of each distinct layer of
-    ``cfg``, from the model's parameter specs (the SwiGLU gate's SiLU is
-    fused into its product)."""
+def _layer_projections(M, cfg) -> list[tuple[int, int, str, torch.dtype]]:
+    """(K, N, activation, dtype) of each 2-D product of each distinct layer
+    of ``cfg``, from the model's parameter specs: the prefix layers' 2-D
+    weights, the period layers' (stacked on n_periods), and MLA's
+    up-projections ``w_uk`` / ``w_uv`` (R, H, D), multiplied as (R, H D).
+    The SwiGLU gate's SiLU is fused into its product; expert tensors (the
+    batched launch's) are left out."""
     out = []
 
-    def walk(tree, key=""):
+    def walk(tree, stacked: int, key=""):
         if isinstance(tree, dict):
             for k, v in tree.items():
-                walk(v, k)
-        elif len(tree.shape) == 3:  # stacked on n_periods
-            out.append((tree.shape[1], tree.shape[2], "silu" if key == "w_gate" else "none"))
+                walk(v, stacked, k)
+            return
+        shape = tree.shape[stacked:]
+        if key in ("w_uk", "w_uv"):
+            shape = (shape[0], shape[1] * shape[2])
+        if len(shape) == 2:
+            out.append((shape[0], shape[1], "silu" if key == "w_gate" else "none", tree.dtype))
 
-    for spec in M.param_specs(cfg)["period"]:
-        walk(spec)
-    return sorted(set(out))
+    specs = M.param_specs(cfg)
+    for spec in specs["prefix"]:
+        walk(spec, 0)
+    for spec in specs["period"]:
+        walk(spec, 1)
+    return sorted(set(out), key=str)
 
 
 def check_dense_projections(tm_kernel, tile_matmul_ref, M, get_config) -> dict:
-    """tile_matmul against its plain version at each projection of the
-    dense configs, bf16, at their prefill M (wgmma) and decode M (skinny):
-    the first launches at K 12288 and 33792 (command_r's widths)."""
+    """tile_matmul against its plain version at each 2-D product of the
+    dense configs and of deepseek_v2_lite_16b, at their prefill M (bf16 on
+    wgmma, the float32 router on ffma) and decode M (skinny): the first
+    launches at K 12288 and 33792 (command_r's widths), N 10944 and 576
+    (deepseek's dense first layer and ``w_dkv``) and K 512 (its
+    up-projections of the latent)."""
     err, paths = {}, tm_kernel.tile_matmul.paths
-    for arch, spec in DENSE_SERVE.items():
-        run = spec["run"]
+    runs = {arch: spec["run"] for arch, spec in DENSE_SERVE.items()} | {DEEPSEEK: DEEPSEEK_RUN}
+    for arch, run in runs.items():
         for m, path in ((run["batch"] * run["prompt_len"], "wgmma"), (run["batch"], "skinny")):
-            for k, n, act in _layer_projections(M, get_config(arch)):
-                x = _randn((m, k), torch.bfloat16, m + k)
-                w = _randn((k, n), torch.bfloat16, n, k ** -0.5)
+            for k, n, act, dtype in _layer_projections(M, get_config(arch)):
+                x = _randn((m, k), dtype, m + k)
+                w = _randn((k, n), dtype, n, k ** -0.5)
                 before = dict(paths)
                 out = tm_kernel.tile_matmul(x, w, activation=act)
-                _took(tm_kernel.tile_matmul, path, before)
+                _took(tm_kernel.tile_matmul,
+                      "ffma" if dtype == torch.float32 and path == "wgmma" else path, before)
                 ref = tile_matmul_ref(x, w, activation=act)
-                torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[torch.bfloat16],
-                                           atol=TOL[torch.bfloat16],
+                torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype],
+                                           atol=TOL[dtype],
                                            msg=lambda e, c=(arch, m, k, n): f"{c}: {e}")
-                err[f"{arch} {m}x{k}x{n}"] = (out.float() - ref.float()).abs().max().item()
+                err[f"{arch} {m}x{k}x{n} {dtype}"] = (out.float() - ref.float()).abs().max().item()
                 del x, w, out, ref
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1284,6 +1318,27 @@ QWEN2_ROWS = {"prefill": 688, "decode": 32}
 QWEN2_PARITY = dict(batch=2, prompt_len=512)
 QWEN2_PARITY_PERIODS = 2
 NEAR_TIE = 1e-5
+# deepseek_v2_lite_16b served at full width and full depth (27 layers: the
+# dense first one, then 26 MoE layers; 31.4 GB in bf16), as qwen2 is: 8 x
+# 1024 prompts (four groups of 2048, capacity 40 a slot; 6 slots x 4 groups
+# x 40 = 960 rows an expert) and 32 decode steps of T 8 (dropless: 6 x 8 =
+# 48 rows an expert). MLA: prefill attention at q/k head dim 192 and v head
+# dim 128; decode in the latent space, plain PyTorch. Its float32 parity
+# run: 2 layers (the dense one and one MoE layer), 2 x 512 (one group of
+# 1024, capacity 20: tokens drop).
+DEEPSEEK = "deepseek_v2_lite_16b"
+DEEPSEEK_RUN = QWEN2_RUN
+DEEPSEEK_ROWS = {"prefill": 960, "decode": 48}
+MOE_SERVE = {QWEN2: dict(run=QWEN2_RUN, rows=QWEN2_ROWS, parity=QWEN2_PARITY,
+                         parity_periods=QWEN2_PARITY_PERIODS),
+             DEEPSEEK: dict(run=DEEPSEEK_RUN, rows=DEEPSEEK_ROWS,
+                            parity=dict(batch=2, prompt_len=512), parity_periods=1)}
+
+
+def _moe_layers(cfg) -> int:
+    """The layers of ``cfg`` with an MoE FFN (deepseek's first is dense)."""
+    return (sum(l.ffn_kind == "moe" for l in cfg.prefix)
+            + cfg.n_periods * sum(l.ffn_kind == "moe" for l in cfg.period))
 
 
 def _expert_products(cfg) -> tuple[int, tuple]:
@@ -1306,11 +1361,11 @@ def _moe_grad_operands(E: int, m: int, k: int, n: int, dtype) -> tuple:
 
 def check_moe_batched(tm_kernel, tile_matmul_ref, get_config) -> dict:
     """The batched expert launch against its plain version (one product an
-    expert) at qwen2's three expert products, prefill and decode rows, and
-    its two gradient layouts at the training rows (688 an expert): bf16 on
-    wgmma (2e-2), float32 on ffma (2e-4), each launch counted once under
+    expert) at qwen2's and deepseek's three expert products, prefill and
+    decode rows (E 60 at 688 and 32 rows an expert, E 64 at 960 and 48), and
+    its two gradient layouts at qwen2's training rows (688 an expert): bf16
+    on wgmma (2e-2), float32 on ffma (2e-4), each launch counted once under
     its layout (``batched``, ``batched x@w^T``, ``batched x^T@w``)."""
-    E, prods = _expert_products(get_config(QWEN2))
     fn, err = tm_kernel.tile_matmul, {}
 
     def held(out, ref, dtype, case, layout, before, layouts):
@@ -1322,8 +1377,9 @@ def check_moe_batched(tm_kernel, tile_matmul_ref, get_config) -> dict:
         err[case] = (out.float() - ref.float()).abs().max().item()
 
     for dtype in (torch.bfloat16, torch.float32):
-        for phase, m in QWEN2_ROWS.items():
-            for k, n, act in prods:
+        for arch, spec in MOE_SERVE.items():
+            E, prods = _expert_products(get_config(arch))
+            for (phase, m), (k, n, act) in itertools.product(spec["rows"].items(), prods):
                 x = _randn((E, m, k), dtype, m + k)
                 w = _randn((E, k, n), dtype, n, k ** -0.5)
                 before, layouts = dict(fn.paths), dict(fn.layouts)
@@ -1333,6 +1389,7 @@ def check_moe_batched(tm_kernel, tile_matmul_ref, get_config) -> dict:
                 held(out, ref, dtype, f"{phase} {E}x{m}x{k}x{n} {act} {dtype}", "batched",
                      before, layouts)
                 del x, w, out, ref
+        E, prods = _expert_products(get_config(QWEN2))
         m = QWEN2_ROWS["prefill"]
         for k, n in dict.fromkeys((k, n) for k, n, _ in prods):   # gate and up share one
             for name, a, b, kw, layout in _moe_grad_operands(E, m, k, n, dtype):
@@ -1347,16 +1404,17 @@ def check_moe_batched(tm_kernel, tile_matmul_ref, get_config) -> dict:
     return err
 
 
-def time_moe_batched(tm_kernel, tile_matmul_batched_ref, get_config) -> dict:
-    """One qwen2 layer's three expert products, bf16, at prefill and decode
-    rows: the batched launches by CUDA events (kernel and ``torch.bmm`` in
-    turns) and by CUDA-graph replay, the plain version (one float32 product
-    an expert), and the bound of the three products. The decode products
-    read 1.04 GB of weights, twenty times the L2: every launch finds them
-    cold, as a decode step does."""
+def time_moe_batched(tm_kernel, tile_matmul_batched_ref, get_config, arch: str = QWEN2) -> dict:
+    """One ``arch`` layer's three expert products (``MOE_SERVE``), bf16, at
+    its prefill and decode rows: the batched launches by CUDA events (kernel
+    and ``torch.bmm`` in turns) and by CUDA-graph replay, the plain version
+    (one float32 product an expert), and the bound of the three products.
+    The decode products read 1.04 GB (qwen2) or 1.11 GB (deepseek) of
+    weights, twenty times the L2: every launch finds them cold, as a decode
+    step does."""
     dt, out = torch.bfloat16, {}
-    E, prods = _expert_products(get_config(QWEN2))
-    for phase, m in QWEN2_ROWS.items():
+    E, prods = _expert_products(get_config(arch))
+    for phase, m in MOE_SERVE[arch]["rows"].items():
         xs = {k: _randn((E, m, k), dt, k) for k in {k for k, _, _ in prods}}
         ws = [_randn((E, k, n), dt, 10 + i, k ** -0.5) for i, (k, n, _) in enumerate(prods)]
 
@@ -1459,11 +1517,12 @@ def _dropped_pairs(routes: list, moe, tokens: int) -> list[int]:
                  - cap).clamp(min=0).sum()) for _, top_i in routes]
 
 
-def parity_qwen2_f32(M, cfg, rehome, prompt_len: int, batch: int) -> dict:
-    """Full-width float32 qwen2 on the card against the CPU: the routing of
-    every layer and pass first (``_routing_flips``), then the logits at
-    DENSE_PARITY_TOL where no near-tie flipped. Also the (token, slot)
-    pairs the CPU's prefill dropped, layer by layer (some must drop)."""
+def parity_moe_f32(M, cfg, rehome, prompt_len: int, batch: int) -> dict:
+    """Full-width float32 MoE model (qwen2, deepseek) on the card against
+    the CPU: the routing of every MoE layer and pass first
+    (``_routing_flips``), then the logits at DENSE_PARITY_TOL where no
+    near-tie flipped. Also the (token, slot) pairs the CPU's prefill
+    dropped, MoE layer by MoE layer (some must drop)."""
     from repro_torch.models.moe import capacity, recording_routes
 
     routes: dict = {"cuda": [], "cpu": []}
@@ -1480,7 +1539,7 @@ def parity_qwen2_f32(M, cfg, rehome, prompt_len: int, batch: int) -> dict:
     tokens = batch * prompt_len
     group, cap = capacity(moe, tokens)
     out.update(group=group, capacity=cap,
-               dropped_in_prefill=_dropped_pairs(routes["cpu"][:cfg.n_layers], moe, tokens))
+               dropped_in_prefill=_dropped_pairs(routes["cpu"][:_moe_layers(cfg)], moe, tokens))
     assert sum(out["dropped_in_prefill"]) > 0, out
     out["max_logit_err"] = None
     if out["near_tie_flips"] == 0:
@@ -1493,15 +1552,15 @@ def parity_qwen2_f32(M, cfg, rehome, prompt_len: int, batch: int) -> dict:
 def _routed_bounds(routes: list, cfg, param_bytes: int, embed_bytes: int) -> dict:
     """The bounds of one serve's MoE work as its routing needs it, beside
     those of the padded batched launches that do it. ``routes``: the
-    serve's (probs, top-k ids) of every layer, prefill first, then each
+    serve's (probs, top-k ids) of every MoE layer, prefill first, then each
     decode step. A decode step needs only the experts its (token, slot)
-    pairs route to (the launches read all 60); a prefill's expert products
+    pairs route to (the launches read all of them); a prefill's expert products
     need only the kept (token, slot) rows (the launches multiply every
     capacity row, padding too). Bytes: each weight read once, each row read
     and written once; per layer, means over layers and steps."""
     from repro_torch.models.moe import capacity
 
-    moe, d, L = cfg.period[0].moe, cfg.d_model, cfg.n_layers
+    moe, d, L = cfg.period[0].moe, cfg.d_model, _moe_layers(cfg)
     E, k, f = moe.n_experts, moe.top_k, moe.d_ff
     per_expert = 3 * d * f * 2                        # gate, up, down; bf16
     dense = param_bytes - embed_bytes - L * E * per_expert
@@ -1533,52 +1592,83 @@ def _routed_bounds(routes: list, cfg, param_bytes: int, embed_bytes: int) -> dic
             torch.bfloat16)[0])
 
 
-def serve_qwen2(serve, M, rehome, get_config, counters: dict) -> dict:
-    """qwen2_moe_a2_7b at full width and full depth from seeded random
-    weights: every launch counted, prefill and each decode step (tile_matmul
-    once for each 2-D weight matrix of each layer, bf16 ones on wgmma in
-    prefill and skinny in decode, the float32 router on ffma and skinny, and
-    three batched expert launches a layer on wgmma, never a launch an
-    expert; flash_attention once a layer in prefill, never in decode; no
-    other kernel), one prefill and one decode step profiled beside the
-    bounds of the work the timed serve's routing needs and of the padded
-    launches (``_routed_bounds``), then float32 routing and logits against
-    the CPU at 2 layers."""
+def _layer_weights(params) -> dict:
+    """Each layer's weight tensors by how the forward pass multiplies them:
+    ``attn`` the attention's 2-D matrices (one tile_matmul launch each, every
+    pass), ``latent_up`` MLA's 3-D ``w_uk`` / ``w_uv`` (one launch each as an
+    (R, H D) matrix, in prefill only), ``ffn`` the FFN's bf16 2-D matrices
+    (a dense FFN's or the shared experts'), ``router`` the float32 routers,
+    ``experts`` the 3-D expert tensors (one batched launch each)."""
+    out = dict.fromkeys(("attn", "latent_up", "ffn", "router", "experts"), 0)
+    for layer in [*params["prefix"], *(p for per in params["period"] for p in per)]:
+        for t in layer["attn"].values():
+            out["attn"] += t.dim() == 2
+            out["latent_up"] += t.dim() == 3
+        for t in layer.get("ffn", {}).values():
+            out["ffn"] += t.dim() == 2 and t.dtype == torch.bfloat16
+            out["router"] += t.dim() == 2 and t.dtype == torch.float32
+            out["experts"] += t.dim() == 3
+    return out
+
+
+# Each MoE config's weights by kind (``_layer_weights``), a layer of L
+# (MoE layers Lm): qwen2's four attention projections, three shared-expert
+# products; deepseek's three (wq, w_dkv, wo) and two up-projections, its
+# dense first layer's three FFN products and the shared experts' three.
+MOE_WEIGHTS = {QWEN2: lambda L, Lm: dict(attn=4 * L, latent_up=0, ffn=3 * Lm, router=Lm,
+                                         experts=3 * Lm),
+               DEEPSEEK: lambda L, Lm: dict(attn=3 * L, latent_up=2 * L, ffn=3 * L, router=Lm,
+                                            experts=3 * Lm)}
+
+
+def serve_moe(serve, M, rehome, get_config, counters: dict, arch: str) -> dict:
+    """An MoE config (``MOE_SERVE``: qwen2_moe_a2_7b, deepseek_v2_lite_16b)
+    at full width and full depth from seeded random weights: every launch
+    counted, prefill and each decode step (tile_matmul once for each 2-D
+    weight matrix of each layer, bf16 ones on wgmma in prefill and skinny in
+    decode, the float32 router on ffma and skinny, MLA's two up-projections
+    of the latent on wgmma in prefill only, and three batched expert
+    launches an MoE layer on wgmma, never a launch an expert;
+    flash_attention once a layer in prefill, never in decode; no other
+    kernel), one prefill and one decode step profiled beside the bounds of
+    the work the timed serve's routing needs and of the padded launches
+    (``_routed_bounds``), then float32 routing and logits against the CPU at
+    2 layers."""
     from repro_torch.models.moe import recording_routes
 
-    cfg = get_config(QWEN2)
-    L = cfg.n_layers
+    spec, cfg = MOE_SERVE[arch], get_config(arch)
+    L, Lm = cfg.n_layers, _moe_layers(cfg)
     params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
-    layer_leaves = _leaves((params["prefix"], params["period"]))
-    bf16_2d = sum(t.dim() == 2 and t.dtype == torch.bfloat16 for t in layer_leaves)
-    f32_2d = sum(t.dim() == 2 and t.dtype == torch.float32 for t in layer_leaves)
-    experts = sum(t.dim() == 3 for t in layer_leaves)
-    assert (bf16_2d, f32_2d, experts) == (7 * L, L, 3 * L), (bf16_2d, f32_2d, experts)
+    w = _layer_weights(params)
+    assert w == MOE_WEIGHTS[arch](L, Lm), (w, MOE_WEIGHTS[arch](L, Lm))
     E = cfg.period[0].moe.n_experts
-    prefill_paths = {"wgmma": bf16_2d + experts, "mma": 0, "skinny": 0, "ffma": f32_2d}
-    decode_paths = {"wgmma": experts, "mma": 0, "skinny": bf16_2d + f32_2d, "ffma": 0}
-    per_pass = bf16_2d + f32_2d + experts
+    x_w = w["attn"] + w["ffn"] + w["router"]          # plain 2-D launches, every pass
+    prefill_paths = {"wgmma": w["attn"] + w["latent_up"] + w["ffn"] + w["experts"], "mma": 0,
+                     "skinny": 0, "ffma": w["router"]}
+    decode_paths = {"wgmma": w["experts"], "mma": 0, "skinny": x_w, "ffma": 0}
+    per_prefill, per_decode = sum(prefill_paths.values()), sum(decode_paths.values())
     with recording_routes() as routes:
-        out = serve_path(serve, M, cfg, params, counters, **QWEN2_RUN,
+        out = serve_path(serve, M, cfg, params, counters, **spec["run"],
                          want_paths={p: prefill_paths[p] + GEN * decode_paths[p]
                                      for p in prefill_paths})
-    routes = routes[-(1 + GEN) * L:]                  # the timed serve's, after its warm-up
+    routes = routes[-(1 + GEN) * Lm:]                 # the timed serve's, after its warm-up
     layouts = dict(counters["tile_matmul"].layouts)
-    want = dict.fromkeys(counters, 0) | {"tile_matmul": per_pass * (1 + GEN),
+    want = dict.fromkeys(counters, 0) | {"tile_matmul": per_prefill + GEN * per_decode,
                                          "flash_attention": L}
     assert out["launches"] == want, (out["launches"], want)
-    assert layouts == dict.fromkeys(layouts, 0) | {"x@w": (bf16_2d + f32_2d) * (1 + GEN),
-                                                   "batched": experts * (1 + GEN)}, layouts
-    prof = out["profile"] = profile_steps(M, cfg, params, rehome, counters, **QWEN2_RUN)
+    assert layouts == dict.fromkeys(layouts, 0) | {
+        "x@w": x_w * (1 + GEN) + w["latent_up"], "batched": w["experts"] * (1 + GEN)}, layouts
+    prof = out["profile"] = profile_steps(M, cfg, params, rehome, counters, **spec["run"])
     _print_profile(cfg.name, prof)
-    for phase, flash, paths in (("prefill", L, prefill_paths), ("decode", 0, decode_paths)):
-        assert prof[phase]["launches"] == want | {"tile_matmul": per_pass,
+    for phase, flash, n, paths in (("prefill", L, per_prefill, prefill_paths),
+                                   ("decode", 0, per_decode, decode_paths)):
+        assert prof[phase]["launches"] == want | {"tile_matmul": n,
                                                   "flash_attention": flash}, prof[phase]
         assert prof[phase]["tile_matmul_paths"] == paths, (phase, prof[phase])
     param_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     embed_bytes = params["embed"]["tok"].numel() * 2
-    out.update(layers=L, tile_matmul_layouts=layouts, param_bytes=param_bytes,
-               expert_launches_per_layer=experts // L,
+    out.update(layers=L, moe_layers=Lm, weights_by_kind=w, tile_matmul_layouts=layouts,
+               param_bytes=param_bytes, expert_launches_per_layer=w["experts"] // Lm,
                params_active=M.active_param_count(cfg),
                **_routed_bounds(routes, cfg, param_bytes, embed_bytes))
     print(f"serve {cfg.name}: {param_bytes / 1e9:.2f} GB of weights; a decode step routes to "
@@ -1590,13 +1680,14 @@ def serve_qwen2(serve, M, rehome, get_config, counters: dict) -> dict:
           f"{out['prefill_rows_padded_per_layer']} expert rows a layer: expert products bound "
           f"{out['prefill_experts_bound_ms']:.4f} ms a layer, "
           f"{out['prefill_experts_padded_bound_ms']:.4f} ms padded")
-    del params, layer_leaves, routes
+    del params, routes
     torch.cuda.empty_cache()
-    pcfg = dataclasses.replace(cfg, n_periods=QWEN2_PARITY_PERIODS)
-    par = out["parity_f32"] = dict(layers=pcfg.n_layers, **QWEN2_PARITY) | parity_qwen2_f32(
-        M, pcfg, rehome, **QWEN2_PARITY)
+    pcfg = dataclasses.replace(cfg, n_periods=spec["parity_periods"])
+    run = spec["parity"]
+    par = out["parity_f32"] = dict(layers=pcfg.n_layers, **run) | parity_moe_f32(
+        M, pcfg, rehome, **run)
     print(f"parity f32 {cfg.name} full width, {pcfg.n_layers} layers, "
-          f"{QWEN2_PARITY['batch']}x{QWEN2_PARITY['prompt_len']} (group {par['group']}, "
+          f"{run['batch']}x{run['prompt_len']} (group {par['group']}, "
           f"capacity {par['capacity']}, dropped {par['dropped_in_prefill']}): "
           f"{par['tokens_checked']} routings checked, {par['near_tie_flips']} near-tie flips, "
           f"max |logit err| {par['max_logit_err']}")
@@ -2489,7 +2580,9 @@ def process_fleet(counters: dict) -> dict:
     the card, over the cloud's embedded tuple-space server): the same
     losses and final weights bit for bit, no violation, leak or broken
     ledger. The workers' own tile_matmul launches, by path, come from the
-    counts they write when they stop (``CloudResult.worker_launches``);
+    counts they write as they run and when they stop
+    (``CloudResult.worker_launches``; a SIGKILLed worker's last quarter
+    second of launches is lost with it);
     the cloud process launches nothing. A worker's boot on the card is measured first; then the same
     run with every worker SIGKILLed at an interval of 3 boots (emulated
     compute stretches it to 1.4 intervals, so a firing lands in it: sleep,
@@ -2867,11 +2960,13 @@ def main() -> int:
                                                                    "mamba2_2_7b")
     detail["ssd_scan_bwd_time"] = time_ssd_bwd(ssd_kernel, ssd_plain_bwd)
     detail["moe_batched_time"] = time_moe_batched(tm_kernel, tile_matmul_batched_ref, get_config)
+    detail["moe_batched_deepseek_time"] = time_moe_batched(tm_kernel, tile_matmul_batched_ref,
+                                                           get_config, DEEPSEEK)
     detail["moe_batched_grad_time"] = time_moe_batched_grad(tm_kernel, tile_matmul_batched_ref,
                                                             get_config)
     for k in ("tile_matmul", "flash_attention", "ssd_scan", "tile_matmul_grad",
               "flash_attention_bwd", "tile_matmul_grad_mamba2", "ssd_scan_bwd", "moe_batched",
-              "moe_batched_grad"):
+              "moe_batched_deepseek", "moe_batched_grad"):
         print(f"times (ms): {k} {detail[k + '_time']}")
 
     mark("times")
@@ -2920,19 +3015,30 @@ def main() -> int:
     mark("serve_mamba2_2_7b")
     g3 = detail["serve_gemma3"] = serve_gemma3(serve, M, rehome, get_config, counters)
     _record("serve_gemma3_12b", g3)
+    mark("serve_gemma3_12b")
     dn = detail["serve_danube"] = serve_danube(serve, M, rehome, get_config, counters)
     _record("serve_h2o_danube_1_8b", dn)
+    mark("serve_h2o_danube_1_8b")
     cr = detail["serve_command_r"] = serve_command_r(serve, M, rehome, get_config, counters)
     _record("serve_command_r_plus_104b", cr)
-    mark("serve_dense")
+    mark("serve_command_r_plus_104b")
 
     # 7b. Path 6: serve full-width, full-depth qwen2_moe_a2_7b: the expert
     # products as three batched tile_matmul launches a layer, the float32
     # router, D 128 attention at G 1; float32 routing and logits against
     # the CPU.
-    q2 = detail["serve_qwen2"] = serve_qwen2(serve, M, rehome, get_config, counters)
+    q2 = detail["serve_qwen2"] = serve_moe(serve, M, rehome, get_config, counters, QWEN2)
     _record("serve_qwen2_moe_a2_7b", q2)
     mark("serve_qwen2_moe_a2_7b")
+
+    # 7c. Path 7: serve full-width, full-depth deepseek_v2_lite_16b: MLA
+    # (prefill attention at q/k head dim 192 and v head dim 128, the latent's
+    # up-projections through tile_matmul, decode in the latent space), the
+    # dense first layer, then 26 MoE layers of 64 experts at top-6; float32
+    # routing and logits against the CPU on the dense layer and one MoE layer.
+    ds = detail["serve_deepseek"] = serve_moe(serve, M, rehome, get_config, counters, DEEPSEEK)
+    _record("serve_deepseek_v2_lite_16b", ds)
+    mark("serve_deepseek_v2_lite_16b")
 
     # 8. Path 6: train full-width, full-depth smollm_360m through ``train``.
     # 9. Path 7: the same for full-width, full-depth mamba2_2_7b.
@@ -2964,10 +3070,11 @@ def main() -> int:
     tdn = detail["train_danube"] = dense_train(train, M, steps_mod, get_config,
                                                "h2o_danube_1_8b", counters)
     _record("train_h2o_danube_1_8b", tdn)
+    mark("train_h2o_danube_1_8b")
     tg3 = detail["train_gemma3"] = dense_train(train, M, steps_mod, get_config, "gemma3_12b",
                                                counters)
     _record("train_gemma3_12b", tg3)
-    mark("train_dense")
+    mark("train_gemma3_12b")
 
     # 9c. Train full-width qwen2_moe_a2_7b at 4 of its 24 layers (8 x 1024):
     # each expert product's gradients as batched tile_matmul launches in
@@ -3035,13 +3142,27 @@ def main() -> int:
     sst, gt = detail["ssd_scan_time"], detail["tile_matmul_grad_time"]
     fbts, sbt = detail["flash_attention_bwd_time"], detail["ssd_scan_bwd_time"]
     fbt = fbts["smollm_360m"]
-    runs = (sm, ms, g3, dn, cr, q2, tr, mt, tdn, tg3, tq2, ac, pp, ct, pf, mp)
+    runs = (sm, ms, g3, dn, cr, q2, ds, tr, mt, tdn, tg3, tq2, ac, pp, ct, pf, mp)
     mlp_t = detail["mlp_ops"]["times"]["256x256"]
     moe_t = detail["moe_ops"]["times"]
     qb, qbg = detail["moe_batched_time"], detail["moe_batched_grad_time"]
+    dsb = detail["moe_batched_deepseek_time"]
+
+    def batched_record(times: dict, serve_run: dict, E: int) -> dict:
+        """The batched expert launch's numbers at one MoE config's rows:
+        its times, its launches in that config's serve by phase, and its
+        worst bf16 error at those rows."""
+        return {phase: {k: times[phase][k] for k in (
+            "shape", "ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+            "bound_ms", "bound_by", "tflop_s", "gb_s")}
+            | {"launches": serve_run["tile_matmul_layouts"]["batched"]
+               * (1 if phase == "prefill" else GEN) // (1 + GEN),
+               "max_abs_err": max(v for c, v in detail["moe_batched_err"].items()
+                                  if c.startswith(f"{phase} {E}x") and "bfloat16" in c)}
+            for phase in times}
 
     def summed(name: str) -> dict:
-        """Launches of ``name`` over the sixteen paths (the six serves, the
+        """Launches of ``name`` over the seventeen paths (the seven serves, the
         five train runs, the ACAN path's crash-free run, the paper's four MLP
         runs, the two-tenant cloud's crash run, exp 1's three fleet runs
         with the workers' own launches, the MoE's six runs on the card), in
@@ -3086,14 +3207,7 @@ def main() -> int:
                 "timed": "one MoE expert forward task's two products, relu(x @ W1^T) "
                          "and h @ W2^T (x@w^T layout), float32; library: torch.matmul "
                          "and relu; launches: the MoE's six runs on the card"},
-             moe_batched={phase: {k: qb[phase][k] for k in (
-                 "shape", "ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
-                 "bound_ms", "bound_by", "tflop_s", "gb_s")}
-                 | {"launches": q2["tile_matmul_layouts"]["batched"] * (1 if phase == "prefill"
-                                                                       else GEN) // (1 + GEN),
-                    "max_abs_err": max(v for c, v in detail["moe_batched_err"].items()
-                                       if c.startswith(phase) and "bfloat16" in c)}
-                 for phase in QWEN2_ROWS}
+             moe_batched=batched_record(qb, q2, 60)
              | {"timed": "one qwen2_moe_a2_7b layer's three expert products (gate with SiLU, "
                          "up, down), 60 experts, bf16, batched wgmma launches; library: "
                          "torch.bmm (and silu); launches: the qwen2 serve's, prefill and its "
@@ -3103,6 +3217,13 @@ def main() -> int:
                             "kept rows (prefill) and routed experts (decode), a layer",
                 "routed_bound_ms": {"prefill": q2["prefill_experts_bound_ms"],
                                     "decode": q2["decode_experts_bound_ms"]}},
+             moe_batched_deepseek=batched_record(dsb, ds, 64)
+             | {"timed": "one deepseek_v2_lite_16b MoE layer's three expert products, 64 "
+                         "experts at 960 (prefill) and 48 (decode) rows an expert, bf16, "
+                         "batched wgmma launches; library: torch.bmm (and silu); launches: "
+                         "the deepseek serve's, prefill and its 32 decode steps",
+                "routed_bound_ms": {"prefill": ds["prefill_experts_bound_ms"],
+                                    "decode": ds["decode_experts_bound_ms"]}},
              moe_batched_grad={layout: {k: qbg[layout][k] for k in (
                  "shape", "product", "ms", "device_ms", "plain_ms", "library_ms",
                  "library_device_ms", "bound_ms", "bound_by", "tflop_s")}
@@ -3124,9 +3245,10 @@ def main() -> int:
              bound_by=fat["bound_by"], library_ms=fat["library_ms"], ffma_ms=fat["ffma_ms"],
              device_ms=fat["device_ms"], library_device_ms=fat["library_device_ms"],
              timed="one layer's prefill attention, q (40, 3, 512, 64), causal, bf16, "
-                   "mma path; the dense configs' layers under by_config",
+                   "mma path; the dense configs', qwen2's and deepseek's (q/k head dim 192, "
+                   "v head dim 128) layers under by_config",
              by_config={k: {key: t[key] for key in (
-                 "q_shape", "window", "kernel", "ms", "device_ms", "tflop_s", "plain_ms",
+                 "q_shape", "v_shape", "window", "kernel", "ms", "device_ms", "tflop_s", "plain_ms",
                  "library_ms", "library_device_ms", "library_backend", "bound_ms", "bound_by",
                  "ffma_ms")}
                  for k, t in detail["flash_attention_time"].items() if k != "smollm_360m"},

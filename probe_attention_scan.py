@@ -145,15 +145,15 @@ def measure(name: str) -> dict:
         from repro_torch.kernels.flash_attention import kernel as K
         from repro_torch.kernels.flash_attention.ref import flash_attention_ref
         fn = lib.flash_attention_launch
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                          ctypes.c_void_p])
+        # as kernel.py's _lib binds it
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + list(K._MASK)
+                       + [ctypes.c_int, ctypes.c_void_p])
 
         def call(q, k, v, window=0, softcap=0.0, q_offset=0):
             o = torch.empty_like(q)
             BH, G, Tq, D = q.shape
-            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), BH, G, Tq,
-                     k.shape[1], D, 1, 1, window, softcap, q_offset, D ** -0.5,
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None, BH, G, Tq,
+                     k.shape[1], D, D, 1, 1, window, softcap, q_offset, D ** -0.5,
                      K.PATH_CODES["mma"],
                      torch._C._cuda_getCurrentRawStream(0))
             assert err == 0, err

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Design probe for the wgmma attention kernels at head dims 80 and 128 on
-one NVIDIA GPU: ``flash_fwd_wg<D>`` in ``csrc/flash_attention.cu``, and in
+one NVIDIA GPU: ``flash_fwd_wg<D, D>`` in ``csrc/flash_attention.cu``, and in
 ``csrc/flash_attention_bwd.cu`` the D 80 and 128 instances of
 ``flash_bwd_{dq,dkv}_wgmma`` (and at D 128 the role-split
 ``flash_bwd_dkv_wgsplit<128>`` as a variant).
@@ -41,8 +41,8 @@ sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 OUT = ROOT / "build" / "probe_flash_wg"
 RESULT = ROOT / "chiprun_out" / "probe_flash_wg.json"
 SRC = {"fwd": "flash_attention", "bwd": "flash_attention_bwd"}
-FWD80 = "struct FwdWg<80> { static constexpr int NC = 3, SWB = 32; };"
-FWD128 = "struct FwdWg<128> { static constexpr int NC = 2, SWB = 128; };"
+FWD80 = "struct FwdWg<80, 80> { static constexpr int NC = 3, SWB = 32; };"
+FWD128 = "struct FwdWg<128, 128> { static constexpr int NC = 2, SWB = 128; };"
 BWD80 = "static constexpr int SWB = 32, DQ_BLOCKS = 3, DQ_STAGES = 2, DKV_WGS = 2;"
 BWD128 = "static constexpr int SWB = 128, DQ_BLOCKS = 3, DQ_STAGES = 1, DKV_WGS = 1;"
 SPLIT256 = "template <> struct BwdSplit<256> { static constexpr int STAGES = 2; };"
@@ -158,9 +158,11 @@ def fwd_call(fn):
         BH, G, Tq, D = q.shape
         o = torch.empty_like(q)
         lse = torch.empty((BH, G, Tq), dtype=torch.float32, device="cuda")
+        # a source with q/k and v head dims apart takes both (one int more)
+        dims = (D, D) if len(fn.argtypes) > 18 else (D,)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), BH, G,
-                 Tq, k.shape[1], D, 1, int(causal), window, softcap, q_offset, 1.0 / D ** 0.5, 0,
-                 _stream())
+                 Tq, k.shape[1], *dims, 1, int(causal), window, softcap, q_offset,
+                 1.0 / D ** 0.5, 0, _stream())
         assert err == 0, err
         return o, lse
     return run
@@ -255,8 +257,10 @@ def main(argv: list[str]) -> int:
         lib = ctypes.CDLL(str(OUT / name / "lib.so"))
         fwd = name.startswith("fwd")
         fn = lib.flash_attention_launch if fwd else lib.flash_attention_bwd_launch
-        # as kernel.py's _lib and _lib_bwd bind them
-        fn.argtypes = ([ctypes.c_void_p] * (5 if fwd else 10) + [ctypes.c_int] * 6
+        # as kernel.py's _lib and _lib_bwd bind them; an older tree's forward
+        # takes one head dim
+        pair = fwd and "int DK, int DV" in (OUT / name / "src.cu").read_text()
+        fn.argtypes = ([ctypes.c_void_p] * (5 if fwd else 10) + [ctypes.c_int] * (6 + pair)
                        + list(fa._MASK) + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         libs[name] = fn

@@ -88,7 +88,10 @@ def params_from_numpy(flat: dict, cfg: M.ModelConfig, device, dtype=None) -> dic
     Shapes are checked against the config; ``dtype`` (optional) casts every
     leaf but a MoE layer's router, which stays float32 whatever the model's
     dtype, as the reference keeps it; the ``n_periods`` axis is unstacked
-    into per-layer tensors."""
+    into per-layer tensors. A ``prefix`` layer's leaves (``prefix/0/...``)
+    come across as they are; a period leaf loses only its leading axis, so
+    MLA's up-projections ``w_uk`` / ``w_uv`` keep their (R, H, D) shape, as a
+    MoE layer's expert tensors keep (E, d, f)."""
 
     def leaf(path, spec):
         t = _tensor(flat, path, device, None if path.endswith("/w_router") else dtype)

@@ -46,9 +46,9 @@ Port of the reference's ``repro/core/cloud.py``: the same code, with
   itself, for longer than any revival interval);
 - a process fleet's kernel launches happen in the workers, so the cloud's
   own counters read 0: each worker writes its counters into a private
-  directory of the cloud's when it stops cleanly, and the results carry
-  their sum as ``worker_launches`` (a lower bound when a worker was
-  SIGKILLed, whose launches die with it);
+  directory of the cloud's as they change and when it stops cleanly, and
+  the results carry their sum as ``worker_launches`` (a lower bound when
+  a worker was SIGKILLed, whose last interval's launches die with it);
 - ``run()`` joins every Manager and Handler thread until it exits (the
   reference waits 2 s for each), so no late gradient of a torch tenant
   launches or writes after it returns; worker processes keep the
@@ -79,7 +79,7 @@ __all__ = ["ACANCloud", "CloudConfig", "CloudResult", "MultiCloudResult"]
 
 def _sum_worker_counts(directory: str) -> dict:
     """The sum of every counts file under ``directory`` (one a worker
-    incarnation that stopped cleanly), in
+    incarnation that wrote its counters), in
     :func:`repro_torch.core.workers.launch_counts`' form; ``"workers"`` is
     the number of files."""
     total: dict = {"workers": 0}
@@ -699,9 +699,10 @@ class ACANCloud:
         worker_launches: dict = {}
         if self._server is not None:
             self._server.close()
-            # Every incarnation that stopped cleanly wrote its counters;
-            # the SIGKILLed ones (faults, and any that outlived the join
-            # grace) took theirs with them.
+            # Every incarnation wrote its counters as they changed and, if
+            # it stopped cleanly, once more at the end; the SIGKILLed ones
+            # (faults, and any that outlived the join grace) took only
+            # their last interval's with them.
             worker_launches = _sum_worker_counts(self._counts_dir.name)
             worker_launches["killed"] = killed + sum(
                 ev.kills for ev in self._handler_crashes)

@@ -42,10 +42,11 @@ first ``take_batch``, so its first task pays neither.
 
 **Launch counts.** The kernels' launch counters count in the process that
 launches, so a process fleet's launches are the workers' own. With
-``--counts-file`` a worker that stops cleanly (SIGTERM) writes its
-counters there as JSON; :func:`sum_counts` sums a directory of them (the
-cloud hands each worker a file in a private directory and reports the
-sum). A SIGKILLed worker writes nothing: its launches are lost with it.
+``--counts-file`` a worker writes its counters there as JSON every
+:data:`COUNTS_EVERY` seconds while they change, and once more when it
+stops cleanly (SIGTERM); the cloud hands each worker a file in a private
+directory and reports their sum. A SIGKILLed worker leaves what it wrote
+last: only the launches of its last interval are lost with it.
 
 Differs from the reference in ``device``, ``counts_file`` /
 ``--counts-file`` and the module paths (``python -m
@@ -71,6 +72,10 @@ from repro_torch.device import resolve_device
 
 __all__ = ["HandlerProcess", "ProcessCrashEvent", "launch_counts", "main",
            "spawn_worker"]
+
+#: How often (seconds) a worker with ``--counts-file`` writes its counters
+#: while it runs.
+COUNTS_EVERY = 0.25
 
 
 class HandlerProcess:
@@ -184,11 +189,33 @@ def _kernel_wrappers() -> dict:
 
 def launch_counts() -> dict:
     """This process's launch counters: per kernel ``launches`` and its
-    per-key dicts (``paths``, ``layouts``)."""
-    return {name: {attr: (dict(v) if isinstance(v, dict) else v)
-                   for attr in ("launches", "paths", "layouts")
-                   if (v := getattr(fn, attr, None)) is not None}
-            for name, fn in _kernel_wrappers().items()}
+    per-key dicts (``paths``, ``layouts``), read under the counters' lock."""
+    from repro_torch.kernels import _count
+    wrappers = _kernel_wrappers()
+    with _count._lock:
+        return {name: {attr: (dict(v) if isinstance(v, dict) else v)
+                       for attr in ("launches", "paths", "layouts")
+                       if (v := getattr(fn, attr, None)) is not None}
+                for name, fn in wrappers.items()}
+
+
+def _write_counts(path: str, counts: dict) -> None:
+    """Replace ``path`` with ``counts`` in one step: a reader, or a SIGKILL
+    between the two calls, never sees half a file."""
+    tmp = f"{path}.tmp"
+    Path(tmp).write_text(json.dumps(counts))
+    os.replace(tmp, path)
+
+
+def _flush_counts(path: str, stop: threading.Event, every: float) -> None:
+    """Write this process's counters to ``path`` every ``every`` seconds
+    in which they changed, until ``stop`` is set."""
+    last = None
+    while not stop.wait(every):
+        counts = launch_counts()
+        if counts != last:
+            _write_counts(path, counts)
+            last = counts
 
 
 def _ready_device(name: str):
@@ -216,7 +243,8 @@ def main(argv=None) -> int:
                     help="where the worker runs its ops (cpu | cuda; "
                          "default cuda, which needs a card)")
     ap.add_argument("--counts-file", default=None,
-                    help="write the kernels' launch counts here on a clean stop")
+                    help="write the kernels' launch counts here as they change "
+                         "and on a clean stop")
     ap.add_argument("--speed", type=float, default=1.0)
     ap.add_argument("--capacity", type=float, default=256.0)
     ap.add_argument("--lr", type=float, default=0.01)
@@ -262,6 +290,12 @@ def main(argv=None) -> int:
                 tenants=tenants, autotune=args.autotune,
                 defer_ratio=args.defer_ratio,
                 compute_mode=args.compute_mode, stop_event=stop)
+    flushed = threading.Event()
+    flusher = None
+    if args.counts_file:
+        flusher = threading.Thread(target=_flush_counts, daemon=True,
+                                   args=(args.counts_file, flushed, COUNTS_EVERY))
+        flusher.start()
     # The handler runs on the main thread: CPython delivers SIGTERM to
     # the main thread between bytecodes, the handler above sets `stop`,
     # and the event loop's bounded take_batch timeout observes it.
@@ -270,12 +304,12 @@ def main(argv=None) -> int:
     except HandlerCrash:
         pass
     backend.close()
-    if args.counts_file:
+    if flusher is not None:
+        flushed.set()
+        flusher.join()
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-        tmp = f"{args.counts_file}.tmp"
-        Path(tmp).write_text(json.dumps(launch_counts()))
-        os.replace(tmp, args.counts_file)
+        _write_counts(args.counts_file, launch_counts())
     return 0
 
 

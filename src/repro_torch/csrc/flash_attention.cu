@@ -1,5 +1,5 @@
 // Hopper flash_attention: causal GQA FlashAttention-2 forward with online
-// softmax (m, l, acc in float32), scale 1/sqrt(D), optional logit softcap
+// softmax (m, l, acc in float32), scale 1/sqrt(DK), optional logit softcap
 // tanh(s/c)*c, causal mask with q_offset, sliding window kv > q - window.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py
@@ -8,7 +8,8 @@
 // one block owns one (batch * kv-head, row tile) and loops over the KV tiles
 // itself, carrying (m, l, acc) in registers.
 //
-// Layout: q, o (BH, G, Tq, D); k, v (BH, Tkv, D). The G query heads that
+// Layout: q (BH, G, Tq, DK), k (BH, Tkv, DK), v (BH, Tkv, DV), o (BH, G, Tq,
+// DV); DK = DV but at MLA's (192, 128). The G query heads that
 // share a KV head are folded into the row dimension as row = t * G + g, so a
 // tile of 64 rows covers a contiguous run of query positions of all G heads:
 // each K/V tile is loaded once into shared memory and serves all of them
@@ -69,7 +70,7 @@
 //    64 keys. On an H100 (PERF.md) the global layer takes about 0.37 ms
 //    (369 TFLOP/s).
 //    Head dims 80 (h2o_danube_1_8b) and 128 (command_r_plus_104b) take
-//    flash_fwd_wg<D>: the same producer and consumers, on tiles of boxes
+//    flash_fwd_wg<D, D>: the same producer and consumers, on tiles of boxes
 //    (hopper.cuh's desc_kb / desc_mnb). A 160-byte D 80 row is no whole
 //    number of 128-byte swizzle rows, so its tiles are five boxes of 16
 //    columns under the 32-byte swizzle, which TMA writes and wgmma reads as
@@ -90,6 +91,15 @@
 //    its time, and one block an SM hides none of it; two blocks an SM of one
 //    consumer each measured no faster. On an H100 (PERF.md) danube's layer
 //    takes about 1.39 ms (371 TFLOP/s), command_r's about 0.24 ms.
+//    MLA's pair (deepseek_v2_lite_16b: q and k of head dim 192, v and o of
+//    128) takes flash_fwd_wg<192, 128>, the D 128 kernel with Q and K rows of
+//    three 128-byte atoms (S = Q K^T over 12 k-steps of m64n64k16) and V rows
+//    of two (O += P V as m64n128k16): K and V have tensor maps of their own
+//    widths and the producer expects a K tile's and a V tile's bytes apart.
+//    Two consumers of 64 rows: Q 48 KB, a two-stage ring of K 48 KB and V
+//    32 KB, and the 64-float accumulator of D 128. What bounds it: deepseek's
+//    layer, q (128, 1, 1024, 192) causal, is 43.0 GFLOP against 168 MB, so
+//    bytes (0.050 ms).
 //  * ffma (float32, and bf16 the mma path cannot take). True float32 FFMA
 //    (never TF32) for the float32 parity runs: each thread keeps a 4-row x
 //    8-key score tile and a 4-row x D/8 output tile in registers, reads Q
@@ -135,36 +145,38 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 // ---------------------------------------------------------------------------
 // ffma: float32 FFMA (and bf16 inputs the mma path cannot take).
 // ---------------------------------------------------------------------------
-template <int D>
+// Q and K rows of DK values, V and O rows of DV (DK = DV but at MLA's
+// (192, 128)).
+template <int DK, int DV>
 constexpr int smem_floats() {
-  return ROWS * (D + 1) + BK * (D + 1) + BK * D + ROWS * (BK + 1);
+  return ROWS * (DK + 1) + BK * (DK + 1) + BK * DV + ROWS * (BK + 1);
 }
 
-template <class T, int D>
+template <class T, int DK, int DV>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_ffma(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
           T* __restrict__ o, float* __restrict__ lse, int G, int Tq, int Tkv, int causal,
           int window, float softcap, int q_offset, float scale) {
-  constexpr int DJ = D / 8;  // output columns a thread owns
+  constexpr int DJ = DV / 8;  // output columns a thread owns
   extern __shared__ float smem[];
-  float* Qs = smem;                   // [ROWS][D + 1]
-  float* Ks = Qs + ROWS * (D + 1);    // [BK][D + 1]
-  float* Vs = Ks + BK * (D + 1);      // [BK][D]
-  float* Ps = Vs + BK * D;            // [ROWS][BK + 1]
+  float* Qs = smem;                   // [ROWS][DK + 1]
+  float* Ks = Qs + ROWS * (DK + 1);   // [BK][DK + 1]
+  float* Vs = Ks + BK * (DK + 1);     // [BK][DV]
+  float* Ps = Vs + BK * DV;           // [ROWS][BK + 1]
 
   const int tid = threadIdx.x, ty = tid >> 3, tx = tid & 7;
   const int bh = blockIdx.y, r0 = blockIdx.x * ROWS;
   const int R = G * Tq;
-  const T* qb = q + (size_t)bh * R * D;
-  const T* kb = k + (size_t)bh * Tkv * D;
-  const T* vb = v + (size_t)bh * Tkv * D;
-  T* ob = o + (size_t)bh * R * D;
+  const T* qb = q + (size_t)bh * R * DK;
+  const T* kb = k + (size_t)bh * Tkv * DK;
+  const T* vb = v + (size_t)bh * Tkv * DV;
+  T* ob = o + (size_t)bh * R * DV;
 
-  for (int idx = tid; idx < ROWS * D; idx += THREADS) {
-    const int r = idx / D, d = idx % D, rr = r0 + r;
+  for (int idx = tid; idx < ROWS * DK; idx += THREADS) {
+    const int r = idx / DK, d = idx % DK, rr = r0 + r;
     float val = 0.f;
-    if (rr < R) val = to_f(qb[((size_t)(rr % G) * Tq + rr / G) * D + d]);
-    Qs[r * (D + 1) + d] = val;
+    if (rr < R) val = to_f(qb[((size_t)(rr % G) * Tq + rr / G) * DK + d]);
+    Qs[r * (DK + 1) + d] = val;
   }
 
   // Query positions this tile covers, and the band of keys they can see.
@@ -187,11 +199,13 @@ flash_fwd_ffma(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 
   for (int kv0 = kv_begin; kv0 < kv_end; kv0 += BK) {
     __syncthreads();  // previous tile's Ks/Vs/Ps are consumed; Qs is stored
-    for (int idx = tid; idx < BK * D; idx += THREADS) {
-      const int c = idx / D, d = idx % D, kp = kv0 + c;
-      const bool in = kp < Tkv;
-      Ks[c * (D + 1) + d] = in ? to_f(kb[(size_t)kp * D + d]) : 0.f;
-      Vs[c * D + d] = in ? to_f(vb[(size_t)kp * D + d]) : 0.f;
+    for (int idx = tid; idx < BK * DK; idx += THREADS) {
+      const int c = idx / DK, d = idx % DK, kp = kv0 + c;
+      Ks[c * (DK + 1) + d] = kp < Tkv ? to_f(kb[(size_t)kp * DK + d]) : 0.f;
+    }
+    for (int idx = tid; idx < BK * DV; idx += THREADS) {
+      const int c = idx / DV, d = idx % DV, kp = kv0 + c;
+      Vs[c * DV + d] = kp < Tkv ? to_f(vb[(size_t)kp * DV + d]) : 0.f;
     }
     __syncthreads();
 
@@ -201,12 +215,12 @@ flash_fwd_ffma(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 #pragma unroll
       for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < DK; ++d) {
       float qa[4], kk[8];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = Qs[(ty * 4 + i) * (D + 1) + d];
+      for (int i = 0; i < 4; ++i) qa[i] = Qs[(ty * 4 + i) * (DK + 1) + d];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) kk[j] = Ks[(tx + 8 * j) * (D + 1) + d];
+      for (int j = 0; j < 8; ++j) kk[j] = Ks[(tx + 8 * j) * (DK + 1) + d];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -256,7 +270,7 @@ flash_fwd_ffma(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
       for (int i = 0; i < 4; ++i) p[i] = Ps[(ty * 4 + i) * (BK + 1) + c];
 #pragma unroll
       for (int j = 0; j < DJ; ++j) {
-        const float vv = Vs[c * D + tx + 8 * j];
+        const float vv = Vs[c * DV + tx + 8 * j];
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(p[i], vv, acc[i][j]);
       }
@@ -269,7 +283,7 @@ flash_fwd_ffma(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     if (rr >= R) continue;
     const float l = fmaxf(l_i[i], 1e-30f);
     if (lse != nullptr && tx == 0) lse[(size_t)bh * R + (rr % G) * Tq + rr / G] = m_i[i] + logf(l);
-    T* orow = ob + ((size_t)(rr % G) * Tq + rr / G) * D;
+    T* orow = ob + ((size_t)(rr % G) * Tq + rr / G) * DV;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) orow[tx + 8 * j] = from_f<T>(acc[i][j] / l);
   }
@@ -800,55 +814,62 @@ flash_fwd_wg256(const __grid_constant__ CUtensorMap tmap_k,
 }
 
 // ---------------------------------------------------------------------------
-// mma at D = 80 and 128 (h2o_danube_1_8b, command_r_plus_104b): the D = 256
-// kernel's producer and consumers, on tiles of boxes (hopper.cuh's
-// desc_kb / desc_mnb) that TMA fills with the box's swizzle.
+// mma at D = 80 and 128 (h2o_danube_1_8b, command_r_plus_104b) and at MLA's
+// (192, 128) (deepseek_v2_lite_16b): the D = 256 kernel's producer and
+// consumers, on tiles of boxes (hopper.cuh's desc_kb / desc_mnb) that TMA
+// fills with the box's swizzle.
 // ---------------------------------------------------------------------------
-// Per head dim: consumer warpgroups of 64 folded rows (NC) and the bytes of
+// Per head-dim pair (DK of q and k, DV of v and o; equal but at MLA's
+// (192, 128)): consumer warpgroups of 64 folded rows (NC) and the bytes of
 // a box row (SWB: 128 where a row is whole 64-column atoms; 32 at D = 80,
 // whose 160-byte rows are five 32-byte boxes). K/V tiles of BK keys in a
 // ring of WG_STAGES, as at D = 256.
-template <int D> struct FwdWg;
-template <> struct FwdWg<80> { static constexpr int NC = 3, SWB = 32; };
-template <> struct FwdWg<128> { static constexpr int NC = 2, SWB = 128; };
+template <int DK, int DV> struct FwdWg;
+template <> struct FwdWg<80, 80> { static constexpr int NC = 3, SWB = 32; };
+template <> struct FwdWg<128, 128> { static constexpr int NC = 2, SWB = 128; };
+template <> struct FwdWg<192, 128> { static constexpr int NC = 2, SWB = 128; };
 // Registers a consumer thread takes once the producer warpgroup has given up
 // all but 24 of its own: the block's registers at launch (the most one block
 // of its threads may have, in units of 8) shared out again (setmaxnreg: a
 // multiple of 8, here at most 240).
-template <int D>
+template <int DK, int DV>
 __host__ __device__ constexpr int fwd_consumer_regs() {
-  const int threads = 128 * (FwdWg<D>::NC + 1), entry = 65536 / threads / 8 * 8;
-  const int r = (threads * entry - 128 * 24) / (128 * FwdWg<D>::NC) / 8 * 8;
+  constexpr int NC = FwdWg<DK, DV>::NC;
+  const int threads = 128 * (NC + 1), entry = 65536 / threads / 8 * 8;
+  const int r = (threads * entry - 128 * 24) / (128 * NC) / 8 * 8;
   return r < 240 ? r : 240;
 }
 
 // Q of every consumer, the K/V ring, its 4 x WG_STAGES mbarriers; alignment.
-template <int D>
+template <int DK, int DV>
 __host__ __device__ constexpr int fwd_wg_smem() {
-  return FwdWg<D>::NC * 64 * D * 2 + 2 * WG_STAGES * BK * D * 2 + 4 * WG_STAGES * 8 + 1024;
+  return FwdWg<DK, DV>::NC * 64 * DK * 2 + WG_STAGES * BK * (DK + DV) * 2 + 4 * WG_STAGES * 8 +
+         1024;
 }
 
-template <int D>
-__global__ void __launch_bounds__(128 * (FwdWg<D>::NC + 1), 1)
+template <int DK, int DV>
+__global__ void __launch_bounds__(128 * (FwdWg<DK, DV>::NC + 1), 1)
 flash_fwd_wg(const __grid_constant__ CUtensorMap tmap_k, const __grid_constant__ CUtensorMap tmap_v,
              const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ o,
              float* __restrict__ lse, int G, int Tq, int Tkv, int causal, int window,
              float softcap, int q_offset, float scale) {
-  constexpr int NC = FwdWg<D>::NC, SWB = FwdWg<D>::SWB, STAGES = WG_STAGES;
-  constexpr int ROWS = 64 * NC;   // folded rows a block owns
-  constexpr int QT = 64 * D * 2;  // bytes of a consumer's Q tile
-  constexpr int KT = BK * D * 2;  // bytes of a K or V tile
-  constexpr int BOX = SWB / 2;    // columns a box holds
-  constexpr int CPR = D / 8;      // 16-byte chunks a row
-  static_assert(D % BOX == 0, "whole boxes");
+  constexpr int NC = FwdWg<DK, DV>::NC, SWB = FwdWg<DK, DV>::SWB, STAGES = WG_STAGES;
+  constexpr int ROWS = 64 * NC;    // folded rows a block owns
+  constexpr int QT = 64 * DK * 2;  // bytes of a consumer's Q tile (its O tile at the end)
+  constexpr int KT = BK * DK * 2;  // bytes of a K tile
+  constexpr int VT = BK * DV * 2;  // bytes of a V tile
+  constexpr int BOX = SWB / 2;     // columns a box holds
+  constexpr int CPR = DK / 8;      // 16-byte chunks a Q row
+  constexpr int CPO = DV / 8;      // 16-byte chunks an O row
+  static_assert(DK % BOX == 0 && DV % BOX == 0 && DV <= DK, "whole boxes; O fits Q's tile");
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   unsigned char* gbase = smem_raw + (base - smem_u32(smem_raw));
   // Q of consumer c at base + c QT; K and V of stage st after them; then the
   // barriers: full_k, full_v (the producer's TMA), empty_k, empty_v (the
   // consumers: K is released once S is formed, V once P V is).
-  const uint32_t sK = base + NC * QT, bars = sK + 2 * STAGES * KT;
-  auto k_of = [&](int st) { return sK + 2 * st * KT; };
+  const uint32_t sK = base + NC * QT, bars = sK + STAGES * (KT + VT);
+  auto k_of = [&](int st) { return sK + st * (KT + VT); };
   auto full_k = [&](int st) { return bars + 8 * st; };
   auto full_v = [&](int st) { return bars + 8 * (STAGES + st); };
   auto empty_k = [&](int st) { return bars + 8 * (2 * STAGES + st); };
@@ -884,31 +905,32 @@ flash_fwd_wg(const __grid_constant__ CUtensorMap tmap_k, const __grid_constant__
         if (it >= STAGES) mbar_wait(empty_k(st), par);
         mbar_expect_tx(full_k(st), KT);
 #pragma unroll
-        for (int b = 0; b < D / BOX; ++b)
+        for (int b = 0; b < DK / BOX; ++b)
           tma_load3(k_of(st) + b * BK * SWB, &tmap_k, full_k(st), BOX * b, kv0, bh);
         if (it >= STAGES) mbar_wait(empty_v(st), par);
-        mbar_expect_tx(full_v(st), KT);
+        mbar_expect_tx(full_v(st), VT);
 #pragma unroll
-        for (int b = 0; b < D / BOX; ++b)
+        for (int b = 0; b < DV / BOX; ++b)
           tma_load3(k_of(st) + KT + b * BK * SWB, &tmap_v, full_v(st), BOX * b, kv0, bh);
       }
     }
     return;
   }
   // the consumers share what the producer gave up
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(fwd_consumer_regs<D>()) : "memory");
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(fwd_consumer_regs<DK, DV>())
+               : "memory");
 
   // Consumer c owns folded rows rw .. rw + 63 of the block.
   const int c = wg - 1, t = tid & 127, warp = t >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int rw = r0 + 64 * c;
   const uint32_t sQ = base + c * QT;
-  const __nv_bfloat16* qb = q + (size_t)bh * R * D;
+  const __nv_bfloat16* qb = q + (size_t)bh * R * DK;
 #pragma unroll 1
   for (int i = t; i < 64 * CPR; i += 128) {
     const int r = i / CPR, ch = i % CPR, rr = rw + r;
     const bool in = rr < R;
-    cp_async16(sw_chunk_b<SWB, 64>(sQ, r, ch), in ? qb + row_off(rr, G, Tq) * D + ch * 8 : qb,
+    cp_async16(sw_chunk_b<SWB, 64>(sQ, r, ch), in ? qb + row_off(rr, G, Tq) * DK + ch * 8 : qb,
                in);
   }
   cp_async_commit();
@@ -933,9 +955,9 @@ flash_fwd_wg(const __grid_constant__ CUtensorMap tmap_k, const __grid_constant__
   }
   const float sl2 = scale * LOG2E, scale_cap = softcap > 0.f ? __fdividef(scale, softcap) : 0.f;
   float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f}, corr[2];
-  float s[32], acc[D / 2];
+  float s[32], acc[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
   uint32_t pa[4][4], pb[4][4];  // P of the last tile and of this one, in turn
 
   auto release = [&](int it) {  // a tile this warpgroup does not compute
@@ -948,24 +970,24 @@ flash_fwd_wg(const __grid_constant__ CUtensorMap tmap_k, const __grid_constant__
       mbar_arrive(empty_v(st));
     }
   };
-  // S = Q K^T of tile it (m64n64, D / 16 k-steps), issued, not waited on.
+  // S = Q K^T of tile it (m64n64, DK / 16 k-steps), issued, not waited on.
   auto issue_s = [&](int it) {
     const int st = it % STAGES;
     mbar_wait(full_k(st), (it / STAGES) & 1);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < DK / 16; ++kk)
       wgmma_ss(s, desc_kb<SWB, 64>(sQ, kk), desc_kb<SWB, BK>(k_of(st), kk), kk);
     wgmma_commit();
   };
-  // acc += P V of tile it (m64n<D>, V read MN-major), issued, not waited on.
+  // acc += P V of tile it (m64n<DV>, V read MN-major), issued, not waited on.
   auto issue_pv = [&](int it, uint32_t(&pf)[4][4]) {
     const int st = it % STAGES;
     mbar_wait(full_v(st), (it / STAGES) & 1);
     wgmma_fence();
 #pragma unroll
     for (int kc = 0; kc < 4; ++kc)
-      wgmma_rs_n<D>(acc, pf[kc], desc_mnb<SWB, BK>(k_of(st) + KT, kc));
+      wgmma_rs_n<DV>(acc, pf[kc], desc_mnb<SWB, BK>(k_of(st) + KT, kc));
     wgmma_commit();
   };
   // The softmax of tile it's S, once formed; K is released. Masks only where
@@ -992,7 +1014,7 @@ flash_fwd_wg(const __grid_constant__ CUtensorMap tmap_k, const __grid_constant__
     fence_frags(last);
     if (lane == 0) mbar_arrive(empty_v((it - 1) % STAGES));
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+    for (int i = 0; i < DV / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
   };
 
   for (int it = 0; it < it_lo; ++it) release(it);
@@ -1032,7 +1054,7 @@ flash_fwd_wg(const __grid_constant__ CUtensorMap tmap_k, const __grid_constant__
   fence_proxy_async();  // the wgmma reads of Q are done before it is overwritten
   unsigned char* os = gbase + c * QT;
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < DV / 8; ++j)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = 16 * warp + g + 8 * h;
@@ -1040,12 +1062,12 @@ flash_fwd_wg(const __grid_constant__ CUtensorMap tmap_k, const __grid_constant__
           pack_bf16(acc[4 * j + 2 * h] * inv[h], acc[4 * j + 2 * h + 1] * inv[h]);
     }
   __syncwarp();
-  __nv_bfloat16* ob = o + (size_t)bh * R * D;
+  __nv_bfloat16* ob = o + (size_t)bh * R * DV;
 #pragma unroll 2
-  for (int i = lane; i < 16 * CPR; i += 32) {
-    const int r = 16 * warp + i / CPR, ch = i % CPR, rr = rw + r;
+  for (int i = lane; i < 16 * CPO; i += 32) {
+    const int r = 16 * warp + i / CPO, ch = i % CPO, rr = rw + r;
     if (rr < R)
-      *reinterpret_cast<uint4*>(ob + row_off(rr, G, Tq) * D + ch * 8) =
+      *reinterpret_cast<uint4*>(ob + row_off(rr, G, Tq) * DV + ch * 8) =
           *reinterpret_cast<const uint4*>(os + sw_chunk_b<SWB, 64>(0, r, ch));
   }
 }
@@ -1092,22 +1114,22 @@ cudaError_t launch_wg256(const void* q, const void* k, const void* v, void* o, f
   return cudaGetLastError();
 }
 
-template <int D>
+template <int DK, int DV>
 cudaError_t launch_wg(const void* q, const void* k, const void* v, void* o, float* lse, int BH,
                       int G, int Tq, int Tkv, int causal, int window, float softcap,
                       int q_offset, float scale, cudaStream_t stream) {
-  constexpr int bytes = fwd_wg_smem<D>(), NC = FwdWg<D>::NC;
+  constexpr int bytes = fwd_wg_smem<DK, DV>(), NC = FwdWg<DK, DV>::NC;
+  constexpr int cols = FwdWg<DK, DV>::SWB / 2;
   static_assert(bytes <= 232448, "227 KB of shared memory a block");
   CUtensorMap tk, tv;
-  if (!encode_keys(&tk, k, BH, Tkv, D, FwdWg<D>::SWB / 2, BK) ||
-      !encode_keys(&tv, v, BH, Tkv, D, FwdWg<D>::SWB / 2, BK))
+  if (!encode_keys(&tk, k, BH, Tkv, DK, cols, BK) || !encode_keys(&tv, v, BH, Tkv, DV, cols, BK))
     return cudaErrorInvalidValue;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_wg<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_fwd_wg<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (attr != cudaSuccess) return attr;
   // grid y: row blocks longest first, over every BH before the next
   const dim3 grid(BH, (G * Tq + 64 * NC - 1) / (64 * NC));
-  flash_fwd_wg<D><<<grid, 128 * (NC + 1), bytes, stream>>>(
+  flash_fwd_wg<DK, DV><<<grid, 128 * (NC + 1), bytes, stream>>>(
       tk, tv, static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(o), lse, G, Tq,
       Tkv, causal, window, softcap, q_offset, scale);
   return cudaGetLastError();
@@ -1116,84 +1138,94 @@ cudaError_t launch_wg(const void* q, const void* k, const void* v, void* o, floa
 // ---------------------------------------------------------------------------
 // Launch.
 // ---------------------------------------------------------------------------
-bool path_fits(int path, int dtype, int D, bool aligned) {
-  const bool d_ok = D == 16 || D == 32 || D == 64 || D == 80 || D == 128 || D == 256;
+// The head dims of q/k (DK) and v/o (DV) a kernel takes: DK = DV in {16, 32,
+// 64, 80, 128, 256}, or MLA's (192, 128) (deepseek_v2_lite_16b's prefill).
+bool dims_ok(int DK, int DV) {
+  if (DK == 192) return DV == 128;
+  return DK == DV && (DK == 16 || DK == 32 || DK == 64 || DK == 80 || DK == 128 || DK == 256);
+}
+
+bool path_fits(int path, int dtype, int DK, int DV, bool aligned) {
   switch (path) {
-    case PATH_MMA: return d_ok && dtype == 1 && aligned;
-    case PATH_FFMA: return d_ok && (dtype == 0 || dtype == 1);
+    case PATH_MMA: return dims_ok(DK, DV) && dtype == 1 && aligned;
+    case PATH_FFMA: return dims_ok(DK, DV) && (dtype == 0 || dtype == 1);
     default: return false;
   }
 }
 
-template <class T, int D>
+template <class T, int DK, int DV>
 cudaError_t launch(int path, const void* q, const void* k, const void* v, void* o,
                    float* lse, int BH, int G, int Tq, int Tkv, int causal, int window,
                    float softcap, int q_offset, float scale, cudaStream_t stream) {
-  if constexpr (sizeof(T) == 2 && D == 256) {
+  if constexpr (sizeof(T) == 2 && DK == 256) {
     if (path == PATH_MMA)
       return launch_wg256(q, k, v, o, lse, BH, G, Tq, Tkv, causal, window, softcap, q_offset,
                           scale, stream);
-  } else if constexpr (sizeof(T) == 2 && (D == 80 || D == 128)) {
+  } else if constexpr (sizeof(T) == 2 && (DK == 80 || DK == 128 || DK == 192)) {
     if (path == PATH_MMA)
-      return launch_wg<D>(q, k, v, o, lse, BH, G, Tq, Tkv, causal, window, softcap, q_offset,
-                          scale, stream);
+      return launch_wg<DK, DV>(q, k, v, o, lse, BH, G, Tq, Tkv, causal, window, softcap,
+                               q_offset, scale, stream);
   } else if constexpr (sizeof(T) == 2) {
     if (path == PATH_MMA) {
       dim3 grid((G * Tq + MMA_ROWS - 1) / MMA_ROWS, BH);
-      constexpr int bytes = mma_smem_bytes<D>();
+      constexpr int bytes = mma_smem_bytes<DK>();
       cudaError_t err = cudaFuncSetAttribute(
-          flash_fwd_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+          flash_fwd_mma<DK>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
       if (err != cudaSuccess) return err;
-      flash_fwd_mma<D><<<grid, MMA_THREADS, bytes, stream>>>(
+      flash_fwd_mma<DK><<<grid, MMA_THREADS, bytes, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
           static_cast<T*>(o), lse, G, Tq, Tkv, causal, window, softcap, q_offset, scale);
       return cudaGetLastError();
     }
   }
-  constexpr size_t bytes = smem_floats<D>() * sizeof(float);
+  constexpr size_t bytes = smem_floats<DK, DV>() * sizeof(float);
   dim3 grid((G * Tq + ROWS - 1) / ROWS, BH);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_ffma<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      flash_fwd_ffma<T, DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  flash_fwd_ffma<T, D><<<grid, THREADS, bytes, stream>>>(
+  flash_fwd_ffma<T, DK, DV><<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), lse, G, Tq, Tkv, causal, window, softcap, q_offset, scale);
   return cudaGetLastError();
 }
 
 template <class T>
-cudaError_t dispatch(int path, int D, const void* q, const void* k, const void* v, void* o,
-                     float* lse, int BH, int G, int Tq, int Tkv, int causal, int window,
+cudaError_t dispatch(int path, int DK, int DV, const void* q, const void* k, const void* v,
+                     void* o, float* lse, int BH, int G, int Tq, int Tkv, int causal, int window,
                      float softcap, int q_offset, float scale, cudaStream_t s) {
-  switch (D) {
-    case 16: return launch<T, 16>(path, q, k, v, o, lse, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s);
-    case 32: return launch<T, 32>(path, q, k, v, o, lse, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s);
-    case 64: return launch<T, 64>(path, q, k, v, o, lse, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s);
-    case 80: return launch<T, 80>(path, q, k, v, o, lse, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s);
-    case 128: return launch<T, 128>(path, q, k, v, o, lse, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s);
-    case 256: return launch<T, 256>(path, q, k, v, o, lse, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s);
+  if (DK != DV) {  // dims_ok: MLA's (192, 128)
+    return launch<T, 192, 128>(path, q, k, v, o, lse, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s);
+  }
+  switch (DK) {
+    case 16: return launch<T, 16, 16>(path, q, k, v, o, lse, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s);
+    case 32: return launch<T, 32, 32>(path, q, k, v, o, lse, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s);
+    case 64: return launch<T, 64, 64>(path, q, k, v, o, lse, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s);
+    case 80: return launch<T, 80, 80>(path, q, k, v, o, lse, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s);
+    case 128: return launch<T, 128, 128>(path, q, k, v, o, lse, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s);
+    case 256: return launch<T, 256, 256>(path, q, k, v, o, lse, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16. D in {16, 32, 64, 80, 128, 256}. path: 0 =
+// dtype codes: 0 = float32, 1 = bfloat16. (DK, DV), the head dims of q/k and
+// of v/o: DK = DV in {16, 32, 64, 80, 128, 256}, or (192, 128). path: 0 =
 // mma (bf16, q/k/v/o 16-byte aligned), 1 = ffma. lse: float32 (BH, G, Tq)
 // or null. Returns the CUDA error of the launch (cudaErrorInvalidValue for a
 // path the inputs cannot take); 0 means launched.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
-                                      void* lse, int BH, int G, int Tq, int Tkv, int D,
+                                      void* lse, int BH, int G, int Tq, int Tkv, int DK, int DV,
                                       int dtype, int causal, int window, float softcap,
                                       int q_offset, float scale, int path, void* stream) {
   const bool aligned = ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) &
                         15) == 0;
-  if (!path_fits(path, dtype, D, aligned)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!path_fits(path, dtype, DK, DV, aligned)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   cudaError_t err = dtype == 0
-      ? dispatch<float>(path, D, q, k, v, o, l, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s)
-      : dispatch<__nv_bfloat16>(path, D, q, k, v, o, l, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s);
+      ? dispatch<float>(path, DK, DV, q, k, v, o, l, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s)
+      : dispatch<__nv_bfloat16>(path, DK, DV, q, k, v, o, l, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s);
   return static_cast<int>(err);
 }

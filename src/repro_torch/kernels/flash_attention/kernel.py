@@ -15,8 +15,9 @@ switches):
 - ``mma``: bf16 with 16-byte aligned q, k, v and output (every serving
   prefill). At D = 16, 32 and 64 both products on bf16 tensor cores
   (``mma.sync.m16n8k16``), Q and P in registers, K/V tiles in a two-stage
-  ``cp.async`` ring; at D = 80, 128 and 256 both on ``wgmma``, K/V tiles by
-  TMA into a ring that a producer warpgroup keeps full for consumer
+  ``cp.async`` ring; at D = 80, 128 and 256, and at MLA's (192, 128) pair
+  (q and k of head dim 192, v and the output of 128), both on ``wgmma``,
+  K/V tiles by TMA into a ring that a producer warpgroup keeps full for consumer
   warpgroups of 64 rows each (:func:`fwd_walks` mirrors their walk; at D 80
   the tiles are 32-byte boxes, as a 160-byte row is no whole number of
   128-byte swizzle rows, and each consumer runs a tile's softmax under the
@@ -48,19 +49,29 @@ from repro_torch.kernels import _build, _count
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 PATH_CODES = {"mma": 0, "ffma": 1}
-# Head dims the kernels take (80: h2o_danube_1_8b, 256: gemma3_12b); the
-# backward takes every one the forward takes.
+# Head dims the kernels take with q, k and v of one head dim (80:
+# h2o_danube_1_8b, 256: gemma3_12b); the backward takes every one of them.
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 BWD_HEAD_DIMS = HEAD_DIMS
+# (head dim of q and k, head dim of v and the output) pairs the forward also
+# takes: MLA's prefill (deepseek_v2_lite_16b, qk_nope 128 + qk_rope 64, v 128).
+# Their backward is the deepseek training slice's (ROADMAP.md).
+HEAD_DIM_PAIRS = ((192, 128),)
 
 
-def choose_path(dtype: torch.dtype, d: int, aligned: bool) -> str:
-    """The kernel for attention of head dim ``d`` in ``dtype``; ``aligned``:
-    q, k, v and the output start on 16-byte boundaries. Mirrors
-    ``path_fits`` in ``csrc/flash_attention.cu``."""
-    if d not in HEAD_DIMS or dtype not in DTYPE_CODES:
-        raise ValueError(f"flash_attention takes D in {HEAD_DIMS} in float32 or "
-                         f"bfloat16; got D {d}, {dtype}")
+def _dims_ok(d: int, dv: int) -> bool:
+    return (d == dv and d in HEAD_DIMS) or (d, dv) in HEAD_DIM_PAIRS
+
+
+def choose_path(dtype: torch.dtype, d: int, aligned: bool, dv: int | None = None) -> str:
+    """The kernel for attention of head dim ``d`` (q and k) and ``dv`` (v
+    and the output; ``d`` when not given) in ``dtype``; ``aligned``: q, k, v
+    and the output start on 16-byte boundaries. Mirrors ``path_fits`` in
+    ``csrc/flash_attention.cu``."""
+    dv = d if dv is None else dv
+    if not _dims_ok(d, dv) or dtype not in DTYPE_CODES:
+        raise ValueError(f"flash_attention takes D in {HEAD_DIMS} or (D, Dv) in "
+                         f"{HEAD_DIM_PAIRS} in float32 or bfloat16; got ({d}, {dv}), {dtype}")
     return "mma" if dtype == torch.bfloat16 and aligned else "ffma"
 
 
@@ -70,7 +81,7 @@ _MASK = (ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_floa
 @functools.cache
 def _lib():
     fn = _build.load("flash_attention").flash_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + list(_MASK)
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + list(_MASK)
                    + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -90,16 +101,17 @@ BWD_TILE = 64        # folded rows or keys of a tile in the backward kernels
 # dK/dV block at D = 64, 80 and 128 (the other kernels' walks are those of 1)
 DKV_WARPGROUPS = {64: 3, 80: 2, 128: 1}
 FWD_TILE = 64        # folded rows of a consumer warpgroup of the wgmma forward
-# The wgmma forward kernels' blocks by head dim: (consumer warpgroups, keys
-# of a K/V tile); flash_fwd_wg256, and FwdWg<D> in csrc/flash_attention.cu.
-FWD_WG = {80: (3, 64), 128: (2, 64), 256: (2, 64)}
+# The wgmma forward kernels' blocks by head dim (or (DK, DV) pair): (consumer
+# warpgroups, keys of a K/V tile); flash_fwd_wg256, and FwdWg<DK, DV> in
+# csrc/flash_attention.cu.
+FWD_WG = {80: (3, 64), 128: (2, 64), 256: (2, 64), (192, 128): (2, 64)}
 FWD_ROWS = FWD_WG[256][0] * FWD_TILE  # folded rows a block of the D = 256 forward owns
 
 
 def fwd_walks(G: int, Tq: int, Tkv: int, *, causal: bool = True, window: int = 0,
               q_offset: int = 0, d: int = 256):
     """The key tiles the wgmma forward kernel at head dim ``d`` (a key of
-    ``FWD_WG``) computes, as ``flash_fwd_wg256`` and ``flash_fwd_wg<D>`` in
+    ``FWD_WG``) computes, as ``flash_fwd_wg256`` and ``flash_fwd_wg<DK, DV>`` in
     ``csrc/flash_attention.cu`` find them: the producer loads every tile of
     a block's band (its rows' keys), and each consumer warpgroup computes
     the run of them its own 64 rows can see and only releases the rest.
@@ -200,15 +212,17 @@ def bwd_tile_visible(G: int, Tq: int, Tkv: int, r0: int, kv0: int, *, causal: bo
 
 
 def _check(q, k, v) -> None:
-    """Raises on inputs no kernel takes: shapes, head dim (one of
-    ``HEAD_DIMS``), CUDA, dtype, contiguity."""
-    if q.dim() != 4 or k.dim() != 3 or v.shape != k.shape:
+    """Raises on inputs no kernel takes: shapes, head dims (one of
+    ``HEAD_DIMS``, or a pair of ``HEAD_DIM_PAIRS``), CUDA, dtype,
+    contiguity."""
+    if q.dim() != 4 or k.dim() != 3 or v.shape[:2] != k.shape[:2] or v.dim() != 3:
         raise ValueError(f"bad shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
     BH, D = q.shape[0], q.shape[3]
-    if k.shape[0] != BH or k.shape[2] != D or D not in HEAD_DIMS:
-        raise ValueError(f"need k (BH, Tkv, D) with D in {HEAD_DIMS}; "
-                         f"got q {tuple(q.shape)}, k {tuple(k.shape)}")
+    if k.shape[0] != BH or k.shape[2] != D or not _dims_ok(D, v.shape[2]):
+        raise ValueError(f"need k (BH, Tkv, D), v (BH, Tkv, Dv) with D in {HEAD_DIMS} "
+                         f"(and Dv = D) or (D, Dv) in {HEAD_DIM_PAIRS}; got q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("flash_attention kernel needs CUDA tensors")
     if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -222,21 +236,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, softcap: float = 0.0,
                     q_offset: int = 0, path: str | None = None,
                     return_lse: bool = False):
-    """q: (BH, G, Tq, D); k, v: (BH, Tkv, D) → (BH, G, Tq, D), on CUDA;
-    with ``return_lse`` also each row's float32 log-sum-exp (BH, G, Tq).
-    ``path`` overrides ``choose_path`` (the C side refuses a path the
-    inputs cannot take). Raises on anything the kernel does not take."""
+    """q: (BH, G, Tq, D); k: (BH, Tkv, D); v: (BH, Tkv, Dv) → (BH, G, Tq,
+    Dv), on CUDA, with scale 1/sqrt(D); with ``return_lse`` also each row's
+    float32 log-sum-exp (BH, G, Tq). ``path`` overrides ``choose_path`` (the
+    C side refuses a path the inputs cannot take). Raises on anything the
+    kernel does not take."""
     _check(q, k, v)
     BH, G, Tq, D = q.shape
-    Tkv = k.shape[1]
-    out = torch.empty_like(q)
+    Tkv, Dv = k.shape[1], v.shape[2]
+    out = q.new_empty((BH, G, Tq, Dv))
     lse = (torch.empty((BH, G, Tq), dtype=torch.float32, device=q.device)
            if return_lse else None)
     if out.numel() == 0:
         return (out, lse) if return_lse else out
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
-    path = path or choose_path(q.dtype, D, all(p % 16 == 0 for p in ptrs))
-    err = _lib()(*ptrs, None if lse is None else lse.data_ptr(), BH, G, Tq, Tkv, D,
+    path = path or choose_path(q.dtype, D, all(p % 16 == 0 for p in ptrs), Dv)
+    err = _lib()(*ptrs, None if lse is None else lse.data_ptr(), BH, G, Tq, Tkv, D, Dv,
                  DTYPE_CODES[q.dtype], int(causal), int(window), float(softcap),
                  int(q_offset), 1.0 / D ** 0.5, PATH_CODES[path],
                  # the current stream's handle, without building a Stream object
@@ -260,7 +275,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     output was ``o`` and row log-sum-exp ``lse``, for the output gradient
     ``do``; same shapes and layout as q, k, v. On CUDA; raises on anything
     the kernels do not take. ``path`` as :func:`flash_attention`'s, picked
-    by the same rule: ``mma`` for aligned bf16, else ``ffma``."""
+    by the same rule: ``mma`` for aligned bf16, else ``ffma``. A (D, Dv)
+    pair of ``HEAD_DIM_PAIRS`` raises: its backward kernel is the deepseek
+    training slice's (ROADMAP.md)."""
+    if v.shape[-1] != q.shape[-1]:
+        raise ValueError(
+            f"flash_attention_bwd takes q, k and v of one head dim, not ({q.shape[-1]}, "
+            f"{v.shape[-1]}): the backward at MLA's (192, 128) comes with "
+            "deepseek_v2_lite_16b's training (ROADMAP.md, the next slice)")
     _check(q, k, v)
     BH, G, Tq, D = q.shape
     Tkv = k.shape[1]

@@ -45,16 +45,17 @@ class _Attention(torch.autograd.Function):
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int = 0, softcap: float = 0.0,
               q_offset: int = 0) -> torch.Tensor:
-    """q: (B, Tq, Hq, D); k, v: (B, Tkv, Hkv, D) → (B, Tq, Hq, D)."""
+    """q: (B, Tq, Hq, D); k: (B, Tkv, Hkv, D); v: (B, Tkv, Hkv, Dv) →
+    (B, Tq, Hq, Dv)."""
     B, Tq, Hq, D = q.shape
-    Tkv, Hkv = k.shape[1], k.shape[2]
+    Tkv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     G = Hq // Hkv
     qf = q.permute(0, 2, 1, 3).reshape(B * Hkv, G, Tq, D).contiguous()
     kf = k.permute(0, 2, 1, 3).reshape(B * Hkv, Tkv, D).contiguous()
-    vf = v.permute(0, 2, 1, 3).reshape(B * Hkv, Tkv, D).contiguous()
+    vf = v.permute(0, 2, 1, 3).reshape(B * Hkv, Tkv, Dv).contiguous()
     mask = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (qf, kf, vf)):
         out = _Attention.apply(qf, kf, vf, mask)
     else:
         out = _forward(qf, kf, vf, **mask)
-    return out.reshape(B, Hq, Tq, D).permute(0, 2, 1, 3)
+    return out.reshape(B, Hq, Tq, Dv).permute(0, 2, 1, 3)

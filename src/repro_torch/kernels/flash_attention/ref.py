@@ -34,8 +34,9 @@ def _scores(q, k, *, causal, window, softcap, q_offset):
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
                         softcap: float = 0.0, q_offset: int = 0,
                         return_lse: bool = False):
-    """q: (BH, G, Tq, D); k, v: (BH, Tkv, D). Returns q's shape and dtype;
-    with ``return_lse`` also each row's float32 log-sum-exp (BH, G, Tq)."""
+    """q: (BH, G, Tq, D); k: (BH, Tkv, D); v: (BH, Tkv, Dv). Returns (BH, G,
+    Tq, Dv) in q's dtype; with ``return_lse`` also each row's float32
+    log-sum-exp (BH, G, Tq)."""
     s, _, _ = _scores(q, k, causal=causal, window=window, softcap=softcap,
                       q_offset=q_offset)
     m = s.amax(dim=-1, keepdim=True)

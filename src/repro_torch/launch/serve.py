@@ -11,11 +11,12 @@ Usage::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_360m --full
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_2_7b --full
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3_12b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek_v2_lite_16b --device cpu
 
 ``--arch`` takes ``smollm_360m``, ``mamba2_2_7b``, ``gemma3_12b``,
-``h2o_danube_1_8b``, ``command_r_plus_104b`` and ``qwen2_moe_a2_7b`` (whose
-prompt and batch tokens must split into its MoE groups); without ``--full``
-the reduced config.
+``h2o_danube_1_8b``, ``command_r_plus_104b``, ``deepseek_v2_lite_16b`` and
+``qwen2_moe_a2_7b`` (the two MoE configs' prompt and batch tokens must split
+into their MoE groups); without ``--full`` the reduced config.
 """
 
 from __future__ import annotations

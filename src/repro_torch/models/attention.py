@@ -6,8 +6,9 @@ On a CUDA tensor :func:`gqa_attention` runs the hand-written
 ``flash_attention`` kernel in the grouped layout (each K/V tile serves the G
 query heads of its KV head, no KV repeat). On a CPU tensor it runs
 :func:`chunked_attention`, the plain twin of the same algorithm. Decode
-attention stays plain PyTorch, as the reference computes it outside any
-Pallas kernel.
+attention, and MLA's absorbed decode over the latent cache
+(:func:`mla_decode_attention`), stay plain PyTorch in float32, as the
+reference computes them outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -143,3 +144,25 @@ def decode_attention(q, k_cache, v_cache, valid_len: int, cfg: AttnCfg):
     out = torch.einsum("bhgs,bshd->bhgd", p.to(v_cache.dtype).float(),
                        v_cache.float())
     return out.reshape(B, Hq, -1).to(q.dtype)
+
+
+def mla_decode_attention(q_nope, q_rope, c_cache, krope_cache, w_uk, w_uv,
+                         valid_len: int, cfg: AttnCfg):
+    """Absorbed MLA decode (DeepSeek-V2's low-rank KV joint compression):
+    attention runs in the latent space, over a cache of R + Dr values a
+    token instead of 2 H D.
+
+    q_nope: (B, H, Dn); q_rope: (B, H, Dr); c_cache: (B, S, R);
+    krope_cache: (B, S, Dr); w_uk: (R, H, Dn); w_uv: (R, H, Dv) →
+    (B, H, Dv) in q's dtype; scale 1/sqrt(Dn + Dr)."""
+    S = c_cache.shape[1]
+    scale = 1.0 / ((cfg.qk_nope_dim + cfg.qk_rope_dim) ** 0.5)
+    c = c_cache.float()
+    q_lat = torch.einsum("bhn,rhn->bhr", q_nope.float(), w_uk.float())    # (B, H, R)
+    s = (torch.einsum("bhr,bsr->bhs", q_lat, c)
+         + torch.einsum("bhd,bsd->bhs", q_rope.float(), krope_cache.float())) * scale
+    valid = torch.arange(S, device=c.device) < valid_len
+    s = torch.where(valid[None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out_lat = torch.einsum("bhs,bsr->bhr", p.to(c_cache.dtype).float(), c)
+    return torch.einsum("bhr,rhv->bhv", out_lat, w_uv.float()).to(q_nope.dtype)

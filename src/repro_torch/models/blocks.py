@@ -3,10 +3,12 @@ Mamba-2, dense-FFN and MoE branches): param specs, cache specs, and the
 train/prefill and decode paths with KV/SSM cache handling.
 
 Every projection runs through ``tile_matmul`` (a MoE layer's expert
-products through its batched launch), prefill attention through
-``flash_attention`` and the prefill SSD scan through ``ssd_scan`` (on CUDA
-tensors). The MLA branch is not ported yet and raises
-``NotImplementedError``.
+products through its batched launch; MLA's up-projections of the latent
+``c`` with ``w_uk`` / ``w_uv`` read as (R, H D) matrices), prefill attention
+through ``flash_attention`` (MLA's at q/k head dim qk_nope + qk_rope, v head
+dim v_head_dim) and the prefill SSD scan through ``ssd_scan`` (on CUDA
+tensors). MLA's decode attends in the latent space
+(:func:`~repro_torch.models.attention.mla_decode_attention`).
 """
 
 from __future__ import annotations
@@ -18,14 +20,13 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.tile_matmul.ops import matmul
-from repro_torch.models.attention import AttnCfg, decode_attention, gqa_attention
+from repro_torch.models.attention import (AttnCfg, decode_attention, gqa_attention,
+                                          mla_decode_attention)
 from repro_torch.models.common import ParamSpec, apply_rope, norm_spec, rms_norm
 from repro_torch.models.mamba2 import (MambaCfg, _causal_conv, mamba_specs,
                                        ssd_chunked, ssd_decode_step)
 from repro_torch.models.mlp import DenseFfnCfg, dense_ffn, dense_ffn_specs
 from repro_torch.models.moe import MoECfg, moe_ffn, moe_specs
-
-_MLA = "MLA attention is not ported yet (ROADMAP.md, 'Rest of the zoo')"
 
 
 @dataclass(frozen=True)
@@ -44,9 +45,24 @@ class LayerCfg:
 # Param and cache specs
 # ---------------------------------------------------------------------------
 
+def _mla_specs(d: int, a: AttnCfg, dtype) -> dict:
+    qd = a.qk_nope_dim + a.qk_rope_dim
+    return {
+        "ln": norm_spec(d),
+        "wq": ParamSpec((d, a.n_heads * qd), ("embed", "heads"), dtype),
+        "w_dkv": ParamSpec((d, a.kv_lora_rank + a.qk_rope_dim), ("embed", None), dtype),
+        "ln_ckv": norm_spec(a.kv_lora_rank),
+        "w_uk": ParamSpec((a.kv_lora_rank, a.n_heads, a.qk_nope_dim),
+                          (None, "heads", None), dtype),
+        "w_uv": ParamSpec((a.kv_lora_rank, a.n_heads, a.v_head_dim),
+                          (None, "heads", None), dtype),
+        "wo": ParamSpec((a.n_heads * a.v_head_dim, d), ("heads", "embed"), dtype),
+    }
+
+
 def _attn_specs(d: int, a: AttnCfg, dtype) -> dict:
     if a.is_mla:
-        raise NotImplementedError(_MLA)
+        return _mla_specs(d, a, dtype)
     s: dict = {
         "ln": norm_spec(d),
         "wq": ParamSpec((d, a.n_heads * a.head_dim), ("embed", "heads"), dtype),
@@ -90,9 +106,14 @@ def block_specs(d: int, lcfg: LayerCfg, dtype) -> dict:
 def cache_specs(lcfg: LayerCfg, batch: int, cache_len: int, dtype) -> dict:
     if lcfg.mixer == "attn":
         a = lcfg.attn
-        if a.is_mla:
-            raise NotImplementedError(_MLA)
         S = min(cache_len, a.window) if a.window > 0 else cache_len
+        if a.is_mla:
+            return {
+                "c": ParamSpec((batch, S, a.kv_lora_rank), ("batch", "kv_seq", None),
+                               dtype, init="zeros"),
+                "kr": ParamSpec((batch, S, a.qk_rope_dim), ("batch", "kv_seq", None),
+                                dtype, init="zeros"),
+            }
         kv = ParamSpec((batch, S, a.n_kv_heads, a.head_dim),
                        ("batch", "kv_seq", "kv_heads", None), dtype, init="zeros")
         return {"k": kv, "v": kv}
@@ -129,19 +150,50 @@ def _qkv(h, p, a: AttnCfg, positions):
     return q, k, v
 
 
+def _mla_qkv(h, p, a: AttnCfg, positions):
+    """MLA's query halves and latent: q_nope (B, T, H, Dn), q_rope (B, T, H,
+    Dr) rotated, c = rms_norm of the first R columns of h w_dkv (B, T, R),
+    and the shared rope key kr (B, T, Dr) from its last Dr, rotated."""
+    B, T, _ = h.shape
+    q = matmul(h, p["wq"]).reshape(B, T, a.n_heads, a.qk_nope_dim + a.qk_rope_dim)
+    q_nope, q_rope = q[..., :a.qk_nope_dim], q[..., a.qk_nope_dim:]
+    q_rope = apply_rope(q_rope, positions, a.rope_theta)
+    dkv = matmul(h, p["w_dkv"])
+    c = rms_norm(dkv[..., :a.kv_lora_rank], p["ln_ckv"])
+    kr = apply_rope(dkv[..., None, a.kv_lora_rank:], positions, a.rope_theta)
+    return q_nope, q_rope, c, kr[..., 0, :]
+
+
+def _mla_attention(p, h, a: AttnCfg, positions, pos0: int, q_chunk: int, kv_chunk: int):
+    """MLA prefill: k = [c w_uk, kr on every head], v = c w_uv (``w_uk`` and
+    ``w_uv`` read as (R, H D) matrices), attention at q/k head dim Dn + Dr and
+    v head dim Dv. Returns (out (B, T, H, Dv), c, kr)."""
+    B, T, _ = h.shape
+    H, R = a.n_heads, a.kv_lora_rank
+    q_nope, q_rope, c, kr = _mla_qkv(h, p, a, positions)
+    k_nope = matmul(c, p["w_uk"].reshape(R, H * a.qk_nope_dim)).reshape(B, T, H, -1)
+    v = matmul(c, p["w_uv"].reshape(R, H * a.v_head_dim)).reshape(B, T, H, -1)
+    k = torch.cat([k_nope, kr[:, :, None].expand(B, T, H, a.qk_rope_dim)], -1)
+    q = torch.cat([q_nope, q_rope], -1)
+    out = gqa_attention(q, k, v, a, q_offset=pos0, q_chunk=q_chunk, kv_chunk=kv_chunk)
+    return out, c, kr
+
+
 def attn_core(p, h, lcfg: LayerCfg, pos0: int = 0, want_cache: bool = False,
               q_chunk: int = 512, kv_chunk: int = 512):
     """Attention on already-normed input ``h``; returns (out, cache)."""
     a = lcfg.attn
-    if a.is_mla:
-        raise NotImplementedError(_MLA)
     B, T, _ = h.shape
     positions = pos0 + torch.arange(T, device=h.device)[None, :]
-    q, k, v = _qkv(h, p, a, positions)
-    out = gqa_attention(q, k, v, a, q_offset=pos0, q_chunk=q_chunk,
-                        kv_chunk=kv_chunk)
+    if a.is_mla:
+        out, c, kr = _mla_attention(p, h, a, positions, pos0, q_chunk, kv_chunk)
+        cache = {"c": c, "kr": kr} if want_cache else None
+    else:
+        q, k, v = _qkv(h, p, a, positions)
+        out = gqa_attention(q, k, v, a, q_offset=pos0, q_chunk=q_chunk,
+                            kv_chunk=kv_chunk)
+        cache = {"k": k, "v": v} if want_cache else None
     out = matmul(out.reshape(B, T, -1), p["wo"])
-    cache = {"k": k, "v": v} if want_cache else None
     if lcfg.post_norm:
         out = rms_norm(out, p["post_ln"])
     return out, cache
@@ -177,17 +229,23 @@ def _attn_decode_core(p, h, cache, cur_len: int, lcfg: LayerCfg):
     """h: (B, d) already normed. Returns (out (B, d), cache). The cache is
     updated in place: the decode loop owns it, as the reference donates it."""
     a = lcfg.attn
-    if a.is_mla:
-        raise NotImplementedError(_MLA)
     B = h.shape[0]
     positions = torch.full((B, 1), cur_len, dtype=torch.int64, device=h.device)
-    q, k, v = _qkv(h[:, None], p, a, positions)
-    S = cache["k"].shape[1]
-    idx = cur_len % S
-    cache["k"][:, idx] = k[:, 0]
-    cache["v"][:, idx] = v[:, 0]
-    valid = min(cur_len + 1, S)
-    out = decode_attention(q[:, 0], cache["k"], cache["v"], valid, a)
+    if a.is_mla:
+        q_nope, q_rope, c, kr = _mla_qkv(h[:, None], p, a, positions)
+        S = cache["c"].shape[1]
+        idx = cur_len % S
+        cache["c"][:, idx] = c[:, 0]
+        cache["kr"][:, idx] = kr[:, 0]
+        out = mla_decode_attention(q_nope[:, 0], q_rope[:, 0], cache["c"], cache["kr"],
+                                   p["w_uk"], p["w_uv"], min(cur_len + 1, S), a)
+    else:
+        q, k, v = _qkv(h[:, None], p, a, positions)
+        S = cache["k"].shape[1]
+        idx = cur_len % S
+        cache["k"][:, idx] = k[:, 0]
+        cache["v"][:, idx] = v[:, 0]
+        out = decode_attention(q[:, 0], cache["k"], cache["v"], min(cur_len + 1, S), a)
     out = matmul(out.reshape(B, -1), p["wo"])
     if lcfg.post_norm:
         out = rms_norm(out, p["post_ln"])

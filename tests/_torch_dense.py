@@ -1,6 +1,7 @@
-"""Shared parity checks of the dense-attention configs (gemma3_12b,
-h2o_danube_1_8b, command_r_plus_104b) between the port and the JAX
-reference, on the CPU, for ``tests/test_torch_{gemma3,danube,command_r}.py``.
+"""Shared parity checks of the attention configs (gemma3_12b,
+h2o_danube_1_8b, command_r_plus_104b; qwen2_moe_a2_7b and
+deepseek_v2_lite_16b too) between the port and the JAX reference, on the
+CPU, for ``tests/test_torch_{gemma3,danube,command_r,qwen2_moe,deepseek}.py``.
 
 Weights are a JAX PRNGKey(0) init of the reduced config carried over as
 numpy through ``params_from_numpy``; inputs are numpy draws given to both.
@@ -61,13 +62,19 @@ def jax_rehome(big, small):
 
 
 def assert_caches_match(tcache, jcache, cfg) -> None:
-    """The port's per-layer caches (``cache["period"][j][i]``) against the
-    reference's stacked ones (``cache["period"][j][name][i]``)."""
+    """The port's per-layer caches (``cache["prefix"][l]``,
+    ``cache["period"][j][i]``) against the reference's (``cache["prefix"][l]``,
+    stacked ``cache["period"][j][name][i]``), every leaf: ``k`` and ``v``, or
+    MLA's latent ``c`` and ``kr``."""
+    for l in range(len(cfg.prefix)):
+        assert tcache["prefix"][l].keys() == jcache["prefix"][l].keys()
+        for name, t in tcache["prefix"][l].items():
+            np.testing.assert_allclose(np32(t), np32(jcache["prefix"][l][name]), **TOL)
     for j in range(len(cfg.period)):
         for i in range(cfg.n_periods):
-            for name in ("k", "v"):
-                np.testing.assert_allclose(np32(tcache["period"][j][i][name]),
-                                           np32(jcache["period"][j][name][i]), **TOL)
+            assert tcache["period"][j][i].keys() == jcache["period"][j].keys()
+            for name, t in tcache["period"][j][i].items():
+                np.testing.assert_allclose(np32(t), np32(jcache["period"][j][name][i]), **TOL)
 
 
 def assert_prefill_and_decode_match(jcfg, tcfg, jparams, tparams, prompt_len: int,

@@ -90,6 +90,32 @@ def test_gqa_attention_matches_reference(window, softcap, q_offset, tq, tk):
         np.testing.assert_allclose(tg.numpy(), np.asarray(jg), rtol=2e-4, atol=2e-4)
 
 
+@pytest.mark.parametrize("q_offset,tq,tk,hkv,g", [(0, 20, 20, 4, 1), (9, 11, 20, 4, 1),
+                                                  (0, 37, 37, 2, 2)])
+def test_attention_with_v_head_dim_unlike_q_matches_reference(q_offset, tq, tk, hkv, g):
+    """MLA's shape, q/k head dim 24 and v head dim 16 (deepseek's reduced
+    192 / 128), through ``ops.attention`` (the folded layout's plain version
+    on a CPU tensor) and ``gqa_attention`` against the reference's
+    ``chunked_attention``, which takes Dv != Dk; the reference's Pallas
+    kernel cannot (its v block takes q's head dim), so it is not run here.
+    Ragged against chunk 8, continuation by ``q_offset``."""
+    B, Dk, Dv = 2, 24, 16
+    (jq, jk, jv), (q, k, v) = _inputs(
+        7 + tq, [(B, tq, hkv * g, Dk), (B, tk, hkv, Dk), (B, tk, hkv, Dv)], "float32")
+    ref = JA.chunked_attention(jq, jnp.repeat(jk, g, axis=2), jnp.repeat(jv, g, axis=2),
+                               q_offset=q_offset, q_chunk=8, kv_chunk=8)
+    assert ref.shape == (B, tq, hkv * g, Dv)
+    wrapped = attention(q, k, v, q_offset=q_offset)
+    assert wrapped.shape == (B, tq, hkv * g, Dv)
+    np.testing.assert_allclose(wrapped.numpy(), np.asarray(ref), rtol=2e-4, atol=2e-4)
+    if tq == tk:
+        cfg = TA.AttnCfg(n_heads=hkv * g, n_kv_heads=hkv, head_dim=Dk)
+        out = TA.gqa_attention(q, k, v, cfg, q_chunk=8, kv_chunk=8)
+        jout = JA.gqa_attention(jq, jk, jv, JA.AttnCfg(n_heads=hkv * g, n_kv_heads=hkv,
+                                                       head_dim=Dk), q_chunk=8, kv_chunk=8)
+        np.testing.assert_allclose(out.numpy(), np.asarray(jout), rtol=2e-4, atol=2e-4)
+
+
 @pytest.mark.parametrize("softcap,valid", [(0.0, 7), (30.0, 12)])
 def test_decode_attention_matches_reference(softcap, valid):
     B, S, Hkv, G, D = 2, 12, 2, 3, 16
@@ -133,6 +159,43 @@ def test_path_choice(dtype, d, aligned, path):
 def test_path_choice_refuses_what_no_kernel_takes(dtype, d):
     with pytest.raises(ValueError):
         kernel.choose_path(dtype, d, True)
+
+
+@pytest.mark.parametrize("dtype,aligned,path", [
+    (torch.bfloat16, True, "mma"),           # deepseek_v2_lite_16b's prefill (wgmma)
+    (torch.bfloat16, False, "ffma"),
+    (torch.float32, True, "ffma"),           # float32 parity runs
+])
+def test_path_choice_for_mla_head_dim_pair(dtype, aligned, path):
+    assert kernel.HEAD_DIM_PAIRS == ((192, 128),)
+    assert kernel.choose_path(dtype, 192, aligned, 128) == path
+    assert kernel.choose_path(dtype, 128, aligned, 128) == path
+
+
+@pytest.mark.parametrize("d,dv", [(192, 64), (128, 192), (192, 192), (128, 64), (24, 16)])
+def test_path_choice_refuses_an_unknown_head_dim_pair(d, dv):
+    for dtype in (torch.bfloat16, torch.float32):
+        with pytest.raises(ValueError, match="Dv"):
+            kernel.choose_path(dtype, d, True, dv)
+
+
+def test_mla_pair_on_a_non_cpu_tensor_goes_to_the_kernel_and_its_backward_raises():
+    """Off the CPU the pair reaches the kernel's checks (a meta tensor is no
+    CUDA tensor: it raises there, launching nothing); the backward at the
+    pair raises first, naming the training slice, whatever the device."""
+    q = torch.empty((1, 8, 2, 192), device="meta")
+    k = torch.empty((1, 8, 2, 192), device="meta")
+    v = torch.empty((1, 8, 2, 128), device="meta")
+    before = kernel.flash_attention.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        attention(q, k, v)
+    assert kernel.flash_attention.launches == before
+    qf, kf, vf = (torch.empty(s, device="meta") for s in ((2, 1, 8, 192), (2, 8, 192),
+                                                         (2, 8, 128)))
+    before = kernel.flash_attention_bwd.launches
+    with pytest.raises(ValueError, match="training"):
+        kernel.flash_attention_bwd(qf, kf, vf, vf, vf, torch.empty((2, 1, 8), device="meta"))
+    assert kernel.flash_attention_bwd.launches == before
 
 
 # ---------------------------------------------------------------------------
@@ -383,10 +446,11 @@ def test_forward_walks_at_d256_cover_each_visible_pair_once(g, tq, tk, causal, w
     _assert_forward_walks_cover_each_visible_pair_once(g, tq, tk, causal, window, q_offset, 256)
 
 
-@pytest.mark.parametrize("d", [80, 128])
+@pytest.mark.parametrize("d", [80, 128, (192, 128)])
 @pytest.mark.parametrize("g,tq,tk,causal,window,q_offset", WALK_CASES)
 def test_forward_walks_at_d80_and_d128_cover_each_visible_pair_once(g, tq, tk, causal, window,
                                                                     q_offset, d):
-    """The same for ``flash_fwd_wg<D>`` at D = 80 and 128, whose key tiles
-    (``kernel.FWD_WG``) are wider than a warpgroup's 64 rows."""
+    """The same for ``flash_fwd_wg<DK, DV>`` at D = 80 and 128 and at MLA's
+    (192, 128), whose key tiles (``kernel.FWD_WG``) are wider than a
+    warpgroup's 64 rows."""
     _assert_forward_walks_cover_each_visible_pair_once(g, tq, tk, causal, window, q_offset, d)

@@ -440,16 +440,18 @@ def test_flash_attention_c_entry_refuses_a_path_the_inputs_cannot_take(cuda):
     out = torch.empty_like(q)
     stream = torch._C._cuda_getCurrentRawStream(q.get_device())
     lib, codes = fa_kernel._lib(), fa_kernel.PATH_CODES
-    # float32 through mma; bf16 through mma from an unaligned pointer; D = 48
+    # float32 through mma; bf16 through mma from an unaligned pointer; D = 48;
+    # (D, Dv) pairs other than (192, 128)
     assert lib(q.data_ptr(), k.data_ptr(), k.data_ptr(), out.data_ptr(), None, 1, 1, 16, 16,
-               64, 0, 1, 0, 0.0, 0, 0.125, codes["mma"], stream) == 1
+               64, 64, 0, 1, 0, 0.0, 0, 0.125, codes["mma"], stream) == 1
     qb = _randn((1, 1, 17, 64), torch.bfloat16, cuda, 1)
     kb = _randn((1, 16, 64), torch.bfloat16, cuda, 2)
     assert lib(qb.data_ptr() + 2, kb.data_ptr(), kb.data_ptr(), qb.data_ptr() + 2, None, 1,
-               1, 16, 16, 64, 1, 1, 0, 0.0, 0, 0.125, codes["mma"], stream) == 1
+               1, 16, 16, 64, 64, 1, 1, 0, 0.0, 0, 0.125, codes["mma"], stream) == 1
     for path in ("mma", "ffma"):
-        assert lib(qb.data_ptr(), kb.data_ptr(), kb.data_ptr(), qb.data_ptr(), None, 1, 1,
-                   16, 16, 48, 1, 1, 0, 0.0, 0, 0.125, codes[path], stream) == 1
+        for d, dv in ((48, 48), (192, 64), (128, 192), (192, 192)):
+            assert lib(qb.data_ptr(), kb.data_ptr(), kb.data_ptr(), qb.data_ptr(), None, 1, 1,
+                       16, 16, d, dv, 1, 1, 0, 0.0, 0, 0.125, codes[path], stream) == 1
 
 
 FLASH_NEW_D_CASES = [  # (bh, g, tq, tk, d, window): the dense configs' head dims
@@ -1065,6 +1067,122 @@ def test_flash_attention_d80_d128_edges_match_plain(cuda, bh, g, tq, tk, causal,
     assert bool((diff <= _flash_limit(ref.float(), torch.bfloat16)).all()), diff.max().item()
     torch.testing.assert_close(lse, ref_lse, rtol=2e-4, atol=2e-4)
     assert torch.equal(out, again)
+
+
+MLA_CASES = [  # (bh, g, tq, tk, window): q/k head dim 192, v head dim 128 (MLA)
+    (16, 1, 1024, 1024, 0),         # deepseek_v2_lite_16b's prefill, 1 sequence
+    (6, 1, 130, 130, 0),            # G = 1, ragged Tq = Tkv
+    (4, 1, 77, 133, 0),             # q_offset = 56, both ragged
+    (2, 1, 129, 129, 0),            # one row past a 128-row forward block
+    (3, 1, 1, 65, 0),               # a single query position, q_offset = 64
+    (2, 1, 17, 17, 0),              # fewer keys than one TMA box
+    (2, 4, 200, 333, 150),          # G = 4, window, both ragged
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,g,tq,tk,window", MLA_CASES)
+def test_flash_attention_mla_pair_matches_plain(cuda, bh, g, tq, tk, window, dtype):
+    """MLA's (192, 128) pair, causal, on the path its dtype takes (bf16:
+    ``flash_fwd_wg<192, 128>`` on mma, float32: ffma), against the plain
+    version: the output of v's head dim, each element within
+    ``_flash_limit``, the lse; two launches, the same bits."""
+    q = _randn((bh, g, tq, 192), dtype, cuda, 1)
+    k = _randn((bh, tk, 192), dtype, cuda, 2)
+    v = _randn((bh, tk, 128), dtype, cuda, 3)
+    kw = dict(causal=True, window=window, q_offset=tk - tq)
+    ref, ref_lse = flash_attention_ref(q, k, v, return_lse=True, **kw)
+    path = fa_kernel.choose_path(dtype, 192, True, 128)
+    assert path == ("mma" if dtype == torch.bfloat16 else "ffma")
+    before = dict(fa_kernel.flash_attention.paths)
+    out, lse = fa_kernel.flash_attention(q, k, v, return_lse=True, **kw)
+    again = fa_kernel.flash_attention(q, k, v, **kw)
+    _took_twice(fa_kernel.flash_attention, before, path)
+    assert out.shape == (bh, g, tq, 128) and out.dtype == dtype
+    diff = (out.float() - ref.float()).abs()
+    assert bool((diff <= _flash_limit(ref.float(), dtype)).all()), diff.max().item()
+    torch.testing.assert_close(lse, ref_lse, rtol=2e-4, atol=2e-4)
+    assert torch.equal(out, again)
+
+
+def test_flash_attention_bwd_refuses_the_mla_pair_on_the_card(cuda):
+    """The backward at (192, 128) is the deepseek training slice's: on the
+    card it raises, naming it, and launches nothing (no plain fallback)."""
+    q = _randn((2, 1, 64, 192), torch.bfloat16, cuda, 1)
+    k = _randn((2, 64, 192), torch.bfloat16, cuda, 2)
+    v = _randn((2, 64, 128), torch.bfloat16, cuda, 3)
+    out, lse = fa_kernel.flash_attention(q, k, v, return_lse=True)
+    before = fa_kernel.flash_attention_bwd.launches
+    with pytest.raises(ValueError, match="training"):
+        fa_kernel.flash_attention_bwd(q, k, v, out, torch.ones_like(out), lse)
+    assert fa_kernel.flash_attention_bwd.launches == before
+
+
+def test_flash_attention_mla_kernel_holds_hgmma_without_spills(cuda):
+    """``flash_fwd_wg<192, 128>``, and every other wgmma forward: ptxas
+    reports no spill and no stack frame, and its SASS holds HGMMA and TMA
+    loads."""
+    import shutil
+    import subprocess
+
+    from repro_torch.kernels import _build
+
+    _build.load("flash_attention")
+    log = _build.build_log("flash_attention")
+    if not log:
+        pytest.skip("library built by an earlier process: no ptxas log")
+    name, seen = None, set()
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and "flash_fwd_wg" in name and "spill stores" in line:
+            assert "0 bytes stack" in line and "0 bytes spill stores" in line, (name, line)
+            seen.add(name)
+    assert any("flash_fwd_wgILi192ELi128E" in n for n in seen), seen
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(_build._target("flash_attention"))],
+                          capture_output=True, text=True, check=True).stdout
+    mla = [part for part in sass.split("Function : ")[1:]
+           if "flash_fwd_wgILi192ELi128E" in part[:200]]
+    assert mla and all("HGMMA" in part and "UTMALDG" in part for part in mla)
+
+
+def test_mla_layer_at_full_width_on_card_matches_cpu(cuda):
+    """One full-width deepseek_v2_lite_16b MLA layer in float32 (d 2048, 16
+    heads, latent 512): prefill of 2 x 300 on the card (five tile_matmul
+    launches, one flash_attention at (192, 128)) against the CPU's chunked
+    twin, output and latent cache at 1e-4; then 3 decode steps over the
+    latent cache (three launches each, attention in the latent space)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import blocks as TB
+    from repro_torch.models.common import tree_initialize
+
+    lcfg = get_config("deepseek_v2_lite_16b").prefix[0]
+    specs = TB.block_specs(2048, lcfg, torch.float32)["attn"]
+    plain = tree_initialize(specs, torch.Generator().manual_seed(0), "cpu")
+    p = _to(plain, cuda)
+    h = _randn((2, 300, 2048), torch.float32, "cpu", 4)
+    tm, fa = tm_kernel.tile_matmul, fa_kernel.flash_attention
+    before = (tm.launches, fa.launches, dict(fa.paths))
+    out, cache = TB.attn_core(p, h.to(cuda), lcfg, want_cache=True)
+    assert (tm.launches - before[0], fa.launches - before[1]) == (5, 1)
+    assert fa.paths["ffma"] == before[2]["ffma"] + 1
+    ref, ref_cache = TB.attn_core(plain, h, lcfg, want_cache=True, q_chunk=128, kv_chunk=128)
+    torch.testing.assert_close(out.cpu(), ref, rtol=1e-4, atol=1e-4)
+    big = {k: torch.zeros((2, 320, v.shape[-1])) for k, v in ref_cache.items()}
+    for k in big:
+        big[k][:, :300] = ref_cache[k]
+        torch.testing.assert_close(cache[k].cpu(), ref_cache[k], rtol=1e-4, atol=1e-4)
+    big_cuda = _to(big, cuda)
+    for step in range(3):
+        x = _randn((2, 2048), torch.float32, "cpu", 10 + step)
+        launches = tm.launches
+        got, big_cuda = TB._attn_decode_core(p, x.to(cuda), big_cuda, 300 + step, lcfg)
+        assert tm.launches - launches == 3
+        want, big = TB._attn_decode_core(plain, x, big, 300 + step, lcfg)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    for k in big:
+        torch.testing.assert_close(big_cuda[k].cpu(), big[k], rtol=1e-4, atol=1e-4)
 
 
 # (the one-key case has no gradient to hold: dS = P (dP - Dv) is zero there,

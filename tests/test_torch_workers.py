@@ -5,8 +5,9 @@ the thread fleet bit for bit, the registry guard refuses programs the
 workers cannot resolve, and SIGKILL-mid-round revival keeps exactly-once
 training (identical final weights, zero schema violations, zero leaks,
 the checked sanitizer hosted server-side) — then what the port adds: a
-worker asked for CUDA without a card exits non-zero and says why, and a
-worker that stops cleanly writes its launch counts.
+worker asked for CUDA without a card exits non-zero and says why, a
+worker that stops cleanly writes its launch counts, and a running worker
+writes them as they change, so a SIGKILLed one leaves them behind.
 
 Parameters that differ from the reference's: every config runs on
 ``device="cpu"``; the SIGKILL twin kills every 5 s (the reference: 1 s)
@@ -15,15 +16,21 @@ and boots in about 1.5-2 s here against the reference's 0.5 s — at a 1 s
 interval every generation would die before it took a task.
 """
 
+import json
 import subprocess
 import sys
+import threading
+import time
+import types
 
 import pytest
 import torch
 
 from repro_torch.core import ACANCloud, CloudConfig, FaultPlan, LayerSpec
 from repro_torch.core.program import GLOBAL_OPS, OpRegistry
+from repro_torch.core import workers
 from repro_torch.core.workers import HandlerProcess, ProcessCrashEvent, launch_counts
+from repro_torch.kernels import _count
 from repro_torch.programs.mlp import MLPProgram
 
 N_LAYERS = 2
@@ -83,7 +90,8 @@ def test_sigkill_revival_identical_weights(thread_baseline):
         fault_plan=FaultPlan(interval=5.0, p_handler_crash=1.0, seed=1)))
     res = cloud.run()
     assert res.handler_revivals >= 1
-    # The killed incarnations' counts are lost: the sum is a lower bound.
+    # The killed incarnations' last interval of counts is lost: the sum
+    # is a lower bound.
     assert res.worker_launches["killed"] >= 1
     assert len(res.loss_history) == len(base_losses)
     assert [l for _, l in res.loss_history] == base_losses
@@ -148,3 +156,40 @@ def test_the_cloud_refuses_a_cuda_process_fleet_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         ACANCloud(_cfg(fleet="process", device=None), program=prog)
     ACANCloud(_cfg(fleet="thread", device=None), program=prog)
+
+
+def _read_when(path, want, timeout=10.0):
+    """The counts file at ``path`` once it holds ``want`` launches of the
+    fake kernel (None if it never does within ``timeout``)."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if path.exists():
+            counts = json.loads(path.read_text())
+            if counts["k"]["launches"] == want:
+                return counts
+        time.sleep(0.005)
+    return None
+
+
+def test_a_running_worker_writes_its_counts_as_they_change(monkeypatch, tmp_path):
+    """The flusher a worker runs beside its handler writes the counters
+    before any clean stop, again after each change, and only whole files:
+    what a SIGKILL finds on disk is the count up to the last interval."""
+    fake = types.SimpleNamespace(launches=0, paths={"a": 0, "b": 0})
+    monkeypatch.setattr(workers, "_kernel_wrappers", lambda: {"k": fake})
+    path = tmp_path / "h0-1.json"
+    stop = threading.Event()
+    flusher = threading.Thread(target=workers._flush_counts, args=(str(path), stop, 0.01))
+    flusher.start()
+    try:
+        _count.launch(fake, paths="a")
+        assert _read_when(path, 1) == {"k": {"launches": 1, "paths": {"a": 1, "b": 0}}}
+        _count.launch(fake, paths="b")
+        _count.launch(fake, paths="b")
+        assert _read_when(path, 3) == {"k": {"launches": 3, "paths": {"a": 1, "b": 2}}}
+    finally:
+        stop.set()
+        flusher.join(timeout=10)
+    assert not flusher.is_alive()
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["h0-1.json"]
+    assert launch_counts() == {"k": {"launches": 3, "paths": {"a": 1, "b": 2}}}
