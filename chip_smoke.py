@@ -31,12 +31,19 @@ layers held against the CPU's; then full-width qwen2_moe_a2_7b at 4 of its
 tile_matmul launches (``x@w^T`` and ``x^T@w``), the attention's gradient
 through flash_attention_bwd at D 128 on wgmma, remat "nothing" against
 "none" bit for bit, and a float32 step of 2 layers against the CPU's,
-routing first; then full-width, full-depth
+routing first; then full-width deepseek_v2_lite_16b at 5 of its 27 layers
+(the dense first layer and 4 MoE layers, 8 x 1024) the same way, MLA's
+five products a layer and their gradients through tile_matmul, every
+attention's gradient through flash_attention_bwd at q/k head dim 192 and
+v head dim 128 on wgmma; then full-width, full-depth
 smollm_360m trained by the paper's ACAN runtime (``ACANStepRunner``: Manager
 and Handler threads over the tuple space, one task a microbatch gradient,
 4 x 2 x 512 tokens a step) without and with injected handler crashes, whose
 losses and weights must agree bit for bit, one of its steps profiled, and
-the float32 runner held against the CPU's; then the paper's own system
+the float32 runner held against the CPU's; then the twin of
+examples/acan_jax_train.py (reduced deepseek_v2_lite_16b in float32 on
+the ffma paths, the attention at q/k 24 and v 16) without and with the
+example's handler crashes, equal bit for bit; then the paper's own system
 (§6): the MLP's forward and backward op bodies on the card against the
 CPU's (their tile products float32 tile_matmul launches of 16 masked rows,
 each task's bits the same alone and in its batch), the three experiments at
@@ -56,7 +63,8 @@ mamba2 at full width and 8 layers).
 The gradient products (``dx = dz @ w^T``, ``dw = x^T @ dz`` through
 tile_matmul's transposed layouts, at both models' projection shapes),
 flash_attention's backward (at every case of ``FLASH_CASES``: D 64, 80,
-128 and 256) and ssd_scan's backward are checked against their plain
+128 and 256, and of ``FLASH_MLA_CASES``: (192, 128) and (24, 16)) and
+ssd_scan's backward are checked against their plain
 versions (and for repeat launches giving the same bits) and timed beside
 ``torch.matmul`` and SDPA's backward (no single PyTorch call computes the
 scan's gradient), the attention backward at each trained config's shape.
@@ -66,7 +74,8 @@ Usage (from the repository root, on a host with a CUDA device)::
     python3 chip_smoke.py
 
 Prints the device and its power limit, one ``{"phase": ...}`` JSON line for
-each of the dense-attention serves and trains and of the MLP, fleet and MoE phases, a
+each of the dense-attention and MoE serves and trains and of the deepseek
+ACAN twin, the MLP, fleet and MoE phases, a
 ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises
 and exits non-zero. Imports neither JAX nor the JAX package.
@@ -204,10 +213,40 @@ def _bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
+# Bytes of the pinned buffer that card-to-host copies of large tensors go
+# through: a pageable copy (CUDA's own staging and its first touch of the
+# new host pages on one thread) runs at about half the rate of a DMA into
+# pinned memory and a multi-threaded copy out of it.
+PINNED_BYTES = 1 << 28
+_pinned: list = []
+_pinned_lock = threading.Lock()
+
+
+def _host_copy(t: torch.Tensor) -> torch.Tensor:
+    """A CUDA tensor's bytes on the host, through ``_pinned``'s buffer in
+    runs of ``PINNED_BYTES`` (each a DMA into the buffer, then a copy out),
+    one copy at a time."""
+    out = torch.empty(t.shape, dtype=t.dtype)
+    src = t.contiguous().reshape(-1).view(torch.uint8)
+    dst = out.reshape(-1).view(torch.uint8)
+    with _pinned_lock:
+        if not _pinned:
+            _pinned.append(torch.empty(PINNED_BYTES, dtype=torch.uint8, pin_memory=True))
+        buf = _pinned[0]
+        for i in range(0, src.numel(), buf.numel()):
+            n = min(buf.numel(), src.numel() - i)
+            buf[:n].copy_(src[i:i + n])
+            dst[i:i + n].copy_(buf[:n])
+    return out
+
+
 def _to(tree, device):
-    """Every tensor of a tree of dicts, lists and tuples moved to ``device``;
+    """Every tensor of a tree of dicts, lists and tuples moved to ``device``
+    (from the card to the host through a pinned buffer where it is large);
     other leaves as they are."""
     if isinstance(tree, torch.Tensor):
+        if tree.is_cuda and str(device) == "cpu" and tree.nbytes >= PINNED_BYTES // 4:
+            return _host_copy(tree)
         return tree.to(device)
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -278,12 +317,31 @@ def _ptxas_kernels(ptxas: str) -> dict:
     return kernels
 
 
-def _sass_ops(so: Path, ops) -> tuple[dict, dict]:
-    """Counts of each of ``ops`` in a library's SASS, in all and by kernel
-    (a ``Function :`` section of ``cuobjdump -sass``)."""
+def sass_start(so: Path) -> tuple:
+    """``cuobjdump -sass`` of the library ``so`` started, writing beside it
+    (a library takes seconds): (process, file), for :func:`_sass_ops`."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True, text=True,
-                          check=True, timeout=120).stdout
+    path = so.with_suffix(".sass")
+    with path.open("w") as f:
+        proc = subprocess.Popen([cuobjdump, "-sass", str(so)], stdout=f,
+                                stderr=subprocess.PIPE, text=True)
+    return proc, path
+
+
+def start_sass(build) -> dict:
+    """:func:`sass_start` of every library of ``NO_SPILL``, all at once (the
+    card's checks run meanwhile), for :func:`kernel_build_report`."""
+    return {lib: sass_start(build._target(lib)) for lib in NO_SPILL}
+
+
+def _sass_ops(started, ops) -> tuple[dict, dict]:
+    """Counts of each of ``ops`` in a library's SASS, in all and by kernel
+    (a ``Function :`` section of ``cuobjdump -sass``), from its
+    :func:`sass_start` process and file."""
+    proc, path = started
+    _, err = proc.communicate(timeout=120)
+    assert proc.returncode == 0, (path, err)
+    sass = path.read_text()
     by_kernel = {}
     for part in sass.split("Function : ")[1:]:
         name, _, body = part.partition("\n")
@@ -323,10 +381,13 @@ FLASH_FWD_KERNELS = {64: "flash_fwd_mma<64>", 80: "flash_fwd_wg<80, 80>",
 FLASH_BWD_KERNELS = {64: ("flash_bwd_dq_wgmma<64>", "flash_bwd_dkv_wgmma<64>"),
                      80: ("flash_bwd_dq_wgmma<80>", "flash_bwd_dkv_wgmma<80>"),
                      128: ("flash_bwd_dq_wgmma<128>", "flash_bwd_dkv_wgmma<128>"),
-                     256: ("flash_bwd_dq_wg256", "flash_bwd_dkv_wgsplit<256>")}
+                     256: ("flash_bwd_dq_wg256", "flash_bwd_dkv_wgsplit<256>"),
+                     (192, 128): ("flash_bwd_dq_wgmma<192>", "flash_bwd_dkv_wgsplit<192>"),
+                     # the reduced deepseek config's pair: ffma only, float32
+                     (24, 16): ("flash_bwd_dq<float, 24>", "flash_bwd_dkv<float, 24>")}
 
 
-def kernel_build_report(build, ptxas: dict) -> dict:
+def kernel_build_report(build, ptxas: dict, sass: dict) -> dict:
     """What ptxas said of each kernel of each library (registers, shared
     memory, spills) and the counts of ``SASS_OPS`` in each library. Fails on
     a spill or a stack frame in a kernel of ``NO_SPILL``, on an attention
@@ -334,12 +395,12 @@ def kernel_build_report(build, ptxas: dict) -> dict:
     serialized by ptxas, and on a library without the instructions of
     ``SASS_NEED`` (the wgmma of tile_matmul and of the attention forward and
     backward, the TMA of tile_matmul and of the attention forward, the mma
-    paths' HMMA and LDSM)."""
+    paths' HMMA and LDSM). ``sass``: :func:`start_sass`'s processes."""
     report = {}
     no_spill = "0 bytes spill stores, 0 bytes spill loads"
     for lib, keys in NO_SPILL.items():
         kernels = _ptxas_kernels(ptxas[lib])
-        ops, by_kernel = _sass_ops(build._target(lib), SASS_OPS[lib])
+        ops, by_kernel = _sass_ops(sass[lib], SASS_OPS[lib])
         checked = [k for k in kernels if any(key in k for key in keys)]
         assert kernels and (checked or not keys), (lib, sorted(kernels))
         for kname in checked:
@@ -377,13 +438,17 @@ FLASH_CASES = (  # (name, BH, G, Tq, Tkv, D, window, softcap)
     ("d80_g2_global_ragged", 8, 2, 1000, 1000, 80, 0, 0.0),
     ("d80_g12_window_ragged", 4, 12, 777, 1200, 80, 256, 0.0),
 )
-# The forward alone at MLA's head dims, q/k 192 and v 128 (its backward is
-# the deepseek training slice's): deepseek_v2_lite_16b's prefill layer
-# (batch 8 x 16 heads, G 1), then ragged, and G 2 with a window.
+# MLA's head dims, q/k 192 and v 128, forward and backward:
+# deepseek_v2_lite_16b's layer (batch 8 x 16 heads, G 1), then ragged, and
+# G 2 with a window; and its reduced config's (24, 16), which only the ffma
+# path takes (bf16 too): the ACAN twin's layer (2 x 4 heads, 32 tokens),
+# and ragged with a window.
 FLASH_MLA_CASES = (
     ("deepseek", 128, 1, 1024, 1024, (192, 128), 0, 0.0),
     ("mla_g1_ragged", 8, 1, 1000, 1000, (192, 128), 0, 0.0),
     ("mla_g2_window_ragged", 4, 2, 777, 1200, (192, 128), 300, 0.0),
+    ("mla_reduced", 8, 1, 32, 32, (24, 16), 0, 0.0),
+    ("mla_reduced_g2_window_ragged", 6, 2, 77, 133, (24, 16), 20, 0.0),
 )
 
 
@@ -430,6 +495,15 @@ def _plain_step(bh: int, g: int, tq: int, tkv: int) -> int:
 
 # The path each dtype must take at the checks' shapes.
 DTYPE_PATH = {torch.bfloat16: "mma", torch.float32: "ffma"}
+# The attention head-dim pairs that take ffma in either dtype: the reduced
+# deepseek config's (24, 16), whose rows are narrower than the mma path's
+# 128-byte atoms.
+FLASH_FFMA_PAIRS = ((24, 16),)
+
+
+def _flash_path(dtype, d) -> str:
+    """The attention path the checks expect at head dim (or pair) ``d``."""
+    return "ffma" if d in FLASH_FFMA_PAIRS else DTYPE_PATH[dtype]
 
 
 def _took(fn, path: str, before: dict) -> None:
@@ -445,8 +519,9 @@ def check_flash(fa_kernel, flash_attention_ref) -> dict:
     at q/k head dim 192 and v head dim 128), each case launched whole and held slice
     by slice where the plain version's scores would not fit at once: the
     mma path in bf16, the ffma path in float32, each element within
-    ``flash_limit``. Worst error per dtype, per path and per case; per case
-    also ``margin``, the largest |error| / limit (at most 1)."""
+    ``flash_limit`` (the reduced deepseek pair, (24, 16), on ffma in either
+    dtype). Worst error per dtype, per path and per case; per case also
+    ``margin``, the largest |error| / limit (at most 1)."""
     err: dict = {"by_case": {}}
     fn = fa_kernel.flash_attention
     for dtype in (torch.bfloat16, torch.float32):
@@ -459,7 +534,7 @@ def check_flash(fa_kernel, flash_attention_ref) -> dict:
             kw = dict(causal=True, window=window, softcap=softcap, q_offset=tkv - tq)
             before = dict(fn.paths)
             out = fn(q, k, v, **kw)
-            _took(fn, DTYPE_PATH[dtype], before)
+            _took(fn, _flash_path(dtype, d), before)
             e = margin = 0.0
             step = _plain_step(bh, g, tq, tkv)
             for i in range(0, bh, step):
@@ -530,9 +605,11 @@ PLAIN_BWD_SCORES = 2
 def check_flash_bwd(fa_kernel, flash_attention_ref, flash_attention_bwd_ref) -> dict:
     """The backward kernels against the explicit formula at every case of
     ``FLASH_CASES`` (smollm's training shape and its variants at D 64, the
-    dense configs' layers at D 80, 128 and 256, the ragged ones), the
-    forward's lse against the plain version's first: the mma path in bf16,
-    the ffma path in float32, each launched whole and held slice by slice
+    dense configs' layers at D 80, 128 and 256, the ragged ones) and of
+    ``FLASH_MLA_CASES`` (deepseek's layer at (192, 128), the reduced
+    config's (24, 16) on ffma), the forward's lse against the plain
+    version's first: the mma path in bf16, the ffma path in float32 (and at
+    (24, 16)), each launched whole and held slice by slice
     where the plain formula's scores would not fit at once, each gradient
     element within ``_flash_bwd_limit``; two launches give the same bits.
     Worst error per dtype and per case; per case also each gradient's
@@ -541,16 +618,17 @@ def check_flash_bwd(fa_kernel, flash_attention_ref, flash_attention_bwd_ref) -> 
     bwd = fa_kernel.flash_attention_bwd
     for dtype in (torch.bfloat16, torch.float32):
         worst = {"lse": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0}
-        for name, bh, g, tq, tkv, d, window, softcap in FLASH_CASES:
-            q = _randn((bh, g, tq, d), dtype, 1)
-            k = _randn((bh, tkv, d), dtype, 2)
-            v = _randn((bh, tkv, d), dtype, 3)
-            do = _randn((bh, g, tq, d), dtype, 4)
+        for name, bh, g, tq, tkv, d, window, softcap in FLASH_CASES + FLASH_MLA_CASES:
+            dk, dv = _dims(d)
+            q = _randn((bh, g, tq, dk), dtype, 1)
+            k = _randn((bh, tkv, dk), dtype, 2)
+            v = _randn((bh, tkv, dv), dtype, 3)
+            do = _randn((bh, g, tq, dv), dtype, 4)
             kw = dict(causal=True, window=window, softcap=softcap, q_offset=tkv - tq)
             o, lse = fa_kernel.flash_attention(q, k, v, return_lse=True, **kw)
             before = dict(bwd.paths)
             grads = bwd(q, k, v, o, do, lse, **kw)
-            _took(bwd, DTYPE_PATH[dtype], before)
+            _took(bwd, _flash_path(dtype, d), before)
             again = bwd(q, k, v, o, do, lse, **kw)
             assert all(torch.equal(a, b) for a, b in zip(grads, again)), ("bwd", name)
             del again
@@ -755,7 +833,10 @@ FLASH_BWD_TIMED = {"smollm_360m": (BATCH, 5, 3, PROMPT, 64, 0),
                    "h2o_danube_1_8b": (2, 8, 4, 8192, 80, 4096),
                    "gemma3_12b global": (2, 8, 2, 2048, 256, 0),
                    "gemma3_12b local": (2, 8, 2, 2048, 256, 1024),
-                   "qwen2_moe_a2_7b": (8, 16, 1, 1024, 128, 0)}
+                   "qwen2_moe_a2_7b": (8, 16, 1, 1024, 128, 0),
+                   "deepseek_v2_lite_16b": (8, 16, 1, 1024, (192, 128), 0),
+                   # the ACAN twin's layer (float32, ffma): 2 x 4 heads, 32 tokens
+                   "deepseek_v2_lite_16b reduced": (2, 4, 1, 32, (24, 16), 0)}
 
 
 def time_flash_bwd(fa_kernel, flash_attention_bwd_ref) -> dict:
@@ -770,17 +851,21 @@ def time_flash_bwd(fa_kernel, flash_attention_bwd_ref) -> dict:
     ``library_device_ms``); at the dense configs' the backward alone of an
     SDPA call under autograd, a window as a boolean mask
     (``library_backend`` says which kernel SDPA took), and at gemma3's
-    global layer also cuDNN's backward op by graph replay
-    (``library_device_ms``). Work: the five
-    products of the function, 2 D operations each a visible (query, key)
-    pair."""
-    dt, out = torch.bfloat16, {}
+    global layer and deepseek's (192, 128) also cuDNN's backward op by graph
+    replay (``library_device_ms``; ``library_error`` where no backend takes
+    the shape). The reduced deepseek pair (24, 16) in float32, the dtype its
+    ACAN twin trains in (``ms`` and ``ffma_ms`` both the ffma path). Work:
+    the five products of the function, 2 D operations each a visible
+    (query, key) pair at q/k head dim D (S, dQ, dK) or v head dim Dv (dP,
+    dV)."""
+    out = {}
     for name, (b, hkv, g, t, d, window) in FLASH_BWD_TIMED.items():
-        bh = b * hkv
-        q = _randn((bh, g, t, d), dt, 1)
-        k = _randn((bh, t, d), dt, 2)
-        v = _randn((bh, t, d), dt, 3)
-        do = _randn((bh, g, t, d), dt, 4)
+        bh, (dk, dv) = b * hkv, _dims(d)
+        dt = torch.float32 if d in FLASH_FFMA_PAIRS else torch.bfloat16
+        q = _randn((bh, g, t, dk), dt, 1)
+        k = _randn((bh, t, dk), dt, 2)
+        v = _randn((bh, t, dv), dt, 3)
+        do = _randn((bh, g, t, dv), dt, 4)
         kw = dict(causal=True, window=window)
         o, lse = fa_kernel.flash_attention(q, k, v, return_lse=True, **kw)
 
@@ -797,10 +882,10 @@ def time_flash_bwd(fa_kernel, flash_attention_bwd_ref) -> dict:
                                                           v[i:i + step], o[i:i + step],
                                                           do[i:i + step], lse[i:i + step], **kw)
                                   for i in range(0, bh, step)], iters=2)
-        qs = q.reshape(b, hkv * g, t, d)
-        ks = k.reshape(b, hkv, t, d).repeat_interleave(g, dim=1)
-        vs = v.reshape(b, hkv, t, d).repeat_interleave(g, dim=1)
-        dos = do.reshape(b, hkv * g, t, d)
+        qs = q.reshape(b, hkv * g, t, dk)
+        ks = k.reshape(b, hkv, t, dk).repeat_interleave(g, dim=1)
+        vs = v.reshape(b, hkv, t, dv).repeat_interleave(g, dim=1)
+        dos = do.reshape(b, hkv * g, t, dv)
         extra = {}
         if name == "smollm_360m":
             aten = torch.ops.aten
@@ -825,26 +910,32 @@ def time_flash_bwd(fa_kernel, flash_attention_bwd_ref) -> dict:
                 return torch.autograd.grad(sdpa_out, leaves, dos, retain_graph=True)
 
             extra["library_backend"] = _sdpa_backend(sdpa_bwd)
-            if window == 0:
+            if window == 0 and dt == torch.bfloat16:
                 # The same cuDNN backward by graph replay: its op called on
                 # its own forward's outputs (autograd.grad fails under capture).
                 aten = torch.ops.aten
-                fwd = aten._scaled_dot_product_cudnn_attention(qs, ks, vs, None, True, 0.0, True,
-                                                               False)
-                out_c, lse_c, cq, ck, mq, mk, seed, offset = fwd[:8]
+                try:
+                    fwd = aten._scaled_dot_product_cudnn_attention(qs, ks, vs, None, True, 0.0,
+                                                                   True, False)
+                    out_c, lse_c, cq, ck, mq, mk, seed, offset = fwd[:8]
 
-                def cudnn_bwd():
-                    return aten._scaled_dot_product_cudnn_attention_backward(
-                        dos, qs, ks, vs, out_c, lse_c, seed, offset, None, cq, ck, mq, mk, 0.0,
-                        True)
+                    def cudnn_bwd():
+                        return aten._scaled_dot_product_cudnn_attention_backward(
+                            dos, qs, ks, vs, out_c, lse_c, seed, offset, None, cq, ck, mq, mk,
+                            0.0, True)
 
-                extra["library_device_ms"] = _graph_ms(cudnn_bwd, iters=5)
-                del fwd, out_c, lse_c
+                    extra["library_device_ms"] = _graph_ms(cudnn_bwd, iters=5)
+                    del fwd, out_c, lse_c
+                except RuntimeError as e:  # a shape cuDNN's op does not take
+                    extra["library_device_ms"] = None
+                    extra["library_device_error"] = str(e).splitlines()[0][:200]
         library = _time_ms(sdpa_bwd, iters=5)
-        flops = 10 * d * bh * g * _visible_pairs(t, t, window)
-        nbytes = (4 * q.numel() + 4 * k.numel()) * 2 + lse.numel() * 4
+        flops = 2 * (3 * dk + 2 * dv) * bh * g * _visible_pairs(t, t, window)
+        nbytes = 2 * (q.numel() + do.numel() + k.numel() + v.numel()) * q.element_size() \
+            + lse.numel() * 4
         bound_ms, bound_by = _bound(flops, nbytes, dt)
-        out[name] = dict(q_shape=(bh, g, t, d), window=window, kernels=names, ms=kern,
+        out[name] = dict(q_shape=(bh, g, t, dk), v_shape=(bh, t, dv), dtype=str(dt),
+                         window=window, kernels=names, ms=kern,
                          ffma_ms=ffma, device_ms=device, dq_ms=traced[names[0]],
                          dkv_ms=traced[names[1]], device_tflop_s=flops / device / 1e9,
                          traces=traced["traces"], traced_launches=traced["traced_launches"],
@@ -1118,15 +1209,19 @@ def _f32_logits(M, cfg, rehome, prompt_len: int, batch: int, wrap=None) -> tuple
     wrap = wrap or (lambda _dev, call: call())
     params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(1), "cuda",
                            dtype_override=torch.float32)
-    plain = _to(params, "cpu")
     tokens = np.random.default_rng(1).integers(0, cfg.vocab, (batch, prompt_len))
     runs = {}
-    for dev, p in (("cuda", params), ("cpu", plain)):
+
+    def prefill(dev, p):
         caches, logits = wrap(dev, lambda: M.prefill(
             p, cfg, {"tokens": torch.as_tensor(tokens, device=dev)}))
         cache = rehome(M.init_cache(cfg, batch, prompt_len + 8, dev, dtype=torch.float32),
                        caches)
         runs[dev] = (p, cache, [logits.cpu()])
+
+    plain, card = _card_beside_host(prefill, params)
+    prefill("cpu", plain)
+    card()
     for step in range(4):
         tok = torch.argmax(runs["cpu"][2][-1], dim=-1)
         for dev, (p, cache, outs) in runs.items():
@@ -1702,42 +1797,44 @@ def _train_want(cfg) -> tuple[dict, dict, dict]:
     """The launches ``TRAIN_STEPS`` steps of ``cfg`` make: by kernel, by
     kernel and path (every bf16 product on wgmma, the float32 router on
     ffma, every attention and scan and their backward on mma), and
-    tile_matmul's by layout."""
-    n = cfg.n_layers * TRAIN_STEPS
-    layer, ffma = cfg.period[0], 0
+    tile_matmul's by layout. Layer by layer (the ``prefix`` layers, then
+    the periods): the 2-D products of the mixer (q, k, v, o; MLA's five:
+    wq, w_dkv, w_uk and w_uv read as (R, H D) matrices, wo; Mamba-2's six)
+    and of the FFN (a dense SwiGLU's gate, up, down; a MoE layer's shared
+    experts' three and its float32 router on ffma), and a MoE layer's three
+    batched expert products (gate, up, down: one launch each over the
+    experts). Each step: every product forward, again where remat
+    recomputes it, and its two gradient products (``x@w^T`` and ``x^T@w``,
+    the batched ones in their batched layouts); one float32 z for each
+    fused gate activation; every attention forward twice and its backward
+    once, every scan the same."""
     layouts = dict.fromkeys(("x@w", "x@w^T", "x^T@w", "batched", "batched x@w^T",
                              "batched x^T@w"), 0)
-    if layer.mixer == "attn" and layer.ffn_kind == "moe":
-        # qwen2_moe_a2_7b: eight 2-D products a layer (q, k, v, o, the
-        # shared expert's gate, up and down, and the float32 router on ffma)
-        # and three batched expert products (gate, up, down, one launch
-        # each over the 60 experts). Each step: every product forward, again
-        # where remat recomputes it, and its two gradient products (the
-        # batched ones in their batched transposed layouts); one float32 z
-        # for each SiLU gate, the shared one's 2-D, the experts' batched:
-        # 46 launches a layer a step. Every attention forward twice and its
-        # backward once.
-        launches = {"tile_matmul": 8 * n * 4 + n + 3 * n * 4 + n, "flash_attention": 2 * n,
-                    "flash_attention_bwd": n, "ssd_scan": 0, "ssd_scan_bwd": 0}
-        layouts |= {"x@w": 8 * n * 2 + n, "x@w^T": 8 * n, "x^T@w": 8 * n,
-                    "batched": 3 * n * 2 + n, "batched x@w^T": 3 * n, "batched x^T@w": 3 * n}
-        ffma = 4 * n
-    elif layer.mixer == "attn":
-        # smollm_360m, h2o_danube_1_8b, gemma3_12b (seven projections a
-        # layer, a SwiGLU MLP). Each step: every projection forward, again
-        # where remat recomputes it, once more for the SiLU gate's z
-        # (float32, no activation) and its two gradient products; every
-        # attention forward twice and its backward once.
-        launches = {"tile_matmul": 7 * n * 4 + n, "flash_attention": 2 * n,
-                    "flash_attention_bwd": n, "ssd_scan": 0, "ssd_scan_bwd": 0}
-        layouts |= {"x@w": 7 * n * 2 + n, "x@w^T": 7 * n, "x^T@w": 7 * n}
-    else:
-        # Mamba-2: six projections (no activation) forward, recomputed, and
-        # their two gradient products; the scan forward twice, its backward
-        # once.
-        launches = {"tile_matmul": 6 * n * 4, "flash_attention": 0,
-                    "flash_attention_bwd": 0, "ssd_scan": 2 * n, "ssd_scan_bwd": n}
-        layouts |= {"x@w": 6 * n * 2, "x@w^T": 6 * n, "x^T@w": 6 * n}
+    ffma = attn = scan = 0
+    for lcfg in [*cfg.prefix, *cfg.period * cfg.n_periods]:
+        prods = gates = experts = 0
+        if lcfg.mixer == "attn":
+            prods, attn = 5 if lcfg.attn.is_mla else 4, attn + 1
+        else:
+            prods, scan = 6, scan + 1
+        if lcfg.ffn_kind == "dense":
+            prods, gates = prods + 3, gates + 1
+        elif lcfg.ffn_kind == "moe":
+            if lcfg.moe.n_shared:
+                prods, gates = prods + 3, gates + 1
+            prods, ffma, experts = prods + 1, ffma + 4, 3
+        layouts["x@w"] += 2 * prods + gates
+        layouts["x@w^T"] += prods
+        layouts["x^T@w"] += prods
+        if experts:
+            layouts["batched"] += 2 * experts + 1
+            layouts["batched x@w^T"] += experts
+            layouts["batched x^T@w"] += experts
+    layouts = {k: v * TRAIN_STEPS for k, v in layouts.items()}
+    launches = {"tile_matmul": sum(layouts.values()), "flash_attention": 2 * attn * TRAIN_STEPS,
+                "flash_attention_bwd": attn * TRAIN_STEPS, "ssd_scan": 2 * scan * TRAIN_STEPS,
+                "ssd_scan_bwd": scan * TRAIN_STEPS}
+    ffma *= TRAIN_STEPS
     by_path = {k: ({"wgmma": v - ffma, "mma": 0, "skinny": 0, "ffma": ffma}
                    if k == "tile_matmul" else {"mma": v, "ffma": 0})
                for k, v in launches.items()}
@@ -1864,11 +1961,43 @@ def _train_steps_f32(M, steps_mod, pcfg, batch: int, seq: int, wrap=None) -> dic
                                           mode="cyclic")).batch_at(0)
     step = steps_mod.make_train_step(pcfg, opt)
     runs = {}
-    for dev in ("cuda", "cpu"):
-        p = _to(params, dev)
+
+    def run(dev, p):
         runs[dev] = wrap(dev, lambda: step(p, init_opt_state(p, opt), {
             k: torch.as_tensor(v, device=dev) for k, v in tokens.items()}))
+
+    plain, card = _card_beside_host(run, params)
+    run("cpu", plain)
+    card()
     return runs
+
+
+def _card_beside_host(fn, params):
+    """Starts ``fn("cuda", params)`` on a thread of its own and, meanwhile,
+    copies ``params`` to the CPU on a stream of its own (behind the work
+    queued so far alone), so that the caller's CPU half runs beside the
+    card's. Returns the CPU copy and a call that waits for the thread and
+    raises what it raised."""
+    failed = []
+
+    def body():
+        try:
+            fn("cuda", params)
+        except BaseException as e:  # noqa: BLE001 - handed to the waiting thread
+            failed.append(e)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    thread = threading.Thread(target=body, daemon=True)
+    thread.start()
+    with torch.cuda.stream(side):
+        plain = _to(params, "cpu")
+
+    def wait():
+        thread.join()
+        if failed:
+            raise failed[0]
+    return plain, wait
 
 
 def _compare_train_steps(runs: dict, pcfg, batch: int, seq: int) -> dict:
@@ -1881,11 +2010,15 @@ def _compare_train_steps(runs: dict, pcfg, batch: int, seq: int) -> dict:
     lr = mc["lr"]
     assert abs(mg["loss"] - mc["loss"]) <= 1e-3, (mg, mc)
     assert abs(mg["grad_norm"] - mc["grad_norm"]) <= 1e-3 * max(1.0, mc["grad_norm"]), (mg, mc)
-    got, want = _flatten(sg["m"]), _flatten(sc["m"])
-    grad_errs = {k: (got[k].cpu() - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+    # The differences are formed on the card, the CPU's tensors copied there:
+    # a float32 difference, its absolute value and a maximum are exact on
+    # either device, and the card forms them in a fraction of the CPU's time.
+    got, want = _flatten(sg["m"]), _flatten(_to(sc["m"], "cuda"))
+    grad_errs = {k: (got[k] - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
                  for k, b in want.items()}
+    del want
     worst = max(grad_errs, key=grad_errs.get)
-    param_err = max((a.cpu() - b).abs().max().item()
+    param_err = max((a - b.to(a.device)).abs().max().item()
                     for a, b in zip(tree_leaves(pg), tree_leaves(pc)))
     out = dict(layers=pcfg.n_layers, batch=batch, seq=seq, loss_gpu=mg["loss"],
                loss_cpu=mc["loss"], grad_norm_gpu=mg["grad_norm"],
@@ -1952,6 +2085,16 @@ def dense_train(train, M, steps_mod, get_config, arch: str, counters: dict) -> d
 # against the CPU's, routing first.
 QWEN2_TRAIN = dict(batch=BATCH, seq=1024, n_periods=4, parity_periods=2,
                    parity=dict(batch=2, seq=512), remat=dict(batch=2, seq=1024))
+# deepseek_v2_lite_16b's the same way: full width, cut to 5 of its 27
+# layers, the dense first layer and 4 MoE layers (2.840 B parameters, 56.8
+# GB at the update's 20 bytes a parameter; 6 layers would take 68.5 GB
+# before the activations), 8 x 1024 tokens (four groups of 2048, capacity
+# 40 a slot, 960 rows an expert at top-6 of 64); the remat check and the
+# float32 step on 2 layers, the dense one and one MoE layer (the step on 2
+# x 512: one group of 1024, capacity 20 a slot, tokens drop).
+DEEPSEEK_TRAIN = dict(batch=BATCH, seq=1024, n_periods=4, parity_periods=1,
+                      parity=dict(batch=2, seq=512), remat=dict(batch=2, seq=1024))
+MOE_TRAIN = {QWEN2: QWEN2_TRAIN, DEEPSEEK: DEEPSEEK_TRAIN}
 
 
 def remat_determinism(M, cfg, batch: int, seq: int) -> dict:
@@ -1987,7 +2130,7 @@ def remat_determinism(M, cfg, batch: int, seq: int) -> dict:
     return out
 
 
-def parity_train_qwen2_f32(M, steps_mod, pcfg, batch: int, seq: int) -> dict:
+def parity_train_moe_f32(M, steps_mod, pcfg, batch: int, seq: int) -> dict:
     """``parity_train_f32`` of a MoE config, routing first: each layer's
     routing in the forward of the card's step and of the CPU's
     (``_routing_flips``: a differing top-k set is a fault unless the CPU's
@@ -2002,7 +2145,7 @@ def parity_train_qwen2_f32(M, steps_mod, pcfg, batch: int, seq: int) -> dict:
     def wrap(dev, call):
         with recording_routes() as seen:
             out = call()
-        routes[dev] += seen[:pcfg.n_layers]
+        routes[dev] += seen[:_moe_layers(pcfg)]       # the forward's, layer by layer
         return out
 
     runs = _train_steps_f32(M, steps_mod, pcfg, batch, seq, wrap=wrap)
@@ -2017,20 +2160,30 @@ def parity_train_qwen2_f32(M, steps_mod, pcfg, batch: int, seq: int) -> dict:
     return out
 
 
-def train_qwen2(train, M, steps_mod, get_config, counters: dict) -> dict:
-    """Train qwen2_moe_a2_7b as ``QWEN2_TRAIN`` sizes it through
-    ``train_path`` (launches asserted per kernel, path and layout: each
-    expert product's dx and dw one batched launch in ``x@w^T`` and
-    ``x^T@w``, the router on ffma, flash_attention_bwd once a layer a
-    step), profile one more step (its attention backward traced on the D
-    128 wgmma kernels), then ``remat_determinism`` and the float32 step
-    against the CPU's (``parity_train_qwen2_f32``)."""
-    spec, full = QWEN2_TRAIN, get_config(QWEN2)
+def _attn_dims(cfg):
+    """The attention's head dim (a key of ``FLASH_BWD_KERNELS``): one int,
+    or MLA's (q/k, v) pair."""
+    a = cfg.period[0].attn
+    return (a.qk_nope_dim + a.qk_rope_dim, a.v_head_dim) if a.is_mla else a.head_dim
+
+
+def train_moe(train, M, steps_mod, get_config, counters: dict, arch: str) -> dict:
+    """Train an MoE config (qwen2_moe_a2_7b, deepseek_v2_lite_16b) as
+    ``MOE_TRAIN`` sizes it through ``train_path`` (launches asserted per
+    kernel, path and layout: each expert product's dx and dw one batched
+    launch in ``x@w^T`` and ``x^T@w``, the router on ffma, MLA's five 2-D
+    products and the dense first layer's three, flash_attention_bwd once a
+    layer a step), profile one more step (its attention backward traced on
+    the wgmma kernels of its head dims: D 128, or (192, 128)), then
+    ``remat_determinism`` and the float32 step against the CPU's
+    (``parity_train_moe_f32``)."""
+    spec, full = MOE_TRAIN[arch], get_config(arch)
     cfg = dataclasses.replace(full, n_periods=spec["n_periods"])
     out, res = train_path(train, M, cfg, counters, batch=spec["batch"], seq=spec["seq"])
-    out["reduced"] = {"n_periods": f"{full.n_periods} -> {cfg.n_periods}"}
+    out["reduced"] = {"n_periods": f"{full.n_periods} -> {cfg.n_periods}",
+                      "layers": f"{full.n_layers} -> {cfg.n_layers}"}
     out["params"] = M.param_count(cfg)
-    names = FLASH_BWD_KERNELS[cfg.period[0].attn.head_dim]
+    names = FLASH_BWD_KERNELS[_attn_dims(cfg)]
     prof = out["profile"] = profile_train_step(steps_mod, cfg, res, counters, spec["batch"],
                                                spec["seq"], names=names)
     print(f"profile {cfg.name} train step: wall {prof['wall_ms']:.3f} ms, device kernels "
@@ -2047,7 +2200,7 @@ def train_qwen2(train, M, steps_mod, get_config, counters: dict) -> dict:
     rcfg = dataclasses.replace(full, n_periods=spec["parity_periods"])
     rm = out["remat"] = remat_determinism(M, rcfg, **spec["remat"])
     print(f"remat {cfg.name} full width, {rcfg.n_layers} layers, bf16: {rm}")
-    par = out["parity_f32"] = parity_train_qwen2_f32(M, steps_mod, rcfg, **spec["parity"])
+    par = out["parity_f32"] = parity_train_moe_f32(M, steps_mod, rcfg, **spec["parity"])
     print(f"parity f32 train step {cfg.name} full width, {rcfg.n_layers} layers: {par}")
     torch.cuda.empty_cache()
     return out
@@ -2181,6 +2334,88 @@ def acan_path(step_runner, M, cfg, counters: dict) -> dict:
         assert run["ssd_scan"] == run["ssd_scan_bwd"] == 0, run
         assert paths["tile_matmul"]["ffma"] == paths["tile_matmul"]["skinny"] == 0, paths
         assert paths["flash_attention"]["ffma"] == paths["flash_attention_bwd"]["ffma"] == 0
+    return out
+
+
+# The twin of examples/acan_jax_train.py on the card: the reference
+# example's run (reduced deepseek_v2_lite_16b, float32; 4 handlers, 4 x 2 x
+# 32 tokens a step, 8 steps, lr 0.05, a task's crash probability 0.25,
+# seed 0) with a first deadline of 2 s where the example waits 30: each
+# crashed task waits out its round's deadline, which falls toward 1.3
+# times a crash-free round's time as the run goes on.
+ACAN_DEEPSEEK_TIMEOUT = 2.0
+
+
+def acan_deepseek(step_runner, get_config, counters: dict) -> dict:
+    """``examples/torch_acan_jax_train.py``'s run through the ACAN runner on
+    the card under ``checked+local``, twice from the same seeded weights:
+    without crashes (no crash, no re-issue) and with the example's (at
+    least one crash or re-issue). Both commit every version once, break no
+    protocol rule and leak nothing, and give the same losses, which fall,
+    and the same final weights bit for bit. Every launch takes the float32
+    paths: tile_matmul ffma or skinny, the attention at q/k head dim 24 and
+    v head dim 16 and its backward on ffma."""
+    from repro_torch.optim.optimizer import tree_leaves
+
+    if str(ROOT / "examples") not in sys.path:
+        sys.path.insert(0, str(ROOT / "examples"))
+    import torch_acan_jax_train as twin
+
+    cfg = get_config(DEEPSEEK, reduced=True)
+    runs = {}
+    for crash in (0.0, twin.train_config().handler_crash_prob):
+        tcfg = twin.train_config("checked+local", timeout=ACAN_DEEPSEEK_TIMEOUT,
+                                 handler_crash_prob=crash)
+        runner = step_runner.ACANStepRunner(cfg, tcfg)
+        runner.warm_up()
+        torch.cuda.synchronize()
+        # A round takes a few tenths of a second, its deadline about 1.3
+        # times that: a full collection over the objects the earlier phases
+        # left (0.2-0.5 s in acan_path's record) would pass it, and the
+        # crash-free run would re-issue. The runs' own objects are
+        # collected as usual (``gc`` in the record).
+        gc.collect()
+        gc.freeze()
+        try:
+            res, launches, by_path, steps_s, waited, over, gcs = _acan_run(runner, counters)
+        finally:
+            gc.unfreeze()
+        final = tree_leaves(runner.ts.try_read(("params", tcfg.steps))[1])
+        runs[crash] = (tcfg, res, launches, by_path, steps_s, waited, over, final, gcs)
+    (tcfg, res, launches, by_path, steps_s, _, over, final, gcs), \
+        (_, res_c, launches_c, by_path_c, steps_c, waited, _, final_c, gcs_c) = runs.values()
+    out = dict(arch=f"{cfg.name} (reduced)", run={k: v for k, v in dataclasses.asdict(tcfg).items()
+                                               if k != "handler_crash_prob"},
+               crash_prob=list(runs)[1],
+               losses=res.losses, losses_crash=res_c.losses, reissues=res.reissues,
+               crashes=res.crashes, reissues_crash=res_c.reissues, crashes_crash=res_c.crashes,
+               param_versions=[res.param_versions, res_c.param_versions],
+               ts_violations=[res.ts_violations, res_c.ts_violations],
+               ts_leaks=[res.ts_leaks, res_c.ts_leaks], step_s=steps_s,
+               median_step_s=float(np.median(steps_s[1:])), step_s_crash=steps_c,
+               wall_s=sum(steps_s), wall_s_crash=sum(steps_c), timeout_wait_s=waited,
+               round_over_deadline=over, launches=launches, launches_by_path=by_path,
+               launches_crash=launches_c, launches_by_path_crash=by_path_c, gc=[gcs, gcs_c])
+    print(f"acan {out['arch']}: losses {res.losses}, crash run losses {res_c.losses}; "
+          f"crash-free run {res.crashes} crashes, {res.reissues} re-issues; crash run "
+          f"{res_c.crashes} crashes, {res_c.reissues} re-issues; walls {out['wall_s']:.2f} s "
+          f"and {out['wall_s_crash']:.2f} s; crash-free rounds over their deadline "
+          f"{max(over):.3f} at most; launches {launches}, by path {by_path}")
+    for r in (res, res_c):
+        assert r.param_versions == tcfg.steps, out
+        assert r.ts_violations == 0 and r.ts_leaks == {}, out
+        assert len(r.losses) == tcfg.steps and all(np.isfinite(r.losses)), out
+    assert res.reissues == 0 and res.crashes == 0, out
+    assert res_c.crashes + res_c.reissues >= 1, out
+    assert res_c.losses == res.losses and res.losses[-1] < res.losses[0], out
+    assert all(torch.equal(a, b) for a, b in zip(final, final_c)), "crash run's weights differ"
+    for run, paths in ((launches, by_path), (launches_c, by_path_c)):
+        assert run["tile_matmul"] > 0 and run["flash_attention"] > 0, run
+        assert run["flash_attention_bwd"] > 0 and run["ssd_scan"] == run["ssd_scan_bwd"] == 0, run
+        assert paths["tile_matmul"]["wgmma"] == paths["tile_matmul"]["mma"] == 0, paths
+        assert paths["tile_matmul"]["ffma"] > 0, paths
+        for k in ("flash_attention", "flash_attention_bwd"):
+            assert paths[k] == {"mma": 0, "ffma": run[k]}, paths
     return out
 
 
@@ -2917,10 +3152,7 @@ def main() -> int:
     _build.build_all()
     mark("build")
     print(f"build: {phase_s['build']:.1f} s")
-    detail["ptxas"] = {k: _build.build_log(k) for k in _build.KERNELS}
-    detail["kernel_build"] = kernel_build_report(_build, detail["ptxas"])
-    for k, rep in detail["kernel_build"].items():
-        print(f"{k} build: {rep}")
+    sass = start_sass(_build)  # read by kernel_build_report after the checks
 
     # 3. Each kernel against its plain version at the paths' shapes.
     detail["tile_matmul_err"] = check_tile_matmul(tm_kernel, tile_matmul_ref)
@@ -2947,6 +3179,10 @@ def main() -> int:
           f"{max(detail['dense_projections_err'].values())}, "
           f"ssd_scan_bwd max |err| / max |grad| {detail['ssd_scan_bwd_err']}, "
           f"batched expert products max |err| {detail['moe_batched_err']}")
+    detail["ptxas"] = {k: _build.build_log(k) for k in _build.KERNELS}
+    detail["kernel_build"] = kernel_build_report(_build, detail["ptxas"], sass)
+    for k, rep in detail["kernel_build"].items():
+        print(f"{k} build: {rep}")
 
     mark("checks")
 
@@ -3080,9 +3316,19 @@ def main() -> int:
     # each expert product's gradients as batched tile_matmul launches in
     # x@w^T and x^T@w, the attention's through flash_attention_bwd at D 128
     # on wgmma; remat and determinism; a float32 step against the CPU.
-    tq2 = detail["train_qwen2"] = train_qwen2(train, M, steps_mod, get_config, counters)
+    tq2 = detail["train_qwen2"] = train_moe(train, M, steps_mod, get_config, counters, QWEN2)
     _record("train_qwen2_moe_a2_7b", tq2)
     mark("train_qwen2_moe_a2_7b")
+
+    # 9d. Train full-width deepseek_v2_lite_16b at 5 of its 27 layers (the
+    # dense first layer and 4 MoE layers, 8 x 1024): every MLA backward
+    # through flash_attention_bwd at q/k head dim 192 and v head dim 128 on
+    # wgmma, MLA's products and their gradients through tile_matmul; remat
+    # and determinism; a float32 step of 2 layers against the CPU.
+    tds = detail["train_deepseek"] = train_moe(train, M, steps_mod, get_config, counters,
+                                               DEEPSEEK)
+    _record("train_deepseek_v2_lite_16b", tds)
+    mark("train_deepseek_v2_lite_16b")
 
     # 10. Path 8: train full-width, full-depth smollm_360m through the ACAN
     # runner (Manager and Handler threads over the tuple space), with and
@@ -3103,6 +3349,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     mark("acan")
+
+    # 10b. The twin of examples/acan_jax_train.py: reduced
+    # deepseek_v2_lite_16b (MLA, MoE; float32 on the ffma paths) trained by
+    # the ACAN runner without and with the example's handler crashes.
+    ad = detail["acan_deepseek"] = acan_deepseek(step_runner, get_config, counters)
+    _record("acan_deepseek", ad)
+    mark("acan_deepseek")
 
     # 11. Path 9: the paper's three experiments at its width, the MLP's tile
     # products through tile_matmul (float32 skinny / ffma); the float32 MLP
@@ -3142,7 +3395,7 @@ def main() -> int:
     sst, gt = detail["ssd_scan_time"], detail["tile_matmul_grad_time"]
     fbts, sbt = detail["flash_attention_bwd_time"], detail["ssd_scan_bwd_time"]
     fbt = fbts["smollm_360m"]
-    runs = (sm, ms, g3, dn, cr, q2, ds, tr, mt, tdn, tg3, tq2, ac, pp, ct, pf, mp)
+    runs = (sm, ms, g3, dn, cr, q2, ds, tr, mt, tdn, tg3, tq2, tds, ac, ad, pp, ct, pf, mp)
     mlp_t = detail["mlp_ops"]["times"]["256x256"]
     moe_t = detail["moe_ops"]["times"]
     qb, qbg = detail["moe_batched_time"], detail["moe_batched_grad_time"]
@@ -3162,11 +3415,11 @@ def main() -> int:
             for phase in times}
 
     def summed(name: str) -> dict:
-        """Launches of ``name`` over the seventeen paths (the seven serves, the
-        five train runs, the ACAN path's crash-free run, the paper's four MLP
-        runs, the two-tenant cloud's crash run, exp 1's three fleet runs
-        with the workers' own launches, the MoE's six runs on the card), in
-        all and by path."""
+        """Launches of ``name`` over the nineteen paths (the seven serves, the
+        six train runs, the ACAN path's crash-free run and its deepseek
+        twin's, the paper's four MLP runs, the two-tenant cloud's crash run,
+        exp 1's three fleet runs with the workers' own launches, the MoE's
+        six runs on the card), in all and by path."""
         by = {p: sum(r["launches_by_path"][name][p] for r in runs)
               for p in sm["launches_by_path"][name]}
         return dict(launches=sum(r["launches"][name] for r in runs), launches_by_path=by)
@@ -3176,7 +3429,7 @@ def main() -> int:
              replaces="src/repro/kernels/tile_matmul/kernel.py:58",
              **summed("tile_matmul"),
              launches_by_layout_in_training={
-                 k: sum(r["tile_matmul_layouts"][k] for r in (tr, mt, tdn, tg3, tq2))
+                 k: sum(r["tile_matmul_layouts"][k] for r in (tr, mt, tdn, tg3, tq2, tds))
                  for k in tr["tile_matmul_layouts"]},
              max_abs_err=detail["tile_matmul_err"][str(torch.bfloat16)],
              ms=tmt["ms"], plain_ms=tmt["plain_ms"], bound_ms=tmt["bound_ms"],
@@ -3276,17 +3529,19 @@ def main() -> int:
              dq_ms=fbt["dq_ms"], dkv_ms=fbt["dkv_ms"], ffma_ms=fbt["ffma_ms"],
              timed="one layer's attention backward, q (40, 3, 512, 64), causal, bf16, "
                    "mma path (wgmma at D = 64); library: SDPA's flash backward op, K/V "
-                   "repeated; the dense configs' and qwen2's training layers (wgmma at "
-                   "D 80, 128 and 256; library: the backward of an SDPA call, a window "
-                   "as a mask; without a window also cuDNN's backward op by graph "
-                   "replay) under by_config",
+                   "repeated; the dense configs', qwen2's and deepseek's training layers "
+                   "(wgmma at D 80, 128, 256 and q/k 192 with v 128; library: the "
+                   "backward of an SDPA call, a window as a mask; without a window also "
+                   "cuDNN's backward op by graph replay) and the reduced deepseek pair "
+                   "(24, 16) in float32 on ffma under by_config",
              by_config={k: {key: t.get(key) for key in (
-                 "q_shape", "window", "kernels", "ms", "device_ms", "device_tflop_s",
-                 "plain_ms", "library_ms", "library_device_ms", "library_backend", "bound_ms",
-                 "bound_by", "ffma_ms", "dq_ms", "dkv_ms", "flop")}
+                 "q_shape", "v_shape", "dtype", "window", "kernels", "ms", "device_ms",
+                 "device_tflop_s", "plain_ms", "library_ms", "library_device_ms",
+                 "library_device_error", "library_backend", "bound_ms", "bound_by", "ffma_ms",
+                 "dq_ms", "dkv_ms", "flop")}
                  for k, t in fbts.items() if k != "smollm_360m"},
              launches_by_train_run={r["arch"]: r["launches"]["flash_attention_bwd"]
-                                    for r in (tr, tdn, tg3, tq2)},
+                                    for r in (tr, tdn, tg3, tq2, tds, ad)},
              err_by_case=detail["flash_attention_bwd_err"]["by_case"]),
         dict(name="ssd_scan_bwd", route="cuda", source="src/repro_torch/csrc/ssd_scan_bwd.cu",
              replaces="src/repro/kernels/ssd_scan/kernel.py:70",

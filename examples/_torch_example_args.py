@@ -40,7 +40,7 @@ def protocol_audit(backend, res) -> None:
     print(f"protocol audit : violations {res.ts_violations}, "
           f"leaked tuples {n_leaks} (both must be 0 — every key "
           f"schema-clean, every non-persistent tuple swept)")
-    for sample in res.ts_violation_samples[:3]:
+    for sample in getattr(res, "ts_violation_samples", [])[:3]:
         print(f"  {sample}")
     for label, entry in list(res.ts_leaks.items())[:3]:
         print(f"  leak {label}: {entry['count']}x {entry['lifecycle']} "

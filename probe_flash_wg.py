@@ -16,8 +16,11 @@ each kernel's registers, spills and whether ptxas serialized its wgmmas
 repeat launches giving the same bits, then times each by CUDA-graph replay
 at ``chip_smoke.py``'s shapes: h2o_danube_1_8b's and command_r_plus_104b's
 prefill attention, danube's attention backward, smollm_360m's (D 64,
-whose kernels share the D 80 source) and qwen2_moe_a2_7b's (D 128, G 1),
-twice, in turns: variants in order, then in reverse. Results go to
+whose kernels share the D 80 source), qwen2_moe_a2_7b's (D 128, G 1) and
+deepseek_v2_lite_16b's (q/k 192, v 128: the ``<192>`` kernels) and
+gemma3_12b's global and local layers (D 256: its dQ kernel and the role
+split ``flash_bwd_dkv_wgsplit<256>``), twice, in
+turns: variants in order, then in reverse. Results go to
 ``chiprun_out/probe_flash_wg.json``.
 
 Usage (from the repository root, on a host with a CUDA device)::
@@ -45,6 +48,8 @@ FWD80 = "struct FwdWg<80, 80> { static constexpr int NC = 3, SWB = 32; };"
 FWD128 = "struct FwdWg<128, 128> { static constexpr int NC = 2, SWB = 128; };"
 BWD80 = "static constexpr int SWB = 32, DQ_BLOCKS = 3, DQ_STAGES = 2, DKV_WGS = 2;"
 BWD128 = "static constexpr int SWB = 128, DQ_BLOCKS = 3, DQ_STAGES = 1, DKV_WGS = 1;"
+BWD192 = "static constexpr int SWB = 128, DQ_BLOCKS = 2, DQ_STAGES = 1, DKV_WGS = 1;"
+SPLIT192 = "template <> struct BwdSplit<192> { static constexpr int STAGES = 3; };"
 SPLIT256 = "template <> struct BwdSplit<256> { static constexpr int STAGES = 2; };"
 
 
@@ -52,7 +57,7 @@ def split_dkv(stages: int) -> list:
     """D 128's dK/dV as D 256's role split (one warpgroup forms P^T and owns
     dV, the other dS^T and dK) with a Q/dO ring of ``stages``, instead of
     one warpgroup owning both."""
-    return [("constexpr int DKV_SPLIT_D = 256;", "constexpr int DKV_SPLIT_D = 128;"),
+    return [("constexpr int DKV_SPLIT_D = 192;", "constexpr int DKV_SPLIT_D = 128;"),
             (SPLIT256, SPLIT256.replace("256> { static constexpr int STAGES = 2",
                                         f"128> {{ static constexpr int STAGES = {stages}")
              + "\n" + SPLIT256)]
@@ -80,6 +85,12 @@ VARIANTS = {
     # two dQ blocks an SM on two K/V stages (97 KB), as at D 64 and 80
     "bwd.d128_dq2": [(BWD128, BWD128.replace("DQ_BLOCKS = 3, DQ_STAGES = 1",
                                              "DQ_BLOCKS = 2, DQ_STAGES = 2"))],
+    # MLA's (192, 128): two Q/dO stages of the role-split dK/dV kernel (139
+    # KB) where it ships three (180 KB), and one dQ block an SM on two K/V
+    # stages (121 KB)
+    "bwd.mla_split_stages2": [(SPLIT192, SPLIT192.replace("STAGES = 3", "STAGES = 2"))],
+    "bwd.mla_dq1_stages2": [(BWD192, BWD192.replace("DQ_BLOCKS = 2, DQ_STAGES = 1",
+                                                    "DQ_BLOCKS = 1, DQ_STAGES = 2"))],
 }
 
 FWD_CASES = (  # (bh, g, tq, tk, d, causal, window, softcap)
@@ -96,12 +107,18 @@ BWD_CASES = (
     (2, 3, 64, 640, 80, True, 0, 0.0), (1, 5, 100, 100, 80, True, 0, 15.0),
     (40, 3, 512, 512, 64, True, 0, 0.0), (4, 3, 77, 133, 64, True, 0, 0.0),
     (8, 1, 300, 300, 128, True, 0, 0.0), (2, 4, 200, 333, 128, True, 150, 30.0),
-    (2, 1, 65, 65, 128, False, 0, 0.0), (3, 12, 90, 190, 128, True, 70, 0.0))
+    (2, 1, 65, 65, 128, False, 0, 0.0), (3, 12, 90, 190, 128, True, 70, 0.0),
+    (8, 1, 300, 300, (192, 128), True, 0, 0.0), (2, 4, 200, 333, (192, 128), True, 150, 30.0),
+    (2, 1, 65, 65, (192, 128), False, 0, 0.0), (4, 2, 300, 300, 256, True, 0, 0.0),
+    (2, 2, 200, 333, 256, True, 150, 30.0), (2, 1, 65, 65, 256, False, 0, 0.0))
 # (name, b, hkv, g, t, d, window): chip_smoke.py's FLASH_TIMED / FLASH_BWD_TIMED
 FWD_TIMED = (("h2o_danube_1_8b", 2, 8, 4, 8192, 80, 4096),
              ("command_r_plus_104b", 8, 8, 12, 512, 128, 0))
 BWD_TIMED = (("h2o_danube_1_8b", 2, 8, 4, 8192, 80, 4096), ("smollm_360m", 8, 5, 3, 512, 64, 0),
-             ("qwen2_moe_a2_7b", 8, 16, 1, 1024, 128, 0))
+             ("qwen2_moe_a2_7b", 8, 16, 1, 1024, 128, 0),
+             ("gemma3_12b global", 2, 8, 2, 2048, 256, 0),
+             ("gemma3_12b local", 2, 8, 2, 2048, 256, 1024),
+             ("deepseek_v2_lite_16b", 8, 16, 1, 1024, (192, 128), 0))
 
 
 def source(name: str, parent: Path | None) -> tuple[str, Path | None]:
@@ -136,7 +153,8 @@ def build(names: list[str], parent: Path | None) -> dict:
         kernels = {k: v for k, v in chip_smoke._ptxas_kernels(out).items()
                    if "_wg" in k or "_mmaI" in k}
         if p.returncode == 0:  # each kernel's wgmma, calls and local-memory traffic
-            sass = chip_smoke._sass_ops(OUT / name / "lib.so", ("HGMMA", "CALL", "LDL", "STL"))[1]
+            sass = chip_smoke._sass_ops(chip_smoke.sass_start(OUT / name / "lib.so"),
+                                        ("HGMMA", "CALL", "LDL", "STL"))[1]
             for k in kernels:
                 kernels[k]["sass_ops"] = sass.get(k)
         logs[name] = {"rc": p.returncode, "kernels": kernels,
@@ -173,9 +191,10 @@ def bwd_call(fn):
         BH, G, Tq, D = q.shape
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         dvec = torch.empty((BH, G, Tq), dtype=torch.float32, device="cuda")
+        dims = (D, v.shape[-1]) if len(fn.argtypes) > 23 else (D,)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
                  lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dvec.data_ptr(),
-                 BH, G, Tq, k.shape[1], D, 1, int(causal), window, softcap, q_offset,
+                 BH, G, Tq, k.shape[1], *dims, 1, int(causal), window, softcap, q_offset,
                  1.0 / D ** 0.5, 0, _stream())
         assert err == 0, err
         return dq, dk, dv
@@ -191,8 +210,9 @@ def check(name: str, run) -> dict:
     out = {}
     fwd = name.startswith("fwd")
     for bh, g, tq, tk, d, causal, window, softcap in (FWD_CASES if fwd else BWD_CASES):
-        q, k, v, do = (_randn((bh, g, tq, d), 1), _randn((bh, tk, d), 2),
-                       _randn((bh, tk, d), 3), _randn((bh, g, tq, d), 4))
+        dk, dv = d if isinstance(d, tuple) else (d, d)  # MLA's pair: q/k and v head dims
+        q, k, v, do = (_randn((bh, g, tq, dk), 1), _randn((bh, tk, dk), 2),
+                       _randn((bh, tk, dv), 3), _randn((bh, g, tq, dv), 4))
         kw = dict(causal=causal, window=window, softcap=softcap, q_offset=tk - tq)
         case = f"{bh}x{g}x{tq}x{tk} d{d} w{window} c{softcap} {'causal' if causal else 'full'}"
         if fwd:
@@ -226,9 +246,9 @@ def timed_calls(libs: dict) -> dict:
             n: (lambda r=fwd_call(fn), q=q, k=k, v=v, w=window: r(q, k, v, window=w))
             for n, fn in libs.items() if n.startswith("fwd")}
     for shape, b, hkv, g, t, d, window in BWD_TIMED:
-        bh = b * hkv
-        q, k, v, do = (_randn((bh, g, t, d), 1), _randn((bh, t, d), 2), _randn((bh, t, d), 3),
-                       _randn((bh, g, t, d), 4))
+        bh, (dk, dv) = b * hkv, (d if isinstance(d, tuple) else (d, d))
+        q, k, v, do = (_randn((bh, g, t, dk), 1), _randn((bh, t, dk), 2),
+                       _randn((bh, t, dv), 3), _randn((bh, g, t, dv), 4))
         o, lse = fa.flash_attention(q, k, v, return_lse=True, window=window)
         calls[f"bwd {shape}"] = {
             n: (lambda r=bwd_call(fn), a=(q, k, v, o, do, lse), w=window: r(*a, window=w))
@@ -258,8 +278,9 @@ def main(argv: list[str]) -> int:
         fwd = name.startswith("fwd")
         fn = lib.flash_attention_launch if fwd else lib.flash_attention_bwd_launch
         # as kernel.py's _lib and _lib_bwd bind them; an older tree's forward
-        # takes one head dim
-        pair = fwd and "int DK, int DV" in (OUT / name / "src.cu").read_text()
+        # and backward take one head dim
+        src = (OUT / name / "src.cu").read_text()
+        pair = ("int DK, int DV" if fwd else "int D, int Dv") in src
         fn.argtypes = ([ctypes.c_void_p] * (5 if fwd else 10) + [ctypes.c_int] * (6 + pair)
                        + list(fa._MASK) + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int

@@ -151,8 +151,8 @@ def attention_calls(libs: dict) -> tuple[dict, dict]:
         dvec = torch.empty((BH, G, Tq), dtype=torch.float32, device="cuda")
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
                  lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dvec.data_ptr(),
-                 BH, G, Tq, k.shape[1], D, 1, int(causal), window, softcap, q_offset,
-                 1.0 / D ** 0.5, fa.PATH_CODES["mma"], _stream())
+                 BH, G, Tq, k.shape[1], D, v.shape[-1], 1, int(causal), window, softcap,
+                 q_offset, 1.0 / D ** 0.5, fa.PATH_CODES["mma"], _stream())
         assert err == 0, err
         return dq, dk, dv
 

@@ -9,7 +9,8 @@
 // itself, carrying (m, l, acc) in registers.
 //
 // Layout: q (BH, G, Tq, DK), k (BH, Tkv, DK), v (BH, Tkv, DV), o (BH, G, Tq,
-// DV); DK = DV but at MLA's (192, 128). The G query heads that
+// DV); DK = DV but at MLA's (192, 128) and, on ffma only, the reduced
+// deepseek config's (24, 16). The G query heads that
 // share a KV head are folded into the row dimension as row = t * G + g, so a
 // tile of 64 rows covers a contiguous run of query positions of all G heads:
 // each K/V tile is loaded once into shared memory and serves all of them
@@ -100,8 +101,8 @@
 //    32 KB, and the 64-float accumulator of D 128. What bounds it: deepseek's
 //    layer, q (128, 1, 1024, 192) causal, is 43.0 GFLOP against 168 MB, so
 //    bytes (0.050 ms).
-//  * ffma (float32, and bf16 the mma path cannot take). True float32 FFMA
-//    (never TF32) for the float32 parity runs: each thread keeps a 4-row x
+//  * ffma (float32, and bf16 the mma path cannot take, such as (24, 16)).
+//    True float32 FFMA (never TF32) for the float32 parity runs: each thread keeps a 4-row x
 //    8-key score tile and a 4-row x D/8 output tile in registers, reads Q
 //    and K rows from padded (conflict-free) shared memory, and tiles outside
 //    the causal/window band are never loaded. This was the first version of
@@ -146,7 +147,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 // ffma: float32 FFMA (and bf16 inputs the mma path cannot take).
 // ---------------------------------------------------------------------------
 // Q and K rows of DK values, V and O rows of DV (DK = DV but at MLA's
-// (192, 128)).
+// (192, 128) and (24, 16)).
 template <int DK, int DV>
 constexpr int smem_floats() {
   return ROWS * (DK + 1) + BK * (DK + 1) + BK * DV + ROWS * (BK + 1);
@@ -1139,7 +1140,8 @@ cudaError_t launch_wg(const void* q, const void* k, const void* v, void* o, floa
 // Launch.
 // ---------------------------------------------------------------------------
 // The head dims of q/k (DK) and v/o (DV) a kernel takes: DK = DV in {16, 32,
-// 64, 80, 128, 256}, or MLA's (192, 128) (deepseek_v2_lite_16b's prefill).
+// 64, 80, 128, 256}, or MLA's (192, 128) (deepseek_v2_lite_16b's prefill);
+// ffma also takes (24, 16), its reduced config's.
 bool dims_ok(int DK, int DV) {
   if (DK == 192) return DV == 128;
   return DK == DV && (DK == 16 || DK == 32 || DK == 64 || DK == 80 || DK == 128 || DK == 256);
@@ -1148,7 +1150,8 @@ bool dims_ok(int DK, int DV) {
 bool path_fits(int path, int dtype, int DK, int DV, bool aligned) {
   switch (path) {
     case PATH_MMA: return dims_ok(DK, DV) && dtype == 1 && aligned;
-    case PATH_FFMA: return dims_ok(DK, DV) && (dtype == 0 || dtype == 1);
+    case PATH_FFMA:
+      return (dims_ok(DK, DV) || (DK == 24 && DV == 16)) && (dtype == 0 || dtype == 1);
     default: return false;
   }
 }
@@ -1165,7 +1168,7 @@ cudaError_t launch(int path, const void* q, const void* k, const void* v, void* 
     if (path == PATH_MMA)
       return launch_wg<DK, DV>(q, k, v, o, lse, BH, G, Tq, Tkv, causal, window, softcap,
                                q_offset, scale, stream);
-  } else if constexpr (sizeof(T) == 2) {
+  } else if constexpr (sizeof(T) == 2 && DK == DV && DK % 16 == 0) {
     if (path == PATH_MMA) {
       dim3 grid((G * Tq + MMA_ROWS - 1) / MMA_ROWS, BH);
       constexpr int bytes = mma_smem_bytes<DK>();
@@ -1193,8 +1196,10 @@ template <class T>
 cudaError_t dispatch(int path, int DK, int DV, const void* q, const void* k, const void* v,
                      void* o, float* lse, int BH, int G, int Tq, int Tkv, int causal, int window,
                      float softcap, int q_offset, float scale, cudaStream_t s) {
-  if (DK != DV) {  // dims_ok: MLA's (192, 128)
-    return launch<T, 192, 128>(path, q, k, v, o, lse, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s);
+  if (DK != DV) {  // path_fits: MLA's (192, 128), or (24, 16) on ffma
+    return DK == 192
+        ? launch<T, 192, 128>(path, q, k, v, o, lse, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s)
+        : launch<T, 24, 16>(path, q, k, v, o, lse, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s);
   }
   switch (DK) {
     case 16: return launch<T, 16, 16>(path, q, k, v, o, lse, BH, G, Tq, Tkv, causal, window, softcap, q_offset, scale, s);
@@ -1210,7 +1215,8 @@ cudaError_t dispatch(int path, int DK, int DV, const void* q, const void* k, con
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16. (DK, DV), the head dims of q/k and
-// of v/o: DK = DV in {16, 32, 64, 80, 128, 256}, or (192, 128). path: 0 =
+// of v/o: DK = DV in {16, 32, 64, 80, 128, 256}, or (192, 128), or (24, 16)
+// on ffma. path: 0 =
 // mma (bf16, q/k/v/o 16-byte aligned), 1 = ffma. lse: float32 (BH, G, Tq)
 // or null. Returns the CUDA error of the launch (cudaErrorInvalidValue for a
 // path the inputs cannot take); 0 means launched.

@@ -13,8 +13,9 @@
 //   dS = P (dP - Dv) (1 - (s / c)^2 under a softcap) * scale
 //   dQ = dS K     dK = dS^T Q     dV = P^T dO
 //
-// Layout as the forward: q, o, dO, dq (BH, G, Tq, D); k, v, dk, dv
-// (BH, Tkv, D); lse (BH, G, Tq) float32. The G query heads of a KV head are
+// Layout as the forward: q, dq (BH, G, Tq, D); o, dO (BH, G, Tq, Dv); k, dk
+// (BH, Tkv, D); v, dv (BH, Tkv, Dv); lse (BH, G, Tq) float32. Dv = D but at
+// MLA's (192, 128) and, on ffma only, (24, 16). The G query heads of a KV head are
 // folded into rows (row = t * G + g), so summing dK and dV over a tile's
 // rows sums them over the G heads with no extra pass.
 //
@@ -117,6 +118,21 @@
 //    split (flash_bwd_dkv_wgsplit<128>, 158 registers but one block of
 //    147 KB an SM; 0.52 ms for dK/dV alone, with two or three Q/dO stages),
 //    and two warpgroups a block walking alternate row tiles (0.36 ms).
+//  * mma at MLA's (192, 128) (bf16; deepseek_v2_lite_16b's layer, q (128,
+//    1, 1024, 192), v (128, 1024, 128) causal: 111.8 GFLOP over five
+//    products, three over 192 and two over 128, against 337 MB, so
+//    operations, 0.113 ms). Q and K rows are three 128-byte atoms, dO and V
+//    rows two. The register budget sets the shape, as at D 128: one
+//    warpgroup holding dK (96 floats a thread) and dV (64) beside S^T and
+//    dP^T would pass 255 registers, so the dK/dV kernel is the role split
+//    flash_bwd_dkv_wgsplit<192> (warpgroup 0: S^T over 12 k-steps, then dV
+//    += P^T dO on m64n128; warpgroup 1: dP^T over 8, then dK += dS^T Q on
+//    m64n192; one accumulator of at most 96 floats each; a three-stage
+//    Q/dO ring, 180 KB, one block an SM: 8 warps of 186 registers fill the
+//    register file); the dQ kernel is flash_bwd_dq_wgmma<192> (96 floats of dQ
+//    beside S and dP, m64n192 for dQ += dS K; one K/V stage, 81 KB, two
+//    blocks an SM). The gathers copy a row's 24 and 16 chunks apart, as 24
+//    chunks make no whole number of rows a pass of 256 threads.
 //  * mma at D = 16, 32 (bf16; D 128 until the D = 128 wgmma kernels above):
 //    the same walk on mma.sync.m16n8k16 with the forward mma path's
 //    fragments. 4 warps own 16 rows (dq) or 16 keys (dkv) each; the block's
@@ -131,8 +147,8 @@
 //    dS the same way for dQ += dS K.
 //    The second operand of those three goes through ldmatrix.trans. P and
 //    dS are rounded to bf16 for their products.
-//  * ffma (float32, and bf16 the mma path cannot take): float32 FFMA, the
-//    first version. Each thread holds a 4 x 4 block of the 64 x 64 score
+//  * ffma (float32, and bf16 the mma path cannot take, such as the reduced
+//    deepseek config's (24, 16)): float32 FFMA, the first version. Each thread holds a 4 x 4 block of the 64 x 64 score
 //    tile and a 4-row (or 4-key) x D/16 block of its accumulator; operands
 //    sit in padded shared memory (row stride D + 1) so that the reads are
 //    free of bank conflicts. At D = 256 the tiles are 32 x 32 (a 2 x 2
@@ -191,15 +207,31 @@ __device__ __forceinline__ void prob_grad(Attn a, float s, float dp, int rr, int
   ds *= a.scale;
 }
 
+// The head dim of v, O and dO (DV) beside that of q and k (D): D but at
+// MLA's pairs, (192, 128) (deepseek_v2_lite_16b) and (24, 16) (its reduced
+// config, ffma only). Every kernel is keyed by D alone.
+template <int D>
+__host__ __device__ constexpr int dv_of() {
+  return D == 192 ? 128 : D == 24 ? 16 : D;
+}
+
 // ---------------------------------------------------------------------------
 // ffma: float32 FFMA (and bf16 inputs the mma path cannot take). A block
 // owns BT folded rows (dq) or keys (dkv) and walks tiles of BT keys or rows:
 // BT = 64, and 32 at D = 256, where four [64][D + 1] float tiles would take
-// 263 KB of the 227 KB a block may have (four [32][257] take 132 KB).
+// 263 KB of the 227 KB a block may have (four [32][257] take 132 KB; at
+// (192, 128) four [64][D + 1] or [64][DV + 1] tiles take 165 KB). A thread
+// owns columns tx + 16 j of a row: at D = 24 the columns past D are read
+// clamped and never written.
 // ---------------------------------------------------------------------------
 template <int D>
 __host__ __device__ constexpr int ffma_tile() {
-  return D > 128 ? 32 : 64;
+  return D + dv_of<D>() > 384 ? 32 : 64;
+}
+// A thread's column j of a row of N values: tx + 16 j, clamped to N - 1.
+template <int N>
+__device__ __forceinline__ int ffma_col(int tx, int j) {
+  return N % 16 == 0 ? tx + 16 * j : min(tx + 16 * j, N - 1);
 }
 
 // BT folded rows from r0 of src (G, Tq, D) into dst[BT][D + 1] as float;
@@ -223,9 +255,10 @@ __device__ __forceinline__ void load_keys(float* dst, const T* src, int kv0, int
   }
 }
 
-// s[i][j] = Q[rq + i] . K[kk + 16 j] and dp[i][j] = dO[rq + i] . V[kk + 16 j]
-// over the tile's shared rows (stride D + 1), i, j < RT.
-template <int D, int RT>
+// s[i][j] = Q[rq + i] . K[kk + 16 j] over D and dp[i][j] = dO[rq + i] .
+// V[kk + 16 j] over DV, from the tile's shared rows (strides D + 1, DV + 1),
+// i, j < RT.
+template <int D, int DV, int RT>
 __device__ __forceinline__ void score_tile(const float* Qs, const float* dOs, const float* Ks,
                                            const float* Vs, int rq, int kk, float (&s)[RT][RT],
                                            float (&dp)[RT][RT]) {
@@ -235,31 +268,34 @@ __device__ __forceinline__ void score_tile(const float* Qs, const float* dOs, co
     for (int j = 0; j < RT; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
   for (int d = 0; d < D; ++d) {
-    float qa[RT], da[RT], kb[RT], vb[RT];
+    float qa[RT], kb[RT];
 #pragma unroll
-    for (int i = 0; i < RT; ++i) {
-      qa[i] = Qs[(rq + i) * (D + 1) + d];
-      da[i] = dOs[(rq + i) * (D + 1) + d];
-    }
+    for (int i = 0; i < RT; ++i) qa[i] = Qs[(rq + i) * (D + 1) + d];
 #pragma unroll
-    for (int j = 0; j < RT; ++j) {
-      kb[j] = Ks[(kk + 16 * j) * (D + 1) + d];
-      vb[j] = Vs[(kk + 16 * j) * (D + 1) + d];
-    }
+    for (int j = 0; j < RT; ++j) kb[j] = Ks[(kk + 16 * j) * (D + 1) + d];
 #pragma unroll
     for (int i = 0; i < RT; ++i)
 #pragma unroll
-      for (int j = 0; j < RT; ++j) {
-        s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
-        dp[i][j] = fmaf(da[i], vb[j], dp[i][j]);
-      }
+      for (int j = 0; j < RT; ++j) s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
+  }
+#pragma unroll 4
+  for (int d = 0; d < DV; ++d) {
+    float da[RT], vb[RT];
+#pragma unroll
+    for (int i = 0; i < RT; ++i) da[i] = dOs[(rq + i) * (DV + 1) + d];
+#pragma unroll
+    for (int j = 0; j < RT; ++j) vb[j] = Vs[(kk + 16 * j) * (DV + 1) + d];
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+#pragma unroll
+      for (int j = 0; j < RT; ++j) dp[i][j] = fmaf(da[i], vb[j], dp[i][j]);
   }
 }
 
 template <int D>
 constexpr int dq_smem_floats() {
-  constexpr int BT = ffma_tile<D>();
-  return 4 * BT * (D + 1) + BT * (BT + 1) + 2 * BT;
+  constexpr int BT = ffma_tile<D>(), DV = dv_of<D>();
+  return 2 * BT * (D + 1) + 2 * BT * (DV + 1) + BT * (BT + 1) + 2 * BT;
 }
 
 template <class T, int D>
@@ -268,26 +304,27 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
              const T* __restrict__ o, const T* __restrict__ dout,
              const float* __restrict__ lse, T* __restrict__ dq, float* __restrict__ dvec,
              Attn a) {
-  constexpr int BT = ffma_tile<D>(), RT = BT / 16;
-  constexpr int DC = D / 16;            // dQ columns a thread owns
+  constexpr int BT = ffma_tile<D>(), RT = BT / 16, DV = dv_of<D>();
+  constexpr int DC = (D + 15) / 16;     // dQ columns a thread owns
   constexpr int LPR = THREADS / BT;     // lanes a row in the Dv sum
   extern __shared__ float smem[];
   float* Qs = smem;                   // [BT][D + 1]
-  float* dOs = Qs + BT * (D + 1);     // [BT][D + 1]
-  float* Ks = dOs + BT * (D + 1);     // [BT][D + 1]; first O, for Dv
-  float* Vs = Ks + BT * (D + 1);      // [BT][D + 1]
-  float* dSs = Vs + BT * (D + 1);     // [BT][BT + 1]
+  float* dOs = Qs + BT * (D + 1);     // [BT][DV + 1]
+  float* Ks = dOs + BT * (DV + 1);    // [BT][D + 1]; first O, [BT][DV + 1], for Dv
+  float* Vs = Ks + BT * (D + 1);      // [BT][DV + 1]
+  float* dSs = Vs + BT * (DV + 1);    // [BT][BT + 1]
   float* lse_s = dSs + BT * (BT + 1);
   float* dv_s = lse_s + BT;
 
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int bh = blockIdx.y, r0 = (gridDim.x - 1 - blockIdx.x) * BT;  // longest first
   const int G = a.G, Tq = a.Tq, R = G * Tq;
-  const size_t qoff = (size_t)bh * R * D, koff = (size_t)bh * a.Tkv * D;
+  const size_t qoff = (size_t)bh * R * D, ooff = (size_t)bh * R * DV;
+  const size_t koff = (size_t)bh * a.Tkv * D, voff = (size_t)bh * a.Tkv * DV;
 
   load_rows<T, D, BT>(Qs, q + qoff, r0, R, G, Tq);
-  load_rows<T, D, BT>(dOs, dout + qoff, r0, R, G, Tq);
-  load_rows<T, D, BT>(Ks, o + qoff, r0, R, G, Tq);
+  load_rows<T, DV, BT>(dOs, dout + ooff, r0, R, G, Tq);
+  load_rows<T, DV, BT>(Ks, o + ooff, r0, R, G, Tq);
   if (tid < BT) {
     const int rr = r0 + tid;
     lse_s[tid] = rr < R ? lse[(size_t)bh * R + row_off(rr, G, Tq)] : 0.f;
@@ -296,8 +333,8 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   {  // Dv = rowsum(dO o O): LPR neighbouring lanes a row, then shuffles
     const int r = tid / LPR, part = tid % LPR;
     float acc = 0.f;
-    for (int d = part; d < D; d += LPR)
-      acc = fmaf(dOs[r * (D + 1) + d], Ks[r * (D + 1) + d], acc);
+    for (int d = part; d < DV; d += LPR)
+      acc = fmaf(dOs[r * (DV + 1) + d], Ks[r * (DV + 1) + d], acc);
 #pragma unroll
     for (int m = 1; m < LPR; m <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m);
     if (part == 0) {
@@ -324,10 +361,10 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   for (int kv0 = kv_begin; kv0 < kv_end; kv0 += BT) {
     __syncthreads();  // the previous tile's Ks/Vs/dSs (and O) are consumed
     load_keys<T, D, BT>(Ks, k + koff, kv0, a.Tkv);
-    load_keys<T, D, BT>(Vs, v + koff, kv0, a.Tkv);
+    load_keys<T, DV, BT>(Vs, v + voff, kv0, a.Tkv);
     __syncthreads();
     float s[RT][RT], dp[RT][RT];
-    score_tile<D, RT>(Qs, dOs, Ks, Vs, ty * RT, tx, s, dp);
+    score_tile<D, DV, RT>(Qs, dOs, Ks, Vs, ty * RT, tx, s, dp);
 #pragma unroll
     for (int i = 0; i < RT; ++i) {
       const int r = ty * RT + i;
@@ -347,7 +384,7 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
       for (int i = 0; i < RT; ++i) dsv[i] = dSs[(ty * RT + i) * (BT + 1) + c];
 #pragma unroll
       for (int j = 0; j < DC; ++j) {
-        const float kv = Ks[c * (D + 1) + tx + 16 * j];
+        const float kv = Ks[c * (D + 1) + ffma_col<D>(tx, j)];
 #pragma unroll
         for (int i = 0; i < RT; ++i) acc[i][j] = fmaf(dsv[i], kv, acc[i][j]);
       }
@@ -360,14 +397,15 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     if (rr >= R) continue;
     T* row = dq + qoff + row_off(rr, G, Tq) * D;
 #pragma unroll
-    for (int j = 0; j < DC; ++j) row[tx + 16 * j] = from_f<T>(acc[i][j]);
+    for (int j = 0; j < DC; ++j)
+      if (D % 16 == 0 || tx + 16 * j < D) row[tx + 16 * j] = from_f<T>(acc[i][j]);
   }
 }
 
 template <int D>
 constexpr int dkv_smem_floats() {
-  constexpr int BT = ffma_tile<D>();
-  return 4 * BT * (D + 1) + 2 * BT * (BT + 1) + 2 * BT;
+  constexpr int BT = ffma_tile<D>(), DV = dv_of<D>();
+  return 2 * BT * (D + 1) + 2 * BT * (DV + 1) + 2 * BT * (BT + 1) + 2 * BT;
 }
 
 template <class T, int D>
@@ -375,14 +413,14 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
               const T* __restrict__ dout, const float* __restrict__ lse,
               const float* __restrict__ dvec, T* __restrict__ dk, T* __restrict__ dv, Attn a) {
-  constexpr int BT = ffma_tile<D>(), RT = BT / 16;
-  constexpr int DC = D / 16;  // dK / dV columns a thread owns
+  constexpr int BT = ffma_tile<D>(), RT = BT / 16, DV = dv_of<D>();
+  constexpr int DC = (D + 15) / 16, DCV = (DV + 15) / 16;  // dK / dV columns a thread owns
   extern __shared__ float smem[];
   float* Ks = smem;                   // [BT][D + 1]: this block's keys
-  float* Vs = Ks + BT * (D + 1);
-  float* Qs = Vs + BT * (D + 1);      // [BT][D + 1]: the current row tile
-  float* dOs = Qs + BT * (D + 1);
-  float* Ps = dOs + BT * (D + 1);     // [BT rows][BT + 1]
+  float* Vs = Ks + BT * (D + 1);      // [BT][DV + 1]
+  float* Qs = Vs + BT * (DV + 1);     // [BT][D + 1]: the current row tile
+  float* dOs = Qs + BT * (D + 1);     // [BT][DV + 1]
+  float* Ps = dOs + BT * (DV + 1);    // [BT rows][BT + 1]
   float* dSs = Ps + BT * (BT + 1);
   float* lse_s = dSs + BT * (BT + 1);
   float* dv_s = lse_s + BT;
@@ -390,10 +428,11 @@ flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int bh = blockIdx.y, kv0 = blockIdx.x * BT;
   const int G = a.G, Tq = a.Tq, R = G * Tq;
-  const size_t qoff = (size_t)bh * R * D, koff = (size_t)bh * a.Tkv * D;
+  const size_t qoff = (size_t)bh * R * D, ooff = (size_t)bh * R * DV;
+  const size_t koff = (size_t)bh * a.Tkv * D, voff = (size_t)bh * a.Tkv * DV;
 
   load_keys<T, D, BT>(Ks, k + koff, kv0, a.Tkv);
-  load_keys<T, D, BT>(Vs, v + koff, kv0, a.Tkv);
+  load_keys<T, DV, BT>(Vs, v + voff, kv0, a.Tkv);
 
   // The folded rows that can see a key of [kv0, kv1): query position at
   // least kv0 (causal) and below kv1 - 1 + window (sliding window).
@@ -401,16 +440,19 @@ flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   const int rr_lo = a.causal ? max(0, (kv0 - a.q_offset) * G) : 0;
   const int rr_hi = a.window > 0 ? min(R, max(0, kv1 - 1 + a.window - a.q_offset) * G) : R;
 
-  float acc_k[RT][DC], acc_v[RT][DC];
+  float acc_k[RT][DC], acc_v[RT][DCV];
 #pragma unroll
-  for (int i = 0; i < RT; ++i)
+  for (int i = 0; i < RT; ++i) {
 #pragma unroll
-    for (int c = 0; c < DC; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
+    for (int c = 0; c < DC; ++c) acc_k[i][c] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DCV; ++c) acc_v[i][c] = 0.f;
+  }
 
   for (int r0 = rr_lo / BT * BT; r0 < rr_hi; r0 += BT) {
     __syncthreads();  // the previous row tile is consumed
     load_rows<T, D, BT>(Qs, q + qoff, r0, R, G, Tq);
-    load_rows<T, D, BT>(dOs, dout + qoff, r0, R, G, Tq);
+    load_rows<T, DV, BT>(dOs, dout + ooff, r0, R, G, Tq);
     if (tid < BT) {
       const int rr = r0 + tid;
       const size_t off = (size_t)bh * R + row_off(rr < R ? rr : 0, G, Tq);
@@ -419,7 +461,7 @@ flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     }
     __syncthreads();
     float s[RT][RT], dp[RT][RT];
-    score_tile<D, RT>(Qs, dOs, Ks, Vs, ty * RT, tx, s, dp);
+    score_tile<D, DV, RT>(Qs, dOs, Ks, Vs, ty * RT, tx, s, dp);
 #pragma unroll
     for (int i = 0; i < RT; ++i) {
       const int r = ty * RT + i, rr = r0 + r;
@@ -445,14 +487,16 @@ flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
         dsv[i] = dSs[r * (BT + 1) + ty * RT + i];
       }
 #pragma unroll
-      for (int j = 0; j < DC; ++j) {
-        const float dov = dOs[r * (D + 1) + tx + 16 * j];
-        const float qv = Qs[r * (D + 1) + tx + 16 * j];
+      for (int j = 0; j < DCV; ++j) {
+        const float dov = dOs[r * (DV + 1) + ffma_col<DV>(tx, j)];
 #pragma unroll
-        for (int i = 0; i < RT; ++i) {
-          acc_v[i][j] = fmaf(pv[i], dov, acc_v[i][j]);
-          acc_k[i][j] = fmaf(dsv[i], qv, acc_k[i][j]);
-        }
+        for (int i = 0; i < RT; ++i) acc_v[i][j] = fmaf(pv[i], dov, acc_v[i][j]);
+      }
+#pragma unroll
+      for (int j = 0; j < DC; ++j) {
+        const float qv = Qs[r * (D + 1) + ffma_col<D>(tx, j)];
+#pragma unroll
+        for (int i = 0; i < RT; ++i) acc_k[i][j] = fmaf(dsv[i], qv, acc_k[i][j]);
       }
     }
   }
@@ -462,10 +506,13 @@ flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     const int kp = kv0 + ty * RT + i;
     if (kp >= a.Tkv) continue;
 #pragma unroll
-    for (int j = 0; j < DC; ++j) {
-      dk[koff + (size_t)kp * D + tx + 16 * j] = from_f<T>(acc_k[i][j]);
-      dv[koff + (size_t)kp * D + tx + 16 * j] = from_f<T>(acc_v[i][j]);
-    }
+    for (int j = 0; j < DC; ++j)
+      if (D % 16 == 0 || tx + 16 * j < D)
+        dk[koff + (size_t)kp * D + tx + 16 * j] = from_f<T>(acc_k[i][j]);
+#pragma unroll
+    for (int j = 0; j < DCV; ++j)
+      if (DV % 16 == 0 || tx + 16 * j < DV)
+        dv[voff + (size_t)kp * DV + tx + 16 * j] = from_f<T>(acc_v[i][j]);
   }
 }
 
@@ -838,9 +885,15 @@ template <> struct BwdWg<80> {
 template <> struct BwdWg<128> {
   static constexpr int SWB = 128, DQ_BLOCKS = 3, DQ_STAGES = 1, DKV_WGS = 1;
 };
+// MLA's (192, 128): Q/K rows of three 128-byte atoms, dO/V rows of two. The
+// dQ block holds 96 floats of dQ beside S and dP (two blocks an SM, one K/V
+// stage: 81 KB each); its dK/dV kernel is the role split.
+template <> struct BwdWg<192> {
+  static constexpr int SWB = 128, DQ_BLOCKS = 2, DQ_STAGES = 1, DKV_WGS = 1;
+};
 // The head dim from which the dK/dV kernel is the role split
 // (flash_bwd_dkv_wgsplit) rather than flash_bwd_dkv_wgmma.
-constexpr int DKV_SPLIT_D = 256;
+constexpr int DKV_SPLIT_D = 192;
 template <int D>
 __host__ __device__ constexpr int wg_tile() {  // bytes of a 64 x D bf16 tile
   return 64 * D * 2;
@@ -865,22 +918,25 @@ __device__ __forceinline__ size_t row_off_m(int rr, const Attn& a) {
   return (size_t)(rr - t * a.G) * a.Tq + t;
 }
 
-// 64 folded rows from r0 of two (G, Tq, D) head blocks (Q and dO) into two
-// swizzled tiles, zeros past R, by `n` threads of which this is thread t;
-// each chunk's row offset found once for both.
-template <int D>
+// 64 folded rows from r0 of a (G, Tq, D) head block (Q) and a (G, Tq, DB)
+// one (dO; DB = D but at MLA's pair) into two swizzled tiles, zeros past R,
+// by `n` threads of which this is thread t; each chunk's row offset found
+// once for both (chunks past DB / 8 of a row copy Q's alone).
+template <int D, int DB = D>
 __device__ __forceinline__ void gather_rows_sw(uint32_t ta, uint32_t tb, const __nv_bfloat16* srca,
                                                const __nv_bfloat16* srcb, int r0, const Attn& a,
                                                int t, int n) {
   constexpr int CPR = D / 8;
+  static_assert(DB <= D, "dO's row fits Q's");
   const int R = a.G * a.Tq;
 #pragma unroll 1
   for (int i = t; i < 64 * CPR; i += n) {
     const int r = i / CPR, c = i % CPR, rr = r0 + r;
     const bool in = rr < R;
-    const size_t off = in ? row_off_m(rr, a) * D + c * 8 : 0;
-    cp_async16(sw_chunk_b<BwdWg<D>::SWB, 64>(ta, r, c), srca + off, in);
-    cp_async16(sw_chunk_b<BwdWg<D>::SWB, 64>(tb, r, c), srcb + off, in);
+    const size_t ro = in ? row_off_m(rr, a) : 0;
+    cp_async16(sw_chunk_b<BwdWg<D>::SWB, 64>(ta, r, c), srca + (in ? ro * D + c * 8 : 0), in);
+    if (DB == D || c < DB / 8)
+      cp_async16(sw_chunk_b<BwdWg<DB>::SWB, 64>(tb, r, c), srcb + (in ? ro * DB + c * 8 : 0), in);
   }
 }
 // 64 keys from kv0 of a (Tkv, D) block into a swizzled tile, zeros past Tkv.
@@ -933,34 +989,37 @@ __device__ __forceinline__ void prob_grad2(const Attn& a, float sl2, bool masked
 
 template <int D>
 __host__ __device__ constexpr int dq_wg_smem() {  // Q, dO, the K/V ring; alignment
-  return (2 + 2 * BwdWg<D>::DQ_STAGES) * wg_tile<D>() + 1024;
+  return (1 + BwdWg<D>::DQ_STAGES) * (wg_tile<D>() + wg_tile<dv_of<D>()>()) + 1024;
 }
 
-// dQ of 64 folded rows: one warpgroup walks the key tiles of its band.
+// dQ of 64 folded rows: one warpgroup walks the key tiles of its band. Q
+// and K rows of D values, dO and V rows of DV = dv_of<D>().
 template <int D>
 __global__ void __launch_bounds__(128, BwdWg<D>::DQ_BLOCKS)
 flash_bwd_dq_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
                    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
                    __nv_bfloat16* __restrict__ dq, float* __restrict__ dvec, Attn a) {
-  constexpr int SWB = BwdWg<D>::SWB, TB = wg_tile<D>(), DQ_STAGES = BwdWg<D>::DQ_STAGES;
+  constexpr int DV = dv_of<D>(), SWB = BwdWg<D>::SWB, SWBV = BwdWg<DV>::SWB;
+  constexpr int TQ = wg_tile<D>(), TV = wg_tile<DV>(), DQ_STAGES = BwdWg<D>::DQ_STAGES;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
-  // K and V of stage st at sK + 2 st TB, sK + (2 st + 1) TB.
-  const uint32_t sQ = base, sdO = base + TB, sK = base + 2 * TB;
+  // K and V of stage st at sK + st (TQ + TV), V TQ after its K.
+  const uint32_t sQ = base, sdO = base + TQ, sK = base + TQ + TV;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t4 = lane & 3;
   const int bh = blockIdx.x, r0 = (gridDim.y - 1 - blockIdx.y) * 64;  // longest first
   const int G = a.G, Tq = a.Tq, R = G * Tq;
-  const size_t qoff = (size_t)bh * R * D, koff = (size_t)bh * a.Tkv * D;
+  const size_t qoff = (size_t)bh * R * D, ooff = (size_t)bh * R * DV;
+  const size_t koff = (size_t)bh * a.Tkv * D, voff = (size_t)bh * a.Tkv * DV;
 
-  gather_rows_sw<D>(sQ, sdO, q + qoff, dout + qoff, r0, a, tid, 128);
+  gather_rows_sw<D, DV>(sQ, sdO, q + qoff, dout + ooff, r0, a, tid, 128);
   const int qmin = a.q_offset + r0 / G;
   const int qmax = a.q_offset + (min(R, r0 + 64) - 1) / G;
   const int kv_end = a.causal ? min(a.Tkv, qmax + 1) : a.Tkv;
   const int kv_begin = a.window > 0 ? max(0, qmin - a.window + 1) / 64 * 64 : 0;
   auto load_kv = [&](int kv0, int st) {
-    gather_keys_sw<D>(sK + 2 * st * TB, k + koff, kv0, a.Tkv, tid, 128);
-    gather_keys_sw<D>(sK + (2 * st + 1) * TB, v + koff, kv0, a.Tkv, tid, 128);
+    gather_keys_sw<D>(sK + st * (TQ + TV), k + koff, kv0, a.Tkv, tid, 128);
+    gather_keys_sw<DV>(sK + st * (TQ + TV) + TQ, v + voff, kv0, a.Tkv, tid, 128);
   };
 #pragma unroll
   for (int st = 0; st < DQ_STAGES - 1; ++st) {
@@ -976,9 +1035,9 @@ flash_bwd_dq_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
     lse2[h] = rr < R ? lse[(size_t)bh * R + row_off(rr, G, Tq)] * LOG2E : 0.f;
     float acc = 0.f;
     if (rr < R) {
-      const size_t off = qoff + row_off(rr, G, Tq) * D;
+      const size_t off = ooff + row_off(rr, G, Tq) * DV;
 #pragma unroll
-      for (int c = 2 * t4; c < D; c += 8) {
+      for (int c = 2 * t4; c < DV; c += 8) {
         const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(dout + off + c);
         const __nv_bfloat162 y = *reinterpret_cast<const __nv_bfloat162*>(o + off + c);
         acc = fmaf(__low2float(x), __low2float(y), acc);
@@ -1004,15 +1063,15 @@ flash_bwd_dq_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
     cp_async_wait<DQ_STAGES - 1>();  // this tile (and Q, dO) landed; the next stay in flight
     fence_proxy_async();
     __syncthreads();
-    const uint32_t ks = sK + 2 * st * TB, vs = ks + TB;
-    // S = Q K^T and dP = dO V^T.
+    const uint32_t ks = sK + st * (TQ + TV), vs = ks + TQ;
+    // S = Q K^T (over D) and dP = dO V^T (over DV).
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
       wgmma_ss(s, desc_kb<SWB, 64>(sQ, kk), desc_kb<SWB, 64>(ks, kk), kk);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss(dp, desc_kb<SWB, 64>(sdO, kk), desc_kb<SWB, 64>(vs, kk), kk);
+    for (int kk = 0; kk < DV / 16; ++kk)
+      wgmma_ss(dp, desc_kb<SWBV, 64>(sdO, kk), desc_kb<SWBV, 64>(vs, kk), kk);
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(s);
@@ -1242,12 +1301,36 @@ constexpr int DQ256_SMEM = 6 * TILE256 + 1024;
 // D = 256 (210 KB). (probe_flash_wg.py adds D = 128, where a third fits.)
 template <int D> struct BwdSplit;
 template <> struct BwdSplit<256> { static constexpr int STAGES = 2; };
+// (192, 128): three stages (180 KB) measured 2-3% faster than two
+// (139 KB; probe_flash_wg.py), one block an SM either way.
+template <> struct BwdSplit<192> { static constexpr int STAGES = 3; };
 // K, V, the stages of Q and dO, P'^T (64 x 64 float32), each stage's rows'
 // lse and Dv; alignment.
 template <int D>
 __host__ __device__ constexpr int dkv_split_smem() {
-  return (2 + 2 * BwdSplit<D>::STAGES) * wg_tile<D>() + 64 * 64 * 4 +
+  return (1 + BwdSplit<D>::STAGES) * (wg_tile<D>() + wg_tile<dv_of<D>()>()) + 64 * 64 * 4 +
          BwdSplit<D>::STAGES * 2 * 64 * 4 + 1024;
+}
+// Keys kp and kp + 8 of a warpgroup's accumulator, N columns a key, as bf16
+// rows of out (Tkv, N) scaled by sc.
+template <int N, int M>
+__device__ __forceinline__ void store_keys(const float (&acc)[M], __nv_bfloat16* out, int kp,
+                                           int Tkv, int t4, float sc) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (kp + 8 * h >= Tkv) continue;
+    __nv_bfloat16* row = out + (size_t)(kp + 8 * h) * N;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+      *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * t4) =
+          pack_bf16(acc[4 * j + 2 * h] * sc, acc[4 * j + 2 * h + 1] * sc);
+  }
+}
+// The first N of a register array's M floats, as an array of its own.
+template <int N, int M>
+__device__ __forceinline__ float (&head(float (&a)[M]))[N] {
+  static_assert(N <= M, "a head of the array");
+  return *reinterpret_cast<float(*)[N]>(a);
 }
 
 // Named barrier `id` over 256 threads: one warpgroup arrives, the other waits.
@@ -1452,37 +1535,48 @@ flash_bwd_dq_wg256(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
   }
 }
 
-// dK, dV of 64 keys at D = 128 and 256: both warpgroups walk the row tiles
-// of the keys' band. Warpgroup 0 forms S^T = K Q^T, P^T from it, leaves P'^T
-// = P^T (1 - (s / c)^2 under a softcap) in shared memory and accumulates dV
-// += P^T dO; warpgroup 1 forms dP^T = V dO^T, dS^T / scale = P'^T (dP^T -
-// Dv) and accumulates dK += dS^T Q. Each holds one accumulator of D / 2
-// floats a thread, where one warpgroup owning both (flash_bwd_dkv_wgmma's
-// layout) would hold D plus the two score tiles' 64. Q, dO, lse and Dv
-// come through a ring of BwdSplit<D>::STAGES stages, each filled while the
-// products of the stages before it run.
+// dK, dV of 64 keys at D = 128, 192 (MLA's pair, dV of DV = 128) and 256:
+// both warpgroups walk the row tiles of the keys' band. Warpgroup 0 forms S^T
+// = K Q^T (over D), P^T from it, leaves P'^T = P^T (1 - (s / c)^2 under a
+// softcap) in shared memory and accumulates dV += P^T dO (DV columns);
+// warpgroup 1 forms dP^T = V dO^T (over DV), dS^T / scale = P'^T (dP^T -
+// Dv) and accumulates dK += dS^T Q (D columns). Each holds one accumulator
+// of at most D / 2 floats a thread, where one warpgroup owning both
+// (flash_bwd_dkv_wgmma's layout) would hold (D + DV) / 2 plus the two score
+// tiles' 64. Q, dO, lse and Dv come through a ring of BwdSplit<D>::STAGES
+// stages, each filled while the products of the stages before it run.
 template <int D>
 __global__ void __launch_bounds__(256, 1)
 flash_bwd_dkv_wgsplit(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ dvec,
                       __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, Attn a) {
-  constexpr int TB = wg_tile<D>(), STAGES = BwdSplit<D>::STAGES;
+  constexpr int DV = dv_of<D>(), TB = wg_tile<D>(), TV = wg_tile<DV>();
+  constexpr int STAGES = BwdSplit<D>::STAGES;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   unsigned char* gbase = smem_raw + (base - smem_u32(smem_raw));
   const uint32_t sK = base, sV = base + TB;
-  auto stage = [&](int st) { return base + (2 + 2 * st) * TB; };  // Q; dO one tile on
+  // Q of stage st; its dO TB on.
+  auto stage = [&](int st) { return base + (1 + st) * (TB + TV); };
   // P'^T: [32][128], thread-major; then [STAGES][lse, Dv][64]
-  float* pt = reinterpret_cast<float*>(gbase + (2 + 2 * STAGES) * TB);
+  float* pt = reinterpret_cast<float*>(gbase + (1 + STAGES) * (TB + TV));
   float* ld_s = pt + 64 * 64;
   const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
   const int lane = tid & 31, warp = t >> 5, g = lane >> 2, t4 = lane & 3;
   const int bh = blockIdx.x, kv0 = blockIdx.y * 64;  // causal: heaviest key tiles first
   const int G = a.G, Tq = a.Tq, R = G * Tq;
-  const size_t qoff = (size_t)bh * R * D, koff = (size_t)bh * a.Tkv * D;
+  const size_t qoff = (size_t)bh * R * D, ooff = (size_t)bh * R * DV;
+  const size_t koff = (size_t)bh * a.Tkv * D, voff = (size_t)bh * a.Tkv * DV;
 
-  gather_keys_at<D>(sK, sV, k + koff, v + koff, kv0, a.Tkv, tid);
+  // gather_*_sw read BwdWg<D>'s swizzle, which D 256 (kernels of its own,
+  // fed by gather_*_at) has none of.
+  if constexpr (D == DV) {
+    gather_keys_at<D>(sK, sV, k + koff, v + koff, kv0, a.Tkv, tid);
+  } else {  // rows of 24 chunks: no whole number of rows a pass of 256 threads
+    gather_keys_sw<D>(sK, k + koff, kv0, a.Tkv, tid, 256);
+    gather_keys_sw<DV>(sV, v + voff, kv0, a.Tkv, tid, 256);
+  }
   // The folded rows that can see a key of [kv0, kv1), as the other kernels.
   const int kv1 = min(a.Tkv, kv0 + 64);
   const int rr_lo = a.causal ? max(0, (kv0 - a.q_offset) * G) : 0;
@@ -1491,7 +1585,10 @@ flash_bwd_dkv_wgsplit(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
   const int ntile = rr_hi > r_first ? (rr_hi - r_first + 63) / 64 : 0;
   auto load_rows = [&](int i, int st) {
     const int r0 = r_first + 64 * i;
-    gather_rows_at<D>(stage(st), stage(st) + TB, q + qoff, dout + qoff, r0, R, G, Tq, tid);
+    if constexpr (D == DV)
+      gather_rows_at<D>(stage(st), stage(st) + TB, q + qoff, dout + qoff, r0, R, G, Tq, tid);
+    else
+      gather_rows_sw<D, DV>(stage(st), stage(st) + TB, q + qoff, dout + ooff, r0, a, tid, 256);
     if (tid < 64) {
       const int rr = r0 + tid;
       const size_t off = (size_t)bh * R + row_off(rr < R ? rr : 0, G, Tq);
@@ -1524,10 +1621,23 @@ flash_bwd_dkv_wgsplit(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
     float s[32];
     uint32_t f[4][4];
     wgmma_fence();
+    // At D = Dv both warpgroups run one stream of wgmmas, the operands
+    // picked per warpgroup: apart (as at MLA's pair), D 256's dK/dV kernel
+    // took 10% longer (42 HGMMA in its SASS rather than 20).
+    if constexpr (D == DV) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss(s, desc_kb<128, 64>(wg == 0 ? sK : sV, kk),
-               desc_kb<128, 64>(wg == 0 ? qs : dos, kk), kk);
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(s, desc_kb<128, 64>(wg == 0 ? sK : sV, kk),
+                 desc_kb<128, 64>(wg == 0 ? qs : dos, kk), kk);
+    } else if (wg == 0) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(s, desc_kb<128, 64>(sK, kk), desc_kb<128, 64>(qs, kk), kk);
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < DV / 16; ++kk)
+        wgmma_ss(s, desc_kb<128, 64>(sV, kk), desc_kb<128, 64>(dos, kk), kk);
+    }
     wgmma_commit();
     if (i + STAGES - 1 < ntile) load_rows(i + STAGES - 1, (i + STAGES - 1) % STAGES);
     cp_async_commit();
@@ -1568,10 +1678,19 @@ flash_bwd_dkv_wgsplit(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
     // dV += P^T dO (warpgroup 0) or dK += dS^T Q (warpgroup 1): the rows
     // read MN-major (k = row).
     acc_frags(f, s);
-    const uint32_t b = wg == 0 ? dos : qs;
     wgmma_fence();
+    if constexpr (D == DV) {  // one stream of wgmmas, as above
+      const uint32_t b = wg == 0 ? dos : qs;
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc) wgmma_rs_n<D>(acc, f[kc], desc_mnb<128, 64>(b, kc));
+      for (int kc = 0; kc < 4; ++kc) wgmma_rs_n<D>(acc, f[kc], desc_mnb<128, 64>(b, kc));
+    } else if (wg == 0) {
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc)
+        wgmma_rs_n<DV>(head<DV / 2>(acc), f[kc], desc_mnb<128, 64>(dos, kc));
+    } else {
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) wgmma_rs_n<D>(acc, f[kc], desc_mnb<128, 64>(qs, kc));
+    }
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(acc);
@@ -1580,18 +1699,11 @@ flash_bwd_dkv_wgsplit(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
   }
   cp_async_wait<0>();
 
-  __nv_bfloat16* out = wg == 0 ? dv : dk;
-  const float sc = wg == 0 ? 1.f : a.scale;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int kp = kv0 + 16 * warp + g + 8 * h;
-    if (kp >= a.Tkv) continue;
-    __nv_bfloat16* row = out + koff + (size_t)kp * D;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * t4) =
-          pack_bf16(acc[4 * j + 2 * h] * sc, acc[4 * j + 2 * h + 1] * sc);
-  }
+  // dV (warpgroup 0: DV columns, unscaled) or dK (warpgroup 1: D columns).
+  if (wg == 0)
+    store_keys<DV>(acc, dv + voff, kv0 + 16 * warp + g, a.Tkv, t4, 1.f);
+  else
+    store_keys<D>(acc, dk + koff, kv0 + 16 * warp + g, a.Tkv, t4, a.scale);
 }
 
 // ---------------------------------------------------------------------------
@@ -1599,11 +1711,17 @@ flash_bwd_dkv_wgsplit(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
 // ---------------------------------------------------------------------------
 enum Path { PATH_MMA = 0, PATH_FFMA = 1 };
 
-bool path_fits(int path, int dtype, int D, bool aligned) {
-  const bool d_ok = D == 16 || D == 32 || D == 64 || D == 80 || D == 128 || D == 256;
+// The head dims of q/k (D) and v/o (Dv) each path takes: D = Dv in {16,
+// 32, 64, 80, 128, 256}, or MLA's (192, 128); ffma also (24, 16).
+bool mma_dims(int D, int Dv) {
+  if (D == 192) return Dv == 128;
+  return D == Dv && (D == 16 || D == 32 || D == 64 || D == 80 || D == 128 || D == 256);
+}
+
+bool path_fits(int path, int dtype, int D, int Dv, bool aligned) {
   switch (path) {
-    case PATH_MMA: return d_ok && dtype == 1 && aligned;
-    case PATH_FFMA: return d_ok && (dtype == 0 || dtype == 1);
+    case PATH_MMA: return mma_dims(D, Dv) && dtype == 1 && aligned;
+    case PATH_FFMA: return (mma_dims(D, Dv) || (D == 24 && Dv == 16)) && (dtype == 0 || dtype == 1);
     default: return false;
   }
 }
@@ -1621,11 +1739,11 @@ cudaError_t launch(int path, const void* q, const void* k, const void* v, const 
   const int mma_keys = (a.Tkv + MMA_TILE - 1) / MMA_TILE;
   if constexpr (sizeof(T) == 2 && D >= 64) {
     if (path == PATH_MMA) {
-      // dQ: one warpgroup a block (flash_bwd_dq_wgmma<D>, D <= 128) or the
-      // two of flash_bwd_dq_wg256; dK/dV: DKV_WGS warpgroups each owning
-      // both accumulators (D < DKV_SPLIT_D) or the role split. Grid y: row
+      // dQ: one warpgroup a block (flash_bwd_dq_wgmma<D>, D <= 128 and MLA's
+      // 192) or the two of flash_bwd_dq_wg256; dK/dV: DKV_WGS warpgroups each
+      // owning both accumulators (D < DKV_SPLIT_D) or the role split. Grid y: row
       // tiles longest first (dQ), key tiles heaviest first (dK/dV).
-      if constexpr (D <= 128) {
+      if constexpr (D <= 128 || D == 192) {
         constexpr int dq_bytes = dq_wg_smem<D>();
         static const cudaError_t attr_dq = cudaFuncSetAttribute(
             flash_bwd_dq_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
@@ -1661,7 +1779,7 @@ cudaError_t launch(int path, const void* q, const void* k, const void* v, const 
       }
       return cudaGetLastError();
     }
-  } else if constexpr (sizeof(T) == 2) {
+  } else if constexpr (sizeof(T) == 2 && D % 16 == 0) {
     if (path == PATH_MMA) {
       constexpr int dq_bytes = dq_mma_smem_bytes<D>(), dkv_bytes = dkv_mma_smem_bytes<D>();
       static_assert(dq_bytes <= 232448 && dkv_bytes <= 232448, "227 KB of shared memory a block");
@@ -1703,12 +1821,14 @@ template <class T>
 cudaError_t dispatch(int path, int D, const void* q, const void* k, const void* v,
                      const void* o, const void* dout, const float* lse, void* dq, void* dk,
                      void* dv, float* dvec, int BH, const Attn& a, cudaStream_t s) {
-  switch (D) {
+  switch (D) {  // path_fits: D alone names the pair (dv_of)
     case 16: return launch<T, 16>(path, q, k, v, o, dout, lse, dq, dk, dv, dvec, BH, a, s);
+    case 24: return launch<T, 24>(path, q, k, v, o, dout, lse, dq, dk, dv, dvec, BH, a, s);
     case 32: return launch<T, 32>(path, q, k, v, o, dout, lse, dq, dk, dv, dvec, BH, a, s);
     case 64: return launch<T, 64>(path, q, k, v, o, dout, lse, dq, dk, dv, dvec, BH, a, s);
     case 80: return launch<T, 80>(path, q, k, v, o, dout, lse, dq, dk, dv, dvec, BH, a, s);
     case 128: return launch<T, 128>(path, q, k, v, o, dout, lse, dq, dk, dv, dvec, BH, a, s);
+    case 192: return launch<T, 192>(path, q, k, v, o, dout, lse, dq, dk, dv, dvec, BH, a, s);
     case 256: return launch<T, 256>(path, q, k, v, o, dout, lse, dq, dk, dv, dvec, BH, a, s);
     default: return cudaErrorInvalidValue;
   }
@@ -1717,15 +1837,16 @@ cudaError_t dispatch(int path, int D, const void* q, const void* k, const void* 
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16 (q, k, v, o, dO and the gradients
-// share it); lse and dvec float32, dvec (BH, G, Tq) scratch for Dv. D in
-// {16, 32, 64, 80, 128, 256}. path: 0 = mma (bf16, every tensor 16-byte aligned),
-// 1 = ffma. Launches the dQ kernel, then the dK/dV kernel, on `stream`;
+// share it); lse and dvec float32, dvec (BH, G, Tq) scratch for Dv. (D, Dv),
+// the head dims of q/k/dq/dk and of v/o/dO/dv: D = Dv in {16, 32, 64, 80,
+// 128, 256}, or (192, 128), or on ffma (24, 16). path: 0 = mma (bf16, every
+// tensor 16-byte aligned), 1 = ffma. Launches the dQ kernel, then the dK/dV kernel, on `stream`;
 // returns the CUDA error of the launches (cudaErrorInvalidValue for a path
 // the inputs cannot take), 0 when both launched.
 extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                           const void* o, const void* dout, const void* lse,
                                           void* dq, void* dk, void* dv, void* dvec, int BH,
-                                          int G, int Tq, int Tkv, int D, int dtype,
+                                          int G, int Tq, int Tkv, int D, int Dv, int dtype,
                                           int causal, int window, float softcap,
                                           int q_offset, float scale, int path, void* stream) {
   const uintptr_t any = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
@@ -1733,7 +1854,7 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
                         reinterpret_cast<uintptr_t>(dout) | reinterpret_cast<uintptr_t>(dq) |
                         reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv);
   if (dtype < 0 || dtype > 1 || BH < 1 || G < 1 || Tq < 1 || Tkv < 1 ||
-      !path_fits(path, dtype, D, (any & 15) == 0))
+      !path_fits(path, dtype, D, Dv, (any & 15) == 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const Attn a{G, Tq, Tkv, causal, window, softcap, q_offset, scale,
                softcap > 0.f ? scale / softcap : 0.f, (1ull << 32) / G + 1};

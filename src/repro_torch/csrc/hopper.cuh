@@ -153,7 +153,8 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t d
       : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
 }
 // d (64 x N) += A B over 16 k; A (64 x 16) in registers (the m16n8k16 A
-// fragment of each warp's 16 rows), B shared and MN-major: N = 64, 80, 128, 256.
+// fragment of each warp's 16 rows), B shared and MN-major: N = 64, 80, 128,
+// 192, 256.
 __device__ __forceinline__ void wgmma_rs64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
@@ -187,6 +188,21 @@ __device__ __forceinline__ void wgmma_rs128(float (&d)[64], const uint32_t (&a)[
       : HOPPER_ACC16(0), HOPPER_ACC16(16), HOPPER_ACC16(32), HOPPER_ACC16(48)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
+__device__ __forceinline__ void wgmma_rs192(float (&d)[96], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      HOPPER_REGS16(0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15) ", "
+      HOPPER_REGS16(16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31) ", "
+      HOPPER_REGS16(32, 33, 34, 35, 36, 37, 38, 39, 40, 41, 42, 43, 44, 45, 46, 47) ", "
+      HOPPER_REGS16(48, 49, 50, 51, 52, 53, 54, 55, 56, 57, 58, 59, 60, 61, 62, 63) ", "
+      HOPPER_REGS16(64, 65, 66, 67, 68, 69, 70, 71, 72, 73, 74, 75, 76, 77, 78, 79) ", "
+      HOPPER_REGS16(80, 81, 82, 83, 84, 85, 86, 87, 88, 89, 90, 91, 92, 93, 94, 95)
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : HOPPER_ACC16(0), HOPPER_ACC16(16), HOPPER_ACC16(32), HOPPER_ACC16(48),
+        HOPPER_ACC16(64), HOPPER_ACC16(80)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 __device__ __forceinline__ void wgmma_rs256(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
@@ -211,6 +227,7 @@ __device__ __forceinline__ void wgmma_rs_n(float (&d)[N / 2], const uint32_t (&a
   if constexpr (N == 64) wgmma_rs64(d, a, db);
   else if constexpr (N == 80) wgmma_rs80(d, a, db);
   else if constexpr (N == 128) wgmma_rs128(d, a, db);
+  else if constexpr (N == 192) wgmma_rs192(d, a, db);
   else wgmma_rs256(d, a, db);
 }
 #undef HOPPER_REGS16

@@ -23,7 +23,8 @@ switches):
   128-byte swizzle rows, and each consumer runs a tile's softmax under the
   last tile's P V).
 - ``ffma``: float32, for the 2e-4 parity runs, and bf16 the ``mma`` path
-  cannot take. True float32 FFMA.
+  cannot take (the reduced deepseek config's (24, 16), ``FFMA_PAIRS``). True
+  float32 FFMA.
 
 ``flash_attention.launches`` counts launches; ``flash_attention.paths``
 counts them per path. The source's header says what bounds each on the card.
@@ -32,9 +33,9 @@ counts them per path. The source's header says what bounds each on the card.
 (``return_lse``), which :func:`flash_attention_bwd` takes with the output to
 launch the backward (``csrc/flash_attention_bwd.cu``: a dQ kernel, then a
 dK/dV kernel, no atomics), with the forward's two paths: ``mma`` (bf16 on
-tensor cores: ``wgmma`` at D = 64, 80, 128 and 256, ``mma.sync`` at 16 and 32;
-:func:`bwd_walks` mirrors their walks) and ``ffma`` (float32), at every head
-dim the forward takes.
+tensor cores: ``wgmma`` at D = 64, 80, 128, 256 and MLA's (192, 128),
+``mma.sync`` at 16 and 32; :func:`bwd_walks` mirrors their walks) and
+``ffma`` (float32), at every head dim and pair the forward takes.
 ``flash_attention_bwd.launches`` and ``.paths`` count its calls.
 """
 
@@ -53,10 +54,12 @@ PATH_CODES = {"mma": 0, "ffma": 1}
 # h2o_danube_1_8b, 256: gemma3_12b); the backward takes every one of them.
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 BWD_HEAD_DIMS = HEAD_DIMS
-# (head dim of q and k, head dim of v and the output) pairs the forward also
-# takes: MLA's prefill (deepseek_v2_lite_16b, qk_nope 128 + qk_rope 64, v 128).
-# Their backward is the deepseek training slice's (ROADMAP.md).
-HEAD_DIM_PAIRS = ((192, 128),)
+# (head dim of q and k, head dim of v and the output) pairs both directions
+# also take: MLA's (deepseek_v2_lite_16b, qk_nope 128 + qk_rope 64, v 128),
+# and its reduced config's (16 + 8, 16), which only the ffma path takes
+# (``FFMA_PAIRS``).
+HEAD_DIM_PAIRS = ((192, 128), (24, 16))
+FFMA_PAIRS = ((24, 16),)
 
 
 def _dims_ok(d: int, dv: int) -> bool:
@@ -65,14 +68,16 @@ def _dims_ok(d: int, dv: int) -> bool:
 
 def choose_path(dtype: torch.dtype, d: int, aligned: bool, dv: int | None = None) -> str:
     """The kernel for attention of head dim ``d`` (q and k) and ``dv`` (v
-    and the output; ``d`` when not given) in ``dtype``; ``aligned``: q, k, v
-    and the output start on 16-byte boundaries. Mirrors ``path_fits`` in
-    ``csrc/flash_attention.cu``."""
+    and the output; ``d`` when not given) in ``dtype``, forward and
+    backward; ``aligned``: every tensor starts on a 16-byte boundary.
+    Mirrors ``path_fits`` in ``csrc/flash_attention.cu`` and
+    ``csrc/flash_attention_bwd.cu``."""
     dv = d if dv is None else dv
     if not _dims_ok(d, dv) or dtype not in DTYPE_CODES:
         raise ValueError(f"flash_attention takes D in {HEAD_DIMS} or (D, Dv) in "
                          f"{HEAD_DIM_PAIRS} in float32 or bfloat16; got ({d}, {dv}), {dtype}")
-    return "mma" if dtype == torch.bfloat16 and aligned else "ffma"
+    mma = dtype == torch.bfloat16 and aligned and (d, dv) not in FFMA_PAIRS
+    return "mma" if mma else "ffma"
 
 
 _MASK = (ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_float)
@@ -90,7 +95,7 @@ def _lib():
 @functools.cache
 def _lib_bwd():
     fn = _build.load("flash_attention_bwd").flash_attention_bwd_launch
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + list(_MASK)
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + list(_MASK)
                    + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -98,8 +103,10 @@ def _lib_bwd():
 
 BWD_TILE = 64        # folded rows or keys of a tile in the backward kernels
 # BwdWg<D>::DKV_WGS in csrc/flash_attention_bwd.cu: the warpgroups of a wgmma
-# dK/dV block at D = 64, 80 and 128 (the other kernels' walks are those of 1)
-DKV_WARPGROUPS = {64: 3, 80: 2, 128: 1}
+# dK/dV block at D = 64, 80 and 128 (the other kernels' walks are those of
+# 1: the role split at D 256 and MLA's (192, 128) takes every tile in both
+# warpgroups)
+DKV_WARPGROUPS = {64: 3, 80: 2, 128: 1, (192, 128): 1}
 FWD_TILE = 64        # folded rows of a consumer warpgroup of the wgmma forward
 # The wgmma forward kernels' blocks by head dim (or (DK, DV) pair): (consumer
 # warpgroups, keys of a K/V tile); flash_fwd_wg256, and FwdWg<DK, DV> in
@@ -153,12 +160,14 @@ def fwd_tile_visible(G: int, Tq: int, Tkv: int, rw: int, kv0: int, *, causal: bo
     return not masked
 
 
-def bwd_tile(d: int, path: str) -> int:
+def bwd_tile(d: int, path: str, dv: int | None = None) -> int:
     """Folded rows or keys of a tile of the backward's ``path`` at head dim
-    ``d``: ``BWD_TILE``, but 32 on the ffma path at D = 256, where four
-    float32 tiles of 64 rows would not fit a block's shared memory
-    (``ffma_tile`` in ``csrc/flash_attention_bwd.cu``)."""
-    return 32 if path == "ffma" and d > 128 else BWD_TILE
+    ``d`` (q, k) and ``dv`` (v, the output; ``d`` when not given):
+    ``BWD_TILE``, but 32 on the ffma path at D = 256, where four float32
+    tiles of 64 rows would not fit a block's shared memory (``ffma_tile`` in
+    ``csrc/flash_attention_bwd.cu``: D + Dv above 384)."""
+    dv = d if dv is None else dv
+    return 32 if path == "ffma" and d + dv > 384 else BWD_TILE
 
 
 def bwd_walks(G: int, Tq: int, Tkv: int, *, causal: bool = True, window: int = 0,
@@ -175,8 +184,8 @@ def bwd_walks(G: int, Tq: int, Tkv: int, *, causal: bool = True, window: int = 0
     the band, from tile ``w``: ``DKV_WARPGROUPS``; at D = 128 one
     warpgroup walks the band whole). The dK/dV kernels other than the D =
     64, 80 and 128 wgmma ones walk the union of these walks in one pass: the
-    D = 256 kernel's two warpgroups each take every tile, one for dV, one
-    for dK."""
+    D = 256 and (192, 128) kernels' two warpgroups each take every tile, one
+    for dV, one for dK."""
     R, T = G * Tq, tile
     dq = {}
     for r0 in range(0, R, T):
@@ -273,21 +282,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         q_offset: int = 0, path: str | None = None):
     """Gradients (dq, dk, dv) of :func:`flash_attention` at (q, k, v), whose
     output was ``o`` and row log-sum-exp ``lse``, for the output gradient
-    ``do``; same shapes and layout as q, k, v. On CUDA; raises on anything
-    the kernels do not take. ``path`` as :func:`flash_attention`'s, picked
-    by the same rule: ``mma`` for aligned bf16, else ``ffma``. A (D, Dv)
-    pair of ``HEAD_DIM_PAIRS`` raises: its backward kernel is the deepseek
-    training slice's (ROADMAP.md)."""
-    if v.shape[-1] != q.shape[-1]:
-        raise ValueError(
-            f"flash_attention_bwd takes q, k and v of one head dim, not ({q.shape[-1]}, "
-            f"{v.shape[-1]}): the backward at MLA's (192, 128) comes with "
-            "deepseek_v2_lite_16b's training (ROADMAP.md, the next slice)")
+    ``do`` (o and do (BH, G, Tq, Dv), v's head dim); same shapes and layout
+    as q, k, v. On CUDA; raises on anything the kernels do not take.
+    ``path`` as :func:`flash_attention`'s, picked by the same rule: ``mma``
+    for aligned bf16 (but at ``FFMA_PAIRS``), else ``ffma``."""
     _check(q, k, v)
     BH, G, Tq, D = q.shape
-    Tkv = k.shape[1]
-    if o.shape != q.shape or do.shape != q.shape or lse.shape != (BH, G, Tq):
-        raise ValueError(f"need o and do of q's shape {tuple(q.shape)} and lse "
+    Tkv, Dv = k.shape[1], v.shape[2]
+    if o.shape != (BH, G, Tq, Dv) or do.shape != o.shape or lse.shape != (BH, G, Tq):
+        raise ValueError(f"need o and do of shape {(BH, G, Tq, Dv)} and lse "
                          f"({BH}, {G}, {Tq}); got {tuple(o.shape)}, "
                          f"{tuple(do.shape)}, {tuple(lse.shape)}")
     if o.dtype != q.dtype or do.dtype != q.dtype or lse.dtype != torch.float32:
@@ -300,8 +303,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dvec = torch.empty((BH, G, Tq), dtype=torch.float32, device=q.device)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dvec.data_ptr())
-    path = path or choose_path(q.dtype, D, all(p % 16 == 0 for p in ptrs))
-    err = _lib_bwd()(*ptrs, BH, G, Tq, Tkv, D, DTYPE_CODES[q.dtype], int(causal),
+    path = path or choose_path(q.dtype, D, all(p % 16 == 0 for p in ptrs), Dv)
+    err = _lib_bwd()(*ptrs, BH, G, Tq, Tkv, D, Dv, DTYPE_CODES[q.dtype], int(causal),
                      int(window), float(softcap), int(q_offset), 1.0 / D ** 0.5,
                      PATH_CODES[path], torch._C._cuda_getCurrentRawStream(q.get_device()))
     if err:

@@ -167,12 +167,16 @@ def test_path_choice_refuses_what_no_kernel_takes(dtype, d):
     (torch.float32, True, "ffma"),           # float32 parity runs
 ])
 def test_path_choice_for_mla_head_dim_pair(dtype, aligned, path):
-    assert kernel.HEAD_DIM_PAIRS == ((192, 128),)
+    """MLA's (192, 128) takes the path of a head dim of the forward; the
+    reduced deepseek config's (24, 16) takes ffma in either dtype."""
+    assert kernel.HEAD_DIM_PAIRS == ((192, 128), (24, 16))
+    assert kernel.FFMA_PAIRS == ((24, 16),)
     assert kernel.choose_path(dtype, 192, aligned, 128) == path
     assert kernel.choose_path(dtype, 128, aligned, 128) == path
+    assert kernel.choose_path(dtype, 24, aligned, 16) == "ffma"
 
 
-@pytest.mark.parametrize("d,dv", [(192, 64), (128, 192), (192, 192), (128, 64), (24, 16)])
+@pytest.mark.parametrize("d,dv", [(192, 64), (128, 192), (192, 192), (128, 64), (24, 24)])
 def test_path_choice_refuses_an_unknown_head_dim_pair(d, dv):
     for dtype in (torch.bfloat16, torch.float32):
         with pytest.raises(ValueError, match="Dv"):
@@ -180,9 +184,9 @@ def test_path_choice_refuses_an_unknown_head_dim_pair(d, dv):
 
 
 def test_mla_pair_on_a_non_cpu_tensor_goes_to_the_kernel_and_its_backward_raises():
-    """Off the CPU the pair reaches the kernel's checks (a meta tensor is no
-    CUDA tensor: it raises there, launching nothing); the backward at the
-    pair raises first, naming the training slice, whatever the device."""
+    """Off the CPU the pair reaches the kernels' checks, forward and
+    backward alike (a meta tensor is no CUDA tensor: each raises there,
+    launching nothing, never the plain version)."""
     q = torch.empty((1, 8, 2, 192), device="meta")
     k = torch.empty((1, 8, 2, 192), device="meta")
     v = torch.empty((1, 8, 2, 128), device="meta")
@@ -190,11 +194,12 @@ def test_mla_pair_on_a_non_cpu_tensor_goes_to_the_kernel_and_its_backward_raises
     with pytest.raises(ValueError, match="CUDA"):
         attention(q, k, v)
     assert kernel.flash_attention.launches == before
-    qf, kf, vf = (torch.empty(s, device="meta") for s in ((2, 1, 8, 192), (2, 8, 192),
-                                                         (2, 8, 128)))
+    qf, kf, vf, of = (torch.empty(s, device="meta") for s in (
+        (2, 1, 8, 192), (2, 8, 192), (2, 8, 128), (2, 1, 8, 128)))
+    lse = torch.empty((2, 1, 8), device="meta")
     before = kernel.flash_attention_bwd.launches
-    with pytest.raises(ValueError, match="training"):
-        kernel.flash_attention_bwd(qf, kf, vf, vf, vf, torch.empty((2, 1, 8), device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.flash_attention_bwd(qf, kf, vf, of, of, lse)
     assert kernel.flash_attention_bwd.launches == before
 
 
@@ -223,19 +228,31 @@ GRAD_CASES = [  # (B, Tq, Tkv, Hq, Hkv, D, window, softcap)
     (1, 21, 37, 4, 2, 256, 9, 0.0),     # D = 256, G = 2, window, q_offset = 16
     (2, 17, 17, 4, 2, 256, 0, 0.0),     # D = 256, G = 2, global, ragged Tq = 17
     (1, 11, 24, 12, 1, 256, 5, 0.0),    # D = 256, G = 12, window, ragged Tq = 11
+    # MLA's (q/k, v) head-dim pairs: deepseek_v2_lite_16b's (192, 128) and
+    # its reduced config's (24, 16), G 1 as MLA has it and G 3 with a window.
+    (1, 21, 37, 2, 2, (192, 128), 0, 0.0),   # G = 1, q_offset = 16, ragged
+    (2, 17, 17, 4, 2, (192, 128), 7, 0.0),   # G = 2, window
+    (2, 24, 24, 4, 4, (24, 16), 0, 0.0),     # the reduced config's layer, G = 1
+    (1, 13, 29, 6, 2, (24, 16), 5, 0.0),     # G = 3, window, q_offset = 16
 ]
 
 
+def _pair(d):
+    """(head dim of q and k, head dim of v) of a case's D: an int or a pair."""
+    return d if isinstance(d, tuple) else (d, d)
+
+
 def _jax_bthd_attention(q, k, v, **kw):
-    """The reference's ops.attention layout around its plain version."""
+    """The reference's ops.attention layout around its plain version (v of
+    its own head dim Dv)."""
     B, Tq, Hq, D = q.shape
-    Tkv, Hkv = k.shape[1], k.shape[2]
+    Tkv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     G = Hq // Hkv
     qf = q.transpose(0, 2, 1, 3).reshape(B * Hkv, G, Tq, D)
     kf = k.transpose(0, 2, 1, 3).reshape(B * Hkv, Tkv, D)
-    vf = v.transpose(0, 2, 1, 3).reshape(B * Hkv, Tkv, D)
+    vf = v.transpose(0, 2, 1, 3).reshape(B * Hkv, Tkv, Dv)
     out = jax_flash_ref(qf, kf, vf, **kw)
-    return out.reshape(B, Hq, Tq, D).transpose(0, 2, 1, 3)
+    return out.reshape(B, Hq, Tq, Dv).transpose(0, 2, 1, 3)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -243,11 +260,13 @@ def _jax_bthd_attention(q, k, v, **kw):
 def test_attention_gradients_match_reference(b, tq, tk, hq, hkv, d, window, softcap, dtype):
     """dq, dk, dv of ``sum(g * attention(q, k, v))``: float32 at 2e-4; bf16
     at 2e-2 of each gradient's largest entry (the two sides round P and the
-    products at different places)."""
+    products at different places). At an MLA pair, dv and the output
+    gradient are of v's head dim."""
     kw = dict(causal=True, window=window, softcap=softcap, q_offset=tk - tq)
+    d, dv = _pair(d)
     (jq, jk, jv, jg), (tq_, tk_, tv, tg) = _inputs(
-        b * 1000 + tq * 10 + tk, [(b, tq, hq, d), (b, tk, hkv, d), (b, tk, hkv, d),
-                                  (b, tq, hq, d)], dtype)
+        b * 1000 + tq * 10 + tk, [(b, tq, hq, d), (b, tk, hkv, d), (b, tk, hkv, dv),
+                                  (b, tq, hq, dv)], dtype)
     want = jax.grad(lambda q, k, v: (_jax_bthd_attention(q, k, v, **kw).astype(jnp.float32)
                                      * jg.astype(jnp.float32)).sum(),
                     argnums=(0, 1, 2))(jq, jk, jv)
@@ -309,6 +328,8 @@ def test_backward_takes_every_head_dim_the_forward_takes(d):
     assert {(h, p): kernel.bwd_tile(h, p) for h in kernel.HEAD_DIMS for p in kernel.PATH_CODES} \
         == {(h, p): 32 if (h, p) == (256, "ffma") else 64
             for h in kernel.HEAD_DIMS for p in kernel.PATH_CODES}
+    assert {kernel.bwd_tile(h, p, v) for h, v in kernel.HEAD_DIM_PAIRS
+            for p in kernel.PATH_CODES} == {64}
 
 
 def test_attention_gradient_of_a_non_cpu_tensor_goes_to_the_kernel():
@@ -404,6 +425,20 @@ def test_backward_walks_at_d128_cover_each_visible_pair_once(g, tq, tk, causal, 
     assert kernel.DKV_WARPGROUPS[128] == 1
     _assert_walks_cover_each_visible_pair_once(g, tq, tk, causal, window, q_offset,
                                                kernel.BWD_TILE, kernel.DKV_WARPGROUPS[128])
+
+
+@pytest.mark.parametrize("pair", [(192, 128), (24, 16)])
+@pytest.mark.parametrize("g,tq,tk,causal,window,q_offset", WALK_CASES)
+def test_backward_walks_at_mla_pairs_cover_each_visible_pair_once(g, tq, tk, causal, window,
+                                                                  q_offset, pair):
+    """The same at MLA's head-dim pairs' tiles (``kernel.bwd_tile`` of each
+    path: 64 rows, the role-split dK/dV kernel at (192, 128) walking every
+    row tile of its keys' band, ``DKV_WARPGROUPS[(192, 128)]``, as the ffma
+    kernels do)."""
+    assert kernel.DKV_WARPGROUPS[(192, 128)] == 1
+    paths = ("ffma",) if pair in kernel.FFMA_PAIRS else tuple(kernel.PATH_CODES)
+    for tile in {kernel.bwd_tile(*pair[:1], p, pair[1]) for p in paths}:
+        _assert_walks_cover_each_visible_pair_once(g, tq, tk, causal, window, q_offset, tile, 1)
 
 
 @pytest.mark.parametrize("g,tq,tk,causal,window,q_offset", WALK_CASES)

@@ -441,7 +441,7 @@ def test_flash_attention_c_entry_refuses_a_path_the_inputs_cannot_take(cuda):
     stream = torch._C._cuda_getCurrentRawStream(q.get_device())
     lib, codes = fa_kernel._lib(), fa_kernel.PATH_CODES
     # float32 through mma; bf16 through mma from an unaligned pointer; D = 48;
-    # (D, Dv) pairs other than (192, 128)
+    # (D, Dv) pairs other than (192, 128) and (24, 16); (24, 16) through mma
     assert lib(q.data_ptr(), k.data_ptr(), k.data_ptr(), out.data_ptr(), None, 1, 1, 16, 16,
                64, 64, 0, 1, 0, 0.0, 0, 0.125, codes["mma"], stream) == 1
     qb = _randn((1, 1, 17, 64), torch.bfloat16, cuda, 1)
@@ -452,6 +452,8 @@ def test_flash_attention_c_entry_refuses_a_path_the_inputs_cannot_take(cuda):
         for d, dv in ((48, 48), (192, 64), (128, 192), (192, 192)):
             assert lib(qb.data_ptr(), kb.data_ptr(), kb.data_ptr(), qb.data_ptr(), None, 1, 1,
                        16, 16, d, dv, 1, 1, 0, 0.0, 0, 0.125, codes[path], stream) == 1
+    assert lib(qb.data_ptr(), kb.data_ptr(), kb.data_ptr(), qb.data_ptr(), None, 1, 1, 16, 16,
+               24, 16, 1, 1, 0, 0.0, 0, 0.125, codes["mma"], stream) == 1
 
 
 FLASH_NEW_D_CASES = [  # (bh, g, tq, tk, d, window): the dense configs' head dims
@@ -1106,16 +1108,160 @@ def test_flash_attention_mla_pair_matches_plain(cuda, bh, g, tq, tk, window, dty
 
 
 def test_flash_attention_bwd_refuses_the_mla_pair_on_the_card(cuda):
-    """The backward at (192, 128) is the deepseek training slice's: on the
-    card it raises, naming it, and launches nothing (no plain fallback)."""
+    """Named when the card refused the backward at (192, 128); the pair now
+    launches there, and this holds it: on the mma path (``flash_bwd_dq_wgmma<192>`` and
+    ``flash_bwd_dkv_wgsplit<192>``), never the plain version, gradients of
+    q's, k's and v's shapes within ``_flash_bwd_limit``."""
     q = _randn((2, 1, 64, 192), torch.bfloat16, cuda, 1)
     k = _randn((2, 64, 192), torch.bfloat16, cuda, 2)
     v = _randn((2, 64, 128), torch.bfloat16, cuda, 3)
     out, lse = fa_kernel.flash_attention(q, k, v, return_lse=True)
-    before = fa_kernel.flash_attention_bwd.launches
-    with pytest.raises(ValueError, match="training"):
-        fa_kernel.flash_attention_bwd(q, k, v, out, torch.ones_like(out), lse)
-    assert fa_kernel.flash_attention_bwd.launches == before
+    do = torch.ones_like(out)
+    before = dict(fa_kernel.flash_attention_bwd.paths)
+    grads = fa_kernel.flash_attention_bwd(q, k, v, out, do, lse)
+    after = fa_kernel.flash_attention_bwd.paths
+    assert {p: after[p] - before[p] for p in after} == {"mma": 1, "ffma": 0}
+    assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
+    _assert_attention_grads_close(grads, flash_attention_bwd_ref(q, k, v, out, do, lse),
+                                  torch.bfloat16)
+
+
+MLA_BWD_CASES = [  # (bh, g, tq, tk, causal, window, softcap) at q/k 192, v 128
+    (16, 1, 1024, 1024, True, 0, 0.0),   # deepseek_v2_lite_16b's layer, 2 sequences
+] + FLASH_WG_EDGE_CASES + FLASH_WG_SHORT_CASES[1:]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,g,tq,tk,causal,window,softcap", MLA_BWD_CASES)
+def test_flash_attention_backward_mla_pair_matches_plain(cuda, bh, g, tq, tk, causal, window,
+                                                         softcap, dtype):
+    """MLA's (192, 128) backward on the path its dtype takes (bf16: the
+    wgmma kernels, Q/K rows of three 128-byte atoms and dO/V rows of two, the
+    dK/dV role split; float32: ffma) against the explicit formula: dq and
+    dk of q's head dim, dv of v's, each element within ``_flash_bwd_limit``
+    (2e-2 in bf16, 2e-4 in float32); two launches, the same bits."""
+    q = _randn((bh, g, tq, 192), dtype, cuda, 1)
+    k = _randn((bh, tk, 192), dtype, cuda, 2)
+    v = _randn((bh, tk, 128), dtype, cuda, 3)
+    do = _randn((bh, g, tq, 128), dtype, cuda, 4)
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=tk - tq)
+    o, lse = fa_kernel.flash_attention(q, k, v, return_lse=True, **kw)
+    path = fa_kernel.choose_path(dtype, 192, True, 128)
+    assert path == ("mma" if dtype == torch.bfloat16 else "ffma")
+    before = dict(fa_kernel.flash_attention_bwd.paths)
+    grads = fa_kernel.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    again = fa_kernel.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    _took_twice(fa_kernel.flash_attention_bwd, before, path)
+    assert [t.shape for t in grads] == [q.shape, k.shape, v.shape]
+    _assert_attention_grads_close(grads, flash_attention_bwd_ref(q, k, v, o, do, lse, **kw),
+                                  dtype)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,g,tq,tk,window", [
+    (8, 1, 64, 64, 0),      # the reduced deepseek config's layer: 4 heads, G 1
+    (3, 2, 77, 133, 20),    # G = 2, window, q_offset = 56, both ragged
+    (2, 1, 1, 1, 0),        # one key
+])
+def test_flash_attention_reduced_mla_pair_on_ffma_matches_plain(cuda, bh, g, tq, tk, window,
+                                                                dtype):
+    """The reduced deepseek config's pair, q/k head dim 24 (16 + 8) and v
+    head dim 16, which only the ffma path takes (bf16 too): forward (output
+    within ``_flash_limit``, the lse) and backward (within
+    ``_flash_bwd_limit``) against the plain versions, one ffma launch
+    each."""
+    q = _randn((bh, g, tq, 24), dtype, cuda, 1)
+    k = _randn((bh, tk, 24), dtype, cuda, 2)
+    v = _randn((bh, tk, 16), dtype, cuda, 3)
+    do = _randn((bh, g, tq, 16), dtype, cuda, 4)
+    kw = dict(causal=True, window=window, q_offset=tk - tq)
+    assert fa_kernel.choose_path(dtype, 24, True, 16) == "ffma"
+    before = (dict(fa_kernel.flash_attention.paths), dict(fa_kernel.flash_attention_bwd.paths))
+    o, lse = fa_kernel.flash_attention(q, k, v, return_lse=True, **kw)
+    grads = fa_kernel.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    for fn, b in zip((fa_kernel.flash_attention, fa_kernel.flash_attention_bwd), before):
+        assert {p: fn.paths[p] - b[p] for p in b} == {"mma": 0, "ffma": 1}
+    ref, ref_lse = flash_attention_ref(q, k, v, return_lse=True, **kw)
+    assert o.shape == (bh, g, tq, 16)
+    diff = (o.float() - ref.float()).abs()
+    assert bool((diff <= _flash_limit(ref.float(), dtype)).all()), diff.max().item()
+    torch.testing.assert_close(lse, ref_lse, rtol=2e-4, atol=2e-4)
+    if tk > 1:  # one key: dS = 0 and the limit is 0 (rounding noise)
+        _assert_attention_grads_close(grads, flash_attention_bwd_ref(q, k, v, o, do, lse, **kw),
+                                      dtype)
+
+
+def test_flash_attention_bwd_mla_kernels_hold_hgmma_without_spills(cuda):
+    """``flash_bwd_dq_wgmma<192>`` and ``flash_bwd_dkv_wgsplit<192>``:
+    ptxas reports no spill and no stack frame, and each kernel's SASS holds
+    HGMMA."""
+    import shutil
+    import subprocess
+
+    from repro_torch.kernels import _build
+
+    _build.load("flash_attention_bwd")
+    log = _build.build_log("flash_attention_bwd")
+    if not log:
+        pytest.skip("library built by an earlier process: no ptxas log")
+    name, seen = None, set()
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and "ILi192E" in name and "spill stores" in line:
+            assert "0 bytes stack" in line and "0 bytes spill stores" in line, (name, line)
+            seen.add(name)
+    for kname in ("flash_bwd_dq_wgmmaILi192E", "flash_bwd_dkv_wgsplitILi192E"):
+        assert any(kname in n for n in seen), (kname, seen)
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(_build._target("flash_attention_bwd"))],
+                          capture_output=True, text=True, check=True).stdout
+    for kname in ("flash_bwd_dq_wgmmaILi192E", "flash_bwd_dkv_wgsplitILi192E"):
+        parts = [part for part in sass.split("Function : ")[1:] if kname in part[:200]]
+        assert parts and all("HGMMA" in part for part in parts), kname
+
+
+def test_deepseek_train_step_at_full_width_on_card_matches_cpu(cuda):
+    """One float32 train step of full-width deepseek_v2_lite_16b cut to 2
+    layers (the dense first layer and one MoE layer of 64 experts), 1 x 256
+    tokens, on the card (every MLA backward through flash_attention_bwd at
+    (192, 128) on ffma) against the CPU's from the same weights: loss and
+    grad norm within 1e-3, each gradient (from AdamW's first moment) within
+    1e-3 of its tensor's largest entry."""
+    import dataclasses
+
+    from repro_torch.checkpoint.checkpoint import _flatten
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim.optimizer import OptConfig, init_opt_state
+
+    cfg = dataclasses.replace(get_config("deepseek_v2_lite_16b"), n_periods=1,
+                              param_dtype="float32")
+    opt = OptConfig(peak_lr=1e-3, warmup_steps=5, decay_steps=5, weight_decay=0.0)
+    params = M.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    tokens = TokenPipeline(PipelineConfig(vocab=cfg.vocab, batch=1, seq=256,
+                                          mode="cyclic")).batch_at(0)
+    step = make_train_step(cfg, opt)
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        p = _to(params, dev)
+        before = dict(fa_kernel.flash_attention_bwd.paths)
+        runs[dev.type] = step(p, init_opt_state(p, opt),
+                              {k: torch.as_tensor(v, device=dev) for k, v in tokens.items()})
+        after = fa_kernel.flash_attention_bwd.paths
+        if dev.type == "cuda":
+            assert {q: after[q] - before[q] for q in after} == {"mma": 0, "ffma": 2}
+        del p
+    (_, sg, mg), (_, sc, mc) = runs["cuda"], runs["cpu"]
+    assert abs(mg["loss"] - mc["loss"]) <= 1e-3, (mg, mc)
+    assert abs(mg["grad_norm"] - mc["grad_norm"]) <= 1e-3 * max(1.0, mc["grad_norm"])
+    got, want = _flatten(sg["m"]), _flatten(sc["m"])
+    for key, w in want.items():
+        err = (got[key].cpu() - w).abs().max().item()
+        assert err <= 1e-3 * max(w.abs().max().item(), 1e-30), (key, err)
 
 
 def test_flash_attention_mla_kernel_holds_hgmma_without_spills(cuda):
@@ -1338,13 +1484,17 @@ def test_flash_attention_backward_c_entry_refuses_a_path_the_inputs_cannot_take(
     g = [torch.empty_like(t) for t in (q, k, k)]
     dvec = torch.empty_like(lse)
     stream = torch._C._cuda_getCurrentRawStream(q.get_device())
-    # float32 through mma; D = 48 through either
+    # float32 through mma; D = 48, or a (D, Dv) pair no kernel takes,
+    # through either; the reduced deepseek pair (24, 16) in bf16 through mma
     args = [q.data_ptr(), k.data_ptr(), k.data_ptr(), o.data_ptr(), o.data_ptr(),
             lse.data_ptr()] + [t.data_ptr() for t in g] + [dvec.data_ptr()]
     lib = fa_kernel._lib_bwd()
-    assert lib(*args, 1, 1, 16, 16, 64, 0, 1, 0, 0.0, 0, 0.125, 0, stream) == 1
+    assert lib(*args, 1, 1, 16, 16, 64, 64, 0, 1, 0, 0.0, 0, 0.125, 0, stream) == 1
     for path in (0, 1):
-        assert lib(*args, 1, 1, 16, 16, 48, 0, 1, 0, 0.0, 0, 0.125, path, stream) == 1
+        assert lib(*args, 1, 1, 16, 16, 48, 48, 0, 1, 0, 0.0, 0, 0.125, path, stream) == 1
+        assert lib(*args, 1, 1, 16, 16, 192, 192, 0, 1, 0, 0.0, 0, 0.125, path, stream) == 1
+        assert lib(*args, 1, 1, 16, 16, 64, 16, 0, 1, 0, 0.0, 0, 0.125, path, stream) == 1
+    assert lib(*args, 1, 1, 16, 16, 24, 16, 1, 1, 0, 0.0, 0, 0.125, 0, stream) == 1
 
 
 def test_flash_attention_backward_not_causal(cuda):

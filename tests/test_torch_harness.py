@@ -154,7 +154,7 @@ def test_the_example_twins_import_only_the_port():
     ``_torch_example_args.py``) import neither JAX nor the reference, as
     the port's modules do not."""
     examples = sorted((SRC.parent / "examples").glob("*torch_*.py"))
-    assert {"torch_acan_mlp_train.py", "torch_acan_moe_routing.py",
+    assert {"torch_acan_mlp_train.py", "torch_acan_moe_routing.py", "torch_acan_jax_train.py",
             "torch_acan_multi_tenant.py", "torch_quickstart.py", "_torch_example_args.py"} <= \
         {p.name for p in examples}
     for path in examples:
