@@ -16,7 +16,16 @@ prefill and one decode step profiled and float32 logits against the CPU's
 at 1e-4 (reduced depth); then qwen2_moe_a2_7b at full width and depth (8 x
 1024; 60 experts top-4, each expert product one batched tile_matmul launch
 over the experts, the float32 router, D 128 attention at G 1), its float32
-routing and then logits held against the CPU's on 2 layers; then its training path
+routing and then logits held against the CPU's on 2 layers; then
+deepseek_v2_lite_16b the same way (MLA); then the two frontends as the
+dense configs are served: musicgen_medium at full width and depth (8 x
+512; codebooks: (B, T, 4) prompts, a token a codebook a step, the GELU
+FFN's biases and GELU in tile_matmul's epilogue, MHA at D 64) and
+internvl2_76b at full width, 16 of its 80 layers (8 x 512; embeds: seeded
+prompt embeddings and a fresh one a decode step; G 8, D 128); then the twin
+of examples/serve_batched.py (reduced smollm_360m, mamba2_2_7b,
+deepseek_v2_lite_16b and musicgen_medium in float32 on the ffma and skinny
+paths, launches by path exact, tokens against the CPU's); then the training path
 through ``train``: five AdamW steps of full-width, full-depth smollm_360m on
 8 x 512 tokens, every projection's forward and both gradient products
 through tile_matmul, every attention through flash_attention and its
@@ -74,8 +83,9 @@ Usage (from the repository root, on a host with a CUDA device)::
     python3 chip_smoke.py
 
 Prints the device and its power limit, one ``{"phase": ...}`` JSON line for
-each of the dense-attention and MoE serves and trains and of the deepseek
-ACAN twin, the MLP, fleet and MoE phases, a
+each of the dense-attention, MoE and frontend serves, the serve_batched
+twin, the trains and the deepseek ACAN twin, the MLP, fleet and MoE
+phases, a
 ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises
 and exits non-zero. Imports neither JAX nor the JAX package.
@@ -123,6 +133,17 @@ LAYER = {"smollm_360m": ((960, 960, "none"), (960, 320, "none"), (960, 320, "non
                          (2560, 960, "none")),
          "mamba2_2_7b": ((2560, 5120, "none"), (2560, 5120, "none"), (2560, 128, "none"),
                          (2560, 128, "none"), (2560, 80, "none"), (5120, 2560, "none"))}
+# One layer of each config served in slice 20, (K, N, activation, bias),
+# timed only: musicgen_medium's six (q, k, v, o, then the FFN's up with GELU
+# and down, both with biases) and internvl2_76b's seven (q, k, v, o, gate
+# with SiLU, up, down).
+SERVED_LAYER = {"musicgen_medium": ((1536, 1536, "none", False), (1536, 1536, "none", False),
+                                    (1536, 1536, "none", False), (1536, 1536, "none", False),
+                                    (1536, 6144, "gelu", True), (6144, 1536, "none", True)),
+                "internvl2_76b": ((8192, 8192, "none", False), (8192, 1024, "none", False),
+                                  (8192, 1024, "none", False), (8192, 8192, "none", False),
+                                  (8192, 28672, "silu", False), (8192, 28672, "none", False),
+                                  (28672, 8192, "none", False))}
 BATCH, PROMPT, GEN, CACHE = 8, 512, 32, 1024
 # ssd_scan: (Bt, T, H, P, G, N) of one mamba2_2_7b layer's prefill scan.
 SSD_PATH = (BATCH, PROMPT, 80, 64, 1, 128)
@@ -427,7 +448,8 @@ FLASH_CASES = (  # (name, BH, G, Tq, Tkv, D, window, softcap)
     # 4096, G 4, D 80) and command_r_plus_104b's (batch 8 x 8 kv heads, G 12,
     # D 128) and qwen2_moe_a2_7b's (batch 8 x 16 kv heads, G 1, D 128);
     # then each new D with the other configs' G, windowed and global, Tq
-    # ragged.
+    # ragged; then musicgen_medium's MHA (batch 8 x 24 heads, G 1, D 64) and
+    # internvl2_76b's (batch 8 x 8 kv heads, G 8, D 128).
     ("gemma3_global", 32, 2, 2048, 2048, 256, 0, 0.0),
     ("gemma3_local", 32, 2, 2048, 2048, 256, 1024, 0.0),
     ("danube", 16, 4, 8192, 8192, 80, 4096, 0.0),
@@ -437,6 +459,8 @@ FLASH_CASES = (  # (name, BH, G, Tq, Tkv, D, window, softcap)
     ("d256_g12_ragged", 4, 12, 333, 333, 256, 0, 0.0),
     ("d80_g2_global_ragged", 8, 2, 1000, 1000, 80, 0, 0.0),
     ("d80_g12_window_ragged", 4, 12, 777, 1200, 80, 256, 0.0),
+    ("musicgen", 192, 1, 512, 512, 64, 0, 0.0),
+    ("internvl2", 64, 8, 512, 512, 128, 0, 0.0),
 )
 # MLA's head dims, q/k 192 and v 128, forward and backward:
 # deepseek_v2_lite_16b's layer (batch 8 x 16 heads, G 1), then ragged, and
@@ -660,48 +684,67 @@ def check_flash_bwd(fa_kernel, flash_attention_ref, flash_attention_bwd_ref) -> 
     return err
 
 
-def _time_layer(layer, m: int, copies: int, tm_kernel, tile_matmul_ref) -> dict:
-    """One layer's bf16 projections ``layer`` at M = ``m``, cycling through
-    ``copies`` sets of weights. Kernel and ``torch.matmul`` in turns
-    (kernel, library, kernel, library); times are the mean of the turns."""
+# The library's activations, applied to torch.matmul's product.
+LIB_ACTS = {"none": lambda y: y, "silu": F.silu,
+            "gelu": lambda y: F.gelu(y, approximate="tanh")}
+
+
+def _time_layer(layer, m: int, copies: int, tm_kernel, tile_matmul_ref,
+                plain_iters: int = 20, graph_iters: int = 20) -> dict:
+    """One layer's bf16 projections ``layer``, (K, N, activation[, bias]),
+    at M = ``m``, cycling through ``copies`` sets of weights (and biases).
+    Kernel and ``torch.matmul`` (``torch.addmm`` with a bias, then the
+    activation) in turns (kernel, library, kernel, library); times are the
+    mean of the turns. Both also by CUDA-graph replay (``device_ms``,
+    ``library_device_ms``), ``graph_iters`` layers a graph."""
     dt = torch.bfloat16
-    xs = {k: _randn((m, k), dt, k) for k in {k for k, _, _ in layer}}
-    ws = [[_randn((k, n), dt, 10 * c + i, k ** -0.5) for i, (k, n, _) in enumerate(layer)]
-          for c in range(copies)]
+    layer = [(k, n, act, bool(rest and rest[0])) for k, n, act, *rest in layer]
+    xs = {k: _randn((m, k), dt, k) for k in {k for k, _, _, _ in layer}}
+    ws = [[(_randn((k, n), dt, 10 * c + i, k ** -0.5),
+            _randn((n,), dt, 10 * c + i + 5) if bias else None)
+           for i, (k, n, _, bias) in enumerate(layer)] for c in range(copies)]
 
     def run(fn):
         for wl in ws:
-            for (k, _, act), w in zip(layer, wl):
-                fn(xs[k], w, act)
+            for (k, _, act, _), (w, b) in zip(layer, wl):
+                fn(xs[k], w, b, act)
 
-    def lib(x, w, act):
-        y = torch.matmul(x, w)
-        return F.silu(y) if act == "silu" else y
+    def lib(x, w, b, act):
+        return LIB_ACTS[act](torch.matmul(x, w) if b is None else torch.addmm(b, x, w))
 
     def kern():
-        run(lambda x, w, a: tm_kernel.tile_matmul(x, w, activation=a))
+        run(lambda x, w, b, a: tm_kernel.tile_matmul(x, w, b, activation=a))
 
     turns = [_time_ms(f) / copies for f in (kern, lambda: run(lib)) * 2]
     kern_ms, lib_ms = (turns[0] + turns[2]) / 2, (turns[1] + turns[3]) / 2
-    plain = _time_ms(lambda: run(lambda x, w, a: tile_matmul_ref(x, w, activation=a)))
-    flops = sum(2 * m * k * n for k, n, _ in layer)
-    nbytes = sum((m * k + k * n + m * n) * 2 for k, n, _ in layer)
+    plain = _time_ms(lambda: run(lambda x, w, b, a: tile_matmul_ref(x, w, b, activation=a)),
+                     iters=plain_iters)
+    device = _graph_ms(kern, graph_iters) / copies
+    library_device = _graph_ms(lambda: run(lib), graph_iters) / copies
+    flops = sum(2 * m * k * n for k, n, _, _ in layer)
+    nbytes = sum((m * k + k * n + m * n + n * bias) * 2 for k, n, _, bias in layer)
     bound_ms, bound_by = _bound(flops, nbytes, dt)
     return dict(M=m, ms=kern_ms, plain_ms=plain / copies, library_ms=lib_ms,
+                device_ms=device, library_device_ms=library_device,
                 turns_ms=turns, vs_library=kern_ms / lib_ms,
                 tflop_s=flops / kern_ms / 1e9, gb_s=nbytes / kern_ms / 1e6,
                 flop=flops, bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def time_tile_matmul(tm_kernel, tile_matmul_ref) -> dict:
-    """One layer of each model in prefill (M = 4096) and decode (M = 8).
+    """One layer of each model in prefill (M = 4096) and decode (M = 8):
+    smollm's and mamba2's, then musicgen's (the GELU and biases in the
+    epilogue) and internvl2's (its float32 plain version timed 3 times, its
+    prefill layer replayed 3 times a graph).
     Decode cycles through enough weight copies to overflow the 50 MB L2, as
     a decode step finds each layer's weights cold."""
     out = {}
-    for arch, layer, copies in (("", LAYER["smollm_360m"], 4),
-                                ("mamba2_", LAYER["mamba2_2_7b"], 2)):
+    for arch, layer, copies, iters in (
+            ("", LAYER["smollm_360m"], 4, 20), ("mamba2_", LAYER["mamba2_2_7b"], 2, 20),
+            ("musicgen_", SERVED_LAYER["musicgen_medium"], 4, 20),
+            ("internvl2_", SERVED_LAYER["internvl2_76b"], 1, 3)):
         out[arch + "prefill"] = _time_layer(layer, BATCH * PROMPT, 1, tm_kernel,
-                                            tile_matmul_ref)
+                                            tile_matmul_ref, iters, iters)
         out[arch + "decode"] = _time_layer(layer, BATCH, copies, tm_kernel, tile_matmul_ref)
     return out
 
@@ -714,7 +757,9 @@ FLASH_TIMED = {"smollm_360m": (BATCH, 5, 3, PROMPT, 64, 0),
                "h2o_danube_1_8b": (2, 8, 4, 8192, 80, 4096),
                "command_r_plus_104b": (8, 8, 12, 512, 128, 0),
                "qwen2_moe_a2_7b": (8, 16, 1, 1024, 128, 0),
-               "deepseek_v2_lite_16b": (8, 16, 1, 1024, (192, 128), 0)}
+               "deepseek_v2_lite_16b": (8, 16, 1, 1024, (192, 128), 0),
+               "musicgen_medium": (BATCH, 24, 1, PROMPT, 64, 0),
+               "internvl2_76b": (BATCH, 8, 8, PROMPT, 128, 0)}
 def _visible_pairs(tq: int, tkv: int, window: int) -> int:
     """(query, key) pairs a causal, windowed query row block sees (q_offset
     tkv - tq): the attention's work, counted as the kernel skips the rest."""
@@ -1125,7 +1170,8 @@ def serve_path(serve, M, cfg, params, counters: dict, batch: int = BATCH,
     first-call set-up, then the timed run with every launch count set to 0
     just before it and read just after. ``want_paths``: tile_matmul's
     launches by path, where not every product is a bf16 projection (by
-    default each takes wgmma in prefill and skinny in decode)."""
+    default each takes wgmma in prefill and skinny in decode). The tokens
+    are one a step, or one a codebook a step, below the vocab."""
     kw = dict(reduced=False, batch=batch, prompt_len=prompt_len, cache_len=cache_len,
               seed=0, device="cuda", params=params)
     serve(cfg.name, gen=2, log=lambda _: None, **kw)
@@ -1137,7 +1183,7 @@ def serve_path(serve, M, cfg, params, counters: dict, batch: int = BATCH,
     paths = by_path["tile_matmul"]
     peak = torch.cuda.max_memory_allocated()
     toks = res["tokens"]
-    assert toks.shape == (batch, GEN), toks.shape
+    assert toks.shape == (batch, GEN) + _books(cfg), toks.shape
     assert ((toks >= 0) & (toks < cfg.vocab)).all()
     out = dict(arch=cfg.name, batch=batch, prompt_len=prompt_len, gen=GEN,
                cache_len=cache_len, prefill_s=res["t_prefill"], decode_s=res["t_decode"],
@@ -1158,22 +1204,30 @@ def serve_path(serve, M, cfg, params, counters: dict, batch: int = BATCH,
     return out
 
 
+def _books(cfg) -> tuple:
+    """The trailing axis of a codebooks config's tokens, (K,); else ()."""
+    return (cfg.n_codebooks,) if cfg.frontend == "codebooks" else ()
+
+
 def profile_steps(M, cfg, params, rehome, counters: dict, batch: int = BATCH,
                   prompt_len: int = PROMPT, cache_len: int = CACHE) -> dict:
     """One prefill (``batch`` x ``prompt_len``) and one decode step of the
     served model: host wall time without tracing (median of 3), device
     kernel time from a torch.profiler trace of one more run, their ratio as
     the device's busy share, the kernels that take the most device time, and
-    the launches of the traced run."""
+    the launches of the traced run. The inputs are the frontend's
+    (``serve``'s ``prompt_inputs`` and ``step_inputs``), drawn from seed 2."""
     from torch.profiler import ProfilerActivity, profile
 
-    tokens = torch.as_tensor(
-        np.random.default_rng(2).integers(0, cfg.vocab, (batch, prompt_len)), device="cuda")
-    small, logits = M.prefill(params, cfg, {"tokens": tokens})
+    from repro_torch.launch.serve import pick, prompt_inputs, step_inputs
+
+    rng = np.random.default_rng(2)
+    prompt = prompt_inputs(cfg, rng, batch, prompt_len, "cuda")
+    small, logits = M.prefill(params, cfg, prompt)
     cache = rehome(M.init_cache(cfg, batch, cache_len, "cuda"), small)
     del small
-    step = {"token": torch.argmax(logits, dim=-1), "cur_len": prompt_len}
-    fns = {"prefill": lambda: M.prefill(params, cfg, {"tokens": tokens}),
+    step = step_inputs(cfg, pick(cfg, logits, True, None), rng, "cuda") | {"cur_len": prompt_len}
+    fns = {"prefill": lambda: M.prefill(params, cfg, prompt),
            "decode": lambda: M.decode_step(params, cfg, cache, step)}
     out = {}
     for name, fn in fns.items():
@@ -1203,18 +1257,25 @@ def profile_steps(M, cfg, params, rehome, counters: dict, batch: int = BATCH,
 def _f32_logits(M, cfg, rehome, prompt_len: int, batch: int, wrap=None) -> tuple[list, list]:
     """Full-width float32 logits of ``cfg`` on the card (kernel path) and
     on the CPU (plain path) from the same seeded weights: a prefill of
-    ``batch`` x ``prompt_len`` tokens, then 4 decode steps of the CPU's
-    greedy tokens. ``wrap(device, call)`` (optional) runs each forward
-    pass. Returns (card's logits, CPU's logits), one entry a pass."""
+    ``batch`` x ``prompt_len`` positions, then 4 decode steps of the CPU's
+    greedy tokens (one a codebook), or of fresh embeddings; the frontend's
+    inputs as ``serve`` draws them, from seed 1, the same on both devices.
+    ``wrap(device, call)`` (optional) runs each forward pass. Returns
+    (card's logits, CPU's logits), one entry a pass."""
+    from repro_torch.launch.serve import pick, prompt_inputs, step_inputs
+
     wrap = wrap or (lambda _dev, call: call())
+    # A float32 config: the embeds frontend casts its inputs to the model's
+    # dtype (the token frontends take the table's); nothing else reads it.
+    cfg = dataclasses.replace(cfg, param_dtype="float32")
     params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(1), "cuda",
                            dtype_override=torch.float32)
-    tokens = np.random.default_rng(1).integers(0, cfg.vocab, (batch, prompt_len))
+    rng = np.random.default_rng(1)
+    prompt = prompt_inputs(cfg, rng, batch, prompt_len, "cpu")
     runs = {}
 
     def prefill(dev, p):
-        caches, logits = wrap(dev, lambda: M.prefill(
-            p, cfg, {"tokens": torch.as_tensor(tokens, device=dev)}))
+        caches, logits = wrap(dev, lambda: M.prefill(p, cfg, _to(prompt, dev)))
         cache = rehome(M.init_cache(cfg, batch, prompt_len + 8, dev, dtype=torch.float32),
                        caches)
         runs[dev] = (p, cache, [logits.cpu()])
@@ -1223,10 +1284,10 @@ def _f32_logits(M, cfg, rehome, prompt_len: int, batch: int, wrap=None) -> tuple
     prefill("cpu", plain)
     card()
     for step in range(4):
-        tok = torch.argmax(runs["cpu"][2][-1], dim=-1)
+        inputs = step_inputs(cfg, pick(cfg, runs["cpu"][2][-1], True, None), rng, "cpu")
         for dev, (p, cache, outs) in runs.items():
             logits, _ = wrap(dev, lambda: M.decode_step(
-                p, cfg, cache, {"token": tok.to(dev), "cur_len": prompt_len + step}))
+                p, cfg, cache, _to(inputs, dev) | {"cur_len": prompt_len + step}))
             outs.append(logits.cpu())
     return runs["cuda"][2], runs["cpu"][2]
 
@@ -1250,7 +1311,12 @@ def parity_f32(M, cfg, rehome, prompt_len: int, batch: int = 2, tol: float = 1e-
 # and its float32 parity run (periods kept, batch, prompt; each prompt longer
 # than the window, so the ring runs at full width). gemma3's parity run keeps
 # one local and one global layer; command_r's one layer (6.3 GB in float32,
-# beside a 12.6 GB embedding).
+# beside a 12.6 GB embedding). Then the two frontends: musicgen_medium
+# (codebooks: (B, T, 4) prompts, a token a codebook a step; MHA at D 64, the
+# GELU FFN with biases) at full depth, and internvl2_76b (embeds: seeded
+# (B, T, d) prompts and a fresh (B, d) embedding a step; G 8, D 128) cut from
+# 80 to 16 layers; its parity run one layer (3.4 GB in float32, beside a
+# 4.2 GB head).
 DENSE_SERVE = {
     "gemma3_12b": dict(run=dict(batch=4, prompt_len=2048, cache_len=4096), n_periods=None,
                        parity_periods=1, parity=dict(batch=2, prompt_len=1280)),
@@ -1260,6 +1326,16 @@ DENSE_SERVE = {
     "command_r_plus_104b": dict(run=dict(batch=BATCH, prompt_len=PROMPT, cache_len=CACHE),
                                 n_periods=8, parity_periods=1,
                                 parity=dict(batch=2, prompt_len=256)),
+    "musicgen_medium": dict(run=dict(batch=BATCH, prompt_len=PROMPT, cache_len=CACHE),
+                            n_periods=None, parity_periods=2,
+                            parity=dict(batch=2, prompt_len=512)),
+    "internvl2_76b": dict(run=dict(batch=BATCH, prompt_len=PROMPT, cache_len=CACHE),
+                          n_periods=16, parity_periods=1, parity=dict(batch=2, prompt_len=256),
+                          reduced_why="80 layers are 139 GB in bf16; the init draws each "
+                                      "stacked leaf whole in float32 (15 GB for w_gate "
+                                      "at 16 layers), so 24 layers' FFN leaves would not "
+                                      "fit 80 GB while w_down is drawn; 16 layers are "
+                                      "14.74 B parameters, 29.5 GB"),
 }
 DENSE_PARITY_TOL = 1e-4
 
@@ -1271,58 +1347,70 @@ def _leaves(tree) -> list:
     return [t for v in (tree.values() if isinstance(tree, dict) else tree) for t in _leaves(v)]
 
 
-def _layer_projections(M, cfg) -> list[tuple[int, int, str, torch.dtype]]:
-    """(K, N, activation, dtype) of each 2-D product of each distinct layer
-    of ``cfg``, from the model's parameter specs: the prefix layers' 2-D
-    weights, the period layers' (stacked on n_periods), and MLA's
+def _layer_projections(M, cfg) -> list[tuple[int, int, str, torch.dtype, bool]]:
+    """(K, N, activation, dtype, bias) of each 2-D product of each distinct
+    layer of ``cfg``, from the model's parameter specs: the prefix layers'
+    2-D weights, the period layers' (stacked on n_periods), and MLA's
     up-projections ``w_uk`` / ``w_uv`` (R, H, D), multiplied as (R, H D).
-    The SwiGLU gate's SiLU is fused into its product; expert tensors (the
-    batched launch's) are left out."""
+    The SwiGLU gate's SiLU and the GELU FFN's GELU (on ``w_up``) are fused
+    into their products, and a weight ``w_x`` / ``wx`` with a bias ``b_x``
+    / ``bx`` beside it adds it in the epilogue; expert tensors (the batched
+    launch's) are left out."""
     out = []
 
-    def walk(tree, stacked: int, key=""):
-        if isinstance(tree, dict):
-            for k, v in tree.items():
-                walk(v, stacked, k)
-            return
-        shape = tree.shape[stacked:]
-        if key in ("w_uk", "w_uv"):
-            shape = (shape[0], shape[1] * shape[2])
-        if len(shape) == 2:
-            out.append((shape[0], shape[1], "silu" if key == "w_gate" else "none", tree.dtype))
+    def walk(tree, stacked: int, acts: dict):
+        for key, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, stacked, acts)
+                continue
+            shape = v.shape[stacked:]
+            if key in ("w_uk", "w_uv"):
+                shape = (shape[0], shape[1] * shape[2])
+            if len(shape) == 2:
+                out.append((shape[0], shape[1], acts.get(key, "none"), v.dtype,
+                            f"b{key[1:]}" in tree))
+
+    def acts(lcfg) -> dict:
+        gelu = lcfg.ffn_kind == "dense" and lcfg.dense.kind == "gelu"
+        return {"w_gate": "silu"} | ({"w_up": "gelu"} if gelu else {})
 
     specs = M.param_specs(cfg)
-    for spec in specs["prefix"]:
-        walk(spec, 0)
-    for spec in specs["period"]:
-        walk(spec, 1)
+    for lcfg, spec in zip(cfg.prefix, specs["prefix"]):
+        walk(spec, 0, acts(lcfg))
+    for lcfg, spec in zip(cfg.period, specs["period"]):
+        walk(spec, 1, acts(lcfg))
     return sorted(set(out), key=str)
 
 
 def check_dense_projections(tm_kernel, tile_matmul_ref, M, get_config) -> dict:
     """tile_matmul against its plain version at each 2-D product of the
-    dense configs and of deepseek_v2_lite_16b, at their prefill M (bf16 on
-    wgmma, the float32 router on ffma) and decode M (skinny): the first
-    launches at K 12288 and 33792 (command_r's widths), N 10944 and 576
-    (deepseek's dense first layer and ``w_dkv``) and K 512 (its
-    up-projections of the latent)."""
+    dense configs, of musicgen_medium and internvl2_76b and of
+    deepseek_v2_lite_16b, with their activations and biases, at their
+    prefill M (bf16 on wgmma, the float32 router on ffma) and decode M
+    (skinny): the first launches at K 12288 and 33792 (command_r's widths),
+    N 10944 and 576 (deepseek's dense first layer and ``w_dkv``), K 512
+    (its up-projections of the latent), musicgen's bias and GELU epilogue
+    (1536 -> 6144 and back) and internvl2's N and K 28672."""
     err, paths = {}, tm_kernel.tile_matmul.paths
     runs = {arch: spec["run"] for arch, spec in DENSE_SERVE.items()} | {DEEPSEEK: DEEPSEEK_RUN}
     for arch, run in runs.items():
         for m, path in ((run["batch"] * run["prompt_len"], "wgmma"), (run["batch"], "skinny")):
-            for k, n, act, dtype in _layer_projections(M, get_config(arch)):
+            for k, n, act, dtype, bias in _layer_projections(M, get_config(arch)):
                 x = _randn((m, k), dtype, m + k)
                 w = _randn((k, n), dtype, n, k ** -0.5)
+                b = _randn((n,), dtype, k + 1) if bias else None
                 before = dict(paths)
-                out = tm_kernel.tile_matmul(x, w, activation=act)
+                out = tm_kernel.tile_matmul(x, w, b, activation=act)
                 _took(tm_kernel.tile_matmul,
                       "ffma" if dtype == torch.float32 and path == "wgmma" else path, before)
-                ref = tile_matmul_ref(x, w, activation=act)
+                ref = tile_matmul_ref(x, w, b, activation=act)
                 torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype],
                                            atol=TOL[dtype],
                                            msg=lambda e, c=(arch, m, k, n): f"{c}: {e}")
-                err[f"{arch} {m}x{k}x{n} {dtype}"] = (out.float() - ref.float()).abs().max().item()
-                del x, w, out, ref
+                key = f"{arch} {m}x{k}x{n}{' ' + act if act != 'none' else ''}" \
+                      f"{' bias' if bias else ''} {dtype}"
+                err[key] = (out.float() - ref.float()).abs().max().item()
+                del x, w, b, out, ref
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return err
@@ -1358,6 +1446,8 @@ def dense_serve(serve, M, rehome, get_config, arch: str, counters: dict) -> dict
     if spec["n_periods"] is not None:
         full = get_config(arch)
         out["reduced"] = {"n_periods": f"{full.n_periods} -> {cfg.n_periods}"}
+        if "reduced_why" in spec:
+            out["reduced_why"] = spec["reduced_why"]
     del params
     torch.cuda.empty_cache()
     pcfg = _parity_config(get_config(arch), spec["parity_periods"])
@@ -1786,6 +1876,149 @@ def serve_moe(serve, M, rehome, get_config, counters: dict, arch: str) -> dict:
           f"capacity {par['capacity']}, dropped {par['dropped_in_prefill']}): "
           f"{par['tokens_checked']} routings checked, {par['near_tie_flips']} near-tie flips, "
           f"max |logit err| {par['max_logit_err']}")
+    torch.cuda.empty_cache()
+    return out
+
+
+# The twin of examples/serve_batched.py on the card: its four reduced
+# configs (float32) served as the example serves them.
+EXAMPLES = ROOT / "examples"
+
+
+def _predicted_paths(run) -> tuple:
+    """``run()`` (a serve on the CPU) with ``tile_matmul``'s plain products
+    counted by the path the card's wrapper would take for each: the shapes,
+    layout and dtype of the call and the 16-byte alignment of its operands
+    (the card's wrapper makes a non-contiguous operand contiguous, which
+    aligns it), through ``kernel.choose_path``. Returns (``run()``'s
+    result, launches by path)."""
+    from repro_torch.kernels.tile_matmul import kernel as tmk
+    from repro_torch.kernels.tile_matmul import ops
+
+    paths = dict.fromkeys(tmk.PATH_CODES, 0)
+
+    def counted(fn):
+        def call(x, w, *args, trans_x=False, trans_w=False, **kw):
+            m, k = x.shape[-2:][::-1] if trans_x else x.shape[-2:]
+            n = w.shape[-2] if trans_w else w.shape[-1]
+            aligned = all(not t.is_contiguous() or t.data_ptr() % 16 == 0 for t in (x, w))
+            paths[tmk.choose_path(m, n, k, x.dtype, aligned, tmk.layout_of(trans_x, trans_w),
+                                  x.dim() == 3)] += 1
+            return fn(x, w, *args, trans_x=trans_x, trans_w=trans_w, **kw)
+        return call
+
+    saved = ops.product, ops._batched
+    ops.product, ops._batched = counted(ops.product), counted(ops._batched)
+    try:
+        return run(), paths
+    finally:
+        ops.product, ops._batched = saved
+
+
+def _top2_margins(cfg, logits: torch.Tensor) -> torch.Tensor:
+    """The gap between the two largest logits of each pick: (B,), or (B, K)
+    a codebook."""
+    lg = (logits.reshape(len(logits), cfg.n_codebooks, cfg.vocab)
+          if cfg.frontend == "codebooks" else logits[:, :cfg.vocab])
+    top = lg.topk(2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def _cpu_margins(M, rehome, cfg, params, tokens: np.ndarray, run: dict) -> torch.Tensor:
+    """The CPU's top-2 margin at every pick of its greedy serve that picked
+    ``tokens``, (B, gen) or (B, gen, K): the serve replayed from its seeded
+    inputs (``serve``'s ``prompt_inputs`` and ``step_inputs``) with those
+    tokens, each replayed pick checked against them."""
+    from repro_torch.launch.serve import pick, prompt_inputs, step_inputs
+
+    rng = np.random.default_rng(0)
+    prompt = prompt_inputs(cfg, rng, run["batch"], run["prompt_len"], "cpu")
+    small, logits = M.prefill(params, cfg, prompt)
+    cache = rehome(M.init_cache(cfg, run["batch"], run["cache_len"], "cpu"), small)
+    margins = []
+    for s in range(run["gen"]):
+        tok = torch.as_tensor(tokens[:, s])
+        assert torch.equal(pick(cfg, logits, True, None), tok), (cfg.name, s)
+        margins.append(_top2_margins(cfg, logits))
+        if s + 1 < run["gen"]:
+            logits, cache = M.decode_step(params, cfg, cache, step_inputs(cfg, tok, rng, "cpu")
+                                          | {"cur_len": run["prompt_len"] + s})
+    return torch.stack(margins, dim=1)
+
+
+def _mixers(cfg) -> dict:
+    """Layers of ``cfg`` by mixer ("attn", "mamba")."""
+    layers = list(cfg.prefix) + list(cfg.period) * cfg.n_periods
+    return {m: sum(l.mixer == m for l in layers) for m in ("attn", "mamba")}
+
+
+def serve_batched(M, rehome, get_config, counters: dict) -> dict:
+    """The twin of examples/serve_batched.py on the card
+    (``examples/torch_serve_batched.py``'s ``run("cuda")``, every launch
+    count set to 0 just before it and read just after): smollm_360m,
+    mamba2_2_7b, deepseek_v2_lite_16b and musicgen_medium, reduced
+    (float32), batch 4, 32-token prompts, 8 tokens. Launches by path held
+    exactly: tile_matmul's as the same serves' products on the CPU predict
+    them (``_predicted_paths``: ffma, skinny at the decode steps' 4 rows;
+    a batched expert product ffma), one flash_attention a layer of the
+    three attention configs in prefill (ffma; deepseek's at its reduced
+    (24, 16)), one ssd_scan a mamba2 layer (ffma). Each config's tokens
+    equal those of the same weights (the serve's seeded init on the card)
+    served on the CPU, unless the CPU's top-2 margin at the first pick
+    that differs is below ``NEAR_TIE``."""
+    if str(EXAMPLES) not in sys.path:
+        sys.path.insert(0, str(EXAMPLES))
+    import torch_serve_batched as twin
+
+    from repro_torch.launch.serve import serve
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _zero(counters)
+    res = twin.run("cuda")
+    torch.cuda.synchronize()
+    launches = _read(counters)
+    by_path = {k: dict(fn.paths) for k, fn in counters.items() if hasattr(fn, "paths")}
+    wall = time.perf_counter() - t0
+    run = twin.serve_config()
+    want_paths = dict.fromkeys(by_path["tile_matmul"], 0)
+    mixers = {"attn": 0, "mamba": 0}
+    out: dict = {"archs": list(twin.ARCHS), "settings": run, "wall_s": wall, "by_arch": {}}
+    for arch in twin.ARCHS:
+        cfg = get_config(arch, reduced=True)
+        params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        cpu_params = _to(params, "cpu")
+        del params
+        ref, paths = _predicted_paths(lambda: serve(
+            arch, device="cpu", params=cpu_params, log=lambda _: None, **run))
+        want_paths = {p: want_paths[p] + paths[p] for p in want_paths}
+        mixers = {m: mixers[m] + n for m, n in _mixers(cfg).items()}
+        card, cpu = res[arch]["tokens"], ref["tokens"]
+        assert card.shape == cpu.shape == (run["batch"], run["gen"]) + _books(cfg), \
+            (arch, card.shape)
+        margins = _cpu_margins(M, rehome, cfg, cpu_params, cpu, run).numpy()
+        rec = dict(tokens_equal=bool((card == cpu).all()), min_top2_margin=float(margins.min()),
+                   prefill_s=res[arch]["t_prefill"], decode_s=res[arch]["t_decode"],
+                   predicted_paths=paths)
+        if not rec["tokens_equal"]:
+            diff = np.argwhere(card != cpu)
+            first = diff[:, 1].min()
+            at = [tuple(int(i) for i in d) for d in diff if d[1] == first]
+            rec.update(first_diff_step=int(first), first_diff=at,
+                       margin_at_first_diff=max(float(margins[d]) for d in at))
+            assert rec["margin_at_first_diff"] < NEAR_TIE, (arch, rec)
+        out["by_arch"][arch] = rec
+        print(f"serve_batched {arch}: tokens {card.shape} equal to the CPU's "
+              f"{rec['tokens_equal']}, CPU's least top-2 margin {rec['min_top2_margin']:.3e}")
+    assert set(p for p, n in want_paths.items() if n) <= {"ffma", "skinny"}, want_paths
+    want = dict.fromkeys(counters, 0) | {"tile_matmul": sum(want_paths.values()),
+                                         "flash_attention": mixers["attn"],
+                                         "ssd_scan": mixers["mamba"]}
+    assert launches == want, (launches, want)
+    assert by_path["tile_matmul"] == want_paths, (by_path["tile_matmul"], want_paths)
+    for k, n in (("flash_attention", mixers["attn"]), ("ssd_scan", mixers["mamba"])):
+        assert by_path[k] == {"mma": 0, "ffma": n}, (k, by_path[k])
+    out.update(launches=launches, launches_by_path=by_path)
     torch.cuda.empty_cache()
     return out
 
@@ -3276,6 +3509,30 @@ def main() -> int:
     _record("serve_deepseek_v2_lite_16b", ds)
     mark("serve_deepseek_v2_lite_16b")
 
+    # 7d. Paths 8-9: the two frontends at full width, as the dense configs
+    # are served: musicgen_medium (codebooks: (B, T, 4) prompts, a token a
+    # codebook a step; the GELU FFN's bias and GELU in tile_matmul's
+    # epilogue; MHA at D 64) at full depth, and internvl2_76b (embeds: seeded
+    # prompt embeddings, one a decode step; G 8, D 128) at 16 of its 80
+    # layers; float32 logits against the CPU.
+    mg = detail["serve_musicgen"] = dense_serve(serve, M, rehome, get_config,
+                                                "musicgen_medium", counters)
+    assert mg["projections"] == 6 * mg["layers"] == 288, mg["projections"]
+    _record("serve_musicgen_medium", mg)
+    mark("serve_musicgen_medium")
+    iv = detail["serve_internvl2"] = dense_serve(serve, M, rehome, get_config, "internvl2_76b",
+                                                 counters)
+    assert iv["projections"] == 7 * iv["layers"] == 112, iv["projections"]
+    _record("serve_internvl2_76b", iv)
+    mark("serve_internvl2_76b")
+
+    # 7e. The twin of examples/serve_batched.py: reduced smollm, mamba2,
+    # deepseek and musicgen (float32: tile_matmul on ffma and skinny,
+    # attention and scan on ffma), tokens against the CPU's.
+    sb = detail["serve_batched"] = serve_batched(M, rehome, get_config, counters)
+    _record("serve_batched", sb)
+    mark("serve_batched")
+
     # 8. Path 6: train full-width, full-depth smollm_360m through ``train``.
     # 9. Path 7: the same for full-width, full-depth mamba2_2_7b.
     trains = {}
@@ -3390,12 +3647,14 @@ def main() -> int:
           f"in all {sum(phase_s.values()):.1f}")
 
     # 14. Results. A kernel that runs on several paths: its launches are the sum.
-    tmt, fat = detail["tile_matmul_time"]["prefill"], detail["flash_attention_time"]
+    tt = detail["tile_matmul_time"]
+    tmt, fat = tt["prefill"], detail["flash_attention_time"]
     fat = fat["smollm_360m"]
     sst, gt = detail["ssd_scan_time"], detail["tile_matmul_grad_time"]
     fbts, sbt = detail["flash_attention_bwd_time"], detail["ssd_scan_bwd_time"]
     fbt = fbts["smollm_360m"]
-    runs = (sm, ms, g3, dn, cr, q2, ds, tr, mt, tdn, tg3, tq2, tds, ac, ad, pp, ct, pf, mp)
+    runs = (sm, ms, g3, dn, cr, q2, ds, mg, iv, sb, tr, mt, tdn, tg3, tq2, tds, ac, ad, pp, ct,
+            pf, mp)
     mlp_t = detail["mlp_ops"]["times"]["256x256"]
     moe_t = detail["moe_ops"]["times"]
     qb, qbg = detail["moe_batched_time"], detail["moe_batched_grad_time"]
@@ -3415,11 +3674,12 @@ def main() -> int:
             for phase in times}
 
     def summed(name: str) -> dict:
-        """Launches of ``name`` over the nineteen paths (the seven serves, the
-        six train runs, the ACAN path's crash-free run and its deepseek
-        twin's, the paper's four MLP runs, the two-tenant cloud's crash run,
-        exp 1's three fleet runs with the workers' own launches, the MoE's
-        six runs on the card), in all and by path."""
+        """Launches of ``name`` over the twenty-two paths (the nine serves,
+        the twin of serve_batched.py, the six train runs, the ACAN path's
+        crash-free run and its deepseek twin's, the paper's four MLP runs,
+        the two-tenant cloud's crash run, exp 1's three fleet runs with the
+        workers' own launches, the MoE's six runs on the card), in all and
+        by path."""
         by = {p: sum(r["launches_by_path"][name][p] for r in runs)
               for p in sm["launches_by_path"][name]}
         return dict(launches=sum(r["launches"][name] for r in runs), launches_by_path=by)
@@ -3435,7 +3695,20 @@ def main() -> int:
              ms=tmt["ms"], plain_ms=tmt["plain_ms"], bound_ms=tmt["bound_ms"],
              bound_by=tmt["bound_by"], library_ms=tmt["library_ms"],
              timed="one smollm layer's 7 prefill projections, M=4096, bf16; mamba2's "
-                   "6 in chip_smoke.json",
+                   "6 in chip_smoke.json; musicgen's and internvl2's under served_layers",
+             served_layers={arch: {phase: {k: tt[f"{key}_{phase}"][k] for k in (
+                 "M", "ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+                 "bound_ms", "bound_by", "tflop_s", "gb_s")}
+                 | {"launches": run["projections"] * (1 if phase == "prefill" else GEN),
+                    "max_abs_err": max(v for c, v in detail["dense_projections_err"].items()
+                                       if c.startswith(arch) and "bfloat16" in c
+                                       and c.split()[1].startswith(str(tt[f"{key}_{phase}"]["M"])
+                                                                   + "x"))}
+                 for phase in ("prefill", "decode")}
+                 | {"timed": f"one {arch} layer's bf16 projections; library: torch.matmul "
+                             "(torch.addmm with a bias) and the activation"}
+                 for arch, key, run in (("musicgen_medium", "musicgen", mg),
+                                        ("internvl2_76b", "internvl2", iv))},
              grad={k: gt["both"][k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
                                                "bound_by", "library_ms")}
              | {"max_abs_err": detail["tile_matmul_grad_err"][str(torch.bfloat16)],

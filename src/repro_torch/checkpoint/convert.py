@@ -65,12 +65,14 @@ def _tuples(tree):
 
 def _tree(cfg: M.ModelConfig, leaf) -> dict:
     """The port's tree for ``cfg``'s parameters, ``leaf(path, spec)`` at each
-    leaf, the ``n_periods`` axis unstacked into per-layer entries."""
+    leaf, the ``n_periods`` axis unstacked into per-layer entries. Nodes
+    with no leaf, which paths alone never name, are put back as the spec
+    tree has them: an empty ``prefix`` and the ``embeds`` frontend's empty
+    ``embed``."""
     tree: dict = {}
     for path, spec in _paths(M.param_specs(cfg)):
         _insert(tree, path, leaf(path, spec))
-    tree = _tuples(tree)
-    tree.setdefault("prefix", ())
+    tree = {"embed": {}, "prefix": ()} | _tuples(tree)
     return M.unstack_periods(tree, cfg.n_periods)
 
 
@@ -85,7 +87,8 @@ def _tensor(flat: dict, key: str, device, dtype=None) -> torch.Tensor:
 
 def params_from_numpy(flat: dict, cfg: M.ModelConfig, device, dtype=None) -> dict:
     """Build this package's params from a flat reference-keyed dict.
-    Shapes are checked against the config; ``dtype`` (optional) casts every
+    Shapes are checked against the config (the ``codebooks`` frontend's
+    (K·V, d) table and (d, K·V) head among them); ``dtype`` (optional) casts every
     leaf but a MoE layer's router, which stays float32 whatever the model's
     dtype, as the reference keeps it; the ``n_periods`` axis is unstacked
     into per-layer tensors. A ``prefix`` layer's leaves (``prefix/0/...``)

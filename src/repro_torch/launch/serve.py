@@ -3,8 +3,13 @@ batch of prompts, re-home the cache into a fixed-capacity decode cache, and
 decode token by token.
 
 Runs on CUDA unless ``device="cpu"`` is passed; with no card it raises.
-Prompts come from ``np.random.default_rng(seed)`` as in the reference, so
-both packages serve the same prompts.
+Prompts, and the ``embeds`` frontend's per-step embeddings, come from
+``np.random.default_rng(seed)`` in the reference's order, so both packages
+serve the same inputs and, given the same weights, pick the same tokens:
+token prompts (B, T); the ``codebooks`` frontend's (B, T, K), its picks
+made per codebook, its tokens returned as (B, gen, K); the ``embeds``
+frontend's standard-normal (B, T, d) prompt, then a fresh (B, d) embedding
+a decode step, drawn after that step's pick.
 
 Usage::
 
@@ -12,11 +17,15 @@ Usage::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_2_7b --full
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3_12b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek_v2_lite_16b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen_medium --full
 
 ``--arch`` takes ``smollm_360m``, ``mamba2_2_7b``, ``gemma3_12b``,
-``h2o_danube_1_8b``, ``command_r_plus_104b``, ``deepseek_v2_lite_16b`` and
+``h2o_danube_1_8b``, ``command_r_plus_104b``, ``deepseek_v2_lite_16b``,
 ``qwen2_moe_a2_7b`` (the two MoE configs' prompt and batch tokens must split
-into their MoE groups); without ``--full`` the reduced config.
+into their MoE groups), ``musicgen_medium`` (codebooks) and
+``internvl2_76b`` (embeds; on one card only at a cut depth, through
+``serve(..., params=...)``: its 80 layers are 139 GB in bf16); without
+``--full`` the reduced config.
 """
 
 from __future__ import annotations
@@ -48,6 +57,37 @@ def _pick(logits: torch.Tensor, greedy: bool, rng) -> torch.Tensor:
     return torch.as_tensor(toks.reshape(lg.shape[:-1]), device=logits.device)
 
 
+def prompt_inputs(cfg, rng, batch: int, prompt_len: int, device) -> dict:
+    """The prefill batch of ``cfg``'s frontend, drawn from ``rng`` as the
+    reference draws it: a float32 standard-normal (B, T, d) ``embeds``
+    prompt, or ``tokens`` below the vocab, (B, T, K) for codebooks."""
+    if cfg.frontend == "embeds":
+        x = rng.standard_normal((batch, prompt_len, cfg.d_model)).astype(np.float32)
+        return {"embeds": torch.as_tensor(x, device=device)}
+    shape = (batch, prompt_len) + ((cfg.n_codebooks,) if cfg.frontend == "codebooks" else ())
+    return {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, shape).astype(np.int64),
+                                      device=device)}
+
+
+def pick(cfg, logits: torch.Tensor, greedy: bool, rng) -> torch.Tensor:
+    """A step's token from its logits (B, head_width): one a codebook on the
+    logits reshaped to (B, K, V), (B, K); else over the first ``vocab``
+    columns, (B,)."""
+    if cfg.frontend == "codebooks":
+        return _pick(logits.reshape(len(logits), cfg.n_codebooks, cfg.vocab), greedy, rng)
+    return _pick(logits[:, :cfg.vocab], greedy, rng)
+
+
+def step_inputs(cfg, tok: torch.Tensor, rng, device) -> dict:
+    """The next decode step's input after its pick ``tok``: the token, or
+    for the ``embeds`` frontend a fresh float32 standard-normal (B, d)
+    embedding drawn from ``rng`` (after the pick's own draws)."""
+    if cfg.frontend == "embeds":
+        x = rng.standard_normal((len(tok), cfg.d_model)).astype(np.float32)
+        return {"embed": torch.as_tensor(x, device=device)}
+    return {"token": tok}
+
+
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -71,13 +111,11 @@ def serve(arch: str, *, reduced: bool = True, batch: int = 4,
     prefill = make_prefill_step(cfg)
     decode = make_decode_step(cfg)
 
-    tokens = torch.as_tensor(
-        rng.integers(0, cfg.vocab, (batch, prompt_len)).astype(np.int64),
-        device=dev)
+    prompt = prompt_inputs(cfg, rng, batch, prompt_len, dev)
 
     _sync(dev)
     t0 = time.perf_counter()
-    small_cache, logits = prefill(params, {"tokens": tokens})
+    small_cache, logits = prefill(params, prompt)
     cache = rehome(M.init_cache(cfg, batch, cache_len, dev), small_cache)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
@@ -86,9 +124,10 @@ def serve(arch: str, *, reduced: bool = True, batch: int = 4,
     t0 = time.perf_counter()
     cur = prompt_len
     for _ in range(gen):
-        tok = _pick(logits[:, :cfg.vocab], greedy, rng)
+        tok = pick(cfg, logits, greedy, rng)
         tokens_out.append(tok)
-        logits, cache = decode(params, cache, {"token": tok, "cur_len": cur})
+        logits, cache = decode(params, cache,
+                               step_inputs(cfg, tok, rng, dev) | {"cur_len": cur})
         cur += 1
     _sync(dev)
     t_decode = time.perf_counter() - t0

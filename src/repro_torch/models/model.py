@@ -10,8 +10,12 @@ keeps one dict per layer: ``params["period"][j][i]`` is period position
 Entry points: :func:`train_loss` (mean next-token NLL through the chunked
 cross-entropy, each layer checkpointed as ``remat`` says), :func:`prefill`
 (build KV/SSM caches, return last-token logits) and :func:`decode_step` (one
-token in, logits out, cache updated in place). Only the ``tokens`` frontend
-is ported.
+token in, logits out, cache updated in place).
+
+Frontends, as the reference's: ``tokens`` (an LM's table), ``embeds`` (a
+VLM's precomputed patch embeddings, no input table) and ``codebooks``
+(MusicGen: the sum of the codebooks' rows of one (K·V, d) table in,
+K per-codebook heads of one (d, K·V) matrix out).
 """
 
 from __future__ import annotations
@@ -28,11 +32,9 @@ from repro_torch.models.blocks import (LayerCfg, attn_cache_from_prefill,
 from repro_torch.models.common import (ParamSpec, norm_spec, rms_norm,
                                        stack_specs, tree_initialize,
                                        tree_map_specs, tree_spec_leaves)
-from repro_torch.models.losses import chunked_softmax_xent
+from repro_torch.models.losses import chunked_softmax_xent, multi_head_xent
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-_FRONTENDS = ("the embeds and codebooks frontends are not ported yet "
-              "(ROADMAP.md, 'Rest of the zoo')")
 
 
 @dataclass(frozen=True)
@@ -75,19 +77,26 @@ class ModelConfig:
 # ---------------------------------------------------------------------------
 
 def param_specs(cfg: ModelConfig) -> dict:
-    """Spec tree of the reference, period specs stacked on ``n_periods``."""
-    if cfg.frontend != "tokens":
-        raise NotImplementedError(_FRONTENDS)
+    """Spec tree of the reference, period specs stacked on ``n_periods``:
+    the ``codebooks`` frontend's table holds the K codebooks' rows one after
+    another, (K·V, d); the ``embeds`` frontend has no input table (``embed``
+    is an empty dict); only ``tokens`` may tie the head to its table."""
     dt = cfg.dtype
-    specs: dict = {"embed": {"tok": ParamSpec((cfg.vocab, cfg.d_model),
-                                              ("vocab", "embed"), dt)}}
+    if cfg.frontend == "tokens":
+        embed = {"tok": ParamSpec((cfg.vocab, cfg.d_model), ("vocab", "embed"), dt)}
+    elif cfg.frontend == "codebooks":
+        embed = {"tok": ParamSpec((cfg.n_codebooks * cfg.vocab, cfg.d_model),
+                                  (None, "embed"), dt)}
+    else:
+        embed = {}
+    specs: dict = {"embed": embed}
     specs["prefix"] = tuple(block_specs(cfg.d_model, l, dt) for l in cfg.prefix)
     specs["period"] = tuple(stack_specs(block_specs(cfg.d_model, l, dt),
                                         cfg.n_periods) for l in cfg.period)
     specs["final_ln"] = norm_spec(cfg.d_model)
-    if not cfg.tie_embeddings:
-        specs["head"] = ParamSpec((cfg.d_model, cfg.head_width),
-                                  ("embed", "vocab"), dt)
+    if not (cfg.tie_embeddings and cfg.frontend == "tokens"):
+        axes = ("embed", None) if cfg.frontend == "codebooks" else ("embed", "vocab")
+        specs["head"] = ParamSpec((cfg.d_model, cfg.head_width), axes, dt)
     return specs
 
 
@@ -118,10 +127,18 @@ def _head_matrix(params, _cfg: ModelConfig):
     return params["embed"]["tok"].T
 
 
-def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    if cfg.frontend != "tokens":
-        raise NotImplementedError(_FRONTENDS)
-    h = params["embed"]["tok"][tokens]
+def _embed(params, cfg: ModelConfig, inputs: torch.Tensor) -> torch.Tensor:
+    """The first hidden state from the frontend's ``inputs``: token ids
+    (B, T) or (B,); codebook ids (B, T, K) or (B, K), whose K rows
+    ``tok + k·V`` are summed; or embeddings (B, T, d) or (B, d), cast to the
+    model's dtype."""
+    if cfg.frontend == "embeds":
+        h = inputs.to(cfg.dtype)
+    elif cfg.frontend == "codebooks":
+        offs = torch.arange(cfg.n_codebooks, device=inputs.device) * cfg.vocab
+        h = params["embed"]["tok"][inputs + offs].sum(dim=-2)
+    else:
+        h = params["embed"]["tok"][inputs]
     if cfg.embed_scale:
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype)
     return h
@@ -186,24 +203,35 @@ def _regroup(cfg: ModelConfig, flat: list) -> dict:
     return {"prefix": tuple(flat[:n_pre]), "period": period}
 
 
+def _prompt(cfg: ModelConfig, batch) -> torch.Tensor:
+    """The frontend's input of a prefill or training batch."""
+    return batch["embeds"] if cfg.frontend == "embeds" else batch["tokens"]
+
+
 def train_loss(params, cfg: ModelConfig, batch):
-    """batch: {"tokens": (B, T), "labels": (B, T)[, "loss_mask": (B, T)]}.
+    """batch: {"tokens": (B, T) (codebooks: (B, T, K)) or "embeds": (B, T, d),
+    "labels": (B, T) (codebooks: (B, T, K))[, "loss_mask": (B, T)]}; the
+    codebooks' mean NLL over the K heads takes no mask, as the reference's.
     Returns (loss, {"nll", "aux"}) as float32 scalars."""
-    h, aux, _ = _backbone(params, cfg, _embed(params, cfg, batch["tokens"]))
+    h, aux, _ = _backbone(params, cfg, _embed(params, cfg, _prompt(cfg, batch)))
     B, T, d = h.shape
+    flat, head = h.reshape(B * T, d), _head_matrix(params, cfg)
+    if cfg.frontend == "codebooks":
+        nll, _ = multi_head_xent(flat, head, batch["labels"].reshape(B * T, cfg.n_codebooks),
+                                 cfg.n_codebooks, chunk=cfg.loss_chunk)
+        return nll + aux, {"nll": nll, "aux": aux}
     mask = batch.get("loss_mask")
     if mask is not None:
         mask = mask.reshape(B * T).float()
-    nll, _ = chunked_softmax_xent(h.reshape(B * T, d), _head_matrix(params, cfg),
-                                  batch["labels"].reshape(B * T),
+    nll, _ = chunked_softmax_xent(flat, head, batch["labels"].reshape(B * T),
                                   chunk=cfg.loss_chunk, mask=mask)
     return nll + aux, {"nll": nll, "aux": aux}
 
 
 def prefill(params, cfg: ModelConfig, batch):
-    """batch: {"tokens": (B, T)}. Returns (cache, last_logits (B, vocab))
-    with float32 logits."""
-    h, _, caches = _backbone(params, cfg, _embed(params, cfg, batch["tokens"]),
+    """batch: {"tokens": (B, T) (codebooks: (B, T, K))} or {"embeds": (B, T,
+    d)}. Returns (cache, last_logits (B, head_width)) with float32 logits."""
+    h, _, caches = _backbone(params, cfg, _embed(params, cfg, _prompt(cfg, batch)),
                              want_cache=True)
 
     def ring(c, lcfg: LayerCfg):
@@ -219,10 +247,11 @@ def prefill(params, cfg: ModelConfig, batch):
 
 
 def decode_step(params, cfg: ModelConfig, cache, batch):
-    """batch: {"token": (B,), "cur_len": int}. Returns (logits, cache); the
-    cache tensors are updated in place."""
+    """batch: {"token": (B,) (codebooks: (B, K))} or {"embed": (B, d)}, and
+    "cur_len": int. Returns (logits (B, head_width), cache); the cache
+    tensors are updated in place."""
     cur = int(batch["cur_len"])
-    h = _embed(params, cfg, batch["token"])
+    h = _embed(params, cfg, batch["embed"] if cfg.frontend == "embeds" else batch["token"])
     for lcfg, p, c in _layers(params, cfg, cache):
         h, _ = block_decode(p, h, c, cur, lcfg)
     h = rms_norm(h, params["final_ln"])
@@ -257,9 +286,8 @@ def param_count(cfg: ModelConfig) -> int:
 
 def active_param_count(cfg: ModelConfig) -> int:
     """Params touched per token (MoE: routed experts scaled by top_k/E), as
-    the reference's ``active_param_count``."""
-    if cfg.frontend != "tokens":
-        raise NotImplementedError(_FRONTENDS)
+    the reference's ``active_param_count``: the final norm, and the input
+    table and head as the frontend has them."""
 
     def layer_active(lcfg: LayerCfg) -> int:
         full = sum(math.prod(s.shape)
@@ -271,7 +299,13 @@ def active_param_count(cfg: ModelConfig) -> int:
 
     total = sum(layer_active(l) for l in cfg.prefix)
     total += cfg.n_periods * sum(layer_active(l) for l in cfg.period)
-    total += cfg.d_model + cfg.vocab * cfg.d_model     # final norm, embedding
-    if not cfg.tie_embeddings:
+    total += cfg.d_model                               # final norm
+    if cfg.frontend == "tokens":
+        total += cfg.vocab * cfg.d_model
+        if not cfg.tie_embeddings:
+            total += cfg.d_model * cfg.head_width
+    else:
         total += cfg.d_model * cfg.head_width
+        if cfg.frontend == "codebooks":
+            total += cfg.n_codebooks * cfg.vocab * cfg.d_model
     return total

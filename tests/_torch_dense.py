@@ -1,7 +1,9 @@
 """Shared parity checks of the attention configs (gemma3_12b,
 h2o_danube_1_8b, command_r_plus_104b; qwen2_moe_a2_7b and
-deepseek_v2_lite_16b too) between the port and the JAX reference, on the
-CPU, for ``tests/test_torch_{gemma3,danube,command_r,qwen2_moe,deepseek}.py``.
+deepseek_v2_lite_16b; musicgen_medium and internvl2_76b, whose inputs are
+codebook tokens and embeddings) between the port and the JAX reference, on
+the CPU, for ``tests/test_torch_{gemma3,danube,command_r,qwen2_moe,deepseek,
+musicgen,internvl2}.py``.
 
 Weights are a JAX PRNGKey(0) init of the reduced config carried over as
 numpy through ``params_from_numpy``; inputs are numpy draws given to both.
@@ -77,19 +79,43 @@ def assert_caches_match(tcache, jcache, cfg) -> None:
                 np.testing.assert_allclose(np32(t), np32(jcache["period"][j][name][i]), **TOL)
 
 
+def frontend_inputs(cfg, rng, batch: int, prompt_len: int, steps: int) -> tuple:
+    """Numpy inputs of ``cfg``'s frontend: a prefill batch and ``steps``
+    decode-step inputs. Tokens (B, T), then (B,) a step; codebooks (B, T, K),
+    then (B, K); embeds float32 standard normals (B, T, d), then (B, d)."""
+    if cfg.frontend == "embeds":
+        prompt = rng.standard_normal((batch, prompt_len, cfg.d_model)).astype(np.float32)
+        forced = rng.standard_normal((steps, batch, cfg.d_model)).astype(np.float32)
+        return {"embeds": prompt}, [{"embed": x} for x in forced]
+    books = (cfg.n_codebooks,) if cfg.frontend == "codebooks" else ()
+    prompt = rng.integers(0, cfg.vocab, (batch, prompt_len) + books)
+    forced = rng.integers(0, cfg.vocab, (steps, batch) + books)
+    return {"tokens": prompt}, [{"token": t} for t in forced]
+
+
+def to_jax(inputs: dict) -> dict:
+    """Numpy inputs as the reference takes them: ids int32, embeddings float32."""
+    return {k: jnp.asarray(v, jnp.int32 if v.dtype.kind == "i" else jnp.float32)
+            for k, v in inputs.items()}
+
+
+def to_torch(inputs: dict) -> dict:
+    return {k: torch.from_numpy(np.asarray(v)) for k, v in inputs.items()}
+
+
 def assert_prefill_and_decode_match(jcfg, tcfg, jparams, tparams, prompt_len: int,
                                     steps: int, batch: int = 2, seed: int = 0) -> None:
-    """Prefill ``prompt_len`` tokens in both packages, re-home each cache
+    """Prefill ``prompt_len`` positions in both packages, re-home each cache
     into a decode cache of ``prompt_len + steps`` slots with its own
-    package's ``rehome``, then decode ``steps`` forced tokens: logits and
+    package's ``rehome``, then decode ``steps`` forced inputs (tokens,
+    codebook tokens or embeddings, as the frontend takes them): logits and
     caches at 1e-4 after the prefill, after the re-home and after every
     step (a windowed layer's ring wraps once the steps pass the window)."""
     rng = np.random.default_rng(seed + prompt_len)
-    prompt = rng.integers(0, jcfg.vocab, (batch, prompt_len))
-    forced = rng.integers(0, jcfg.vocab, (steps, batch))
+    prompt, forced = frontend_inputs(jcfg, rng, batch, prompt_len, steps)
     cap = prompt_len + steps
-    jcache, jl = JM.prefill(jparams, jcfg, {"tokens": jnp.asarray(prompt, jnp.int32)})
-    tcache, tl = TM.prefill(tparams, tcfg, {"tokens": torch.from_numpy(prompt)})
+    jcache, jl = JM.prefill(jparams, jcfg, to_jax(prompt))
+    tcache, tl = TM.prefill(tparams, tcfg, to_torch(prompt))
     np.testing.assert_allclose(np32(tl), np32(jl), **TOL)
     assert_caches_match(tcache, jcache, jcfg)
     jbig = jax.tree.map(jax_rehome, JM.init_cache(jcfg, batch, cap), jcache)
@@ -97,17 +123,43 @@ def assert_prefill_and_decode_match(jcfg, tcfg, jparams, tparams, prompt_len: in
     assert_caches_match(tbig, jbig, jcfg)
     jdecode = jax.jit(lambda p, c, b: JM.decode_step(p, jcfg, c, b))
     for s in range(steps):
-        jl, jbig = jdecode(jparams, jbig, {"token": jnp.asarray(forced[s], jnp.int32),
-                                           "cur_len": jnp.asarray(prompt_len + s, jnp.int32)})
-        tl, tbig = TM.decode_step(tparams, tcfg, tbig, {"token": torch.from_numpy(forced[s]),
-                                                        "cur_len": prompt_len + s})
+        jl, jbig = jdecode(jparams, jbig, to_jax(forced[s])
+                           | {"cur_len": jnp.asarray(prompt_len + s, jnp.int32)})
+        tl, tbig = TM.decode_step(tparams, tcfg, tbig,
+                                  to_torch(forced[s]) | {"cur_len": prompt_len + s})
         np.testing.assert_allclose(np32(tl), np32(jl), err_msg=f"step {s}", **TOL)
     assert_caches_match(tbig, jbig, jcfg)
 
 
+def assert_loss_and_grads_match(jcfg, tcfg, jparams, tparams, batch: dict) -> dict:
+    """``train_loss`` of both packages on the numpy ``batch``: the loss and
+    its NLL at 1e-4, the gradient of every weight at 1e-4 of the largest
+    entry of its reference tensor. Returns the reference's gradients."""
+    from repro_torch.checkpoint.checkpoint import _flatten
+    from repro_torch.optim.optimizer import tree_leaves, tree_map
+
+    (jloss, jmet), jgrads = jax.value_and_grad(
+        lambda p: JM.train_loss(p, jcfg, {k: jnp.asarray(v) for k, v in batch.items()}),
+        has_aux=True)(jparams)
+    leaves = tree_map(lambda t: t.detach().requires_grad_(True), tparams)
+    loss, met = TM.train_loss(leaves, tcfg, {k: torch.as_tensor(v) for k, v in batch.items()})
+    grads = iter(torch.autograd.grad(loss, tree_leaves(leaves), materialize_grads=True))
+    np.testing.assert_allclose(loss.item(), float(jloss), **TOL)
+    np.testing.assert_allclose(met["nll"].item(), float(jmet["nll"]), **TOL)
+    got = {k: np32(v) for k, v in _flatten(tree_map(lambda _: next(grads), tparams)).items()}
+    want = reference_flat(jgrads)
+    assert got.keys() == want.keys(), sorted(got.keys() ^ want.keys())
+    for k in want:
+        scale = max(float(np.abs(want[k]).max()), 1e-30)
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-4 * scale,
+                                   err_msg=f"grad {k}")
+    return jgrads
+
+
 def assert_serve_tokens_match(arch: str, tparams, prompt_len: int, gen: int) -> None:
     """Greedy ``serve()`` of the reduced config in both packages, the port
-    given the reference's PRNGKey(0) weights: the same tokens."""
+    given the reference's PRNGKey(0) weights: the same tokens ((B, gen, K)
+    for codebooks)."""
     kw = dict(reduced=True, seed=0, prompt_len=prompt_len, gen=gen,
               cache_len=prompt_len + gen, log=lambda _: None)
     ref = jax_serve(arch, **kw)

@@ -2151,3 +2151,100 @@ def test_a_moe_task_has_the_same_bits_alone_and_in_its_batch(cuda):
                 flat = v if isinstance(v, dict) else {"": v}
                 ref = got[k] if isinstance(v, dict) else {"": got[k]}
                 assert all(torch.equal(x, ref[f]) for f, x in flat.items()), k
+
+
+FRONTEND_PRODUCTS = [  # (m, k, n, activation, bias): one layer's products of the two frontends
+    (4096, 1536, 6144, "gelu", True),    # musicgen_medium's FFN up, prefill (wgmma)
+    (4096, 6144, 1536, "none", True),    # its FFN down
+    (8, 1536, 6144, "gelu", True),       # the same in decode (skinny)
+    (8, 6144, 1536, "none", True),
+    (4096, 8192, 28672, "silu", False),  # internvl2_76b's gate, prefill
+    (4096, 28672, 8192, "none", False),  # its down
+    (8, 8192, 28672, "silu", False),     # the same in decode
+    (8, 28672, 8192, "none", False),
+]
+
+
+@pytest.mark.parametrize("m,k,n,act,bias", FRONTEND_PRODUCTS)
+def test_tile_matmul_frontend_products_match_plain(cuda, m, k, n, act, bias):
+    """musicgen's bias + GELU epilogue and internvl2's K and N 28672, bf16,
+    on the path the served products take (wgmma at M 4096, skinny at M 8),
+    against the plain version; a second launch gives the same bits."""
+    x = _randn((m, k), torch.bfloat16, cuda, m + k)
+    w = _randn((k, n), torch.bfloat16, cuda, n, k ** -0.5)
+    b = _randn((n,), torch.bfloat16, cuda, 7) if bias else None
+    path = "wgmma" if m > tm_kernel.SKINNY_MAX_M else "skinny"
+    before = dict(tm_kernel.tile_matmul.paths)
+    out = tm_kernel.tile_matmul(x, w, b, activation=act)
+    again = tm_kernel.tile_matmul(x, w, b, activation=act)
+    after = tm_kernel.tile_matmul.paths
+    assert {p: after[p] - before[p] for p in after} == {p: 2 * int(p == path) for p in after}
+    assert torch.equal(out, again)
+    ref = tile_matmul_ref(x, w, b, activation=act)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,g,d", [(48, 1, 64),    # musicgen_medium's MHA: G 1, D 64
+                                    (16, 8, 128)])  # internvl2_76b's GQA: G 8, D 128
+def test_flash_attention_frontend_shapes_match_plain(cuda, bh, g, d, dtype):
+    """The frontends' prefill attention (2 sequences of 512 tokens, causal)
+    on the path its dtype takes (bf16: mma, the D 128 one on wgmma;
+    float32: ffma), each element within ``_flash_limit``, the lse too; two
+    launches give the same bits."""
+    q = _randn((bh, g, 512, d), dtype, cuda, 1)
+    k = _randn((bh, 512, d), dtype, cuda, 2)
+    v = _randn((bh, 512, d), dtype, cuda, 3)
+    ref, ref_lse = flash_attention_ref(q, k, v, return_lse=True)
+    before = dict(fa_kernel.flash_attention.paths)
+    out, lse = fa_kernel.flash_attention(q, k, v, return_lse=True)
+    again = fa_kernel.flash_attention(q, k, v)
+    _took_twice(fa_kernel.flash_attention, before,
+                "mma" if dtype == torch.bfloat16 else "ffma")
+    diff = (out.float() - ref.float()).abs()
+    assert bool((diff <= _flash_limit(ref.float(), dtype)).all()), diff.max().item()
+    torch.testing.assert_close(lse, ref_lse, rtol=2e-4, atol=2e-4)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("arch", ["musicgen_medium", "internvl2_76b"])
+def test_frontend_decode_step_on_the_card_matches_cpu(cuda, arch):
+    """Reduced musicgen (codebooks: a (B, T, 4) prompt, then a (B, 4) token)
+    and internvl2 (embeds: a (B, T, d) prompt, then a (B, d) embedding),
+    float32: prefill and one decode step on the card against the CPU's,
+    logits at 1e-4, every product a tile_matmul launch."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import pick, prompt_inputs, rehome, step_inputs
+    from repro_torch.models import model as M
+    cfg = get_config(arch, reduced=True)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+    prompt = prompt_inputs(cfg, rng, 3, 20, "cpu")
+    cache, logits = M.prefill(params, cfg, prompt)
+    cache = rehome(M.init_cache(cfg, 3, 24, "cpu"), cache)
+    step = step_inputs(cfg, pick(cfg, logits, True, None), rng, "cpu") | {"cur_len": 20}
+    want, _ = M.decode_step(params, cfg, cache, step)
+    gparams = _to(params, cuda)
+    gcache, glogits = M.prefill(gparams, cfg, _to(prompt, cuda))
+    gcache = rehome(M.init_cache(cfg, 3, 24, cuda), gcache)
+    torch.testing.assert_close(glogits.cpu(), logits, rtol=1e-4, atol=1e-4)
+    before = tm_kernel.tile_matmul.launches
+    got, _ = M.decode_step(gparams, cfg, gcache, _to(step, cuda))
+    per_layer = sum(t.dim() == 2 for t in gparams["period"][0][0]["attn"].values()) + \
+        sum(t.dim() == 2 for t in gparams["period"][0][0]["ffn"].values())
+    assert tm_kernel.tile_matmul.launches == before + per_layer * cfg.n_layers
+    assert got.shape == (3, cfg.head_width)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["musicgen_medium", "internvl2_76b"])
+def test_reduced_frontend_serve_on_cuda_matches_cpu(cuda, arch):
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as M
+    cfg = get_config(arch, reduced=True)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    quiet = dict(seed=0, gen=8, log=lambda _: None)
+    on_cpu = serve(arch, device="cpu", params=params, **quiet)
+    on_gpu = serve(arch, device=cuda, params=_to(params, cuda), **quiet)
+    np.testing.assert_array_equal(on_gpu["tokens"], on_cpu["tokens"])
