@@ -22,7 +22,13 @@ dense configs are served: musicgen_medium at full width and depth (8 x
 512; codebooks: (B, T, 4) prompts, a token a codebook a step, the GELU
 FFN's biases and GELU in tile_matmul's epilogue, MHA at D 64) and
 internvl2_76b at full width, 16 of its 80 layers (8 x 512; embeds: seeded
-prompt embeddings and a fresh one a decode step; G 8, D 128); then the twin
+prompt embeddings and a fresh one a decode step; G 8, D 128); then
+jamba_1_5_large_398b at full width, the first 4 layers of its period of 8
+(8 x 512; attention + dense FFN, then Mamba layers with MoE, dense and MoE
+FFNs: the hybrid cache, ssd_scan at 256 heads in 8 groups, 16 experts
+top-2 whose weight tensors pass 2^31 elements), float32 routing and logits
+against the CPU's on its layers 0 and 7, and the reduced config served
+and one float32 train step on the card against the CPU's; then the twin
 of examples/serve_batched.py (reduced smollm_360m, mamba2_2_7b,
 deepseek_v2_lite_16b and musicgen_medium in float32 on the ffma and skinny
 paths, launches by path exact, tokens against the CPU's); then the training path
@@ -95,6 +101,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import importlib
 import itertools
 import json
 import os
@@ -145,8 +152,10 @@ SERVED_LAYER = {"musicgen_medium": ((1536, 1536, "none", False), (1536, 1536, "n
                                   (8192, 28672, "silu", False), (8192, 28672, "none", False),
                                   (28672, 8192, "none", False))}
 BATCH, PROMPT, GEN, CACHE = 8, 512, 32, 1024
-# ssd_scan: (Bt, T, H, P, G, N) of one mamba2_2_7b layer's prefill scan.
+# ssd_scan: (Bt, T, H, P, G, N) of one mamba2_2_7b layer's prefill scan,
+# and of one jamba_1_5_large_398b Mamba layer's (256 heads in 8 groups).
 SSD_PATH = (BATCH, PROMPT, 80, 64, 1, 128)
+SSD_JAMBA = (BATCH, PROMPT, 256, 64, 8, 128)
 SSD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-3}
 MAMBA_PARITY_LAYERS = 8
 
@@ -1009,17 +1018,20 @@ SSD_CASES = (  # (name, Bt, T, H, P, G, N)
     ("ragged", 2, 200, 80, 64, 1, 128),
     ("groups", 2, 256, 80, 64, 8, 128),
 )
+# Served only (no backward on the card at this width): jamba's prefill scan.
+SSD_SERVED_CASES = (("jamba", *SSD_JAMBA),)
 
 
 def check_ssd(ssd_kernel, ssd_plain) -> dict:
     """Kernel vs the per-timestep plain version: y and the final state, at
-    the path's shape, a ragged T and G > 1: the mma path in bf16, the ffma
-    path in float32."""
-    err = {}
+    the paths' shapes (mamba2's and jamba's, 32 heads a group), a ragged T
+    and G > 1: the mma path in bf16, the ffma path in float32. ``by_case``:
+    each case's worst y error."""
+    err: dict = {"by_case": {}}
     fn = ssd_kernel.ssd_scan
     for dtype in (torch.bfloat16, torch.float32):
         worst = {"y": 0.0, "state": 0.0}
-        for name, *shape in SSD_CASES:
+        for name, *shape in SSD_CASES + SSD_SERVED_CASES:
             args = _ssd_inputs(*shape, dtype, seed=sum(shape))
             before = dict(fn.paths)
             y, s = fn(*args)
@@ -1030,15 +1042,18 @@ def check_ssd(ssd_kernel, ssd_plain) -> dict:
                                        msg=lambda m, c=name: f"ssd y {c}: {m}")
             torch.testing.assert_close(s, sr, rtol=1e-3, atol=1e-3,
                                        msg=lambda m, c=name: f"ssd state {c}: {m}")
-            worst["y"] = max(worst["y"], (y.float() - yr.float()).abs().max().item())
+            err["by_case"][f"{name} {dtype}"] = (y.float() - yr.float()).abs().max().item()
+            worst["y"] = max(worst["y"], err["by_case"][f"{name} {dtype}"])
             worst["state"] = max(worst["state"], (s - sr).abs().max().item())
+            del args, y, s, yr, sr
         err[str(dtype)] = err[DTYPE_PATH[dtype]] = worst
     torch.cuda.synchronize()
     return err
 
 
-def time_ssd(ssd_kernel, ssd_plain) -> dict:
-    """One mamba2_2_7b layer's prefill scan, bf16. Operations are the
+def time_ssd(ssd_kernel, ssd_plain, shape: tuple = SSD_PATH) -> dict:
+    """One layer's prefill scan at ``shape`` (mamba2_2_7b's by default;
+    ``SSD_JAMBA``), bf16. Operations are the
     function's own work, whatever the algorithm's chunk: the recurrence's
     state update and readout, 2 N P each a (batch, head, step); bytes read
     each input and write each output once. Bound under the bf16 tensor-core
@@ -1047,7 +1062,7 @@ def time_ssd(ssd_kernel, ssd_plain) -> dict:
     ffma path on the same bf16 inputs, ``device_ms`` the mma path by
     CUDA-graph replay. No single PyTorch call computes an SSD scan: no
     library time."""
-    bt, t, h, p, g, n = SSD_PATH
+    bt, t, h, p, g, n = shape
     dt = torch.bfloat16
     args = _ssd_inputs(bt, t, h, p, g, n, dt, seed=5)
     kern = _time_ms(lambda: ssd_kernel.ssd_scan(*args))
@@ -1059,8 +1074,8 @@ def time_ssd(ssd_kernel, ssd_plain) -> dict:
               + 2 * bt * t * g * n * 2 + 2 * h * 4)
     bound_ms, bound_by = _bound(flops, nbytes, dt)
     bound_f32_ms, bound_f32_by = _bound(flops, nbytes, torch.float32)
-    return dict(ms=kern, ffma_ms=ffma, device_ms=device, plain_ms=plain, library_ms=None,
-                flop=flops, bytes=nbytes,
+    return dict(shape=f"x {(bt, t, h, p)}, G {g}, N {n}", ms=kern, ffma_ms=ffma,
+                device_ms=device, plain_ms=plain, library_ms=None, flop=flops, bytes=nbytes,
                 bound_ms=bound_ms, bound_by=bound_by, bound_f32_ms=bound_f32_ms,
                 bound_f32_by=bound_f32_by)
 
@@ -1254,11 +1269,12 @@ def profile_steps(M, cfg, params, rehome, counters: dict, batch: int = BATCH,
     return out
 
 
-def _f32_logits(M, cfg, rehome, prompt_len: int, batch: int, wrap=None) -> tuple[list, list]:
+def _f32_logits(M, cfg, rehome, prompt_len: int, batch: int, wrap=None,
+                decode_steps: int = 4) -> tuple[list, list]:
     """Full-width float32 logits of ``cfg`` on the card (kernel path) and
     on the CPU (plain path) from the same seeded weights: a prefill of
-    ``batch`` x ``prompt_len`` positions, then 4 decode steps of the CPU's
-    greedy tokens (one a codebook), or of fresh embeddings; the frontend's
+    ``batch`` x ``prompt_len`` positions, then ``decode_steps`` decode steps
+    of the CPU's greedy tokens (one a codebook), or of fresh embeddings; the frontend's
     inputs as ``serve`` draws them, from seed 1, the same on both devices.
     ``wrap(device, call)`` (optional) runs each forward pass. Returns
     (card's logits, CPU's logits), one entry a pass."""
@@ -1283,7 +1299,7 @@ def _f32_logits(M, cfg, rehome, prompt_len: int, batch: int, wrap=None) -> tuple
     plain, card = _card_beside_host(prefill, params)
     prefill("cpu", plain)
     card()
-    for step in range(4):
+    for step in range(decode_steps):
         inputs = step_inputs(cfg, pick(cfg, runs["cpu"][2][-1], True, None), rng, "cpu")
         for dev, (p, cache, outs) in runs.items():
             logits, _ = wrap(dev, lambda: M.decode_step(
@@ -1355,7 +1371,7 @@ def _layer_projections(M, cfg) -> list[tuple[int, int, str, torch.dtype, bool]]:
     The SwiGLU gate's SiLU and the GELU FFN's GELU (on ``w_up``) are fused
     into their products, and a weight ``w_x`` / ``wx`` with a bias ``b_x``
     / ``bx`` beside it adds it in the epilogue; expert tensors (the batched
-    launch's) are left out."""
+    launch's) and a Mamba mixer's depthwise conv kernels are left out."""
     out = []
 
     def walk(tree, stacked: int, acts: dict):
@@ -1364,6 +1380,8 @@ def _layer_projections(M, cfg) -> list[tuple[int, int, str, torch.dtype, bool]]:
                 walk(v, stacked, acts)
                 continue
             shape = v.shape[stacked:]
+            if key.startswith("conv"):       # a Mamba mixer's depthwise conv: plain
+                continue
             if key in ("w_uk", "w_uv"):
                 shape = (shape[0], shape[1] * shape[2])
             if len(shape) == 2:
@@ -1384,15 +1402,18 @@ def _layer_projections(M, cfg) -> list[tuple[int, int, str, torch.dtype, bool]]:
 
 def check_dense_projections(tm_kernel, tile_matmul_ref, M, get_config) -> dict:
     """tile_matmul against its plain version at each 2-D product of the
-    dense configs, of musicgen_medium and internvl2_76b and of
-    deepseek_v2_lite_16b, with their activations and biases, at their
-    prefill M (bf16 on wgmma, the float32 router on ffma) and decode M
-    (skinny): the first launches at K 12288 and 33792 (command_r's widths),
-    N 10944 and 576 (deepseek's dense first layer and ``w_dkv``), K 512
-    (its up-projections of the latent), musicgen's bias and GELU epilogue
-    (1536 -> 6144 and back) and internvl2's N and K 28672."""
+    dense configs, of musicgen_medium and internvl2_76b, of
+    deepseek_v2_lite_16b and of jamba_1_5_large_398b, with their
+    activations and biases, at their prefill M (bf16 on wgmma, the float32
+    router on ffma) and decode M (skinny): the first launches at K 12288
+    and 33792 (command_r's widths), N 10944 and 576 (deepseek's dense first
+    layer and ``w_dkv``), K 512 (its up-projections of the latent),
+    musicgen's bias and GELU epilogue (1536 -> 6144 and back), internvl2's
+    N and K 28672, and jamba's Mamba projections (N 16384, 1024 and 256; K
+    16384) and 16-expert router."""
     err, paths = {}, tm_kernel.tile_matmul.paths
-    runs = {arch: spec["run"] for arch, spec in DENSE_SERVE.items()} | {DEEPSEEK: DEEPSEEK_RUN}
+    runs = {arch: spec["run"] for arch, spec in DENSE_SERVE.items()} | {DEEPSEEK: DEEPSEEK_RUN,
+                                                                          JAMBA: JAMBA_RUN}
     for arch, run in runs.items():
         for m, path in ((run["batch"] * run["prompt_len"], "wgmma"), (run["batch"], "skinny")):
             for k, n, act, dtype, bias in _layer_projections(M, get_config(arch)):
@@ -1514,21 +1535,55 @@ NEAR_TIE = 1e-5
 DEEPSEEK = "deepseek_v2_lite_16b"
 DEEPSEEK_RUN = QWEN2_RUN
 DEEPSEEK_ROWS = {"prefill": 960, "decode": 48}
+# jamba_1_5_large_398b served at full width, cut from 72 layers to the first
+# 4 of its period (``SERVED_CUT``: attention + dense FFN, Mamba + MoE, Mamba
+# + dense, Mamba + MoE; 23.03 B parameters, 46.05 GB in bf16), since one
+# period of 8 is 45.25 B (90.5 GB): 8 x 512 prompts (two groups of 2048,
+# capacity 160 a slot; 2 slots x 2 groups x 160 = 640 rows an expert) and 32
+# decode steps of T 8 (dropless: 2 x 8 = 16 rows an expert). Its float32
+# parity run: layer 0 (attention + dense) and layer 7 (Mamba + MoE), 11.91 B
+# parameters, 47.7 GB in float32 on each device, 2 x 128 (one group of 256,
+# capacity 20 a slot, 40 rows an expert), at which rows the float32 batched
+# launch is also checked, then 2 decode steps. Its random router spreads a
+# group's tokens about evenly over the 16 experts: at 2 x 512 (capacity 80 a
+# slot, 64 tokens a slot on average) no pair dropped, so the run is short
+# enough that some do. The CPU's half takes most of the phase: the weights'
+# 47.7 GB reach the host at the rate its first touch of fresh pages allows
+# (about 4 GB/s), and a decode step streams them all through 2-row products
+# (about 3 s).
+JAMBA = "jamba_1_5_large_398b"
+JAMBA_RUN = dict(batch=BATCH, prompt_len=PROMPT, cache_len=CACHE)
 MOE_SERVE = {QWEN2: dict(run=QWEN2_RUN, rows=QWEN2_ROWS, parity=QWEN2_PARITY,
                          parity_periods=QWEN2_PARITY_PERIODS),
              DEEPSEEK: dict(run=DEEPSEEK_RUN, rows=DEEPSEEK_ROWS,
-                            parity=dict(batch=2, prompt_len=512), parity_periods=1)}
+                            parity=dict(batch=2, prompt_len=512), parity_periods=1),
+             JAMBA: dict(run=JAMBA_RUN, rows={"prefill": 640, "decode": 16},
+                         f32_rows={"parity": 40, "decode": 16},
+                         parity=dict(batch=2, prompt_len=128, decode_steps=2),
+                         parity_periods=1,
+                         served_cut=True,
+                         reduced_why="72 layers are 398.6 B parameters; one period of 8 "
+                                     "is 45.25 B (90.5 GB in bf16), more than one card "
+                                     "holds; its first 4 layers (23.03 B, 46.05 GB) run "
+                                     "every layer kind at full width")}
 
 
 def _moe_layers(cfg) -> int:
-    """The layers of ``cfg`` with an MoE FFN (deepseek's first is dense)."""
+    """The layers of ``cfg`` with an MoE FFN (deepseek's first is dense,
+    every other one of jamba's)."""
     return (sum(l.ffn_kind == "moe" for l in cfg.prefix)
             + cfg.n_periods * sum(l.ffn_kind == "moe" for l in cfg.period))
 
 
+def _moe_cfg(cfg):
+    """The MoE FFN of ``cfg``'s MoE layers, the same in each of them."""
+    (moe,) = {l.moe for l in (*cfg.prefix, *cfg.period) if l.ffn_kind == "moe"}
+    return moe
+
+
 def _expert_products(cfg) -> tuple[int, tuple]:
     """(E, ((K, N, activation) of the gate, up and down expert products))."""
-    moe, d = cfg.period[0].moe, cfg.d_model
+    moe, d = _moe_cfg(cfg), cfg.d_model
     return moe.n_experts, ((d, moe.d_ff, "silu"), (d, moe.d_ff, "none"), (moe.d_ff, d, "none"))
 
 
@@ -1546,11 +1601,15 @@ def _moe_grad_operands(E: int, m: int, k: int, n: int, dtype) -> tuple:
 
 def check_moe_batched(tm_kernel, tile_matmul_ref, get_config) -> dict:
     """The batched expert launch against its plain version (one product an
-    expert) at qwen2's and deepseek's three expert products, prefill and
-    decode rows (E 60 at 688 and 32 rows an expert, E 64 at 960 and 48), and
-    its two gradient layouts at qwen2's training rows (688 an expert): bf16
-    on wgmma (2e-2), float32 on ffma (2e-4), each launch counted once under
-    its layout (``batched``, ``batched x@w^T``, ``batched x^T@w``)."""
+    expert) at qwen2's, deepseek's and jamba's three expert products,
+    prefill and decode rows (E 60 at 688 and 32 rows an expert, E 64 at 960
+    and 48, E 16 at 640 and 16, where each weight tensor holds 3.22 B
+    elements, past 2^31, so the last expert's offsets need 64 bits; jamba's
+    float32 at its parity run's 40 rows and at 16), and its two gradient
+    layouts at qwen2's training rows (688 an expert): bf16 on wgmma (2e-2),
+    float32 on ffma (2e-4), each launch counted once under its layout
+    (``batched``, ``batched x@w^T``, ``batched x^T@w``). Every expert's
+    output is held, the last one's too."""
     fn, err = tm_kernel.tile_matmul, {}
 
     def held(out, ref, dtype, case, layout, before, layouts):
@@ -1564,7 +1623,8 @@ def check_moe_batched(tm_kernel, tile_matmul_ref, get_config) -> dict:
     for dtype in (torch.bfloat16, torch.float32):
         for arch, spec in MOE_SERVE.items():
             E, prods = _expert_products(get_config(arch))
-            for (phase, m), (k, n, act) in itertools.product(spec["rows"].items(), prods):
+            rows = spec["rows"] if dtype == torch.bfloat16 else spec.get("f32_rows", spec["rows"])
+            for (phase, m), (k, n, act) in itertools.product(rows.items(), prods):
                 x = _randn((E, m, k), dtype, m + k)
                 w = _randn((E, k, n), dtype, n, k ** -0.5)
                 before, layouts = dict(fn.paths), dict(fn.layouts)
@@ -1594,9 +1654,9 @@ def time_moe_batched(tm_kernel, tile_matmul_batched_ref, get_config, arch: str =
     its prefill and decode rows: the batched launches by CUDA events (kernel
     and ``torch.bmm`` in turns) and by CUDA-graph replay, the plain version
     (one float32 product an expert), and the bound of the three products.
-    The decode products read 1.04 GB (qwen2) or 1.11 GB (deepseek) of
-    weights, twenty times the L2: every launch finds them cold, as a decode
-    step does."""
+    The decode products read 1.04 GB (qwen2), 1.11 GB (deepseek) or 19.3 GB
+    (jamba) of weights, twenty times the L2 or more: every launch finds them
+    cold, as a decode step does."""
     dt, out = torch.bfloat16, {}
     E, prods = _expert_products(get_config(arch))
     for phase, m in MOE_SERVE[arch]["rows"].items():
@@ -1702,8 +1762,8 @@ def _dropped_pairs(routes: list, moe, tokens: int) -> list[int]:
                  - cap).clamp(min=0).sum()) for _, top_i in routes]
 
 
-def parity_moe_f32(M, cfg, rehome, prompt_len: int, batch: int) -> dict:
-    """Full-width float32 MoE model (qwen2, deepseek) on the card against
+def parity_moe_f32(M, cfg, rehome, prompt_len: int, batch: int, decode_steps: int = 4) -> dict:
+    """Full-width float32 MoE model (qwen2, deepseek, jamba) on the card against
     the CPU: the routing of every MoE layer and pass first
     (``_routing_flips``), then the logits at DENSE_PARITY_TOL where no
     near-tie flipped. Also the (token, slot) pairs the CPU's prefill
@@ -1718,8 +1778,9 @@ def parity_moe_f32(M, cfg, rehome, prompt_len: int, batch: int) -> dict:
         routes[dev] += seen
         return out
 
-    got, want = _f32_logits(M, cfg, rehome, prompt_len, batch, wrap=wrap)
-    moe = cfg.period[0].moe
+    got, want = _f32_logits(M, cfg, rehome, prompt_len, batch, wrap=wrap,
+                            decode_steps=decode_steps)
+    moe = _moe_cfg(cfg)
     out = _routing_flips(routes, moe.top_k)
     tokens = batch * prompt_len
     group, cap = capacity(moe, tokens)
@@ -1745,7 +1806,7 @@ def _routed_bounds(routes: list, cfg, param_bytes: int, embed_bytes: int) -> dic
     and written once; per layer, means over layers and steps."""
     from repro_torch.models.moe import capacity
 
-    moe, d, L = cfg.period[0].moe, cfg.d_model, _moe_layers(cfg)
+    moe, d, L = _moe_cfg(cfg), cfg.d_model, _moe_layers(cfg)
     E, k, f = moe.n_experts, moe.top_k, moe.d_ff
     per_expert = 3 * d * f * 2                        # gate, up, down; bf16
     dense = param_bytes - embed_bytes - L * E * per_expert
@@ -1781,14 +1842,19 @@ def _layer_weights(params) -> dict:
     """Each layer's weight tensors by how the forward pass multiplies them:
     ``attn`` the attention's 2-D matrices (one tile_matmul launch each, every
     pass), ``latent_up`` MLA's 3-D ``w_uk`` / ``w_uv`` (one launch each as an
-    (R, H D) matrix, in prefill only), ``ffn`` the FFN's bf16 2-D matrices
-    (a dense FFN's or the shared experts'), ``router`` the float32 routers,
-    ``experts`` the 3-D expert tensors (one batched launch each)."""
-    out = dict.fromkeys(("attn", "latent_up", "ffn", "router", "experts"), 0)
+    (R, H D) matrix, in prefill only), ``mamba`` a Mamba mixer's six
+    projections ``w_z``, ``w_x``, ``w_B``, ``w_C``, ``w_dt``, ``w_out`` (one
+    launch each, every pass; its 2-D depthwise conv kernels ``conv_*`` are
+    plain PyTorch), ``ffn`` the FFN's bf16 2-D matrices (a dense FFN's or
+    the shared experts'), ``router`` the float32 routers, ``experts`` the
+    3-D expert tensors (one batched launch each)."""
+    out = dict.fromkeys(("attn", "latent_up", "mamba", "ffn", "router", "experts"), 0)
     for layer in [*params["prefix"], *(p for per in params["period"] for p in per)]:
-        for t in layer["attn"].values():
+        for t in layer.get("attn", {}).values():
             out["attn"] += t.dim() == 2
             out["latent_up"] += t.dim() == 3
+        out["mamba"] += sum(t.dim() == 2 and k.startswith("w_")
+                            for k, t in layer.get("mamba", {}).items())
         for t in layer.get("ffn", {}).values():
             out["ffn"] += t.dim() == 2 and t.dtype == torch.bfloat16
             out["router"] += t.dim() == 2 and t.dtype == torch.float32
@@ -1799,36 +1865,61 @@ def _layer_weights(params) -> dict:
 # Each MoE config's weights by kind (``_layer_weights``), a layer of L
 # (MoE layers Lm): qwen2's four attention projections, three shared-expert
 # products; deepseek's three (wq, w_dkv, wo) and two up-projections, its
-# dense first layer's three FFN products and the shared experts' three.
-MOE_WEIGHTS = {QWEN2: lambda L, Lm: dict(attn=4 * L, latent_up=0, ffn=3 * Lm, router=Lm,
-                                         experts=3 * Lm),
-               DEEPSEEK: lambda L, Lm: dict(attn=3 * L, latent_up=2 * L, ffn=3 * L, router=Lm,
-                                            experts=3 * Lm)}
+# dense first layer's three FFN products and the shared experts' three;
+# jamba's cut: one attention layer's four projections, three Mamba layers'
+# six each, the two dense FFNs' three each (layers 0 and 2).
+MOE_WEIGHTS = {QWEN2: lambda L, Lm: dict(attn=4 * L, latent_up=0, mamba=0, ffn=3 * Lm,
+                                         router=Lm, experts=3 * Lm),
+               DEEPSEEK: lambda L, Lm: dict(attn=3 * L, latent_up=2 * L, mamba=0, ffn=3 * L,
+                                            router=Lm, experts=3 * Lm),
+               JAMBA: lambda L, Lm: dict(attn=4, latent_up=0, mamba=6 * (L - 1),
+                                         ffn=3 * (L - Lm), router=Lm, experts=3 * Lm)}
+
+
+def _host_available_bytes() -> int:
+    """The host's MemAvailable, from /proc/meminfo."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
 
 
 def serve_moe(serve, M, rehome, get_config, counters: dict, arch: str) -> dict:
-    """An MoE config (``MOE_SERVE``: qwen2_moe_a2_7b, deepseek_v2_lite_16b)
-    at full width and full depth from seeded random weights: every launch
-    counted, prefill and each decode step (tile_matmul once for each 2-D
-    weight matrix of each layer, bf16 ones on wgmma in prefill and skinny in
-    decode, the float32 router on ffma and skinny, MLA's two up-projections
-    of the latent on wgmma in prefill only, and three batched expert
-    launches an MoE layer on wgmma, never a launch an expert;
-    flash_attention once a layer in prefill, never in decode; no other
-    kernel), one prefill and one decode step profiled beside the bounds of
-    the work the timed serve's routing needs and of the padded launches
-    (``_routed_bounds``), then float32 routing and logits against the CPU at
-    2 layers."""
+    """An MoE config (``MOE_SERVE``: qwen2_moe_a2_7b and deepseek_v2_lite_16b
+    at full depth, jamba_1_5_large_398b at its ``SERVED_CUT``) at full width
+    from seeded random weights (the init's seconds and peak memory kept):
+    every launch counted, prefill and each decode step (tile_matmul once for
+    each 2-D weight matrix of each layer, bf16 ones on wgmma in prefill and
+    skinny in decode, the float32 router on ffma and skinny, MLA's two
+    up-projections of the latent on wgmma in prefill only, and three batched
+    expert launches an MoE layer on wgmma, never a launch an expert;
+    flash_attention once an attention layer and ssd_scan once a Mamba layer
+    in prefill, neither in decode; no other kernel), one prefill and one
+    decode step profiled beside the bounds of the work the timed serve's
+    routing needs and of the padded launches (``_routed_bounds``), then
+    float32 routing and logits against the CPU (``_parity_config``: qwen2 at
+    2 layers, deepseek's dense layer and one MoE layer, jamba's first and
+    last layers of its period), the host's free memory read first."""
     from repro_torch.models.moe import recording_routes
 
-    spec, cfg = MOE_SERVE[arch], get_config(arch)
-    L, Lm = cfg.n_layers, _moe_layers(cfg)
+    spec, full = MOE_SERVE[arch], get_config(arch)
+    cfg = full
+    if spec.get("served_cut"):
+        cut = importlib.import_module(f"repro_torch.configs.{arch}").SERVED_CUT
+        cfg = dataclasses.replace(full, **cut)
+    L, Lm, mixers = cfg.n_layers, _moe_layers(cfg), _mixers(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    seconds, init_peak = {"init": time.perf_counter() - t0}, torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
     w = _layer_weights(params)
     assert w == MOE_WEIGHTS[arch](L, Lm), (w, MOE_WEIGHTS[arch](L, Lm))
-    E = cfg.period[0].moe.n_experts
-    x_w = w["attn"] + w["ffn"] + w["router"]          # plain 2-D launches, every pass
-    prefill_paths = {"wgmma": w["attn"] + w["latent_up"] + w["ffn"] + w["experts"], "mma": 0,
+    E = _moe_cfg(cfg).n_experts
+    x_w = w["attn"] + w["mamba"] + w["ffn"] + w["router"]   # plain 2-D launches, every pass
+    prefill_paths = {"wgmma": x_w - w["router"] + w["latent_up"] + w["experts"], "mma": 0,
                      "skinny": 0, "ffma": w["router"]}
     decode_paths = {"wgmma": w["experts"], "mma": 0, "skinny": x_w, "ffma": 0}
     per_prefill, per_decode = sum(prefill_paths.values()), sum(decode_paths.values())
@@ -1838,25 +1929,35 @@ def serve_moe(serve, M, rehome, get_config, counters: dict, arch: str) -> dict:
                                      for p in prefill_paths})
     routes = routes[-(1 + GEN) * Lm:]                 # the timed serve's, after its warm-up
     layouts = dict(counters["tile_matmul"].layouts)
-    want = dict.fromkeys(counters, 0) | {"tile_matmul": per_prefill + GEN * per_decode,
-                                         "flash_attention": L}
+    seconds["serves"], t0 = time.perf_counter() - t0, time.perf_counter()
+    by_mixer = {"flash_attention": mixers["attn"], "ssd_scan": mixers["mamba"]}
+    want = dict.fromkeys(counters, 0) | {"tile_matmul": per_prefill + GEN * per_decode} | by_mixer
     assert out["launches"] == want, (out["launches"], want)
     assert layouts == dict.fromkeys(layouts, 0) | {
         "x@w": x_w * (1 + GEN) + w["latent_up"], "batched": w["experts"] * (1 + GEN)}, layouts
     prof = out["profile"] = profile_steps(M, cfg, params, rehome, counters, **spec["run"])
     _print_profile(cfg.name, prof)
-    for phase, flash, n, paths in (("prefill", L, per_prefill, prefill_paths),
-                                   ("decode", 0, per_decode, decode_paths)):
-        assert prof[phase]["launches"] == want | {"tile_matmul": n,
-                                                  "flash_attention": flash}, prof[phase]
+    for phase, once, n, paths in (("prefill", 1, per_prefill, prefill_paths),
+                                  ("decode", 0, per_decode, decode_paths)):
+        assert prof[phase]["launches"] == want | {"tile_matmul": n} | {
+            k: v * once for k, v in by_mixer.items()}, prof[phase]
         assert prof[phase]["tile_matmul_paths"] == paths, (phase, prof[phase])
+    seconds["profile"] = time.perf_counter() - t0
     param_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     embed_bytes = params["embed"]["tok"].numel() * 2
-    out.update(layers=L, moe_layers=Lm, weights_by_kind=w, tile_matmul_layouts=layouts,
-               param_bytes=param_bytes, expert_launches_per_layer=w["experts"] // Lm,
-               params_active=M.active_param_count(cfg),
+    out.update(layers=L, moe_layers=Lm, mixers=mixers, weights_by_kind=w, seconds=seconds,
+               tile_matmul_layouts=layouts, param_bytes=param_bytes,
+               expert_launches_per_layer=w["experts"] // Lm,
+               params_active=M.active_param_count(cfg), init_peak_mem_bytes=init_peak,
                **_routed_bounds(routes, cfg, param_bytes, embed_bytes))
-    print(f"serve {cfg.name}: {param_bytes / 1e9:.2f} GB of weights; a decode step routes to "
+    if cfg is not full:
+        out["reduced"] = {"layers": f"{full.n_layers} -> {cfg.n_layers}",
+                          "period": f"{len(full.period)} -> {len(cfg.period)} (its first)",
+                          "n_periods": f"{full.n_periods} -> {cfg.n_periods}"}
+        out["reduced_why"] = spec["reduced_why"]
+    print(f"serve {cfg.name}: {param_bytes / 1e9:.2f} GB of weights, drawn in "
+          f"{seconds['init']:.1f} s at a peak of {init_peak / 2**30:.2f} GiB; "
+          f"a decode step routes to "
           f"{out['decode_experts_per_layer']:.2f} experts a layer of {E}: its bytes bound "
           f"{out['decode_bound_ms']:.4f} ms, {out['decode_padded_bound_ms']:.4f} ms for the "
           f"padded launches, which read every expert; the step took "
@@ -1867,16 +1968,117 @@ def serve_moe(serve, M, rehome, get_config, counters: dict, arch: str) -> dict:
           f"{out['prefill_experts_padded_bound_ms']:.4f} ms padded")
     del params, routes
     torch.cuda.empty_cache()
-    pcfg = dataclasses.replace(cfg, n_periods=spec["parity_periods"])
+    pcfg = _parity_config(full, spec["parity_periods"])
     run = spec["parity"]
-    par = out["parity_f32"] = dict(layers=pcfg.n_layers, **run) | parity_moe_f32(
+    f32_bytes = M.param_count(pcfg) * 4
+    host = _host_available_bytes()
+    assert host > 1.25 * f32_bytes, ("the host cannot hold the float32 parity weights",
+                                     host, f32_bytes)
+    t0 = time.perf_counter()
+    par = out["parity_f32"] = dict(layers=pcfg.n_layers, f32_param_bytes=f32_bytes,
+                                   host_available_bytes=host, **run) | parity_moe_f32(
         M, pcfg, rehome, **run)
-    print(f"parity f32 {cfg.name} full width, {pcfg.n_layers} layers, "
+    seconds["parity"] = time.perf_counter() - t0
+    print(f"parity f32 {cfg.name} full width, {pcfg.n_layers} layers "
+          f"({f32_bytes / 1e9:.1f} GB a device; host had {host / 1e9:.1f} GB free), "
           f"{run['batch']}x{run['prompt_len']} (group {par['group']}, "
           f"capacity {par['capacity']}, dropped {par['dropped_in_prefill']}): "
           f"{par['tokens_checked']} routings checked, {par['near_tie_flips']} near-tie flips, "
           f"max |logit err| {par['max_logit_err']}")
     torch.cuda.empty_cache()
+    return out
+
+
+# The reduced jamba_1_5_large_398b on the card (float32): served as the
+# twin of examples/serve_batched.py serves its configs, then one train step
+# of 2 x 64 tokens (eight dropless groups of 16) against the CPU's.
+JAMBA_REDUCED_RUN = dict(batch=4, prompt_len=32, gen=8, cache_len=40, seed=0)
+JAMBA_REDUCED_TRAIN = dict(batch=2, seq=64)
+
+
+def _tokens_against_cpu(card: np.ndarray, cpu: np.ndarray, margins: np.ndarray) -> dict:
+    """The card's greedy tokens against the CPU's: equal, or first differing
+    at a pick where the CPU's top-2 margin is below NEAR_TIE."""
+    rec = dict(tokens_equal=bool((card == cpu).all()), min_top2_margin=float(margins.min()))
+    if not rec["tokens_equal"]:
+        diff = np.argwhere(card != cpu)
+        first = diff[:, 1].min()
+        at = [tuple(int(i) for i in d) for d in diff if d[1] == first]
+        rec.update(first_diff_step=int(first), first_diff=at,
+                   margin_at_first_diff=max(float(margins[d]) for d in at))
+        assert rec["margin_at_first_diff"] < NEAR_TIE, rec
+    return rec
+
+
+def reduced_jamba(serve, M, rehome, steps_mod, get_config, counters: dict) -> dict:
+    """The reduced jamba_1_5_large_398b on the card in float32 (tile_matmul
+    on ffma and skinny, the batched expert launch on ffma, the attention and
+    the scan on ffma): ``serve`` from the seeded init, every launch count set
+    to 0 just before it and read just after, tile_matmul's by path as the
+    same serve's products on the CPU predict them (``_predicted_paths``),
+    flash_attention once an attention layer and ssd_scan once a Mamba layer;
+    its tokens against the CPU's (``_tokens_against_cpu``). Then one float32
+    train step against the CPU's, routing first (``parity_train_moe_f32``,
+    dropless at group 16 = 4E), whose launches on the card are
+    ``_train_want``'s a step, every one on ffma: ssd_scan_bwd at G 2 beside
+    the attention's and the experts' gradients in one model."""
+    cfg = get_config(JAMBA, reduced=True)
+    run, mixers = JAMBA_REDUCED_RUN, _mixers(cfg)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    cpu_params = _to(params, "cpu")
+    quiet = dict(reduced=True, log=lambda _: None, **run)
+    torch.cuda.synchronize()
+    _zero(counters)
+    res = serve(JAMBA, device="cuda", params=params, **quiet)
+    torch.cuda.synchronize()
+    launches = _read(counters)
+    by_path = {k: dict(fn.paths) for k, fn in counters.items() if hasattr(fn, "paths")}
+    del params
+    ref, paths = _predicted_paths(lambda: serve(JAMBA, device="cpu", params=cpu_params, **quiet))
+    assert set(p for p, n in paths.items() if n) <= {"ffma", "skinny"}, paths
+    want = dict.fromkeys(counters, 0) | {"tile_matmul": sum(paths.values()),
+                                         "flash_attention": mixers["attn"],
+                                         "ssd_scan": mixers["mamba"]}
+    assert launches == want, (launches, want)
+    assert by_path["tile_matmul"] == paths, (by_path["tile_matmul"], paths)
+    for k, n in (("flash_attention", mixers["attn"]), ("ssd_scan", mixers["mamba"])):
+        assert by_path[k] == {"mma": 0, "ffma": n}, (k, by_path[k])
+    card, cpu = res["tokens"], ref["tokens"]
+    assert card.shape == cpu.shape == (run["batch"], run["gen"]), card.shape
+    margins = _cpu_margins(M, rehome, cfg, cpu_params, cpu, run).numpy()
+    out = dict(settings=run, layers=cfg.n_layers, mixers=mixers, launches=launches,
+               launches_by_path=by_path, **_tokens_against_cpu(card, cpu, margins))
+    out["seconds"] = {"serve": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    print(f"reduced {JAMBA} on the card: tokens {card.shape} equal to the CPU's "
+          f"{out['tokens_equal']}, launches {launches}, tile_matmul by path {paths}")
+    _zero(counters)
+    par = out["train_step_f32"] = parity_train_moe_f32(M, steps_mod, cfg, dropless=True,
+                                                        **JAMBA_REDUCED_TRAIN)
+    step = _read(counters)
+    step_paths = {k: dict(fn.paths) for k, fn in counters.items() if hasattr(fn, "paths")}
+    step_layouts = dict(counters["tile_matmul"].layouts)
+    want, _, want_layouts = _train_want(cfg)
+    want = {k: v // TRAIN_STEPS for k, v in want.items()}
+    assert step == want, (step, want)
+    assert step_paths == {k: dict.fromkeys(v, 0) | {"ffma": step[k]}
+                          for k, v in step_paths.items()}, step_paths
+    assert step_layouts == {k: v // TRAIN_STEPS for k, v in want_layouts.items()}, step_layouts
+    par.update(launches=step, tile_matmul_layouts=step_layouts)
+    out["seconds"]["train_step"] = time.perf_counter() - t0
+    print(f"parity f32 train step reduced {JAMBA}: {par}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_jamba(serve, M, rehome, steps_mod, get_config, counters: dict) -> dict:
+    """jamba_1_5_large_398b: full width at its ``SERVED_CUT`` through
+    ``serve_moe`` (the hybrid cache of one attention layer's KV and three
+    Mamba layers' states and conv tails; 16 experts top-2), then the reduced
+    config on the card (``reduced_jamba``)."""
+    out = serve_moe(serve, M, rehome, get_config, counters, JAMBA)
+    out["reduced_on_card"] = reduced_jamba(serve, M, rehome, steps_mod, get_config, counters)
     return out
 
 
@@ -1997,16 +2199,9 @@ def serve_batched(M, rehome, get_config, counters: dict) -> dict:
         assert card.shape == cpu.shape == (run["batch"], run["gen"]) + _books(cfg), \
             (arch, card.shape)
         margins = _cpu_margins(M, rehome, cfg, cpu_params, cpu, run).numpy()
-        rec = dict(tokens_equal=bool((card == cpu).all()), min_top2_margin=float(margins.min()),
-                   prefill_s=res[arch]["t_prefill"], decode_s=res[arch]["t_decode"],
-                   predicted_paths=paths)
-        if not rec["tokens_equal"]:
-            diff = np.argwhere(card != cpu)
-            first = diff[:, 1].min()
-            at = [tuple(int(i) for i in d) for d in diff if d[1] == first]
-            rec.update(first_diff_step=int(first), first_diff=at,
-                       margin_at_first_diff=max(float(margins[d]) for d in at))
-            assert rec["margin_at_first_diff"] < NEAR_TIE, (arch, rec)
+        rec = _tokens_against_cpu(card, cpu, margins) | dict(
+            prefill_s=res[arch]["t_prefill"], decode_s=res[arch]["t_decode"],
+            predicted_paths=paths)
         out["by_arch"][arch] = rec
         print(f"serve_batched {arch}: tokens {card.shape} equal to the CPU's "
               f"{rec['tokens_equal']}, CPU's least top-2 margin {rec['min_top2_margin']:.3e}")
@@ -2363,14 +2558,17 @@ def remat_determinism(M, cfg, batch: int, seq: int) -> dict:
     return out
 
 
-def parity_train_moe_f32(M, steps_mod, pcfg, batch: int, seq: int) -> dict:
+def parity_train_moe_f32(M, steps_mod, pcfg, batch: int, seq: int,
+                         dropless: bool = False) -> dict:
     """``parity_train_f32`` of a MoE config, routing first: each layer's
     routing in the forward of the card's step and of the CPU's
     (``_routing_flips``: a differing top-k set is a fault unless the CPU's
     margin is under NEAR_TIE), then, where no near-tie flipped, loss,
-    gradients and weights as ``parity_train_f32`` holds them. The
-    backward's recompute is not compared: on the card it runs on autograd's
-    device thread, which the thread-local recording does not see."""
+    gradients and weights as ``parity_train_f32`` holds them. Some (token,
+    slot) pairs must drop, or, where ``dropless`` (groups of at most 4E),
+    none. The backward's recompute is not compared: on the card it runs on
+    autograd's device thread, which the thread-local recording does not
+    see."""
     from repro_torch.models.moe import recording_routes
 
     routes: dict = {"cuda": [], "cpu": []}
@@ -2382,10 +2580,10 @@ def parity_train_moe_f32(M, steps_mod, pcfg, batch: int, seq: int) -> dict:
         return out
 
     runs = _train_steps_f32(M, steps_mod, pcfg, batch, seq, wrap=wrap)
-    moe = pcfg.period[0].moe
+    moe = _moe_cfg(pcfg)
     out = _routing_flips(routes, moe.top_k)
     out["dropped"] = _dropped_pairs(routes["cpu"], moe, batch * seq)
-    assert sum(out["dropped"]) > 0, out
+    assert (sum(out["dropped"]) == 0) if dropless else (sum(out["dropped"]) > 0), out
     if out["near_tie_flips"] == 0:
         out |= _compare_train_steps(runs, pcfg, batch, seq)
     del runs
@@ -3405,7 +3603,8 @@ def main() -> int:
     print(f"checks: tile_matmul max |err| {detail['tile_matmul_err']}, "
           f"flash_attention max |err| "
           f"{ {k: v for k, v in detail['flash_attention_err'].items() if k != 'by_case'} }, "
-          f"ssd_scan max |err| {detail['ssd_scan_err']}, "
+          f"ssd_scan max |err| "
+          f"{ {k: v for k, v in detail['ssd_scan_err'].items() if k != 'by_case'} }, "
           f"tile_matmul dx/dw max |err| {detail['tile_matmul_grad_err']}, "
           f"flash_attention_bwd max |err| {detail['flash_attention_bwd_err']}, "
           f"dense configs' projections max |err| "
@@ -3423,6 +3622,7 @@ def main() -> int:
     detail["tile_matmul_time"] = time_tile_matmul(tm_kernel, tile_matmul_ref)
     detail["flash_attention_time"] = time_flash(fa_kernel, flash_attention_ref)
     detail["ssd_scan_time"] = time_ssd(ssd_kernel, ssd_plain)
+    detail["ssd_scan_jamba_time"] = time_ssd(ssd_kernel, ssd_plain, SSD_JAMBA)
     detail["tile_matmul_grad_time"] = time_tile_matmul_grad(tm_kernel, tile_matmul_ref)
     detail["flash_attention_bwd_time"] = time_flash_bwd(fa_kernel, flash_attention_bwd_ref)
     detail["tile_matmul_grad_mamba2_time"] = time_tile_matmul_grad(tm_kernel, tile_matmul_ref,
@@ -3431,11 +3631,13 @@ def main() -> int:
     detail["moe_batched_time"] = time_moe_batched(tm_kernel, tile_matmul_batched_ref, get_config)
     detail["moe_batched_deepseek_time"] = time_moe_batched(tm_kernel, tile_matmul_batched_ref,
                                                            get_config, DEEPSEEK)
+    detail["moe_batched_jamba_time"] = time_moe_batched(tm_kernel, tile_matmul_batched_ref,
+                                                        get_config, JAMBA)
     detail["moe_batched_grad_time"] = time_moe_batched_grad(tm_kernel, tile_matmul_batched_ref,
                                                             get_config)
-    for k in ("tile_matmul", "flash_attention", "ssd_scan", "tile_matmul_grad",
+    for k in ("tile_matmul", "flash_attention", "ssd_scan", "ssd_scan_jamba", "tile_matmul_grad",
               "flash_attention_bwd", "tile_matmul_grad_mamba2", "ssd_scan_bwd", "moe_batched",
-              "moe_batched_deepseek", "moe_batched_grad"):
+              "moe_batched_deepseek", "moe_batched_jamba", "moe_batched_grad"):
         print(f"times (ms): {k} {detail[k + '_time']}")
 
     mark("times")
@@ -3526,7 +3728,17 @@ def main() -> int:
     _record("serve_internvl2_76b", iv)
     mark("serve_internvl2_76b")
 
-    # 7e. The twin of examples/serve_batched.py: reduced smollm, mamba2,
+    # 7e. Path 10: serve full-width jamba_1_5_large_398b at the first 4
+    # layers of its period (attention + dense FFN, then Mamba layers with
+    # MoE, dense and MoE FFNs): the hybrid cache, ssd_scan at 256 heads in 8
+    # groups, 16 experts top-2 whose weight tensors pass 2^31 elements;
+    # float32 routing and logits against the CPU on its layers 0 and 7; the
+    # reduced config served and one float32 train step on the card.
+    jb = detail["serve_jamba"] = serve_jamba(serve, M, rehome, steps_mod, get_config, counters)
+    _record("serve_jamba_1_5_large_398b", jb)
+    mark("serve_jamba_1_5_large_398b")
+
+    # 7f. The twin of examples/serve_batched.py: reduced smollm, mamba2,
     # deepseek and musicgen (float32: tile_matmul on ffma and skinny,
     # attention and scan on ffma), tokens against the CPU's.
     sb = detail["serve_batched"] = serve_batched(M, rehome, get_config, counters)
@@ -3653,12 +3865,13 @@ def main() -> int:
     sst, gt = detail["ssd_scan_time"], detail["tile_matmul_grad_time"]
     fbts, sbt = detail["flash_attention_bwd_time"], detail["ssd_scan_bwd_time"]
     fbt = fbts["smollm_360m"]
-    runs = (sm, ms, g3, dn, cr, q2, ds, mg, iv, sb, tr, mt, tdn, tg3, tq2, tds, ac, ad, pp, ct,
-            pf, mp)
+    runs = (sm, ms, g3, dn, cr, q2, ds, mg, iv, jb, sb, tr, mt, tdn, tg3, tq2, tds, ac, ad, pp,
+            ct, pf, mp)
     mlp_t = detail["mlp_ops"]["times"]["256x256"]
     moe_t = detail["moe_ops"]["times"]
     qb, qbg = detail["moe_batched_time"], detail["moe_batched_grad_time"]
-    dsb = detail["moe_batched_deepseek_time"]
+    dsb, jbb = detail["moe_batched_deepseek_time"], detail["moe_batched_jamba_time"]
+    ssj = detail["ssd_scan_jamba_time"]
 
     def batched_record(times: dict, serve_run: dict, E: int) -> dict:
         """The batched expert launch's numbers at one MoE config's rows:
@@ -3674,7 +3887,7 @@ def main() -> int:
             for phase in times}
 
     def summed(name: str) -> dict:
-        """Launches of ``name`` over the twenty-two paths (the nine serves,
+        """Launches of ``name`` over the twenty-three paths (the ten serves,
         the twin of serve_batched.py, the six train runs, the ACAN path's
         crash-free run and its deepseek twin's, the paper's four MLP runs,
         the two-tenant cloud's crash run, exp 1's three fleet runs with the
@@ -3750,6 +3963,14 @@ def main() -> int:
                          "the deepseek serve's, prefill and its 32 decode steps",
                 "routed_bound_ms": {"prefill": ds["prefill_experts_bound_ms"],
                                     "decode": ds["decode_experts_bound_ms"]}},
+             moe_batched_jamba=batched_record(jbb, jb, 16)
+             | {"timed": "one jamba_1_5_large_398b MoE layer's three expert products, 16 "
+                         "experts of d_ff 24576 (each weight tensor 3.22 B elements) at 640 "
+                         "(prefill) and 16 (decode) rows an expert, bf16, batched wgmma "
+                         "launches; library: torch.bmm (and silu); launches: the jamba "
+                         "serve's, prefill and its 32 decode steps",
+                "routed_bound_ms": {"prefill": jb["prefill_experts_bound_ms"],
+                                    "decode": jb["decode_experts_bound_ms"]}},
              moe_batched_grad={layout: {k: qbg[layout][k] for k in (
                  "shape", "product", "ms", "device_ms", "plain_ms", "library_ms",
                  "library_device_ms", "bound_ms", "bound_by", "tflop_s")}
@@ -3778,7 +3999,9 @@ def main() -> int:
                  "library_ms", "library_device_ms", "library_backend", "bound_ms", "bound_by",
                  "ffma_ms")}
                  for k, t in detail["flash_attention_time"].items() if k != "smollm_360m"},
-             err_by_case=detail["flash_attention_err"]["by_case"]),
+             err_by_case=detail["flash_attention_err"]["by_case"],
+             jamba_launches={"shape": "q (64, 8, 512, 128) causal, internvl2_76b's of "
+                                      "by_config", "launches": jb["launches"]["flash_attention"]}),
         dict(name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan/kernel.py:70",
              **summed("ssd_scan"),
@@ -3787,7 +4010,15 @@ def main() -> int:
              bound_by=sst["bound_by"], library_ms=None, ffma_ms=sst["ffma_ms"],
              device_ms=sst["device_ms"],
              timed="one mamba2 layer's prefill scan, x (8, 512, 80, 64), N 128, bf16, "
-                   "mma path"),
+                   "mma path; jamba's under by_config",
+             by_config={JAMBA: {k: ssj[k] for k in (
+                 "shape", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                 "ffma_ms", "flop", "bytes")}
+                 | {"launches": jb["launches"]["ssd_scan"],
+                    "max_abs_err": detail["ssd_scan_err"]["by_case"][f"jamba {torch.bfloat16}"],
+                    "timed": "one jamba_1_5_large_398b Mamba layer's prefill scan, x (8, 512, "
+                             "256, 64), 8 groups, N 128, bf16, mma path; launches: the jamba "
+                             "serve's"}}),
         dict(name="flash_attention_bwd", route="cuda",
              source="src/repro_torch/csrc/flash_attention_bwd.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:88",

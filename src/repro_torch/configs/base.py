@@ -12,8 +12,8 @@ import importlib
 from repro_torch.models.model import ModelConfig
 
 ARCH_IDS = ["smollm_360m", "h2o_danube_1_8b", "command_r_plus_104b", "gemma3_12b",
-            "mamba2_2_7b", "internvl2_76b", "deepseek_v2_lite_16b", "qwen2_moe_a2_7b",
-            "musicgen_medium"]
+            "mamba2_2_7b", "jamba_1_5_large_398b", "internvl2_76b", "deepseek_v2_lite_16b",
+            "qwen2_moe_a2_7b", "musicgen_medium"]
 
 
 def get_config(arch: str, reduced: bool = False) -> ModelConfig:

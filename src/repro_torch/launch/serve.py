@@ -31,7 +31,6 @@ into their MoE groups), ``musicgen_medium`` (codebooks) and
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import time
 
 import numpy as np
@@ -103,7 +102,7 @@ def serve(arch: str, *, reduced: bool = True, batch: int = 4,
     dev = resolve_device(device)
     cfg = get_config(arch, reduced=reduced)
     if params is not None:
-        cfg = dataclasses.replace(cfg, n_periods=len(params["period"][0]))
+        cfg = M.at_depth_of(cfg, params)
     rng = np.random.default_rng(seed)
     if params is None:
         params = M.init_params(

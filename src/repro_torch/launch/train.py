@@ -18,7 +18,6 @@ Usage::
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import os
 import time
 
@@ -50,7 +49,7 @@ def train(arch: str, *, reduced: bool = True, steps: int = 20, batch: int = 8,
     dev = resolve_device(device)
     cfg = get_config(arch, reduced=reduced)
     if params is not None:
-        cfg = dataclasses.replace(cfg, n_periods=len(params["period"][0]))
+        cfg = M.at_depth_of(cfg, params)
     opt = opt or OptConfig(peak_lr=1e-3, warmup_steps=5, decay_steps=steps,
                            weight_decay=0.0)
 

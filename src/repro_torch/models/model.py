@@ -20,6 +20,7 @@ K per-codebook heads of one (d, K·V) matrix out).
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 
@@ -112,6 +113,17 @@ def unstack_periods(params: dict, n_periods: int) -> dict:
     return params | {"period": tuple(
         [_unstack(stacked, i) for i in range(n_periods)]
         for stacked in params["period"])}
+
+
+def at_depth_of(cfg: ModelConfig, params: dict) -> ModelConfig:
+    """``cfg`` at the depth of ``params``: the period cut to the layers
+    ``params["period"]`` holds (its first ones) and repeated as often as
+    they are stacked, for weights cut in depth to fit one card."""
+    period = params["period"]
+    if len(period) > len(cfg.period):
+        raise ValueError(f"params hold {len(period)} period layers; {cfg.name} has "
+                         f"{len(cfg.period)}")
+    return dataclasses.replace(cfg, period=cfg.period[:len(period)], n_periods=len(period[0]))
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device,

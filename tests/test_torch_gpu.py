@@ -2248,3 +2248,76 @@ def test_reduced_frontend_serve_on_cuda_matches_cpu(cuda, arch):
     on_cpu = serve(arch, device="cpu", params=params, **quiet)
     on_gpu = serve(arch, device=cuda, params=_to(params, cuda), **quiet)
     np.testing.assert_array_equal(on_gpu["tokens"], on_cpu["tokens"])
+
+
+# jamba_1_5_large_398b: 16 experts of d_ff 24576 at d 8192. Each expert
+# weight tensor holds 16 x 8192 x 24576 = 3.22 B elements, past 2^31; the
+# last expert's starts at element 3.02 B, so its offsets need 64 bits.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n", [(8192, 24576), (24576, 8192)])
+def test_tile_matmul_batched_past_2_31_weight_elements_reads_the_last_expert(cuda, k, n, dtype):
+    """jamba's gate / up (K 8192, N 24576) and down (K 24576, N 8192)
+    weights, 16 rows an expert (a decode step's): the first, the second to
+    last and the last expert against their plain products; each expert's
+    weights differ, so an offset that wrapped would read another's."""
+    e, m = 16, 16
+    w = torch.empty((e, k, n), dtype=dtype, device=cuda)
+    assert w.numel() > 2 ** 31 and (e - 1) * k * n > 2 ** 31
+    w.normal_(0.0, k ** -0.5, generator=torch.Generator(device=cuda).manual_seed(1))
+    x = _randn((e, m, k), dtype, cuda, 2)
+    fn = tm_kernel.tile_matmul
+    before, layouts = dict(fn.paths), dict(fn.layouts)
+    out = tm_kernel.tile_matmul(x, w)
+    path = "wgmma" if dtype == torch.bfloat16 else "ffma"
+    assert {p: fn.paths[p] - before[p] for p in fn.paths} == {
+        p: int(p == path) for p in tm_kernel.PATH_CODES}
+    assert fn.layouts["batched"] == layouts["batched"] + 1
+    for i in (0, e - 2, e - 1):
+        torch.testing.assert_close(out[i].float(), tile_matmul_ref(x[i], w[i]).float(),
+                                   rtol=TOL[dtype], atol=TOL[dtype], msg=lambda s, i=i: f"{i}: {s}")
+    assert not torch.equal(out[e - 1], out[e - 2])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_at_jamba_heads_and_groups_matches_plain(cuda, dtype):
+    """jamba's Mamba mixer: 256 heads of 64 in 8 groups (32 heads a group),
+    N 128, over two chunks and a ragged third."""
+    args = _ssd_inputs(1, 300, 256, 64, 8, 128, dtype, cuda, seed=31)
+    before = dict(ssd_kernel.ssd_scan.paths)
+    y, s = ssd_kernel.ssd_scan(*args)
+    path = "mma" if dtype == torch.bfloat16 else "ffma"
+    assert {p: ssd_kernel.ssd_scan.paths[p] - before[p] for p in before} == {
+        p: int(p == path) for p in ssd_kernel.PATH_CODES}
+    yr, sr = ssd_plain(*args)
+    ytol = 1e-3 if dtype == torch.float32 else TOL[dtype]
+    torch.testing.assert_close(y.float(), yr.float(), rtol=ytol, atol=ytol)
+    torch.testing.assert_close(s, sr, rtol=1e-3, atol=1e-3)
+
+
+def test_reduced_jamba_serve_on_cuda_matches_cpu_and_counts_every_launch(cuda):
+    """Reduced jamba (float32; 2 periods of attention + dense, Mamba + MoE,
+    Mamba + dense, Mamba + MoE) served on the card: the CPU's tokens, and
+    per forward pass 36 tile_matmul launches a period (4 attention, 18
+    Mamba, 6 dense FFN, 2 routers, 6 batched expert launches), none on
+    wgmma or mma; one flash_attention an attention layer and one ssd_scan a
+    Mamba layer, in prefill only, on ffma."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as M
+    arch, gen = "jamba_1_5_large_398b", 6
+    cfg = get_config(arch, reduced=True)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    quiet = dict(batch=2, prompt_len=32, gen=gen, cache_len=38, seed=0, log=lambda _: None)
+    on_cpu = serve(arch, device="cpu", params=params, **quiet)
+    gparams = _to(params, cuda)
+    counters = (tm_kernel.tile_matmul, fa_kernel.flash_attention, ssd_kernel.ssd_scan)
+    before = [dict(fn.paths) for fn in counters]
+    batched = tm_kernel.tile_matmul.layouts["batched"]
+    on_gpu = serve(arch, device=cuda, params=gparams, **quiet)
+    np.testing.assert_array_equal(on_gpu["tokens"], on_cpu["tokens"])
+    tm, fa, ss = ({p: fn.paths[p] - b[p] for p in b} for fn, b in zip(counters, before))
+    assert sum(tm.values()) == 36 * cfg.n_periods * (1 + gen), tm
+    assert tm["wgmma"] == tm["mma"] == 0, tm
+    assert tm_kernel.tile_matmul.layouts["batched"] - batched == 6 * cfg.n_periods * (1 + gen)
+    assert fa == {"mma": 0, "ffma": cfg.n_periods}
+    assert ss == {"mma": 0, "ffma": 3 * cfg.n_periods}
