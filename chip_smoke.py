@@ -99,6 +99,8 @@ and exits non-zero. Imports neither JAX nor the JAX package.
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import dataclasses
 import gc
 import importlib
@@ -193,25 +195,63 @@ def _graph_ms(fn, iters=20) -> float:
     return _time_ms(graph.replay, iters=5) / iters
 
 
+def _raw_events(prof) -> list:
+    """The trace's events as the profiler recorded them. Reading them
+    directly takes a fraction of a second where ``prof.key_averages()``
+    first builds torch.profiler's event tree: about 9 s for the 100k events
+    of a 48-layer train step, on the host's clock and checking nothing."""
+    return [e for e in prof.profiler.kineto_results.events()
+            if not (e.is_user_annotation() or e.is_hidden_event())]
+
+
 def _device_kernels(prof) -> list[tuple[str, float, int]]:
-    """(name, device ms, launches) of each kernel in a torch.profiler trace,
-    the longest first."""
+    """(name, device ms, launches) of each kernel (and copy) in a
+    torch.profiler trace, the longest first."""
     from torch.autograd import DeviceType
 
-    kern = []
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            us = getattr(e, "self_device_time_total", None)
-            kern.append((e.key, (us if us is not None else e.self_cuda_time_total) / 1e3,
-                         e.count))
-    return sorted(kern, key=lambda r: -r[1])
+    kern: dict = {}
+    for e in _raw_events(prof):
+        if e.device_type() == DeviceType.CUDA:
+            ns, n = kern.get(e.name(), (0, 0))
+            kern[e.name()] = (ns + e.duration_ns(), n + 1)
+    return sorted(((k, ns / 1e6, n) for k, (ns, n) in kern.items()), key=lambda r: -r[1])
 
 
-def _traced_ms(fn, names: tuple[str, ...], iters=10, tries=3) -> dict:
+def _host_ops(prof, top: int = 10) -> list[dict]:
+    """The ``top`` host operations of a trace by their own time: each
+    event's time less its direct children's on its thread (nested by start
+    and end), summed by name."""
+    from torch.autograd import DeviceType
+
+    threads: dict = {}
+    for e in _raw_events(prof):
+        if e.device_type() == DeviceType.CPU and not e.is_async() and e.duration_ns() > 0:
+            threads.setdefault(e.start_thread_id(), []).append(
+                (e.start_ns(), -e.end_ns(), e.name()))
+    own: dict = {}
+    for spans in threads.values():
+        stack: list = []                    # [end, name, own ns] of open events
+        for start, neg_end, name in sorted(spans):
+            while stack and stack[-1][0] <= start:
+                _, done, ns = stack.pop()
+                t, n = own.get(done, (0, 0))
+                own[done] = (t + ns, n + 1)
+            if stack:
+                stack[-1][2] -= -neg_end - start
+            stack.append([-neg_end, name, -neg_end - start])
+        for _, done, ns in stack:
+            t, n = own.get(done, (0, 0))
+            own[done] = (t + ns, n + 1)
+    rows = sorted(own.items(), key=lambda kv: -kv[1][0])[:top]
+    return [dict(name=k[:60], self_ms=ns / 1e6, calls=n) for k, (ns, n) in rows]
+
+
+def _traced_ms(fn, names: tuple[str, ...], iters=10, tries=5) -> dict:
     """Device time a launch of each kernel whose name holds one of
     ``names``, from a torch.profiler trace of ``iters`` calls after a
     warm-up call and, inside the trace, one small kernel. A trace can lose
-    a launch (at gemma3's shape 1 of the 3 dQ launches, in 3 traces of 3):
+    a launch (at gemma3's shape 1 of the 3 dQ launches, in 3 traces of 3),
+    or every launch of a kernel (gemma3's D 256 pair, in 3 traces of 3 once):
     up to ``tries`` traces are taken until each name matches one kernel
     that ran once a call; failing that, the last is used if each kernel
     ran at least ``iters`` - 1 times, and the time is over the launches
@@ -599,27 +639,37 @@ def _grad_operands(m: int, k: int, n: int, dtype, seed: int):
 def check_tile_matmul_grad(tm_kernel, tile_matmul_ref) -> dict:
     """The gradient products of smollm_360m's seven and mamba2_2_7b's six
     projections at M = 4096 (mamba2's give K = 80 for the dt projection's
-    dx and N = 80 and 128 for dw: TMA boxes the tiles overhang): dx = dz @
-    w^T (w read in place, ``trans_w``) and dw = x^T @ dz (x read in place,
-    ``trans_x``) against the plain version, bf16 through wgmma and float32
-    through ffma; two launches of dw give the same bits."""
+    dx and N = 80 and 128 for dw: TMA boxes the tiles overhang), bf16
+    through wgmma and float32 through ffma, and of musicgen_medium's six and
+    internvl2_76b's seven (``SERVED_LAYER``) in bf16: dx = dz @ w^T (w read
+    in place, ``trans_w``) and dw = x^T @ dz (x read in place, ``trans_x``)
+    against the plain version; two launches of dw give the same bits. Each
+    of the latter two's fused products also launches its float32 ``z``
+    (the product before the activation, with its bias), as its backward
+    does: its worst error is ``z``."""
     fn = tm_kernel.tile_matmul
     err: dict = {}
-    shapes = [kn for layer in LAYER.values() for kn in layer]
+    shapes = [(k, n, "none", False) for layer in LAYER.values() for k, n, _ in layer]
+    served = [kn for layer in SERVED_LAYER.values() for kn in layer]
     for dtype in (torch.bfloat16, torch.float32):
-        worst = {"dx": 0.0, "dw": 0.0}
-        for i, (k, n, _) in enumerate(shapes):
+        worst = {"dx": 0.0, "dw": 0.0} | ({"z": 0.0} if dtype == torch.bfloat16 else {})
+        cases = shapes + (served if dtype == torch.bfloat16 else [])
+        for i, (k, n, act, has_bias) in enumerate(cases):
             x, w, dz = _grad_operands(BATCH * PROMPT, k, n, dtype, 10 * i)
-            for name, a, b, kw in (("dx", dz, w, dict(trans_w=True)),
-                                   ("dw", x, dz, dict(trans_x=True))):
+            runs = [("dx", dz, w, None, dict(trans_w=True)),
+                    ("dw", x, dz, None, dict(trans_x=True))]
+            if act != "none":
+                b = _randn((n,), dtype, 10 * i + 3, 0.1) if has_bias else None
+                runs.append(("z", x, w, b, dict(out_dtype=torch.float32)))
+            for name, a, b, bias, kw in runs:
                 before, layouts = dict(fn.paths), dict(fn.layouts)
-                out = fn(a, b, **kw)
+                out = fn(a, b, bias, **kw)
                 _took(fn, {torch.bfloat16: "wgmma", torch.float32: "ffma"}[dtype], before)
                 layout = tm_kernel.layout_of(kw.get("trans_x", False), kw.get("trans_w", False))
                 assert fn.layouts[layout] == layouts[layout] + 1, (layout, fn.layouts)
-                ref = tile_matmul_ref(a, b, **kw)
-                torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype],
-                                           atol=TOL[dtype],
+                ref = tile_matmul_ref(a, b, bias, **kw)
+                tol = TOL[torch.float32 if name == "z" else dtype]
+                torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol,
                                            msg=lambda e, c=(name, k, n): f"{c}: {e}")
                 worst[name] = max(worst[name], (out.float() - ref.float()).abs().max().item())
                 if name == "dw":
@@ -851,8 +901,12 @@ def time_tile_matmul_grad(tm_kernel, tile_matmul_ref, arch: str = "smollm_360m")
     4096, bf16: dx = dz @ w^T and dw = x^T @ dz, by CUDA events (``ms``,
     kernel and ``torch.matmul`` on the same transposed views in turns) and
     by CUDA-graph replay (``device_ms``), each product apart and both
-    together."""
-    dt, m, layer = torch.bfloat16, BATCH * PROMPT, LAYER[arch]
+    together. A layer with a fused activation (``SERVED_LAYER``'s) also
+    times ``z``: the float32 product (with its bias) that each such
+    product's backward launches, against ``torch.addmm`` (or
+    ``torch.matmul``) of the same bf16 operands, which writes bf16."""
+    dt, m = torch.bfloat16, BATCH * PROMPT
+    layer = LAYER[arch] if arch in LAYER else tuple(l[:3] for l in SERVED_LAYER[arch])
     ops = [_grad_operands(m, k, n, dt, 10 * i) for i, (k, n, _) in enumerate(layer)]
     runs = {
         "dx": (lambda f: [f(dz, w, True, False) for _, w, dz in ops]),
@@ -878,6 +932,30 @@ def time_tile_matmul_grad(tm_kernel, tile_matmul_ref, arch: str = "smollm_360m")
             for k in ("ms", "library_ms", "device_ms", "plain_ms", "flop", "bytes")}
     both["bound_ms"], both["bound_by"] = _bound(both["flop"], both["bytes"], dt)
     out["both"] = both
+    fused = [i for i, (_, _, act) in enumerate(layer) if act != "none"]
+    if arch in SERVED_LAYER and fused:
+        bias = {i: _randn((layer[i][1],), dt, 90 + i, 0.1) if SERVED_LAYER[arch][i][3] else None
+                for i in fused}
+
+        def z_run(f):
+            return [f(ops[i][0], ops[i][1], bias[i]) for i in fused]
+
+        z_kern = lambda: z_run(lambda x, w, b: tm_kernel.tile_matmul(  # noqa: E731
+            x, w, b, out_dtype=torch.float32))
+        z_lib = lambda: z_run(lambda x, w, b: torch.matmul(x, w) if b is None  # noqa: E731
+                              else torch.addmm(b, x, w))
+        turns = [_time_ms(f) for f in (z_kern, z_lib) * 2]
+        flops = sum(2 * m * layer[i][0] * layer[i][1] for i in fused)
+        nbytes = sum((m * layer[i][0] + layer[i][0] * layer[i][1]) * 2 + m * layer[i][1] * 4
+                     for i in fused)
+        bound_ms, bound_by = _bound(flops, nbytes, dt)
+        kern_ms, lib_ms = (turns[0] + turns[2]) / 2, (turns[1] + turns[3]) / 2
+        out["z"] = dict(products=fused, ms=kern_ms, library_ms=lib_ms, turns_ms=turns,
+                        device_ms=_graph_ms(z_kern, iters=5),
+                        plain_ms=_time_ms(lambda: z_run(lambda x, w, b: tile_matmul_ref(
+                            x, w, b, out_dtype=torch.float32)), iters=5),
+                        flop=flops, bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by,
+                        tflop_s=flops / kern_ms / 1e9)
     return out
 
 
@@ -889,6 +967,8 @@ FLASH_BWD_TIMED = {"smollm_360m": (BATCH, 5, 3, PROMPT, 64, 0),
                    "gemma3_12b local": (2, 8, 2, 2048, 256, 1024),
                    "qwen2_moe_a2_7b": (8, 16, 1, 1024, 128, 0),
                    "deepseek_v2_lite_16b": (8, 16, 1, 1024, (192, 128), 0),
+                   "musicgen_medium": (BATCH, 24, 1, PROMPT, 64, 0),
+                   "internvl2_76b": (BATCH, 8, 8, PROMPT, 128, 0),
                    # the ACAN twin's layer (float32, ffma): 2 x 4 heads, 32 tokens
                    "deepseek_v2_lite_16b reduced": (2, 4, 1, 32, (24, 16), 0)}
 
@@ -1168,7 +1248,8 @@ def time_ssd_bwd(ssd_kernel, ssd_plain_bwd) -> dict:
 def _zero(counters: dict) -> None:
     for fn in counters.values():
         fn.launches = 0
-        for per in (getattr(fn, "paths", {}), getattr(fn, "layouts", {})):
+        for per in (getattr(fn, "paths", {}), getattr(fn, "layouts", {}),
+                    getattr(fn, "outputs", {})):
             for key in per:
                 per[key] = 0
 
@@ -2021,7 +2102,10 @@ def reduced_jamba(serve, M, rehome, steps_mod, get_config, counters: dict) -> di
     train step against the CPU's, routing first (``parity_train_moe_f32``,
     dropless at group 16 = 4E), whose launches on the card are
     ``_train_want``'s a step, every one on ffma: ssd_scan_bwd at G 2 beside
-    the attention's and the experts' gradients in one model."""
+    the attention's and the experts' gradients in one model; and
+    ``remat_determinism`` in float32 on the same batch size, every layer
+    kind's gradients under "dots" (the scan's outputs and the router's
+    product kept, the top-k recomputed from it) those of "nothing"."""
     cfg = get_config(JAMBA, reduced=True)
     run, mixers = JAMBA_REDUCED_RUN, _mixers(cfg)
     t0 = time.perf_counter()
@@ -2059,13 +2143,14 @@ def reduced_jamba(serve, M, rehome, steps_mod, get_config, counters: dict) -> di
     step = _read(counters)
     step_paths = {k: dict(fn.paths) for k, fn in counters.items() if hasattr(fn, "paths")}
     step_layouts = dict(counters["tile_matmul"].layouts)
-    want, _, want_layouts = _train_want(cfg)
-    want = {k: v // TRAIN_STEPS for k, v in want.items()}
+    want, want_layouts = _step_want(cfg)
     assert step == want, (step, want)
     assert step_paths == {k: dict.fromkeys(v, 0) | {"ffma": step[k]}
                           for k, v in step_paths.items()}, step_paths
-    assert step_layouts == {k: v // TRAIN_STEPS for k, v in want_layouts.items()}, step_layouts
+    assert step_layouts == want_layouts, step_layouts
     par.update(launches=step, tile_matmul_layouts=step_layouts)
+    rm = out["remat_f32"] = remat_determinism(M, cfg, **JAMBA_REDUCED_TRAIN, counters=counters)
+    print(f"remat reduced {JAMBA}, float32: {rm}")
     out["seconds"]["train_step"] = time.perf_counter() - t0
     print(f"parity f32 train step reduced {JAMBA}: {par}")
     torch.cuda.empty_cache()
@@ -2221,24 +2306,28 @@ def serve_batched(M, rehome, get_config, counters: dict) -> dict:
 TRAIN_STEPS = 5
 
 
-def _train_want(cfg) -> tuple[dict, dict, dict]:
-    """The launches ``TRAIN_STEPS`` steps of ``cfg`` make: by kernel, by
-    kernel and path (every bf16 product on wgmma, the float32 router on
-    ffma, every attention and scan and their backward on mma), and
-    tile_matmul's by layout. Layer by layer (the ``prefix`` layers, then
-    the periods): the 2-D products of the mixer (q, k, v, o; MLA's five:
-    wq, w_dkv, w_uk and w_uv read as (R, H D) matrices, wo; Mamba-2's six)
-    and of the FFN (a dense SwiGLU's gate, up, down; a MoE layer's shared
-    experts' three and its float32 router on ffma), and a MoE layer's three
-    batched expert products (gate, up, down: one launch each over the
-    experts). Each step: every product forward, again where remat
-    recomputes it, and its two gradient products (``x@w^T`` and ``x^T@w``,
-    the batched ones in their batched layouts); one float32 z for each
-    fused gate activation; every attention forward twice and its backward
-    once, every scan the same."""
+def _train_want(cfg, remat: str = "nothing") -> tuple[dict, dict, dict, int]:
+    """The launches ``TRAIN_STEPS`` steps of ``cfg`` make under ``remat``:
+    by kernel, by kernel and path (every bf16 product on wgmma, the float32
+    router on ffma, every attention and scan and their backward on mma),
+    tile_matmul's by layout, and its float32 z launches. Layer by layer
+    (the ``prefix`` layers, then the periods): the 2-D products of the
+    mixer (q, k, v, o; MLA's five: wq, w_dkv, w_uk and w_uv read as (R, H
+    D) matrices, wo; Mamba-2's six) and of the FFN (a dense SwiGLU's gate, up, down; a dense GELU's up
+    with bias and GELU and down with bias; a MoE layer's shared experts'
+    three and its float32 router on ffma), and a MoE layer's three batched
+    expert products (gate, up, down: one launch each over the experts).
+    Each step: every product forward, again where remat "nothing"
+    recomputes it ("dots" hands the recompute the forward's outputs, "none"
+    keeps every activation), and its two gradient products (``x@w^T`` and
+    ``x^T@w``, the batched ones in their batched layouts); one float32 z
+    for each fused activation that has a gradient (SwiGLU's SiLU, GELU);
+    every attention forward as often as a product and its backward once,
+    every scan the same."""
+    fwd = 2 if remat == "nothing" else 1
     layouts = dict.fromkeys(("x@w", "x@w^T", "x^T@w", "batched", "batched x@w^T",
                              "batched x^T@w"), 0)
-    ffma = attn = scan = 0
+    ffma = attn = scan = z = 0
     for lcfg in [*cfg.prefix, *cfg.period * cfg.n_periods]:
         prods = gates = experts = 0
         if lcfg.mixer == "attn":
@@ -2246,27 +2335,48 @@ def _train_want(cfg) -> tuple[dict, dict, dict]:
         else:
             prods, scan = 6, scan + 1
         if lcfg.ffn_kind == "dense":
-            prods, gates = prods + 3, gates + 1
+            prods += 3 if lcfg.dense.kind == "swiglu" else 2
+            gates += 1
         elif lcfg.ffn_kind == "moe":
             if lcfg.moe.n_shared:
                 prods, gates = prods + 3, gates + 1
-            prods, ffma, experts = prods + 1, ffma + 4, 3
-        layouts["x@w"] += 2 * prods + gates
+            prods, ffma, experts = prods + 1, ffma + fwd + 2, 3
+        z += gates + (experts > 0)
+        layouts["x@w"] += fwd * prods + gates
         layouts["x@w^T"] += prods
         layouts["x^T@w"] += prods
         if experts:
-            layouts["batched"] += 2 * experts + 1
+            layouts["batched"] += fwd * experts + 1
             layouts["batched x@w^T"] += experts
             layouts["batched x^T@w"] += experts
     layouts = {k: v * TRAIN_STEPS for k, v in layouts.items()}
-    launches = {"tile_matmul": sum(layouts.values()), "flash_attention": 2 * attn * TRAIN_STEPS,
-                "flash_attention_bwd": attn * TRAIN_STEPS, "ssd_scan": 2 * scan * TRAIN_STEPS,
+    launches = {"tile_matmul": sum(layouts.values()),
+                "flash_attention": fwd * attn * TRAIN_STEPS,
+                "flash_attention_bwd": attn * TRAIN_STEPS, "ssd_scan": fwd * scan * TRAIN_STEPS,
                 "ssd_scan_bwd": scan * TRAIN_STEPS}
     ffma *= TRAIN_STEPS
     by_path = {k: ({"wgmma": v - ffma, "mma": 0, "skinny": 0, "ffma": ffma}
                    if k == "tile_matmul" else {"mma": v, "ffma": 0})
                for k, v in launches.items()}
-    return launches, by_path, layouts
+    return launches, by_path, layouts, z * TRAIN_STEPS
+
+
+def _batch_at(cfg, batch: int, seq: int, step: int, device) -> dict:
+    """The batch ``train`` reads at ``step`` for ``cfg`` (cyclic tokens;
+    codebook tokens and labels (B, T, K), or seeded embeddings (B, T, d), as
+    its frontend takes them), on ``device``."""
+    from repro_torch.data.frontend import pipeline_for
+
+    return {k: torch.as_tensor(v, device=device)
+            for k, v in pipeline_for(cfg, batch, seq).batch_at(step).items()}
+
+
+def _step_want(cfg, remat: str = "nothing") -> tuple[dict, dict]:
+    """``_train_want`` for one step: launches by kernel and tile_matmul's
+    by layout."""
+    launches, _, layouts, _ = _train_want(cfg, remat)
+    return ({k: v // TRAIN_STEPS for k, v in launches.items()},
+            {k: v // TRAIN_STEPS for k, v in layouts.items()})
 
 
 def train_path(train, M, cfg, counters: dict, batch: int = BATCH,
@@ -2296,6 +2406,7 @@ def train_path(train, M, cfg, counters: dict, batch: int = BATCH,
     launches = _read(counters)
     by_path = {k: dict(fn.paths) for k, fn in counters.items() if hasattr(fn, "paths")}
     layouts = dict(counters["tile_matmul"].layouts)
+    outputs = dict(counters["tile_matmul"].outputs)
     peak = torch.cuda.max_memory_allocated()
     retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries
     losses = res["losses"]
@@ -2306,57 +2417,87 @@ def train_path(train, M, cfg, counters: dict, batch: int = BATCH,
                losses=losses, step_s=steps_s.tolist(), median_step_s=median,
                tokens_per_s=batch * seq / median, peak_mem_bytes=peak, alloc_retries=retries,
                launches=launches, launches_by_path=by_path, tile_matmul_layouts=layouts,
-               watchdog=res["watchdog"])
+               tile_matmul_outputs=outputs, watchdog=res["watchdog"])
     print(f"train {cfg.name}: losses {losses}, median step {median:.4f} s "
           f"({out['tokens_per_s']:.0f} tokens/s), peak memory {peak / 2**30:.3f} GiB, "
           f"launches {launches}, by path {by_path}, tile_matmul layouts {layouts}")
-    want, want_paths, want_layouts = _train_want(cfg)
+    want, want_paths, want_layouts, want_z = _train_want(cfg)
     assert launches == want, (launches, want)
     assert layouts == want_layouts, (layouts, want_layouts)
     assert by_path == want_paths, (by_path, want_paths)
+    # A bf16 model's only float32 outputs: the z of each fused activation.
+    assert outputs["bfloat16->float32"] == want_z, (outputs, want_z)
     return out, res
 
 
 def profile_train_step(steps_mod, cfg, res, counters: dict, batch: int = BATCH,
                        seq: int = PROMPT, names: tuple[str, ...] = ()) -> dict:
-    """One more train step from ``train``'s final state: host wall time
-    without tracing (median of 3), device kernel time from a torch.profiler
-    trace of a fourth, their ratio as the busy share, the top kernels, the
-    host's top operations by their own time (traced, so inflated), and the
-    traced launches of each kernel whose name holds one of ``names``."""
-    from torch.autograd import DeviceType
+    """One more train step from ``train``'s final state under ``cfg``'s
+    remat: host wall time without tracing (median of 3), the peak of
+    allocated memory over those three, device kernel time from a
+    torch.profiler trace of a fourth, their ratio as the busy share, the
+    top kernels, the host's top operations by their own time (traced, so
+    inflated), and the traced launches of each kernel whose name holds one
+    of ``names``."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
     from repro_torch.optim.optimizer import OptConfig
 
     opt = OptConfig(peak_lr=1e-3, warmup_steps=5, decay_steps=TRAIN_STEPS, weight_decay=0.0)
     step = steps_mod.make_train_step(cfg, opt)
-    batch = TokenPipeline(PipelineConfig(vocab=cfg.vocab, batch=batch, seq=seq,
-                                         mode="cyclic")).batch_at(TRAIN_STEPS)
-    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    batch = _batch_at(cfg, batch, seq, TRAIN_STEPS, "cuda")
     params, opt_state = res["params"], res["opt_state"]
     walls = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         step(params, opt_state, batch)
         walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
     _zero(counters)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         step(params, opt_state, batch)
         torch.cuda.synchronize()
     kern = _device_kernels(prof)
-    host = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU),
-                  key=lambda e: -e.self_cpu_time_total)[:10]
     wall_ms = sorted(walls)[1] * 1e3
     device_ms = sum(r[1] for r in kern)
-    return dict(wall_ms=wall_ms, device_ms=device_ms, busy_share=device_ms / wall_ms,
+    return dict(remat=cfg.remat, wall_ms=wall_ms, walls_ms=[w * 1e3 for w in walls],
+                device_ms=device_ms, busy_share=device_ms / wall_ms, peak_mem_bytes=peak,
                 launches=_read(counters),
                 traced_launches={n: sum(c for k, _, c in kern if n in k) for n in names},
                 top_kernels=[dict(name=k[:90], ms=t, calls=c) for k, t, c in kern[:12]],
-                top_host=[dict(name=e.key[:60], self_ms=e.self_cpu_time_total / 1e3,
-                               calls=e.count) for e in host])
+                top_host=_host_ops(prof))
+
+
+# glibc's mallopt parameters (malloc.h), and the thresholds the process
+# keeps after a ``_host_memory_kept`` block: the largest that glibc's own
+# adjustment reaches, which a program that sets one switches off.
+M_TRIM_THRESHOLD, M_MMAP_THRESHOLD, M_MMAP_MAX = -1, -3, -4
+MMAP_THRESHOLD, TRIM_THRESHOLD = 32 << 20, 64 << 20
+
+
+@contextlib.contextmanager
+def _host_memory_kept():
+    """Keeps the host memory that tensors free inside the block in this
+    process, for the block's next tensors: glibc otherwise maps each one
+    over 32 MiB afresh and unmaps it when it is freed, so that each of its
+    pages is faulted in and zeroed again on first touch (about 4 GB/s on the
+    card's host, most of the CPU's AdamW in a float32 step: 22 of the 35 s
+    of internvl2's). After the block, tensors over ``MMAP_THRESHOLD`` are
+    mapped again and the freed memory goes back to the system; the
+    thresholds stay fixed for the rest of the run."""
+    libc = ctypes.CDLL(None)
+    libc.mallopt(M_MMAP_MAX, 0)
+    libc.mallopt(M_TRIM_THRESHOLD, -1)
+    try:
+        yield
+    finally:
+        libc.mallopt(M_MMAP_THRESHOLD, MMAP_THRESHOLD)
+        libc.mallopt(M_TRIM_THRESHOLD, TRIM_THRESHOLD)
+        libc.mallopt(M_MMAP_MAX, 65536)
+        libc.malloc_trim(0)
 
 
 def parity_train_f32(M, steps_mod, pcfg, batch: int = 2, seq: int = 128) -> dict:
@@ -2370,32 +2511,34 @@ def parity_train_f32(M, steps_mod, pcfg, batch: int = 2, seq: int = 128) -> dict
     rate: Adam's first step moves a weight by lr g / (|g| + 1e-8), which
     turns the two devices' float32 rounding of a gradient entry near 1e-8
     into a visible part of lr; the gradient check above is the close one."""
-    return _compare_train_steps(_train_steps_f32(M, steps_mod, pcfg, batch, seq), pcfg,
-                                batch, seq)
+    with _host_memory_kept():
+        return _compare_train_steps(_train_steps_f32(M, steps_mod, pcfg, batch, seq), pcfg,
+                                    batch, seq)
 
 
 def _train_steps_f32(M, steps_mod, pcfg, batch: int, seq: int, wrap=None) -> dict:
     """One float32 train step of ``pcfg`` on the card and on the CPU from
     the same seeded weights and batch: {device: (params, opt state,
-    metrics)}. ``wrap(device, call)`` (optional) runs each step."""
-    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    metrics)}, and ``cpu_s``, the CPU step's seconds on the host's clock.
+    ``wrap(device, call)`` (optional) runs each step."""
     from repro_torch.optim.optimizer import OptConfig, init_opt_state
 
     wrap = wrap or (lambda _dev, call: call())
     pcfg = dataclasses.replace(pcfg, param_dtype="float32")
     opt = OptConfig(peak_lr=1e-3, warmup_steps=5, decay_steps=TRAIN_STEPS, weight_decay=0.0)
     params = M.init_params(pcfg, torch.Generator(device="cuda").manual_seed(3), "cuda")
-    tokens = TokenPipeline(PipelineConfig(vocab=pcfg.vocab, batch=batch, seq=seq,
-                                          mode="cyclic")).batch_at(0)
+    tokens = _batch_at(pcfg, batch, seq, 0, "cpu")
     step = steps_mod.make_train_step(pcfg, opt)
     runs = {}
 
     def run(dev, p):
         runs[dev] = wrap(dev, lambda: step(p, init_opt_state(p, opt), {
-            k: torch.as_tensor(v, device=dev) for k, v in tokens.items()}))
+            k: v.to(dev) for k, v in tokens.items()}))
 
     plain, card = _card_beside_host(run, params)
+    t0 = time.perf_counter()
     run("cpu", plain)
+    runs["cpu_s"] = time.perf_counter() - t0
     card()
     return runs
 
@@ -2452,7 +2595,7 @@ def _compare_train_steps(runs: dict, pcfg, batch: int, seq: int) -> dict:
                loss_cpu=mc["loss"], grad_norm_gpu=mg["grad_norm"],
                grad_norm_cpu=mc["grad_norm"], lr=lr, max_grad_err_rel=grad_errs[worst],
                max_grad_err_at=worst, max_param_err=param_err,
-               max_param_err_in_lr=param_err / lr)
+               max_param_err_in_lr=param_err / lr, cpu_step_s=runs["cpu_s"])
     grad_err = grad_errs[worst]
     assert grad_err <= 1e-3, out
     assert param_err <= 0.5 * lr, out
@@ -2465,19 +2608,45 @@ def _compare_train_steps(runs: dict, pcfg, batch: int, seq: int) -> dict:
 # global, 3.70 B parameters: 74 GB at the update's 20 bytes a parameter,
 # where its 48 layers would take 235 GB). Then a float32 train step of each
 # against the CPU's (periods kept, a mixed period cut to its first and last
-# layers; tokens past the window).
+# layers; tokens past the window). The two frontends the same way, 8 x 512:
+# musicgen_medium at full depth ((B, T, 4) codebook tokens and labels
+# through multi_head_xent; the GELU FFN's bias and GELU in tile_matmul's
+# epilogue), with the remat check on 2 layers and one more profiled step
+# under remat "dots"; internvl2_76b (seeded embeddings) cut to 2 layers.
+# Each float32 step is sized so that its CPU half takes seconds: musicgen's
+# 2 layers on 2 x 512 tokens, internvl2's 1 layer (and its 128256-wide
+# head, 1.9 B parameters in all) on 1 x 128.
 DENSE_TRAIN = {
     "h2o_danube_1_8b": dict(batch=2, seq=8192, n_periods=None, parity_periods=2,
                             parity=dict(batch=1, seq=4224)),
     "gemma3_12b": dict(batch=2, seq=2048, n_periods=2, parity_periods=1,
                        parity=dict(batch=1, seq=1152)),
+    "musicgen_medium": dict(batch=BATCH, seq=PROMPT, n_periods=None, parity_periods=2,
+                            parity=dict(batch=2, seq=512), remat_periods=2,
+                            remat=dict(batch=2, seq=512), profile_dots=True),
+    "internvl2_76b": dict(batch=BATCH, seq=PROMPT, n_periods=2, parity_periods=1,
+                          parity=dict(batch=1, seq=128),
+                          reduced_why="80 layers are 139 GB in bf16; at the update's 20 "
+                                      "bytes a parameter 2 layers (2.762 B parameters, most "
+                                      "of them the 128256 x 8192 head) take 55.2 GB and 3 "
+                                      "would take 72.4 GB before the activations"),
 }
+
+
+def _print_train_profile(arch: str, prof: dict) -> None:
+    print(f"profile {arch} train step, remat {prof['remat']}: wall {prof['wall_ms']:.3f} ms, "
+          f"device kernels {prof['device_ms']:.3f} ms, busy share {prof['busy_share']:.3f}, "
+          f"peak memory {prof['peak_mem_bytes'] / 2**30:.3f} GiB, launches "
+          f"{prof['launches']}, top {prof['top_kernels'][:5]}")
 
 
 def dense_train(train, M, steps_mod, get_config, arch: str, counters: dict) -> dict:
     """Train ``arch`` as ``DENSE_TRAIN`` sizes it through ``train_path``
     (launches asserted per kernel, path and layout: flash_attention_bwd on
-    mma once a layer a step), profile one more step, then hold a float32
+    mma once a layer a step), profile one more step (and, where the spec
+    asks, one under remat "dots": its launches ``_train_want``'s for
+    "dots", its wall and peak memory beside "nothing"'s), then, where the
+    spec asks, ``remat_determinism`` at full width, and hold a float32
     train step against the CPU's."""
     spec = DENSE_TRAIN[arch]
     full = get_config(arch)
@@ -2485,17 +2654,27 @@ def dense_train(train, M, steps_mod, get_config, arch: str, counters: dict) -> d
         full, n_periods=spec["n_periods"])
     out, res = train_path(train, M, cfg, counters, batch=spec["batch"], seq=spec["seq"])
     if cfg is not full:
-        out["reduced"] = {"n_periods": f"{full.n_periods} -> {cfg.n_periods}"}
+        out["reduced"] = {"n_periods": f"{full.n_periods} -> {cfg.n_periods}",
+                          "layers": f"{full.n_layers} -> {cfg.n_layers}"}
+        if "reduced_why" in spec:
+            out["reduced"]["why"] = spec["reduced_why"]
     out["params"] = M.param_count(cfg)
     prof = out["profile"] = profile_train_step(steps_mod, cfg, res, counters,
                                                spec["batch"], spec["seq"])
-    print(f"profile {arch} train step: wall {prof['wall_ms']:.3f} ms, device kernels "
-          f"{prof['device_ms']:.3f} ms, busy share {prof['busy_share']:.3f}, "
-          f"launches {prof['launches']}, top {prof['top_kernels'][:5]}")
-    assert prof["launches"] == {k: v // TRAIN_STEPS
-                                for k, v in _train_want(cfg)[0].items()}, prof["launches"]
+    _print_train_profile(arch, prof)
+    assert prof["launches"] == _step_want(cfg)[0], prof["launches"]
+    if spec.get("profile_dots"):
+        dcfg = dataclasses.replace(cfg, remat="dots")
+        dots = out["profile_dots"] = profile_train_step(steps_mod, dcfg, res, counters,
+                                                        spec["batch"], spec["seq"])
+        _print_train_profile(arch, dots)
+        assert dots["launches"] == _step_want(dcfg, "dots")[0], dots["launches"]
     del res
     torch.cuda.empty_cache()
+    if "remat" in spec:
+        rcfg = _parity_config(full, spec["remat_periods"])
+        rm = out["remat"] = remat_determinism(M, rcfg, **spec["remat"], counters=counters)
+        print(f"remat {arch} full width, {rcfg.n_layers} layers, {rcfg.param_dtype}: {rm}")
     pcfg = _parity_config(full, spec["parity_periods"])
     par = out["parity_f32"] = parity_train_f32(M, steps_mod, pcfg, **spec["parity"])
     print(f"parity f32 train step {arch} full width, {pcfg.n_layers} layers: {par}")
@@ -2525,34 +2704,53 @@ DEEPSEEK_TRAIN = dict(batch=BATCH, seq=1024, n_periods=4, parity_periods=1,
 MOE_TRAIN = {QWEN2: QWEN2_TRAIN, DEEPSEEK: DEEPSEEK_TRAIN}
 
 
-def remat_determinism(M, cfg, batch: int, seq: int) -> dict:
-    """bf16 gradients of ``train_loss`` of ``cfg`` from seeded weights on
-    one cyclic batch under remat "nothing" (each layer's forward recomputed
-    in the backward, a MoE layer's routing included), "none" (every
-    activation kept) and "nothing" again: every gradient the same bits in
-    all three. A MoE layer's buffers have one shape whatever the routing,
+REMATS = ("nothing", "none", "dots", "nothing")
+
+
+def remat_determinism(M, cfg, batch: int, seq: int, counters: dict) -> dict:
+    """Gradients of ``train_loss`` of ``cfg`` (in its own dtype) from
+    seeded weights on one cyclic batch under each remat of ``REMATS``:
+    "nothing" (each layer's forward recomputed in the backward, a MoE
+    layer's routing included), "none" (every activation kept), "dots" (the
+    recompute handed each kernel forward's output) and "nothing" again:
+    every gradient the same bits in all four, and each run's launches by
+    kernel and tile_matmul's by layout ``_step_want``'s for its remat (a
+    forward launched once a step under "dots" and "none", twice under
+    "nothing"); ``peak_above_weights_bytes``: each run's peak of allocated
+    memory above what was allocated before it (its activations, kept
+    outputs and gradients; the gradients of the runs before it are held).
+    A MoE layer's buffers have one shape whatever the routing,
     so a recompute that routed a token otherwise would pass autograd's
     checks and give the gradient of another routing; and the backward adds
     nothing by index, so two passes agree."""
-    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
     from repro_torch.optim.optimizer import tree_leaves, tree_map
 
     params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(4), "cuda")
-    tokens = {k: torch.as_tensor(v, device="cuda") for k, v in TokenPipeline(PipelineConfig(
-        vocab=cfg.vocab, batch=batch, seq=seq, mode="cyclic")).batch_at(1).items()}
-    runs = []
-    for remat in ("nothing", "none", "nothing"):
+    tokens = _batch_at(cfg, batch, seq, 1, "cuda")
+    runs, launches, layouts, peaks = [], [], [], []
+    for remat in REMATS:
         leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _zero(counters)
         loss, _ = M.train_loss(leaves, dataclasses.replace(cfg, remat=remat), tokens)
         grads = torch.autograd.grad(loss, tree_leaves(leaves), materialize_grads=True)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        launches.append(_read(counters))
+        layouts.append(dict(counters["tile_matmul"].layouts))
         runs.append((loss.item(), grads))
-        del leaves, loss
+        del leaves, loss, grads
     (loss0, g0), *rest = runs
-    out = dict(layers=cfg.n_layers, batch=batch, seq=seq, losses=[r[0] for r in runs],
-               tensors=len(g0), remats=("nothing", "none", "nothing"),
+    out = dict(layers=cfg.n_layers, dtype=cfg.param_dtype, batch=batch, seq=seq,
+               losses=[r[0] for r in runs], tensors=len(g0), remats=REMATS,
+               launches=launches, tile_matmul_layouts=layouts, peak_above_weights_bytes=peaks,
                tensors_differing=[sum(not torch.equal(a, b) for a, b in zip(g0, g))
                                   for _, g in rest])
-    assert all(r[0] == loss0 for r in rest) and out["tensors_differing"] == [0, 0], out
+    assert all(r[0] == loss0 for r in rest) and out["tensors_differing"] == [0, 0, 0], out
+    for remat, got, got_layouts in zip(REMATS, launches, layouts):
+        assert (got, got_layouts) == _step_want(cfg, remat), (remat, got, got_layouts)
     del params, runs, g0, rest
     torch.cuda.empty_cache()
     return out
@@ -2579,14 +2777,15 @@ def parity_train_moe_f32(M, steps_mod, pcfg, batch: int, seq: int,
         routes[dev] += seen[:_moe_layers(pcfg)]       # the forward's, layer by layer
         return out
 
-    runs = _train_steps_f32(M, steps_mod, pcfg, batch, seq, wrap=wrap)
-    moe = _moe_cfg(pcfg)
-    out = _routing_flips(routes, moe.top_k)
-    out["dropped"] = _dropped_pairs(routes["cpu"], moe, batch * seq)
-    assert (sum(out["dropped"]) == 0) if dropless else (sum(out["dropped"]) > 0), out
-    if out["near_tie_flips"] == 0:
-        out |= _compare_train_steps(runs, pcfg, batch, seq)
-    del runs
+    with _host_memory_kept():
+        runs = _train_steps_f32(M, steps_mod, pcfg, batch, seq, wrap=wrap)
+        moe = _moe_cfg(pcfg)
+        out = _routing_flips(routes, moe.top_k)
+        out["dropped"] = _dropped_pairs(routes["cpu"], moe, batch * seq)
+        assert (sum(out["dropped"]) == 0) if dropless else (sum(out["dropped"]) > 0), out
+        if out["near_tie_flips"] == 0:
+            out |= _compare_train_steps(runs, pcfg, batch, seq)
+        del runs
     torch.cuda.empty_cache()
     return out
 
@@ -2617,19 +2816,16 @@ def train_moe(train, M, steps_mod, get_config, counters: dict, arch: str) -> dic
     names = FLASH_BWD_KERNELS[_attn_dims(cfg)]
     prof = out["profile"] = profile_train_step(steps_mod, cfg, res, counters, spec["batch"],
                                                spec["seq"], names=names)
-    print(f"profile {cfg.name} train step: wall {prof['wall_ms']:.3f} ms, device kernels "
-          f"{prof['device_ms']:.3f} ms, busy share {prof['busy_share']:.3f}, "
-          f"launches {prof['launches']}, traced {prof['traced_launches']}, "
-          f"top {prof['top_kernels'][:6]}")
-    assert prof["launches"] == {k: v // TRAIN_STEPS
-                                for k, v in _train_want(cfg)[0].items()}, prof["launches"]
+    _print_train_profile(cfg.name, prof)
+    print(f"traced {prof['traced_launches']}")
+    assert prof["launches"] == _step_want(cfg)[0], prof["launches"]
     # a trace can lose a launch (``_traced_ms``): one a kernel at most
     assert all(cfg.n_layers - 1 <= c <= cfg.n_layers
                for c in prof["traced_launches"].values()), prof["traced_launches"]
     del res
     torch.cuda.empty_cache()
     rcfg = dataclasses.replace(full, n_periods=spec["parity_periods"])
-    rm = out["remat"] = remat_determinism(M, rcfg, **spec["remat"])
+    rm = out["remat"] = remat_determinism(M, rcfg, **spec["remat"], counters=counters)
     print(f"remat {cfg.name} full width, {rcfg.n_layers} layers, bf16: {rm}")
     par = out["parity_f32"] = parity_train_moe_f32(M, steps_mod, rcfg, **spec["parity"])
     print(f"parity f32 train step {cfg.name} full width, {rcfg.n_layers} layers: {par}")
@@ -2701,8 +2897,9 @@ def acan_path(step_runner, M, cfg, counters: dict) -> dict:
     twice from the same seeded weights: without crashes, then with a
     handler crash probability of 0.25. Both commit every version once, give
     the same losses and final weights bit for bit, break no tuple-space
-    protocol rule and leak nothing; the crash-free run re-issues nothing.
-    Each kernel's launches are a whole multiple (the same for all three) of
+    protocol rule and leak nothing; the crash-free run re-issues nothing
+    (the collector frozen over the objects earlier phases left, as in
+    ``acan_deepseek``). Each kernel's launches are a whole multiple (the same for all three) of
     one microbatch gradient's, measured first on this thread, and at least
     n_micro x steps of them, all on the tensor-core paths. A step's time is
     the host clock between two committed versions; the median of steps 2-6
@@ -2717,13 +2914,21 @@ def acan_path(step_runner, M, cfg, counters: dict) -> dict:
     clean.warm_up()
     torch.cuda.synchronize()
     per_grad = _read(counters)
-    want = {k: v // TRAIN_STEPS for k, v in _train_want(cfg)[0].items()}
+    want = _step_want(cfg)[0]
     assert per_grad == want, (per_grad, want)
     torch.cuda.reset_peak_memory_stats()
-    res, launches, by_path, steps_s, waited_clean, over, gcs = _acan_run(clean, counters)
-    peak = torch.cuda.max_memory_allocated()
-    crashed = _acan_runner(step_runner, cfg, params, handler_crash_prob=0.25)
-    res_c, launches_c, by_path_c, steps_c, waited, _, _ = _acan_run(crashed, counters)
+    # As in acan_deepseek: a full collection over the objects the earlier
+    # phases left (0.59 s over 474,891 of them in one run of the parent
+    # tree) can pass a crash-free round's deadline and re-issue its tasks.
+    gc.collect()
+    gc.freeze()
+    try:
+        res, launches, by_path, steps_s, waited_clean, over, gcs = _acan_run(clean, counters)
+        peak = torch.cuda.max_memory_allocated()
+        crashed = _acan_runner(step_runner, cfg, params, handler_crash_prob=0.25)
+        res_c, launches_c, by_path_c, steps_c, waited, _, _ = _acan_run(crashed, counters)
+    finally:
+        gc.unfreeze()
     final = [tree_leaves(r.ts.try_read(("params", steps))[1]) for r in (clean, crashed)]
     median = float(np.median(steps_s[1:]))
     tokens = n_micro * ACAN["micro_batch"] * ACAN["seq"]
@@ -3627,6 +3832,9 @@ def main() -> int:
     detail["flash_attention_bwd_time"] = time_flash_bwd(fa_kernel, flash_attention_bwd_ref)
     detail["tile_matmul_grad_mamba2_time"] = time_tile_matmul_grad(tm_kernel, tile_matmul_ref,
                                                                    "mamba2_2_7b")
+    for arch in ("musicgen_medium", "internvl2_76b"):
+        detail[f"tile_matmul_grad_{arch.split('_')[0]}_time"] = time_tile_matmul_grad(
+            tm_kernel, tile_matmul_ref, arch)
     detail["ssd_scan_bwd_time"] = time_ssd_bwd(ssd_kernel, ssd_plain_bwd)
     detail["moe_batched_time"] = time_moe_batched(tm_kernel, tile_matmul_batched_ref, get_config)
     detail["moe_batched_deepseek_time"] = time_moe_batched(tm_kernel, tile_matmul_batched_ref,
@@ -3636,7 +3844,8 @@ def main() -> int:
     detail["moe_batched_grad_time"] = time_moe_batched_grad(tm_kernel, tile_matmul_batched_ref,
                                                             get_config)
     for k in ("tile_matmul", "flash_attention", "ssd_scan", "ssd_scan_jamba", "tile_matmul_grad",
-              "flash_attention_bwd", "tile_matmul_grad_mamba2", "ssd_scan_bwd", "moe_batched",
+              "flash_attention_bwd", "tile_matmul_grad_mamba2", "tile_matmul_grad_musicgen",
+              "tile_matmul_grad_internvl2", "ssd_scan_bwd", "moe_batched",
               "moe_batched_deepseek", "moe_batched_jamba", "moe_batched_grad"):
         print(f"times (ms): {k} {detail[k + '_time']}")
 
@@ -3753,11 +3962,8 @@ def main() -> int:
         detail["train" + key] = tr
         prof = detail["profile_train" + key] = profile_train_step(steps_mod, tcfg, res,
                                                                   counters)
-        print(f"profile {tcfg.name} train step: wall {prof['wall_ms']:.3f} ms, device "
-              f"kernels {prof['device_ms']:.3f} ms, busy share {prof['busy_share']:.3f}, "
-              f"launches {prof['launches']}, top {prof['top_kernels'][:5]}")
-        assert prof["launches"] == {k: v // TRAIN_STEPS
-                                    for k, v in _train_want(tcfg)[0].items()}, prof["launches"]
+        _print_train_profile(tcfg.name, prof)
+        assert prof["launches"] == _step_want(tcfg)[0], prof["launches"]
         trains[tcfg.name] = tr
         del res
         torch.cuda.empty_cache()
@@ -3798,6 +4004,21 @@ def main() -> int:
                                                DEEPSEEK)
     _record("train_deepseek_v2_lite_16b", tds)
     mark("train_deepseek_v2_lite_16b")
+
+    # 9e. Train the two frontends: full-width, full-depth musicgen_medium
+    # (codebooks, 8 x 512; 6 products a layer, the FFN's up with bias and
+    # GELU, the attention backward at D 64, G 1) with the remat check on 2
+    # layers and a profiled step under remat "dots"; full-width internvl2_76b
+    # at 2 of its 80 layers (embeds, 8 x 512; the attention backward at D
+    # 128, G 8); a float32 step of each against the CPU.
+    tmg = detail["train_musicgen"] = dense_train(train, M, steps_mod, get_config,
+                                                 "musicgen_medium", counters)
+    _record("train_musicgen_medium", tmg)
+    mark("train_musicgen_medium")
+    tiv = detail["train_internvl2"] = dense_train(train, M, steps_mod, get_config,
+                                                  "internvl2_76b", counters)
+    _record("train_internvl2_76b", tiv)
+    mark("train_internvl2_76b")
 
     # 10. Path 8: train full-width, full-depth smollm_360m through the ACAN
     # runner (Manager and Handler threads over the tuple space), with and
@@ -3865,8 +4086,8 @@ def main() -> int:
     sst, gt = detail["ssd_scan_time"], detail["tile_matmul_grad_time"]
     fbts, sbt = detail["flash_attention_bwd_time"], detail["ssd_scan_bwd_time"]
     fbt = fbts["smollm_360m"]
-    runs = (sm, ms, g3, dn, cr, q2, ds, mg, iv, jb, sb, tr, mt, tdn, tg3, tq2, tds, ac, ad, pp,
-            ct, pf, mp)
+    trained = (tr, mt, tdn, tg3, tq2, tds, tmg, tiv)
+    runs = (sm, ms, g3, dn, cr, q2, ds, mg, iv, jb, sb, *trained, ac, ad, pp, ct, pf, mp)
     mlp_t = detail["mlp_ops"]["times"]["256x256"]
     moe_t = detail["moe_ops"]["times"]
     qb, qbg = detail["moe_batched_time"], detail["moe_batched_grad_time"]
@@ -3887,8 +4108,8 @@ def main() -> int:
             for phase in times}
 
     def summed(name: str) -> dict:
-        """Launches of ``name`` over the twenty-three paths (the ten serves,
-        the twin of serve_batched.py, the six train runs, the ACAN path's
+        """Launches of ``name`` over the twenty-five paths (the ten serves,
+        the twin of serve_batched.py, the eight train runs, the ACAN path's
         crash-free run and its deepseek twin's, the paper's four MLP runs,
         the two-tenant cloud's crash run, exp 1's three fleet runs with the
         workers' own launches, the MoE's six runs on the card), in all and
@@ -3902,7 +4123,7 @@ def main() -> int:
              replaces="src/repro/kernels/tile_matmul/kernel.py:58",
              **summed("tile_matmul"),
              launches_by_layout_in_training={
-                 k: sum(r["tile_matmul_layouts"][k] for r in (tr, mt, tdn, tg3, tq2, tds))
+                 k: sum(r["tile_matmul_layouts"][k] for r in trained)
                  for k in tr["tile_matmul_layouts"]},
              max_abs_err=detail["tile_matmul_err"][str(torch.bfloat16)],
              ms=tmt["ms"], plain_ms=tmt["plain_ms"], bound_ms=tmt["bound_ms"],
@@ -3928,6 +4149,23 @@ def main() -> int:
                 "timed": "dx = dz @ w^T (w read in place, K-major wgmma B) and "
                          "dw = x^T @ dz (x read in place, MN-major wgmma A) of one "
                          "smollm layer's 7 projections, M=4096, bf16"},
+             grad_by_config={arch: {part: {k: t[part][k] for k in (
+                 "ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "flop",
+                 "tflop_s")} for part in ("dx", "dw", "z")}
+                 | {"launches": {"dx": run["tile_matmul_layouts"]["x@w^T"],
+                                 "dw": run["tile_matmul_layouts"]["x^T@w"],
+                                 "z": run["tile_matmul_outputs"]["bfloat16->float32"]},
+                    "max_abs_err": detail["tile_matmul_grad_err"][str(torch.bfloat16)],
+                    "timed": f"one {arch} layer's bf16 gradient products at M=4096 (dx, dw: "
+                             "library torch.matmul on the transposed views) and the float32 z "
+                             "of its fused product (" + ("up with bias and GELU: library "
+                             "torch.addmm" if arch == "musicgen_medium" else "gate with "
+                             "SiLU: library torch.matmul") + ", which writes bf16); launches: "
+                             "the config's train run"}
+                 for arch, t, run in (("musicgen_medium",
+                                       detail["tile_matmul_grad_musicgen_time"], tmg),
+                                      ("internvl2_76b",
+                                       detail["tile_matmul_grad_internvl2_time"], tiv))},
              mlp_f32={k: mlp_t[k] for k in ("ms", "device_ms", "plain_ms", "library_ms",
                                             "library_device_ms", "bound_ms", "bound_by",
                                             "path")}
@@ -4045,7 +4283,7 @@ def main() -> int:
                  "dq_ms", "dkv_ms", "flop")}
                  for k, t in fbts.items() if k != "smollm_360m"},
              launches_by_train_run={r["arch"]: r["launches"]["flash_attention_bwd"]
-                                    for r in (tr, tdn, tg3, tq2, tds, ad)},
+                                    for r in (tr, tdn, tg3, tq2, tds, tmg, tiv, ad)},
              err_by_case=detail["flash_attention_bwd_err"]["by_case"]),
         dict(name="ssd_scan_bwd", route="cuda", source="src/repro_torch/csrc/ssd_scan_bwd.cu",
              replaces="src/repro/kernels/ssd_scan/kernel.py:70",

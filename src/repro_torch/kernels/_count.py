@@ -1,10 +1,10 @@
 """Launch counters of the kernel wrappers.
 
 Each wrapper carries ``.launches`` and per-key dicts (``.paths``, and
-``.layouts`` on ``tile_matmul``) that :func:`launch` raises by one after a
-launch. The ACAN runtime launches from several handler threads at once and
-``x += 1`` on an attribute is a read and a write that two threads can
-interleave, so every update holds one lock.
+``.layouts`` and ``.outputs`` on ``tile_matmul``) that :func:`launch`
+raises by one after a launch. The ACAN runtime launches from several
+handler threads at once and ``x += 1`` on an attribute is a read and a
+write that two threads can interleave, so every update holds one lock.
 """
 
 from __future__ import annotations

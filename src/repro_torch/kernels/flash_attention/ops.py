@@ -7,22 +7,26 @@ block sizes are picked here.
 
 Where a gradient is wanted the attention runs inside :class:`_Attention`:
 its forward also keeps the row log-sum-exp, and its backward is the
-``flash_attention_bwd`` launch (the plain formula for CPU tensors).
+``flash_attention_bwd`` launch (the plain formula for CPU tensors). Under
+``remat="dots"`` a layer's recompute gets O and the lse back from the
+layer's tape (:mod:`repro_torch.kernels._keep`) instead of launching.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _keep
 from repro_torch.kernels.flash_attention import kernel
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
                                                      flash_attention_ref)
 
 
 def _forward(q, k, v, **kw):
-    """The plain version for a CPU tensor, a kernel launch for any other."""
+    """The plain version for a CPU tensor, a kernel launch for any other;
+    the kept output where a ``"dots"`` layer is recomputed."""
     fn = flash_attention_ref if q.device.type == "cpu" else kernel.flash_attention
-    return fn(q, k, v, **kw)
+    return _keep.kept(fn, q, k, v, **kw)
 
 
 class _Attention(torch.autograd.Function):

@@ -13,13 +13,16 @@ tensors). At mamba2_2_7b's training shape, writing them cost the forward
 0.029 ms where rebuilding them cost the first backward 0.43 ms (an
 NVIDIA H100 80GB HBM3 at 700 W; PERF.md). The
 reference differentiates its plain ``ssd_chunked`` with XLA; its Pallas
-kernel has no backward.
+kernel has no backward. Under ``remat="dots"`` a layer's recompute gets y,
+the final state and the chunk entry states back from the layer's tape
+(:mod:`repro_torch.kernels._keep`) instead of launching.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _keep
 from repro_torch.kernels.ssd_scan import kernel
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref, ssd_scan_ref
 
@@ -64,17 +67,24 @@ def ssd_plain_bwd(x, dt, A, B, C, D, dy, dstate=None):
             da.reshape(Bt, H).sum(0), group(db), group(dc), dd.reshape(Bt, H).sum(0))
 
 
+def _scan_with_states(x, dt, A, B, C, D):
+    """One launch that also writes the state entering each chunk: (y,
+    final state, chunk states)."""
+    states = torch.empty(kernel.chunk_states_shape(x, B), dtype=torch.float32,
+                         device=x.device)
+    return *kernel.ssd_scan(x, dt, A, B, C, D, chunk_states=states), states
+
+
 class _SSD(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dt, A, B, C, D):
         ctx.set_materialize_grads(False)
         if x.device.type == "cpu":
             ctx.save_for_backward(x, dt, A, B, C, D)
-            return ssd_plain(x, dt, A, B, C, D)
-        states = torch.empty(kernel.chunk_states_shape(x, B), dtype=torch.float32,
-                             device=x.device)
+            return _keep.kept(ssd_plain, x, dt, A, B, C, D)
+        y, state, states = _keep.kept(_scan_with_states, x, dt, A, B, C, D)
         ctx.save_for_backward(x, dt, A, B, C, D, states)
-        return kernel.ssd_scan(x, dt, A, B, C, D, chunk_states=states)
+        return y, state
 
     @staticmethod
     def backward(ctx, dy, dstate):
@@ -97,4 +107,4 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
             B.contiguous(), C.contiguous(), D.float().contiguous())
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return _SSD.apply(*args)
-    return ssd_plain(*args) if x.device.type == "cpu" else kernel.ssd_scan(*args)
+    return _keep.kept(ssd_plain if x.device.type == "cpu" else kernel.ssd_scan, *args)

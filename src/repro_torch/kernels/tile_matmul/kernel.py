@@ -49,7 +49,10 @@ launches count under the layouts ``batched``, ``batched x@w^T`` and
 ``batched x^T@w``.
 
 ``tile_matmul.launches`` counts launches; ``tile_matmul.paths`` counts
-them per path and ``tile_matmul.layouts`` per layout.
+them per path, ``tile_matmul.layouts`` per layout and
+``tile_matmul.outputs`` per operand and output type (``"bfloat16->float32"``
+is the float32 ``z`` that a bf16 product's backward launches for its fused
+activation; no forward of a bf16 model writes float32).
 """
 
 from __future__ import annotations
@@ -154,7 +157,8 @@ def tile_matmul(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
     if err:
         raise RuntimeError(f"tile_matmul launch failed ({path} path, {layout}"
                            f"{', batched' if batched else ''}): CUDA error {err}")
-    _count.launch(tile_matmul, paths=path, layouts=BATCHED[layout] if batched else layout)
+    _count.launch(tile_matmul, paths=path, layouts=BATCHED[layout] if batched else layout,
+                  outputs=OUTPUTS[x.dtype, out_dtype])
     return out
 
 
@@ -163,3 +167,6 @@ BATCHED = {"x@w": "batched", "x@w^T": "batched x@w^T", "x^T@w": "batched x^T@w"}
 tile_matmul.launches = 0
 tile_matmul.paths = dict.fromkeys(PATH_CODES, 0)
 tile_matmul.layouts = dict.fromkeys((*LAYOUT_CODES, *BATCHED.values()), 0)
+# The counter key of each operand and output type.
+OUTPUTS = {(a, b): f"{str(a)[6:]}->{str(b)[6:]}" for a in DTYPE_CODES for b in DTYPE_CODES}
+tile_matmul.outputs = dict.fromkeys(OUTPUTS.values(), 0)

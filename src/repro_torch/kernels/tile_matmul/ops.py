@@ -13,12 +13,17 @@ backward is made of launches too: ``dz`` (``dy``, or ``dy * act'(z)`` with
 with XLA; its Pallas kernel has no backward. :func:`batched_product`, the
 MoE layer's expert products, differentiates the same way through
 :class:`_Batched`, its gradient products batched launches too.
+
+Under ``remat="dots"`` a layer's recompute gets each forward product's
+output back from the layer's tape (:mod:`repro_torch.kernels._keep`)
+instead of launching it again.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _keep
 from repro_torch.kernels.tile_matmul import kernel
 from repro_torch.kernels.tile_matmul.ref import (ACT_GRADS, tile_matmul_batched_ref,
                                                   tile_matmul_ref)
@@ -55,7 +60,7 @@ class _Matmul(torch.autograd.Function):
     def forward(ctx, x, w, b, activation, out_dtype):
         ctx.save_for_backward(x, w, b)
         ctx.activation = activation
-        return product(x, w, b, activation=activation, out_dtype=out_dtype)
+        return _keep.kept(product, x, w, b, activation=activation, out_dtype=out_dtype)
 
     @staticmethod
     def backward(ctx, dy):
@@ -79,7 +84,7 @@ class _Batched(torch.autograd.Function):
     def forward(ctx, x, w, activation, out_dtype):
         ctx.save_for_backward(x, w)
         ctx.activation = activation
-        return _batched(x, w, activation=activation, out_dtype=out_dtype)
+        return _keep.kept(_batched, x, w, activation=activation, out_dtype=out_dtype)
 
     @staticmethod
     def backward(ctx, dy):
@@ -102,7 +107,7 @@ def batched_product(x, w, *, activation: str = "none", out_dtype=None) -> torch.
         x, w = x.contiguous(), w.contiguous()
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return _Batched.apply(x, w, activation, out_dtype)
-    return _batched(x, w, activation=activation, out_dtype=out_dtype)
+    return _keep.kept(_batched, x, w, activation=activation, out_dtype=out_dtype)
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
@@ -118,5 +123,5 @@ def matmul(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
     if grad:
         out = _Matmul.apply(x2, w, b, activation, out_dtype)
     else:
-        out = product(x2, w, b, activation=activation, out_dtype=out_dtype)
+        out = _keep.kept(product, x2, w, b, activation=activation, out_dtype=out_dtype)
     return out.reshape(*lead, w.shape[1])

@@ -26,7 +26,7 @@ import torch
 from repro_torch.checkpoint.checkpoint import load_checkpoint, save_checkpoint
 from repro_torch.checkpoint.journal import TrainJournal
 from repro_torch.configs.base import get_config
-from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+from repro_torch.data.frontend import pipeline_for
 from repro_torch.device import resolve_device
 from repro_torch.distributed.watchdog import StepWatchdog
 from repro_torch.kernels import _build
@@ -57,10 +57,7 @@ def train(arch: str, *, reduced: bool = True, steps: int = 20, batch: int = 8,
     os.makedirs(run_dir, exist_ok=True)
     journal = TrainJournal(os.path.join(run_dir, "journal.jsonl"))
 
-    pipe = TokenPipeline(PipelineConfig(
-        vocab=cfg.vocab, batch=batch, seq=seq, seed=seed, mode=data_mode,
-        n_codebooks=cfg.n_codebooks if cfg.frontend == "codebooks" else 0,
-        embed_dim=cfg.d_model if cfg.frontend == "embeds" else 0))
+    pipe = pipeline_for(cfg, batch, seq, seed=seed, mode=data_mode)
 
     if params is None:
         params = M.init_params(

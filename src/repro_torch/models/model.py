@@ -27,6 +27,7 @@ from dataclasses import dataclass
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels import _keep
 from repro_torch.models.blocks import (LayerCfg, attn_cache_from_prefill,
                                        block_decode, block_specs, block_train,
                                        cache_specs)
@@ -170,16 +171,24 @@ def _layers(params, cfg: ModelConfig, caches=None):
 def _remat(fn, cfg: ModelConfig):
     """The reference's ``_remat`` a layer at a time: ``"nothing"`` keeps only
     the layer's input and recomputes the rest in the backward pass,
-    ``"none"`` keeps every activation."""
+    ``"none"`` keeps every activation, and ``"dots"`` keeps the layer's
+    input and every kernel forward's output (its products, the attention's
+    O and lse, the scan's outputs; the reference's ``checkpoint_dots``)
+    and recomputes the rest from them: the layer runs under a
+    :class:`~repro_torch.kernels._keep.Tape`, whose docstring says why
+    this way and not a selective checkpoint policy."""
     if cfg.remat == "none":
         return fn
-    if cfg.remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (keep the products, recompute the rest) is not ported "
-            "yet (ROADMAP.md, 'Training through autograd')")
 
     def layer(*args):
-        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+        if cfg.remat != "dots":
+            return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+        tape = _keep.Tape()
+
+        def run(*a):
+            with _keep.playing(tape):
+                return fn(*a)
+        return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
     return layer
 
 

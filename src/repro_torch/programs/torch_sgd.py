@@ -54,7 +54,7 @@ from repro_torch.core.program import (FINISH_STAGE, OpRegistry, OpSpec,
 from repro_torch.core.space import ANY
 from repro_torch.core.space.schema import KeySchema, int_field
 from repro_torch.core.tasks import TaskDesc
-from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+from repro_torch.data.frontend import pipeline_for
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.optim.optimizer import tree_leaves, tree_map
@@ -107,11 +107,7 @@ class TorchSGDProgram(WorkloadProgram):
         # a step of four handlers 2.7x one handler's and its rounds erratic
         # enough to outlast the GSS timeout with no crash (a re-issue).
         self._grad_lock = threading.Lock()
-        self.pipe = TokenPipeline(PipelineConfig(
-            vocab=cfg.vocab, batch=micro_batch, seq=seq,
-            seed=seed, mode=data_mode,
-            n_codebooks=cfg.n_codebooks if cfg.frontend == "codebooks" else 0,
-            embed_dim=cfg.d_model if cfg.frontend == "embeds" else 0))
+        self.pipe = pipeline_for(cfg, micro_batch, seq, seed=seed, mode=data_mode)
         self.registry = OpRegistry(parent=ensure_builtin_ops())
         self.registry.register(OpSpec(
             TORCHGRAD, self._grad_parts,

@@ -28,6 +28,7 @@ from repro_torch.checkpoint.checkpoint import _flatten, load_checkpoint, save_ch
 from repro_torch.checkpoint.convert import opt_state_from_numpy, params_from_numpy
 from repro_torch.checkpoint.journal import TrainJournal
 from repro_torch.configs.base import get_config
+from repro_torch.data.frontend import pipeline_for
 from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
 from repro_torch.models import model as M
 from repro_torch.optim.optimizer import OptConfig, adamw_update, init_opt_state, tree_map
@@ -170,3 +171,26 @@ def test_batch_at_is_identical(kw):
         assert a.keys() == b.keys()
         for k in a:
             assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]), (step, k)
+
+
+@pytest.mark.parametrize("arch,mode", [("smollm_360m", "cyclic"), ("musicgen_medium", "cyclic"),
+                                       ("musicgen_medium", "random"),
+                                       ("internvl2_76b", "cyclic")])
+def test_pipeline_for_feeds_each_frontend_as_the_reference_train_does(arch, mode):
+    """``pipeline_for`` gives the batches that the reference's ``train()``
+    builds for the config's frontend: token ids, codebook tokens (B, T, K),
+    or seeded embeddings (B, T, d)."""
+    cfg, jcfg = get_config(arch, reduced=True), jax_get_config(arch, reduced=True)
+    port = pipeline_for(cfg, 2, 12, seed=4, mode=mode)
+    ref = JTokenPipeline(JPipelineConfig(
+        vocab=jcfg.vocab, batch=2, seq=12, seed=4, mode=mode,
+        n_codebooks=jcfg.n_codebooks if jcfg.frontend == "codebooks" else 0,
+        embed_dim=jcfg.d_model if jcfg.frontend == "embeds" else 0))
+    for step in (0, 3):
+        a, b = port.batch_at(step), ref.batch_at(step)
+        assert a.keys() == b.keys()
+        for k in a:
+            assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]), (step, k)
+    first = port.batch_at(0)
+    want = {"codebooks": "tokens", "embeds": "embeds"}.get(cfg.frontend, "tokens")
+    assert first[want].shape[:2] == (2, 12)

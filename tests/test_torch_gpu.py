@@ -283,6 +283,28 @@ def test_tile_matmul_batched_gradient_layouts_match_plain(cuda, e, r, k, n, dtyp
         assert torch.equal(out, fn(a, b, **kw))
 
 
+@pytest.mark.parametrize("act", ["gelu", "silu", "none"])
+def test_tile_matmul_counts_the_float32_z_of_a_bf16_gradient_by_output_type(cuda, act):
+    """A bf16 product with a bias and a fused activation, differentiated:
+    the forward, dx and dw write bf16; the backward's z of the activation
+    is the one launch that writes float32 from bf16 operands (none without
+    an activation). The counts are what chip_smoke.py reads as a train
+    run's z launches."""
+    from repro_torch.kernels.tile_matmul.ops import matmul
+    fn = tm_kernel.tile_matmul
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(256, 192, generator=g, device=cuda).bfloat16().requires_grad_(True)
+    w = (torch.randn(192, 320, generator=g, device=cuda) * 0.07).bfloat16().requires_grad_(True)
+    b = torch.randn(320, generator=g, device=cuda).bfloat16().requires_grad_(True)
+    before = dict(fn.outputs)
+    matmul(x, w, b, activation=act).float().sum().backward()
+    torch.cuda.synchronize()
+    z = int(act != "none")
+    assert {k: fn.outputs[k] - before[k] for k in fn.outputs} == {
+        "bfloat16->bfloat16": 3, "bfloat16->float32": z, "float32->float32": 0,
+        "float32->bfloat16": 0}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_tile_matmul_batched_gradient_layouts_never_bleed_into_the_next_expert(cuda, dtype):
     """Every odd expert's operands are NaN. dx and dw of the even experts
@@ -580,6 +602,58 @@ def test_qwen2_remat_recomputes_the_routing_and_the_gradients_bit_for_bit(cuda):
     assert torch.isfinite(l0) and torch.equal(l0, l1) and torch.equal(l0, l2)
     assert all(torch.equal(a, b) for a, b in zip(g0, g1))
     assert all(torch.equal(a, b) for a, b in zip(g0, g2))
+
+
+@pytest.mark.parametrize("arch,reduced", [("musicgen_medium", False),
+                                          ("jamba_1_5_large_398b", True)])
+def test_remat_dots_launches_each_forward_once_and_gives_the_gradients_of_nothing(
+        cuda, arch, reduced):
+    """Full-width musicgen_medium at 2 layers in bf16 (2 x 512 codebook
+    tokens), and the reduced jamba in float32 (attention, Mamba and MoE
+    layers). Under remat "dots" the backward's recompute gets every kernel
+    forward's output back: tile_matmul's forward launches (``x@w``) fall to
+    the products and fused gates' z a layer, flash_attention and ssd_scan to
+    one a layer; "nothing" launches each forward twice. The loss and every
+    gradient are the same bits under "nothing", "dots" and "none"."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.frontend import pipeline_for
+    from repro_torch.models import model as M
+    from repro_torch.optim.optimizer import tree_leaves, tree_map
+    cfg = get_config(arch, reduced=reduced)
+    if not reduced:
+        cfg = dataclasses.replace(cfg, n_periods=2)
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), cuda)
+    pipe = pipeline_for(cfg, 2, 512 if not reduced else 64)
+    batch = {k: torch.as_tensor(v, device=cuda) for k, v in pipe.batch_at(0).items()}
+    layers = [*cfg.prefix, *cfg.period * cfg.n_periods]
+    attn = sum(lc.mixer == "attn" for lc in layers)
+    scan = len(layers) - attn
+    counters = {"tile_matmul": tm_kernel.tile_matmul, "flash_attention": fa_kernel.flash_attention,
+                "ssd_scan": ssd_kernel.ssd_scan}
+    runs = {}
+    for remat in ("nothing", "dots", "none"):
+        leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        before = {k: fn.launches for k, fn in counters.items()}
+        x_at_w = tm_kernel.tile_matmul.layouts["x@w"]
+        loss, _ = M.train_loss(leaves, dataclasses.replace(cfg, remat=remat), batch)
+        grads = torch.autograd.grad(loss, tree_leaves(leaves), materialize_grads=True)
+        torch.cuda.synchronize()
+        launched = {k: fn.launches - before[k] for k, fn in counters.items()}
+        runs[remat] = (loss.detach(), grads, tm_kernel.tile_matmul.layouts["x@w"] - x_at_w,
+                       launched["flash_attention"], launched["ssd_scan"])
+        del leaves
+    loss, grads, fwd, _, _ = runs["nothing"]
+    for remat in ("dots", "none"):
+        assert torch.equal(runs[remat][0], loss)
+        assert all(torch.equal(a, b) for a, b in zip(runs[remat][1], grads)), remat
+        assert runs[remat][3:] == (attn, scan), (remat, runs[remat][3:])
+    assert runs["nothing"][3:] == (2 * attn, 2 * scan)
+    kept = runs["dots"][2]
+    assert runs["none"][2] == kept and fwd - kept == kept - sum(
+        lc.ffn_kind == "dense" or (lc.ffn_kind == "moe" and lc.moe.n_shared > 0)
+        for lc in layers), (fwd, kept)
 
 
 def test_gqa_attention_on_cuda_matches_cpu_chunked_twin(cuda):

@@ -109,7 +109,7 @@ def test_sampled_serve_draws_in_the_reference_order(reduced):
     np.testing.assert_array_equal(out["tokens"], np.asarray(ref["tokens"]))
 
 
-@pytest.mark.parametrize("remat", ["nothing", "none"])
+@pytest.mark.parametrize("remat", ["nothing", "none", "dots"])
 def test_train_loss_and_gradients_match_reference(reduced, remat):
     """(B, T, d) embeddings and (B, T) labels: the loss, its NLL and the
     gradient of every weight, the untied head's among them, at 1e-4 of

@@ -143,7 +143,7 @@ def test_serve_returns_a_token_a_codebook_a_step():
     assert ((out["tokens"] >= 0) & (out["tokens"] < 64)).all()
 
 
-@pytest.mark.parametrize("remat", ["nothing", "none"])
+@pytest.mark.parametrize("remat", ["nothing", "none", "dots"])
 def test_train_loss_and_gradients_match_reference(reduced, remat):
     """(B, T, K) tokens and labels through ``multi_head_xent``: the loss,
     its NLL and the gradient of every weight, the table's and the K heads'

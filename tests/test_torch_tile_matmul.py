@@ -252,6 +252,16 @@ def test_path_choice_of_the_batched_gradient_layouts(m, k, n, dtype, layout, pat
     assert kernel.BATCHED[layout] in kernel.tile_matmul.layouts
 
 
+def test_the_output_counter_keys_each_operand_and_output_type():
+    """``tile_matmul.outputs`` holds a key for each operand and output type
+    the kernel takes; the float32 z of a bf16 product's fused activation
+    counts under ``bfloat16->float32``."""
+    assert set(kernel.tile_matmul.outputs) == {
+        "float32->float32", "float32->bfloat16", "bfloat16->float32", "bfloat16->bfloat16"}
+    assert kernel.OUTPUTS[torch.bfloat16, torch.float32] == "bfloat16->float32"
+    assert set(kernel.OUTPUTS.values()) == set(kernel.tile_matmul.outputs)
+
+
 def test_batched_path_choice_refuses_what_wgmma_cannot_address():
     """bf16 x^T stored with rows of M = 100 elements (not a multiple of 8)
     has no wgmma path, and batched there is no other: it raises."""

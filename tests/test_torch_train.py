@@ -76,7 +76,7 @@ def _assert_trees_close(got: dict, want, rtol: float, what: str) -> None:
                                    err_msg=f"{what} {k}")
 
 
-@pytest.mark.parametrize("remat", ["nothing", "none"])
+@pytest.mark.parametrize("remat", ["nothing", "none", "dots"])
 def test_train_loss_and_gradients_match_reference_on_ckpt_29(remat):
     jcfg = dataclasses.replace(jax_get_config(ARCH, reduced=True), remat=remat)
     cfg = dataclasses.replace(get_config(ARCH, reduced=True), remat=remat)
@@ -201,12 +201,111 @@ def test_watchdog_reissues_a_failed_step_from_the_same_state():
     assert all(torch.equal(a, b) for a, b in zip(tree_leaves(p1), tree_leaves(p2)))
 
 
-def test_remat_dots_is_not_ported_yet():
-    cfg = dataclasses.replace(get_config(ARCH, reduced=True), remat="dots")
+def _spied(monkeypatch, module, name: str, counts: dict):
+    """Counts the calls of ``module.name`` that multiply untransposed (the
+    forward products, and the float32 z of a fused activation)."""
+    fn = getattr(module, name)
+
+    def spy(*args, **kw):
+        if not (kw.get("trans_x") or kw.get("trans_w")):
+            counts[name] = counts.get(name, 0) + 1
+        return fn(*args, **kw)
+    monkeypatch.setattr(module, name, spy)
+
+
+def _grads_and_forwards(monkeypatch, cfg, remat: str):
+    from repro_torch.kernels.tile_matmul import ops as tm_ops
+    counts: dict = {}
+    _spied(monkeypatch, tm_ops, "tile_matmul_ref", counts)
     params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.train_loss(leaves, cfg, {k: torch.as_tensor(v) for k, v in _batch(0).items()})
+    loss, _ = M.train_loss(leaves, dataclasses.replace(cfg, remat=remat),
+                           {k: torch.as_tensor(v) for k, v in _batch(0).items()})
+    grads = torch.autograd.grad(loss, tree_leaves(leaves), materialize_grads=True)
+    monkeypatch.undo()
+    return loss.item(), grads, counts["tile_matmul_ref"]
+
+
+def test_remat_dots_gives_the_gradients_of_nothing_bit_for_bit(monkeypatch):
+    """Reduced smollm on the CPU: the loss and every gradient under "dots"
+    are those under "nothing" and "none" bit for bit, and a step runs each
+    forward product once under "dots" (as under "none") where "nothing"
+    runs it twice: 7 products a layer, and one float32 z for the SwiGLU
+    gate's SiLU in every policy."""
+    cfg = get_config(ARCH, reduced=True)
+    runs = {r: _grads_and_forwards(monkeypatch, cfg, r) for r in ("nothing", "dots", "none")}
+    loss, grads, _ = runs["nothing"]
+    for remat in ("dots", "none"):
+        assert runs[remat][0] == loss
+        assert all(torch.equal(a, b) for a, b in zip(runs[remat][1], grads)), remat
+    layers = cfg.n_layers
+    assert {r: n for r, (_, _, n) in runs.items()} == {
+        "nothing": 2 * 7 * layers + layers, "dots": 7 * layers + layers,
+        "none": 7 * layers + layers}
+
+
+def _layer(x, wq, wo, ssd_in):
+    """A layer of the three wrappers on the CPU: a product, the attention,
+    the scan, and elementwise work between them."""
+    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.kernels.ssd_scan.ops import ssd
+    from repro_torch.kernels.tile_matmul.ops import matmul
+    B, T, d = x.shape
+    q = matmul(torch.nn.functional.silu(x), wq).reshape(B, T, 2, d // 2)
+    a = attention(q, q[:, :, :1], q[:, :, :1]).reshape(B, T, d)
+    y, state = ssd(a.reshape(B, T, 2, d // 2), *ssd_in)
+    return matmul(y.reshape(B, T, d) * 2.0, wo) + state.sum()
+
+
+@pytest.mark.parametrize("remat,forwards", [("nothing", 2), ("dots", 1), ("none", 1)])
+def test_remat_dots_runs_each_kernel_forward_once(monkeypatch, remat, forwards):
+    """``_remat`` around a layer of ``matmul``, ``attention`` and ``ssd``
+    on CPU tensors: under "dots" the recompute gets each forward's output
+    back (tile_matmul_ref, flash_attention_ref and the scan's plain version
+    run once a step), where "nothing" runs each twice; the gradients are
+    the same bits in every policy."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.tile_matmul import ops as tm_ops
+    g = torch.Generator().manual_seed(1)
+    B, T, d, N = 2, 24, 16, 8
+    x, wq, wo = (torch.randn(s, generator=g) for s in ((B, T, d), (d, d), (d, d)))
+    ssd_in = (torch.rand((B, T, 2), generator=g), -torch.rand(2, generator=g) - 0.5,
+              torch.randn((B, T, 1, N), generator=g), torch.randn((B, T, 1, N), generator=g),
+              torch.randn(2, generator=g))
+    leaves = [t.requires_grad_(True) for t in (x, wq, wo)]
+    cfg = dataclasses.replace(get_config(ARCH, reduced=True), remat="nothing")
+    want = torch.autograd.grad(M._remat(_layer, cfg)(*leaves, ssd_in).square().sum(), leaves)
+    counts: dict = {}
+    _spied(monkeypatch, tm_ops, "tile_matmul_ref", counts)
+    _spied(monkeypatch, fa_ops, "flash_attention_ref", counts)
+    _spied(monkeypatch, ssd_ops, "ssd_plain", counts)
+    out = M._remat(_layer, dataclasses.replace(cfg, remat=remat))(*leaves, ssd_in)
+    got = torch.autograd.grad(out.square().sum(), leaves)
+    assert counts == {"tile_matmul_ref": 2 * forwards, "flash_attention_ref": forwards,
+                      "ssd_plain": forwards}
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_a_kept_output_answers_only_the_call_that_made_it():
+    """The tape hands an output back only to the same call at the same
+    point with the same shapes, and refuses one written in place."""
+    from repro_torch.kernels import _keep
+    tape = _keep.Tape()
+    x = torch.ones(3)
+    with _keep.playing(tape):
+        first = _keep.kept(torch.neg, x)
+    with _keep.playing(tape):
+        again = _keep.kept(torch.neg, x)
+    assert torch.equal(again, first) and again is not first
+    with _keep.playing(tape), pytest.raises(RuntimeError, match="other shapes"):
+        _keep.kept(torch.neg, torch.ones(4))
+    with _keep.playing(tape), pytest.raises(RuntimeError, match="past"):
+        _keep.kept(torch.neg, x)
+        _keep.kept(torch.neg, x)
+    first.add_(1.0)
+    with _keep.playing(tape), pytest.raises(RuntimeError, match="in place"):
+        _keep.kept(torch.neg, x)
 
 
 def test_scan_gradient_on_the_card_raises_instead_of_stopping(monkeypatch):

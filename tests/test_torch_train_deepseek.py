@@ -28,7 +28,7 @@ from repro_torch.optim.optimizer import tree_leaves, tree_map
 ARCH = "deepseek_v2_lite_16b"
 
 
-@pytest.mark.parametrize("remat", ["nothing", "none"])
+@pytest.mark.parametrize("remat", ["nothing", "none", "dots"])
 def test_train_loss_aux_and_gradients_match_reference(remat):
     """Loss, NLL, the MoE aux loss (summed over the MoE layers) and the
     gradient of every weight at 1e-4 of the largest entry of each tensor;

@@ -24,7 +24,7 @@ from repro.launch.train import train as jax_train
 from repro.models import model as JM
 from repro_torch.checkpoint.checkpoint import _flatten
 from repro_torch.configs.base import get_config
-from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+from repro_torch.data.frontend import pipeline_for
 from repro_torch.launch.train import train
 from repro_torch.models import model as M
 from repro_torch.optim.optimizer import tree_leaves, tree_map
@@ -33,10 +33,11 @@ DENSE = ("gemma3_12b", "h2o_danube_1_8b", "command_r_plus_104b")
 SEQ = 40
 
 
+TRAINED = ("gemma3_12b", "h2o_danube_1_8b", "musicgen_medium", "internvl2_76b")
+
+
 def _batch(arch: str, step: int, batch: int = 3) -> dict:
-    cfg = get_config(arch, reduced=True)
-    return TokenPipeline(PipelineConfig(vocab=cfg.vocab, batch=batch, seq=SEQ,
-                                        mode="cyclic")).batch_at(step)
+    return pipeline_for(get_config(arch, reduced=True), batch, SEQ).batch_at(step)
 
 
 def _assert_trees_close(got: dict, want, rtol: float, what: str) -> None:
@@ -49,7 +50,7 @@ def _assert_trees_close(got: dict, want, rtol: float, what: str) -> None:
                                    err_msg=f"{what} {k}")
 
 
-@pytest.mark.parametrize("remat", ["nothing", "none"])
+@pytest.mark.parametrize("remat", ["nothing", "none", "dots"])
 @pytest.mark.parametrize("arch", DENSE)
 def test_train_loss_and_gradients_match_reference(arch, remat):
     """Loss, NLL and the gradient of every weight (qk-norm and sandwich
@@ -72,11 +73,13 @@ def test_train_loss_and_gradients_match_reference(arch, remat):
     _assert_trees_close(got, jgrads, 1e-4, "grad")
 
 
-@pytest.mark.parametrize("arch", ["gemma3_12b", "h2o_danube_1_8b"])
+@pytest.mark.parametrize("arch", TRAINED)
 def test_train_matches_reference_train(arch, tmp_path):
     """Reduced config, 5 steps of 8 x 64 cyclic tokens (twice danube's
-    window, four times gemma3's), seed 0: the reference's train() and the
-    port's from the reference's initial weights."""
+    window, four times gemma3's; musicgen's (8, 64, 4) codebook tokens and
+    labels through ``multi_head_xent``, internvl2's seeded embeddings),
+    seed 0: the reference's train() and the port's from the reference's
+    initial weights."""
     quiet = dict(steps=5, ckpt_every=0, resume=False, log=lambda _: None)
     ref = jax_train(arch, ckpt_dir=str(tmp_path / "jax"), **quiet)
     jcfg, cfg = jax_get_config(arch, reduced=True), get_config(arch, reduced=True)
@@ -87,7 +90,7 @@ def test_train_matches_reference_train(arch, tmp_path):
     assert out["losses"][-1] < out["losses"][0]
 
 
-@pytest.mark.parametrize("arch", ["gemma3_12b", "h2o_danube_1_8b"])
+@pytest.mark.parametrize("arch", TRAINED)
 def test_train_runs_at_the_depth_of_the_params_given(arch, tmp_path):
     """``train(params=...)`` with one period where the config has two: the
     run keeps one period, and its first loss is the one-period model's."""
@@ -96,8 +99,7 @@ def test_train_runs_at_the_depth_of_the_params_given(arch, tmp_path):
     out = train(arch, steps=2, ckpt_dir=str(tmp_path), ckpt_every=0, resume=False,
                 device="cpu", params=params, log=lambda _: None)
     assert [len(per) for per in out["params"]["period"]] == [1] * len(cfg.period)
-    batch = TokenPipeline(PipelineConfig(vocab=cfg.vocab, batch=8, seq=64,
-                                         mode="cyclic")).batch_at(0)
+    batch = pipeline_for(cfg, 8, 64).batch_at(0)
     with torch.no_grad():
         want, _ = M.train_loss(params, cfg, {k: torch.as_tensor(v) for k, v in batch.items()})
     np.testing.assert_allclose(out["losses"][0], want.item(), rtol=1e-6)

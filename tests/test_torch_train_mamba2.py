@@ -64,7 +64,7 @@ def weights():
     return jparams, flat
 
 
-@pytest.mark.parametrize("remat", ["nothing", "none"])
+@pytest.mark.parametrize("remat", ["nothing", "none", "dots"])
 def test_train_loss_and_gradients_match_reference(weights, remat):
     jparams, flat = weights
     jcfg = dataclasses.replace(jax_get_config(ARCH, reduced=True), remat=remat)
